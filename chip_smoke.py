@@ -1,0 +1,337 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``tfhe_fbs_map_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py            # every phase, from the repo root
+    python3 chip_smoke.py --quick    # build + kernel checks only
+
+Phases, each printed with what ran and how long it took:
+
+1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA build;
+2. build of the CUDA kernels from ``tfhe_fbs_map_tpu_torch/ops/csrc``;
+3. each fused blind-rotation kernel (K1 ``fused_otf``, K2 ``fused``)
+   against its plain PyTorch version on a CPU copy of the same inputs,
+   bitwise, at several parameter shapes, limb drop and ragged batch tiles;
+4. the fast functional bootstrap through each kernel against the generic
+   exact bootstrap at the ``aes128_p4`` preset, and each kernel against
+   its plain version at a main-path level's shape (n=578, B=1024), bitwise,
+   with both times;
+5. the main path: the runtime CLI on the mapped AES-128 program, once with
+   ``--orientation auto`` (K2 when its key matrices fit) and once with
+   ``fused_otf`` (K1), each required bit-exact and to have launched its
+   kernel.
+
+Before the last line it prints one JSON object with a row per kernel and
+the card's name and power limit; the last line is
+``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
+on any failure, without a CUDA device, or away from a checkout of the repo.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import io
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+AES_LBF = "outputs/bristol/aes_128_4_search.lbf"
+# the JAX package's Pallas kernel bodies each CUDA kernel replaces
+REPLACES = {"k2": "tfhe_fbs_map_tpu/ops/fused_blind_rotate.py:102",
+            "k1": "tfhe_fbs_map_tpu/ops/fused_blind_rotate.py:160"}
+SOURCE = "tfhe_fbs_map_tpu_torch/ops/csrc/fused_blind_rotate.cu"
+# Batch of one full level of the mapped AES-128 program at --batch 8: most
+# of its 230 levels pad to 128 bootstraps.
+LEVEL_BATCH = 1024
+# timed kernel launches per measurement
+REPS = 3
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def timed(label: str):
+    @contextlib.contextmanager
+    def ctx():
+        import torch
+        torch.cuda.synchronize()
+        t0 = time.time()
+        yield
+        torch.cuda.synchronize()
+        log(f"[{label}] {time.time() - t0:.3f} s")
+    return ctx()
+
+
+def cuda_ms(fn, reps: int):
+    """Mean milliseconds of ``fn`` over ``reps`` runs, CUDA events, after
+    one warm-up run; returns them with the warm-up run's result."""
+    import torch
+    first = fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, first
+
+
+def kernel_inputs(params, steps: int, batch: int, n_limbs: int, otf: bool,
+                  seed: int):
+    """Random kernel operands (numpy, seeded), with the rotation amounts'
+    edge cases 0, N-1, N and 2N-1 in every step."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    k1, N = params.glwe_dim + 1, params.poly_size
+    rows = k1 * params.bsk_level
+    b_init = rng.integers(0, 2 * N, (batch, 1)).astype(np.int32)
+    a_t = rng.integers(0, 2 * N, (steps, batch, 1)).astype(np.int32)
+    edges = np.array([0, N - 1, N, 2 * N - 1], dtype=np.int32)
+    a_t[:, :min(batch, 4), 0] = edges[:min(batch, 4)]
+    b_init[:min(batch, 4), 0] = edges[:min(batch, 4)]
+    tvs = rng.integers(-2 ** 31, 2 ** 31, (batch, N)).astype(np.int32)
+    shape = ((steps, n_limbs * k1, rows, 2 * N) if otf
+             else (steps, rows * N, n_limbs * k1 * N))
+    keys = rng.integers(-128, 128, shape, dtype=np.int8)
+    return tuple(torch.from_numpy(x) for x in (b_init, a_t, tvs, keys))
+
+
+def check_kernels(fbr, presets) -> dict:
+    """Phase 3: each kernel bitwise against its plain version."""
+    import torch
+    from tfhe_fbs_map_tpu_torch.tfhe.params import TFHEParams
+
+    aes = presets["aes128_p4"][0]
+    test = presets["test"][0]
+
+    def shape(k, N, l, b):
+        return TFHEParams(p=4, lwe_dim=8, glwe_dim=k, poly_size=N,
+                          bsk_level=l, bsk_base_log=b, ksk_level=1,
+                          ksk_base_log=2, lwe_noise_std=0.0,
+                          glwe_noise_std=0.0)
+
+    # (label, params, steps, batch, limbs, kernels, batch tiles)
+    cases = [
+        ("test", test, test.lwe_dim, 21, 4, ("k1", "k2"), (None, 1, 2, 4, 8)),
+        ("aes128_p4 n=8", aes, 8, 21, 4, ("k1", "k2"), (None, 2, 4, 8)),
+        ("aes128_p4 n=8 bsk_limbs=3", aes, 8, 21, 3, ("k1", "k2"), (None,)),
+        ("k=1 N=1024 l=3 b=6", shape(1, 1024, 3, 6), 8, 21, 4, ("k1", "k2"),
+         (None, 4)),
+        ("k=1 N=2048 l=3 b=7", shape(1, 2048, 3, 7), 4, 21, 4, ("k1",),
+         (None, 4)),
+    ]
+    worst = {"k1": 0, "k2": 0}
+    for label, params, steps, batch, limbs, kerns, tiles in cases:
+        for kern in kerns:
+            otf = kern == "k1"
+            args = kernel_inputs(params, steps, batch, limbs, otf, seed=5)
+            plain = (fbr.blind_rotate_k1_plain if otf
+                     else fbr.blind_rotate_k2_plain)(*args, params)
+            dev = [x.cuda() for x in args]
+            wrapper = fbr.blind_rotate_k1 if otf else fbr.blind_rotate_k2
+            for tile in tiles:
+                if tile is not None and \
+                        fbr.smem_bytes(params, otf, tile) > fbr.SMEM_MAX:
+                    continue
+                got = wrapper(*dev, params, batch_tile=tile)
+                torch.cuda.synchronize()
+                err = int((got.cpu().long() - plain.long()).abs().max())
+                worst[kern] = max(worst[kern], err)
+                log(f"  {kern} {label} B={batch} tile={tile}: "
+                    f"{'bitwise equal' if err == 0 else 'MISMATCH'} "
+                    f"(max_abs_err {err})")
+                if err:
+                    raise SystemExit(f"{kern} disagrees with its plain "
+                                     f"version at {label}, tile {tile}")
+    return worst
+
+
+def check_bootstrap(presets, worst: dict) -> dict:
+    """Phase 4: the fast FBS through each kernel against the generic FBS at
+    aes128_p4, then each kernel's time beside its plain version's at one
+    main-path level's shape, the two outputs bitwise equal (their
+    difference goes into ``worst``)."""
+    import numpy as np
+    import torch
+    from tfhe_fbs_map_tpu_torch.ops import fused_blind_rotate as fbr
+    from tfhe_fbs_map_tpu_torch.ops.blind_rotate import (
+        functional_bootstrap_fast, prepare_fast_keys)
+    from tfhe_fbs_map_tpu_torch.tfhe import (build_test_vector,
+                                             decrypt_values, encrypt_values,
+                                             functional_bootstrap,
+                                             generate_keys)
+
+    params = presets["aes128_p4"][0]
+    dev = torch.device("cuda")
+    with timed("keygen aes128_p4"):
+        keys = generate_keys(params, seed=7, device=dev)
+    rng = np.random.default_rng(8)
+    table = [0, 1, 1, 0, 1]
+    values = rng.integers(0, len(table), 64)
+    cts = encrypt_values(keys, values, rng)
+    tv, post = build_test_vector(table, params)
+    tvs = torch.from_numpy(np.tile(tv, (64, 1))).to(dev)
+    posts = torch.full((64,), post, dtype=torch.int32, device=dev)
+    with timed("generic FBS, batch 64"):
+        want = functional_bootstrap(keys, cts, tvs, posts)
+    if not np.array_equal(decrypt_values(keys, want),
+                          np.asarray(table)[values]):
+        raise SystemExit("generic FBS decrypts wrong")
+
+    timing = {}
+    N = params.poly_size
+    for orient, kern in (("fused", "k2"), ("fused_otf", "k1")):
+        with timed(f"prepare_fast_keys {orient}"):
+            fast = prepare_fast_keys(keys, orientation=orient)
+        with timed(f"FBS through {kern}, batch 64"):
+            got = functional_bootstrap_fast(fast, cts, tvs, posts)
+        if not torch.equal(got, want):
+            raise SystemExit(f"FBS through {kern} != generic FBS")
+        log(f"  FBS through {kern} ({orient}) bitwise equal to the generic "
+            f"FBS at aes128_p4, batch 64")
+        # one main-path level: LEVEL_BATCH ciphertexts, all n steps
+        g = torch.Generator(device=dev).manual_seed(9)
+        b_init = torch.randint(0, 2 * N, (LEVEL_BATCH, 1), generator=g,
+                               device=dev, dtype=torch.int32)
+        a_t = torch.randint(0, 2 * N, (params.lwe_dim, LEVEL_BATCH, 1),
+                            generator=g, device=dev, dtype=torch.int32)
+        tv_l = tvs[:1].expand(LEVEL_BATCH, N).contiguous()
+        kfn = fbr.blind_rotate_k1 if kern == "k1" else fbr.blind_rotate_k2
+        pfn = (fbr.blind_rotate_k1_plain if kern == "k1"
+               else fbr.blind_rotate_k2_plain)
+        k_ms, k_out = cuda_ms(lambda: kfn(b_init, a_t, tv_l,
+                                          fast.bsk_kernels, params), REPS)
+        p_ms, p_out = cuda_ms(lambda: pfn(b_init, a_t, tv_l,
+                                          fast.bsk_kernels, params), 1)
+        timing[kern] = (k_ms, p_ms)
+        err = int((k_out.long() - p_out.long()).abs().max())
+        worst[kern] = max(worst[kern], err)
+        tile = fbr.pick_tile(LEVEL_BATCH, params, kern == "k1",
+                             torch.cuda.get_device_properties(0)
+                             .multi_processor_count)
+        log(f"  {kern} at aes128_p4, n={params.lwe_dim}, B={LEVEL_BATCH} "
+            f"(tile {tile}): {'bitwise equal' if err == 0 else 'MISMATCH'} "
+            f"to its plain version (max_abs_err {err}); kernel "
+            f"{k_ms:.3f} ms, plain version {p_ms:.3f} ms")
+        if err or not torch.equal(k_out, p_out):
+            raise SystemExit(f"{kern} disagrees with its plain version at "
+                             f"the main path's level shape")
+        del k_out, p_out
+        del fast
+        torch.cuda.empty_cache()
+    return timing
+
+
+def run_main_path(orientation: str, expect: str, launches: dict) -> dict:
+    """Phase 5: the runtime CLI, as a user calls it; returns its JSON."""
+    import torch
+    from tfhe_fbs_map_tpu_torch.runtime.cli import main as cli_main
+
+    argv = [AES_LBF, "--params", "aes128_p4", "--batch", "8",
+            "--orientation", orientation]
+    for k in launches:
+        launches[k] = 0
+    out = io.StringIO()
+    t0 = time.time()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(argv)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    text = out.getvalue().strip()
+    log(f"  runtime {' '.join(argv)} -> rc {rc} in {wall:.1f} s")
+    res = json.loads(text.splitlines()[-1])
+    log(f"  {json.dumps(res)}")
+    counts = dict(launches)
+    log(f"  kernel launches in this run: {counts}")
+    if rc != 0 or not res["bit_exact"]:
+        raise SystemExit(f"main path ({orientation}) not bit-exact")
+    if counts[expect] == 0:
+        raise SystemExit(f"main path ({orientation}) never launched {expect}")
+    res["launches"] = counts[expect]
+    return res
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--quick", action="store_true",
+                    help="stop after the kernel checks")
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this smoke run needs the GPU",
+              file=sys.stderr)
+        return 1
+    if not (ROOT / "tfhe_fbs_map_tpu_torch").is_dir():
+        print("chip_smoke: run it from a checkout of the repository",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT))
+
+    # --- 1. the card -----------------------------------------------------
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    log(f"[card] {smi}")
+    log(f"[torch] {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]} device {kind}")
+
+    from tfhe_fbs_map_tpu_torch.ops import _build
+    from tfhe_fbs_map_tpu_torch.ops import fused_blind_rotate as fbr
+    from tfhe_fbs_map_tpu_torch.tfhe.params import PRESETS
+
+    # --- 2. build --------------------------------------------------------
+    t0 = time.time()
+    lib = _build.build()
+    _build.library()
+    log(f"[build] {lib.name} in {time.time() - t0:.1f} s")
+    for line in _build.build_log.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  ptxas: {line.strip()}")
+
+    # --- 3. kernels against their plain versions ---------------------------
+    t0 = time.time()
+    worst = check_kernels(fbr, PRESETS)
+    log(f"[kernel checks] {time.time() - t0:.1f} s")
+    if args.quick:
+        return 0
+
+    # --- 4. bootstrap through each kernel, and kernel times ----------------
+    t0 = time.time()
+    timing = check_bootstrap(PRESETS, worst)
+    log(f"[bootstrap checks] {time.time() - t0:.1f} s")
+
+    # --- 5. the main path ----------------------------------------------------
+    t0 = time.time()
+    runs = {"k2": run_main_path("auto", "k2", fbr.LAUNCHES),
+            "k1": run_main_path("fused_otf", "k1", fbr.LAUNCHES)}
+    for kern, res in runs.items():
+        log(f"  main path via {kern}: run_s {res['run_s']} boots_per_sec "
+            f"{res['boots_per_sec']} ({res['bootstraps']} bootstraps x "
+            f"batch {res['batch']}, {res['levels']} levels) on {smi}")
+    log(f"[main path] {time.time() - t0:.1f} s")
+
+    log(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": SOURCE,
+         "replaces": REPLACES[kern], "launches": runs[kern]["launches"],
+         "max_abs_err": worst[kern], "ms": timing[kern][0],
+         "plain_ms": timing[kern][1]}
+        for kern, name in (("k2", "fused_blind_rotate_k2"),
+                           ("k1", "fused_blind_rotate_k1"))]}))
+    log(smi)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

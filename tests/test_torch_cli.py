@@ -1,0 +1,131 @@
+"""The port's runtime CLI, driven through ``main()`` as a user calls it, and
+its pinned parameter presets against what the JAX package picks."""
+
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from tfhe_fbs_map_tpu.frontend.circuits import build_bench
+from tfhe_fbs_map_tpu.tfhe.params import TFHEParams as JParams
+from tfhe_fbs_map_tpu.tfhe.params import min_noise_std_rel as jnoise
+from tfhe_fbs_map_tpu_torch.runtime.cli import main
+from tfhe_fbs_map_tpu_torch.tfhe.params import PRESETS
+
+# many test workers share the cores: one torch thread each
+torch.set_num_threads(1)
+
+
+@pytest.fixture()
+def full_adder_blif(tmp_path):
+    path = tmp_path / "fa.blif"
+    with open(path, "w") as f:
+        build_bench("full_adder").to_blif(f, model_name="fa")
+    return str(path)
+
+
+def last_json(capsys):
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("orientation", ["generic", "fused", "fused_otf",
+                                         "auto"])
+def test_cpu_run_is_bit_exact(full_adder_blif, capsys, orientation):
+    rc = main([full_adder_blif, "--map", "--fbs_size", "4", "--batch", "4",
+               "--device", "cpu", "--test-params",
+               "--orientation", orientation])
+    res = last_json(capsys)
+    assert rc == 0 and res["bit_exact"] and res["wrong_bits"] == 0
+    assert res["orientation"] == ("generic" if orientation == "auto"
+                                  else orientation)
+    assert res["bootstraps"] >= 1 and res["batch"] == 4
+    assert res["expected_flips"] is None and res["mesh"] is None
+
+
+def test_keys_and_checkpoint_flags(full_adder_blif, capsys, tmp_path):
+    keys = str(tmp_path / "k.npz")
+    base = [full_adder_blif, "--map", "--batch", "2", "--device", "cpu",
+            "--orientation", "generic"]
+    assert main(base + ["--test-params", "--save-keys", keys]) == 0
+    first = last_json(capsys)
+    ckpt = str(tmp_path / "c.npz")
+    assert main(base + ["--keys", keys, "--checkpoint", ckpt,
+                        "--checkpoint-every", "1", "--repeat", "2"]) == 0
+    second = last_json(capsys)
+    assert first["bit_exact"] and second["bit_exact"]
+
+
+def test_cuda_without_a_device_fails_clearly(full_adder_blif, capsys,
+                                            monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rc = main([full_adder_blif, "--map", "--test-params"])
+    err = capsys.readouterr().err
+    assert rc != 0 and "no CUDA device" in err
+
+
+def test_params_required(full_adder_blif, capsys):
+    rc = main([full_adder_blif, "--map", "--device", "cpu"])
+    assert rc != 0 and "--params" in capsys.readouterr().err
+
+
+def test_aes128_preset_is_the_optimizer_pick():
+    from tfhe_fbs_map_tpu.optimizer import optimize
+    sol = optimize(4, 6, max_p_error=1e-7)
+    params, p_error = PRESETS["aes128_p4"]
+    assert vars(params) == vars(sol.params)
+    assert p_error == sol.p_error and sol.bsk_limbs == 4
+
+
+@pytest.mark.parametrize("name,tup", [
+    # bench.py:80-103: (p, n, k, N, bsk_level, bsk_base_log, ksk_level,
+    # ksk_base_log), noise on the security curve
+    ("anchor", (4, 546, 2, 512, 2, 8, 4, 3)),
+    ("p8", (8, 642, 2, 512, 2, 8, 6, 2)),
+    ("p16", (16, 642, 1, 1024, 3, 6, 6, 2)),
+])
+def test_bench_presets(name, tup):
+    p, n, k, N, bl, bb, kl, kb = tup
+    want = JParams(p=p, lwe_dim=n, glwe_dim=k, poly_size=N, bsk_level=bl,
+                   bsk_base_log=bb, ksk_level=kl, ksk_base_log=kb,
+                   lwe_noise_std=jnoise(n) * 2.0 ** 32,
+                   glwe_noise_std=jnoise(k * N) * 2.0 ** 32)
+    assert vars(PRESETS[name][0]) == vars(want)
+
+
+def test_auto_orientation_by_free_memory():
+    from tfhe_fbs_map_tpu_torch.ops.blind_rotate import fused_key_bytes
+    from tfhe_fbs_map_tpu_torch.runtime.cli import pick_orientation
+    params = PRESETS["aes128_p4"][0]
+    assert fused_key_bytes(params) == 578 * 3072 * 6144
+    assert np.isclose(fused_key_bytes(params) / 1e9, 10.9, atol=0.05)
+    cuda = torch.device("cuda")
+    assert pick_orientation(params, cuda, free_bytes=79 << 30) == "fused"
+    assert pick_orientation(params, cuda, free_bytes=12 << 30) == "fused_otf"
+    assert pick_orientation(params, torch.device("cpu")) == "generic"
+
+
+@pytest.mark.parametrize("field,value,auto", [
+    ("bsk_base_log", 9, None),      # digits no longer fit int8
+    ("bsk_level", 4, None),         # b·l = 32
+    ("poly_size", 16, None),        # N not a multiple of 32
+    ("poly_size", 8192, "fused"),   # K1's extensions overflow shared memory
+])
+def test_auto_orientation_refuses_what_no_kernel_serves(field, value, auto):
+    """On CUDA ``auto`` picks a kernel that can serve the parameters or
+    raises: it never falls back to the plain bootstrap on the card."""
+    from dataclasses import replace
+    from tfhe_fbs_map_tpu_torch.runtime.cli import (check_kernel,
+                                                    pick_orientation)
+    params = replace(PRESETS["aes128_p4"][0], **{field: value})
+    cuda = torch.device("cuda")
+    assert pick_orientation(params, torch.device("cpu")) == "generic"
+    with pytest.raises(ValueError, match="--orientation generic"):
+        check_kernel(params, "fused_otf")
+    if auto is None:
+        with pytest.raises(ValueError, match="--orientation generic"):
+            pick_orientation(params, cuda, free_bytes=1 << 50)
+    else:
+        assert pick_orientation(params, cuda, free_bytes=1 << 50) == auto
+        with pytest.raises(ValueError, match="fused_otf"):
+            pick_orientation(params, cuda, free_bytes=1 << 30)

@@ -1,0 +1,57 @@
+"""The PyTorch port imports no JAX: every module imports with jax blocked,
+and neither the package nor ``chip_smoke.py`` names it."""
+
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import tfhe_fbs_map_tpu_torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "tfhe_fbs_map_tpu_torch"
+JAX_IMPORT = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)", re.M)
+# the JAX package's modules that import jax (its frontend is shared)
+JAX_PACKAGE_PARTS = re.compile(
+    r"^\s*(from|import)\s+tfhe_fbs_map_tpu\."
+    r"(tfhe|ops|runtime|optimizer|parallel|utils)\b", re.M)
+
+
+def modules():
+    names = ["tfhe_fbs_map_tpu_torch"]
+    for info in pkgutil.walk_packages(tfhe_fbs_map_tpu_torch.__path__,
+                                      "tfhe_fbs_map_tpu_torch."):
+        if not info.name.endswith("__main__"):
+            names.append(info.name)
+    return names
+
+
+def test_every_module_imports_with_jax_blocked():
+    names = modules()
+    assert "tfhe_fbs_map_tpu_torch.ops.fused_blind_rotate" in names
+    code = ("import importlib, sys\n"
+            "sys.modules['jax'] = None\n"
+            f"for m in {names!r}:\n"
+            "    importlib.import_module(m)\n"
+            "assert 'jax' not in [k for k, v in sys.modules.items() if v]\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True)
+    assert res.returncode == 0, res.stderr
+
+
+def test_no_jax_import_in_sources():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for f in files:
+        text = f.read_text()
+        assert not JAX_IMPORT.search(text), f
+        assert not JAX_PACKAGE_PARTS.search(text), f
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((ROOT / "chip_smoke.py").read_text())
+    res = subprocess.run([sys.executable, str(lone)], cwd=tmp_path,
+                         capture_output=True, text=True)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
