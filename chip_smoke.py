@@ -9,8 +9,10 @@ Phases, each printed with what ran and how long it took:
 1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA build;
 2. build of the CUDA kernels from ``tfhe_fbs_map_tpu_torch/ops/csrc``;
 3. each fused blind-rotation kernel (K1 ``fused_otf``, K2 ``fused``)
-   against its plain PyTorch version on a CPU copy of the same inputs,
-   bitwise, at several parameter shapes, limb drop and ragged batch tiles;
+   against its plain PyTorch version on the same inputs, bitwise, at
+   several parameter shapes, limb drop and ragged batch tiles: K1 at every
+   batch tile, K2 at every (tile, cluster) plan ``k2_plan`` picks for the
+   main path's batch sizes and at every plan of one 1024-ciphertext level;
 4. the fast functional bootstrap through each kernel against the generic
    exact bootstrap at the ``aes128_p4`` preset, and each kernel against
    its plain version at a main-path level's shape (n=578, B=1024), bitwise,
@@ -42,7 +44,8 @@ AES_LBF = "outputs/bristol/aes_128_4_search.lbf"
 # the JAX package's Pallas kernel bodies each CUDA kernel replaces
 REPLACES = {"k2": "tfhe_fbs_map_tpu/ops/fused_blind_rotate.py:102",
             "k1": "tfhe_fbs_map_tpu/ops/fused_blind_rotate.py:160"}
-SOURCE = "tfhe_fbs_map_tpu_torch/ops/csrc/fused_blind_rotate.cu"
+SOURCE = {"k2": "tfhe_fbs_map_tpu_torch/ops/csrc/fused_blind_rotate_k2.cu",
+          "k1": "tfhe_fbs_map_tpu_torch/ops/csrc/fused_blind_rotate.cu"}
 # Batch of one full level of the mapped AES-128 program at --batch 8: most
 # of its 230 levels pad to 128 bootstraps.
 LEVEL_BATCH = 1024
@@ -98,58 +101,102 @@ def kernel_inputs(params, steps: int, batch: int, n_limbs: int, otf: bool,
     b_init[:min(batch, 4), 0] = edges[:min(batch, 4)]
     tvs = rng.integers(-2 ** 31, 2 ** 31, (batch, N)).astype(np.int32)
     shape = ((steps, n_limbs * k1, rows, 2 * N) if otf
-             else (steps, rows * N, n_limbs * k1 * N))
+             else (steps, n_limbs * k1 * N, rows * N))
     keys = rng.integers(-128, 128, shape, dtype=np.int8)
     return tuple(torch.from_numpy(x) for x in (b_init, a_t, tvs, keys))
 
 
-def check_kernels(fbr, presets) -> dict:
-    """Phase 3: each kernel bitwise against its plain version."""
-    import torch
+def shape_params(k, N, l, b):
     from tfhe_fbs_map_tpu_torch.tfhe.params import TFHEParams
+    return TFHEParams(p=4, lwe_dim=8, glwe_dim=k, poly_size=N, bsk_level=l,
+                      bsk_base_log=b, ksk_level=1, ksk_base_log=2,
+                      lwe_noise_std=0.0, glwe_noise_std=0.0)
+
+
+def report(kern: str, label: str, err: int, worst: dict) -> None:
+    worst[kern] = max(worst[kern], err)
+    log(f"  {kern} {label}: {'bitwise equal' if err == 0 else 'MISMATCH'} "
+        f"(max_abs_err {err})")
+    if err:
+        raise SystemExit(f"{kern} disagrees with its plain version at {label}")
+
+
+def check_k1(fbr, presets, worst: dict) -> None:
+    """Phase 3, K1: bitwise against its plain version on the CPU."""
+    import torch
 
     aes = presets["aes128_p4"][0]
     test = presets["test"][0]
-
-    def shape(k, N, l, b):
-        return TFHEParams(p=4, lwe_dim=8, glwe_dim=k, poly_size=N,
-                          bsk_level=l, bsk_base_log=b, ksk_level=1,
-                          ksk_base_log=2, lwe_noise_std=0.0,
-                          glwe_noise_std=0.0)
-
-    # (label, params, steps, batch, limbs, kernels, batch tiles)
+    # (label, params, steps, batch, limbs, batch tiles)
     cases = [
-        ("test", test, test.lwe_dim, 21, 4, ("k1", "k2"), (None, 1, 2, 4, 8)),
-        ("aes128_p4 n=8", aes, 8, 21, 4, ("k1", "k2"), (None, 2, 4, 8)),
-        ("aes128_p4 n=8 bsk_limbs=3", aes, 8, 21, 3, ("k1", "k2"), (None,)),
-        ("k=1 N=1024 l=3 b=6", shape(1, 1024, 3, 6), 8, 21, 4, ("k1", "k2"),
+        ("test", test, test.lwe_dim, 21, 4, (None, 1, 2, 4, 8)),
+        ("aes128_p4 n=8", aes, 8, 21, 4, (None, 2, 4, 8)),
+        ("aes128_p4 n=8 bsk_limbs=3", aes, 8, 21, 3, (None,)),
+        ("k=1 N=1024 l=3 b=6", shape_params(1, 1024, 3, 6), 8, 21, 4,
          (None, 4)),
-        ("k=1 N=2048 l=3 b=7", shape(1, 2048, 3, 7), 4, 21, 4, ("k1",),
+        ("k=1 N=2048 l=3 b=7", shape_params(1, 2048, 3, 7), 4, 21, 4,
          (None, 4)),
     ]
-    worst = {"k1": 0, "k2": 0}
-    for label, params, steps, batch, limbs, kerns, tiles in cases:
-        for kern in kerns:
-            otf = kern == "k1"
-            args = kernel_inputs(params, steps, batch, limbs, otf, seed=5)
-            plain = (fbr.blind_rotate_k1_plain if otf
-                     else fbr.blind_rotate_k2_plain)(*args, params)
+    for label, params, steps, batch, limbs, tiles in cases:
+        args = kernel_inputs(params, steps, batch, limbs, True, seed=5)
+        plain = fbr.blind_rotate_k1_plain(*args, params)
+        dev = [x.cuda() for x in args]
+        for tile in tiles:
+            if tile is not None and \
+                    fbr.smem_bytes(params, tile) > fbr.SMEM_MAX:
+                continue
+            got = fbr.blind_rotate_k1(*dev, params, batch_tile=tile)
+            torch.cuda.synchronize()
+            err = int((got.cpu().long() - plain.long()).abs().max())
+            report("k1", f"{label} B={batch} tile={tile}", err, worst)
+
+
+def check_k2(fbr, presets, worst: dict) -> None:
+    """Phase 3, K2: bitwise against its plain version on the card, at the
+    plans k2_plan picks and at forced (tile, cluster) plans."""
+    import torch
+
+    aes = presets["aes128_p4"][0]
+    test = presets["test"][0]
+    every = [(cb, c) for cb in fbr.K2_TILES for c in fbr.k2_clusters(aes)]
+    # (label, params, steps, limbs, batches, forced (cb, cluster) at batch)
+    cases = [
+        ("test", test, test.lwe_dim, 4, (21,),
+         {21: [(cb, None) for cb in fbr.K2_TILES]}),
+        ("aes128_p4 n=8", aes, 8, 4, (21, 64, 512, 1024, 2048),
+         {1024: every}),
+        ("aes128_p4 n=8 bsk_limbs=3", aes, 8, 3, (21, 64, 512, 1024, 2048),
+         {}),
+        ("p16 n=8", presets["p16"][0], 8, 4, (21, 512, 1024), {}),
+        ("k=1 N=1024 l=3 b=6", shape_params(1, 1024, 3, 6), 8, 4, (21, 64),
+         {}),
+    ]
+    for label, params, steps, limbs, batches, forced in cases:
+        for batch in batches:
+            args = kernel_inputs(params, steps, batch, limbs, False, seed=6)
             dev = [x.cuda() for x in args]
-            wrapper = fbr.blind_rotate_k1 if otf else fbr.blind_rotate_k2
-            for tile in tiles:
-                if tile is not None and \
-                        fbr.smem_bytes(params, otf, tile) > fbr.SMEM_MAX:
-                    continue
-                got = wrapper(*dev, params, batch_tile=tile)
+            plain = fbr.blind_rotate_k2_plain(*dev, params)
+            plans = [(None, None)] + forced.get(batch, [])
+            for cb, cluster in plans:
+                plan = fbr.device_plan(batch, params, dev[0].device, limbs,
+                                       cb, cluster)
+                fit = fbr.k2_max_clusters(plan, limbs)
+                got = fbr.blind_rotate_k2(*dev, params, batch_tile=cb,
+                                          cluster=cluster)
                 torch.cuda.synchronize()
-                err = int((got.cpu().long() - plain.long()).abs().max())
-                worst[kern] = max(worst[kern], err)
-                log(f"  {kern} {label} B={batch} tile={tile}: "
-                    f"{'bitwise equal' if err == 0 else 'MISMATCH'} "
-                    f"(max_abs_err {err})")
-                if err:
-                    raise SystemExit(f"{kern} disagrees with its plain "
-                                     f"version at {label}, tile {tile}")
+                err = int((got.long() - plain.long()).abs().max())
+                report("k2", f"{label} B={batch} plan cb={plan.cb} "
+                       f"cluster={plan.cluster} stages={plan.stages} "
+                       f"({'default' if cb is None else 'forced'}; "
+                       f"{fit} clusters fit at once)", err, worst)
+            del dev, plain
+
+
+def check_kernels(fbr, presets) -> dict:
+    """Phase 3: each kernel bitwise against its plain version."""
+    worst = {"k1": 0, "k2": 0}
+    check_k1(fbr, presets, worst)
+    check_k2(fbr, presets, worst)
     return worst
 
 
@@ -213,11 +260,12 @@ def check_bootstrap(presets, worst: dict) -> dict:
         timing[kern] = (k_ms, p_ms)
         err = int((k_out.long() - p_out.long()).abs().max())
         worst[kern] = max(worst[kern], err)
-        tile = fbr.pick_tile(LEVEL_BATCH, params, kern == "k1",
-                             torch.cuda.get_device_properties(0)
-                             .multi_processor_count)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        tile = (f"tile {fbr.pick_tile(LEVEL_BATCH, params, sms)}"
+                if kern == "k1" else
+                str(fbr.device_plan(LEVEL_BATCH, params, dev)))
         log(f"  {kern} at aes128_p4, n={params.lwe_dim}, B={LEVEL_BATCH} "
-            f"(tile {tile}): {'bitwise equal' if err == 0 else 'MISMATCH'} "
+            f"({tile}): {'bitwise equal' if err == 0 else 'MISMATCH'} "
             f"to its plain version (max_abs_err {err}); kernel "
             f"{k_ms:.3f} ms, plain version {p_ms:.3f} ms")
         if err or not torch.equal(k_out, p_out):
@@ -294,7 +342,8 @@ def main(argv=None) -> int:
     _build.library()
     log(f"[build] {lib.name} in {time.time() - t0:.1f} s")
     for line in _build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if any(w in line for w in ("entry function", "registers", "spill",
+                                   "smem")):
             log(f"  ptxas: {line.strip()}")
 
     # --- 3. kernels against their plain versions ---------------------------
@@ -320,7 +369,7 @@ def main(argv=None) -> int:
     log(f"[main path] {time.time() - t0:.1f} s")
 
     log(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE,
+        {"name": name, "route": "cuda", "source": SOURCE[kern],
          "replaces": REPLACES[kern], "launches": runs[kern]["launches"],
          "max_abs_err": worst[kern], "ms": timing[kern][0],
          "plain_ms": timing[kern][1]}

@@ -86,8 +86,12 @@ def kernel_args(params, batch, seed):
 def test_fast_key_layouts_equal_jax(shape, orientation, limbs):
     want, got = fast_for(shape, orientation, limbs)
     assert got.bsk_kernels.dtype == torch.int8
-    assert np.array_equal(np.asarray(want.bsk_kernels),
-                          got.bsk_kernels.numpy())
+    kern = got.bsk_kernels
+    if orientation == "fused":
+        # K-major: each step's matrix is the JAX one transposed
+        assert kern.is_contiguous()
+        kern = kern.transpose(1, 2)
+    assert np.array_equal(np.asarray(want.bsk_kernels), kern.numpy())
     assert np.array_equal(np.asarray(want.ksk_limbs), got.ksk_limbs.numpy())
 
 
@@ -165,7 +169,12 @@ def test_cuda_wrapper_checks_inputs():
     params = fast.params
     b_init, a_t, tvs = map(torch.from_numpy, kernel_args(params, 5, seed=2))
     with pytest.raises(ValueError):
-        tfbr._launch(False, b_init.long(), a_t, tvs, fast.bsk_kernels,
-                     params, None)
+        tfbr._launch_k2(b_init.long(), a_t, tvs, fast.bsk_kernels, params,
+                        None, None)
     with pytest.raises(ValueError):
-        tfbr._launch(True, b_init, a_t, tvs, fast.bsk_kernels, params, None)
+        tfbr._launch_k1(b_init, a_t, tvs, fast.bsk_kernels, params, None)
+    # the JAX layout (not K-major) is refused
+    with pytest.raises(ValueError):
+        tfbr._launch_k2(b_init, a_t, tvs,
+                        fast.bsk_kernels.transpose(1, 2).contiguous(),
+                        params, None, None)

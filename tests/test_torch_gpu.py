@@ -37,26 +37,40 @@ def operands(params, batch, otf, seed):
     rows = k1 * params.bsk_level
     b_init = rng.integers(0, 2 * N, (batch, 1)).astype(np.int32)
     a_t = rng.integers(0, 2 * N, (params.lwe_dim, batch, 1)).astype(np.int32)
-    a_t[:, :4, 0] = [0, N - 1, N, 2 * N - 1]
+    a_t[:, :4, 0] = [0, N - 1, N, 2 * N - 1][:batch]
     tvs = rng.integers(-2 ** 31, 2 ** 31, (batch, N)).astype(np.int32)
     shape = ((params.lwe_dim, 4 * k1, rows, 2 * N) if otf
-             else (params.lwe_dim, rows * N, 4 * k1 * N))
+             else (params.lwe_dim, 4 * k1 * N, rows * N))
     keys = rng.integers(-128, 128, shape, dtype=np.int8)
     return [torch.from_numpy(x) for x in (b_init, a_t, tvs, keys)]
 
 
-@pytest.mark.parametrize("otf", [False, True])
-def test_kernel_equals_plain_every_tile(cuda, otf):
-    args = operands(TEST_PARAMS, 21, otf, seed=1)
-    plain = fbr.blind_rotate_fused(*args, TEST_PARAMS)
+# K1 over its batch tiles; K2 at each plan k2_plan picks (132 SMs) for the
+# main path's batch sizes, forced where the card has another SM count
+K2_PLANS = sorted({(b, p.cb, p.cluster) for b in (1, 21, 64, 512, 1024)
+                   for p in [fbr.k2_plan(b, TEST_PARAMS, 132)]})
+
+
+@pytest.mark.parametrize("otf,batch,plan",
+                         [(True, 21, None)]
+                         + [(False, b, (cb, c)) for b, cb, c in K2_PLANS])
+def test_kernel_equals_plain_every_tile(cuda, otf, batch, plan):
+    args = operands(TEST_PARAMS, batch, otf, seed=1)
     dev = [x.to(cuda) for x in args]
     key = "k1" if otf else "k2"
-    for tile in (None,) + fbr.TILES:
+    if otf:
+        plain = fbr.blind_rotate_fused(*args, TEST_PARAMS)
+        runs = [dict(batch_tile=t) for t in (None,) + fbr.TILES]
+    else:
+        plain = fbr.blind_rotate_k2_plain(*dev, TEST_PARAMS).cpu()
+        runs = [dict(batch_tile=plan[0], cluster=plan[1])]
+    for kw in runs:
         before = fbr.LAUNCHES[key]
-        got = fbr.blind_rotate_fused(*dev, TEST_PARAMS, batch_tile=tile)
+        fn = fbr.blind_rotate_k1 if otf else fbr.blind_rotate_k2
+        got = fn(*dev, TEST_PARAMS, **kw)
         torch.cuda.synchronize()
         assert fbr.LAUNCHES[key] == before + 1
-        assert torch.equal(got.cpu(), plain), tile
+        assert torch.equal(got.cpu(), plain), kw
 
 
 @pytest.mark.parametrize("orientation", ["fused", "fused_otf"])

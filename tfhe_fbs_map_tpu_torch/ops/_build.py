@@ -1,7 +1,8 @@
 """Build the CUDA kernels at first use and bind them with ctypes.
 
-``nvcc`` compiles every source under ``csrc/`` into one shared library with
-a plain C interface (no PyTorch headers, so a build takes seconds) in
+One ``nvcc`` per source under ``csrc/``, all started together, compiles it
+to an object; one more links the objects into a shared library with a plain
+C interface (no PyTorch headers, so a build takes seconds) in
 ``build/tfhe_fbs_map_tpu_torch/`` beside the package.  The library's name
 carries a hash of the sources and flags, so a changed source is rebuilt and
 an unchanged one is loaded as it is.
@@ -20,7 +21,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" \
     / "tfhe_fbs_map_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib = None
 build_log = ""            # nvcc's output of the last build (ptxas usage)
@@ -51,12 +52,25 @@ def build() -> Path:
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(CSRC.glob("*.cu")))]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{build_log}")
+    sources = sorted(CSRC.glob("*.cu"))
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    build_log = "".join(logs)
+    failed = [p.returncode for p in procs if p.returncode != 0]
+    if not failed:
+        res = subprocess.run([_nvcc(), "-shared", "-o", str(tmp),
+                              *map(str, objs)], capture_output=True,
+                             text=True)
+        build_log += res.stdout + res.stderr
+        failed = [res.returncode] if res.returncode != 0 else []
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({failed[0]}):\n{build_log}")
     os.replace(tmp, path)
     return path
 
@@ -67,8 +81,12 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fbr_blind_rotate.argtypes = [i, p, p, p, p, p] + [i] * 10 + [p]
-        lib.fbr_blind_rotate.restype = i
+        lib.fbr_k1_blind_rotate.argtypes = [p] * 5 + [i] * 10 + [p]
+        lib.fbr_k1_blind_rotate.restype = i
+        lib.fbr_k2_blind_rotate.argtypes = [p] * 6 + [i] * 11 + [p]
+        lib.fbr_k2_blind_rotate.restype = i
+        lib.fbr_k2_max_clusters.argtypes = [i] * 4 + [ctypes.POINTER(i)]
+        lib.fbr_k2_max_clusters.restype = i
         lib.fbr_error_string.argtypes = [i]
         lib.fbr_error_string.restype = p
         _lib = lib

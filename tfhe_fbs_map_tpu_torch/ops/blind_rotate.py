@@ -31,8 +31,10 @@ LIMB_BITS = 8
 class FastKeys:
     """Device-side key material for the fused kernels.
 
-    ``bsk_kernels``: ``"fused"`` [n, rows·N, L·(k+1)·N] int8 or
-    ``"fused_otf"`` [n, L·(k+1), rows, 2N] int8, the JAX package's layouts.
+    ``bsk_kernels``: ``"fused"`` [n, L·(k+1)·N, rows·N] int8, K-major: each
+    step's matrix is the transpose of the JAX package's [rows·N, L·(k+1)·N],
+    since the int8 tensor-core B operand wants the contraction contiguous;
+    or ``"fused_otf"`` [n, L·(k+1), rows, 2N] int8, the JAX package's layout.
     ``ksk_matrix``: the key-switch key's limbs as one [kN·l_ks, 4·(n+1)]
     int8 matrix for ``torch._int_mm``; ``ksk_limbs`` views it in the JAX
     layout [4, kN·l_ks, n+1].
@@ -66,14 +68,14 @@ def _ksk_matrix(keys: TFHEKeys) -> torch.Tensor:
 
 def _fused_step(bsk_i: torch.Tensor, params: TFHEParams,
                 bsk_limbs: int) -> torch.Tensor:
-    """One step's key matrix [rows·N, L·(k+1)·N] int8: contraction (row,
-    j) major, output (limb, component, t) limb-major."""
+    """One step's key matrix [L·(k+1)·N, rows·N] int8, K-major: output
+    (limb, component, t) limb-major, contraction (row, j) contiguous."""
     k1, N = params.glwe_dim + 1, params.poly_size
     rows = k1 * params.bsk_level
     mats = negacyclic_matrix(bsk_i)                      # [r, comp, j, t]
     limbs = signed_limbs(mats, N_LIMBS, LIMB_BITS)[..., N_LIMBS - bsk_limbs:]
-    limbs = limbs.permute(0, 2, 4, 1, 3)                 # [r, j, L, comp, t]
-    return limbs.reshape(rows * N, bsk_limbs * k1 * N).to(torch.int8)
+    limbs = limbs.permute(4, 1, 3, 0, 2)                 # [L, comp, t, r, j]
+    return limbs.reshape(bsk_limbs * k1 * N, rows * N).to(torch.int8)
 
 
 def prepare_fast_keys(keys: TFHEKeys, orientation: str = "fused",
@@ -101,7 +103,7 @@ def prepare_fast_keys(keys: TFHEKeys, orientation: str = "fused",
         kern = ext.reshape(n, bsk_limbs * k1, rows, 2 * N) \
             .to(torch.int8).contiguous()
     else:
-        kern = torch.empty((n, rows * N, bsk_limbs * k1 * N),
+        kern = torch.empty((n, bsk_limbs * k1 * N, rows * N),
                            dtype=torch.int8, device=keys.device)
         for i in range(n):
             kern[i] = _fused_step(keys.bsk[i], params, bsk_limbs)

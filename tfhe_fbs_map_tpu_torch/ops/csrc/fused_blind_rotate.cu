@@ -1,27 +1,26 @@
-// Fused blind rotation for Hopper (sm_90a): all n CMux steps in one launch.
+// K1, the "fused_otf" blind rotation, for Hopper (sm_90a): all n CMux steps
+// in one launch.  K2 ("fused") is in fused_blind_rotate_k2.cu.
 //
-// Replaces the Pallas kernels of tfhe_fbs_map_tpu/ops/fused_blind_rotate.py:
-//   K2 = _kernel     (OTF = false): precomputed negacyclic key-matrix limbs
-//                     keys [n, rows*N, L*(k+1)*N] int8;
-//   K1 = _kernel_otf (OTF = true):  compact anti-periodic limb extensions
-//                     keys [n, L*(k+1), rows, 2N] int8.
-// The TPU ran the n steps as a sequential grid axis over one core; here the
-// step loop sits inside the kernel and one block owns a tile of CB
-// ciphertexts for all n steps, with the tile's accumulator [k+1][CB][N]
-// uint32 and digits [CB][rows*N] int8 in shared memory.  Slots past the
-// batch (the ragged last tile) run a zero ciphertext and are not stored.
+// Replaces _kernel_otf of tfhe_fbs_map_tpu/ops/fused_blind_rotate.py
+// (:160-242): compact anti-periodic limb extensions, keys
+// [n, L*(k+1), rows, 2N] int8.  The TPU ran the n steps as a sequential grid
+// axis over one core; here the step loop sits inside the kernel and one
+// block owns a tile of CB ciphertexts for all n steps, with the tile's
+// accumulator [k+1][CB][N] uint32 and digits [CB][rows*N] int8 in shared
+// memory.  Slots past the batch (the ragged last tile) run a zero
+// ciphertext and are not stored.
 //
 // Each step: digits of X^{a_i}*ACC - ACC (index reads, biased-add digits),
 // then for every limb and output component
 //   ACC[comp] += (digits @ M_{limb,comp}) << 8*(limb + drop)   (mod 2^32)
-// with int8 x int8 -> int32 dp4a MACs.  A thread owns four adjacent columns
-// of one component for all limbs, so its shared-memory updates never race.
+// with int8 x int8 -> int32 dp4a MACs, the negacyclic matrix read straight
+// out of the limb's extensions in shared memory, M[j, t] = E[N + t - j].  A
+// thread owns four adjacent columns of one component for all limbs, so its
+// shared-memory updates never race.
 //
-// Bounds on the H100: in K2 every block reads the whole key once per
-// launch (10.9 GB at the aes128_p4 preset), mostly out of L2; which level
-// of the memory hierarchy bounds it is not measured yet.  K1 is MAC-bound,
-// its 42.6 MB of keys nearly fit the 50 MB L2.  This first version uses scalar dp4a; mma/wgmma,
-// TMA and warp specialisation are later work.
+// Bound on the H100: MACs; its 42.6 MB of keys at the aes128_p4 preset
+// nearly fit the 50 MB L2.  It uses scalar dp4a; tensor cores are later
+// work.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -30,7 +29,7 @@
 
 namespace fbr {
 
-template <bool OTF, int CB>
+template <int CB>
 __global__ void __launch_bounds__(512)
 blind_rotate_kernel(const int32_t* __restrict__ b_init,
                     const int32_t* __restrict__ a_t,
@@ -45,12 +44,11 @@ blind_rotate_kernel(const int32_t* __restrict__ b_init,
   uint32_t* acc = reinterpret_cast<uint32_t*>(smem);          // [k1][CB][n]
   int8_t* dig = reinterpret_cast<int8_t*>(smem + sizeof(uint32_t) * elems);
   const int* dig32 = reinterpret_cast<const int*>(dig);       // [CB][rows_n]
-  int8_t* ext = dig + CB * rows_n;                    // OTF: [k1][rows][2n]
+  int8_t* ext = dig + CB * rows_n;                    // [k1][rows][2n]
   const int b0 = blockIdx.x * CB;
   const int tid = threadIdx.x;
   const int nthr = blockDim.x;
   const int drop = 4 - n_limbs;
-  const size_t ncol = static_cast<size_t>(n_limbs) * k1 * n;
 
   // ACC = (0, ..., 0, X^{b_init} * tv)
   for (int e = tid; e < elems; e += nthr) {
@@ -81,16 +79,13 @@ blind_rotate_kernel(const int32_t* __restrict__ b_init,
     __syncthreads();
 
     for (int limb = 0; limb < n_limbs; ++limb) {
-      if (OTF) {
-        // this limb's extensions for all k+1 output components
-        const uint4* src = reinterpret_cast<const uint4*>(
-            keys + (static_cast<size_t>(i) * n_limbs + limb) * k1 * rows_n *
-                       2);
-        uint4* dst = reinterpret_cast<uint4*>(ext);
-        const int words = k1 * rows_n * 2 / 16;
-        for (int w = tid; w < words; w += nthr) dst[w] = src[w];
-        __syncthreads();
-      }
+      // this limb's extensions for all k+1 output components
+      const uint4* src = reinterpret_cast<const uint4*>(
+          keys + (static_cast<size_t>(i) * n_limbs + limb) * k1 * rows_n * 2);
+      uint4* dst = reinterpret_cast<uint4*>(ext);
+      const int words = k1 * rows_n * 2 / 16;
+      for (int w = tid; w < words; w += nthr) dst[w] = src[w];
+      __syncthreads();
       const uint32_t shift = 8u * static_cast<uint32_t>(limb + drop);
       for (int cg = tid; cg < k1 * n / 4; cg += nthr) {
         const int comp = cg * 4 / n, t0 = cg * 4 % n;
@@ -99,15 +94,8 @@ blind_rotate_kernel(const int32_t* __restrict__ b_init,
         for (int cb = 0; cb < CB; ++cb)
 #pragma unroll
           for (int q = 0; q < 4; ++q) s[cb][q] = 0;
-        if (OTF) {
-          otf_dot<CB>(s, ext + static_cast<size_t>(comp) * rows_n * 2, t0, n,
-                      rows, dig32);
-        } else {
-          const int8_t* kcol = keys +
-                               static_cast<size_t>(i) * rows_n * ncol +
-                               static_cast<size_t>(limb * k1 + comp) * n + t0;
-          matrix_dot<CB>(s, kcol, ncol, dig32, rows_n);
-        }
+        otf_dot<CB>(s, ext + static_cast<size_t>(comp) * rows_n * 2, t0, n,
+                    rows, dig32);
 #pragma unroll
         for (int cb = 0; cb < CB; ++cb)
 #pragma unroll
@@ -128,12 +116,12 @@ blind_rotate_kernel(const int32_t* __restrict__ b_init,
   }
 }
 
-template <bool OTF, int CB>
+template <int CB>
 cudaError_t launch(const void* b_init, const void* a_t, const void* tv,
                    const void* keys, void* out, int steps, int batch, int n,
                    int k1, int l, int b, int n_limbs, int threads, int smem,
                    cudaStream_t stream) {
-  auto kern = blind_rotate_kernel<OTF, CB>;
+  auto kern = blind_rotate_kernel<CB>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -149,25 +137,22 @@ cudaError_t launch(const void* b_init, const void* a_t, const void* tv,
 
 // C entry: returns the launch's cudaError_t (0 on success).  `tile` is the
 // number of ciphertexts per block, one of 1, 2, 4, 8.
-extern "C" int fbr_blind_rotate(int otf, const void* b_init, const void* a_t,
-                                const void* tv, const void* keys, void* out,
-                                int steps, int batch, int n, int k1, int l,
-                                int b, int n_limbs, int tile, int threads,
-                                int smem, void* stream) {
+extern "C" int fbr_k1_blind_rotate(const void* b_init, const void* a_t,
+                                   const void* tv, const void* keys,
+                                   void* out, int steps, int batch, int n,
+                                   int k1, int l, int b, int n_limbs,
+                                   int tile, int threads, int smem,
+                                   void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-#define FBR_CASE(OTF, CB)                                                    \
-  if (static_cast<bool>(otf) == OTF && tile == CB)                           \
-    return static_cast<int>(fbr::launch<OTF, CB>(                            \
-        b_init, a_t, tv, keys, out, steps, batch, n, k1, l, b, n_limbs,      \
-        threads, smem, st));
-  FBR_CASE(false, 1)
-  FBR_CASE(false, 2)
-  FBR_CASE(false, 4)
-  FBR_CASE(false, 8)
-  FBR_CASE(true, 1)
-  FBR_CASE(true, 2)
-  FBR_CASE(true, 4)
-  FBR_CASE(true, 8)
+#define FBR_CASE(CB)                                                         \
+  if (tile == CB)                                                            \
+    return static_cast<int>(fbr::launch<CB>(b_init, a_t, tv, keys, out,      \
+                                            steps, batch, n, k1, l, b,       \
+                                            n_limbs, threads, smem, st));
+  FBR_CASE(1)
+  FBR_CASE(2)
+  FBR_CASE(4)
+  FBR_CASE(8)
 #undef FBR_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,4 +1,11 @@
-// Device functions shared by the two fused blind-rotation kernels (K1, K2).
+// Device functions shared by the two fused blind-rotation kernels: K1
+// (fused_blind_rotate.cu, scalar dp4a over compact key extensions) and K2
+// (fused_blind_rotate_k2.cu, int8 wgmma over K-major key matrices that TMA
+// stages in a shared-memory ring, one ciphertext tile per thread-block
+// cluster whose CTAs split the key columns).  Both replace bodies of the
+// Pallas kernel in
+// tfhe_fbs_map_tpu/ops/fused_blind_rotate.py: the rotation and the digits
+// below are its _barrel_rotate and _decompose_digits.
 //
 // Torus arithmetic is uint32_t throughout: adds, negations and the
 // << 8*(limb+drop) limb shifts wrap mod 2^32 by definition, where the same
@@ -35,44 +42,6 @@ __device__ __forceinline__ uint32_t biased_digits(uint32_t x, int b, int l) {
 __device__ __forceinline__ int digit_at(uint32_t w, int b, int l, int lev) {
   const int i = l - 1 - lev;
   return static_cast<int>((w >> (b * i)) & ((1u << b) - 1)) - (1 << (b - 1));
-}
-
-// K2's contraction for four adjacent output columns of one limb chunk:
-// s[c][q] += sum_R digits[c][R] * K[R][col0 + q] over R < rows_n.  `kcol`
-// points at K[0][col0] of a row-major [rows_n, ncol] int8 matrix; four rows
-// of one column are gathered into one word with byte permutes so that a
-// dp4a does four MACs.
-template <int CB>
-__device__ __forceinline__ void matrix_dot(int (&s)[CB][4],
-                                           const int8_t* __restrict__ kcol,
-                                           size_t ncol,
-                                           const int* __restrict__ dig32,
-                                           int rows_n) {
-  const int q4 = rows_n / 4;
-#pragma unroll 2
-  for (int r4 = 0; r4 < q4; ++r4) {
-    const int8_t* p = kcol + static_cast<size_t>(4 * r4) * ncol;
-    const uint32_t w0 = __ldg(reinterpret_cast<const unsigned int*>(p));
-    const uint32_t w1 = __ldg(reinterpret_cast<const unsigned int*>(p + ncol));
-    const uint32_t w2 =
-        __ldg(reinterpret_cast<const unsigned int*>(p + 2 * ncol));
-    const uint32_t w3 =
-        __ldg(reinterpret_cast<const unsigned int*>(p + 3 * ncol));
-    const uint32_t p01 = __byte_perm(w0, w1, 0x5140);
-    const uint32_t p23 = __byte_perm(w2, w3, 0x5140);
-    const uint32_t q01 = __byte_perm(w0, w1, 0x7362);
-    const uint32_t q23 = __byte_perm(w2, w3, 0x7362);
-    const int c[4] = {static_cast<int>(__byte_perm(p01, p23, 0x5410)),
-                      static_cast<int>(__byte_perm(p01, p23, 0x7632)),
-                      static_cast<int>(__byte_perm(q01, q23, 0x5410)),
-                      static_cast<int>(__byte_perm(q01, q23, 0x7632))};
-#pragma unroll
-    for (int cb = 0; cb < CB; ++cb) {
-      const int d = dig32[cb * q4 + r4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) s[cb][q] = __dp4a(c[q], d, s[cb][q]);
-    }
-  }
 }
 
 // K1's contraction for output columns t0..t0+3 of one chunk, read straight

@@ -5,27 +5,32 @@ Hopper counterparts of the two Pallas kernel bodies in
 ``:351``, reached through ``_blind_rotate_call`` and
 ``blind_rotate_fused``):
 
-* **K2** (orientation ``"fused"``) replaces ``_kernel`` (``:102-142``).  Each
-  step multiplies the int8 gadget digits by a precomputed negacyclic
-  key-matrix limb ``[rows·N, L·(k+1)·N]``.  Key reads weigh most: every
-  block reads the whole ``[n, rows·N, L·(k+1)·N]`` key once per launch
-  (10.9 GB at the ``aes128_p4`` preset), out of the 50 MB L2 that blocks
-  working on the same step share.  Fewer, wider blocks read it fewer
-  times, but the launch time does not follow the block count alone, and
-  which level of the memory hierarchy bounds it is not measured yet
-  (PERF.md, section 5).
-* **K1** (orientation ``"fused_otf"``) replaces ``_kernel_otf``
-  (``:160-242``).  The key is the compact anti-periodic limb extension
-  ``E = [limbs(−poly), limbs(poly)]`` ∈ int8[2N] per (step, chunk, row), and
-  the negacyclic matrix is read straight out of it, ``M[j, t] = E[N+t−j]``:
-  no rotation strip.  Bound by MACs: its keys take 42.6 MB at
-  ``aes128_p4``, which nearly fits the L2.
+* **K2** (orientation ``"fused"``, ``csrc/fused_blind_rotate_k2.cu``)
+  replaces ``_kernel`` (``:102-142``).  Each step multiplies the int8 gadget
+  digits [B, K] (K = rows·N) by a precomputed negacyclic key matrix, stored
+  K-major as [L·(k+1)·N, K] int8 (the transpose of the JAX layout), and
+  shift-adds the L limbs.  A step's key is 18.9 MB at the ``aes128_p4``
+  preset (10.9 GB a launch), so what bounds K2 is how many ciphertexts
+  share each key byte that reaches an SM.  A tile of ``cb`` (16-128)
+  ciphertexts runs on a thread-block cluster of ``cluster`` CTAs; each CTA
+  owns 1/cluster of the (k+1)·N output coefficients with all their limbs,
+  reads only those key columns, and contracts on int8 tensor cores
+  (``wgmma`` m64n(32L)k32) from a ring of shared-memory stages that TMA
+  fills.  The accumulator lives in the output tensor and the digits in an
+  L2-resident scratch, ordered between CTAs by cluster barriers.  On the
+  H100 the ring's loads bound it, so :func:`k2_plan` picks the tile and
+  the cluster that stream the fewest bytes a CTA in one wave of clusters.
+* **K1** (orientation ``"fused_otf"``, ``csrc/fused_blind_rotate.cu``)
+  replaces ``_kernel_otf`` (``:160-242``).  The key is the compact
+  anti-periodic limb extension ``E = [limbs(−poly), limbs(poly)]`` ∈
+  int8[2N] per (step, chunk, row), and the negacyclic matrix is read
+  straight out of it, ``M[j, t] = E[N+t−j]``: no rotation strip.  One block
+  keeps a tile of 1-8 ciphertexts for all n steps, its accumulator and
+  digits in shared memory, and contracts with ``dp4a``.  Bound by MACs:
+  its keys take 42.6 MB at ``aes128_p4``, which nearly fits the L2.
 
-Both CUDA kernels (``csrc/fused_blind_rotate.cu``) keep one tile of
-ciphertexts per block for all n steps, its accumulator ``[k+1, CB, N]``
-uint32 and digits ``[CB, rows·N]`` int8 in shared memory, and contract
-with ``dp4a``.  The monomial rotation X^a·x, which the TPU does with a
-barrel shifter because Mosaic has no lane rotate, is an index read.
+The monomial rotation X^a·x, which the TPU does with a barrel shifter
+because Mosaic has no lane rotate, is an index read in both.
 
 Beside each kernel is its plain PyTorch version.  The wrappers take the
 plain version only for tensors on the CPU; for CUDA tensors they launch the
@@ -35,6 +40,7 @@ kernel or raise.  ``LAUNCHES`` counts kernel launches per wrapper.
 from __future__ import annotations
 
 import ctypes
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -42,15 +48,30 @@ from ..tfhe.numeric import I32, I64, int8_matmul, u32, wrap32
 from ..tfhe.params import TFHEParams
 
 __all__ = ["blind_rotate_fused", "blind_rotate_k1", "blind_rotate_k2",
-           "blind_rotate_k1_plain", "blind_rotate_k2_plain", "LAUNCHES"]
+           "blind_rotate_k1_plain", "blind_rotate_k2_plain", "k2_plan",
+           "device_plan", "K2Plan", "LAUNCHES"]
 
 N_LIMBS = 4
 LAUNCHES = {"k1": 0, "k2": 0}
 
 # Shared memory a block may opt into on sm_90 (227 KB).
 SMEM_MAX = 232448
-# Ciphertexts per block the kernels are instantiated for.
+# K1: ciphertexts per block the kernel is instantiated for.
 TILES = (8, 4, 2, 1)
+# K2: ciphertexts per cluster tile it is instantiated for, largest first;
+# coefficients per column chunk (times L limbs: the GEMM columns one pass
+# holds in registers); contraction bytes per ring stage; digit rows a stage
+# holds at least (wgmma's M); shared memory beside the ring (1024-byte
+# alignment of the swizzled tiles, the stages' mbarriers); ring stages (3
+# measured fastest on the H100, 2 and 4 slower); CTAs a cluster (above 8 a
+# non-portable size, which the H100 allows up to 16).
+K2_TILES = (128, 64, 32, 16)
+K2_CHUNK = 64
+K2_KC = 128
+K2_ROWS = 64
+K2_SMEM_EXTRA = 2048
+K2_MAX_STAGES = 3
+K2_MAX_CLUSTER = 16
 
 
 # --------------------------------------------------------------- plain
@@ -117,9 +138,9 @@ def _accumulate(acc: torch.Tensor, prods: torch.Tensor,
 
 
 def otf_matrix(ext: torch.Tensor, n: int) -> torch.Tensor:
-    """Compact extensions [L·(k+1), rows, 2N] -> the K2 key matrix
-    [rows·N, L·(k+1)·N] of the same step: M[(r, j), (chunk, t)] =
-    E[chunk, r, N + t − j]."""
+    """Compact extensions [L·(k+1), rows, 2N] -> the step's negacyclic key
+    matrix [rows·N, L·(k+1)·N] (the JAX ``"fused"`` layout; K2's is its
+    transpose): M[(r, j), (chunk, t)] = E[chunk, r, N + t − j]."""
     ar = torch.arange(n, device=ext.device)
     idx = n + ar[None, :] - ar[:, None]                   # [j, t]
     m = ext[:, :, idx]                                    # [C, rows, j, t]
@@ -129,13 +150,14 @@ def otf_matrix(ext: torch.Tensor, n: int) -> torch.Tensor:
 
 def blind_rotate_k2_plain(b_init, a_t, test_polys, kernels,
                           params: TFHEParams) -> torch.Tensor:
-    """Plain version of K2: keys [n, rows·N, L·(k+1)·N] int8."""
+    """Plain version of K2: keys [n, L·(k+1)·N, rows·N] int8, K-major (each
+    step's matrix is the transpose of the JAX layout's)."""
     k1, n = params.glwe_dim + 1, params.poly_size
-    n_limbs = kernels.shape[2] // (k1 * n)
+    n_limbs = kernels.shape[1] // (k1 * n)
     acc = _init_acc(b_init, test_polys, params)
     for i in range(a_t.shape[0]):
         dig = _step_digits(acc, a_t[i], params)
-        acc = _accumulate(acc, int8_matmul(dig, kernels[i]), n_limbs)
+        acc = _accumulate(acc, int8_matmul(dig, kernels[i].t()), n_limbs)
     return acc
 
 
@@ -154,36 +176,118 @@ def blind_rotate_k1_plain(b_init, a_t, test_polys, kernels,
 
 # ------------------------------------------------------------- kernels
 
-def smem_bytes(params: TFHEParams, otf: bool, tile: int) -> int:
-    """Dynamic shared memory of one block: accumulator, digits, and for
-    K1 one limb's extensions of all k+1 output components."""
+class K2Plan(NamedTuple):
+    """How K2 launches: ``cb`` ciphertexts per tile, ``cluster`` CTAs per
+    tile (CTA r owns coefficients [r·span, (r+1)·span) of the (k+1)·N, span
+    = (k+1)·N / cluster), ``chunk`` coefficients per column chunk,
+    ``stages`` shared-memory ring stages, ``smem`` bytes a CTA."""
+    cb: int
+    cluster: int
+    chunk: int
+    stages: int
+    smem: int
+
+
+def smem_bytes(params: TFHEParams, tile: int) -> int:
+    """K1's dynamic shared memory a block: accumulator, digits and one
+    limb's extensions of all k+1 output components."""
     k1, n = params.glwe_dim + 1, params.poly_size
     rows = k1 * params.bsk_level
-    fixed = k1 * rows * 2 * n if otf else 0
-    return fixed + tile * (4 * k1 * n + rows * n)
+    return k1 * rows * 2 * n + tile * (4 * k1 * n + rows * n)
+
+
+def k2_clusters(params: TFHEParams) -> list[int]:
+    """Cluster sizes whose CTAs split the (k+1)·N coefficients into whole
+    column chunks, largest first."""
+    kn = (params.glwe_dim + 1) * params.poly_size
+    return [c for c in range(K2_MAX_CLUSTER, 0, -1)
+            if kn % (c * K2_CHUNK) == 0]
+
+
+def k2_plan(batch: int, params: TFHEParams, sms: int,
+            n_limbs: int = N_LIMBS, cb: int | None = None,
+            cluster: int | None = None,
+            resident: Callable[[K2Plan], int] | None = None) -> K2Plan:
+    """K2's launch plan for ``batch`` ciphertexts on ``sms`` SMs.
+
+    Among the tiles ``cb`` and cluster sizes that fit (or the ones given),
+    the cheapest by the bytes a CTA streams: every ring stage carries
+    max(cb, 64) digit rows and L·64 key rows, and a CTA runs (k+1)·N /
+    cluster of the coefficients, so the cost is waves × (max(cb, 64) + L·64)
+    / cluster.  A wave is as many clusters as ``resident(plan)`` says the
+    card runs at once (default ``sms // cluster``: one CTA an SM).  Ties go
+    to fewer CTAs, then larger tiles.  The ring takes as many stages as fit
+    shared memory, at most K2_MAX_STAGES."""
+    if resident is None:
+        def resident(p):
+            return sms // p.cluster
+    best = None
+    for t in [cb] if cb is not None else K2_TILES:
+        rows = max(t, K2_ROWS) + n_limbs * K2_CHUNK
+        stages = min(K2_MAX_STAGES,
+                     (SMEM_MAX - K2_SMEM_EXTRA) // (rows * K2_KC))
+        for c in [cluster] if cluster is not None else k2_clusters(params):
+            plan = K2Plan(t, c, K2_CHUNK, stages,
+                          stages * rows * K2_KC + K2_SMEM_EXTRA)
+            tiles = -(-max(batch, 1) // t)
+            waves = -(-tiles // max(1, resident(plan)))
+            key = (waves * rows / c, tiles * c, -t)
+            if best is None or key < best[0]:
+                best = (key, plan)
+    return best[1]
+
+
+def device_plan(batch: int, params: TFHEParams, dev: torch.device,
+                n_limbs: int = N_LIMBS, cb: int | None = None,
+                cluster: int | None = None) -> K2Plan:
+    """The plan K2 launches with on ``dev``: :func:`k2_plan` with the
+    card's SM count and the clusters it runs at once, as
+    ``cudaOccupancyMaxActiveClusters`` reports them."""
+    with torch.cuda.device(dev):
+        index = torch.cuda.current_device()
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+
+        def resident(p):
+            key = (index, n_limbs, p)
+            if key not in _RESIDENT:
+                _RESIDENT[key] = k2_max_clusters(p, n_limbs)
+            return _RESIDENT[key]
+
+        return k2_plan(batch, params, sms, n_limbs, cb, cluster, resident)
+
+
+_RESIDENT: dict = {}
 
 
 def unsupported(params: TFHEParams, otf: bool) -> str | None:
     """Why the CUDA kernel (K1 if ``otf`` else K2) cannot serve ``params``,
     or None when it can."""
     b, l, n = params.bsk_base_log, params.bsk_level, params.poly_size
+    rows_n = (params.glwe_dim + 1) * l * n
     if b > 8:
         return f"bsk_base_log {b} > 8 does not fit int8 digits"
     if b * l >= 32:
         return f"bsk_base_log * bsk_level = {b * l} >= 32"
     if n % 32:
         return f"poly_size {n} is not a multiple of 32"
-    smem = smem_bytes(params, otf, min(TILES))
-    if smem > SMEM_MAX:
-        return (f"one ciphertext needs {smem} B of shared memory > "
-                f"{SMEM_MAX}")
+    if otf:
+        smem = smem_bytes(params, min(TILES))
+        if smem > SMEM_MAX:
+            return (f"one ciphertext needs {smem} B of shared memory > "
+                    f"{SMEM_MAX}")
+        return None
+    if rows_n % K2_KC:
+        return f"rows·N = {rows_n} is not a multiple of {K2_KC}"
+    if not k2_clusters(params):
+        return (f"(k+1)·N = {(params.glwe_dim + 1) * n} is not a multiple "
+                f"of {K2_CHUNK}")
     return None
 
 
-def pick_tile(batch: int, params: TFHEParams, otf: bool, sms: int) -> int:
-    """Ciphertexts per block: the largest tile that fits shared memory and
-    still gives every SM a block; else the smallest (most blocks)."""
-    fit = [c for c in TILES if smem_bytes(params, otf, c) <= SMEM_MAX]
+def pick_tile(batch: int, params: TFHEParams, sms: int) -> int:
+    """K1's ciphertexts per block: the largest tile that fits shared memory
+    and still gives every SM a block; else the smallest (most blocks)."""
+    fit = [c for c in TILES if smem_bytes(params, c) <= SMEM_MAX]
     if not fit:
         raise ValueError(f"no batch tile fits shared memory at {params}")
     for c in fit:
@@ -192,13 +296,12 @@ def pick_tile(batch: int, params: TFHEParams, otf: bool, sms: int) -> int:
     return fit[-1]
 
 
-def _launch(otf: bool, b_init, a_t, test_polys, kernels,
-            params: TFHEParams, tile: int | None) -> torch.Tensor:
-    from . import _build
-
+def _check(otf: bool, b_init, a_t, test_polys, kernels,
+           params: TFHEParams) -> int:
+    """Validate a launch's operands; returns the number of limbs."""
     dev = test_polys.device
     k1, n, l = params.glwe_dim + 1, params.poly_size, params.bsk_level
-    rows, b = k1 * l, params.bsk_base_log
+    rows = k1 * l
     batch = test_polys.shape[0]
     steps = a_t.shape[0]
     for name, x, dt in (("b_init", b_init, I32), ("a_t", a_t, I32),
@@ -211,8 +314,8 @@ def _launch(otf: bool, b_init, a_t, test_polys, kernels,
         n_limbs = kernels.shape[1] // k1
         want = (steps, n_limbs * k1, rows, 2 * n)
     else:
-        n_limbs = kernels.shape[2] // (k1 * n)
-        want = (steps, rows * n, n_limbs * k1 * n)
+        n_limbs = kernels.shape[1] // (k1 * n)
+        want = (steps, n_limbs * k1 * n, rows * n)
     if (tuple(b_init.shape) != (batch, 1)
             or tuple(a_t.shape) != (steps, batch, 1)
             or tuple(test_polys.shape) != (batch, n)
@@ -226,35 +329,91 @@ def _launch(otf: bool, b_init, a_t, test_polys, kernels,
         why = "keys are not 16-byte aligned"
     if why is not None:
         raise ValueError(f"the fused CUDA kernel cannot serve {params}: {why}")
+    return n_limbs
+
+
+def _raise_on(err: int) -> None:
+    if err != 0:
+        from . import _build
+        msg = _build.library().fbr_error_string(err)
+        raise RuntimeError(f"fused blind rotation launch failed: "
+                           f"{ctypes.string_at(msg).decode()} ({err})")
+
+
+def _launch_k1(b_init, a_t, test_polys, kernels, params: TFHEParams,
+               tile: int | None) -> torch.Tensor:
+    from . import _build
+
+    n_limbs = _check(True, b_init, a_t, test_polys, kernels, params)
+    dev = test_polys.device
+    k1, n = params.glwe_dim + 1, params.poly_size
+    batch, steps = test_polys.shape[0], a_t.shape[0]
     if batch == 0 or steps == 0:
         return _init_acc(b_init, test_polys, params)
     out = torch.empty((k1, batch, n), dtype=I32, device=dev)
     with torch.cuda.device(dev):
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        tile = pick_tile(batch, params, otf, sms) if tile is None else tile
-        smem = smem_bytes(params, otf, tile)
+        tile = pick_tile(batch, params, sms) if tile is None else tile
+        smem = smem_bytes(params, tile)
         if tile not in TILES or smem > SMEM_MAX:
             raise ValueError(f"batch tile {tile} not in {TILES} or "
                              f"{smem} B of shared memory > {SMEM_MAX}")
         threads = min(512, k1 * n // 4)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _build.library().fbr_blind_rotate(
-            int(otf), b_init.data_ptr(), a_t.data_ptr(),
-            test_polys.data_ptr(), kernels.data_ptr(), out.data_ptr(),
-            steps, batch, n, k1, l, b, n_limbs, tile, threads, smem, stream)
-    if err != 0:
-        msg = _build.library().fbr_error_string(err)
-        raise RuntimeError(f"fused blind rotation launch failed: "
-                           f"{ctypes.string_at(msg).decode()} ({err})")
-    LAUNCHES["k1" if otf else "k2"] += 1
+        err = _build.library().fbr_k1_blind_rotate(
+            b_init.data_ptr(), a_t.data_ptr(), test_polys.data_ptr(),
+            kernels.data_ptr(), out.data_ptr(), steps, batch, n, k1,
+            params.bsk_level, params.bsk_base_log, n_limbs, tile, threads,
+            smem, stream)
+    _raise_on(err)
+    LAUNCHES["k1"] += 1
     return out
 
 
-def _dispatch(otf: bool, b_init, a_t, test_polys, kernels,
-              params: TFHEParams, batch_tile: int | None) -> torch.Tensor:
-    if test_polys.device.type != "cpu":
-        return _launch(otf, b_init, a_t, test_polys, kernels, params,
-                       batch_tile)
+def _launch_k2(b_init, a_t, test_polys, kernels, params: TFHEParams,
+               cb: int | None, cluster: int | None) -> torch.Tensor:
+    from . import _build
+
+    n_limbs = _check(False, b_init, a_t, test_polys, kernels, params)
+    dev = test_polys.device
+    k1, n = params.glwe_dim + 1, params.poly_size
+    batch, steps = test_polys.shape[0], a_t.shape[0]
+    if cb is not None and cb not in K2_TILES:
+        raise ValueError(f"batch tile {cb} not in {K2_TILES}")
+    if cluster is not None and cluster not in k2_clusters(params):
+        raise ValueError(f"cluster {cluster} not in {k2_clusters(params)}")
+    if batch == 0 or steps == 0:
+        return _init_acc(b_init, test_polys, params)
+    out = torch.empty((k1, batch, n), dtype=I32, device=dev)
+    plan = device_plan(batch, params, dev, n_limbs, cb, cluster)
+    with torch.cuda.device(dev):
+        tiles = -(-batch // plan.cb)
+        dig = torch.empty((tiles * plan.cb, k1 * params.bsk_level * n),
+                          dtype=torch.int8, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _build.library().fbr_k2_blind_rotate(
+            b_init.data_ptr(), a_t.data_ptr(), test_polys.data_ptr(),
+            kernels.data_ptr(), out.data_ptr(), dig.data_ptr(), steps, batch,
+            n, k1, params.bsk_level, params.bsk_base_log, n_limbs, plan.cb,
+            plan.cluster, plan.stages, plan.smem, stream)
+    _raise_on(err)
+    LAUNCHES["k2"] += 1
+    return out
+
+
+def k2_max_clusters(plan: K2Plan, n_limbs: int = N_LIMBS) -> int:
+    """Clusters of ``plan`` the current card runs at once
+    (``cudaOccupancyMaxActiveClusters``)."""
+    from . import _build
+
+    count = ctypes.c_int(0)
+    _raise_on(_build.library().fbr_k2_max_clusters(
+        n_limbs, plan.cb, plan.cluster, plan.smem, ctypes.byref(count)))
+    return count.value
+
+
+def _plain_slices(otf: bool, b_init, a_t, test_polys, kernels,
+                  params: TFHEParams, batch_tile: int | None):
     plain = blind_rotate_k1_plain if otf else blind_rotate_k2_plain
     batch = test_polys.shape[0]
     step = batch_tile or max(batch, 1)
@@ -266,17 +425,28 @@ def _dispatch(otf: bool, b_init, a_t, test_polys, kernels,
 
 
 def blind_rotate_k2(b_init, a_t, test_polys, kernels, params: TFHEParams,
-                    batch_tile: int | None = None) -> torch.Tensor:
-    """K2 ("fused"): keys [n, rows·N, L·(k+1)·N] int8 -> ACC [k+1, B, N]."""
-    return _dispatch(False, b_init, a_t, test_polys, kernels, params,
-                     batch_tile)
+                    batch_tile: int | None = None,
+                    cluster: int | None = None) -> torch.Tensor:
+    """K2 ("fused"): keys [n, L·(k+1)·N, rows·N] int8 -> ACC [k+1, B, N].
+
+    ``batch_tile``: ciphertexts per tile (CPU: per plain slice; CUDA: per
+    cluster, one of ``K2_TILES``); ``cluster``: CTAs per tile.  Both
+    default to :func:`k2_plan`'s choice."""
+    if test_polys.device.type != "cpu":
+        return _launch_k2(b_init, a_t, test_polys, kernels, params,
+                          batch_tile, cluster)
+    return _plain_slices(False, b_init, a_t, test_polys, kernels, params,
+                         batch_tile)
 
 
 def blind_rotate_k1(b_init, a_t, test_polys, kernels, params: TFHEParams,
                     batch_tile: int | None = None) -> torch.Tensor:
     """K1 ("fused_otf"): keys [n, L·(k+1), rows, 2N] int8 -> ACC."""
-    return _dispatch(True, b_init, a_t, test_polys, kernels, params,
-                     batch_tile)
+    if test_polys.device.type != "cpu":
+        return _launch_k1(b_init, a_t, test_polys, kernels, params,
+                          batch_tile)
+    return _plain_slices(True, b_init, a_t, test_polys, kernels, params,
+                         batch_tile)
 
 
 def blind_rotate_fused(b_init, a_t, test_polys, kernels, params: TFHEParams,
@@ -285,9 +455,9 @@ def blind_rotate_fused(b_init, a_t, test_polys, kernels, params: TFHEParams,
 
     ``b_init``: [B, 1] int32 initial amounts ((2N − b~) mod 2N); ``a_t``:
     [n, B, 1] int32 per-step amounts in [0, 2N); ``test_polys``: [B, N]
-    int32; ``kernels``: K2's [n, rows·N, L·(k+1)·N] or K1's
+    int32; ``kernels``: K2's [n, L·(k+1)·N, rows·N] or K1's
     [n, L·(k+1), rows, 2N] int8.  ``batch_tile``: ciphertexts per tile
-    (CPU: per slice; CUDA: per block, default chosen by shared memory);
-    the last tile may be ragged."""
+    (CPU: per slice; CUDA: per K1 block or K2 cluster, default chosen from
+    shared memory and the SM count); the last tile may be ragged."""
     fn = blind_rotate_k1 if kernels.ndim == 4 else blind_rotate_k2
     return fn(b_init, a_t, test_polys, kernels, params, batch_tile)

@@ -12,8 +12,9 @@ launch.  When every level ran it decrypts and checks the outputs against
 under ``torch.profiler``: the device's busy time, its idle share between the
 first and the last kernel, and the kernels with the most device time.
 ``--tile-sweep`` (CUDA only) times the kernel at the most common level shape
-for every batch tile that fits shared memory, and requires every tile's
-output to be the same.  Prints one JSON object as its last line.
+over its launch knobs: K1's batch tiles that fit shared memory, K2's
+(ciphertexts per tile, CTAs per cluster) plans; every setting's output must
+be the same.  Prints one JSON object as its last line.
 """
 
 from __future__ import annotations
@@ -163,13 +164,15 @@ def trace_levels(ex: CircuitExecutor, buf: torch.Tensor, levels: int,
 
 
 def tile_sweep(ex: CircuitExecutor, batch: int, reps: int = 2) -> dict:
-    """The fast keys' kernel at ``batch`` ciphertexts over every batch tile
-    that fits shared memory: ms per launch (CUDA events, after a warm-up
-    launch).  Every tile's output must equal the first one's."""
+    """The fast keys' kernel at ``batch`` ciphertexts over its launch
+    knobs: K1's batch tiles that fit shared memory, or every K2 (tile,
+    cluster) plan.  ms per launch (CUDA events, after a warm-up launch);
+    every setting's output must equal the first one's."""
     from ..ops import fused_blind_rotate as fbr
 
     params, dev = ex.params, ex.device
     otf = ex.fast_keys.orientation == "fused_otf"
+    kern = ex.fast_keys.bsk_kernels
     n, N = params.lwe_dim, params.poly_size
     g = torch.Generator(device=dev).manual_seed(11)
     b_init = torch.randint(0, 2 * N, (batch, 1), generator=g, device=dev,
@@ -179,29 +182,35 @@ def tile_sweep(ex: CircuitExecutor, batch: int, reps: int = 2) -> dict:
     tvs = torch.randint(-2 ** 31, 2 ** 31, (batch, N), generator=g,
                         device=dev, dtype=torch.int32)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    if otf:
+        knobs = {str(t): dict(batch_tile=t) for t in fbr.TILES
+                 if fbr.smem_bytes(params, t) <= fbr.SMEM_MAX}
+        default = str(fbr.pick_tile(batch, params, sms))
+    else:
+        knobs = {f"{cb}x{c}": dict(batch_tile=cb, cluster=c)
+                 for cb in fbr.K2_TILES for c in fbr.k2_clusters(params)}
+        plan = fbr.device_plan(batch, params, dev)
+        default = f"{plan.cb}x{plan.cluster}"
+    fn = fbr.blind_rotate_k1 if otf else fbr.blind_rotate_k2
     res, first = {}, None
-    for tile in fbr.TILES:
-        if fbr.smem_bytes(params, otf, tile) > fbr.SMEM_MAX:
-            continue
+    for name, kw in knobs.items():
         def call():
-            return fbr.blind_rotate_fused(b_init, a_t, tvs,
-                                          ex.fast_keys.bsk_kernels, params,
-                                          batch_tile=tile)
+            return fn(b_init, a_t, tvs, kern, params, **kw)
         out = call()
         torch.cuda.synchronize(dev)
         if first is None:
             first = out
         elif not torch.equal(out, first):
-            raise RuntimeError(f"batch tile {tile} changes the output")
+            raise RuntimeError(f"launch knobs {name} change the output")
         start = _stamp(dev)
         for _ in range(reps):
             call()
         end = _stamp(dev)
         torch.cuda.synchronize(dev)
-        res[str(tile)] = {"blocks": -(-batch // tile),
-                          "ms": _ms(start, end) / reps}
-    return {"ciphertexts": batch, "default_tile":
-            fbr.pick_tile(batch, params, otf, sms), "by_tile": res}
+        tile = kw["batch_tile"]
+        ctas = -(-batch // tile) * kw.get("cluster", 1)
+        res[name] = {"ctas": ctas, "ms": _ms(start, end) / reps}
+    return {"ciphertexts": batch, "default": default, "by_knobs": res}
 
 
 def profile_program(prog, params, batch: int, orientation: str,
