@@ -10,19 +10,22 @@ Phases, each printed with what ran and how long it took:
 2. build of the CUDA kernels from ``tfhe_fbs_map_tpu_torch/ops/csrc``;
 3. each fused blind-rotation kernel (K1 ``fused_otf``, K2 ``fused``)
    against its plain PyTorch version on the same inputs, bitwise, at
-   several parameter shapes, limb drop and ragged batch tiles: K1 at every
-   batch tile, K2 at every (tile, cluster) plan ``k2_plan`` picks for the
-   main path's batch sizes and at every plan of one 1024-ciphertext level;
+   several parameter shapes, limb drop and ragged batch tiles: each at
+   every plan ``k1_plan`` / ``k2_plan`` picks for the main path's batch
+   sizes and at every plan of one 1024-ciphertext level;
 4. the fast functional bootstrap through each kernel against the generic
    exact bootstrap at the ``aes128_p4`` preset, and each kernel against
    its plain version at a main-path level's shape (n=578, B=1024), bitwise,
-   with both times;
+   with both times and the least time the card could take (the larger of
+   its int8 operations over the data sheet's 1,979 TOP/s and its bytes over
+   3.35 TB/s);
 5. the main path: the runtime CLI on the mapped AES-128 program, once with
    ``--orientation auto`` (K2 when its key matrices fit) and once with
    ``fused_otf`` (K1), each required bit-exact and to have launched its
    kernel.
 
-Before the last line it prints one JSON object with a row per kernel and
+Before the last line it prints one JSON object with a row per kernel (no
+PyTorch call computes the n-step recurrence, so ``library_ms`` is null) and
 the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
 on any failure, without a CUDA device, or away from a checkout of the repo.
@@ -51,6 +54,9 @@ SOURCE = {"k2": "tfhe_fbs_map_tpu_torch/ops/csrc/fused_blind_rotate_k2.cu",
 LEVEL_BATCH = 1024
 # timed kernel launches per measurement
 REPS = 3
+# the H100 SXM data sheet's dense int8 rate and memory rate
+PEAK_INT8_OPS = 1979e12
+PEAK_BYTES = 3.35e12
 
 
 def log(msg: str) -> None:
@@ -122,33 +128,50 @@ def report(kern: str, label: str, err: int, worst: dict) -> None:
 
 
 def check_k1(fbr, presets, worst: dict) -> None:
-    """Phase 3, K1: bitwise against its plain version on the CPU."""
+    """Phase 3, K1: bitwise against its plain version on the card, at the
+    plans k1_plan picks and at every plan of one 1024-ciphertext level."""
     import torch
 
     aes = presets["aes128_p4"][0]
     test = presets["test"][0]
-    # (label, params, steps, batch, limbs, batch tiles)
+    batches = (21, 64, 512, 1024, 2048)
+    every = [(cb, c, w) for cb in fbr.K1_TILES for w in fbr.K1_WIDTHS
+             if fbr.k1_fits(cb, w, 4) for c in fbr.k1_clusters(aes, w)]
+    # (label, params, steps, limbs, forced (cb, cluster, nw) at batch)
     cases = [
-        ("test", test, test.lwe_dim, 21, 4, (None, 1, 2, 4, 8)),
-        ("aes128_p4 n=8", aes, 8, 21, 4, (None, 2, 4, 8)),
-        ("aes128_p4 n=8 bsk_limbs=3", aes, 8, 21, 3, (None,)),
-        ("k=1 N=1024 l=3 b=6", shape_params(1, 1024, 3, 6), 8, 21, 4,
-         (None, 4)),
-        ("k=1 N=2048 l=3 b=7", shape_params(1, 2048, 3, 7), 4, 21, 4,
-         (None, 4)),
+        ("test", test, test.lwe_dim, 4, {}),
+        ("aes128_p4 n=8", aes, 8, 4, {1024: every}),
+        ("aes128_p4 n=8 bsk_limbs=3", aes, 8, 3, {}),
+        ("p16 n=8", presets["p16"][0], 8, 4, {}),
+        ("fam1 k=1 N=1024 l=3 b=6 n=8", shape_params(1, 1024, 3, 6), 8, 4,
+         {}),
+        ("fam2 k=2 N=512 l=4 b=5 n=8", shape_params(2, 512, 4, 5), 8, 4,
+         {}),
+        # native p32, at the largest N K1 serves
+        (f"k=1 N={fbr.K1_MAX_N} l=3 b=7 n=8",
+         shape_params(1, fbr.K1_MAX_N, 3, 7), 8, 4, {}),
     ]
-    for label, params, steps, batch, limbs, tiles in cases:
-        args = kernel_inputs(params, steps, batch, limbs, True, seed=5)
-        plain = fbr.blind_rotate_k1_plain(*args, params)
-        dev = [x.cuda() for x in args]
-        for tile in tiles:
-            if tile is not None and \
-                    fbr.smem_bytes(params, tile) > fbr.SMEM_MAX:
-                continue
-            got = fbr.blind_rotate_k1(*dev, params, batch_tile=tile)
-            torch.cuda.synchronize()
-            err = int((got.cpu().long() - plain.long()).abs().max())
-            report("k1", f"{label} B={batch} tile={tile}", err, worst)
+    for label, params, steps, limbs, forced in cases:
+        for batch in batches:
+            args = kernel_inputs(params, steps, batch, limbs, True, seed=5)
+            dev = [x.cuda() for x in args]
+            plain = fbr.blind_rotate_k1_plain(*dev, params)
+            plans = [(None, None, None)] + forced.get(batch, [])
+            for cb, cluster, nw in plans:
+                plan = fbr.k1_device_plan(batch, params, dev[0].device,
+                                          limbs, cb, cluster, nw)
+                fit = fbr.k1_max_clusters(plan, limbs)
+                stages, smem = fbr.k1_layout(plan, limbs)
+                got = fbr.blind_rotate_k1(*dev, params, batch_tile=cb,
+                                          cluster=cluster, nw=nw)
+                torch.cuda.synchronize()
+                err = int((got.long() - plain.long()).abs().max())
+                report("k1", f"{label} B={batch} plan cb={plan.cb} "
+                       f"cluster={plan.cluster} nw={plan.nw} "
+                       f"stages={stages} smem={smem} "
+                       f"({'default' if cb is None else 'forced'}; "
+                       f"{fit} clusters fit at once)", err, worst)
+            del dev, plain
 
 
 def check_k2(fbr, presets, worst: dict) -> None:
@@ -198,6 +221,24 @@ def check_kernels(fbr, presets) -> dict:
     check_k1(fbr, presets, worst)
     check_k2(fbr, presets, worst)
     return worst
+
+
+def bound_ms(params, steps: int, batch: int, keys) -> tuple[float, str]:
+    """The least time the card could take for one fused blind rotation:
+    the larger of its int8 operations (2 per MAC of the digits [B, rows·N]
+    by every step's [rows·N, L·(k+1)·N] key matrix) over the int8 peak and
+    its bytes (keys, b_init, a_t and test polynomials read once, ACC written
+    once) over the memory rate; and which of the two it is."""
+    k1, N = params.glwe_dim + 1, params.poly_size
+    rows_n = k1 * params.bsk_level * N
+    limbs = (keys.shape[1] // k1 if keys.ndim == 4
+             else keys.shape[1] // (k1 * N))
+    ops = 2 * steps * batch * rows_n * limbs * k1 * N
+    nbytes = (keys.numel() + 4 * (batch + steps * batch + batch * N)
+              + 4 * k1 * batch * N)
+    t_ops, t_bytes = ops / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return ((t_ops, "operations") if t_ops >= t_bytes
+            else (t_bytes, "bytes"))
 
 
 def check_bootstrap(presets, worst: dict) -> dict:
@@ -257,17 +298,18 @@ def check_bootstrap(presets, worst: dict) -> dict:
                                           fast.bsk_kernels, params), REPS)
         p_ms, p_out = cuda_ms(lambda: pfn(b_init, a_t, tv_l,
                                           fast.bsk_kernels, params), 1)
-        timing[kern] = (k_ms, p_ms)
+        b_ms, b_by = bound_ms(params, params.lwe_dim, LEVEL_BATCH,
+                              fast.bsk_kernels)
+        timing[kern] = (k_ms, p_ms, b_ms, b_by)
         err = int((k_out.long() - p_out.long()).abs().max())
         worst[kern] = max(worst[kern], err)
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
-        tile = (f"tile {fbr.pick_tile(LEVEL_BATCH, params, sms)}"
-                if kern == "k1" else
-                str(fbr.device_plan(LEVEL_BATCH, params, dev)))
+        plan = (fbr.k1_device_plan if kern == "k1"
+                else fbr.device_plan)(LEVEL_BATCH, params, dev)
         log(f"  {kern} at aes128_p4, n={params.lwe_dim}, B={LEVEL_BATCH} "
-            f"({tile}): {'bitwise equal' if err == 0 else 'MISMATCH'} "
+            f"({plan}): {'bitwise equal' if err == 0 else 'MISMATCH'} "
             f"to its plain version (max_abs_err {err}); kernel "
-            f"{k_ms:.3f} ms, plain version {p_ms:.3f} ms")
+            f"{k_ms:.3f} ms, plain version {p_ms:.3f} ms, bound "
+            f"{b_ms:.3f} ms ({b_by})")
         if err or not torch.equal(k_out, p_out):
             raise SystemExit(f"{kern} disagrees with its plain version at "
                              f"the main path's level shape")
@@ -343,7 +385,7 @@ def main(argv=None) -> int:
     log(f"[build] {lib.name} in {time.time() - t0:.1f} s")
     for line in _build.build_log.splitlines():
         if any(w in line for w in ("entry function", "registers", "spill",
-                                   "smem")):
+                                   "smem", "warning")):
             log(f"  ptxas: {line.strip()}")
 
     # --- 3. kernels against their plain versions ---------------------------
@@ -372,7 +414,8 @@ def main(argv=None) -> int:
         {"name": name, "route": "cuda", "source": SOURCE[kern],
          "replaces": REPLACES[kern], "launches": runs[kern]["launches"],
          "max_abs_err": worst[kern], "ms": timing[kern][0],
-         "plain_ms": timing[kern][1]}
+         "plain_ms": timing[kern][1], "bound_ms": timing[kern][2],
+         "bound_by": timing[kern][3], "library_ms": None}
         for kern, name in (("k2", "fused_blind_rotate_k2"),
                            ("k1", "fused_blind_rotate_k1"))]}))
     log(smi)

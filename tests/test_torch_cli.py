@@ -109,7 +109,8 @@ def test_auto_orientation_by_free_memory():
     ("bsk_base_log", 9, None),      # digits no longer fit int8
     ("bsk_level", 4, None),         # b·l = 32
     ("poly_size", 16, None),        # N not a multiple of 32
-    ("poly_size", 8192, "fused"),   # K1's extensions overflow shared memory
+    ("poly_size", 8192, "fused"),   # above the largest N K1 is checked at
+    ("poly_size", 64, "fused"),     # K1's contraction slices need N % 256
 ])
 def test_auto_orientation_refuses_what_no_kernel_serves(field, value, auto):
     """On CUDA ``auto`` picks a kernel that can serve the parameters or

@@ -172,7 +172,8 @@ def test_cuda_wrapper_checks_inputs():
         tfbr._launch_k2(b_init.long(), a_t, tvs, fast.bsk_kernels, params,
                         None, None)
     with pytest.raises(ValueError):
-        tfbr._launch_k1(b_init, a_t, tvs, fast.bsk_kernels, params, None)
+        tfbr._launch_k1(b_init, a_t, tvs, fast.bsk_kernels, params, None,
+                        None, None)
     # the JAX layout (not K-major) is refused
     with pytest.raises(ValueError):
         tfbr._launch_k2(b_init, a_t, tvs,

@@ -6,6 +6,9 @@ JAX is not installed:
 """
 
 import json
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -45,32 +48,34 @@ def operands(params, batch, otf, seed):
     return [torch.from_numpy(x) for x in (b_init, a_t, tvs, keys)]
 
 
-# K1 over its batch tiles; K2 at each plan k2_plan picks (132 SMs) for the
-# main path's batch sizes, forced where the card has another SM count
-K2_PLANS = sorted({(b, p.cb, p.cluster) for b in (1, 21, 64, 512, 1024)
+# each kernel at the plans k1_plan / k2_plan pick (132 SMs) for the main
+# path's batch sizes, forced where the card has another SM count
+BATCHES = (1, 21, 64, 512, 1024)
+K1_PLANS = sorted({(b, p.cb, p.cluster, p.nw) for b in BATCHES
+                   for p in [fbr.k1_plan(b, TEST_PARAMS, 132)]})
+K2_PLANS = sorted({(b, p.cb, p.cluster) for b in BATCHES
                    for p in [fbr.k2_plan(b, TEST_PARAMS, 132)]})
 
 
 @pytest.mark.parametrize("otf,batch,plan",
-                         [(True, 21, None)]
+                         [(True, b, (cb, c, w)) for b, cb, c, w in K1_PLANS]
                          + [(False, b, (cb, c)) for b, cb, c in K2_PLANS])
 def test_kernel_equals_plain_every_tile(cuda, otf, batch, plan):
     args = operands(TEST_PARAMS, batch, otf, seed=1)
     dev = [x.to(cuda) for x in args]
     key = "k1" if otf else "k2"
     if otf:
-        plain = fbr.blind_rotate_fused(*args, TEST_PARAMS)
-        runs = [dict(batch_tile=t) for t in (None,) + fbr.TILES]
+        plain = fbr.blind_rotate_k1_plain(*dev, TEST_PARAMS).cpu()
+        kw = dict(batch_tile=plan[0], cluster=plan[1], nw=plan[2])
     else:
         plain = fbr.blind_rotate_k2_plain(*dev, TEST_PARAMS).cpu()
-        runs = [dict(batch_tile=plan[0], cluster=plan[1])]
-    for kw in runs:
-        before = fbr.LAUNCHES[key]
-        fn = fbr.blind_rotate_k1 if otf else fbr.blind_rotate_k2
-        got = fn(*dev, TEST_PARAMS, **kw)
-        torch.cuda.synchronize()
-        assert fbr.LAUNCHES[key] == before + 1
-        assert torch.equal(got.cpu(), plain), kw
+        kw = dict(batch_tile=plan[0], cluster=plan[1])
+    before = fbr.LAUNCHES[key]
+    fn = fbr.blind_rotate_k1 if otf else fbr.blind_rotate_k2
+    got = fn(*dev, TEST_PARAMS, **kw)
+    torch.cuda.synchronize()
+    assert fbr.LAUNCHES[key] == before + 1
+    assert torch.equal(got.cpu(), plain), kw
 
 
 @pytest.mark.parametrize("orientation", ["fused", "fused_otf"])
@@ -93,11 +98,16 @@ def test_fast_bootstrap_on_cuda_equals_generic_on_cpu(cuda, orientation):
 
 
 def test_cli_on_cuda(cuda, tmp_path, capsys):
-    from tfhe_fbs_map_tpu.frontend.circuits import build_bench
+    from tfhe_fbs_map_tpu_torch.frontend import BitCircuit
     from tfhe_fbs_map_tpu_torch.runtime.cli import main
+    fa = BitCircuit()
+    a, b, cin = (fa.add_input(n) for n in ("a", "b", "cin"))
+    p = fa.xor_(a, b)
+    fa.set_output("out", fa.xor_(p, cin))
+    fa.set_output("cout", fa.or_(fa.and_(a, b), fa.and_(p, cin)))
     blif = tmp_path / "fa.blif"
     with open(blif, "w") as f:
-        build_bench("full_adder").to_blif(f, model_name="fa")
+        fa.to_blif(f, model_name="fa")
     for orientation, key in (("fused", "k2"), ("fused_otf", "k1")):
         before = fbr.LAUNCHES[key]
         rc = main([str(blif), "--map", "--batch", "4", "--test-params",
@@ -105,3 +115,54 @@ def test_cli_on_cuda(cuda, tmp_path, capsys):
         res = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
         assert rc == 0 and res["bit_exact"]
         assert fbr.LAUNCHES[key] > before
+
+
+@pytest.mark.parametrize("limbs", [4, 3, 2, 1])
+def test_k1_layout_fits_the_card(cuda, limbs):
+    """The kernel sizes its ring: 4-6 stages in the 227 KB a CTA may have,
+    for every (tile, width) it is instantiated for."""
+    for cb in fbr.K1_TILES:
+        for nw in fbr.K1_WIDTHS:
+            if not fbr.k1_fits(cb, nw, limbs):
+                continue
+            stages, smem = fbr.k1_layout(fbr.K1Plan(cb, 1, nw), limbs)
+            assert 4 <= stages <= 6 and 0 < smem <= fbr.SMEM_MAX
+            assert fbr.k1_max_clusters(fbr.K1Plan(cb, 2, nw), limbs) >= 1
+
+
+GIVE_UP = """
+import sys
+import torch
+from tfhe_fbs_map_tpu_torch.ops import _build, fused_blind_rotate as fbr
+from tfhe_fbs_map_tpu_torch.tfhe import TEST_PARAMS as P
+path = _build.BUILD_DIR / "k1_spin0" / "k1.so"
+_build.compile_library([_build.CSRC / "fused_blind_rotate.cu"], path,
+                       ("-DFBR_SPIN=0",))
+lib = _build.bind(path, k2=False)
+g = torch.Generator(device="cuda").manual_seed(3)
+N, k1, rows = P.poly_size, P.glwe_dim + 1, (P.glwe_dim + 1) * P.bsk_level
+def rand(lo, hi, shape, dtype):
+    return torch.randint(lo, hi, shape, generator=g, device="cuda",
+                         dtype=dtype)
+args = (rand(0, 2 * N, (64, 1), torch.int32),
+        rand(0, 2 * N, (P.lwe_dim, 64, 1), torch.int32),
+        rand(-2 ** 31, 2 ** 31, (64, N), torch.int32),
+        rand(-128, 128, (P.lwe_dim, 4 * k1, rows, 2 * N), torch.int8))
+try:
+    fbr._launch_k1(*args, P, None, None, None, lib)
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("launch failed:", e)
+    sys.exit(3)
+print("launch succeeded")
+"""
+
+
+def test_k1_wait_that_gives_up_fails_the_launch(cuda):
+    """Built with FBR_SPIN=0, every mbarrier wait of K1 gives up at once: the
+    launch must end with a CUDA error, not with a wrong result.  The trap
+    leaves the process's CUDA context unusable, so it runs in a child."""
+    res = subprocess.run([sys.executable, "-c", GIVE_UP],
+                         cwd=Path(__file__).resolve().parents[1],
+                         capture_output=True, text=True, timeout=900)
+    assert res.returncode == 3, res.stdout + res.stderr

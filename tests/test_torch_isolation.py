@@ -1,5 +1,6 @@
-"""The PyTorch port imports no JAX: every module imports with jax blocked,
-and neither the package nor ``chip_smoke.py`` names it."""
+"""The PyTorch port imports neither JAX nor the JAX package: every module
+imports with both blocked, and neither the package nor ``chip_smoke.py``
+names them."""
 
 import pkgutil
 import re
@@ -12,10 +13,9 @@ import tfhe_fbs_map_tpu_torch
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "tfhe_fbs_map_tpu_torch"
 JAX_IMPORT = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)", re.M)
-# the JAX package's modules that import jax (its frontend is shared)
-JAX_PACKAGE_PARTS = re.compile(
-    r"^\s*(from|import)\s+tfhe_fbs_map_tpu\."
-    r"(tfhe|ops|runtime|optimizer|parallel|utils)\b", re.M)
+# any module of the JAX package, its framework-free frontend included
+JAX_PACKAGE = re.compile(
+    r"^\s*(from|import)\s+tfhe_fbs_map_tpu(?!_torch)\b", re.M)
 
 
 def modules():
@@ -30,11 +30,15 @@ def modules():
 def test_every_module_imports_with_jax_blocked():
     names = modules()
     assert "tfhe_fbs_map_tpu_torch.ops.fused_blind_rotate" in names
+    assert "tfhe_fbs_map_tpu_torch.frontend.mapping.heuristic" in names
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
+            "sys.modules['tfhe_fbs_map_tpu'] = None\n"
             f"for m in {names!r}:\n"
             "    importlib.import_module(m)\n"
-            "assert 'jax' not in [k for k, v in sys.modules.items() if v]\n")
+            "loaded = [k for k, v in sys.modules.items() if v]\n"
+            "assert not [k for k in loaded if k == 'jax'\n"
+            "            or k.split('.')[0] == 'tfhe_fbs_map_tpu'], loaded\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True)
     assert res.returncode == 0, res.stderr
@@ -45,7 +49,7 @@ def test_no_jax_import_in_sources():
     for f in files:
         text = f.read_text()
         assert not JAX_IMPORT.search(text), f
-        assert not JAX_PACKAGE_PARTS.search(text), f
+        assert not JAX_PACKAGE.search(text), f
 
 
 def test_chip_smoke_alone_fails(tmp_path):

@@ -80,7 +80,8 @@ def test_plan_overrides_and_refusals():
     assert fbr.k2_clusters(PRESETS["p16"][0]) == [16, 8, 4, 2, 1]
     bad = TFHEParams(**{**vars(params), "poly_size": 32, "bsk_level": 1})
     assert "multiple of 128" in fbr.unsupported(bad, otf=False)
-    assert fbr.unsupported(bad, otf=True) is None
+    # K1's contraction slices stay inside one row's N block
+    assert f"multiple of {fbr.K1_SLICE}" in fbr.unsupported(bad, otf=True)
 
 
 # ------------------------------------------------ emulation of the kernel

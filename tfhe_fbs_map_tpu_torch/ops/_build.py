@@ -44,50 +44,66 @@ def library_path() -> Path:
     return BUILD_DIR / f"libfbr_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the sources unless a library of the same hash exists."""
-    global build_log
-    path = library_path()
-    if path.exists():
-        return path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def compile_library(sources: list[Path], path: Path,
+                    flags: tuple[str, ...] = ()) -> str:
+    """Compile ``sources`` (one ``nvcc`` each, all started together, with
+    ``csrc/`` on the include path and ``flags`` added) and link them into
+    the shared library ``path``; returns nvcc's output."""
+    path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    sources = sorted(CSRC.glob("*.cu"))
+    cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-I", str(CSRC)]
     objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources]
-    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
-                               str(src)], stdout=subprocess.PIPE,
+    procs = [subprocess.Popen([*cmd, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for src, obj in zip(sources, objs)]
-    logs = [p.communicate()[0] for p in procs]
-    build_log = "".join(logs)
+    log = "".join(p.communicate()[0] for p in procs)
     failed = [p.returncode for p in procs if p.returncode != 0]
     if not failed:
         res = subprocess.run([_nvcc(), "-shared", "-o", str(tmp),
                               *map(str, objs)], capture_output=True,
                              text=True)
-        build_log += res.stdout + res.stderr
+        log += res.stdout + res.stderr
         failed = [res.returncode] if res.returncode != 0 else []
     for obj in objs:
         obj.unlink(missing_ok=True)
     if failed:
-        raise RuntimeError(f"nvcc failed ({failed[0]}):\n{build_log}")
+        raise RuntimeError(f"nvcc failed ({failed[0]}):\n{log}")
     os.replace(tmp, path)
+    return log
+
+
+def build() -> Path:
+    """Compile the sources unless a library of the same hash exists."""
+    global build_log
+    path = library_path()
+    if not path.exists():
+        build_log = compile_library(sorted(CSRC.glob("*.cu")), path)
     return path
+
+
+def bind(path: Path, k2: bool = True) -> ctypes.CDLL:
+    """Load the library at ``path`` and declare its C entries' arguments
+    (``k2=False`` for a library of K1's source alone)."""
+    lib = ctypes.CDLL(str(path))
+    p, i, ip = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    entries = {"fbr_k1_blind_rotate": [p] * 6 + [i] * 10 + [p],
+               "fbr_k1_max_clusters": [i] * 4 + [ip],
+               "fbr_k1_layout": [i] * 3 + [ip, ip],
+               "fbr_error_string": [i]}
+    if k2:
+        entries.update({"fbr_k2_blind_rotate": [p] * 6 + [i] * 11 + [p],
+                        "fbr_k2_max_clusters": [i] * 4 + [ip]})
+    for name, args in entries.items():
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = p if name == "fbr_error_string" else i
+    return lib
 
 
 def library() -> ctypes.CDLL:
     """The kernels' library, built on first call."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.fbr_k1_blind_rotate.argtypes = [p] * 5 + [i] * 10 + [p]
-        lib.fbr_k1_blind_rotate.restype = i
-        lib.fbr_k2_blind_rotate.argtypes = [p] * 6 + [i] * 11 + [p]
-        lib.fbr_k2_blind_rotate.restype = i
-        lib.fbr_k2_max_clusters.argtypes = [i] * 4 + [ctypes.POINTER(i)]
-        lib.fbr_k2_max_clusters.restype = i
-        lib.fbr_error_string.argtypes = [i]
-        lib.fbr_error_string.restype = p
-        _lib = lib
+        _lib = bind(build())
     return _lib

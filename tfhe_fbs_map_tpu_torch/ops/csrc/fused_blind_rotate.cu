@@ -1,26 +1,63 @@
 // K1, the "fused_otf" blind rotation, for Hopper (sm_90a): all n CMux steps
-// in one launch.  K2 ("fused") is in fused_blind_rotate_k2.cu.
+// of a tile of ciphertexts in one launch, the contraction on int8 tensor
+// cores with the key operand built on chip from the compact keys.  K2
+// ("fused") is in fused_blind_rotate_k2.cu; the helpers both use are in
+// fused_blind_rotate.cuh.
 //
 // Replaces _kernel_otf of tfhe_fbs_map_tpu/ops/fused_blind_rotate.py
-// (:160-242): compact anti-periodic limb extensions, keys
-// [n, L*(k+1), rows, 2N] int8.  The TPU ran the n steps as a sequential grid
-// axis over one core; here the step loop sits inside the kernel and one
-// block owns a tile of CB ciphertexts for all n steps, with the tile's
-// accumulator [k+1][CB][N] uint32 and digits [CB][rows*N] int8 in shared
-// memory.  Slots past the batch (the ragged last tile) run a zero
-// ciphertext and are not stored.
+// (:160-242).  Keys: [n, L*(k+1), rows, 2N] int8, the anti-periodic limb
+// extensions E = [limbs(-poly), limbs(poly)] of every (step, limb, comp,
+// row).  Step i's negacyclic matrix is M[(r, j), t] = E[N + t - j], and
+//   ACC[comp] += sum_limb (digits @ M_{limb,comp}) << 8*(limb + drop).
 //
-// Each step: digits of X^{a_i}*ACC - ACC (index reads, biased-add digits),
-// then for every limb and output component
-//   ACC[comp] += (digits @ M_{limb,comp}) << 8*(limb + drop)   (mod 2^32)
-// with int8 x int8 -> int32 dp4a MACs, the negacyclic matrix read straight
-// out of the limb's extensions in shared memory, M[j, t] = E[N + t - j].  A
-// thread owns four adjacent columns of one component for all limbs, so its
-// shared-memory updates never race.
+// A step's key is only L*(k+1)*rows*2N bytes (73.7 KB at the aes128_p4
+// preset, 42.6 MB a launch), so unlike K2 no key matrix is streamed: each
+// CTA builds the tiles of M it needs in shared memory.  The design:
 //
-// Bound on the H100: MACs; its 42.6 MB of keys at the aes128_p4 preset
-// nearly fit the 50 MB L2.  It uses scalar dp4a; tensor cores are later
-// work.
+// * Digits reversed within each row's N block (j' = N-1-j, written so by
+//   the digit pass) turn M into a Hankel matrix, B'[t][j'] = E[t + j' + 1]:
+//   row t of B' (K-major, as wgmma wants an int8 B) is a contiguous run of
+//   E, and the 8-row x 16-byte core matrix of B' at (t0, j0') is the block
+//   H[w][i][c] = E[8w + i + 1 + c] with w = (t0 + j0') / 8.  A no-swizzle
+//   wgmma descriptor with core matrices 256 bytes apart along K and 128
+//   bytes apart along N reads any B tile straight out of consecutive H
+//   blocks (they overlap, which reads allow): a ring stage holds, per limb,
+//   the CW/8 + 14 blocks that one 128-byte K slice of a chunk of CW
+//   coefficients touches, 16x the E bytes they come from.
+// * A tile of CB (64 or 128) ciphertexts runs on a thread-block cluster of
+//   C CTAs, as in K2: CTA r owns coefficients [r*span, (r+1)*span) of the
+//   flattened (comp, t) axis, span = (k+1)*N / C, with all L limbs, so the
+//   limb shift-add stays in the CTA.  ACC lives in the output tensor and
+//   the digits in a [tiles*CB, K] int8 scratch; two cluster barriers a
+//   step order them.
+// * Per chunk of CW = 2*NW coefficients, the CTA walks K in 256-byte
+//   slices through a ring of 4-6 stages (as many as shared memory holds),
+//   each the slice's digit rows and H blocks.  Three warpgroups: a
+//   producer (56 registers after setmaxnreg) claims a stage once the
+//   consumers release it, loads its digit rows with TMA (128B swizzle) and
+//   builds its H blocks from E bytes that its first thread bulk-copied into
+//   a ring of 8 shared-memory buffers six builds before (a step's keys come
+//   from device memory the first time); a lane walks a run of blocks for
+//   one (limb, row ii), two new words a row.  The H blocks do not depend on
+//   the digits, so the producer builds the next step's first stages during
+//   the digit pass.  Two consumers (224 registers) each own NW of the
+//   chunk's coefficients and run, per limb and 64-row block, m64n(NW)k32
+//   wgmma s8*s8->s32 with A (digits) and B (H) from shared memory, one
+//   wgmma group in flight; they compute the digit pass and the ACC
+//   epilogue.  Stages pass between them by three mbarriers each (digits
+//   landed, H built, stage consumed), E buffers by one each.
+// * What bounds it on the H100: the ring's hand-offs.  A cycle trace of
+//   one CTA at n=578, B=1024 (plan 64 x 6, nw 64, 128-byte stages) gave
+//   the consumers ~950 cycles of issue an iteration (the tensor cores at
+//   about their peak) and ~830 of waiting for H, and the producer ~505 of
+//   building against ~1,500 of fixed cost (claim, TMA, E fetch and wait);
+//   256-byte stages halve those per product.  The digit pass and the two
+//   cluster barriers are serial around the ring (~20% of a step).
+// * Exactness: |digit| <= 2^(b-1) <= 128, |key| <= 128 and K*2^(b+6) <
+//   2^31 (unsupported() in ops/fused_blind_rotate.py), so each int32 sum
+//   is exact.  The limb shifts and the ACC adds are uint32_t (mod 2^32).
+//   Rows past the batch have zero digits and are never stored.
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -28,132 +65,415 @@
 #include "fused_blind_rotate.cuh"
 
 namespace fbr {
+namespace k1 {
 
-template <int CB>
-__global__ void __launch_bounds__(512)
-blind_rotate_kernel(const int32_t* __restrict__ b_init,
-                    const int32_t* __restrict__ a_t,
-                    const int32_t* __restrict__ tv,
-                    const int8_t* __restrict__ keys,
-                    int32_t* __restrict__ out, int steps, int batch, int n,
-                    int k1, int l, int b, int n_limbs) {
-  extern __shared__ __align__(16) unsigned char smem[];
+constexpr int kSlice = 2 * kKc;  // contraction bytes a ring stage
+constexpr int kMaxStages = 6;    // ring stages, as many as fit up to this
+// dynamic shared memory beside the ring (1024-byte alignment, mbarriers, E
+// buffers) and the static amt[2][CB]
+constexpr int kSmemBeside = 14336;
+constexpr int kSmemStatic = 1024;
+constexpr int kEBufs = 8;   // E buffers
+constexpr int kAhead = 6;   // builds between an E fetch and its build
+constexpr int kProducer = 128;  // the producer warpgroup's threads
+constexpr int kK1Threads = kThreads + kProducer;
+// registers a thread after setmaxnreg: 256 * 224 + 128 * 56 = 384 * 168
+constexpr int kConsumerRegs = 224;
+constexpr int kProducerRegs = 56;
+
+// One ring stage: the slice's two 128-byte columns of MT blocks of 64
+// digit rows (TMA, 128B swizzle, so 1024-aligned), then L limbs of kHB H
+// blocks of 128 bytes: those that a chunk of 2*NW coefficients and kSlice
+// contraction bytes touch, (2*NW - 8 + kSlice - 16) / 8 + 1.  The ring
+// takes as many stages as fit the 227 KB a CTA may have, at most
+// kMaxStages; kSmem is the dynamic shared memory a CTA launches with.  The
+// launch side asks fbr_k1_layout for both.
+template <int L, int MT, int NW>
+struct Stage {
+  static constexpr int kHB = (2 * NW + kSlice) / 8 - 2;  // H blocks a limb
+  static constexpr int kA = 2 * MT * kM * kKc;
+  static constexpr int kH = L * kHB * 128;
+  static constexpr int kBytes = (kA + kH + 1023) / 1024 * 1024;
+  static constexpr int kFit = (232448 - kSmemBeside - kSmemStatic) / kBytes;
+  static constexpr int kStages = kFit < kMaxStages ? kFit : kMaxStages;
+  static constexpr int kSmem = kStages * kBytes + kSmemBeside;
+  static_assert(kStages >= 4, "a ring of fewer than 4 stages");
+  // alignment, 3 mbarriers a stage and 1 an E buffer in 256 bytes, the E
+  // buffers (kEB bytes a limb, see the producer)
+  static_assert(8 * (3 * kMaxStages + kEBufs) <= 256 &&
+                    1023 + 256 + kEBufs * L * (8 * kHB + 16) <= kSmemBeside,
+                "mbarriers and E buffers overflow the bytes beside the ring");
+};
+
+template <int L, int CB, int NW>
+__global__ void __launch_bounds__(kK1Threads, 1)
+k1_kernel(const __grid_constant__ CUtensorMap dig_map,
+          const int32_t* __restrict__ b_init,
+          const int32_t* __restrict__ a_t, const int32_t* __restrict__ tv,
+          const int8_t* __restrict__ keys, int32_t* out, int8_t* dig,
+          int steps, int batch, int n, int k1, int l, int b, int cluster) {
+  constexpr int MT = CB / kM;  // 64-row blocks of the tile
+  constexpr int CW = 2 * NW;   // coefficients a chunk (two warpgroups)
+  constexpr int R = NW / 32;   // wgmma_s8<R> is m64n(NW)k32
+  using St = Stage<L, MT, NW>;
+  constexpr int kS = St::kStages;  // ring stages
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ int amt[2][CB];  // the tile's rotation amounts, a step ahead
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, wrow = (warp & 3) * 16;  // warpgroup, its rows
+  const int rank = static_cast<int>(cluster_rank());
+  const int g0 = (blockIdx.x / cluster) * CB;  // first ciphertext of the tile
+  const int kn = k1 * n;
+  const int span = kn / cluster;  // coefficients this CTA owns
+  const int q_lo = rank * span;
   const int rows = k1 * l;
-  const int rows_n = rows * n;
-  const int elems = k1 * CB * n;
-  uint32_t* acc = reinterpret_cast<uint32_t*>(smem);          // [k1][CB][n]
-  int8_t* dig = reinterpret_cast<int8_t*>(smem + sizeof(uint32_t) * elems);
-  const int* dig32 = reinterpret_cast<const int*>(dig);       // [CB][rows_n]
-  int8_t* ext = dig + CB * rows_n;                    // [k1][rows][2n]
-  const int b0 = blockIdx.x * CB;
-  const int tid = threadIdx.x;
-  const int nthr = blockDim.x;
-  const int drop = 4 - n_limbs;
+  const int K = rows * n;
+  const int nk = K / kSlice;
+  const int chunks = span / CW;
+  const int total = chunks * nk;  // ring iterations a step
+  const int last = steps * total;
+  const int pre = total < kS ? total : kS;
+  const int log_n = __ffs(n) - 1;
+  uint32_t* acc = reinterpret_cast<uint32_t*>(out);  // [k1][batch][n]
+  const uint32_t smem0 = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* smem_gen = smem_raw + (smem0 - smem_u32(smem_raw));
+  // per stage: digits landed (TMA), H built (producer), stage consumed
+  // (one arrival per consumer warp)
+  const uint32_t afull = smem0 + kS * St::kBytes;
+  const uint32_t hfull = afull + 8 * kS, empty = hfull + 8 * kS;
+  bool stuck = false;  // an mbarrier wait gave up: trap once the loops end
 
-  // ACC = (0, ..., 0, X^{b_init} * tv)
-  for (int e = tid; e < elems; e += nthr) {
-    const int c = e / (CB * n), rem = e % (CB * n);
-    const int g = b0 + rem / n, t = rem % n;
-    uint32_t v = 0;
-    if (c == k1 - 1 && g < batch)
-      v = rotated_coef(
-          reinterpret_cast<const uint32_t*>(tv) + static_cast<size_t>(g) * n,
-          t, b_init[g], n);
-    acc[e] = v;
+  if (tid == 0) {
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(afull + 8 * s, 1);
+      mbar_init(hfull + 8 * s, 1);
+      mbar_init(empty + 8 * s, kThreads / 32);
+    }
+    for (int b = 0; b < kEBufs; ++b)  // E buffers' barriers
+      mbar_init(afull + 24 * kS + 8 * b, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  for (int i = 0; i < steps; ++i) {
-    // digits of X^{a_i} * ACC - ACC, row (c*l + lev) of each ciphertext
-    for (int e = tid; e < elems; e += nthr) {
-      const int c = e / (CB * n), rem = e % (CB * n);
-      const int cb = rem / n, t = rem % n, g = b0 + cb;
-      const int a = g < batch ? a_t[static_cast<size_t>(i) * batch + g] : 0;
-      const uint32_t* row = acc + (c * CB + cb) * n;
-      const uint32_t w = biased_digits(rotated_coef(row, t, a, n) - row[t],
-                                       b, l);
-      int8_t* dp = dig + static_cast<size_t>(cb) * rows_n + c * l * n + t;
-      for (int lev = 0; lev < l; ++lev)
-        dp[lev * n] = static_cast<int8_t>(digit_at(w, b, l, lev));
-    }
-    __syncthreads();
-
-    for (int limb = 0; limb < n_limbs; ++limb) {
-      // this limb's extensions for all k+1 output components
-      const uint4* src = reinterpret_cast<const uint4*>(
-          keys + (static_cast<size_t>(i) * n_limbs + limb) * k1 * rows_n * 2);
-      uint4* dst = reinterpret_cast<uint4*>(ext);
-      const int words = k1 * rows_n * 2 / 16;
-      for (int w = tid; w < words; w += nthr) dst[w] = src[w];
-      __syncthreads();
-      const uint32_t shift = 8u * static_cast<uint32_t>(limb + drop);
-      for (int cg = tid; cg < k1 * n / 4; cg += nthr) {
-        const int comp = cg * 4 / n, t0 = cg * 4 % n;
-        int s[CB][4];
-#pragma unroll
-        for (int cb = 0; cb < CB; ++cb)
-#pragma unroll
-          for (int q = 0; q < 4; ++q) s[cb][q] = 0;
-        otf_dot<CB>(s, ext + static_cast<size_t>(comp) * rows_n * 2, t0, n,
-                    rows, dig32);
-#pragma unroll
-        for (int cb = 0; cb < CB; ++cb)
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            acc[(comp * CB + cb) * n + t0 + q] +=
-                static_cast<uint32_t>(s[cb][q]) << shift;
+  // Ring iteration G counts over all steps: step G / total, column chunk
+  // (G % total) / nk, K slice G % nk.
+  if (tid >= kThreads) {
+    // ---- producer warpgroup: E fetches, H builds, digit tiles (TMA)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    const int pt = tid - kThreads;
+    const size_t limb_stride = static_cast<size_t>(k1) * rows * 2 * n;
+    // a ring of kEBufs E buffers of L * kEB bytes after the barriers (16
+    // bytes of slack: the last row's look-ahead words may read 8 bytes
+    // past the last limb); iteration G's bytes are fetched kAhead builds
+    // ahead
+    constexpr int kEB = 8 * St::kHB + 16;
+    // E buffer b's bytes landed (one bulk-copy transaction count a fill)
+    const uint32_t efull = empty + 8 * kS;
+    const uint32_t ebuf = afull + 256;  // 16-aligned, past the barriers
+    const unsigned char* ebuf_gen = smem_gen + (ebuf - smem0);
+    // the next fetch: iteration, step, chunk, slice (counters, no division)
+    int fg = 0, fi = 0, fch = 0, fsl = 0;
+    // the extension bytes of iteration fg, E[t_c + j0' + (0 .. kEB)) of
+    // (step, limb, comp c, row r), t_c the chunk's first coefficient and j0'
+    // the slice's first column (both 16-aligned): one bulk copy a limb by
+    // the producer's first thread, completing on E buffer fg % kEBufs's
+    // barrier
+    auto fetch = [&]() {
+      if (fg < last) {
+        if (pt == 0) {
+          const int q0 = q_lo + fch * CW, x = fsl * kSlice;
+          const int c = q0 >> log_n, r = x >> log_n;
+          const int8_t* e0 =
+              keys +
+              ((static_cast<size_t>(fi) * L * k1 + c) * rows + r) * 2 * n +
+              (q0 & (n - 1)) + (x & (n - 1));
+          const int b = fg % kEBufs;
+          mbar_expect_tx(efull + 8 * b, L * kEB);
+          for (int lb = 0; lb < L; ++lb)
+            bulk_load(ebuf + (b * L + lb) * kEB, e0 + lb * limb_stride, kEB,
+                      efull + 8 * b);
+        }
+        ++fg;
+        if (++fsl == nk) {
+          fsl = 0;
+          if (++fch == chunks) {
+            fch = 0;
+            ++fi;
+          }
+        }
       }
-      __syncthreads();
+    };
+    // wait until the consumers are done with the previous iteration of
+    // G's stage
+    auto claim = [&](int G) {
+      if (G >= kS)
+        mbar_wait_or_give_up(empty + 8 * (G % kS),
+                             ((G / kS) + 1) & 1, stuck);
+    };
+    // the H blocks of iteration G into its (claimed) stage: row ii of block
+    // w is E[8w + ii + 1 ..+16), cut from the 4-byte words around it
+    auto produce_h = [&](int G) {
+      const int s = G % kS;
+      // E of G + kAhead, into the buffer of G - 2, whose build ended at
+      // the barrier closing iteration G - 2
+      fetch();
+      mbar_wait_or_give_up(efull + 8 * (G % kEBufs), (G / kEBufs) & 1,
+                           stuck);  // E of G landed
+      // lane (limb lb, row ii, run r) writes row ii of blocks r*kRun ..,
+      // each 16 bytes 8 further into E than the last: two new words a row;
+      // the 8 lanes of one (lb, r) write whole 128-byte blocks
+      uint4* h = reinterpret_cast<uint4*>(smem_gen + s * St::kBytes + St::kA);
+      const unsigned char* es = ebuf_gen + (G % kEBufs) * L * kEB;
+      constexpr int kRuns = kProducer / 8 / L;           // runs a (lb, ii)
+      constexpr int kRun = (St::kHB + kRuns - 1) / kRuns;  // blocks a run
+      const int ii = pt & 7, q = pt >> 3, lb = q / kRuns, r = q % kRuns;
+      if (lb < L) {
+        const int w0 = r * kRun, off = 8 * w0 + ii + 1;
+        const uint32_t* src = reinterpret_cast<const uint32_t*>(
+            es + lb * kEB + (off & ~3));
+        const uint32_t sh = 8u * static_cast<uint32_t>(off & 3);
+        uint32_t u0 = src[0], u1 = src[1], u2 = src[2], u3 = src[3];
+        uint4* dst = h + (lb * St::kHB + w0) * 8 + ii;
+#pragma unroll
+        for (int j = 0; j < kRun; ++j) {
+          if (w0 + j >= St::kHB) break;
+          const uint32_t u4 = src[4], u5 = src[5];
+          *dst = make_uint4(__funnelshift_r(u0, u1, sh),
+                            __funnelshift_r(u1, u2, sh),
+                            __funnelshift_r(u2, u3, sh),
+                            __funnelshift_r(u3, u4, sh));
+          u0 = u2;
+          u1 = u3;
+          u2 = u4;
+          u3 = u5;
+          src += 2;
+          dst += 8;
+        }
+      }
+      fence_async_shared();
+      named_sync(1, kProducer);  // every thread's H rows are written
+      if (pt == 0) mbar_arrive(hfull + 8 * s);
+    };
+    for (int G = 0; G < kAhead; ++G) fetch();
+    int it = 0;
+    for (int i = 0; i < steps; ++i) {
+      // H of the step's first stages: they do not depend on the digits
+      for (int f = 0; f < pre; ++f) {
+        claim(it + f);
+        produce_h(it + f);
+      }
+      cluster_sync();  // the consumers' ACC of the last step is complete
+      cluster_sync();  // the tile's digits of step i are complete
+      for (int f = 0, sl = 0; f < total; ++f) {
+        const int G = it + f, s = G % kS;
+        if (f >= pre) claim(G);
+        if (pt == 0) {  // the digit rows of G, loading while H is built
+          mbar_expect_tx(afull + 8 * s, St::kA);
+          for (int h = 0; h < 2; ++h)
+            tma_load(smem0 + s * St::kBytes + h * (St::kA / 2), &dig_map,
+                     sl * kSlice + h * kKc, g0, afull + 8 * s);
+        }
+        if (f >= pre) produce_h(G);
+        if (++sl == nk) sl = 0;
+      }
+      it += total;
     }
+    if (stuck) __trap();
+    return;
   }
 
-  for (int e = tid; e < elems; e += nthr) {
-    const int c = e / (CB * n), rem = e % (CB * n);
-    const int g = b0 + rem / n, t = rem % n;
-    if (g < batch)
-      out[(static_cast<size_t>(c) * batch + g) * n + t] =
-          static_cast<int32_t>(acc[e]);
+  // ---- consumer warpgroups: digits, products, ACC
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  const int drop = 4 - L;
+  init_acc(acc, b_init, tv, g0, CB, q_lo, span, batch, n, k1);
+  auto load_amounts = [&](int i) {
+    for (int r = tid; r < CB; r += kThreads)
+      amt[i & 1][r] =
+          g0 + r < batch ? a_t[static_cast<size_t>(i) * batch + g0 + r] : 0;
+  };
+  load_amounts(0);
+
+  int it = 0;  // ring iterations consumed so far, over all steps
+  for (int i = 0; i < steps; ++i) {
+    cluster_sync();  // ACC of the last step is complete; its digits consumed
+    digit_pass<CB, true>(acc, dig, amt[i & 1], g0, q_lo, span, batch, n, l, b,
+                         K);
+    cluster_sync();  // the tile's digits of step i are complete
+
+    // column chunks of CW coefficients, each a pipelined loop over the nk
+    // K slices with the epilogue after it (accumulators untouched inside)
+    int d[MT][L][16 * R];
+    for (int ch = 0, f = 0; ch < chunks; ++ch) {
+      for (int sl = 0; sl < nk; ++sl, ++f) {
+        const int G = it + f, s = G % kS;
+        const uint32_t st = smem0 + s * St::kBytes;
+        mbar_wait_or_give_up(hfull + 8 * s, (G / kS) & 1, stuck);
+        mbar_wait_or_give_up(afull + 8 * s, (G / kS) & 1, stuck);
+        const uint64_t da = sw128_desc(st);
+        // B of warpgroup wg, limb lb, k step k: H blocks from
+        // lb*kHB + wg*NW/8 + 4k, core matrices 256 B apart along K, 128 B
+        // along N
+        const uint32_t hb = st + St::kA + wg * (NW / 8) * 128;
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int k = 0; k < kSlice / 32; ++k)
+#pragma unroll
+          for (int m = 0; m < MT; ++m)
+#pragma unroll
+            for (int lb = 0; lb < L; ++lb)
+              wgmma_s8<R>(d[m][lb],
+                          da + (k / 4) * (St::kA / 2 >> 4) +
+                              m * (kM * kKc >> 4) + 2 * (k % 4),
+                          plain_desc(hb + (lb * St::kHB + 4 * k) * 128, 256,
+                                     128),
+                          sl != 0 || k != 0);
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        // the products of iteration G may still run; those of G - 1 are
+        // done, and its stage goes back to the producer
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        if (sl > 0 && lane == 0) mbar_arrive(empty + 8 * ((G - 1) % kS));
+      }
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      if (lane == 0) mbar_arrive(empty + 8 * ((it + f - 1) % kS));
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int lb = 0; lb < L; ++lb) fence_regs(d[m][lb]);
+      // ACC[comp] += sum_limb P << 8*(limb + drop) on the chunk's columns,
+      // a 64-row block at a time: its loads first, then adds and stores
+      const int q_base = q_lo + ch * CW + wg * NW + (lane & 3) * 2;
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        uint2 old[NW / 8][2];
+#pragma unroll
+        for (int jc = 0; jc < NW / 8; ++jc)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int g = g0 + m * kM + wrow + (lane >> 2) + h * 8;
+            const int q = q_base + jc * 8, c = q >> log_n, t = q & (n - 1);
+            old[jc][h] =
+                g < batch ? __ldcg(reinterpret_cast<const uint2*>(
+                                acc + (static_cast<size_t>(c) * batch + g) *
+                                          n +
+                                t))
+                          : make_uint2(0, 0);
+          }
+#pragma unroll
+        for (int jc = 0; jc < NW / 8; ++jc)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int g = g0 + m * kM + wrow + (lane >> 2) + h * 8;
+            if (g >= batch) continue;
+            const int q = q_base + jc * 8, c = q >> log_n, t = q & (n - 1);
+            uint2 v = old[jc][h];
+#pragma unroll
+            for (int lb = 0; lb < L; ++lb) {  // n8 block jc of limb lb
+              const int e = jc * 4 + 2 * h;
+              const uint32_t sh = 8u * static_cast<uint32_t>(lb + drop);
+              v.x += static_cast<uint32_t>(d[m][lb][e]) << sh;
+              v.y += static_cast<uint32_t>(d[m][lb][e + 1]) << sh;
+            }
+            __stcg(reinterpret_cast<uint2*>(
+                       acc + (static_cast<size_t>(c) * batch + g) * n + t),
+                   v);
+          }
+      }
+    }
+    it += total;
+    if (i + 1 < steps) load_amounts(i + 1);
   }
+  if (stuck) __trap();
 }
 
-template <int CB>
+template <int L, int CB, int NW>
 cudaError_t launch(const void* b_init, const void* a_t, const void* tv,
-                   const void* keys, void* out, int steps, int batch, int n,
-                   int k1, int l, int b, int n_limbs, int threads, int smem,
+                   const void* keys, void* out, void* dig, int steps,
+                   int batch, int n, int k1, int l, int b, int cluster,
                    cudaStream_t stream) {
-  auto kern = blind_rotate_kernel<CB>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int smem = Stage<L, CB / kM, NW>::kSmem;
+  auto kern = k1_kernel<L, CB, NW>;
+  cudaError_t err = prepare_kernel(kern, cluster, smem);
   if (err != cudaSuccess) return err;
-  const int grid = (batch + CB - 1) / CB;
-  kern<<<grid, threads, smem, stream>>>(
-      static_cast<const int32_t*>(b_init), static_cast<const int32_t*>(a_t),
-      static_cast<const int32_t*>(tv), static_cast<const int8_t*>(keys),
-      static_cast<int32_t*>(out), steps, batch, n, k1, l, b, n_limbs);
+  const int tiles = (batch + CB - 1) / CB;
+  const uint64_t K = static_cast<uint64_t>(k1) * l * n;
+  CUtensorMap dig_map;
+  err = encode(&dig_map, dig, K, static_cast<uint64_t>(tiles) * CB, CB);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(
+      tiles * cluster, cluster, smem, attr, stream, kK1Threads);
+  err = cudaLaunchKernelEx(&cfg, kern, dig_map,
+                           static_cast<const int32_t*>(b_init),
+                           static_cast<const int32_t*>(a_t),
+                           static_cast<const int32_t*>(tv),
+                           static_cast<const int8_t*>(keys),
+                           static_cast<int32_t*>(out),
+                           static_cast<int8_t*>(dig), steps, batch, n, k1, l,
+                           b, cluster);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
+}  // namespace k1
 }  // namespace fbr
 
-// C entry: returns the launch's cudaError_t (0 on success).  `tile` is the
-// number of ciphertexts per block, one of 1, 2, 4, 8.
+// (limbs, ciphertexts a tile, coefficients a warpgroup) with at most 128
+// accumulator registers a thread: (CB / 64) * L * NW / 2 <= 128.
+#define FBR_K1_CASES(X)                                                     \
+  X(1, 64, 32) X(1, 64, 64) X(1, 128, 32) X(1, 128, 64) X(2, 64, 32)       \
+  X(2, 64, 64) X(2, 128, 32) X(2, 128, 64) X(3, 64, 32) X(3, 64, 64)       \
+  X(3, 128, 32) X(4, 64, 32) X(4, 64, 64) X(4, 128, 32)
+
+// C entry: returns the launch's cudaError_t (0 on success).  `cb` is the
+// number of ciphertexts per cluster tile (64 or 128), `nw` the coefficients
+// per warpgroup (32 or 64), `cluster` the CTAs per tile, `dig` a
+// [ceil(batch/cb)*cb, K] int8 scratch.
 extern "C" int fbr_k1_blind_rotate(const void* b_init, const void* a_t,
                                    const void* tv, const void* keys,
-                                   void* out, int steps, int batch, int n,
-                                   int k1, int l, int b, int n_limbs,
-                                   int tile, int threads, int smem,
+                                   void* out, void* dig, int steps,
+                                   int batch, int n, int k1, int l, int b,
+                                   int n_limbs, int cb, int nw, int cluster,
                                    void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-#define FBR_CASE(CB)                                                         \
-  if (tile == CB)                                                            \
-    return static_cast<int>(fbr::launch<CB>(b_init, a_t, tv, keys, out,      \
-                                            steps, batch, n, k1, l, b,       \
-                                            n_limbs, threads, smem, st));
-  FBR_CASE(1)
-  FBR_CASE(2)
-  FBR_CASE(4)
-  FBR_CASE(8)
-#undef FBR_CASE
+#define FBR_K1_LAUNCH(L, CB, NW)                                             \
+  if (n_limbs == L && cb == CB && nw == NW)                                  \
+    return static_cast<int>(fbr::k1::launch<L, CB, NW>(                      \
+        b_init, a_t, tv, keys, out, dig, steps, batch, n, k1, l, b, cluster, \
+        st));
+  FBR_K1_CASES(FBR_K1_LAUNCH)
+#undef FBR_K1_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// How many clusters of `cluster` CTAs the card runs at once
+// (cudaOccupancyMaxActiveClusters), into *count.
+extern "C" int fbr_k1_max_clusters(int n_limbs, int cb, int nw, int cluster,
+                                   int* count) {
+#define FBR_K1_OCC(L, CB, NW)                                               \
+  if (n_limbs == L && cb == CB && nw == NW)                                 \
+    return static_cast<int>(fbr::max_active_clusters(                       \
+        fbr::k1::k1_kernel<L, CB, NW>, cluster,                            \
+        fbr::k1::Stage<L, CB / fbr::kM, NW>::kSmem, count,                 \
+        fbr::k1::kK1Threads));
+  FBR_K1_CASES(FBR_K1_OCC)
+#undef FBR_K1_OCC
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The ring stages and the dynamic shared memory a CTA of (n_limbs, cb, nw)
+// launches with, into *stages and *smem.
+extern "C" int fbr_k1_layout(int n_limbs, int cb, int nw, int* stages,
+                             int* smem) {
+#define FBR_K1_LAYOUT(L, CB, NW)                                            \
+  if (n_limbs == L && cb == CB && nw == NW) {                               \
+    using St = fbr::k1::Stage<L, CB / fbr::kM, NW>;                         \
+    *stages = St::kStages;                                                  \
+    *smem = St::kSmem;                                                      \
+    return 0;                                                               \
+  }
+  FBR_K1_CASES(FBR_K1_LAYOUT)
+#undef FBR_K1_LAYOUT
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -23,11 +23,19 @@ Hopper counterparts of the two Pallas kernel bodies in
 * **K1** (orientation ``"fused_otf"``, ``csrc/fused_blind_rotate.cu``)
   replaces ``_kernel_otf`` (``:160-242``).  The key is the compact
   anti-periodic limb extension ``E = [limbs(−poly), limbs(poly)]`` ∈
-  int8[2N] per (step, chunk, row), and the negacyclic matrix is read
-  straight out of it, ``M[j, t] = E[N+t−j]``: no rotation strip.  One block
-  keeps a tile of 1-8 ciphertexts for all n steps, its accumulator and
-  digits in shared memory, and contracts with ``dp4a``.  Bound by MACs:
-  its keys take 42.6 MB at ``aes128_p4``, which nearly fits the L2.
+  int8[2N] per (step, chunk, row), 73.7 KB a step at ``aes128_p4``, and the
+  negacyclic matrix is ``M[j, t] = E[N+t−j]``.  K1 runs K2's schedule
+  (cluster tiles of 64 or 128 ciphertexts, ACC in the output tensor,
+  digits in an L2 scratch, ``wgmma``) but streams only the digits: the
+  digit pass writes each row's digits reversed (j' = N−1−j), which makes
+  the key operand a Hankel matrix ``B'[t, j'] = E[t+j'+1]``, and every
+  8×16-byte core matrix of it is a 128-byte block ``H[w][i][c] =
+  E[8w+i+1+c]``.  A producer warpgroup builds each ring stage's H blocks
+  in shared memory from E while two consumer warpgroups point no-swizzle
+  ``wgmma`` descriptors into them.  :func:`k1_plan` picks the tile, the
+  cluster and the coefficients a warpgroup (``nw``, the ``wgmma`` width)
+  by the shared-memory operand bytes a CTA reads; the kernel sizes its
+  ring itself (:func:`k1_layout`).
 
 The monomial rotation X^a·x, which the TPU does with a barrel shifter
 because Mosaic has no lane rotate, is an index read in both.
@@ -48,16 +56,26 @@ from ..tfhe.numeric import I32, I64, int8_matmul, u32, wrap32
 from ..tfhe.params import TFHEParams
 
 __all__ = ["blind_rotate_fused", "blind_rotate_k1", "blind_rotate_k2",
-           "blind_rotate_k1_plain", "blind_rotate_k2_plain", "k2_plan",
-           "device_plan", "K2Plan", "LAUNCHES"]
+           "blind_rotate_k1_plain", "blind_rotate_k2_plain", "k1_plan",
+           "k2_plan", "k1_device_plan", "device_plan", "k1_layout", "K1Plan",
+           "K2Plan", "LAUNCHES"]
 
 N_LIMBS = 4
 LAUNCHES = {"k1": 0, "k2": 0}
 
 # Shared memory a block may opt into on sm_90 (227 KB).
 SMEM_MAX = 232448
-# K1: ciphertexts per block the kernel is instantiated for.
-TILES = (8, 4, 2, 1)
+# K1: ciphertexts per cluster tile and coefficients per warpgroup (the
+# wgmma's N) it is instantiated for, largest first; contraction bytes per
+# ring stage; accumulator registers a thread may hold ((cb/64)·L·nw/2);
+# CTAs a cluster; the largest N it serves (the largest chip_smoke.py holds
+# it bitwise against its plain version at).
+K1_TILES = (128, 64)
+K1_WIDTHS = (64, 32)
+K1_SLICE = 256
+K1_ACC_REGS = 128
+K1_MAX_CLUSTER = 16
+K1_MAX_N = 2048
 # K2: ciphertexts per cluster tile it is instantiated for, largest first;
 # coefficients per column chunk (times L limbs: the GEMM columns one pass
 # holds in registers); contraction bytes per ring stage; digit rows a stage
@@ -176,6 +194,17 @@ def blind_rotate_k1_plain(b_init, a_t, test_polys, kernels,
 
 # ------------------------------------------------------------- kernels
 
+class K1Plan(NamedTuple):
+    """How K1 launches: ``cb`` ciphertexts per tile, ``cluster`` CTAs per
+    tile (CTA r owns coefficients [r·span, (r+1)·span) of the (k+1)·N, span
+    = (k+1)·N / cluster), ``nw`` coefficients per warpgroup (a column chunk
+    is 2·nw).  The kernel sizes its ring from (limbs, cb, nw):
+    :func:`k1_layout`."""
+    cb: int
+    cluster: int
+    nw: int
+
+
 class K2Plan(NamedTuple):
     """How K2 launches: ``cb`` ciphertexts per tile, ``cluster`` CTAs per
     tile (CTA r owns coefficients [r·span, (r+1)·span) of the (k+1)·N, span
@@ -188,12 +217,57 @@ class K2Plan(NamedTuple):
     smem: int
 
 
-def smem_bytes(params: TFHEParams, tile: int) -> int:
-    """K1's dynamic shared memory a block: accumulator, digits and one
-    limb's extensions of all k+1 output components."""
-    k1, n = params.glwe_dim + 1, params.poly_size
-    rows = k1 * params.bsk_level
-    return k1 * rows * 2 * n + tile * (4 * k1 * n + rows * n)
+def k1_clusters(params: TFHEParams, nw: int) -> list[int]:
+    """Cluster sizes whose CTAs split the (k+1)·N coefficients into whole
+    2·nw-coefficient chunks, largest first."""
+    kn = (params.glwe_dim + 1) * params.poly_size
+    return [c for c in range(K1_MAX_CLUSTER, 0, -1) if kn % (c * 2 * nw) == 0]
+
+
+def k1_fits(cb: int, nw: int, n_limbs: int) -> bool:
+    """Whether K1 is instantiated for (cb, nw) at ``n_limbs``: at most
+    K1_ACC_REGS accumulator registers a thread."""
+    return cb // 64 * n_limbs * nw // 2 <= K1_ACC_REGS
+
+
+def k1_plan(batch: int, params: TFHEParams, sms: int,
+            n_limbs: int = N_LIMBS, cb: int | None = None,
+            cluster: int | None = None, nw: int | None = None,
+            resident: Callable[[K1Plan], int] | None = None) -> K1Plan:
+    """K1's launch plan for ``batch`` ciphertexts on ``sms`` SMs.
+
+    Among the tiles ``cb``, widths ``nw`` and cluster sizes that K1 is
+    instantiated for (or the ones given), the cheapest by the shared-memory
+    bytes the ``wgmma`` operands take per CTA: a CTA multiplies cb digit
+    rows by span·L key columns a step, and each m64n(nw)k32 reads 2 KB of
+    digits and nw·32 bytes of H, so the cost is waves × span × cb × (64 +
+    nw) / nw.  A wave is as many clusters as ``resident(plan)`` says the
+    card runs at once (default ``sms // cluster``).  Ties go to fewer CTAs,
+    then larger tiles and widths."""
+    if resident is None:
+        def resident(p):
+            return sms // p.cluster
+    kn = (params.glwe_dim + 1) * params.poly_size
+    best = None
+    for t in [cb] if cb is not None else K1_TILES:
+        for w in [nw] if nw is not None else K1_WIDTHS:
+            if not k1_fits(t, w, n_limbs):
+                continue
+            for c in k1_clusters(params, w):
+                if cluster is not None and c != cluster:
+                    continue
+                plan = K1Plan(t, c, w)
+                tiles = -(-max(batch, 1) // t)
+                waves = -(-tiles // max(1, resident(plan)))
+                key = (waves * (kn // c) * t * (64 + w) / w, tiles * c,
+                       -t, -w)
+                if best is None or key < best[0]:
+                    best = (key, plan)
+    if best is None:
+        raise ValueError(f"K1 has no plan for cb={cb} cluster={cluster} "
+                         f"nw={nw} at {n_limbs} limbs: a cluster must split "
+                         f"the (k+1)·N coefficients into whole chunks")
+    return best[1]
 
 
 def k2_clusters(params: TFHEParams) -> list[int]:
@@ -237,23 +311,45 @@ def k2_plan(batch: int, params: TFHEParams, sms: int,
     return best[1]
 
 
-def device_plan(batch: int, params: TFHEParams, dev: torch.device,
-                n_limbs: int = N_LIMBS, cb: int | None = None,
-                cluster: int | None = None) -> K2Plan:
-    """The plan K2 launches with on ``dev``: :func:`k2_plan` with the
-    card's SM count and the clusters it runs at once, as
-    ``cudaOccupancyMaxActiveClusters`` reports them."""
+def _card_plan(dev: torch.device, plan_fn, max_clusters, tag: tuple):
+    """``plan_fn(sms, resident)`` with the SM count of ``dev`` and the
+    clusters the card runs at once, as ``max_clusters(plan)``
+    (``cudaOccupancyMaxActiveClusters``) reports them; cached under
+    ``tag``."""
     with torch.cuda.device(dev):
         index = torch.cuda.current_device()
         sms = torch.cuda.get_device_properties(index).multi_processor_count
 
         def resident(p):
-            key = (index, n_limbs, p)
+            key = (index, *tag, p)
             if key not in _RESIDENT:
-                _RESIDENT[key] = k2_max_clusters(p, n_limbs)
+                _RESIDENT[key] = max_clusters(p)
             return _RESIDENT[key]
 
-        return k2_plan(batch, params, sms, n_limbs, cb, cluster, resident)
+        return plan_fn(sms, resident)
+
+
+def device_plan(batch: int, params: TFHEParams, dev: torch.device,
+                n_limbs: int = N_LIMBS, cb: int | None = None,
+                cluster: int | None = None) -> K2Plan:
+    """The plan K2 launches with on ``dev``: :func:`k2_plan` with the
+    card's SM count and the clusters it runs at once."""
+    return _card_plan(dev, lambda sms, res: k2_plan(
+        batch, params, sms, n_limbs, cb, cluster, res),
+        lambda p: k2_max_clusters(p, n_limbs), ("k2", n_limbs))
+
+
+def k1_device_plan(batch: int, params: TFHEParams, dev: torch.device,
+                   n_limbs: int = N_LIMBS, cb: int | None = None,
+                   cluster: int | None = None, nw: int | None = None,
+                   lib: ctypes.CDLL | None = None) -> K1Plan:
+    """The plan K1 launches with on ``dev``: :func:`k1_plan` with the
+    card's SM count and the clusters it runs at once (as ``lib``, default
+    the built library, reports them)."""
+    return _card_plan(dev, lambda sms, res: k1_plan(
+        batch, params, sms, n_limbs, cb, cluster, nw, res),
+        lambda p: k1_max_clusters(p, n_limbs, lib),
+        ("k1", n_limbs, getattr(lib, "_name", None)))
 
 
 _RESIDENT: dict = {}
@@ -271,10 +367,14 @@ def unsupported(params: TFHEParams, otf: bool) -> str | None:
     if n % 32:
         return f"poly_size {n} is not a multiple of 32"
     if otf:
-        smem = smem_bytes(params, min(TILES))
-        if smem > SMEM_MAX:
-            return (f"one ciphertext needs {smem} B of shared memory > "
-                    f"{SMEM_MAX}")
+        if n % K1_SLICE:
+            return f"poly_size {n} is not a multiple of {K1_SLICE}"
+        if rows_n << (b + 6) >= 1 << 31:
+            return (f"rows·N·2^(b-1)·128 = {rows_n << (b + 6)} could "
+                    f"overflow the int32 sums")
+        if n > K1_MAX_N:
+            return (f"poly_size {n} > {K1_MAX_N}, the largest K1 is "
+                    f"checked at on the card")
         return None
     if rows_n % K2_KC:
         return f"rows·N = {rows_n} is not a multiple of {K2_KC}"
@@ -282,18 +382,6 @@ def unsupported(params: TFHEParams, otf: bool) -> str | None:
         return (f"(k+1)·N = {(params.glwe_dim + 1) * n} is not a multiple "
                 f"of {K2_CHUNK}")
     return None
-
-
-def pick_tile(batch: int, params: TFHEParams, sms: int) -> int:
-    """K1's ciphertexts per block: the largest tile that fits shared memory
-    and still gives every SM a block; else the smallest (most blocks)."""
-    fit = [c for c in TILES if smem_bytes(params, c) <= SMEM_MAX]
-    if not fit:
-        raise ValueError(f"no batch tile fits shared memory at {params}")
-    for c in fit:
-        if -(-batch // c) >= sms:
-            return c
-    return fit[-1]
 
 
 def _check(otf: bool, b_init, a_t, test_polys, kernels,
@@ -332,40 +420,45 @@ def _check(otf: bool, b_init, a_t, test_polys, kernels,
     return n_limbs
 
 
-def _raise_on(err: int) -> None:
+def _raise_on(err: int, lib: ctypes.CDLL | None = None) -> None:
     if err != 0:
         from . import _build
-        msg = _build.library().fbr_error_string(err)
+        msg = (lib or _build.library()).fbr_error_string(err)
         raise RuntimeError(f"fused blind rotation launch failed: "
                            f"{ctypes.string_at(msg).decode()} ({err})")
 
 
 def _launch_k1(b_init, a_t, test_polys, kernels, params: TFHEParams,
-               tile: int | None) -> torch.Tensor:
+               cb: int | None, cluster: int | None, nw: int | None,
+               lib: ctypes.CDLL | None = None) -> torch.Tensor:
+    """K1 on the card, through ``lib`` (default the built library)."""
     from . import _build
 
     n_limbs = _check(True, b_init, a_t, test_polys, kernels, params)
     dev = test_polys.device
     k1, n = params.glwe_dim + 1, params.poly_size
     batch, steps = test_polys.shape[0], a_t.shape[0]
+    if cb is not None and cb not in K1_TILES:
+        raise ValueError(f"batch tile {cb} not in {K1_TILES}")
+    if nw is not None and nw not in K1_WIDTHS:
+        raise ValueError(f"width {nw} not in {K1_WIDTHS}")
     if batch == 0 or steps == 0:
         return _init_acc(b_init, test_polys, params)
+    lib = lib or _build.library()
     out = torch.empty((k1, batch, n), dtype=I32, device=dev)
+    plan = k1_device_plan(batch, params, dev, n_limbs, cb, cluster, nw,
+                          lib)
     with torch.cuda.device(dev):
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        tile = pick_tile(batch, params, sms) if tile is None else tile
-        smem = smem_bytes(params, tile)
-        if tile not in TILES or smem > SMEM_MAX:
-            raise ValueError(f"batch tile {tile} not in {TILES} or "
-                             f"{smem} B of shared memory > {SMEM_MAX}")
-        threads = min(512, k1 * n // 4)
+        tiles = -(-batch // plan.cb)
+        dig = torch.empty((tiles * plan.cb, k1 * params.bsk_level * n),
+                          dtype=torch.int8, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _build.library().fbr_k1_blind_rotate(
+        err = lib.fbr_k1_blind_rotate(
             b_init.data_ptr(), a_t.data_ptr(), test_polys.data_ptr(),
-            kernels.data_ptr(), out.data_ptr(), steps, batch, n, k1,
-            params.bsk_level, params.bsk_base_log, n_limbs, tile, threads,
-            smem, stream)
-    _raise_on(err)
+            kernels.data_ptr(), out.data_ptr(), dig.data_ptr(), steps, batch,
+            n, k1, params.bsk_level, params.bsk_base_log, n_limbs, plan.cb,
+            plan.nw, plan.cluster, stream)
+    _raise_on(err, lib)
     LAUNCHES["k1"] += 1
     return out
 
@@ -412,6 +505,33 @@ def k2_max_clusters(plan: K2Plan, n_limbs: int = N_LIMBS) -> int:
     return count.value
 
 
+def k1_max_clusters(plan: K1Plan, n_limbs: int = N_LIMBS,
+                    lib: ctypes.CDLL | None = None) -> int:
+    """Clusters of K1's ``plan`` the current card runs at once
+    (``cudaOccupancyMaxActiveClusters``)."""
+    from . import _build
+
+    lib = lib or _build.library()
+    count = ctypes.c_int(0)
+    _raise_on(lib.fbr_k1_max_clusters(n_limbs, plan.cb, plan.nw,
+                                      plan.cluster, ctypes.byref(count)), lib)
+    return count.value
+
+
+def k1_layout(plan: K1Plan, n_limbs: int = N_LIMBS,
+              lib: ctypes.CDLL | None = None) -> tuple[int, int]:
+    """The ring stages and the dynamic shared memory (bytes) a CTA of K1's
+    ``plan`` launches with, as the kernel sizes them."""
+    from . import _build
+
+    lib = lib or _build.library()
+    stages, smem = ctypes.c_int(0), ctypes.c_int(0)
+    _raise_on(lib.fbr_k1_layout(n_limbs, plan.cb, plan.nw,
+                                ctypes.byref(stages), ctypes.byref(smem)),
+              lib)
+    return stages.value, smem.value
+
+
 def _plain_slices(otf: bool, b_init, a_t, test_polys, kernels,
                   params: TFHEParams, batch_tile: int | None):
     plain = blind_rotate_k1_plain if otf else blind_rotate_k2_plain
@@ -440,11 +560,18 @@ def blind_rotate_k2(b_init, a_t, test_polys, kernels, params: TFHEParams,
 
 
 def blind_rotate_k1(b_init, a_t, test_polys, kernels, params: TFHEParams,
-                    batch_tile: int | None = None) -> torch.Tensor:
-    """K1 ("fused_otf"): keys [n, L·(k+1), rows, 2N] int8 -> ACC."""
+                    batch_tile: int | None = None,
+                    cluster: int | None = None,
+                    nw: int | None = None) -> torch.Tensor:
+    """K1 ("fused_otf"): keys [n, L·(k+1), rows, 2N] int8 -> ACC.
+
+    ``batch_tile``: ciphertexts per tile (CPU: per plain slice; CUDA: per
+    cluster, one of ``K1_TILES``); ``cluster``: CTAs per tile; ``nw``:
+    coefficients per warpgroup, one of ``K1_WIDTHS``.  All default to
+    :func:`k1_plan`'s choice."""
     if test_polys.device.type != "cpu":
         return _launch_k1(b_init, a_t, test_polys, kernels, params,
-                          batch_tile)
+                          batch_tile, cluster, nw)
     return _plain_slices(True, b_init, a_t, test_polys, kernels, params,
                          batch_tile)
 
@@ -457,7 +584,7 @@ def blind_rotate_fused(b_init, a_t, test_polys, kernels, params: TFHEParams,
     [n, B, 1] int32 per-step amounts in [0, 2N); ``test_polys``: [B, N]
     int32; ``kernels``: K2's [n, L·(k+1)·N, rows·N] or K1's
     [n, L·(k+1), rows, 2N] int8.  ``batch_tile``: ciphertexts per tile
-    (CPU: per slice; CUDA: per K1 block or K2 cluster, default chosen from
-    shared memory and the SM count); the last tile may be ragged."""
+    (CPU: per slice; CUDA: per cluster, default chosen by :func:`k1_plan`
+    or :func:`k2_plan`); the last tile may be ragged."""
     fn = blind_rotate_k1 if kernels.ndim == 4 else blind_rotate_k2
     return fn(b_init, a_t, test_polys, kernels, params, batch_tile)

@@ -113,11 +113,10 @@ def main(argv=None) -> int:
         return 2
     device = torch.device(args.device)
 
-    from tfhe_fbs_map_tpu.frontend.lut_program import parse_lbf
-    from tfhe_fbs_map_tpu.frontend.mapping.basic import BasicMapper
-    from tfhe_fbs_map_tpu.frontend.mapping.heuristic import HeuristicMapper
-    from tfhe_fbs_map_tpu.frontend.parsers import parse_circuit
-
+    from ..frontend.lut_program import parse_lbf
+    from ..frontend.mapping.basic import BasicMapper
+    from ..frontend.mapping.heuristic import HeuristicMapper, map_best
+    from ..frontend.parsers import parse_circuit
     from ..ops.blind_rotate import prepare_fast_keys
     from ..tfhe import TEST_PARAMS, generate_keys
     from ..tfhe.keys import load_keys, save_keys
@@ -132,7 +131,6 @@ def main(argv=None) -> int:
         if args.mapper == "basic":
             prog = BasicMapper().map(circuit)
         elif args.mapper == "best":
-            from tfhe_fbs_map_tpu.frontend.mapping.heuristic import map_best
             prog = map_best(circuit, fbs_size=p)
         else:
             prog = HeuristicMapper(cone_merger=args.mapper,

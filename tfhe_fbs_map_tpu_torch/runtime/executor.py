@@ -22,9 +22,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from tfhe_fbs_map_tpu.frontend.lut_program import (LutProgram, N_BOOT,
-                                                   N_CONST, N_INPUT, N_LIN)
-
+from ..frontend.lut_program import (LutProgram, N_BOOT, N_CONST, N_INPUT,
+                                    N_LIN)
 from ..tfhe.encrypt import decode, encode, lwe_encrypt, lwe_phase
 from ..tfhe.keys import TFHEKeys
 from ..tfhe.numeric import I64, wrap32

@@ -12,9 +12,10 @@ launch.  When every level ran it decrypts and checks the outputs against
 under ``torch.profiler``: the device's busy time, its idle share between the
 first and the last kernel, and the kernels with the most device time.
 ``--tile-sweep`` (CUDA only) times the kernel at the most common level shape
-over its launch knobs: K1's batch tiles that fit shared memory, K2's
-(ciphertexts per tile, CTAs per cluster) plans; every setting's output must
-be the same.  Prints one JSON object as its last line.
+over its launch knobs: K1's (ciphertexts per tile, CTAs per cluster,
+coefficients per warpgroup) and K2's (ciphertexts per tile, CTAs per
+cluster) plans; every setting's output must be the same.  Prints one JSON
+object as its last line.
 """
 
 from __future__ import annotations
@@ -165,8 +166,8 @@ def trace_levels(ex: CircuitExecutor, buf: torch.Tensor, levels: int,
 
 def tile_sweep(ex: CircuitExecutor, batch: int, reps: int = 2) -> dict:
     """The fast keys' kernel at ``batch`` ciphertexts over its launch
-    knobs: K1's batch tiles that fit shared memory, or every K2 (tile,
-    cluster) plan.  ms per launch (CUDA events, after a warm-up launch);
+    knobs: every K1 (tile, cluster, warpgroup width) or K2 (tile, cluster)
+    plan.  ms per launch (CUDA events, after a warm-up launch);
     every setting's output must equal the first one's."""
     from ..ops import fused_blind_rotate as fbr
 
@@ -181,11 +182,14 @@ def tile_sweep(ex: CircuitExecutor, batch: int, reps: int = 2) -> dict:
                         dtype=torch.int32)
     tvs = torch.randint(-2 ** 31, 2 ** 31, (batch, N), generator=g,
                         device=dev, dtype=torch.int32)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     if otf:
-        knobs = {str(t): dict(batch_tile=t) for t in fbr.TILES
-                 if fbr.smem_bytes(params, t) <= fbr.SMEM_MAX}
-        default = str(fbr.pick_tile(batch, params, sms))
+        limbs = kern.shape[1] // (params.glwe_dim + 1)
+        knobs = {f"{cb}x{c}/{w}": dict(batch_tile=cb, cluster=c, nw=w)
+                 for cb in fbr.K1_TILES for w in fbr.K1_WIDTHS
+                 if fbr.k1_fits(cb, w, limbs)
+                 for c in fbr.k1_clusters(params, w)}
+        plan = fbr.k1_device_plan(batch, params, dev, limbs)
+        default = f"{plan.cb}x{plan.cluster}/{plan.nw}"
     else:
         knobs = {f"{cb}x{c}": dict(batch_tile=cb, cluster=c)
                  for cb in fbr.K2_TILES for c in fbr.k2_clusters(params)}
@@ -249,8 +253,7 @@ def profile_program(prog, params, batch: int, orientation: str,
 
 
 def main(argv=None) -> int:
-    from tfhe_fbs_map_tpu.frontend.lut_program import parse_lbf
-
+    from ..frontend.lut_program import parse_lbf
     from ..tfhe.params import PRESETS
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -266,7 +269,7 @@ def main(argv=None) -> int:
     ap.add_argument("--trace-levels", type=int, default=40,
                     help="levels run under torch.profiler (0: none)")
     ap.add_argument("--tile-sweep", action="store_true",
-                    help="time the kernel at every batch tile (CUDA)")
+                    help="time the kernel at every launch plan (CUDA)")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
 
