@@ -12,21 +12,33 @@ Phases, each printed with what ran and how long it took:
    against its plain PyTorch version on the same inputs, bitwise, at
    several parameter shapes, limb drop and ragged batch tiles: each at
    every plan ``k1_plan`` / ``k2_plan`` picks for the main path's batch
-   sizes and at every plan of one 1024-ciphertext level;
+   sizes (both up to 8192 ciphertexts at the staged families' shapes) and
+   at every plan of one 1024-ciphertext level;
 4. the fast functional bootstrap through each kernel against the generic
    exact bootstrap at the ``aes128_p4`` preset, and each kernel against
    its plain version at a main-path level's shape (n=578, B=1024), bitwise,
    with both times and the least time the card could take (the larger of
    its int8 operations over the data sheet's 1,979 TOP/s and its bytes over
-   3.35 TB/s);
+   3.35 TB/s); then K1 the same way at each staged family's launch on the
+   staged main paths, at full length (n=642 up to 8192 ciphertexts, n=674
+   at 2560);
 5. the main path: the runtime CLI on the mapped AES-128 program, once with
    ``--orientation auto`` (K2 when its key matrices fit) and once with
    ``fused_otf`` (K1), each required bit-exact and to have launched its
-   kernel.
+   kernel;
+6. the staged main path: the runtime CLI on the Kreyvium-1152 program at
+   the ``kreyvium_p10_staged`` preset with ``--orientation auto``, required
+   to send both families to K1, to be bit-exact and to have launched K1
+   once for every non-empty family call of the staged plan; and the port's
+   staged p32 bench (``python -m tfhe_fbs_map_tpu_torch.bench --preset
+   p32``), whose steps run the staged executor's split route, required to
+   report 0 errors.
 
 Before the last line it prints one JSON object with a row per kernel (no
-PyTorch call computes the n-step recurrence, so ``library_ms`` is null) and
-the card's name and power limit; the last line is
+PyTorch call computes the n-step recurrence, so ``library_ms`` is null;
+``launches`` sums the kernel's launches over the main paths of phases 5 and
+6, each counted from 0, ``launches_by_path`` splits them) and the card's
+name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
 on any failure, without a CUDA device, or away from a checkout of the repo.
 """
@@ -44,6 +56,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 AES_LBF = "outputs/bristol/aes_128_4_search.lbf"
+KREYVIUM_LBF = "outputs/generated/kreyvium_stream_v1_10_search.lbf"
+KREYVIUM_PRESET = "kreyvium_p10_staged"
+KREYVIUM_BATCH = 16
 # the JAX package's Pallas kernel bodies each CUDA kernel replaces
 REPLACES = {"k2": "tfhe_fbs_map_tpu/ops/fused_blind_rotate.py:102",
             "k1": "tfhe_fbs_map_tpu/ops/fused_blind_rotate.py:160"}
@@ -52,6 +67,18 @@ SOURCE = {"k2": "tfhe_fbs_map_tpu_torch/ops/csrc/fused_blind_rotate_k2.cu",
 # Batch of one full level of the mapped AES-128 program at --batch 8: most
 # of its 230 levels pad to 128 bootstraps.
 LEVEL_BATCH = 1024
+# K2's batch sizes at the staged families' shapes
+STAGED_K2 = (21, 64, 512, 2048, 8192)
+# The staged main paths' K1 launches at full length: (label, (k, N, l, b),
+# n, ciphertexts).  Kreyvium-1152 at batch 16 pads its fam1 calls to 512
+# bootstraps and its largest fam2 call to 128; the p32 bench at batch 512
+# runs 5 lookups a step in each family.
+STAGED_LAUNCHES = (
+    ("kreyvium_p10_staged fam1", (1, 1024, 4, 5), 642, 8192),
+    ("kreyvium_p10_staged fam2", (2, 512, 4, 5), 642, 2048),
+    ("p32_staged fam1", (1, 1024, 3, 6), 674, 2560),
+    ("p32_staged fam2", (2, 512, 4, 5), 674, 2560),
+)
 # timed kernel launches per measurement
 REPS = 3
 # the H100 SXM data sheet's dense int8 rate and memory rate
@@ -89,6 +116,19 @@ def cuda_ms(fn, reps: int):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps, first
+
+
+def once_ms(fn):
+    """Milliseconds of one run of ``fn``, CUDA events, and its result (the
+    plain versions at full length are too slow to run twice)."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), out
 
 
 def kernel_inputs(params, steps: int, batch: int, n_limbs: int, otf: bool,
@@ -135,24 +175,31 @@ def check_k1(fbr, presets, worst: dict) -> None:
     aes = presets["aes128_p4"][0]
     test = presets["test"][0]
     batches = (21, 64, 512, 1024, 2048)
+    # a staged level's fam1 call carries up to 512 bootstraps x batch 16
+    staged = batches + (4096, 8192)
     every = [(cb, c, w) for cb in fbr.K1_TILES for w in fbr.K1_WIDTHS
              if fbr.k1_fits(cb, w, 4) for c in fbr.k1_clusters(aes, w)]
-    # (label, params, steps, limbs, forced (cb, cluster, nw) at batch)
+    # (label, params, steps, limbs, batches, forced (cb, cluster, nw) at
+    # batch)
     cases = [
-        ("test", test, test.lwe_dim, 4, {}),
-        ("aes128_p4 n=8", aes, 8, 4, {1024: every}),
-        ("aes128_p4 n=8 bsk_limbs=3", aes, 8, 3, {}),
-        ("p16 n=8", presets["p16"][0], 8, 4, {}),
+        ("test", test, test.lwe_dim, 4, batches, {}),
+        ("aes128_p4 n=8", aes, 8, 4, batches, {1024: every}),
+        ("aes128_p4 n=8 bsk_limbs=3", aes, 8, 3, batches, {}),
+        ("p16 n=8", presets["p16"][0], 8, 4, batches, {}),
+        # p32_staged's families
         ("fam1 k=1 N=1024 l=3 b=6 n=8", shape_params(1, 1024, 3, 6), 8, 4,
-         {}),
+         staged, {}),
         ("fam2 k=2 N=512 l=4 b=5 n=8", shape_params(2, 512, 4, 5), 8, 4,
-         {}),
+         staged, {}),
+        # kreyvium_p10_staged's fam1 (its fam2 has fam2's shape)
+        ("kreyvium fam1 k=1 N=1024 l=4 b=5 n=8", shape_params(1, 1024, 4, 5),
+         8, 4, staged, {}),
         # native p32, at the largest N K1 serves
         (f"k=1 N={fbr.K1_MAX_N} l=3 b=7 n=8",
-         shape_params(1, fbr.K1_MAX_N, 3, 7), 8, 4, {}),
+         shape_params(1, fbr.K1_MAX_N, 3, 7), 8, 4, batches, {}),
     ]
-    for label, params, steps, limbs, forced in cases:
-        for batch in batches:
+    for label, params, steps, limbs, sizes, forced in cases:
+        for batch in sizes:
             args = kernel_inputs(params, steps, batch, limbs, True, seed=5)
             dev = [x.cuda() for x in args]
             plain = fbr.blind_rotate_k1_plain(*dev, params)
@@ -191,8 +238,13 @@ def check_k2(fbr, presets, worst: dict) -> None:
         ("aes128_p4 n=8 bsk_limbs=3", aes, 8, 3, (21, 64, 512, 1024, 2048),
          {}),
         ("p16 n=8", presets["p16"][0], 8, 4, (21, 512, 1024), {}),
-        ("k=1 N=1024 l=3 b=6", shape_params(1, 1024, 3, 6), 8, 4, (21, 64),
-         {}),
+        # the staged families, which --orientation fused sends to K2
+        ("fam1 k=1 N=1024 l=3 b=6 n=8", shape_params(1, 1024, 3, 6), 8, 4,
+         STAGED_K2, {}),
+        ("fam2 k=2 N=512 l=4 b=5 n=8", shape_params(2, 512, 4, 5), 8, 4,
+         STAGED_K2, {}),
+        ("kreyvium fam1 k=1 N=1024 l=4 b=5 n=8", shape_params(1, 1024, 4, 5),
+         8, 4, STAGED_K2, {}),
     ]
     for label, params, steps, limbs, batches, forced in cases:
         for batch in batches:
@@ -319,32 +371,116 @@ def check_bootstrap(presets, worst: dict) -> dict:
     return timing
 
 
-def run_main_path(orientation: str, expect: str, launches: dict) -> dict:
-    """Phase 5: the runtime CLI, as a user calls it; returns its JSON."""
+def check_staged_launches(fbr, worst: dict) -> list[dict]:
+    """Phase 4, K1 at each staged main path's family launch at full length
+    (its own n, k, N, l and ciphertexts) against its plain version on the
+    same inputs, bitwise, with both times and the bound."""
     import torch
-    from tfhe_fbs_map_tpu_torch.runtime.cli import main as cli_main
 
-    argv = [AES_LBF, "--params", "aes128_p4", "--batch", "8",
-            "--orientation", orientation]
+    rows = []
+    for label, (k, N, l, b), steps, batch in STAGED_LAUNCHES:
+        params = shape_params(k, N, l, b)
+        dev = [x.cuda() for x in kernel_inputs(params, steps, batch, 4, True,
+                                                seed=10)]
+        k_ms, k_out = cuda_ms(lambda: fbr.blind_rotate_k1(*dev, params), 1)
+        p_ms, p_out = once_ms(lambda: fbr.blind_rotate_k1_plain(*dev, params))
+        b_ms, b_by = bound_ms(params, steps, batch, dev[3])
+        err = int((k_out.long() - p_out.long()).abs().max())
+        report("k1", f"{label} n={steps} k={k} N={N} l={l} b={b} B={batch} "
+               f"({fbr.k1_device_plan(batch, params, dev[0].device)}): "
+               f"kernel {k_ms:.3f} ms, plain version {p_ms:.3f} ms, bound "
+               f"{b_ms:.3f} ms ({b_by})", err, worst)
+        rows.append({"launch": label, "n": steps, "ciphertexts": batch,
+                     "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                     "bound_ms": b_ms, "bound_by": b_by})
+        del dev, k_out, p_out
+        torch.cuda.empty_cache()
+    return rows
+
+
+def entry_point(main, argv: list, launches: dict) -> tuple[int, dict, dict]:
+    """``main(argv)`` of an entry point, as a user calls it, with the launch
+    counts set to 0 just before and read just after; returns its exit code,
+    its last line's JSON and the counts."""
+    import torch
+
     for k in launches:
         launches[k] = 0
     out = io.StringIO()
     t0 = time.time()
     with contextlib.redirect_stdout(out):
-        rc = cli_main(argv)
+        rc = main(argv)
     torch.cuda.synchronize()
-    wall = time.time() - t0
-    text = out.getvalue().strip()
-    log(f"  runtime {' '.join(argv)} -> rc {rc} in {wall:.1f} s")
-    res = json.loads(text.splitlines()[-1])
-    log(f"  {json.dumps(res)}")
     counts = dict(launches)
+    res = json.loads(out.getvalue().strip().splitlines()[-1])
+    log(f"  {' '.join(argv)} -> rc {rc} in {time.time() - t0:.1f} s")
+    log(f"  {json.dumps(res)}")
     log(f"  kernel launches in this run: {counts}")
+    return rc, res, counts
+
+
+def run_cli(argv: list, expect: str, launches: dict) -> dict:
+    """The runtime CLI, required bit-exact and to have launched ``expect``;
+    returns its JSON line with the launches of ``expect``."""
+    from tfhe_fbs_map_tpu_torch.runtime.cli import main as cli_main
+
+    rc, res, counts = entry_point(cli_main, argv, launches)
     if rc != 0 or not res["bit_exact"]:
-        raise SystemExit(f"main path ({orientation}) not bit-exact")
+        raise SystemExit(f"main path ({' '.join(argv)}) not bit-exact")
     if counts[expect] == 0:
-        raise SystemExit(f"main path ({orientation}) never launched {expect}")
+        raise SystemExit(f"main path ({' '.join(argv)}) never launched "
+                         f"{expect}")
     res["launches"] = counts[expect]
+    res["all_launches"] = counts
+    return res
+
+
+def run_main_path(orientation: str, expect: str, launches: dict) -> dict:
+    """Phase 5: mapped AES-128 through the runtime CLI."""
+    return run_cli([AES_LBF, "--params", "aes128_p4", "--batch", "8",
+                    "--orientation", orientation], expect, launches)
+
+
+def run_staged_path(launches: dict) -> dict:
+    """Phase 6, the runtime CLI on Kreyvium-1152 at the staged preset with
+    the default ``--orientation auto``: both families on K1, bit-exact, and
+    K1 launched once for every non-empty family call of the staged plan
+    (none of K2)."""
+    from tfhe_fbs_map_tpu_torch.frontend.lut_program import parse_lbf
+    from tfhe_fbs_map_tpu_torch.runtime.executor import compile_staged
+    from tfhe_fbs_map_tpu_torch.tfhe.params import STAGED_PRESETS
+
+    preset = STAGED_PRESETS[KREYVIUM_PRESET]
+    with open(ROOT / KREYVIUM_LBF) as f:
+        plan = compile_staged(parse_lbf(f.read()), preset.p, preset.fam1,
+                              preset.fam2)
+    calls = sum(bool(lv.wire_idx1.shape[0]) + bool(lv.wire_idx2.shape[0])
+                for lv in plan.levels)
+    res = run_cli([KREYVIUM_LBF, "--params", KREYVIUM_PRESET, "--batch",
+                   str(KREYVIUM_BATCH), "--orientation", "auto"], "k1",
+                  launches)
+    if res["orientation"] != {"fam1": "fused_otf", "fam2": "fused_otf"}:
+        raise SystemExit(f"staged auto picked {res['orientation']}")
+    log(f"  staged plan: {len(plan.levels)} levels, {calls} non-empty "
+        f"family calls, routes {plan.route_counts}")
+    if res["launches"] != calls or res["all_launches"]["k2"]:
+        raise SystemExit(f"staged main path launched {res['all_launches']}, "
+                         f"want k1 once per family call ({calls})")
+    return res
+
+
+def run_bench(launches: dict) -> dict:
+    """Phase 6, the port's staged p32 bench at its default batch: errors 0,
+    and K1 launched twice (fam1, fam2) a step, first step included."""
+    from tfhe_fbs_map_tpu_torch import bench
+
+    rc, res, counts = entry_point(bench.main, ["--preset", "p32"], launches)
+    want = 2 * (1 + bench.ITERS)
+    if rc != 0 or res["errors"] != 0:
+        raise SystemExit(f"p32 bench: rc {rc}, {res['errors']} errors")
+    if counts["k1"] != want or counts["k2"]:
+        raise SystemExit(f"p32 bench launched {counts}, want k1 {want}")
+    res["launches"] = counts["k1"]
     return res
 
 
@@ -398,6 +534,7 @@ def main(argv=None) -> int:
     # --- 4. bootstrap through each kernel, and kernel times ----------------
     t0 = time.time()
     timing = check_bootstrap(PRESETS, worst)
+    staged_k1 = check_staged_launches(fbr, worst)
     log(f"[bootstrap checks] {time.time() - t0:.1f} s")
 
     # --- 5. the main path ----------------------------------------------------
@@ -410,12 +547,32 @@ def main(argv=None) -> int:
             f"batch {res['batch']}, {res['levels']} levels) on {smi}")
     log(f"[main path] {time.time() - t0:.1f} s")
 
+    # --- 6. the staged main path ---------------------------------------------
+    t0 = time.time()
+    krey = run_staged_path(fbr.LAUNCHES)
+    log(f"  staged Kreyvium-1152 via k1: run_s {krey['run_s']} "
+        f"boots_per_sec {krey['boots_per_sec']} ({krey['bootstraps']} "
+        f"bootstraps x batch {krey['batch']}, {krey['levels']} levels, "
+        f"{krey['launches']} K1 launches) on {smi}")
+    p32 = run_bench(fbr.LAUNCHES)
+    log(f"  staged p32 bench via k1: {p32['value']} boots/s, "
+        f"{p32['ms_per_bootstrap']} ms a lookup (batch {p32['batch']}, "
+        f"{p32['launches']} K1 launches) on {smi}")
+    log(f"[staged main path] {time.time() - t0:.1f} s")
+
+    # launches of each kernel on every main path, each counted from 0
+    by_path = {"k2": {"aes128_p4 auto": runs["k2"]["launches"]},
+               "k1": {"aes128_p4 fused_otf": runs["k1"]["launches"],
+                      f"{KREYVIUM_PRESET} auto": krey["launches"],
+                      "bench p32": p32["launches"]}}
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[kern],
-         "replaces": REPLACES[kern], "launches": runs[kern]["launches"],
+         "replaces": REPLACES[kern], "launches": sum(by_path[kern].values()),
+         "launches_by_path": by_path[kern],
          "max_abs_err": worst[kern], "ms": timing[kern][0],
          "plain_ms": timing[kern][1], "bound_ms": timing[kern][2],
-         "bound_by": timing[kern][3], "library_ms": None}
+         "bound_by": timing[kern][3], "library_ms": None,
+         **({"staged_launches": staged_k1} if kern == "k1" else {})}
         for kern, name in (("k2", "fused_blind_rotate_k2"),
                            ("k1", "fused_blind_rotate_k1"))]}))
     log(smi)

@@ -2,6 +2,10 @@
 its pinned parameter presets against what the JAX package picks."""
 
 import json
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -10,8 +14,9 @@ import torch
 from tfhe_fbs_map_tpu.frontend.circuits import build_bench
 from tfhe_fbs_map_tpu.tfhe.params import TFHEParams as JParams
 from tfhe_fbs_map_tpu.tfhe.params import min_noise_std_rel as jnoise
-from tfhe_fbs_map_tpu_torch.runtime.cli import main
-from tfhe_fbs_map_tpu_torch.tfhe.params import PRESETS
+from tfhe_fbs_map_tpu_torch.runtime.cli import (FUSED_HEADROOM, main,
+                                                pick_orientations)
+from tfhe_fbs_map_tpu_torch.tfhe.params import PRESETS, STAGED_PRESETS
 
 # many test workers share the cores: one torch thread each
 torch.set_num_threads(1)
@@ -93,9 +98,12 @@ def test_bench_presets(name, tup):
     assert vars(PRESETS[name][0]) == vars(want)
 
 
+def pick_orientation(params, device, free_bytes=None):
+    return pick_orientations([params], device, free_bytes)[0]
+
+
 def test_auto_orientation_by_free_memory():
     from tfhe_fbs_map_tpu_torch.ops.blind_rotate import fused_key_bytes
-    from tfhe_fbs_map_tpu_torch.runtime.cli import pick_orientation
     params = PRESETS["aes128_p4"][0]
     assert fused_key_bytes(params) == 578 * 3072 * 6144
     assert np.isclose(fused_key_bytes(params) / 1e9, 10.9, atol=0.05)
@@ -116,8 +124,7 @@ def test_auto_orientation_refuses_what_no_kernel_serves(field, value, auto):
     """On CUDA ``auto`` picks a kernel that can serve the parameters or
     raises: it never falls back to the plain bootstrap on the card."""
     from dataclasses import replace
-    from tfhe_fbs_map_tpu_torch.runtime.cli import (check_kernel,
-                                                    pick_orientation)
+    from tfhe_fbs_map_tpu_torch.runtime.cli import check_kernel
     params = replace(PRESETS["aes128_p4"][0], **{field: value})
     cuda = torch.device("cuda")
     assert pick_orientation(params, torch.device("cpu")) == "generic"
@@ -130,3 +137,108 @@ def test_auto_orientation_refuses_what_no_kernel_serves(field, value, auto):
         assert pick_orientation(params, cuda, free_bytes=1 << 50) == auto
         with pytest.raises(ValueError, match="fused_otf"):
             pick_orientation(params, cuda, free_bytes=1 << 30)
+
+
+# ------------------------------------------------------------- staged
+
+@pytest.fixture()
+def mixed_lbf(tmp_path):
+    """A p=32 program with every staged route (test_staged_executor's)."""
+    from test_staged_executor import build_mixed_program
+    prog = build_mixed_program(np.random.default_rng(2))
+    prog.fbs_size = 32
+    path = tmp_path / "mixed.lbf"
+    with open(path, "w") as f:
+        prog.write_lbf(f)
+    return str(path)
+
+
+@pytest.mark.parametrize("orientation,staged", [
+    ("generic", "auto"), ("fused_otf", "on"), ("auto", "auto")])
+def test_staged_preset_runs_bit_exact(mixed_lbf, capsys, orientation,
+                                      staged):
+    rc = main([mixed_lbf, "--params", "staged_test", "--staged", staged,
+               "--batch", "3", "--device", "cpu",
+               "--orientation", orientation])
+    res = last_json(capsys)
+    assert rc == 0 and res["staged"] and res["bit_exact"]
+    want = "generic" if orientation == "auto" else orientation
+    assert res["orientation"] == {"fam1": want, "fam2": want}
+    assert res["bootstraps"] == 4 and res["batch"] == 3
+    assert res["expected_flips"] is None
+
+
+@pytest.mark.parametrize("args,why", [
+    (["--params", "staged_test", "--staged", "off"], "--staged off"),
+    (["--params", "test", "--staged", "on"], "--staged on"),
+    (["--test-params", "--staged", "on"], "--staged on"),
+    (["--params", "staged_test", "--keys", "k.npz"], "--keys"),
+    (["--params", "kreyvium_p10_staged"], "p=10"),
+])
+def test_staged_mismatches_exit_2(mixed_lbf, capsys, args, why):
+    rc = main([mixed_lbf, "--device", "cpu", *args])
+    assert rc == 2 and why in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("name,p,norms,kw", [
+    # the keyless staged probe of the Kreyvium-1152 program
+    # (test_torch_staged_executor.py): eff norms 27/25, 8754 f1 + 93 f2
+    ("kreyvium_p10_staged", 10, (27, 25),
+     dict(weight1=8754, weight2=93, wires_from_stage2=False,
+          max_p_error=1e-7)),
+    # bench.py:243-252
+    ("p32_staged", 32, (4, 2), dict(max_p_error=1e-6)),
+])
+def test_staged_presets_are_the_optimizer_picks(name, p, norms, kw):
+    from tfhe_fbs_map_tpu.optimizer.optimizer import optimize_staged
+    sol = optimize_staged(p, *norms, **kw)
+    preset = STAGED_PRESETS[name]
+    assert preset.p == p
+    assert vars(preset.fam1) == vars(sol.params1)
+    assert vars(preset.fam2) == vars(sol.params2)
+    assert preset.p_error == sol.p_error
+
+
+@pytest.mark.parametrize("name", ["kreyvium_p10_staged", "p32_staged"])
+def test_auto_staged_orientations_fit_together(name):
+    """``auto`` sends both staged families to K1, even where their K2
+    matrices (59-67 GB) fit an 80 GB card's free memory together, as they
+    do at both presets; fam1 alone goes to K2 when it fits."""
+    from tfhe_fbs_map_tpu_torch.ops.blind_rotate import fused_key_bytes
+    preset = STAGED_PRESETS[name]
+    fams = [preset.fam1, preset.fam2]
+    sizes = [fused_key_bytes(f) for f in fams]
+    want = {"kreyvium_p10_staged": [642 * 8192 * 8192, 642 * 6144 * 6144],
+            "p32_staged": [674 * 6144 * 8192, 674 * 6144 * 6144]}[name]
+    assert sizes == want
+    # an H100 80GB HBM3 holds 81,559 MiB
+    card = 81559 << 20
+    assert sum(sizes) + FUSED_HEADROOM < card
+    cuda = torch.device("cuda")
+    assert pick_orientations(fams, cuda, free_bytes=card) \
+        == ["fused_otf"] * 2
+    assert pick_orientations(fams[:1], cuda, free_bytes=card) == ["fused"]
+    assert pick_orientations(fams, torch.device("cpu")) == ["generic"] * 2
+
+
+# bench.py:355-372, the JAX staged bench's JSON keys
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "batch", "staged",
+              "params", "device", "keygen_s", "compile_s",
+              "ms_per_bootstrap", "errors"}
+
+
+def test_bench_p32_quick_on_the_cpu():
+    root = Path(__file__).resolve().parents[1]
+    # one thread, as in this process: the test workers share the cores
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    res = subprocess.run([sys.executable, "-m", "tfhe_fbs_map_tpu_torch.bench",
+                          "--preset", "p32", "--quick"], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert set(out) == BENCH_KEYS
+    assert out["errors"] == 0 and out["staged"] and out["device"] == "cpu"
+    assert out["batch"] == 5 * 8
+    assert out["params"] == {"n": 16, "p": 32,
+                             "fam1": {"k": 1, "N": 256, "l_bsk": 3},
+                             "fam2": {"k": 2, "N": 128, "l_bsk": 3}}

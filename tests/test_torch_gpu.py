@@ -97,6 +97,113 @@ def test_fast_bootstrap_on_cuda_equals_generic_on_cpu(cuda, orientation):
     assert torch.equal(got.cpu(), want)
 
 
+@pytest.mark.parametrize("orientation,key", [("fused_otf", "k1"),
+                                             ("fused", "k2")])
+def test_staged_bootstrap_on_cuda_equals_generic(cuda, orientation, key):
+    """At the p32_staged families with n cut to 16, the staged bootstrap
+    with both stages through a fused kernel is bitwise equal to the generic
+    staged bootstrap on the card, and decrypts to the table."""
+    from dataclasses import replace
+
+    from tfhe_fbs_map_tpu_torch.tfhe.encrypt import lwe_phase
+    from tfhe_fbs_map_tpu_torch.tfhe.params import STAGED_PRESETS
+    from tfhe_fbs_map_tpu_torch.tfhe.staged import (
+        encrypt_wires, generate_staged_keys, split_node,
+        staged_functional_bootstrap)
+    preset = STAGED_PRESETS["p32_staged"]
+    fam1, fam2 = (replace(f, lwe_dim=16) for f in (preset.fam1, preset.fam2))
+    skeys = generate_staged_keys(32, fam1, fam2, seed=3, device=cuda)
+    coefs = [1, 2, 4, 8, 16]
+    rng = np.random.default_rng(4)
+    table = rng.integers(0, 2, 32).tolist()
+    split = split_node(coefs, 0, table, 32)
+    combos = np.array([[(j >> i) & 1 for j in range(32)] for i in range(5)])
+    cts = torch.stack([encrypt_wires(skeys, combos[i], rng)
+                       for i in range(5)])
+    want = staged_functional_bootstrap(skeys, split, cts, coefs)
+    fast = [prepare_fast_keys(k, orientation=orientation)
+            for k in (skeys.keys1, skeys.keys2)]
+    before = fbr.LAUNCHES[key]
+    got = staged_functional_bootstrap(skeys, split, cts, coefs,
+                                      fast1=fast[0], fast2=fast[1])
+    torch.cuda.synchronize()
+    assert fbr.LAUNCHES[key] == before + 2
+    assert torch.equal(got, want)
+    u = lwe_phase(skeys.extracted_key, got).cpu().numpy().astype(np.uint32)
+    dec = np.round(u / skeys.wire_params.delta).astype(np.int64) % 64
+    assert np.array_equal(dec, np.asarray(table)[coefs @ combos])
+
+
+def mixed_program(rng):
+    """A p=32 program with every staged route: two splits (one of them
+    negacyclic), an f2 single and an f1 single, with fanout at mixed
+    multipliers (tests/test_staged_executor.py's, on the port's
+    frontend)."""
+    from tfhe_fbs_map_tpu_torch.frontend.lut_program import LutProgram
+    prog = LutProgram()
+    w = [prog.input(f"w{i}") for i in range(5)]
+
+    def tbl(n):
+        t = rng.integers(0, 2, n)
+        t[rng.integers(0, n)] = 0
+        return t.tolist()
+
+    addr = prog.linear([1, 2, 4, 8, 16], w, 0)
+    a = prog.bootstrap(addr, tbl(addr.max_val + 1))
+    lin_b = prog.linear([1, 2], [a, w[0]], 0)
+    b = prog.bootstrap(lin_b, tbl(lin_b.max_val + 1))
+    lin_c = prog.linear([1, 2, 4, 5], [b, w[1], w[2], a], 0)
+    c = prog.bootstrap(lin_c, tbl(lin_c.max_val + 1))
+    half = rng.integers(0, 2, 32)
+    d = prog.bootstrap(prog.linear([1, 2, 4, 8, 16, 32], w + [c], 0),
+                       half.tolist() + (1 - half).tolist())
+    prog.output("o_split", a)
+    prog.output("o_small", b)
+    prog.output("o_mid", c)
+    prog.output("o_nega", d)
+    prog.output("o_lin", prog.linear([1, 2], [a, d], 0))
+    return prog
+
+
+@pytest.mark.parametrize("orientation,key", [("fused_otf", "k1"),
+                                             ("fused", "k2")])
+def test_staged_executor_on_cuda_equals_generic(cuda, orientation, key):
+    """``CircuitExecutor.step`` on the card through a fused kernel, at the
+    p32_staged families with n cut to 16, over a program with split levels:
+    the wire buffer after every level is bitwise equal to the generic
+    staged run's on the card, the kernel launches once per non-empty family
+    call, and the outputs decrypt to the oracle."""
+    from dataclasses import replace
+
+    from tfhe_fbs_map_tpu_torch.runtime.executor import CircuitExecutor
+    from tfhe_fbs_map_tpu_torch.tfhe.params import STAGED_PRESETS
+    from tfhe_fbs_map_tpu_torch.tfhe.staged import generate_staged_keys
+    preset = STAGED_PRESETS["p32_staged"]
+    fam1, fam2 = (replace(f, lwe_dim=16) for f in (preset.fam1, preset.fam2))
+    skeys = generate_staged_keys(32, fam1, fam2, seed=3, device=cuda)
+    rng = np.random.default_rng(2)
+    prog = mixed_program(rng)
+    fast = tuple(prepare_fast_keys(k, orientation=orientation)
+                 for k in (skeys.keys1, skeys.keys2))
+    ex = CircuitExecutor(prog, skeys, fast_keys=fast)
+    ref = CircuitExecutor(prog, skeys)
+    assert ex.plan.route_counts == {"f1": 1, "f2": 1, "split": 2}
+    values = {f"w{i}": rng.integers(0, 2, 16) for i in range(5)}
+    buf = ex.encrypt_inputs(values, np.random.default_rng(5))
+    want = buf.clone()
+    calls, before = 0, fbr.LAUNCHES[key]
+    for lv, plan in enumerate(ex.levels):
+        buf = ex.step(buf, lv)
+        want = ref.step(want, lv)
+        assert torch.equal(buf, want), (lv, plan.n_splits)
+        calls += bool(plan.wire_idx1.shape[0]) + bool(plan.wire_idx2.shape[0])
+    torch.cuda.synchronize()
+    assert fbr.LAUNCHES[key] == before + calls
+    got = ex.decrypt_outputs(buf)
+    for k, w in prog.eval(values).items():
+        assert np.array_equal(got[k] % 64, np.asarray(w) % 64), k
+
+
 def test_cli_on_cuda(cuda, tmp_path, capsys):
     from tfhe_fbs_map_tpu_torch.frontend import BitCircuit
     from tfhe_fbs_map_tpu_torch.runtime.cli import main

@@ -3,6 +3,7 @@ bit-exact, the traced window reporting no device numbers without a device."""
 
 import json
 
+import numpy as np
 import pytest
 import torch
 
@@ -34,9 +35,32 @@ def test_every_level_timed_and_bit_exact(orientation):
     assert sum(g["levels"] for g in groups.values()) == ev["levels"]
     assert all(int(w) % 3 == 0 for w in groups)
     assert 0 < ev["sum_kernel_ms"] <= ev["sum_level_ms"] <= ev["wall_s"] * 1e3
+    assert list(ev["by_family"]) == ["native"]
+    assert ev["by_family"]["native"]["launches"] == ev["levels"]
     prof = res["profile"]
     assert prof["window_levels"] == 1 and prof["device_events"] == 0
     assert prof["idle_share"] is None and "tile_sweep" not in res
+
+
+def test_staged_preset_times_each_family():
+    """A staged preset runs both families' calls through the executor's
+    step, and their kernel times are reported per family."""
+    from test_staged_executor import build_mixed_program
+    from tfhe_fbs_map_tpu_torch.tfhe.params import STAGED_PRESETS
+    prog = build_mixed_program(np.random.default_rng(2))
+    res = profile_program(prog, STAGED_PRESETS["staged_test"], 2,
+                          "fused_otf", torch.device("cpu"), trace=2)
+    ev = res["events"]
+    assert res["staged"] and ev["bit_exact"] and ev["levels"] == 4
+    fams = ev["by_family"]
+    # (fam1, fam2) calls a level: (1, 1), (0, 1), (1, 0), (1, 1)
+    assert {f: v["launches"] for f, v in fams.items()} == {"fam1": 3,
+                                                          "fam2": 3}
+    assert ev["sum_kernel_ms"] == pytest.approx(
+        sum(v["kernel_ms"] for v in fams.values()))
+    assert sum(g["levels"] for g in
+               ev["by_ciphertexts_per_launch"].values()) == 4
+    assert res["profile"]["window_levels"] == 2
 
 
 def test_cli_prints_json_and_writes_it(tmp_path, capsys):

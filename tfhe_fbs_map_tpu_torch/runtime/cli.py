@@ -3,9 +3,14 @@
 The counterpart of ``python -m tfhe_fbs_map_tpu.runtime``: load or map a
 circuit, generate keys, encrypt random inputs, run every level batched on
 the device, decrypt, and check the outputs against ``LutProgram.eval``.
-The last line of standard output is the same JSON object.
+The last line of standard output is the same JSON object.  A staged preset
+(``--params kreyvium_p10_staged``, ``p32_staged``) runs the staged
+two-family pipeline.
 
     python -m tfhe_fbs_map_tpu_torch.runtime prog.lbf --params aes128_p4 --batch 8
+    python -m tfhe_fbs_map_tpu_torch.runtime \\
+        outputs/generated/kreyvium_stream_v1_10_search.lbf \\
+        --params kreyvium_p10_staged --batch 16 --orientation fused_otf
     python -m tfhe_fbs_map_tpu_torch.runtime c.blif --map --test-params --device cpu
 """
 
@@ -27,22 +32,28 @@ from ..ops.fused_blind_rotate import unsupported
 FUSED_HEADROOM = 4 << 30
 
 
-def pick_orientation(params, device: torch.device,
-                     free_bytes: int | None = None) -> str:
-    """``--orientation auto``: on CUDA the K2 kernel ("fused") when its
-    precomputed key matrices fit free device memory with
-    ``FUSED_HEADROOM`` to spare, else K1 ("fused_otf"); generic on the
-    CPU.  On CUDA it raises ValueError when neither kernel serves
-    ``params``: the plain bootstrap runs there only when asked for."""
+def pick_orientations(families, device: torch.device,
+                      free_bytes: int | None = None) -> list[str]:
+    """``--orientation auto`` for the parameter families of one run: generic
+    on the CPU.  On CUDA, one family goes to the K2 kernel ("fused") when
+    K2 serves it and its precomputed key matrices fit free device memory
+    with ``FUSED_HEADROOM`` to spare, else to K1 ("fused_otf").  The two
+    staged families both go to K1, the JAX reference's choice at every
+    staged preset: their K2 matrices take 59-67 GB, and on the Kreyvium
+    preset K1 ran the whole path faster even before K2's matrices are
+    built (PERF.md); ``--orientation fused`` still asks for K2.  On
+    CUDA it raises ValueError when the kernel picked cannot serve a family:
+    the plain bootstrap runs there only when asked for."""
     if device.type != "cuda":
-        return "generic"
-    if unsupported(params, otf=False) is None:
+        return ["generic"] * len(families)
+    if len(families) == 1 and unsupported(families[0], otf=False) is None:
         if free_bytes is None:
             free_bytes, _ = torch.cuda.mem_get_info(device)
-        if fused_key_bytes(params) + FUSED_HEADROOM <= free_bytes:
-            return "fused"
-    check_kernel(params, "fused_otf")
-    return "fused_otf"
+        if fused_key_bytes(families[0]) + FUSED_HEADROOM <= free_bytes:
+            return ["fused"]
+    for p in families:
+        check_kernel(p, "fused_otf")
+    return ["fused_otf"] * len(families)
 
 
 def check_kernel(params, orientation: str) -> None:
@@ -57,7 +68,7 @@ def check_kernel(params, orientation: str) -> None:
 
 
 def main(argv=None) -> int:
-    from ..tfhe.params import PRESETS
+    from ..tfhe.params import PRESETS, STAGED_PRESETS
 
     ap = argparse.ArgumentParser(
         description="Execute a mapped FBS circuit homomorphically "
@@ -90,16 +101,27 @@ def main(argv=None) -> int:
                     help="run the circuit this many times; report the last")
     ap.add_argument("--test-params", action="store_true",
                     help="use the small insecure test parameter set")
-    ap.add_argument("--params", choices=sorted(PRESETS), default=None,
-                    help="pinned parameter preset; stands in for the "
-                         "parameter optimizer, which is not ported yet")
+    ap.add_argument("--params", choices=sorted(PRESETS)
+                    + sorted(STAGED_PRESETS), default=None,
+                    help="pinned parameter preset, one family or two staged "
+                         "ones; stands in for the parameter optimizer, "
+                         "which is not ported yet")
+    ap.add_argument("--staged", default="auto", choices=["auto", "on", "off"],
+                    help="staged two-family pipeline (tfhe/staged.py): large "
+                         "tables split into a size-p/2 + size-8 pair, small "
+                         "ones run on the select family, wires produced "
+                         "pre-scaled.  Until the optimizer is ported it "
+                         "follows --params: auto runs staged exactly when "
+                         "the preset is a staged one, on requires one, off "
+                         "refuses one")
     ap.add_argument("--orientation", default="auto",
                     choices=["auto", "fused", "fused_otf", "generic"],
-                    help="bootstrap path (auto: on CUDA the fused kernel "
-                         "over precomputed key matrices when they fit free "
-                         "device memory, else the compact-key kernel, and "
-                         "an error if neither serves the parameters; "
-                         "generic on the CPU)")
+                    help="bootstrap path of every family (auto: on CUDA the "
+                         "fused kernel over precomputed key matrices when "
+                         "they fit free device memory, else the compact-key "
+                         "kernel, which also runs both staged families, "
+                         "and an error if the kernel cannot serve the "
+                         "parameters; generic on the CPU)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
 
@@ -111,6 +133,20 @@ def main(argv=None) -> int:
         print("pass --params <preset>, --test-params or --keys: the "
               "parameter optimizer is not ported yet", file=sys.stderr)
         return 2
+    staged = args.params in STAGED_PRESETS
+    if args.staged == "on" and not staged:
+        print("--staged on needs a staged --params preset (one of "
+              f"{', '.join(sorted(STAGED_PRESETS))})", file=sys.stderr)
+        return 2
+    if args.staged == "off" and staged:
+        print(f"--staged off contradicts the staged preset {args.params}",
+              file=sys.stderr)
+        return 2
+    if staged and (args.keys or args.save_keys or args.test_params):
+        print("a staged preset generates both families' keys: --keys, "
+              "--save-keys and --test-params take one family",
+              file=sys.stderr)
+        return 2
     device = torch.device(args.device)
 
     from ..frontend.lut_program import parse_lbf
@@ -120,6 +156,7 @@ def main(argv=None) -> int:
     from ..ops.blind_rotate import prepare_fast_keys
     from ..tfhe import TEST_PARAMS, generate_keys
     from ..tfhe.keys import load_keys, save_keys
+    from ..tfhe.staged import generate_staged_keys
     from .executor import CircuitExecutor
 
     # --- obtain the program --------------------------------------------
@@ -147,8 +184,23 @@ def main(argv=None) -> int:
 
     # --- keys -----------------------------------------------------------
     p_error = None
-    if args.keys:
+    t0 = time.time()
+    if staged:
+        preset = STAGED_PRESETS[args.params]
+        if p_run != preset.p:
+            print(f"staged preset {args.params} has p={preset.p}, the "
+                  f"program p={p_run}", file=sys.stderr)
+            return 2
+        print(f"# staged params: fam1={preset.fam1} fam2={preset.fam2}",
+              file=sys.stderr)
+        keys = generate_staged_keys(preset.p, preset.fam1, preset.fam2,
+                                    seed=args.seed, device=device)
+        families = [keys.keys1, keys.keys2]
+        p_error = preset.p_error
+        print(f"# staged keygen: {time.time() - t0:.1f}s", file=sys.stderr)
+    elif args.keys:
         keys = load_keys(args.keys, device=device)
+        families = [keys]
     else:
         if args.test_params:
             params = TEST_PARAMS.with_p(max(p_needed, TEST_PARAMS.p))
@@ -161,8 +213,8 @@ def main(argv=None) -> int:
             if p_run != params.p:
                 params, p_error = params.with_p(p_run), None
             print(f"# params: {params}", file=sys.stderr)
-        t0 = time.time()
         keys = generate_keys(params, seed=args.seed, device=device)
+        families = [keys]
         print(f"# keygen: {time.time() - t0:.1f}s", file=sys.stderr)
         if args.save_keys:
             save_keys(args.save_keys, keys)
@@ -172,23 +224,29 @@ def main(argv=None) -> int:
     values = {name: rng.integers(0, 2, args.batch) for name in input_names}
     oracle = prog.eval(values)
 
-    # --- bootstrap path ---------------------------------------------------
-    orient = args.orientation
+    # --- bootstrap path of every family, all picked before any fast key
+    # is built ------------------------------------------------------------
+    fam_params = [k.params for k in families]
     try:
-        if orient == "auto":
-            orient = pick_orientation(keys.params, device)
-        elif orient != "generic" and device.type == "cuda":
-            check_kernel(keys.params, orient)
+        if args.orientation == "auto":
+            orients = pick_orientations(fam_params, device)
+        else:
+            orients = [args.orientation] * len(families)
+            if args.orientation != "generic" and device.type == "cuda":
+                for params in fam_params:
+                    check_kernel(params, args.orientation)
     except ValueError as e:
         print(e, file=sys.stderr)
         return 2
     fast = None
-    if orient != "generic":
+    if orients[0] != "generic":
         t0 = time.time()
-        fast = prepare_fast_keys(keys, orientation=orient)
+        fast = [prepare_fast_keys(k, orientation=o)
+                for k, o in zip(families, orients)]
+        fast = tuple(fast) if staged else fast[0]
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        print(f"# fast keys ({orient}): {time.time() - t0:.1f}s",
+        print(f"# fast keys ({'+'.join(orients)}): {time.time() - t0:.1f}s",
               file=sys.stderr)
 
     ex = CircuitExecutor(prog, keys, fast_keys=fast)
@@ -220,7 +278,7 @@ def main(argv=None) -> int:
 
     total_boots = ex.num_bootstraps * args.batch
     print(json.dumps({
-        "staged": False,
+        "staged": staged,
         "bit_exact": errors == 0,
         "wrong_bits": wrong_bits,
         "total_output_bits": len(oracle) * args.batch,
@@ -231,7 +289,8 @@ def main(argv=None) -> int:
         "bootstraps": ex.num_bootstraps,
         "batch": args.batch,
         "mesh": None,
-        "orientation": orient,
+        "orientation": (dict(zip(("fam1", "fam2"), orients)) if staged
+                        else orients[0]),
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
         "encrypt_s": round(enc_s, 3),

@@ -1,20 +1,27 @@
-"""Batched homomorphic executor for mapped FBS programs (native path).
+"""Batched homomorphic executor for mapped FBS programs.
 
-The counterpart of ``tfhe_fbs_map_tpu.runtime.executor`` for one parameter
-family on one device.  A :class:`LutProgram` is compiled into per-level
-plans (bootstraps grouped by depth, each level padded to a power-of-two
-bootstrap count, padding results sent to one dummy wire row); :meth:`run`
-is a Python loop of :func:`_level_step` over the levels.  Each step is one
-gather + integer lincomb and one batched functional bootstrap of
-``bootstraps × V`` ciphertexts.
+The counterpart of ``tfhe_fbs_map_tpu.runtime.executor`` on one device.  A
+:class:`LutProgram` is compiled into per-level plans (bootstraps grouped by
+depth, each level padded to a power-of-two bootstrap count, padding results
+sent to one dummy wire row); :meth:`CircuitExecutor.run` is a Python loop of
+:meth:`CircuitExecutor.step` over the levels.  Two pipelines:
 
-Not here yet: the staged two-family pipeline, multi-device execution and
-grouping levels into one launch; the constructor refuses staged keys and a
-mesh.
+* native, one parameter family (:func:`compile_program`,
+  :func:`_level_step`): each level is one gather + integer lincomb and one
+  batched functional bootstrap of ``bootstraps × V`` ciphertexts;
+* staged, two families over one master secret (:mod:`..tfhe.staged`,
+  :func:`compile_staged`, :func:`_staged_level_step`): each level is one
+  fam1 call (stage 1 of the split nodes, then the fam1 singles) and one
+  fam2 call (stage 2 of the splits, then the fam2 singles), and wires are
+  produced pre-scaled to what their consumers need.
+
+Not here yet: multi-device execution and grouping levels into one launch;
+the constructor refuses a mesh.
 """
 
 from __future__ import annotations
 
+import math
 import sys
 import time
 from dataclasses import dataclass
@@ -27,9 +34,13 @@ from ..frontend.lut_program import (LutProgram, N_BOOT, N_CONST, N_INPUT,
 from ..tfhe.encrypt import decode, encode, lwe_encrypt, lwe_phase
 from ..tfhe.keys import TFHEKeys
 from ..tfhe.numeric import I64, wrap32
+from ..tfhe.params import TFHEParams
 from ..tfhe.pbs import build_test_vector, functional_bootstrap
+from ..tfhe.staged import SELECT_P, StagedKeys, split_node
 
-__all__ = ["CircuitExecutor", "LevelPlan", "compile_program"]
+__all__ = ["CircuitExecutor", "LevelPlan", "StagedLevelPlan",
+           "compile_program", "compile_staged", "staged_probe",
+           "staged_level_routes"]
 
 
 @dataclass
@@ -43,6 +54,38 @@ class LevelPlan:
     posts: np.ndarray        # [nb] int32 post-rotation body offsets
     out_rows: np.ndarray     # [nb] destination rows in the wire buffer
 
+    def arrays(self) -> tuple[np.ndarray, ...]:
+        return (self.wire_idx, self.coefs, self.consts, self.test_polys,
+                self.posts, self.out_rows)
+
+
+@dataclass
+class StagedLevelPlan:
+    """Static tensors for one level of staged (two-family) bootstraps.
+
+    Stage 1: the re-gridded x_lo lincomb through fam1 (and the fam1
+    singles); stage 2: G + the branch lincomb through the select family
+    (and the fam2 singles).  Coefficients multiply pre-scaled wires."""
+
+    wire_idx1: np.ndarray    # [nb1, T]
+    coefs1: np.ndarray       # [nb1, T]
+    consts1: np.ndarray      # [nb1]
+    tvs1: np.ndarray         # [nb1, N1]
+    posts1: np.ndarray       # [nb1]
+    out_rows1: np.ndarray    # [nb1] (dummy for split rows; real for singles)
+    wire_idx2: np.ndarray    # [nb2, T]
+    coefs2: np.ndarray       # [nb2, T]
+    consts2: np.ndarray      # [nb2]
+    tvs2: np.ndarray         # [nb2, N2]
+    posts2: np.ndarray       # [nb2]
+    out_rows: np.ndarray     # [nb2]
+    n_splits: int = 0        # leading rows of both stages forming pairs
+
+    def arrays(self) -> tuple[np.ndarray, ...]:
+        return (self.wire_idx1, self.coefs1, self.consts1, self.tvs1,
+                self.posts1, self.out_rows1, self.wire_idx2, self.coefs2,
+                self.consts2, self.tvs2, self.posts2, self.out_rows)
+
 
 @dataclass
 class OutputSpec:
@@ -55,11 +98,22 @@ class OutputSpec:
 @dataclass
 class Plan:
     input_rows: dict[str, int]
-    levels: list[LevelPlan]
+    levels: list
     outputs: dict[str, OutputSpec]
     dummy_row: int
     num_wires: int
     num_bootstraps: int
+
+
+@dataclass
+class StagedPlan(Plan):
+    """A staged plan and what the JAX staged compile reports beside it."""
+
+    row_scale: np.ndarray              # [num_wires] torus multiple a row
+    route_counts: dict[str, int]       # nodes by route: f1, f2, split
+    eff_norm1: int                     # max squared norm of a fam1 lincomb
+    eff_norm2: int                     # the same for fam2 (+1 for G)
+    level_routes: list[tuple[int, int, int]]   # (splits, f1, f2) a level
 
 
 def _u32(x) -> np.int32:
@@ -73,40 +127,65 @@ def _bucket(nb: int) -> int:
     return b
 
 
+def _boot_nodes(prog: LutProgram, wire_row: dict, input_rows: dict):
+    """Walk ``prog`` in topological order, giving wire rows to inputs and
+    bootstraps; yields every bootstrap as (node, rows, coefs, const, wire
+    bounds, level, row) with its source lincomb's terms."""
+    level: dict[str, int] = {}
+    for node in prog.nodes:
+        if node.kind == N_INPUT:
+            wire_row[node.name] = input_rows[node.name] = len(wire_row)
+            level[node.name] = 0
+        elif node.kind == N_LIN:
+            level[node.name] = max((level[v.name] for _, v in node.terms),
+                                   default=0)
+        elif node.kind == N_BOOT:
+            src = node.src
+            if src.kind == N_LIN:
+                rows = [wire_row[v.name] for _, v in src.terms]
+                coefs = [int(c) for c, _ in src.terms]
+                const = int(src.const)
+                bounds = [v.max_val for _, v in src.terms]
+            else:  # bootstrap of a raw input/bootstrap wire
+                rows, coefs, const = [wire_row[src.name]], [1], 0
+                bounds = [src.max_val]
+            lv = level[src.name] + 1
+            row = len(wire_row)
+            wire_row[node.name] = row
+            level[node.name] = lv
+            yield node, rows, coefs, const, bounds, lv, row
+
+
+def _output_specs(prog: LutProgram, wire_row: dict) -> dict[str, OutputSpec]:
+    outputs: dict[str, OutputSpec] = {}
+    for name, node in prog.outputs.items():
+        if node.kind == N_CONST:
+            outputs[name] = OutputSpec("const", np.zeros(0, np.int32),
+                                       np.zeros(0, np.int32), node.const)
+        elif node.kind == N_LIN:
+            outputs[name] = OutputSpec(
+                "lin",
+                np.asarray([wire_row[v.name] for _, v in node.terms],
+                           np.int32),
+                np.asarray([int(c) for c, _ in node.terms], np.int32),
+                int(node.const))
+        else:
+            outputs[name] = OutputSpec(
+                "wire", np.asarray([wire_row[node.name]], np.int32),
+                np.asarray([1], np.int32), 0)
+    return outputs
+
+
 def compile_program(prog: LutProgram, params) -> Plan:
     """Levelized plan of ``prog``, equal to the JAX ``_compile``'s arrays."""
     wire_row: dict[str, int] = {}
     input_rows: dict[str, int] = {}
     levels: dict[int, list] = {}
-    node_level: dict[str, int] = {}
+    for node, rows, coefs, const, _, lv, row in _boot_nodes(prog, wire_row,
+                                                            input_rows):
+        tv, post = build_test_vector(node.table, params)
+        levels.setdefault(lv, []).append((rows, coefs, const, tv, post, row))
 
-    def lin_parts(node):
-        return ([wire_row[v.name] for _, v in node.terms],
-                [int(c) for c, _ in node.terms], int(node.const))
-
-    for node in prog.nodes:
-        if node.kind == N_INPUT:
-            wire_row[node.name] = len(wire_row)
-            input_rows[node.name] = wire_row[node.name]
-            node_level[node.name] = 0
-        elif node.kind == N_LIN:
-            node_level[node.name] = max(
-                (node_level[v.name] for _, v in node.terms), default=0)
-        elif node.kind == N_BOOT:
-            src = node.src
-            if src.kind == N_LIN:
-                rows, coefs, const = lin_parts(src)
-            else:  # bootstrap of a raw input/bootstrap wire
-                rows, coefs, const = [wire_row[src.name]], [1], 0
-            lv = node_level[src.name] + 1
-            row = len(wire_row)
-            wire_row[node.name] = row
-            node_level[node.name] = lv
-            tv, post = build_test_vector(node.table, params)
-            levels.setdefault(lv, []).append(
-                (rows, coefs, const, tv, post, row))
-
-    # one extra dummy wire row receives the results of padding slots
     dummy_row = len(wire_row)
     t_global = max((len(rows) for v in levels.values()
                     for rows, *_ in v), default=1)
@@ -129,70 +208,313 @@ def compile_program(prog: LutProgram, params) -> Plan:
             out_rows[j] = row
         plans.append(LevelPlan(wire_idx, coefs, consts, tvs, posts,
                                out_rows))
+    return Plan(input_rows, plans, _output_specs(prog, wire_row), dummy_row,
+                len(wire_row) + 1, sum(len(v) for v in levels.values()))
 
-    outputs: dict[str, OutputSpec] = {}
-    for name, node in prog.outputs.items():
-        if node.kind == N_CONST:
-            outputs[name] = OutputSpec("const", np.zeros(0, np.int32),
-                                       np.zeros(0, np.int32), node.const)
-        elif node.kind == N_LIN:
-            rows, cfs, const = lin_parts(node)
-            outputs[name] = OutputSpec("lin", np.asarray(rows, np.int32),
-                                       np.asarray(cfs, np.int32), const)
+
+def _single_ok(table, pf: int) -> bool:
+    """Whether one size-``pf`` bootstrap realizes ``table``: directly, or
+    through a negacyclic half-table mode."""
+    tau = len(table)
+    if tau <= pf:
+        return True
+    c = table[0] + table[pf]
+    return tau <= 2 * pf and all(table[x] + table[x + pf] == c
+                                 for x in range(tau - pf))
+
+
+def compile_staged(prog: LutProgram, p: int, params1: TFHEParams,
+                   params2: TFHEParams) -> StagedPlan:
+    """Staged plan of ``prog`` at wire size ``p`` over the families
+    ``params1`` / ``params2`` (keyless), equal to the JAX
+    ``_compile_staged``.
+
+    A node runs, cheapest first, as one fam2 bootstrap when its table fits
+    the select grid, as one fam1 bootstrap when it fits fam1's, else as a
+    two-stage split.  Each wire is produced at the gcd of the torus
+    multiples its consumers need (the test vector carries the scale), so
+    most lincomb multipliers collapse to 1.  Raises ValueError when a node
+    fits none of the three."""
+    wparams = params1.with_p(p)
+    delta_w, delta1, delta2 = wparams.delta, params1.delta, params2.delta
+    m1, m2 = p // params1.p, p // params2.p
+    # splits are wired for the select grid; singles need the family grid
+    # to divide the wire grid
+    splits_ok = params1.p == p // 2 and p % (2 * params2.p) == 0
+    wire_row: dict[str, int] = {}
+    input_rows: dict[str, int] = {}
+    needs: dict[int, set] = {}
+    compiled, failures = [], []
+
+    def need(r, x):
+        needs.setdefault(r, set()).add(x)
+
+    for node, rows, coefs, const, bounds, lv, row in _boot_nodes(
+            prog, wire_row, input_rows):
+        table = list(node.table)
+        split = None
+        if p % params2.p == 0 and _single_ok(table, params2.p):
+            kind = "f2"
+            for r, c in zip(rows, coefs):
+                need(r, m2 * c)
+        elif _single_ok(table, params1.p):
+            kind = "f1"
+            for r, c in zip(rows, coefs):
+                need(r, m1 * c)
         else:
-            outputs[name] = OutputSpec(
-                "wire", np.asarray([wire_row[node.name]], np.int32),
-                np.asarray([1], np.int32), 0)
-    return Plan(input_rows, plans, outputs, dummy_row, len(wire_row) + 1,
-                sum(len(v) for v in levels.values()))
+            kind = "split"
+            if splits_ok:
+                split = split_node(coefs, const, table, p, bounds=bounds)
+            if split is None:
+                failures.append(f"{node.name}: tau={len(table)} "
+                                f"coefs={coefs} const={const}")
+                continue
+            for i in split.a_idx:
+                need(rows[i], 2 * coefs[i])
+            for i in split.b_idx:
+                need(rows[i], coefs[i])
+        compiled.append((lv, kind, rows, coefs, const, table, row, split))
+    if failures:
+        raise ValueError(
+            "program has bootstrap nodes the staged pipeline cannot "
+            "realize (run the native single-family executor instead): "
+            + "; ".join(failures[:8]))
+
+    for node in prog.outputs.values():
+        if node.kind == N_LIN:
+            for _, v in node.terms:
+                need(wire_row[v.name], 1)
+        elif node.kind != N_CONST:
+            need(wire_row[node.name], 1)
+    scale = {r: max(1, math.gcd(*ns) if len(ns) > 1 else abs(next(iter(ns))))
+             for r, ns in needs.items()}
+    row_scale = np.ones(len(wire_row) + 1, dtype=np.int64)
+    for r, s in scale.items():
+        row_scale[r] = s
+
+    def mult(needed, r):
+        s = scale.get(r, 1)
+        assert needed % s == 0, (needed, s)
+        return needed // s
+
+    entries: dict[int, list] = {}
+    for lv, kind, rows, coefs, const, table, row, split in compiled:
+        out_delta = int(scale.get(row, 1)) * delta_w
+        if kind == "f2":
+            tv, post = build_test_vector(table, params2, out_delta=out_delta)
+            e = dict(kind="f2", rows2=rows,
+                     coefs2=[mult(m2 * c, r) for r, c in zip(rows, coefs)],
+                     const2=const * delta2, tv2=tv, post2=post, row=row)
+        elif kind == "f1":
+            tv, post = build_test_vector(table, params1, out_delta=out_delta)
+            e = dict(kind="f1", rows1=rows,
+                     coefs1=[mult(m1 * c, r) for r, c in zip(rows, coefs)],
+                     const1=const * delta1, tv1=tv, post1=post, row=row)
+        else:
+            tv1, post1 = build_test_vector(split.t1, params1,
+                                           out_delta=delta2)
+            tv2, post2 = build_test_vector(split.t2, params2,
+                                           out_delta=out_delta)
+            e = dict(kind="split",
+                     rows1=[rows[i] for i in split.a_idx],
+                     coefs1=[mult(2 * coefs[i], rows[i])
+                             for i in split.a_idx],
+                     const1=split.const_lo * delta1, tv1=tv1, post1=post1,
+                     rows2=[rows[i] for i in split.b_idx],
+                     coefs2=[mult(coefs[i], rows[i]) for i in split.b_idx],
+                     const2=4 * split.const_hi * delta2, tv2=tv2,
+                     post2=post2, row=row)
+        entries.setdefault(lv, []).append(e)
+
+    every = [e for lv in sorted(entries) for e in entries[lv]]
+    dummy_row = len(wire_row)
+    t_global = max([len(e.get("rows1", [])) for e in every]
+                   + [len(e.get("rows2", [])) for e in every] + [1])
+    N1, N2 = params1.poly_size, params2.poly_size
+    levels = []
+    for lv in sorted(entries):
+        lvl = entries[lv]
+        splits = [e for e in lvl if e["kind"] == "split"]
+        f1s = [e for e in lvl if e["kind"] == "f1"]
+        f2s = [e for e in lvl if e["kind"] == "f2"]
+        ns = len(splits)
+        nb1 = _bucket(ns + len(f1s)) if (ns or f1s) else 0
+        nb2 = _bucket(ns + len(f2s)) if (ns or f2s) else 0
+        wi1 = np.zeros((nb1, t_global), np.int32)
+        cf1 = np.zeros((nb1, t_global), np.int32)
+        cs1 = np.zeros(nb1, np.int32)
+        tvs1 = np.zeros((nb1, N1), np.int32)
+        ps1 = np.zeros(nb1, np.int32)
+        or1 = np.full(nb1, dummy_row, np.int32)
+        for j, e in enumerate(splits + f1s):
+            wi1[j, :len(e["rows1"])] = e["rows1"]
+            cf1[j, :len(e["coefs1"])] = e["coefs1"]
+            cs1[j] = _u32(e["const1"])
+            tvs1[j] = e["tv1"]
+            ps1[j] = _u32(e["post1"])
+            if e["kind"] == "f1":
+                or1[j] = e["row"]
+        wi2 = np.zeros((nb2, t_global), np.int32)
+        cf2 = np.zeros((nb2, t_global), np.int32)
+        cs2 = np.zeros(nb2, np.int32)
+        tvs2 = np.zeros((nb2, N2), np.int32)
+        ps2 = np.zeros(nb2, np.int32)
+        or2 = np.full(nb2, dummy_row, np.int32)
+        for j, e in enumerate(splits + f2s):
+            wi2[j, :len(e.get("rows2", []))] = e.get("rows2", [])
+            cf2[j, :len(e.get("coefs2", []))] = e.get("coefs2", [])
+            cs2[j] = _u32(e["const2"])
+            tvs2[j] = e["tv2"]
+            ps2[j] = _u32(e["post2"])
+            or2[j] = e["row"]
+        levels.append(StagedLevelPlan(wi1, cf1, cs1, tvs1, ps1, or1,
+                                      wi2, cf2, cs2, tvs2, ps2, or2, ns))
+
+    return StagedPlan(
+        input_rows, levels, _output_specs(prog, wire_row), dummy_row,
+        len(wire_row) + 1, len(compiled),
+        row_scale=row_scale,
+        route_counts={k: sum(1 for e in every if e["kind"] == k)
+                      for k in ("f1", "f2", "split")},
+        # post-scaling squared norms per family (the noise model's input)
+        eff_norm1=max((sum(c * c for c in e["coefs1"]) for e in every
+                       if "coefs1" in e), default=1),
+        eff_norm2=max((sum(c * c for c in e.get("coefs2", []))
+                       + (e["kind"] == "split") for e in every
+                       if e["kind"] != "f1"), default=1),
+        level_routes=[tuple(sum(1 for e in entries[lv] if e["kind"] == k)
+                            for k in ("split", "f1", "f2"))
+                      for lv in sorted(entries)])
 
 
-def _level_step(keys: TFHEKeys, fast_keys, buf, wire_idx, coefs, consts,
-                tvs, posts, out_rows) -> torch.Tensor:
-    """One level, in place on ``buf`` [W, V, d]: lincombs of gathered wires,
-    one batched FBS (flattened V-major), results scattered to ``out_rows``.
+def _probe_plan(prog: LutProgram, p: int) -> StagedPlan:
+    """:func:`compile_staged` with the family grids the JAX CLI would pick
+    at ``p`` and shell sizes (the plan's routes do not depend on them)."""
+    p1 = p // 2 if p >= 32 else p
+    p2 = SELECT_P if p % SELECT_P == 0 else p // 2
 
-    The lincomb is an elementwise int64 multiply-and-sum (no integer matmul
-    on CUDA), wrapped to int32."""
+    def shell(pp, k, N):
+        return TFHEParams(p=pp, lwe_dim=16, glwe_dim=k, poly_size=N,
+                          bsk_level=1, bsk_base_log=8, ksk_level=1,
+                          ksk_base_log=8, lwe_noise_std=0.0,
+                          glwe_noise_std=0.0)
+
+    return compile_staged(prog, p, shell(p1, 1, 2048), shell(p2, 2, 1024))
+
+
+def staged_probe(prog: LutProgram, p: int
+                 ) -> tuple[int, int, dict[str, int]]:
+    """Keyless staged probe: (eff_norm1, eff_norm2, route_counts), the
+    inputs of the JAX ``optimize_staged``; raises ValueError when the
+    program has nodes the staged pipeline cannot realize."""
+    plan = _probe_plan(prog, p)
+    return plan.eff_norm1, plan.eff_norm2, plan.route_counts
+
+
+def staged_level_routes(prog: LutProgram, p: int
+                        ) -> list[tuple[int, int, int]]:
+    """Per-level (n_split, n_f1, n_f2) of the staged plan at ``p``: each
+    level issues one fam1 call of ``bucket(ns + nf1)`` bootstraps and one
+    fam2 call of ``bucket(ns + nf2)``."""
+    return _probe_plan(prog, p).level_routes
+
+
+def _lincomb_flat(buf, wire_idx, coefs, consts) -> torch.Tensor:
+    """Lincombs of gathered wires, flattened V-major: [V·nb, d] int32.
+
+    An elementwise int64 multiply-and-sum (no integer matmul on CUDA),
+    wrapped to int32."""
     nb = wire_idx.shape[0]
     _, v, d = buf.shape
     gathered = buf[wire_idx.to(I64)].to(I64)                      # [nb, T, V, d]
     lin = (coefs.to(I64)[:, :, None, None] * gathered).sum(1)
     lin[:, :, -1] += consts.to(I64)[:, None]
-    flat = wrap32(lin).transpose(0, 1).reshape(v * nb, d)
+    return wrap32(lin).transpose(0, 1).reshape(v * nb, d)
+
+
+def _run_fbs(keys: TFHEKeys, fast_keys, flat, tvs, posts, v: int):
+    """One batched FBS of the V-major flat batch, the per-bootstrap test
+    polynomials and offsets repeated for each of the V evaluations."""
     tvs_flat = tvs.repeat(v, 1)
     posts_flat = posts.repeat(v)
     if fast_keys is not None:
         from ..ops.blind_rotate import functional_bootstrap_fast
-        fresh = functional_bootstrap_fast(fast_keys, flat, tvs_flat,
-                                          posts_flat)
-    else:
-        fresh = functional_bootstrap(keys, flat, tvs_flat, posts_flat)
+        return functional_bootstrap_fast(fast_keys, flat, tvs_flat,
+                                         posts_flat)
+    return functional_bootstrap(keys, flat, tvs_flat, posts_flat)
+
+
+def _level_step(keys: TFHEKeys, fast_keys, buf, wire_idx, coefs, consts,
+                tvs, posts, out_rows) -> torch.Tensor:
+    """One native level, in place on ``buf`` [W, V, d]: lincombs of gathered
+    wires, one batched FBS, results scattered to ``out_rows``."""
+    nb = wire_idx.shape[0]
+    _, v, d = buf.shape
+    fresh = _run_fbs(keys, fast_keys, _lincomb_flat(buf, wire_idx, coefs,
+                                                    consts), tvs, posts, v)
     # padding slots all bootstrap the zero ciphertext to the same value, so
     # the repeated dummy row in out_rows is written with equal rows
     buf[out_rows.to(I64)] = fresh.reshape(v, nb, d).transpose(0, 1)
     return buf
 
 
+def _staged_level_step(keys1: TFHEKeys, keys2: TFHEKeys, fast1, fast2,
+                       n_splits: int, buf, wi1, cf1, cs1, tvs1, ps1,
+                       out_rows1, wi2, cf2, cs2, tvs2, ps2,
+                       out_rows) -> torch.Tensor:
+    """One staged level, in place on ``buf``: the fam1 call (stage 1 of the
+    ``n_splits`` split nodes, then the fam1 singles) and its scatter, then
+    the fam2 call, whose first ``n_splits`` rows add the stage-1 outputs G,
+    and its scatter.  Split and padding rows of the fam1 call land on the
+    dummy row."""
+    _, v, d = buf.shape
+    nb1, nb2 = wi1.shape[0], wi2.shape[0]
+    g = None
+    if nb1:
+        out1 = _run_fbs(keys1, fast1, _lincomb_flat(buf, wi1, cf1, cs1),
+                        tvs1, ps1, v).reshape(v, nb1, d)
+        g = out1[:, :n_splits]                            # [V, ns, d]
+        buf[out_rows1.to(I64)] = out1.transpose(0, 1)
+    if nb2:
+        flat2 = _lincomb_flat(buf, wi2, cf2, cs2)
+        if n_splits:
+            lead = flat2.view(v, nb2, d)[:, :n_splits]
+            lead.copy_(wrap32(lead.to(I64) + g.to(I64)))
+        out2 = _run_fbs(keys2, fast2, flat2, tvs2, ps2, v)
+        buf[out_rows.to(I64)] = out2.reshape(v, nb2, d).transpose(0, 1)
+    return buf
+
+
 class CircuitExecutor:
-    def __init__(self, prog: LutProgram, keys: TFHEKeys, fast_keys=None,
-                 mesh=None):
-        """``keys`` fix the device; ``fast_keys``: optional
-        :class:`..ops.blind_rotate.FastKeys` for the fused kernels, else
-        the generic path runs."""
-        if not isinstance(keys, TFHEKeys):
-            raise NotImplementedError(
-                "only single-family TFHEKeys: the staged pipeline is not "
-                "ported yet")
+    def __init__(self, prog: LutProgram, keys: TFHEKeys | StagedKeys,
+                 fast_keys=None, mesh=None):
+        """``keys``: :class:`TFHEKeys` (native pipeline) or
+        :class:`StagedKeys` (staged pipeline); they fix the device.
+        ``fast_keys``: for the native pipeline an optional
+        :class:`..ops.blind_rotate.FastKeys`, for the staged one an
+        optional pair (fast1, fast2); a family without fast keys runs the
+        generic bootstrap."""
         if mesh is not None:
             raise NotImplementedError("multi-device execution is not "
                                       "ported yet")
+        self.staged = isinstance(keys, StagedKeys)
+        if self.staged:
+            if fast_keys is not None and len(fast_keys) != 2:
+                raise ValueError("staged fast_keys: a (fast1, fast2) pair")
+            self.params = keys.wire_params
+            plan = compile_staged(prog, keys.p, keys.keys1.params,
+                                  keys.keys2.params)
+        elif isinstance(keys, TFHEKeys):
+            self.params = keys.params
+            plan = compile_program(prog, self.params)
+        else:
+            raise TypeError(f"keys: TFHEKeys or StagedKeys, not "
+                            f"{type(keys).__name__}")
         self.prog = prog
         self.keys = keys
         self.fast_keys = fast_keys
-        self.params = keys.params
         self.device = keys.device
-        plan = compile_program(prog, self.params)
+        self.plan = plan
         self.input_rows = plan.input_rows
         self.levels = plan.levels
         self.outputs = plan.outputs
@@ -205,27 +527,40 @@ class CircuitExecutor:
         """Per-level plan tensors on the device, uploaded once."""
         if self._plan_device is None:
             self._plan_device = [
-                tuple(torch.from_numpy(x).to(self.device)
-                      for x in (p.wire_idx, p.coefs, p.consts, p.test_polys,
-                                p.posts, p.out_rows))
+                tuple(torch.from_numpy(x).to(self.device) for x in p.arrays())
                 for p in self.levels]
         return self._plan_device
+
+    def step(self, buf: torch.Tensor, lv: int) -> torch.Tensor:
+        """Run level ``lv`` in place on ``buf``; returns it."""
+        plan = self.plan_tensors()[lv]
+        if self.staged:
+            fast1, fast2 = self.fast_keys or (None, None)
+            return _staged_level_step(self.keys.keys1, self.keys.keys2,
+                                      fast1, fast2, self.levels[lv].n_splits,
+                                      buf, *plan)
+        return _level_step(self.keys, self.fast_keys, buf, *plan)
 
     def encrypt_inputs(self, values: dict[str, np.ndarray],
                        rng: np.random.Generator) -> torch.Tensor:
         """The initial wire buffer [num_wires, V, kN+1]: all inputs in one
-        encryption, with the JAX executor's draws."""
+        encryption, with the JAX executor's draws.  Staged inputs are
+        encrypted pre-scaled to their consumers' torus multiple, under
+        fam1's key and noise."""
         v = len(next(iter(values.values()))) if values else 1
         d = self.params.big_dim + 1
         buf = torch.zeros((self.num_wires, v, d), dtype=torch.int32,
                           device=self.device)
         names = list(self.input_rows)
         if names:
-            flat = np.concatenate([np.asarray(values[n], dtype=np.int64)
-                                   for n in names])
-            cts = lwe_encrypt(self.keys.extracted_key,
-                              encode(flat, self.params),
-                              self.params.glwe_noise_std, rng)
+            holder = self.keys.keys1 if self.staged else self.keys
+            scale = self.plan.row_scale if self.staged else None
+            flat = np.concatenate([
+                np.asarray(values[n], dtype=np.int64)
+                * (1 if scale is None else int(scale[self.input_rows[n]]))
+                for n in names])
+            cts = lwe_encrypt(holder.extracted_key, encode(flat, self.params),
+                              holder.params.glwe_noise_std, rng)
             rows = torch.tensor([self.input_rows[n] for n in names],
                                 device=self.device)
             buf[rows] = cts.reshape(len(names), v, d)
@@ -256,9 +591,8 @@ class CircuitExecutor:
                         buf = torch.from_numpy(z["buf"]).to(self.device)
             except FileNotFoundError:
                 pass
-        plans = self.plan_tensors()
         for lv in range(start, len(self.levels)):
-            buf = _level_step(self.keys, self.fast_keys, buf, *plans[lv])
+            buf = self.step(buf, lv)
             if checkpoint is None or lv + 1 >= len(self.levels):
                 continue
             if checkpoint_every is not None:
@@ -278,7 +612,8 @@ class CircuitExecutor:
         return buf
 
     def decrypt_outputs(self, buf: torch.Tensor) -> dict[str, np.ndarray]:
-        """All outputs in one gather + lincomb + phase."""
+        """All outputs in one gather + lincomb + phase, decoded on the wire
+        grid."""
         params = self.params
         out: dict[str, np.ndarray] = {}
         v = buf.shape[1]

@@ -4,15 +4,18 @@
         --params aes128_p4 --batch 8 --orientation fused_otf \\
         [--levels 40] [--trace-levels 40] [--tile-sweep] [--out prof.json]
 
-Runs the program's levels one at a time, as ``CircuitExecutor.run`` does,
-and times every level and the fused blind-rotation call inside it (CUDA
-events on the card, the host clock on the CPU), grouped by ciphertexts per
-launch.  When every level ran it decrypts and checks the outputs against
-``LutProgram.eval``.  It then runs the first ``--trace-levels`` levels again
-under ``torch.profiler``: the device's busy time, its idle share between the
-first and the last kernel, and the kernels with the most device time.
-``--tile-sweep`` (CUDA only) times the kernel at the most common level shape
-over its launch knobs: K1's (ciphertexts per tile, CTAs per cluster,
+Runs the program's levels one at a time through ``CircuitExecutor.step``,
+as ``CircuitExecutor.run`` does, and times every level and every fused
+blind-rotation call inside it (CUDA events on the card, the host clock on
+the CPU), grouped by ciphertexts a level and, for each parameter family
+(``fam1``/``fam2`` of a staged preset, ``native`` otherwise), by
+ciphertexts a launch.  When every level ran it decrypts and checks the
+outputs against ``LutProgram.eval``.  It then runs the first
+``--trace-levels`` levels again under ``torch.profiler``: the device's busy
+time, its idle share between the first and the last kernel, and the
+kernels with the most device time.  ``--tile-sweep`` (CUDA only) times the
+kernel at the most common launch shape (fam1's for a staged preset) over
+its launch knobs: K1's (ciphertexts per tile, CTAs per cluster,
 coefficients per warpgroup) and K2's (ciphertexts per tile, CTAs per
 cluster) plans; every setting's output must be the same.  Prints one JSON
 object as its last line.
@@ -30,7 +33,8 @@ from collections import Counter, defaultdict
 import numpy as np
 import torch
 
-from .executor import CircuitExecutor, _level_step
+from ..tfhe.params import StagedPreset
+from .executor import CircuitExecutor
 
 __all__ = ["profile_program"]
 
@@ -57,14 +61,14 @@ def _sync(device: torch.device) -> None:
 @contextlib.contextmanager
 def _timed_rotations(device: torch.device, spans: list):
     """Stamp both sides of every fused blind-rotation call of the fast
-    bootstrap; ``spans`` collects (start, end) pairs."""
+    bootstrap; ``spans`` collects (start, end, params, ciphertexts)."""
     from ..ops import blind_rotate as br
     inner = br.blind_rotate_fused
 
-    def timed(*args, **kw):
+    def timed(b_init, a_t, test_polys, kernels, params, *args, **kw):
         t0 = _stamp(device)
-        out = inner(*args, **kw)
-        spans.append((t0, _stamp(device)))
+        out = inner(b_init, a_t, test_polys, kernels, params, *args, **kw)
+        spans.append((t0, _stamp(device), params, test_polys.shape[0]))
         return out
 
     br.blind_rotate_fused = timed
@@ -74,32 +78,45 @@ def _timed_rotations(device: torch.device, spans: list):
         br.blind_rotate_fused = inner
 
 
+def _family(ex: CircuitExecutor, params) -> str:
+    if not ex.staged:
+        return "native"
+    return "fam1" if params == ex.keys.keys1.params else "fam2"
+
+
 def time_levels(ex: CircuitExecutor, buf: torch.Tensor,
                 levels: int) -> tuple[torch.Tensor, dict]:
-    """Run the first ``levels`` levels on a copy of ``buf``; per-level and
-    per-launch times grouped by ciphertexts per launch."""
-    device, plans = ex.device, ex.plan_tensors()
+    """Run the first ``levels`` levels on a copy of ``buf``; per-level times
+    grouped by ciphertexts a level, and per-launch times by family and
+    ciphertexts a launch."""
+    device = ex.device
     buf = buf.clone()
     stamps, spans = [], []
     _sync(device)
     t0 = time.perf_counter()
     with _timed_rotations(device, spans):
         for lv in range(levels):
-            start = _stamp(device)
-            buf = _level_step(ex.keys, ex.fast_keys, buf, *plans[lv])
-            stamps.append((start, _stamp(device)))
+            start, first = _stamp(device), len(spans)
+            buf = ex.step(buf, lv)
+            stamps.append((start, _stamp(device), first, len(spans)))
     _sync(device)
     wall = time.perf_counter() - t0
     groups = defaultdict(lambda: [0, 0.0, 0.0])
+    fams = defaultdict(lambda: defaultdict(lambda: [0, 0.0]))
     level_ms = kernel_ms = 0.0
-    for lv, ((a, b), (ka, kb)) in enumerate(zip(stamps, spans)):
-        width = int(plans[lv][0].shape[0]) * buf.shape[1]
-        g = groups[width]
+    for a, b, lo, hi in stamps:
+        launches = [(_family(ex, prm), width, _ms(ka, kb))
+                    for ka, kb, prm, width in spans[lo:hi]]
+        g = groups[sum(w for _, w, _ in launches)]
         g[0] += 1
         g[1] += _ms(a, b)
-        g[2] += _ms(ka, kb)
+        g[2] += sum(ms for *_, ms in launches)
         level_ms += _ms(a, b)
-        kernel_ms += _ms(ka, kb)
+        kernel_ms += sum(ms for *_, ms in launches)
+        for fam, width, ms in launches:
+            f = fams[fam][width]
+            f[0] += 1
+            f[1] += ms
     return buf, {
         "levels": levels,
         "wall_s": wall,
@@ -110,6 +127,13 @@ def time_levels(ex: CircuitExecutor, buf: torch.Tensor,
             str(w): {"levels": n, "level_ms_mean": lms / n,
                      "kernel_ms_mean": kms / n}
             for w, (n, lms, kms) in sorted(groups.items())},
+        "by_family": {
+            fam: {"launches": sum(n for n, _ in ws.values()),
+                  "kernel_ms": sum(ms for _, ms in ws.values()),
+                  "by_ciphertexts_per_launch": {
+                      str(w): {"launches": n, "kernel_ms_mean": ms / n}
+                      for w, (n, ms) in sorted(ws.items())}}
+            for fam, ws in sorted(fams.items())},
     }
 
 
@@ -122,7 +146,7 @@ def trace_levels(ex: CircuitExecutor, buf: torch.Tensor, levels: int,
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    device, plans = ex.device, ex.plan_tensors()
+    device = ex.device
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
@@ -131,7 +155,7 @@ def trace_levels(ex: CircuitExecutor, buf: torch.Tensor, levels: int,
     t0 = time.perf_counter()
     with profile(activities=acts) as prof:
         for lv in range(levels):
-            buf = _level_step(ex.keys, ex.fast_keys, buf, *plans[lv])
+            buf = ex.step(buf, lv)
         _sync(device)
     wall = time.perf_counter() - t0
     kernels = [e for e in prof.events()
@@ -164,16 +188,16 @@ def trace_levels(ex: CircuitExecutor, buf: torch.Tensor, levels: int,
     return res
 
 
-def tile_sweep(ex: CircuitExecutor, batch: int, reps: int = 2) -> dict:
-    """The fast keys' kernel at ``batch`` ciphertexts over its launch
-    knobs: every K1 (tile, cluster, warpgroup width) or K2 (tile, cluster)
-    plan.  ms per launch (CUDA events, after a warm-up launch);
+def tile_sweep(fast, batch: int, reps: int = 2) -> dict:
+    """The kernel of the fast keys ``fast`` at ``batch`` ciphertexts over
+    its launch knobs: every K1 (tile, cluster, warpgroup width) or K2 (tile,
+    cluster) plan.  ms per launch (CUDA events, after a warm-up launch);
     every setting's output must equal the first one's."""
     from ..ops import fused_blind_rotate as fbr
 
-    params, dev = ex.params, ex.device
-    otf = ex.fast_keys.orientation == "fused_otf"
-    kern = ex.fast_keys.bsk_kernels
+    params, kern = fast.params, fast.bsk_kernels
+    dev = kern.device
+    otf = fast.orientation == "fused_otf"
     n, N = params.lwe_dim, params.poly_size
     g = torch.Generator(device=dev).manual_seed(11)
     b_init = torch.randint(0, 2 * N, (batch, 1), generator=g, device=dev,
@@ -221,13 +245,22 @@ def profile_program(prog, params, batch: int, orientation: str,
                     device: torch.device, levels: int | None = None,
                     trace: int = 0, sweep: bool = False,
                     seed: int = 42) -> dict:
-    """Keys, fast keys and inputs as the runtime CLI makes them, then the
-    timed level loop, the traced window and the tile sweep."""
+    """Keys, fast keys and inputs as the runtime CLI makes them (``params``:
+    one family's :class:`TFHEParams` or a :class:`StagedPreset`, whose
+    families both take ``orientation``), then the timed level loop, the
+    traced window and the tile sweep."""
     from ..ops.blind_rotate import prepare_fast_keys
     from ..tfhe import generate_keys
+    from ..tfhe.staged import generate_staged_keys
 
-    keys = generate_keys(params, seed=seed, device=device)
-    fast = prepare_fast_keys(keys, orientation=orientation)
+    if isinstance(params, StagedPreset):
+        keys = generate_staged_keys(params.p, params.fam1, params.fam2,
+                                    seed=seed, device=device)
+        fast = tuple(prepare_fast_keys(k, orientation=orientation)
+                     for k in (keys.keys1, keys.keys2))
+    else:
+        keys = generate_keys(params, seed=seed, device=device)
+        fast = prepare_fast_keys(keys, orientation=orientation)
     ex = CircuitExecutor(prog, keys, fast_keys=fast)
     rng = np.random.default_rng(seed)
     names = [n.name for n in prog.nodes if n.kind == "input"]
@@ -236,7 +269,7 @@ def profile_program(prog, params, batch: int, orientation: str,
     total = len(ex.levels)
     levels = total if levels is None else min(levels, total)
 
-    out = {"orientation": orientation, "batch": batch,
+    out = {"orientation": orientation, "staged": ex.staged, "batch": batch,
            "bootstraps": ex.num_bootstraps, "program_levels": total}
     buf, out["events"] = time_levels(ex, buf0, levels)
     if levels == total:
@@ -247,18 +280,24 @@ def profile_program(prog, params, batch: int, orientation: str,
     if trace:
         out["profile"] = trace_levels(ex, buf0, min(trace, total))
     if sweep and device.type == "cuda":
-        widths = Counter(int(p.wire_idx.shape[0]) * batch for p in ex.levels)
-        out["tile_sweep"] = tile_sweep(ex, widths.most_common(1)[0][0])
+        # the fam1 call of a staged level, else the level's one call
+        sweep_fast = fast[0] if ex.staged else fast
+        widths = Counter(int(p.arrays()[0].shape[0]) * batch
+                         for p in ex.levels if p.arrays()[0].shape[0])
+        out["tile_sweep"] = tile_sweep(sweep_fast,
+                                       widths.most_common(1)[0][0])
     return out
 
 
 def main(argv=None) -> int:
     from ..frontend.lut_program import parse_lbf
-    from ..tfhe.params import PRESETS
+    from ..tfhe.params import PRESETS, STAGED_PRESETS
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("filename", help=".lbf program")
-    ap.add_argument("--params", choices=sorted(PRESETS), default="test")
+    ap.add_argument("--params", choices=sorted(PRESETS) + sorted(
+        STAGED_PRESETS), default="test",
+        help="a one-family preset, or a staged one (two families)")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--orientation", default="fused_otf",
@@ -279,9 +318,11 @@ def main(argv=None) -> int:
     device = torch.device(args.device)
     with open(args.filename) as f:
         prog = parse_lbf(f.read())
-    res = profile_program(prog, PRESETS[args.params][0], args.batch,
-                          args.orientation, device, args.levels,
-                          args.trace_levels, args.tile_sweep, args.seed)
+    params = (STAGED_PRESETS[args.params] if args.params in STAGED_PRESETS
+              else PRESETS[args.params][0])
+    res = profile_program(prog, params, args.batch, args.orientation,
+                          device, args.levels, args.trace_levels,
+                          args.tile_sweep, args.seed)
     if device.type == "cuda":
         res["device"] = torch.cuda.get_device_name(device)
     if args.out:

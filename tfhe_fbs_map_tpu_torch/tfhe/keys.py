@@ -9,8 +9,9 @@ exact mod 2^32.  Layouts are the JAX package's:
   level)`` with level minor;
 * key-switch key ``[kN, l_ks, n+1]`` int32.
 
-:func:`keys_from_numpy` carries key material made by the JAX package (as
-numpy arrays) into the port, and :func:`save_keys`/:func:`load_keys` use
+:func:`keys_from_numpy` (:func:`staged_keys_from_numpy` for two staged
+families) carries key material made by the JAX package (as numpy arrays)
+into the port, and :func:`save_keys`/:func:`load_keys` use
 the JAX package's ``.npz`` format, so a key file moves between the two.
 """
 
@@ -26,8 +27,8 @@ from ..ops.polymul import negacyclic_rotation_stack
 from .numeric import I32, I64, wrap32
 from .params import Q_BITS, TFHEParams
 
-__all__ = ["TFHEKeys", "generate_keys", "keys_from_numpy", "save_keys",
-           "load_keys"]
+__all__ = ["TFHEKeys", "generate_keys", "keys_from_numpy",
+           "staged_keys_from_numpy", "save_keys", "load_keys"]
 
 
 def _noise(rng: np.random.Generator, std: float, shape) -> np.ndarray:
@@ -68,6 +69,15 @@ def keys_from_numpy(params: TFHEParams, lwe_key, glwe_key, bsk, ksk, *,
                     bsk=t(bsk), ksk=t(ksk))
 
 
+def staged_keys_from_numpy(p: int, keys1_arrays, keys2_arrays, *, device):
+    """Two families' key material, each ``(params, lwe_key, glwe_key, bsk,
+    ksk)`` as :func:`keys_from_numpy` takes it (e.g. from a JAX
+    ``StagedKeys``) -> a :class:`.staged.StagedKeys` on ``device``."""
+    from .staged import StagedKeys
+    return StagedKeys(p=p, keys1=keys_from_numpy(*keys1_arrays, device=device),
+                      keys2=keys_from_numpy(*keys2_arrays, device=device))
+
+
 def save_keys(path: str, keys: TFHEKeys) -> None:
     """Serialize a key set (``.npz``, the JAX package's format)."""
     np.savez_compressed(
@@ -97,16 +107,28 @@ def _binary_dot(x: torch.Tensor, key: torch.Tensor) -> torch.Tensor:
 
 
 def generate_keys(params: TFHEParams, seed: int = 0, *, device,
-                  rng: np.random.Generator | None = None) -> TFHEKeys:
+                  rng: np.random.Generator | None = None,
+                  lwe_key: np.ndarray | None = None,
+                  glwe_key: np.ndarray | None = None) -> TFHEKeys:
     """Keys on ``device``, drawn from ``rng`` (default
-    ``np.random.default_rng(seed)``) in the JAX package's order."""
+    ``np.random.default_rng(seed)``) in the JAX package's order.
+
+    ``lwe_key`` / ``glwe_key``: optional binary secrets (numpy) used instead
+    of drawing them; the staged bootstrap (:mod:`.staged`) builds two
+    families over one master GLWE secret and one small key this way."""
     rng = np.random.default_rng(seed) if rng is None else rng
     n, k, N = params.lwe_dim, params.glwe_dim, params.poly_size
     l_b, b_b = params.bsk_level, params.bsk_base_log
     l_k, b_k = params.ksk_level, params.ksk_base_log
 
-    lwe_key_np = rng.integers(0, 2, n, dtype=np.int64).astype(np.int32)
-    glwe_key_np = rng.integers(0, 2, (k, N), dtype=np.int64).astype(np.int32)
+    lwe_key_np = (rng.integers(0, 2, n, dtype=np.int64).astype(np.int32)
+                  if lwe_key is None else
+                  np.asarray(lwe_key, dtype=np.int32))
+    glwe_key_np = (rng.integers(0, 2, (k, N), dtype=np.int64).astype(np.int32)
+                   if glwe_key is None else
+                   np.asarray(glwe_key, dtype=np.int32).reshape(k, N))
+    if lwe_key_np.shape != (n,):
+        raise ValueError(f"lwe_key has shape {lwe_key_np.shape}, want ({n},)")
     lwe_key = torch.from_numpy(lwe_key_np).to(device)
     glwe_key = torch.from_numpy(glwe_key_np).to(device)
     key_mats = negacyclic_rotation_stack(glwe_key)          # [k, N, N]

@@ -5,13 +5,15 @@ values and every add/mul is taken mod 2^32.  ``tests/test_torch_cli.py``
 holds the shared sets equal to the JAX package's and the pinned presets
 equal to what the JAX parameter optimizer and ``bench.py`` pick.
 
-``PRESETS`` stands in for the parameter optimizer until it is ported: the
-runtime CLI takes a preset name (``--params``).
+``PRESETS`` (one family) and ``STAGED_PRESETS`` (two staged families)
+stand in for the parameter optimizer until it is ported: the runtime CLI
+takes a preset name (``--params``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from typing import NamedTuple
 
 Q_BITS = 32
 Q = 1 << Q_BITS
@@ -95,4 +97,38 @@ PRESETS: dict[str, tuple[TFHEParams, float | None]] = {
     "p16": (_curve(16, 642, 1, 1024, 3, 6, 6, 2), None),
     # optimize(4, 6, max_p_error=1e-7): mapped AES-128 (norm2_linprod 6)
     "aes128_p4": (_curve(4, 578, 2, 512, 2, 8, 6, 2), 4.332587781355008e-08),
+}
+
+
+class StagedPreset(NamedTuple):
+    """A staged two-family parameter pick (:mod:`.staged`): the wire-level
+    FBS size ``p``, the stage-1 / catch-all family ``fam1``, the select
+    family ``fam2``, and the per-bootstrap error probability the JAX
+    optimizer reports for the pair (None where none was recorded)."""
+    p: int
+    fam1: TFHEParams
+    fam2: TFHEParams
+    p_error: float | None
+
+
+# Tiny insecure families (shared kN = 256, n = 16) for CPU runs.
+_STAGED_TEST_FAMS = tuple(
+    TFHEParams(p=p, lwe_dim=16, glwe_dim=k, poly_size=N, bsk_level=3,
+               bsk_base_log=7, ksk_level=4, ksk_base_log=4,
+               lwe_noise_std=2.0, glwe_noise_std=2.0)
+    for p, k, N in ((16, 1, 256), (8, 2, 128)))
+
+STAGED_PRESETS: dict[str, StagedPreset] = {
+    # optimize_staged(10, 27, 25, weight1=8754, weight2=93,
+    # wires_from_stage2=False, max_p_error=1e-7): the keyless staged probe
+    # of the Kreyvium-1152 program
+    # (outputs/generated/kreyvium_stream_v1_10_search.lbf)
+    "kreyvium_p10_staged": StagedPreset(
+        10, _curve(10, 642, 1, 1024, 4, 5, 6, 2),
+        _curve(5, 642, 2, 512, 4, 5, 3, 4), 9.420547894708717e-08),
+    # optimize_staged(32, 4, 2, max_p_error=1e-6): bench.py --preset p32
+    "p32_staged": StagedPreset(
+        32, _curve(16, 674, 1, 1024, 3, 6, 7, 2),
+        _curve(8, 674, 2, 512, 4, 5, 3, 4), 8.215312943506652e-07),
+    "staged_test": StagedPreset(32, *_STAGED_TEST_FAMS, None),
 }
