@@ -32,12 +32,23 @@ Phases, each printed with what ran and how long it took:
    once for every non-empty family call of the staged plan; and the port's
    staged p32 bench (``python -m tfhe_fbs_map_tpu_torch.bench --preset
    p32``), whose steps run the staged executor's split route, required to
-   report 0 errors.
+   report 0 errors;
+7. the optimizer path: the runtime CLI on AES-128 (batch 8) and on
+   Kreyvium-1152 (batch 16) with no ``--params`` and ``--p-error 1e-7``,
+   so the parameter optimizer picks the families and, for Kreyvium, the
+   runtime model routes staged against native.  Before each run, every
+   picked family's kernel is held against its plain version at n=8 at the
+   run's launch sizes, and the cost model's kernel, plans and waves must
+   equal ``pick_orientations``' and ``k1_device_plan`` / ``device_plan``'s
+   on the card at every launch of the run; the run must be bit-exact and
+   launch the kernel the model priced once for every family call.  Then
+   the runtime model's predicted ``run_s`` against the measured one for
+   the runs of phases 5 to 7 (``optimizer/validate.py``'s table).
 
 Before the last line it prints one JSON object with a row per kernel (no
 PyTorch call computes the n-step recurrence, so ``library_ms`` is null;
-``launches`` sums the kernel's launches over the main paths of phases 5 and
-6, each counted from 0, ``launches_by_path`` splits them) and the card's
+``launches`` sums the kernel's launches over the main paths of phases 5 to
+7, each counted from 0, ``launches_by_path`` splits them) and the card's
 name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
 on any failure, without a CUDA device, or away from a checkout of the repo.
@@ -484,6 +495,136 @@ def run_bench(launches: dict) -> dict:
     return res
 
 
+KERNEL = {"fused": "k2", "fused_otf": "k1"}
+# phase 7: (label, program, batch); the error target that makes a run of
+# ~166k bootstraps bit-exact (the 4-sigma default expects ~10 flips)
+OPTIMIZER_RUNS = (("aes128 optimizer", AES_LBF, 8),
+                  ("kreyvium optimizer", KREYVIUM_LBF, KREYVIUM_BATCH))
+P_ERROR = 1e-7
+
+
+def check_pick(fbr, pick, sizes: list[list[int]], worst: dict) -> list[str]:
+    """Phase 7, before a run: the kernel the cost model prices for each
+    picked family must be ``pick_orientations``' on the card, and its plan
+    and waves ``k1_device_plan`` / ``device_plan``'s at every launch size
+    of the run; and each picked family's kernel is held against its plain
+    version at n=8 at those sizes (phase 3 checks fixed shapes; the
+    optimizer may pick others).  Returns the orientations."""
+    import torch
+    from tfhe_fbs_map_tpu_torch.optimizer.optimizer import h100_profile
+    from tfhe_fbs_map_tpu_torch.optimizer.runtime_model import launch_plan
+    from tfhe_fbs_map_tpu_torch.runtime.cli import pick_orientations
+
+    dev = torch.device("cuda")
+    profile = h100_profile()
+    model = [profile.kernel(f.lwe_dim, f.glwe_dim, f.poly_size, f.bsk_level,
+                            pick.bsk_limbs, pick.staged)
+             for f in pick.families]
+    card = pick_orientations(list(pick.families), dev,
+                             bsk_limbs=pick.bsk_limbs)
+    if model != card:
+        raise SystemExit(f"the cost model prices {model}, the card's "
+                         f"--orientation auto runs {card}")
+    limbs = pick.bsk_limbs
+    for params, orient, rows_list in zip(pick.families, model, sizes):
+        kern = KERNEL[orient]
+        otf = kern == "k1"
+        waves = set()
+        for rows in sorted(set(rows_list)):
+            plan, w = launch_plan(params, rows, orient, limbs)
+            got = (fbr.k1_device_plan if otf else fbr.device_plan)(
+                rows, params, dev, limbs)
+            fit = (fbr.k1_max_clusters if otf else fbr.k2_max_clusters)(
+                got, limbs)
+            tiles = -(-rows // got.cb)
+            got_w = -(-tiles // max(1, fit))
+            if (plan, w) != (got, got_w):
+                raise SystemExit(f"{kern} at {rows} ciphertexts: the model "
+                                 f"plans {plan} in {w} waves, the card "
+                                 f"{got} in {got_w}")
+            waves.add((rows, w))
+        log(f"  {kern} for n={params.lwe_dim} k={params.glwe_dim} "
+            f"N={params.poly_size} l={params.bsk_level} b="
+            f"{params.bsk_base_log} at {limbs} limbs: model plans and waves "
+            f"equal the card's at {len(waves)} launch sizes "
+            f"{sorted(waves)}")
+        shell = shape_params(params.glwe_dim, params.poly_size,
+                             params.bsk_level, params.bsk_base_log)
+        for batch in sorted(set(rows_list)):
+            dev_args = [x.cuda() for x in kernel_inputs(shell, 8, batch,
+                                                         limbs, otf, seed=11)]
+            plain = (fbr.blind_rotate_k1_plain if otf
+                     else fbr.blind_rotate_k2_plain)(*dev_args, shell)
+            got = (fbr.blind_rotate_k1 if otf
+                   else fbr.blind_rotate_k2)(*dev_args, shell)
+            torch.cuda.synchronize()
+            report(kern, f"picked family k={shell.glwe_dim} "
+                   f"N={shell.poly_size} l={shell.bsk_level} "
+                   f"b={shell.bsk_base_log} n=8 limbs={limbs} B={batch}",
+                   int((got.long() - plain.long()).abs().max()), worst)
+            del dev_args, plain, got
+    return model
+
+
+def run_optimizer_path(fbr, worst: dict) -> list[dict]:
+    """Phase 7: the runtime CLI with the optimizer's picks, as a user runs
+    it with no ``--params``."""
+    from tfhe_fbs_map_tpu_torch.frontend.lut_program import parse_lbf
+    from tfhe_fbs_map_tpu_torch.runtime.cli import family_json, optimizer_pick
+    from tfhe_fbs_map_tpu_torch.runtime.executor import (compile_staged,
+                                                         native_level_boots,
+                                                         staged_level_routes)
+    from tfhe_fbs_map_tpu_torch.optimizer.runtime_model import bucket
+
+    out = []
+    for label, lbf, batch in OPTIMIZER_RUNS:
+        with open(ROOT / lbf) as f:
+            prog = parse_lbf(f.read())
+        p = prog.fbs_size or prog.min_fbs_size()
+        pick = optimizer_pick(prog, p, batch, "auto", P_ERROR)
+        if pick.staged:
+            routes = staged_level_routes(prog, p)
+            fam_calls = ([(ns, f1) for ns, f1, _ in routes],
+                         [(ns, f2) for ns, _, f2 in routes])
+            sizes = [[bucket(ns + nf) * batch for ns, nf in fc if ns + nf]
+                     for fc in fam_calls]
+            plan = compile_staged(prog, p, *pick.families)
+            calls = sum(bool(lv.wire_idx1.shape[0])
+                        + bool(lv.wire_idx2.shape[0]) for lv in plan.levels)
+        else:
+            sizes = [[bucket(nb) * batch for nb in native_level_boots(prog)]]
+            calls = len(sizes[0])
+        route = "staged" if pick.staged else "native"
+        log(f"  {label}: route {route} (runtime model per evaluation: "
+            f"native {pick.native_us} us, staged {pick.staged_us} us), "
+            f"bsk_limbs {pick.bsk_limbs}, p_error {pick.p_error}, "
+            f"families {[family_json(f) for f in pick.families]}")
+        orients = check_pick(fbr, pick, sizes, worst)
+        kern = KERNEL[orients[0]]
+        res = run_cli([lbf, "--batch", str(batch), "--p-error", str(P_ERROR)],
+                      kern, fbr.LAUNCHES)
+        want = ({"fam1": orients[0], "fam2": orients[1]} if pick.staged
+                else orients[0])
+        fams = ({"fam1": family_json(pick.families[0]),
+                 "fam2": family_json(pick.families[1])} if pick.staged
+                else family_json(pick.families[0]))
+        if (res["params_from"] != "optimizer" or res["staged"] != pick.staged
+                or res["orientation"] != want or res["params"] != fams
+                or res["bsk_limbs"] != pick.bsk_limbs):
+            raise SystemExit(f"{label}: the CLI ran {res['params']} "
+                             f"({res['orientation']}), the optimizer picked "
+                             f"{fams} ({want})")
+        if res["launches"] != calls or sum(res["all_launches"].values()) \
+                != calls:
+            raise SystemExit(f"{label} launched {res['all_launches']}, want "
+                             f"{kern} once per family call ({calls})")
+        log(f"  {label} via {kern}: run_s {res['run_s']}, predicted "
+            f"{res['predicted_run_s']}, boots_per_sec "
+            f"{res['boots_per_sec']}, {res['launches']} launches")
+        out.append((label, res))
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -560,11 +701,29 @@ def main(argv=None) -> int:
         f"{p32['launches']} K1 launches) on {smi}")
     log(f"[staged main path] {time.time() - t0:.1f} s")
 
+    # --- 7. the optimizer path -------------------------------------------------
+    t0 = time.time()
+    opt_runs = run_optimizer_path(fbr, worst)
+    from tfhe_fbs_map_tpu_torch.optimizer import validate
+    rows = [validate.row(label, res) for label, res in (
+        ("aes128_p4 auto", runs["k2"]), ("aes128_p4 fused_otf", runs["k1"]),
+        (f"{KREYVIUM_PRESET} auto", krey), *opt_runs)]
+    log("  runtime model, predicted against measured run_s, on " + smi)
+    for line in validate.table(rows).splitlines():
+        log(f"  {line}")
+    log(f"  {sum(r['within'] for r in rows)}/{len(rows)} within "
+        f"[{validate.LOW}, {validate.HIGH}]")
+    log(f"[optimizer path] {time.time() - t0:.1f} s")
+
     # launches of each kernel on every main path, each counted from 0
     by_path = {"k2": {"aes128_p4 auto": runs["k2"]["launches"]},
                "k1": {"aes128_p4 fused_otf": runs["k1"]["launches"],
                       f"{KREYVIUM_PRESET} auto": krey["launches"],
                       "bench p32": p32["launches"]}}
+    for label, res in opt_runs:
+        for kern, n in res["all_launches"].items():
+            if n:
+                by_path[kern][label] = n
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[kern],
          "replaces": REPLACES[kern], "launches": sum(by_path[kern].values()),

@@ -3,6 +3,7 @@ its pinned parameter presets against what the JAX package picks."""
 
 import json
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -16,7 +17,8 @@ from tfhe_fbs_map_tpu.tfhe.params import TFHEParams as JParams
 from tfhe_fbs_map_tpu.tfhe.params import min_noise_std_rel as jnoise
 from tfhe_fbs_map_tpu_torch.runtime.cli import (FUSED_HEADROOM, main,
                                                 pick_orientations)
-from tfhe_fbs_map_tpu_torch.tfhe.params import PRESETS, STAGED_PRESETS
+from tfhe_fbs_map_tpu_torch.tfhe.params import (PRESETS, STAGED_PRESETS,
+                                                TEST_PARAMS)
 
 # many test workers share the cores: one torch thread each
 torch.set_num_threads(1)
@@ -69,9 +71,43 @@ def test_cuda_without_a_device_fails_clearly(full_adder_blif, capsys,
     assert rc != 0 and "no CUDA device" in err
 
 
-def test_params_required(full_adder_blif, capsys):
+@pytest.fixture()
+def tiny_optimizer(monkeypatch):
+    """The port's optimizer, monkeypatched to pick the tiny test families
+    (``TEST_PARAMS`` native, the ``staged_test`` pair staged); records what
+    the CLI asked it.  ``picks["native"]`` / ``picks["staged"]`` set to None
+    make a search find nothing."""
+    import tfhe_fbs_map_tpu_torch.optimizer as opt
+    from tfhe_fbs_map_tpu_torch.optimizer.optimizer import (Solution,
+                                                            StagedSolution)
+    fams = STAGED_PRESETS["staged_test"]
+    picks = {"native": True, "staged": True, "limbs": 4, "asked": []}
+
+    def optimize(p, sq_norm2, **kw):
+        picks["asked"].append(("native", p, sq_norm2, kw))
+        return (Solution(TEST_PARAMS.with_p(p), 1.0, 1e-9, picks["limbs"])
+                if picks["native"] else None)
+
+    def optimize_staged(p, sq_norm1, sq_norm2, **kw):
+        picks["asked"].append(("staged", p, sq_norm1, sq_norm2, kw))
+        return (StagedSolution(fams.fam1, fams.fam2, 1.0, 2e-9)
+                if picks["staged"] else None)
+    monkeypatch.setattr(opt, "optimize", optimize)
+    monkeypatch.setattr(opt, "optimize_staged", optimize_staged)
+    return picks
+
+
+def test_params_required(full_adder_blif, capsys, tiny_optimizer):
+    """Without --params, --test-params or --keys the optimizer picks the
+    parameters, and the run is bit-exact."""
     rc = main([full_adder_blif, "--map", "--device", "cpu"])
-    assert rc != 0 and "--params" in capsys.readouterr().err
+    res = last_json(capsys)
+    assert rc == 0 and res["bit_exact"] and res["params_from"] == "optimizer"
+    assert res["params"]["n"] == TEST_PARAMS.lwe_dim and not res["staged"]
+    assert res["p_error"] == 1e-9 and res["bsk_limbs"] == 4
+    assert res["expected_flips"] == round(1e-9 * res["bootstraps"] * 8, 3)
+    # p=4: no staged search, the 4-sigma default target
+    assert tiny_optimizer["asked"] == [("native", 4, 3, {})]
 
 
 def test_aes128_preset_is_the_optimizer_pick():
@@ -242,3 +278,112 @@ def test_bench_p32_quick_on_the_cpu():
     assert out["params"] == {"n": 16, "p": 32,
                              "fam1": {"k": 1, "N": 256, "l_bsk": 3},
                              "fam2": {"k": 2, "N": 128, "l_bsk": 3}}
+
+
+# ------------------------------------------- the optimizer and the routing
+
+MODEL_LINE = re.compile(r"# runtime model \(batch 3\): native [\d.]+ms/eval, "
+                        r"staged [\d.]+ms/eval")
+
+
+def run_json(capsys, argv):
+    rc = main(argv)
+    out = capsys.readouterr()
+    return rc, (json.loads(out.out.strip().splitlines()[-1]) if rc != 2
+                and out.out.strip() else None), out.err
+
+
+def test_optimizer_routes_by_the_runtime_model(mixed_lbf, capsys,
+                                               tiny_optimizer):
+    """A p=32 program takes the staged probe and both searches at the
+    target asked, prints the runtime model's line and routes by it;
+    ``--staged-margin`` flips the route."""
+    base = [mixed_lbf, "--batch", "3", "--device", "cpu", "--p-error",
+            "1e-7"]
+    rc, res, err = run_json(capsys, base)
+    assert rc == 0 and res["bit_exact"] and MODEL_LINE.search(err)
+    eff1, eff2, norm2 = probe(mixed_lbf)
+    assert tiny_optimizer["asked"] == [
+        ("staged", 32, eff1, eff2,
+         dict(max_p_error=1e-7, weight1=3, weight2=3,
+              wires_from_stage2=False)),
+        ("native", 32, norm2, dict(max_p_error=1e-7))]
+    native, staged = (res["predicted"]["native_run_s"],
+                      res["predicted"]["staged_run_s"])
+    assert 0 < native and 0 < staged
+    assert res["staged"] == (staged < native)
+    ratio = staged / native
+    for margin, want in ((ratio * 2, True), (ratio / 2, False)):
+        rc, res, err = run_json(capsys, base + ["--staged-margin",
+                                                str(margin)])
+        assert rc == 0 and res["bit_exact"] and res["staged"] == want
+        assert res["params"].keys() == ({"fam1", "fam2"} if want
+                                        else _family_keys())
+
+
+def probe(path):
+    """The staged probe's effective norms of a p=32 program, and its
+    norm2_linprod."""
+    from tfhe_fbs_map_tpu_torch.frontend.lut_program import parse_lbf
+    from tfhe_fbs_map_tpu_torch.runtime.executor import staged_probe
+    with open(path) as f:
+        prog = parse_lbf(f.read())
+    eff1, eff2, _ = staged_probe(prog, 32)
+    return eff1, eff2, prog.stats()["norm2_linprod"]
+
+
+def _family_keys():
+    return {"p", "n", "k", "N", "l_bsk", "b_bsk", "l_ksk", "b_ksk"}
+
+
+@pytest.mark.parametrize("staged", ["on", "off"])
+def test_optimizer_honours_staged_on_and_off(mixed_lbf, capsys,
+                                             tiny_optimizer, staged):
+    rc, res, err = run_json(capsys, [mixed_lbf, "--batch", "3", "--device",
+                                     "cpu", "--staged", staged])
+    assert rc == 0 and res["bit_exact"]
+    assert res["staged"] == (staged == "on")
+    asked = [a[0] for a in tiny_optimizer["asked"]]
+    assert asked == (["staged", "native"] if staged == "on" else ["native"])
+    assert bool(MODEL_LINE.search(err)) == (staged == "on")
+    assert res["p_error"] == (2e-9 if staged == "on" else 1e-9)
+
+
+def test_optimizer_bsk_limbs_reach_the_fast_keys(full_adder_blif, capsys,
+                                                 tiny_optimizer,
+                                                 monkeypatch):
+    from tfhe_fbs_map_tpu_torch.ops import blind_rotate as br
+    tiny_optimizer["limbs"] = 3
+    seen = []
+    prepare = br.prepare_fast_keys
+
+    def spy(keys, orientation="fused", bsk_limbs=4):
+        seen.append((orientation, bsk_limbs))
+        return prepare(keys, orientation=orientation, bsk_limbs=bsk_limbs)
+    monkeypatch.setattr(br, "prepare_fast_keys", spy)
+    rc, res, _ = run_json(capsys, [full_adder_blif, "--map", "--batch", "4",
+                                   "--device", "cpu", "--orientation",
+                                   "fused"])
+    assert rc == 0 and seen == [("fused", 3)] and res["bsk_limbs"] == 3
+    assert res["orientation"] == "fused"
+
+
+@pytest.mark.parametrize("native,staged,args", [
+    (False, False, []),                   # no parameters at all
+    (True, False, ["--staged", "on"]),    # staged asked for, none found
+])
+def test_optimizer_without_parameters_exits_1(mixed_lbf, capsys,
+                                              tiny_optimizer, native,
+                                              staged, args):
+    tiny_optimizer["native"], tiny_optimizer["staged"] = native, staged
+    rc = main([mixed_lbf, "--batch", "3", "--device", "cpu", *args])
+    out = capsys.readouterr()
+    assert rc == 1 and not out.out
+    assert ("no parameter set" if not native else "--staged on") in out.err
+
+
+def test_optimizer_without_parameters_on_a_small_program(
+        full_adder_blif, capsys, tiny_optimizer):
+    tiny_optimizer["native"] = False
+    assert main([full_adder_blif, "--map", "--device", "cpu"]) == 1
+    assert "no parameter set" in capsys.readouterr().err

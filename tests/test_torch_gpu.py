@@ -224,6 +224,32 @@ def test_cli_on_cuda(cuda, tmp_path, capsys):
         assert fbr.LAUNCHES[key] > before
 
 
+@pytest.mark.parametrize("orientation", ["fused", "fused_otf"])
+def test_model_waves_equal_the_device_plan(cuda, orientation):
+    """The runtime model plans every launch as the card does: the same
+    plan and waves as ``device_plan`` / ``k1_device_plan`` with the
+    card's resident clusters, from the calibration's table alone."""
+    from tfhe_fbs_map_tpu_torch.optimizer.optimizer import calibration
+    from tfhe_fbs_map_tpu_torch.optimizer.runtime_model import launch_plan
+    from tfhe_fbs_map_tpu_torch.tfhe.params import PRESETS, STAGED_PRESETS
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    if sms != calibration()["sms"]:
+        pytest.skip(f"the calibration's card has {calibration()['sms']} "
+                    f"SMs, this one {sms}")
+    otf = orientation == "fused_otf"
+    krey = STAGED_PRESETS["kreyvium_p10_staged"]
+    for params in (PRESETS["aes128_p4"][0], krey.fam1, krey.fam2):
+        for limbs in (3, 4):
+            for rows in (8, 64, 512, 1024, 2048, 4096, 8192, 20000):
+                plan, waves = launch_plan(params, rows, orientation, limbs)
+                got = (fbr.k1_device_plan if otf else fbr.device_plan)(
+                    rows, params, cuda, limbs)
+                fit = (fbr.k1_max_clusters if otf
+                       else fbr.k2_max_clusters)(got, limbs)
+                tiles = -(-rows // got.cb)
+                assert (plan, waves) == (got, -(-tiles // max(1, fit)))
+
+
 @pytest.mark.parametrize("limbs", [4, 3, 2, 1])
 def test_k1_layout_fits_the_card(cuda, limbs):
     """The kernel sizes its ring: 4-6 stages in the 227 KB a CTA may have,

@@ -19,13 +19,19 @@ from ..tfhe.numeric import I32, I64, gadget_decompose, int8_matmul, \
     signed_limbs, u32, wrap32
 from ..tfhe.params import Q_BITS, TFHEParams
 from ..tfhe.pbs import add_body, sample_extract
-from .fused_blind_rotate import N_LIMBS, blind_rotate_fused
+from .fused_blind_rotate import N_LIMBS, blind_rotate_fused, unsupported
 from .polymul import negacyclic_matrix
 
 __all__ = ["FastKeys", "prepare_fast_keys", "keyswitch_fast",
-           "functional_bootstrap_fast", "fused_key_bytes"]
+           "functional_bootstrap_fast", "fused_key_bytes", "pick_kernel",
+           "FUSED_HEADROOM", "KSK_MAX_BASE_LOG"]
 
 LIMB_BITS = 8
+# The key switch's gadget digits must fit int8 with their sign.
+KSK_MAX_BASE_LOG = 7
+# Device memory left free beside the "fused" key matrices when a native run
+# takes K2: room for the wire buffer and one level's temporaries.
+FUSED_HEADROOM = 4 << 30
 
 
 class FastKeys:
@@ -59,6 +65,20 @@ def fused_key_bytes(params: TFHEParams, bsk_limbs: int = N_LIMBS) -> int:
     return params.lwe_dim * (k1 * params.bsk_level * N) * bsk_limbs * k1 * N
 
 
+def pick_kernel(params: TFHEParams, memory: float, bsk_limbs: int = N_LIMBS,
+                headroom: float = FUSED_HEADROOM, served: bool = True) -> str:
+    """The kernel one native family takes: ``"fused"`` (K2) when its key
+    matrices plus ``headroom`` fit ``memory`` bytes (and, with ``served``,
+    K2 serves ``params``), else ``"fused_otf"`` (K1).  The runtime CLI's
+    ``--orientation auto`` passes the card's free memory, the cost model
+    its device profile's, so the model prices the kernel that runs."""
+    if served and unsupported(params, otf=False) is not None:
+        return "fused_otf"
+    if fused_key_bytes(params, bsk_limbs) + headroom <= memory:
+        return "fused"
+    return "fused_otf"
+
+
 def _ksk_matrix(keys: TFHEKeys) -> torch.Tensor:
     p = keys.params
     flat = keys.ksk.reshape(p.big_dim * p.ksk_level, p.lwe_dim + 1)
@@ -87,7 +107,8 @@ def prepare_fast_keys(keys: TFHEKeys, orientation: str = "fused",
     ``aes128_p4``) next to the 10.9 GB result."""
     params = keys.params
     assert orientation in ("fused", "fused_otf"), orientation
-    assert params.bsk_base_log <= 8 and params.ksk_base_log <= 7
+    assert params.bsk_base_log <= 8
+    assert params.ksk_base_log <= KSK_MAX_BASE_LOG
     assert 1 <= bsk_limbs <= N_LIMBS
     n, k1, N = params.lwe_dim, params.glwe_dim + 1, params.poly_size
     rows = k1 * params.bsk_level

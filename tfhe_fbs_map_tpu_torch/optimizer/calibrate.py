@@ -1,0 +1,376 @@
+"""Calibrate the H100 cost model and runtime model on the card.
+
+    python -m tfhe_fbs_map_tpu_torch.optimizer.calibrate
+    python -m tfhe_fbs_map_tpu_torch.optimizer.calibrate --dry   # refit
+
+The port of ``experiments/calibrate_runtime.py``.  For each parameter family
+(the presets anchor, p8, p16 and aes128_p4, both families of each staged
+preset, the optimizer's native pick for Kreyvium-1152, and the p22 and p32
+shapes), one family at a time, it times
+``CircuitExecutor.step`` on a synthetic level of identity bootstraps at
+several ciphertexts a call, through the kernel the runtime CLI would run
+(``pick_orientations``: a native family by free memory, a staged one on
+K1): CUDA events around chained calls, the median of three repetitions,
+and the fused kernel's own span inside every call.  Ciphertexts a call go
+from 64 to 8192, so K1's and K2's plans cross wave boundaries.  It also
+times the generic path at one family, and asks the card how many clusters
+it runs at once for every plan the model can choose.
+
+It then fits, and writes ``calibration_h100.json`` beside this file, with
+the card's name and power limit as ``nvidia-smi`` prints them and the raw
+points (``--dry`` refits from them):
+
+* per family (key ``n,k,N,l,ks_l``): the kernel's fixed term and its time a
+  wave unit (``kernel = F + waves · cb · sms / cluster · τ``), and the work
+  around the kernel (``a + b · rows · (kN+1)``);
+* per kernel: the median efficiency against the data sheet's int8 rate and
+  the median fixed term, which families without an entry take; the around
+  fit across all points; the generic path's slowdown per bootstrap; the
+  free device memory K2's matrices may take.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from ..ops import fused_blind_rotate as fbr
+from ..ops.blind_rotate import FUSED_HEADROOM
+from ..tfhe.params import PRESETS, STAGED_PRESETS, TFHEParams, _curve
+from .optimizer import (CALIBRATION, GLWE_SHAPES, DeviceProfile,
+                        bootstrap_cost_us)
+from .runtime_model import family_key, resident_key
+
+# The H100 SXM data sheet's dense int8 rate and memory rate.
+PEAK_INT8_OPS = 1979e12
+PEAK_BYTES = 3.35e12
+# Ciphertexts a call (8 evaluations × 8 … 1024 bootstraps).
+ROWS = (64, 128, 256, 512, 1024, 2048, 4096, 8192)
+BATCH = 8
+# A family stops growing its calls once one takes longer than this.
+MAX_CALL_MS = 1500.0
+# The family the generic path is timed at, and its ciphertexts a call.
+GENERIC_FAMILY, GENERIC_ROWS = "anchor", 64
+# Bsk limbs the optimizer can pick (a dropped limb, or none).
+LIMBS = (3, 4)
+
+
+def families() -> dict[str, tuple[TFHEParams, bool]]:
+    """name -> (params, staged): the presets, both families of each staged
+    preset, the optimizer's native Kreyvium-1152 pick, and the JAX
+    calibration list's p22 and p32 shapes."""
+    out = {name: (PRESETS[name][0], False)
+           for name in ("anchor", "p8", "p16", "aes128_p4")}
+    for name in ("kreyvium_p10_staged", "p32_staged"):
+        pre = STAGED_PRESETS[name]
+        out[f"{name}.fam1"] = (pre.fam1, True)
+        out[f"{name}.fam2"] = (pre.fam2, True)
+    # the optimizer's native pick for Kreyvium-1152 at 1e-7 (K2 when its
+    # 43 GB of matrices fit), the optimize(22, 26) pick measured on s9234r,
+    # and the p32 preset
+    out["kreyvium_native"] = (_curve(10, 642, 1, 1024, 4, 5, 7, 2), False)
+    out["p22"] = (_curve(22, 738, 2, 1024, 3, 8, 8, 2), False)
+    out["p32"] = (_curve(32, 706, 1, 2048, 3, 7, 7, 2), False)
+    return out
+
+
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def _executor(params: TFHEParams, orientation: str, device: torch.device):
+    """A one-bootstrap program's executor over ``params``' keys, with the
+    fast keys of ``orientation`` (None: the generic path)."""
+    from ..frontend.lut_program import LutProgram
+    from ..ops.blind_rotate import prepare_fast_keys
+    from ..runtime.executor import CircuitExecutor
+    from ..tfhe import generate_keys
+
+    keys = generate_keys(params, seed=7, device=device)
+    fast = (None if orientation == "generic"
+            else prepare_fast_keys(keys, orientation=orientation))
+    prog = LutProgram()
+    prog.output("o", prog.bootstrap(prog.input("x"), [0, 1]))
+    return CircuitExecutor(prog, keys, fast_keys=fast)
+
+
+def synth_level(params: TFHEParams, nb: int):
+    """One level of ``nb`` identity bootstraps reading wire 0 and writing
+    wire 1 (the JAX ``synth_plan``)."""
+    from ..runtime.executor import LevelPlan
+    from ..tfhe.pbs import build_test_vector
+
+    tv, post = build_test_vector([0, 1], params)
+    return LevelPlan(np.zeros((nb, 1), np.int32), np.ones((nb, 1), np.int32),
+                     np.zeros(nb, np.int32),
+                     np.tile(np.asarray(tv, np.int32), (nb, 1)),
+                     np.full(nb, np.int64(post).astype(np.uint32)
+                             .astype(np.int32)),
+                     np.full(nb, 1, np.int32))
+
+
+def time_point(ex, nb: int, v: int, reps: int = 3) -> dict:
+    """``ex.step`` on a synthetic level of ``nb`` bootstraps × ``v``
+    evaluations: a warm-up call, then ``reps`` repetitions of chained calls,
+    each timed with CUDA events (the host clock on the CPU), and the fused
+    kernel's span in each call.  Medians over the repetitions, ms."""
+    from ..runtime.profile import _ms, _stamp, _sync, _timed_rotations
+
+    device = ex.device
+    ex.levels = [synth_level(ex.params, nb)]
+    ex._plan_device = None
+    buf = torch.zeros((3, v, ex.params.big_dim + 1), dtype=torch.int32,
+                      device=device)
+    _sync(device)
+    t0 = time.perf_counter()
+    ex.step(buf, 0)
+    _sync(device)
+    first_ms = (time.perf_counter() - t0) * 1e3
+    iters = max(1, min(8, int(200.0 / max(first_ms, 1e-3))))
+    steps, kernels = [], []
+    for _ in range(reps):
+        spans = []
+        with _timed_rotations(device, spans):
+            start = _stamp(device)
+            for _ in range(iters):
+                ex.step(buf, 0)
+            end = _stamp(device)
+        _sync(device)
+        steps.append(_ms(start, end) / iters)
+        if spans:
+            kernels.append(sum(_ms(a, b) for a, b, *_ in spans) / len(spans))
+    return {"nb": nb, "v": v, "rows": nb * v, "iters": iters,
+            "step_ms": statistics.median(steps), "all_step_ms": steps,
+            "kernel_ms": statistics.median(kernels) if kernels else None}
+
+
+def time_family(name: str, params: TFHEParams, staged: bool,
+                device: torch.device) -> list[dict]:
+    """Every point of one family, through the kernel the CLI would run."""
+    from ..runtime.cli import pick_orientations
+    from ..runtime.profile import _sync
+
+    orient = ("fused_otf" if staged
+              else pick_orientations([params], device)[0])
+    t0 = time.time()
+    ex = _executor(params, orient, device)
+    _sync(device)
+    print(f"# {name} ({family_key(params)}, {orient}): keys "
+          f"{time.time() - t0:.1f}s", file=sys.stderr)
+    out = []
+    for r in ROWS:
+        pt = time_point(ex, r // BATCH, BATCH)
+        pt.update(family=name, key=family_key(params), kernel=orient,
+                  limbs=4, **_device_plan(params, r, orient, device))
+        out.append(pt)
+        print(f"# {name} rows={r}: step {pt['step_ms']:.3f} ms, kernel "
+              f"{pt['kernel_ms']:.3f} ms, plan {pt['plan']} waves "
+              f"{pt['waves']}", file=sys.stderr)
+        if pt["step_ms"] > MAX_CALL_MS:
+            break
+    del ex
+    torch.cuda.empty_cache()
+    return out
+
+
+def _device_plan(params: TFHEParams, rows: int, orientation: str,
+                 device: torch.device) -> dict:
+    """The plan the kernel launches with for ``rows`` ciphertexts on the
+    card, and its waves."""
+    if orientation == "fused_otf":
+        plan = fbr.k1_device_plan(rows, params, device)
+        fit = fbr.k1_max_clusters(plan)
+    else:
+        plan = fbr.device_plan(rows, params, device)
+        fit = fbr.k2_max_clusters(plan)
+    tiles = -(-rows // plan.cb)
+    return {"plan": list(plan), "resident": fit,
+            "waves": -(-tiles // max(1, fit))}
+
+
+def resident_table(sms: int) -> dict[str, int]:
+    """Clusters the card runs at once for every plan the model can choose:
+    each kernel's tiles (and K1's widths) at the limbs the optimizer picks,
+    and every cluster size that splits a GLWE shape the searches walk."""
+    shapes = set(GLWE_SHAPES) | {(1, 1024), (2, 512)}
+    kns = {(k + 1) * N for k, N in shapes}
+    table = {}
+    for limbs in LIMBS:
+        for cb in fbr.K1_TILES:
+            for nw in fbr.K1_WIDTHS:
+                if not fbr.k1_fits(cb, nw, limbs):
+                    continue
+                for c in sorted({c for kn in kns
+                                 for c in range(1, fbr.K1_MAX_CLUSTER + 1)
+                                 if kn % (c * 2 * nw) == 0}):
+                    plan = fbr.K1Plan(cb, c, nw)
+                    table[resident_key("fused_otf", limbs, plan)] = \
+                        _resident(fbr.k1_max_clusters, plan, limbs)
+        shell = TFHEParams(p=2, lwe_dim=1, glwe_dim=1, poly_size=1024,
+                           bsk_level=1, bsk_base_log=1, ksk_level=1,
+                           ksk_base_log=1, lwe_noise_std=0.0,
+                           glwe_noise_std=0.0)
+        for cb in fbr.K2_TILES:
+            for c in sorted({c for kn in kns
+                             for c in range(1, fbr.K2_MAX_CLUSTER + 1)
+                             if kn % (c * fbr.K2_CHUNK) == 0}):
+                plan = fbr.k2_plan(1, shell, sms, limbs, cb, c)
+                table[resident_key("fused", limbs, plan)] = \
+                    _resident(fbr.k2_max_clusters, plan, limbs)
+    return table
+
+
+def _resident(max_clusters, plan, limbs: int) -> int:
+    """``max_clusters(plan, limbs)``, or 0 (no wave runs) where the card
+    refuses the plan."""
+    try:
+        return max_clusters(plan, limbs)
+    except RuntimeError as e:
+        print(f"# {plan} at {limbs} limbs: {e}", file=sys.stderr)
+        return 0
+
+
+def _line(x, y) -> tuple[float, float]:
+    """Least squares y = a + b·x, with b ≥ 0 (else a flat a)."""
+    x, y = np.asarray(x, float), np.asarray(y, float)
+    if len(x) >= 2 and np.ptp(x) > 0:
+        (a, b), *_ = np.linalg.lstsq(np.stack([np.ones_like(x), x], 1), y,
+                                     rcond=None)
+        if b >= 0:
+            return float(a), float(b)
+    return float(y.mean()), 0.0
+
+
+def _through(x, y) -> tuple[float, float]:
+    """Least squares y = F + τ·x with F ≥ 0 (else through the origin)."""
+    x, y = np.asarray(x, float), np.asarray(y, float)
+    f, tau = _line(x, y)
+    if f < 0 or tau <= 0:
+        return 0.0, float((x * y).sum() / (x * x).sum())
+    return f, tau
+
+
+def fit(raw: dict) -> dict:
+    """The calibration from the raw record (``points``, ``generic``,
+    ``sms``, ``resident``, ``k2_memory``, ``card``, ``device``)."""
+    sms = raw["sms"]
+    fams = {}
+    for pt in raw["points"]:
+        fams.setdefault(pt["key"], []).append(pt)
+    per_kernel: dict[str, list] = {"fused": [], "fused_otf": []}
+    entries = {}
+    for key, pts in fams.items():
+        n, k, N, l, ks_l = (int(x) for x in key.split(","))
+        kern = pts[0]["kernel"]
+        units = [pt["waves"] * pt["plan"][0] * sms / pt["plan"][1]
+                 for pt in pts]
+        fixed, tau = _through(units, [pt["kernel_ms"] * 1e3 for pt in pts])
+        ideal = 2.0 * (n * (k + 1) ** 2 * l * N * N * 4
+                       + k * N * ks_l * (n + 1) * 4) / PEAK_INT8_OPS * 1e6
+        around = _line([pt["rows"] * (k * N + 1) for pt in pts],
+                       [(pt["step_ms"] - pt["kernel_ms"]) * 1e3
+                        for pt in pts])
+        entries[key] = {"name": pts[0]["family"], "kernel": kern,
+                        "fixed_us": fixed, "tau_us": tau,
+                        "eff": ideal / tau,
+                        "around_a_us": around[0], "around_b_us": around[1]}
+        per_kernel[kern].append(entries[key])
+    kernels = {kern: {"eff": statistics.median(e["eff"] for e in es),
+                      "fixed_us": statistics.median(e["fixed_us"]
+                                                    for e in es),
+                      "families": sorted(e["name"] for e in es)}
+               for kern, es in per_kernel.items() if es}
+    # a kernel no family was timed through takes the other's fit
+    for kern, other in (("fused", "fused_otf"), ("fused_otf", "fused")):
+        kernels.setdefault(kern, dict(kernels[other], families=[]))
+    xs, ys = [], []
+    for pt in raw["points"]:
+        _, k, N, *_ = (int(x) for x in pt["key"].split(","))
+        xs.append(pt["rows"] * (k * N + 1))
+        ys.append((pt["step_ms"] - pt["kernel_ms"]) * 1e3)
+    a, b = _line(xs, ys)
+    profile = DeviceProfile(
+        name="h100", int8_ops=PEAK_INT8_OPS, mem_bytes=PEAK_BYTES,
+        eff_fused=kernels["fused"]["eff"],
+        eff_otf=kernels["fused_otf"]["eff"], k2_memory=raw["k2_memory"],
+        k2_headroom=FUSED_HEADROOM, generic_slowdown=1.0)
+    for key, e in entries.items():
+        n, k, N, l, ks_l = (int(x) for x in key.split(","))
+        e["scale"] = e["tau_us"] / bootstrap_cost_us(
+            n, k, N, l, ks_l, 4, profile, e["kernel"])
+    g = raw["generic"]
+    n, k, N, l, ks_l = (int(x) for x in g["key"].split(","))
+    slowdown = g["step_ms"] * 1e3 / g["rows"] / bootstrap_cost_us(
+        n, k, N, l, ks_l, 4, profile)
+    profile_d = dict(vars(profile), generic_slowdown=slowdown)
+    return {"card": raw["card"], "device": raw["device"], "sms": sms,
+            "profile": profile_d, "kernels": kernels,
+            "around": {"around_a_us": a, "around_b_us": b},
+            "families": entries, "resident": raw["resident"],
+            "raw": raw}
+
+
+def measure(device: torch.device) -> dict:
+    """Time every family and the generic path on the card."""
+    from ..runtime.cli import free_memory
+
+    fams = families()
+    free = free_memory(device)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    t0 = time.time()
+    resident = resident_table(sms)
+    print(f"# resident table: {len(resident)} plans, "
+          f"{time.time() - t0:.1f}s", file=sys.stderr)
+    points = []
+    for name, (params, staged) in fams.items():
+        points += time_family(name, params, staged, device)
+    params = fams[GENERIC_FAMILY][0]
+    ex = _executor(params, "generic", device)
+    generic = time_point(ex, GENERIC_ROWS // BATCH, BATCH, reps=2)
+    generic.update(family=GENERIC_FAMILY, key=family_key(params),
+                   kernel="generic")
+    print(f"# generic {GENERIC_FAMILY} rows={GENERIC_ROWS}: "
+          f"{generic['step_ms']:.1f} ms", file=sys.stderr)
+    return {"card": card(), "device": torch.cuda.get_device_name(device),
+            "torch": torch.__version__, "sms": sms, "k2_memory": free,
+            "resident": resident, "points": points, "generic": generic}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dry", action="store_true",
+                    help="refit from the raw points of the existing file")
+    ap.add_argument("--out", default=str(CALIBRATION))
+    args = ap.parse_args(argv)
+
+    if args.dry:
+        with open(args.out) as f:
+            raw = json.load(f)["raw"]
+    else:
+        if not torch.cuda.is_available():
+            print("calibrate: no CUDA device; the calibration is measured "
+                  "on the card", file=sys.stderr)
+            return 2
+        raw = measure(torch.device("cuda"))
+    cal = fit(raw)
+    with open(args.out, "w") as f:
+        json.dump(cal, f, indent=1)
+        f.write("\n")
+    print(json.dumps({k: cal[k] for k in ("card", "sms", "profile",
+                                          "kernels", "around")}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,182 @@
+"""Launch-aware program-level runtime predictor, for the H100.
+
+The port of ``tfhe_fbs_map_tpu.optimizer.runtime_model``, with the same
+functions.  The per-boot roofline (:func:`.optimizer.bootstrap_cost_us`)
+holds at a full batch; a program pays per level call as well, and pads each
+level to a power of two (:func:`bucket`), and the staged pipeline makes two
+calls a level.  :func:`predict_native_us` / :func:`predict_staged_us` price a
+whole program at an evaluation batch; the runtime CLI routes staged against
+native on them.
+
+On the H100 each kernel launches once a call, as a grid of cluster tiles,
+and its time comes in waves of clusters, not in rows.  A call of ``rows``
+ciphertexts costs
+
+* the kernel: a fixed term plus ``waves × wave``.  The plan and its waves
+  are :func:`..ops.fused_blind_rotate.k1_plan` / ``k2_plan``'s, given the
+  calibrated card's SM count and the clusters it runs at once (the
+  ``resident`` table), so a prediction needs no card.  A wave of a plan
+  (tile ``cb``, ``cluster`` CTAs) carries ``cb · sms / cluster`` bootstraps'
+  work at the family's per-boot cost;
+* the level's work around the kernel (gather and lincomb, key switch through
+  ``torch._int_mm``, modswitch, extract, scatter): ``a + b · rows · (kN+1)``.
+
+Constants come from ``calibration_h100.json`` (``python -m
+tfhe_fbs_map_tpu_torch.optimizer.calibrate`` on the card): per family, keyed
+by ``(n, k, N, l, ks_l)`` and kept for the kernel it was timed through, the
+kernel's fixed term and the scale of its per-boot cost, and the work around
+it; a family with no entry takes the fit across families of its kernel.
+"""
+
+from __future__ import annotations
+
+from ..ops.fused_blind_rotate import K1Plan, K2Plan, k1_plan, k2_plan
+from ..tfhe.params import TFHEParams
+from .optimizer import (Solution, StagedSolution, bootstrap_cost_us,
+                        calibration, h100_profile)
+
+__all__ = ["predict_native_us", "predict_staged_us", "call_fixed_us",
+           "slope_us", "launch_us", "launch_plan", "bucket", "family_key",
+           "resident_key"]
+
+
+def family_key(params: TFHEParams) -> str:
+    """A calibration entry's key: ``n,k,N,l,ks_l``."""
+    return (f"{params.lwe_dim},{params.glwe_dim},{params.poly_size},"
+            f"{params.bsk_level},{params.ksk_level}")
+
+
+def resident_key(orientation: str, n_limbs: int,
+                 plan: K1Plan | K2Plan) -> str:
+    """The resident table's key of a plan: kernel, limbs, tile, cluster
+    (and K1's width)."""
+    if orientation == "fused_otf":
+        return f"k1/{n_limbs}/{plan.cb}/{plan.cluster}/{plan.nw}"
+    return f"k2/{n_limbs}/{plan.cb}/{plan.cluster}"
+
+
+def bucket(nb: int) -> int:
+    """Power-of-two level padding (``CircuitExecutor``'s plans)."""
+    b = 1
+    while b < nb:
+        b *= 2
+    return b
+
+
+def _orientation(params: TFHEParams, orientation: str | None,
+                 bsk_limbs: int, staged: bool = False) -> str:
+    if orientation is not None:
+        return orientation
+    return h100_profile().kernel(params.lwe_dim, params.glwe_dim,
+                                 params.poly_size, params.bsk_level,
+                                 bsk_limbs, staged)
+
+
+def launch_plan(params: TFHEParams, rows: int, orientation: str,
+                bsk_limbs: int = 4) -> tuple[K1Plan | K2Plan, int]:
+    """The plan and the waves of one launch of ``rows`` ciphertexts through
+    ``orientation`` on the calibrated card."""
+    cal = calibration()
+    sms, table = cal["sms"], cal["resident"]
+
+    def resident(plan):
+        return table.get(resident_key(orientation, bsk_limbs, plan),
+                         sms // plan.cluster)
+
+    fn = k1_plan if orientation == "fused_otf" else k2_plan
+    plan = fn(rows, params, sms, bsk_limbs, resident=resident)
+    tiles = -(-max(rows, 1) // plan.cb)
+    return plan, -(-tiles // max(1, resident(plan)))
+
+
+def _entry(params: TFHEParams, orientation: str) -> dict | None:
+    entry = calibration()["families"].get(family_key(params))
+    return entry if entry and entry["kernel"] == orientation else None
+
+
+def _cost(params: TFHEParams, orientation: str, bsk_limbs: int) -> float:
+    return bootstrap_cost_us(params.lwe_dim, params.glwe_dim,
+                             params.poly_size, params.bsk_level,
+                             params.ksk_level, bsk_limbs,
+                             orientation=orientation)
+
+
+def _around(params: TFHEParams, orientation: str) -> tuple[float, float]:
+    fit = _entry(params, orientation) or calibration()["around"]
+    return fit["around_a_us"], fit["around_b_us"]
+
+
+def launch_us(params: TFHEParams, rows: int, orientation: str | None = None,
+              bsk_limbs: int = 4, staged: bool = False,
+              cost_us: float | None = None) -> float:
+    """µs of one family call of ``rows`` ciphertexts: the kernel's fixed
+    term and waves, and the level's work around it.  ``cost_us``: the
+    per-boot roofline cost (default the kernel's at ``bsk_limbs``)."""
+    orient = _orientation(params, orientation, bsk_limbs, staged)
+    cal = calibration()
+    entry = _entry(params, orient)
+    fixed = (entry or cal["kernels"][orient])["fixed_us"]
+    scale = entry["scale"] if entry else 1.0
+    if cost_us is None:
+        cost_us = _cost(params, orient, bsk_limbs)
+    plan, waves = launch_plan(params, rows, orient, bsk_limbs)
+    wave = plan.cb * cal["sms"] / plan.cluster * cost_us * scale
+    a, b = _around(params, orient)
+    return fixed + waves * wave + a + b * rows * (params.big_dim + 1)
+
+
+def slope_us(params: TFHEParams, cost_us: float | None = None,
+             orientation: str | None = None, bsk_limbs: int = 4) -> float:
+    """Per-boot marginal cost (µs) at full waves: the roofline estimate
+    (``cost_us``, default the kernel the model prices) scaled by the
+    family's calibration, and the per-row work around the kernel."""
+    orient = _orientation(params, orientation, bsk_limbs)
+    if cost_us is None:
+        cost_us = _cost(params, orient, bsk_limbs)
+    entry = _entry(params, orient)
+    _, b = _around(params, orient)
+    return cost_us * (entry["scale"] if entry else 1.0) \
+        + b * (params.big_dim + 1)
+
+
+def call_fixed_us(params: TFHEParams, rows: int,
+                  orientation: str | None = None,
+                  bsk_limbs: int = 4) -> float:
+    """What one call of ``rows`` ciphertexts costs beyond ``rows`` times the
+    per-boot slope: the fixed terms and the waves' padding."""
+    orient = _orientation(params, orientation, bsk_limbs)
+    return launch_us(params, rows, orient, bsk_limbs) \
+        - rows * slope_us(params, None, orient, bsk_limbs)
+
+
+def predict_native_us(sol: Solution, level_nbs: list[int], batch: int,
+                      orientation: str | None = None) -> float:
+    """Per-evaluation runtime (µs) of the native single-family plan: one
+    call of ``bucket(nb) · batch`` ciphertexts a level, through
+    ``orientation``; by default the kernel the model prices for ``sol``, at
+    ``sol.cost`` a bootstrap, as the JAX model takes it."""
+    cost = sol.cost if orientation is None else None
+    total = 0.0
+    for nb in level_nbs:
+        total += launch_us(sol.params, bucket(nb) * batch, orientation,
+                           sol.bsk_limbs, cost_us=cost) / batch
+    return total
+
+
+def predict_staged_us(ssol: StagedSolution,
+                      level_routes: list[tuple[int, int, int]],
+                      batch: int, orientation: str | None = None) -> float:
+    """Per-evaluation runtime (µs) of the staged dual-family plan.
+
+    ``level_routes``: per-level (n_split, n_f1, n_f2) from
+    :func:`..runtime.executor.staged_level_routes`: each level runs one fam1
+    call of ``bucket(ns + nf1)`` bootstraps and one fam2 call of
+    ``bucket(ns + nf2)``, each times ``batch``, through ``orientation``
+    (default K1, which runs both staged families)."""
+    total = 0.0
+    for ns, nf1, nf2 in level_routes:
+        for nbs, params in ((ns + nf1, ssol.params1), (ns + nf2, ssol.params2)):
+            if nbs:
+                total += launch_us(params, bucket(nbs) * batch, orientation,
+                                   staged=True) / batch
+    return total

@@ -1,16 +1,19 @@
 """Homomorphic circuit runner on PyTorch: execute mapped ``.lbf`` programs.
 
 The counterpart of ``python -m tfhe_fbs_map_tpu.runtime``: load or map a
-circuit, generate keys, encrypt random inputs, run every level batched on
-the device, decrypt, and check the outputs against ``LutProgram.eval``.
-The last line of standard output is the same JSON object.  A staged preset
-(``--params kreyvium_p10_staged``, ``p32_staged``) runs the staged
-two-family pipeline.
+circuit, pick the parameters, generate keys, encrypt random inputs, run every
+level batched on the device, decrypt, and check the outputs against
+``LutProgram.eval``.  The last line of standard output is the same JSON
+object, with the run's picks and the runtime model's prediction beside it.
 
+Without ``--params``, ``--test-params`` or ``--keys`` the parameter optimizer
+picks them (:func:`optimizer_pick`, the JAX CLI's flow): for an even FBS size
+p ≥ 10 the keyless staged probe and ``optimize_staged``, then ``optimize``,
+and the launch-aware runtime model routes the program staged or native.  A
+preset (``--params aes128_p4``, ``kreyvium_p10_staged``, …) pins them.
+
+    python -m tfhe_fbs_map_tpu_torch.runtime prog.lbf --batch 8 --p-error 1e-7
     python -m tfhe_fbs_map_tpu_torch.runtime prog.lbf --params aes128_p4 --batch 8
-    python -m tfhe_fbs_map_tpu_torch.runtime \\
-        outputs/generated/kreyvium_stream_v1_10_search.lbf \\
-        --params kreyvium_p10_staged --batch 16 --orientation fused_otf
     python -m tfhe_fbs_map_tpu_torch.runtime c.blif --map --test-params --device cpu
 """
 
@@ -20,40 +23,56 @@ import argparse
 import json
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..ops.blind_rotate import fused_key_bytes
+from ..ops.blind_rotate import FUSED_HEADROOM, N_LIMBS, pick_kernel
 from ..ops.fused_blind_rotate import unsupported
 
-# Device memory left free beside the "fused" key matrices when --orientation
-# auto picks them: room for the wire buffer and one level's temporaries.
-FUSED_HEADROOM = 4 << 30
+__all__ = ["main", "pick_orientations", "check_kernel", "optimizer_pick",
+           "Pick", "NoParameters", "FUSED_HEADROOM", "STAGED_MARGIN",
+           "free_memory", "predicted_run_s", "family_json"]
+
+# Route staged only when its predicted runtime beats native's by this
+# factor; the launch-aware runtime model prices the per-level launches and
+# the padding, so the default trusts it.
+STAGED_MARGIN = 1.0
 
 
 def pick_orientations(families, device: torch.device,
-                      free_bytes: int | None = None) -> list[str]:
+                      free_bytes: int | None = None,
+                      bsk_limbs: int = N_LIMBS) -> list[str]:
     """``--orientation auto`` for the parameter families of one run: generic
-    on the CPU.  On CUDA, one family goes to the K2 kernel ("fused") when
-    K2 serves it and its precomputed key matrices fit free device memory
-    with ``FUSED_HEADROOM`` to spare, else to K1 ("fused_otf").  The two
-    staged families both go to K1, the JAX reference's choice at every
-    staged preset: their K2 matrices take 59-67 GB, and on the Kreyvium
-    preset K1 ran the whole path faster even before K2's matrices are
-    built (PERF.md); ``--orientation fused`` still asks for K2.  On
-    CUDA it raises ValueError when the kernel picked cannot serve a family:
-    the plain bootstrap runs there only when asked for."""
+    on the CPU.  On CUDA one native family takes
+    :func:`..ops.blind_rotate.pick_kernel` at the card's free memory (K2,
+    "fused", when K2 serves it and its ``bsk_limbs`` key matrices fit with
+    ``FUSED_HEADROOM`` to spare, else K1, "fused_otf"): the rule the cost
+    model prices.  The two staged families both go to K1, the JAX
+    reference's choice at every staged preset: their K2 matrices take 59-67
+    GB, and on the Kreyvium preset K1 ran the whole path faster even before
+    K2's matrices are built (PERF.md); ``--orientation fused`` still asks
+    for K2.  On CUDA it raises ValueError when the kernel picked cannot
+    serve a family: the plain bootstrap runs there only when asked for."""
     if device.type != "cuda":
         return ["generic"] * len(families)
-    if len(families) == 1 and unsupported(families[0], otf=False) is None:
+    orients = ["fused_otf"] * len(families)
+    if len(families) == 1:
         if free_bytes is None:
-            free_bytes, _ = torch.cuda.mem_get_info(device)
-        if fused_key_bytes(families[0]) + FUSED_HEADROOM <= free_bytes:
-            return ["fused"]
-    for p in families:
-        check_kernel(p, "fused_otf")
-    return ["fused_otf"] * len(families)
+            free_bytes = free_memory(device)
+        orients = [pick_kernel(families[0], free_bytes, bsk_limbs)]
+    for p, o in zip(families, orients):
+        check_kernel(p, o)
+    return orients
+
+
+def free_memory(device: torch.device) -> int:
+    """Device bytes this process can still take: the card's free memory and
+    the blocks PyTorch's caching allocator holds unused."""
+    free, _ = torch.cuda.mem_get_info(device)
+    return free + (torch.cuda.memory_reserved(device)
+                   - torch.cuda.memory_allocated(device))
 
 
 def check_kernel(params, orientation: str) -> None:
@@ -65,6 +84,120 @@ def check_kernel(params, orientation: str) -> None:
             f"no fused CUDA kernel ({orientation}) serves these parameters: "
             f"{why}; pass --orientation generic to run the plain PyTorch "
             f"bootstrap on the card")
+
+
+class NoParameters(Exception):
+    """The optimizer found no parameters the run can take."""
+
+
+class Pick(NamedTuple):
+    """What :func:`optimizer_pick` chose: the route, its families (one
+    native, or the staged fam1 and fam2), the native family's key limbs,
+    the per-bootstrap error probability, and the runtime model's µs per
+    evaluation of each route it priced (None where it priced none)."""
+    staged: bool
+    families: tuple
+    bsk_limbs: int
+    p_error: float
+    native_us: float | None
+    staged_us: float | None
+
+
+def optimizer_pick(prog, p_run: int, batch: int, staged: str = "auto",
+                   p_error: float | None = None,
+                   margin: float = STAGED_MARGIN) -> Pick:
+    """The parameters of a run, as the JAX CLI picks them
+    (``tfhe_fbs_map_tpu/runtime/cli.py:133-241``): for an even ``p_run`` ≥
+    10 (unless ``staged`` is "off") the keyless staged probe and
+    ``optimize_staged`` over the program's route mix, retried at
+    ``big_dim=2048``; then ``optimize(p_run, norm2_linprod)``; the route is
+    staged when ``staged`` is "on", when only the staged search found
+    parameters, or when the runtime model prices it below ``margin`` times
+    native.  Raises :class:`NoParameters` when no parameters meet the
+    target, or when ``staged`` is "on" and the program has no staged
+    parameters."""
+    from ..optimizer import optimize, optimize_staged
+    from ..optimizer.runtime_model import (predict_native_us,
+                                           predict_staged_us)
+    from .executor import (native_level_boots, staged_level_routes,
+                           staged_probe)
+
+    kw = {"max_p_error": p_error} if p_error is not None else {}
+    staged_sol = routes = None
+    if staged != "off" and p_run >= 10 and p_run % 2 == 0:
+        try:
+            eff1, eff2, counts = staged_probe(prog, p_run)
+        except ValueError as e:
+            if staged == "on":
+                raise NoParameters(f"--staged on: {e}") from e
+            print(f"# staged: not realizable ({str(e)[:120]}...)",
+                  file=sys.stderr)
+        else:
+            # the objective is the whole program's cost under its route
+            # mix; wires made by fam1 singles carry fam1's noise, so any f1
+            # route takes the conservative max(v1, v2) wire bound
+            skw = dict(kw, weight1=counts["f1"] + counts["split"],
+                       weight2=counts["f2"] + counts["split"],
+                       wires_from_stage2=counts["f1"] == 0)
+            staged_sol = optimize_staged(p_run, eff1, eff2, **skw)
+            if staged_sol is None:
+                # high effective norms: the kN=2048 master's keys are cleaner
+                staged_sol = optimize_staged(p_run, eff1, eff2,
+                                             big_dim=2048, **skw)
+            if staged_sol is not None:
+                routes = staged_level_routes(prog, p_run)
+    if staged == "on" and staged_sol is None:
+        raise NoParameters(f"--staged on: no staged parameters for this "
+                           f"program (p={p_run}) meet the error target")
+    sol = optimize(p_run, max(1, prog.stats()["norm2_linprod"]), **kw)
+    if sol is None and staged_sol is None:
+        raise NoParameters("no parameter set satisfies the error target")
+    native_us = (predict_native_us(sol, native_level_boots(prog), batch)
+                 if sol is not None else None)
+    staged_us = None
+    use_staged = False
+    if staged_sol is not None:
+        staged_us = predict_staged_us(staged_sol, routes, batch)
+        native_rt = float("inf") if native_us is None else native_us
+        print(f"# runtime model (batch {batch}): native "
+              f"{native_rt / 1e3:.1f}ms/eval, staged "
+              f"{staged_us / 1e3:.1f}ms/eval", file=sys.stderr)
+        use_staged = (staged == "on" or sol is None
+                      or staged_us < margin * native_rt)
+    if use_staged:
+        return Pick(True, (staged_sol.params1, staged_sol.params2), N_LIMBS,
+                    staged_sol.p_error, native_us, staged_us)
+    return Pick(False, (sol.params,), sol.bsk_limbs, sol.p_error, native_us,
+                staged_us)
+
+
+def predicted_run_s(ex, orients: list[str], bsk_limbs: int,
+                    batch: int) -> float | None:
+    """The runtime model's ``run_s`` for the executor's plan through the
+    kernels ``orients`` (None off the fused kernels)."""
+    from ..optimizer.optimizer import Solution, StagedSolution
+    from ..optimizer.runtime_model import (predict_native_us,
+                                           predict_staged_us)
+
+    if any(o not in ("fused", "fused_otf") for o in orients):
+        return None
+    if ex.staged:
+        ssol = StagedSolution(ex.keys.keys1.params, ex.keys.keys2.params,
+                              0.0, 0.0)
+        us = predict_staged_us(ssol, ex.plan.level_routes, batch, orients[0])
+    else:
+        sol = Solution(ex.params, 0.0, 0.0, bsk_limbs)
+        us = predict_native_us(sol, [lv.wire_idx.shape[0]
+                                     for lv in ex.levels], batch, orients[0])
+    return us * batch / 1e6
+
+
+def family_json(params) -> dict:
+    """A family's sizes as the CLI's JSON line names them."""
+    return {"p": params.p, "n": params.lwe_dim, "k": params.glwe_dim,
+            "N": params.poly_size, "l_bsk": params.bsk_level,
+            "b_bsk": params.bsk_base_log, "l_ksk": params.ksk_level,
+            "b_ksk": params.ksk_base_log}
 
 
 def main(argv=None) -> int:
@@ -103,17 +236,25 @@ def main(argv=None) -> int:
                     help="use the small insecure test parameter set")
     ap.add_argument("--params", choices=sorted(PRESETS)
                     + sorted(STAGED_PRESETS), default=None,
-                    help="pinned parameter preset, one family or two staged "
-                         "ones; stands in for the parameter optimizer, "
-                         "which is not ported yet")
+                    help="pin a parameter preset, one family or two staged "
+                         "ones, in place of the optimizer's pick")
+    ap.add_argument("--p-error", type=float, default=None,
+                    help="per-bootstrap error-probability target of the "
+                         "parameter optimizer (default: the 4-sigma "
+                         "~6.3e-5, at which a run of B bootstraps expects "
+                         "~6e-5*B bit flips; e.g. 1e-7 for bit-exact runs)")
     ap.add_argument("--staged", default="auto", choices=["auto", "on", "off"],
                     help="staged two-family pipeline (tfhe/staged.py): large "
                          "tables split into a size-p/2 + size-8 pair, small "
                          "ones run on the select family, wires produced "
-                         "pre-scaled.  Until the optimizer is ported it "
-                         "follows --params: auto runs staged exactly when "
-                         "the preset is a staged one, on requires one, off "
-                         "refuses one")
+                         "pre-scaled.  auto: with the optimizer, staged when "
+                         "the program compiles onto it and the runtime "
+                         "model prices it cheaper; with --params, as the "
+                         "preset says.  on requires it, off refuses it")
+    ap.add_argument("--staged-margin", type=float, default=STAGED_MARGIN,
+                    help="route staged only when the runtime model's "
+                         "prediction beats native by this factor (default "
+                         "%(default)s)")
     ap.add_argument("--orientation", default="auto",
                     choices=["auto", "fused", "fused_otf", "generic"],
                     help="bootstrap path of every family (auto: on CUDA the "
@@ -129,20 +270,18 @@ def main(argv=None) -> int:
         print("--device cuda: no CUDA device is available (use --device "
               "cpu to run on the CPU)", file=sys.stderr)
         return 2
-    if not (args.keys or args.test_params or args.params):
-        print("pass --params <preset>, --test-params or --keys: the "
-              "parameter optimizer is not ported yet", file=sys.stderr)
+    pinned = bool(args.keys or args.test_params or args.params)
+    preset_staged = args.params in STAGED_PRESETS
+    if args.staged == "on" and pinned and not preset_staged:
+        print("--staged on needs the optimizer or a staged --params preset "
+              f"(one of {', '.join(sorted(STAGED_PRESETS))})",
+              file=sys.stderr)
         return 2
-    staged = args.params in STAGED_PRESETS
-    if args.staged == "on" and not staged:
-        print("--staged on needs a staged --params preset (one of "
-              f"{', '.join(sorted(STAGED_PRESETS))})", file=sys.stderr)
-        return 2
-    if args.staged == "off" and staged:
+    if args.staged == "off" and preset_staged:
         print(f"--staged off contradicts the staged preset {args.params}",
               file=sys.stderr)
         return 2
-    if staged and (args.keys or args.save_keys or args.test_params):
+    if preset_staged and (args.keys or args.save_keys or args.test_params):
         print("a staged preset generates both families' keys: --keys, "
               "--save-keys and --test-params take one family",
               file=sys.stderr)
@@ -182,27 +321,44 @@ def main(argv=None) -> int:
     p_run = max(p_needed, args.fbs_size or p_needed)
     print(f"# program: {stats} (p={p_needed})", file=sys.stderr)
 
-    # --- keys -----------------------------------------------------------
+    # --- parameters: a pin, or the optimizer's pick ----------------------
+    pick = None
+    bsk_limbs = N_LIMBS
     p_error = None
+    if not pinned:
+        try:
+            pick = optimizer_pick(prog, p_run, args.batch, args.staged,
+                                  args.p_error, args.staged_margin)
+        except NoParameters as e:
+            print(e, file=sys.stderr)
+            return 1
+        bsk_limbs, p_error = pick.bsk_limbs, pick.p_error
+    staged = pick.staged if pick is not None else preset_staged
+
+    # --- keys -----------------------------------------------------------
     t0 = time.time()
     if staged:
-        preset = STAGED_PRESETS[args.params]
-        if p_run != preset.p:
-            print(f"staged preset {args.params} has p={preset.p}, the "
-                  f"program p={p_run}", file=sys.stderr)
-            return 2
-        print(f"# staged params: fam1={preset.fam1} fam2={preset.fam2}",
-              file=sys.stderr)
-        keys = generate_staged_keys(preset.p, preset.fam1, preset.fam2,
-                                    seed=args.seed, device=device)
+        if pick is not None:
+            fam1, fam2 = pick.families
+        else:
+            preset = STAGED_PRESETS[args.params]
+            if p_run != preset.p:
+                print(f"staged preset {args.params} has p={preset.p}, the "
+                      f"program p={p_run}", file=sys.stderr)
+                return 2
+            fam1, fam2, p_error = preset.fam1, preset.fam2, preset.p_error
+        print(f"# staged params: fam1={fam1} fam2={fam2}", file=sys.stderr)
+        keys = generate_staged_keys(p_run, fam1, fam2, seed=args.seed,
+                                    device=device)
         families = [keys.keys1, keys.keys2]
-        p_error = preset.p_error
         print(f"# staged keygen: {time.time() - t0:.1f}s", file=sys.stderr)
     elif args.keys:
         keys = load_keys(args.keys, device=device)
         families = [keys]
     else:
-        if args.test_params:
+        if pick is not None:
+            params = pick.families[0]
+        elif args.test_params:
             params = TEST_PARAMS.with_p(max(p_needed, TEST_PARAMS.p))
         else:
             params, p_error = PRESETS[args.params]
@@ -212,7 +368,7 @@ def main(argv=None) -> int:
                 return 1
             if p_run != params.p:
                 params, p_error = params.with_p(p_run), None
-            print(f"# params: {params}", file=sys.stderr)
+        print(f"# params: {params} (bsk_limbs={bsk_limbs})", file=sys.stderr)
         keys = generate_keys(params, seed=args.seed, device=device)
         families = [keys]
         print(f"# keygen: {time.time() - t0:.1f}s", file=sys.stderr)
@@ -229,7 +385,8 @@ def main(argv=None) -> int:
     fam_params = [k.params for k in families]
     try:
         if args.orientation == "auto":
-            orients = pick_orientations(fam_params, device)
+            orients = pick_orientations(fam_params, device,
+                                        bsk_limbs=bsk_limbs)
         else:
             orients = [args.orientation] * len(families)
             if args.orientation != "generic" and device.type == "cuda":
@@ -241,7 +398,7 @@ def main(argv=None) -> int:
     fast = None
     if orients[0] != "generic":
         t0 = time.time()
-        fast = [prepare_fast_keys(k, orientation=o)
+        fast = [prepare_fast_keys(k, orientation=o, bsk_limbs=bsk_limbs)
                 for k, o in zip(families, orients)]
         fast = tuple(fast) if staged else fast[0]
         if device.type == "cuda":
@@ -277,6 +434,8 @@ def main(argv=None) -> int:
                   f"got {got[k]}", file=sys.stderr)
 
     total_boots = ex.num_bootstraps * args.batch
+    predicted = (predicted_run_s(ex, orients, bsk_limbs, args.batch)
+                 if device.type == "cuda" else None)
     print(json.dumps({
         "staged": staged,
         "bit_exact": errors == 0,
@@ -293,11 +452,27 @@ def main(argv=None) -> int:
                         else orients[0]),
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
+        "params_from": ("optimizer" if pick is not None
+                        else args.params or ("test" if args.test_params
+                                             else "keys")),
+        "params": ({"fam1": family_json(fam_params[0]),
+                    "fam2": family_json(fam_params[1])} if staged
+                   else family_json(fam_params[0])),
+        "bsk_limbs": bsk_limbs,
+        "p_error": p_error,
+        "predicted": ({"native_run_s": _run_s(pick.native_us, args.batch),
+                       "staged_run_s": _run_s(pick.staged_us, args.batch)}
+                      if pick is not None else None),
         "encrypt_s": round(enc_s, 3),
         "run_s": round(run_s, 3),
+        "predicted_run_s": predicted,
         "boots_per_sec": round(total_boots / run_s, 2) if run_s else None,
     }))
     return 1 if errors else 0
+
+
+def _run_s(us_per_eval: float | None, batch: int) -> float | None:
+    return us_per_eval * batch / 1e6 if us_per_eval is not None else None
 
 
 if __name__ == "__main__":

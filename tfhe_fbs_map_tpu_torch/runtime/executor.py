@@ -40,7 +40,7 @@ from ..tfhe.staged import SELECT_P, StagedKeys, split_node
 
 __all__ = ["CircuitExecutor", "LevelPlan", "StagedLevelPlan",
            "compile_program", "compile_staged", "staged_probe",
-           "staged_level_routes"]
+           "staged_level_routes", "native_level_boots"]
 
 
 @dataclass
@@ -417,6 +417,24 @@ def staged_level_routes(prog: LutProgram, p: int
     level issues one fam1 call of ``bucket(ns + nf1)`` bootstraps and one
     fam2 call of ``bucket(ns + nf2)``."""
     return _probe_plan(prog, p).level_routes
+
+
+def native_level_boots(prog: LutProgram) -> list[int]:
+    """Per-level bootstrap counts of the native single-family plan (the
+    level assignment of :func:`compile_program`, keyless)."""
+    level: dict[str, int] = {}
+    counts: dict[int, int] = {}
+    for node in prog.nodes:
+        if node.kind == N_INPUT:
+            level[node.name] = 0
+        elif node.kind == N_LIN:
+            level[node.name] = max((level[v.name] for _, v in node.terms),
+                                   default=0)
+        elif node.kind == N_BOOT:
+            lv = level[node.src.name] + 1
+            level[node.name] = lv
+            counts[lv] = counts.get(lv, 0) + 1
+    return [counts[lv] for lv in sorted(counts)]
 
 
 def _lincomb_flat(buf, wire_idx, coefs, consts) -> torch.Tensor:

@@ -6,8 +6,8 @@ holds the shared sets equal to the JAX package's and the pinned presets
 equal to what the JAX parameter optimizer and ``bench.py`` pick.
 
 ``PRESETS`` (one family) and ``STAGED_PRESETS`` (two staged families)
-stand in for the parameter optimizer until it is ported: the runtime CLI
-takes a preset name (``--params``).
+are pins: the runtime CLI takes a preset name (``--params``) in place of
+the parameter optimizer's pick (``..optimizer``).
 """
 
 from __future__ import annotations
