@@ -43,13 +43,27 @@ Phases, each printed with what ran and how long it took:
    on the card at every launch of the run; the run must be bit-exact and
    launch the kernel the model priced once for every family call.  Then
    the runtime model's predicted ``run_s`` against the measured one for
-   the runs of phases 5 to 7 (``optimizer/validate.py``'s table).
+   the runs of phases 5 to 7 (``optimizer/validate.py``'s table);
+8. the bench and a mapped ISCAS85 program: each kernel at the bench's
+   launches at full length (every step, 512 ciphertexts: K2 at anchor, p8
+   and p16, K1 at anchor and native p32) against its plain version,
+   bitwise, with both times and the bound; then ``bench.main`` at
+   ``--preset anchor`` (``auto``: K2), anchor ``--orientation fused_otf``
+   (K1), anchor ``--bsk-limbs 3`` (K2 on a quantized key), ``p8``,
+   ``p16`` (K2) and ``p32 --native-p32`` (K1 at N=2048), each required to
+   launch the kernel its JSON names 1 + iters times and the other never,
+   and to report 0 errors; the quantized key is far outside the anchor's
+   noise budget, so that run is held to report its errors beside the noise
+   model's rate and to exit 1 on them; then c6288r, the 16x16 multiplier,
+   mapped at p=4 with ``--opt`` by the port's own ``frontend.cli`` (944
+   bootstraps) and run as phase 7 runs its programs, at batch 64.
 
 Before the last line it prints one JSON object with a row per kernel (no
 PyTorch call computes the n-step recurrence, so ``library_ms`` is null;
 ``launches`` sums the kernel's launches over the main paths of phases 5 to
-7, each counted from 0, ``launches_by_path`` splits them) and the card's
-name and power limit; the last line is
+8, each counted from 0, ``launches_by_path`` splits them;
+``staged_launches`` and ``bench_launches`` hold the full-length checks of
+phases 4 and 8) and the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
 on any failure, without a CUDA device, or away from a checkout of the repo.
 """
@@ -144,23 +158,31 @@ def once_ms(fn):
 
 def kernel_inputs(params, steps: int, batch: int, n_limbs: int, otf: bool,
                   seed: int):
-    """Random kernel operands (numpy, seeded), with the rotation amounts'
-    edge cases 0, N-1, N and 2N-1 in every step."""
-    import numpy as np
+    """Random kernel operands, drawn on the card from a seeded generator
+    (K2's matrices reach 32 GB at p16), with the rotation amounts' edge
+    cases 0, N-1, N and 2N-1 in every step."""
     import torch
-    rng = np.random.default_rng(seed)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
     k1, N = params.glwe_dim + 1, params.poly_size
     rows = k1 * params.bsk_level
-    b_init = rng.integers(0, 2 * N, (batch, 1)).astype(np.int32)
-    a_t = rng.integers(0, 2 * N, (steps, batch, 1)).astype(np.int32)
-    edges = np.array([0, N - 1, N, 2 * N - 1], dtype=np.int32)
-    a_t[:, :min(batch, 4), 0] = edges[:min(batch, 4)]
-    b_init[:min(batch, 4), 0] = edges[:min(batch, 4)]
-    tvs = rng.integers(-2 ** 31, 2 ** 31, (batch, N)).astype(np.int32)
+
+    def ints(lo, hi, shape, dtype=torch.int32):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=torch.int64).to(dtype)
+
+    b_init = ints(0, 2 * N, (batch, 1))
+    a_t = ints(0, 2 * N, (steps, batch, 1))
+    edges = torch.tensor([0, N - 1, N, 2 * N - 1], dtype=torch.int32,
+                         device=dev)[:min(batch, 4)]
+    a_t[:, :len(edges), 0] = edges
+    b_init[:len(edges), 0] = edges
+    tvs = ints(-2 ** 31, 2 ** 31, (batch, N))
     shape = ((steps, n_limbs * k1, rows, 2 * N) if otf
              else (steps, n_limbs * k1 * N, rows * N))
-    keys = rng.integers(-128, 128, shape, dtype=np.int8)
-    return tuple(torch.from_numpy(x) for x in (b_init, a_t, tvs, keys))
+    keys = torch.randint(-128, 128, shape, generator=g, device=dev,
+                         dtype=torch.int8)
+    return b_init, a_t, tvs, keys
 
 
 def shape_params(k, N, l, b):
@@ -211,8 +233,7 @@ def check_k1(fbr, presets, worst: dict) -> None:
     ]
     for label, params, steps, limbs, sizes, forced in cases:
         for batch in sizes:
-            args = kernel_inputs(params, steps, batch, limbs, True, seed=5)
-            dev = [x.cuda() for x in args]
+            dev = kernel_inputs(params, steps, batch, limbs, True, seed=5)
             plain = fbr.blind_rotate_k1_plain(*dev, params)
             plans = [(None, None, None)] + forced.get(batch, [])
             for cb, cluster, nw in plans:
@@ -259,8 +280,7 @@ def check_k2(fbr, presets, worst: dict) -> None:
     ]
     for label, params, steps, limbs, batches, forced in cases:
         for batch in batches:
-            args = kernel_inputs(params, steps, batch, limbs, False, seed=6)
-            dev = [x.cuda() for x in args]
+            dev = kernel_inputs(params, steps, batch, limbs, False, seed=6)
             plain = fbr.blind_rotate_k2_plain(*dev, params)
             plans = [(None, None)] + forced.get(batch, [])
             for cb, cluster in plans:
@@ -391,8 +411,7 @@ def check_staged_launches(fbr, worst: dict) -> list[dict]:
     rows = []
     for label, (k, N, l, b), steps, batch in STAGED_LAUNCHES:
         params = shape_params(k, N, l, b)
-        dev = [x.cuda() for x in kernel_inputs(params, steps, batch, 4, True,
-                                                seed=10)]
+        dev = kernel_inputs(params, steps, batch, 4, True, seed=10)
         k_ms, k_out = cuda_ms(lambda: fbr.blind_rotate_k1(*dev, params), 1)
         p_ms, p_out = once_ms(lambda: fbr.blind_rotate_k1_plain(*dev, params))
         b_ms, b_by = bound_ms(params, steps, batch, dev[3])
@@ -551,8 +570,7 @@ def check_pick(fbr, pick, sizes: list[list[int]], worst: dict) -> list[str]:
         shell = shape_params(params.glwe_dim, params.poly_size,
                              params.bsk_level, params.bsk_base_log)
         for batch in sorted(set(rows_list)):
-            dev_args = [x.cuda() for x in kernel_inputs(shell, 8, batch,
-                                                         limbs, otf, seed=11)]
+            dev_args = kernel_inputs(shell, 8, batch, limbs, otf, seed=11)
             plain = (fbr.blind_rotate_k1_plain if otf
                      else fbr.blind_rotate_k2_plain)(*dev_args, shell)
             got = (fbr.blind_rotate_k1 if otf
@@ -566,9 +584,12 @@ def check_pick(fbr, pick, sizes: list[list[int]], worst: dict) -> list[str]:
     return model
 
 
-def run_optimizer_path(fbr, worst: dict) -> list[dict]:
-    """Phase 7: the runtime CLI with the optimizer's picks, as a user runs
-    it with no ``--params``."""
+def run_optimizer(label: str, lbf: str, batch: int, fbr,
+                  worst: dict) -> dict:
+    """The runtime CLI on ``lbf`` with the optimizer's picks, as a user runs
+    it with no ``--params``: the picks checked against the card first
+    (:func:`check_pick`), then the run required bit-exact, on the families
+    picked, and to launch the priced kernel once for every family call."""
     from tfhe_fbs_map_tpu_torch.frontend.lut_program import parse_lbf
     from tfhe_fbs_map_tpu_torch.runtime.cli import family_json, optimizer_pick
     from tfhe_fbs_map_tpu_torch.runtime.executor import (compile_staged,
@@ -576,53 +597,186 @@ def run_optimizer_path(fbr, worst: dict) -> list[dict]:
                                                          staged_level_routes)
     from tfhe_fbs_map_tpu_torch.optimizer.runtime_model import bucket
 
-    out = []
-    for label, lbf, batch in OPTIMIZER_RUNS:
-        with open(ROOT / lbf) as f:
-            prog = parse_lbf(f.read())
-        p = prog.fbs_size or prog.min_fbs_size()
-        pick = optimizer_pick(prog, p, batch, "auto", P_ERROR)
-        if pick.staged:
-            routes = staged_level_routes(prog, p)
-            fam_calls = ([(ns, f1) for ns, f1, _ in routes],
-                         [(ns, f2) for ns, _, f2 in routes])
-            sizes = [[bucket(ns + nf) * batch for ns, nf in fc if ns + nf]
-                     for fc in fam_calls]
-            plan = compile_staged(prog, p, *pick.families)
-            calls = sum(bool(lv.wire_idx1.shape[0])
-                        + bool(lv.wire_idx2.shape[0]) for lv in plan.levels)
-        else:
-            sizes = [[bucket(nb) * batch for nb in native_level_boots(prog)]]
-            calls = len(sizes[0])
-        route = "staged" if pick.staged else "native"
-        log(f"  {label}: route {route} (runtime model per evaluation: "
-            f"native {pick.native_us} us, staged {pick.staged_us} us), "
-            f"bsk_limbs {pick.bsk_limbs}, p_error {pick.p_error}, "
-            f"families {[family_json(f) for f in pick.families]}")
-        orients = check_pick(fbr, pick, sizes, worst)
-        kern = KERNEL[orients[0]]
-        res = run_cli([lbf, "--batch", str(batch), "--p-error", str(P_ERROR)],
-                      kern, fbr.LAUNCHES)
-        want = ({"fam1": orients[0], "fam2": orients[1]} if pick.staged
-                else orients[0])
-        fams = ({"fam1": family_json(pick.families[0]),
-                 "fam2": family_json(pick.families[1])} if pick.staged
-                else family_json(pick.families[0]))
-        if (res["params_from"] != "optimizer" or res["staged"] != pick.staged
-                or res["orientation"] != want or res["params"] != fams
-                or res["bsk_limbs"] != pick.bsk_limbs):
-            raise SystemExit(f"{label}: the CLI ran {res['params']} "
-                             f"({res['orientation']}), the optimizer picked "
-                             f"{fams} ({want})")
-        if res["launches"] != calls or sum(res["all_launches"].values()) \
-                != calls:
-            raise SystemExit(f"{label} launched {res['all_launches']}, want "
-                             f"{kern} once per family call ({calls})")
-        log(f"  {label} via {kern}: run_s {res['run_s']}, predicted "
-            f"{res['predicted_run_s']}, boots_per_sec "
-            f"{res['boots_per_sec']}, {res['launches']} launches")
-        out.append((label, res))
+    with open(ROOT / lbf) as f:
+        prog = parse_lbf(f.read())
+    p = prog.fbs_size or prog.min_fbs_size()
+    pick = optimizer_pick(prog, p, batch, "auto", P_ERROR)
+    if pick.staged:
+        routes = staged_level_routes(prog, p)
+        fam_calls = ([(ns, f1) for ns, f1, _ in routes],
+                     [(ns, f2) for ns, _, f2 in routes])
+        sizes = [[bucket(ns + nf) * batch for ns, nf in fc if ns + nf]
+                 for fc in fam_calls]
+        plan = compile_staged(prog, p, *pick.families)
+        calls = sum(bool(lv.wire_idx1.shape[0])
+                    + bool(lv.wire_idx2.shape[0]) for lv in plan.levels)
+    else:
+        sizes = [[bucket(nb) * batch for nb in native_level_boots(prog)]]
+        calls = len(sizes[0])
+    route = "staged" if pick.staged else "native"
+    log(f"  {label}: route {route} (runtime model per evaluation: "
+        f"native {pick.native_us} us, staged {pick.staged_us} us), "
+        f"bsk_limbs {pick.bsk_limbs}, p_error {pick.p_error}, "
+        f"families {[family_json(f) for f in pick.families]}")
+    orients = check_pick(fbr, pick, sizes, worst)
+    kern = KERNEL[orients[0]]
+    res = run_cli([lbf, "--batch", str(batch), "--p-error", str(P_ERROR)],
+                  kern, fbr.LAUNCHES)
+    want = ({"fam1": orients[0], "fam2": orients[1]} if pick.staged
+            else orients[0])
+    fams = ({"fam1": family_json(pick.families[0]),
+             "fam2": family_json(pick.families[1])} if pick.staged
+            else family_json(pick.families[0]))
+    if (res["params_from"] != "optimizer" or res["staged"] != pick.staged
+            or res["orientation"] != want or res["params"] != fams
+            or res["bsk_limbs"] != pick.bsk_limbs):
+        raise SystemExit(f"{label}: the CLI ran {res['params']} "
+                         f"({res['orientation']}), the optimizer picked "
+                         f"{fams} ({want})")
+    if res["launches"] != calls or sum(res["all_launches"].values()) \
+            != calls:
+        raise SystemExit(f"{label} launched {res['all_launches']}, want "
+                         f"{kern} once per family call ({calls})")
+    log(f"  {label} via {kern}: run_s {res['run_s']}, predicted "
+        f"{res['predicted_run_s']}, boots_per_sec "
+        f"{res['boots_per_sec']}, {res['launches']} launches")
+    return res
+
+
+def run_optimizer_path(fbr, worst: dict) -> list[tuple[str, dict]]:
+    """Phase 7: both programs with the optimizer's picks."""
+    return [(label, run_optimizer(label, lbf, batch, fbr, worst))
+            for label, lbf, batch in OPTIMIZER_RUNS]
+
+
+# phase 8: the bench's kernel launches at full length, (preset, kernel), at
+# the bench's default batch; anchor on both kernels, the rest on auto's
+BENCH_BATCH = 512
+BENCH_LAUNCHES = (("anchor", "k2"), ("anchor", "k1"), ("p8", "k2"),
+                  ("p16", "k2"), ("p32", "k1"))
+# the bench runs: (label, arguments, the kernel its JSON must name, key
+# limbs dropped).  A dropped limb puts the anchor's bootstraps far outside
+# its noise budget (the noise model's p_error 0.12 a bootstrap; the JAX
+# bench measured 63/512 wrong at its r1 anchor), so that run is held to
+# report its errors and exit 1 on them, not to 0 errors.
+BENCH_RUNS = (
+    ("bench anchor", ["--preset", "anchor"], "k2", 0),
+    ("bench anchor fused_otf", ["--preset", "anchor", "--orientation",
+                                "fused_otf"], "k1", 0),
+    ("bench anchor bsk_limbs=3", ["--preset", "anchor", "--bsk-limbs", "3"],
+     "k2", 1),
+    ("bench p8", ["--preset", "p8"], "k2", 0),
+    ("bench p16", ["--preset", "p16"], "k2", 0),
+    ("bench p32 native", ["--preset", "p32", "--native-p32"], "k1", 0),
+)
+# the 16x16 multiplier, mapped by the port's CLI (944 bootstraps), then run
+# with the optimizer's picks
+C6288R = "benchmarks/iscas85/c6288r.bench"
+C6288R_LBF = "build/c6288r_4_search_opt.lbf"
+C6288R_BOOTSTRAPS = 944
+C6288R_BATCH = 64
+
+
+def check_bench_launches(fbr, presets, worst: dict) -> dict:
+    """Phase 8: each kernel at the bench's launches (every step of the
+    preset, the bench's batch) against its plain version on the same
+    inputs, bitwise, with both times and the bound; rows by kernel."""
+    import torch
+
+    rows = {"k1": [], "k2": []}
+    for preset, kern in BENCH_LAUNCHES:
+        params = presets[preset][0]
+        otf = kern == "k1"
+        steps = params.lwe_dim
+        dev = kernel_inputs(params, steps, BENCH_BATCH, 4, otf, seed=12)
+        kfn = fbr.blind_rotate_k1 if otf else fbr.blind_rotate_k2
+        pfn = fbr.blind_rotate_k1_plain if otf else fbr.blind_rotate_k2_plain
+        k_ms, k_out = cuda_ms(lambda: kfn(*dev, params), REPS)
+        p_ms, p_out = once_ms(lambda: pfn(*dev, params))
+        b_ms, b_by = bound_ms(params, steps, BENCH_BATCH, dev[3])
+        err = int((k_out.long() - p_out.long()).abs().max())
+        plan = (fbr.k1_device_plan if otf else fbr.device_plan)(
+            BENCH_BATCH, params, dev[0].device)
+        report(kern, f"bench {preset} n={steps} k={params.glwe_dim} "
+               f"N={params.poly_size} l={params.bsk_level} "
+               f"b={params.bsk_base_log} B={BENCH_BATCH} ({plan}): kernel "
+               f"{k_ms:.3f} ms, plain version {p_ms:.3f} ms, bound "
+               f"{b_ms:.3f} ms ({b_by})", err, worst)
+        if not torch.equal(k_out, p_out):
+            raise SystemExit(f"{kern} disagrees with its plain version at "
+                             f"the bench's {preset} launch")
+        rows[kern].append({"launch": f"bench {preset}", "n": steps,
+                           "ciphertexts": BENCH_BATCH, "max_abs_err": err,
+                           "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                           "bound_by": b_by})
+        del dev, k_out, p_out
+        torch.cuda.empty_cache()
+    return rows
+
+
+def run_benches(smi: str, presets, launches: dict) -> dict:
+    """Phase 8, the bench's native presets through ``bench.main`` at their
+    defaults: the kernel the JSON names launched 1 + iters times and the
+    other never; errors 0 on full keys, and on a dropped limb the errors
+    reported beside the noise model's rate, with exit code 1.  Returns the
+    launches of each run by label."""
+    import torch
+    from tfhe_fbs_map_tpu_torch import bench
+    from tfhe_fbs_map_tpu_torch.optimizer.noise import p_error_atomic
+
+    out = {}
+    want = 1 + bench.ITERS
+    for label, argv, kern, dropped in BENCH_RUNS:
+        torch.cuda.empty_cache()
+        rc, res, counts = entry_point(bench.main, argv, launches)
+        other = "k1" if kern == "k2" else "k2"
+        if rc != (1 if res["errors"] else 0) or (not dropped
+                                                 and res["errors"]):
+            raise SystemExit(f"{label}: rc {rc}, {res['errors']} errors")
+        if KERNEL[res["orientation"]] != kern or counts[kern] != want \
+                or counts[other] or res["bsk_limbs"] != 4 - dropped:
+            raise SystemExit(f"{label} ran {res['orientation']} at "
+                             f"{res['bsk_limbs']} limbs and launched "
+                             f"{counts}, want {kern} {want} times")
+        log(f"  {label} via {kern}: {res['value']} boots/s, "
+            f"{res['ms_per_bootstrap']} ms a bootstrap (batch "
+            f"{res['batch']}, bsk_limbs {res['bsk_limbs']}, keygen "
+            f"{res['keygen_s']} s, {counts[kern]} launches) on {smi}")
+        if dropped:
+            params = presets[argv[1]][0]
+            rate = p_error_atomic(
+                params.p, 1, params.lwe_dim, params.glwe_dim,
+                params.poly_size, params.bsk_level, params.bsk_base_log,
+                params.ksk_level, params.ksk_base_log,
+                params.lwe_noise_std, params.glwe_noise_std, dropped)
+            log(f"  {label}: {res['errors']} wrong of {2 * res['batch']} "
+                f"checked (the noise model's p_error {rate:.3f} a "
+                f"bootstrap at {4 - dropped} limbs), rc {rc}")
+        out[label] = (kern, counts[kern])
+    torch.cuda.empty_cache()
     return out
+
+
+def map_c6288r() -> None:
+    """Phase 8: c6288r mapped at p=4 with ``--opt`` by the port's own CLI
+    into ``build/``; its stats line must count the reference's 944
+    bootstraps."""
+    import ast
+    from tfhe_fbs_map_tpu_torch.frontend.cli import main as map_main
+
+    (ROOT / C6288R_LBF).parent.mkdir(exist_ok=True)
+    argv = [str(ROOT / C6288R), "--type", "bench", "--fbs_size", "4",
+            "--opt", "--output_lbf", str(ROOT / C6288R_LBF)]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = map_main(argv)
+    stats = ast.literal_eval(out.getvalue().strip().splitlines()[-1])
+    log(f"  frontend.cli {C6288R} --fbs_size 4 --opt -> rc {rc}: "
+        f"{stats['nb_bootstrap']} bootstraps, norm2 "
+        f"{stats['norm2_linprod']}, mapped in {stats['time']:.2f} s")
+    if rc != 0 or stats["nb_bootstrap"] != C6288R_BOOTSTRAPS:
+        raise SystemExit(f"c6288r mapped to {stats['nb_bootstrap']} "
+                         f"bootstraps (rc {rc}), want {C6288R_BOOTSTRAPS}")
 
 
 def main(argv=None) -> int:
@@ -715,12 +869,28 @@ def main(argv=None) -> int:
         f"[{validate.LOW}, {validate.HIGH}]")
     log(f"[optimizer path] {time.time() - t0:.1f} s")
 
+    # --- 8. the bench and a mapped ISCAS85 program ---------------------------
+    t0 = time.time()
+    bench_k = check_bench_launches(fbr, PRESETS, worst)
+    benches = run_benches(smi, PRESETS, fbr.LAUNCHES)
+    map_c6288r()
+    c6288r = run_optimizer("c6288r optimizer", C6288R_LBF, C6288R_BATCH, fbr,
+                           worst)
+    log(f"  c6288r (mapped by the port's CLI) via "
+        f"{c6288r['orientation']}: run_s {c6288r['run_s']}, predicted "
+        f"{c6288r['predicted_run_s']}, boots_per_sec "
+        f"{c6288r['boots_per_sec']} ({c6288r['bootstraps']} bootstraps x "
+        f"batch {c6288r['batch']}, {c6288r['levels']} levels) on {smi}")
+    log(f"[bench and c6288r] {time.time() - t0:.1f} s")
+
     # launches of each kernel on every main path, each counted from 0
     by_path = {"k2": {"aes128_p4 auto": runs["k2"]["launches"]},
                "k1": {"aes128_p4 fused_otf": runs["k1"]["launches"],
                       f"{KREYVIUM_PRESET} auto": krey["launches"],
                       "bench p32": p32["launches"]}}
-    for label, res in opt_runs:
+    for label, (kern, n) in benches.items():
+        by_path[kern][label] = n
+    for label, res in opt_runs + [("c6288r optimizer", c6288r)]:
         for kern, n in res["all_launches"].items():
             if n:
                 by_path[kern][label] = n
@@ -731,7 +901,8 @@ def main(argv=None) -> int:
          "max_abs_err": worst[kern], "ms": timing[kern][0],
          "plain_ms": timing[kern][1], "bound_ms": timing[kern][2],
          "bound_by": timing[kern][3], "library_ms": None,
-         **({"staged_launches": staged_k1} if kern == "k1" else {})}
+         **({"staged_launches": staged_k1} if kern == "k1" else {}),
+         "bench_launches": bench_k[kern]}
         for kern, name in (("k2", "fused_blind_rotate_k2"),
                            ("k1", "fused_blind_rotate_k1"))]}))
     log(smi)

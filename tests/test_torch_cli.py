@@ -124,6 +124,8 @@ def test_aes128_preset_is_the_optimizer_pick():
     ("anchor", (4, 546, 2, 512, 2, 8, 4, 3)),
     ("p8", (8, 642, 2, 512, 2, 8, 6, 2)),
     ("p16", (16, 642, 1, 1024, 3, 6, 6, 2)),
+    # bench.py:83, the family of --preset p32 --native-p32
+    ("p32", (32, 706, 1, 2048, 3, 7, 7, 2)),
 ])
 def test_bench_presets(name, tup):
     p, n, k, N, bl, bb, kl, kb = tup

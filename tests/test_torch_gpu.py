@@ -99,6 +99,39 @@ def test_fast_bootstrap_on_cuda_equals_generic_on_cpu(cuda, orientation):
 
 @pytest.mark.parametrize("orientation,key", [("fused_otf", "k1"),
                                              ("fused", "k2")])
+def test_bench_chain_on_cuda_equals_plain(cuda, orientation, key,
+                                          monkeypatch):
+    """The bench's XOR chain at the anchor's shape with n cut to 16, three
+    steps through the kernel, is bitwise equal on the card to the same chain
+    through the kernel's plain version, and decrypts right."""
+    from dataclasses import replace
+
+    from tfhe_fbs_map_tpu_torch import bench
+    from tfhe_fbs_map_tpu_torch.tfhe.params import PRESETS
+    params = replace(PRESETS["anchor"][0], lwe_dim=16)
+    keys = generate_keys(params, seed=1, device=cuda)
+    fast = prepare_fast_keys(keys, orientation=orientation)
+    runs = []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(fbr, "blind_rotate_k1", lambda *a: (
+                fbr.blind_rotate_k1_plain(*a[:5])))
+            monkeypatch.setattr(fbr, "blind_rotate_k2", lambda *a: (
+                fbr.blind_rotate_k2_plain(*a[:5])))
+        chain = bench.XorChain(keys, fast, 64)
+        before = fbr.LAUNCHES[key]
+        for _ in range(3):
+            chain.step()
+        torch.cuda.synchronize()
+        runs.append((chain, fbr.LAUNCHES[key] - before))
+    (kern, launched), (ref, launched_plain) = runs
+    assert (launched, launched_plain) == (3, 0)
+    assert torch.equal(kern.cts, ref.cts)
+    assert kern.wrong(3) == 0
+
+
+@pytest.mark.parametrize("orientation,key", [("fused_otf", "k1"),
+                                             ("fused", "k2")])
 def test_staged_bootstrap_on_cuda_equals_generic(cuda, orientation, key):
     """At the p32_staged families with n cut to 16, the staged bootstrap
     with both stages through a fused kernel is bitwise equal to the generic

@@ -1,24 +1,31 @@
-"""Bootstraps per second of the staged p=32 lookup, on one GPU.
+"""Functional bootstraps per second on one GPU.
 
-    python -m tfhe_fbs_map_tpu_torch.bench --preset p32 [--batch 512]
-    python -m tfhe_fbs_map_tpu_torch.bench --preset p32 --quick   # CPU
+    python -m tfhe_fbs_map_tpu_torch.bench                   # anchor, B=512
+    python -m tfhe_fbs_map_tpu_torch.bench --preset p16 --orientation fused_otf
+    python -m tfhe_fbs_map_tpu_torch.bench --preset p32 --native-p32
+    python -m tfhe_fbs_map_tpu_torch.bench --preset p32      # staged lookups
+    python -m tfhe_fbs_map_tpu_torch.bench --quick           # tiny, on the CPU
 
-The counterpart of ``bench.py --preset p32`` of the JAX package (its
-``staged_p32_bench``).  Workload: five random 32-entry tables over one
-shared 5-bit encrypted address; each counted bootstrap is a full size-32
-lookup, a size-16 stage-1 bootstrap (fam1) and a size-8 select (fam2), both
-through the compact-key kernel K1 (``fused_otf``).  The five outputs become
-the next address, pre-scaled so that every lincomb multiplier is 1, so the
-chain is decrypt-checked after the first step and after the timed loop:
-only correct lookups are counted.  Parameters are the ``p32_staged`` preset
-(``optimize_staged(32, 4, 2, max_p_error=1e-6)``'s pick); ``--quick`` takes
-tiny insecure families on the CPU.  Prints one JSON object, the JAX bench's
-keys, as its last line.
+The port of the JAX package's root ``bench.py``.  The native presets
+(``anchor``, the ~128-bit p=4 headline set; ``p8``; ``p16``; ``p32`` with
+``--native-p32``, one N=2048 bootstrap a lookup) run its XOR chain: values
+in [0, 2] under the table [1, 0, 1], a fresh bootstrap output fed back
+through the same bootstrap, through the fused kernel ``--orientation``
+names (``auto``: K2 when its key matrices fit the card's free memory, the
+runtime CLI's rule, else K1).  ``--preset p32`` alone is the staged p=32
+lookup (``staged_p32_bench``).  Every chain is decrypt-checked after its
+first step and after the timed loop, so only correct bootstraps are
+counted.  ``--quick`` takes the JAX bench's tiny insecure sets on the CPU,
+through the kernels' plain versions.  Prints one JSON object, the JAX
+bench's keys (and ``orientation`` and ``bsk_limbs`` for a native preset),
+as its last line; exits 1 when a bootstrap decrypted wrong, 2 when the
+device or the kernel asked for cannot run.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import time
@@ -26,11 +33,24 @@ import time
 import numpy as np
 import torch
 
-__all__ = ["staged_p32_bench", "main"]
+from .ops.fused_blind_rotate import N_LIMBS
+from .tfhe.params import PRESETS, TFHEParams
+
+__all__ = ["QUICK_PARAMS", "XorChain", "bench_orientation", "native_bench",
+           "staged_p32_bench", "run_chain", "main"]
 
 LANES = 5
 COEFS = [1, 2, 4, 8, 16]
 ITERS = 8            # timed steps, after one checked first step
+# the XOR chain's table over lincomb values in [0, 2]: 1 - x on {0, 1}, so
+# the chain alternates
+TABLE = [1, 0, 1]
+# bench.py:61-66, the JAX bench's --quick set
+QUICK_PARAMS = TFHEParams(p=4, lwe_dim=32, glwe_dim=1, poly_size=128,
+                          bsk_level=2, bsk_base_log=7, ksk_level=3,
+                          ksk_base_log=4, lwe_noise_std=4.0,
+                          glwe_noise_std=4.0)
+QUICK_BATCH = {"native": 32, "staged": 8}
 
 
 def _sync(device: torch.device) -> None:
@@ -38,10 +58,171 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _i32(rows, device: torch.device) -> torch.Tensor:
+    arr = np.asarray(rows, np.int64).astype(np.uint32).astype(np.int32)
+    return torch.from_numpy(arr).to(device)
+
+
+def run_chain(step, wrong, iters: int, device: torch.device,
+              trace: str | None = None) -> tuple[float, float, int]:
+    """One first step, checked, then ``iters`` timed steps between two
+    synchronisations (under ``torch.profiler`` into ``trace`` when given),
+    checked at the end.  ``wrong(steps)`` counts the wrong outputs after
+    ``steps`` steps.  Returns (first step's seconds, timed seconds, wrong
+    outputs)."""
+    from .utils.profiling import torch_trace
+
+    _sync(device)
+    t0 = time.time()
+    step()
+    _sync(device)
+    compile_s = time.time() - t0
+    n_bad = wrong(1)
+    if n_bad:
+        print(f"CORRECTNESS FAILURE: {n_bad} wrong", file=sys.stderr)
+    with torch_trace(trace) if trace else contextlib.nullcontext():
+        t0 = time.time()
+        for _ in range(iters):
+            step()
+        _sync(device)
+        elapsed = time.time() - t0
+    bad_loop = wrong(1 + iters)
+    if bad_loop:
+        print(f"CORRECTNESS FAILURE (timed loop): {bad_loop} wrong",
+              file=sys.stderr)
+    return compile_s, elapsed, n_bad + bad_loop
+
+
+def _result(boots: int, batch: int, params: dict, device: torch.device,
+            keygen_s: float, timing: tuple[float, float, int],
+            **extra) -> dict:
+    """The JAX bench's JSON line, with ``extra`` keys after it."""
+    compile_s, elapsed, n_bad = timing
+    rate = boots / elapsed
+    return {
+        "metric": "bootstraps_per_sec_per_chip",
+        "value": round(rate, 2),
+        "unit": "boots/s",
+        "vs_baseline": round(rate / 1000.0, 3),
+        "batch": batch,
+        "params": params,
+        "device": (torch.cuda.get_device_name(device)
+                   if device.type == "cuda" else "cpu"),
+        "keygen_s": round(keygen_s, 2),
+        "compile_s": round(compile_s, 2),
+        "ms_per_bootstrap": round(1000.0 * elapsed / boots, 4),
+        "errors": n_bad,
+        **extra,
+    }
+
+
+# ------------------------------------------------------------ native presets
+
+def bench_orientation(params: TFHEParams, orientation: str, bsk_limbs: int,
+                      device: torch.device,
+                      free_bytes: int | None = None) -> str:
+    """The fused kernel a native bench runs.  On CUDA, ``auto`` is the
+    runtime CLI's ``pick_orientations`` (K2, ``"fused"``, when K2 serves
+    ``params`` and its ``bsk_limbs`` key matrices fit ``free_bytes``, by
+    default the card's free memory, with ``FUSED_HEADROOM`` to spare; else
+    K1, ``"fused_otf"``).  An orientation asked for must be served and, for
+    K2, fit: ValueError otherwise, since the bench never runs another kernel
+    than the one asked for.  On the CPU both wrappers run their plain
+    versions, and ``auto`` takes ``"fused"``, the JAX bench's default."""
+    from .ops.blind_rotate import FUSED_HEADROOM, fused_key_bytes
+    from .runtime.cli import check_kernel, free_memory, pick_orientations
+
+    if device.type != "cuda":
+        return "fused" if orientation == "auto" else orientation
+    if free_bytes is None:
+        free_bytes = free_memory(device)
+    if orientation == "auto":
+        return pick_orientations([params], device, free_bytes, bsk_limbs)[0]
+    check_kernel(params, orientation)
+    need = fused_key_bytes(params, bsk_limbs)
+    if orientation == "fused" and need + FUSED_HEADROOM > free_bytes:
+        raise ValueError(
+            f"--orientation fused: K2's key matrices take {need / 1e9:.1f} "
+            f"GB, with {FUSED_HEADROOM >> 30} GiB to spare, and the card has "
+            f"{free_bytes / 1e9:.1f} GB free; --orientation fused_otf runs "
+            f"K1 on the compact keys")
+    return orientation
+
+
+class XorChain:
+    """The JAX bench's workload (``bench.py:134-178``): values
+    ``default_rng(2).integers(0, 3, batch)`` encrypted under ``keys``, each
+    ``step`` one batched fast bootstrap of the current ciphertexts under
+    :data:`TABLE`, fed back into the next."""
+
+    def __init__(self, keys, fast, batch: int):
+        from .tfhe.encrypt import encrypt_values
+        from .tfhe.pbs import build_test_vector
+
+        self.keys, self.fast = keys, fast
+        rng = np.random.default_rng(2)
+        self.values = rng.integers(0, 3, batch)
+        self.cts = encrypt_values(keys, self.values, rng)
+        tv, post = build_test_vector(TABLE, keys.params)
+        self.tvs = _i32(np.tile(tv, (batch, 1)), keys.device)
+        self.posts = _i32(np.full(batch, post), keys.device)
+
+    def step(self) -> None:
+        from .ops.blind_rotate import functional_bootstrap_fast
+
+        self.cts = functional_bootstrap_fast(self.fast, self.cts, self.tvs,
+                                             self.posts)
+
+    def wrong(self, steps: int) -> int:
+        """Wrong decryptions after ``steps`` ≥ 1 steps: table[values] after
+        an odd number, its complement after an even one."""
+        from .tfhe.encrypt import decrypt_values
+
+        want = np.asarray(TABLE)[self.values]
+        if steps % 2 == 0:
+            want = 1 - want
+        return int(np.sum(decrypt_values(self.keys, self.cts) != want))
+
+
+def native_bench(params: TFHEParams, batch: int, iters: int,
+                 orientation: str, bsk_limbs: int, device: torch.device,
+                 trace: str | None = None) -> dict:
+    """Keys (``generate_keys(params, seed=1)``) and the fast keys of
+    ``orientation``, timed as ``keygen_s``; then the XOR chain of ``batch``
+    ciphertexts, ``iters`` timed steps after a checked first one."""
+    from .ops.blind_rotate import prepare_fast_keys
+    from .tfhe.keys import generate_keys
+
+    t0 = time.time()
+    keys = generate_keys(params, seed=1, device=device)
+    fast = prepare_fast_keys(keys, orientation=orientation,
+                             bsk_limbs=bsk_limbs)
+    _sync(device)
+    keygen_s = time.time() - t0
+    print(f"# keygen + {orientation} keys ({bsk_limbs} limbs) done in "
+          f"{keygen_s:.1f}s", file=sys.stderr)
+    chain = XorChain(keys, fast, batch)
+    timing = run_chain(chain.step, chain.wrong, iters, device, trace)
+    return _result(batch * iters, batch,
+                   {"n": params.lwe_dim, "k": params.glwe_dim,
+                    "N": params.poly_size, "l_bsk": params.bsk_level,
+                    "p": params.p},
+                   device, keygen_s, timing, orientation=orientation,
+                   bsk_limbs=bsk_limbs)
+
+
+# ------------------------------------------------------------- staged p32
+
 def staged_p32_bench(batch: int, iters: int, quick: bool,
-                     device: torch.device) -> dict:
-    """Key generation, the first (checked) step, then ``iters`` timed
-    steps of ``LANES × batch`` staged lookups, checked at the end."""
+                     device: torch.device, trace: str | None = None) -> dict:
+    """The staged p=32 lookup (the JAX ``staged_p32_bench``): five random
+    32-entry tables over one shared 5-bit encrypted address; each counted
+    bootstrap is a full size-32 lookup, a size-16 stage-1 bootstrap (fam1)
+    and a size-8 select (fam2), both through K1 (``fused_otf``).  The five
+    outputs become the next address, pre-scaled so that every lincomb
+    multiplier is 1.  Parameters are the ``p32_staged`` preset
+    (``optimize_staged(32, 4, 2, max_p_error=1e-6)``'s pick); ``quick``
+    takes the tiny ``staged_test`` families."""
     from .ops.blind_rotate import prepare_fast_keys
     from .runtime.executor import _staged_level_step
     from .tfhe.encrypt import lwe_phase
@@ -79,8 +260,7 @@ def staged_p32_bench(batch: int, iters: int, quick: bool,
         tv2s.append(tv2), post2s.append(post2)
 
     def i32(rows) -> torch.Tensor:
-        arr = np.asarray(rows, np.int64).astype(np.uint32).astype(np.int32)
-        return torch.from_numpy(arr).to(device)
+        return _i32(rows, device)
 
     # a step is one level of the staged executor: LANES split nodes on the
     # wire buffer [2·LANES + 1, B, d], rows 0-4 the address wires, rows 5-9
@@ -91,8 +271,8 @@ def staged_p32_bench(batch: int, iters: int, quick: bool,
             i32([2 * LANES] * LANES),
             i32([[4]] * LANES), i32([[1]] * LANES), i32([0] * LANES),
             i32(tv2s), i32(post2s), i32(range(LANES, 2 * LANES)))
-    bits = rng.integers(0, 2, (LANES, batch))
-    regs = torch.stack([encrypt_wires(skeys, bits[i], rng, scale=scales[i])
+    bits0 = rng.integers(0, 2, (LANES, batch))
+    regs = torch.stack([encrypt_wires(skeys, bits0[i], rng, scale=scales[i])
                         for i in range(LANES)])          # [5, B, kN+1]
     buf = torch.cat([regs, regs.new_zeros((LANES + 1, *regs.shape[1:]))])
     regs = buf[:LANES]
@@ -102,11 +282,12 @@ def staged_p32_bench(batch: int, iters: int, quick: bool,
                            buf, *plan)
         buf[:LANES] = buf[LANES:2 * LANES]
 
-    def model_step(bits):
-        addr = sum(bits[i] * COEFS[i] for i in range(LANES))
-        return np.stack([np.asarray(tables[i])[addr] for i in range(LANES)])
-
-    def wrong(regs, bits) -> int:
+    def wrong(steps: int) -> int:
+        bits = bits0
+        for _ in range(steps):
+            addr = sum(bits[i] * COEFS[i] for i in range(LANES))
+            bits = np.stack([np.asarray(tables[i])[addr]
+                             for i in range(LANES)])
         phases = lwe_phase(skeys.extracted_key,
                            regs.reshape(LANES * batch, -1)).cpu().numpy()
         u = phases.astype(np.uint32).astype(np.float64)
@@ -114,63 +295,50 @@ def staged_p32_bench(batch: int, iters: int, quick: bool,
         want = (bits * np.asarray(scales)[:, None]).reshape(-1)
         return int(np.sum(got != want))
 
-    _sync(device)
-    t0 = time.time()
-    step()
-    _sync(device)
-    compile_s = time.time() - t0
-    bits = model_step(bits)
-    n_bad = wrong(regs, bits)
-    if n_bad:
-        print(f"CORRECTNESS FAILURE: {n_bad}/{LANES * batch} wrong",
-              file=sys.stderr)
-
-    t0 = time.time()
-    for _ in range(iters):
-        step()
-    _sync(device)
-    elapsed = time.time() - t0
-    for _ in range(iters):
-        bits = model_step(bits)
-    bad_loop = wrong(regs, bits)
-    if bad_loop:
-        print(f"CORRECTNESS FAILURE (timed loop): {bad_loop} wrong",
-              file=sys.stderr)
-    n_bad += bad_loop
-
-    boots = LANES * batch * iters      # one staged p32 lookup per lane
-    boots_per_sec = boots / elapsed
-    return {
-        "metric": "bootstraps_per_sec_per_chip",
-        "value": round(boots_per_sec, 2),
-        "unit": "boots/s",
-        "vs_baseline": round(boots_per_sec / 1000.0, 3),
-        "batch": LANES * batch,
-        "staged": True,
-        "params": {"n": fam1.lwe_dim, "p": p,
-                   "fam1": {"k": fam1.glwe_dim, "N": fam1.poly_size,
-                            "l_bsk": fam1.bsk_level},
-                   "fam2": {"k": fam2.glwe_dim, "N": fam2.poly_size,
-                            "l_bsk": fam2.bsk_level}},
-        "device": (torch.cuda.get_device_name(device)
-                   if device.type == "cuda" else "cpu"),
-        "keygen_s": round(keygen_s, 2),
-        "compile_s": round(compile_s, 2),
-        "ms_per_bootstrap": round(1000.0 * elapsed / boots, 4),
-        "errors": n_bad,
-    }
+    timing = run_chain(step, wrong, iters, device, trace)
+    # one staged p32 lookup per lane
+    return _result(LANES * batch * iters, LANES * batch,
+                   {"n": fam1.lwe_dim, "p": p,
+                    "fam1": {"k": fam1.glwe_dim, "N": fam1.poly_size,
+                             "l_bsk": fam1.bsk_level},
+                    "fam2": {"k": fam2.glwe_dim, "N": fam2.poly_size,
+                             "l_bsk": fam2.bsk_level}},
+                   device, keygen_s, timing, staged=True)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--preset", default="p32", choices=["p32"],
-                    help="the staged p=32 lookup (the anchor, p8 and p16 "
-                         "presets are not ported yet)")
+    ap.add_argument("--preset", default="anchor",
+                    choices=["anchor", "p8", "p16", "p32"],
+                    help="parameter set: the ~128-bit p=4 anchor, or the "
+                         "optimizer's picks for FBS sizes 8, 16 and 32 "
+                         "(tfhe/params.py PRESETS); p32 is the staged "
+                         "lookup unless --native-p32")
+    ap.add_argument("--native-p32", action="store_true",
+                    help="run the p32 preset as one N=2048 bootstrap a "
+                         "lookup (the XOR chain at PRESETS['p32']) instead "
+                         "of the staged two-family lookup")
     ap.add_argument("--batch", type=int, default=512)
     ap.add_argument("--iters", type=int, default=ITERS)
     ap.add_argument("--quick", action="store_true",
-                    help="tiny insecure families, batch at most 8 (a CPU "
-                         "smoke test)")
+                    help="tiny insecure parameters, batch at most 32 (8 "
+                         "staged), on the CPU unless --device cuda")
+    ap.add_argument("--orientation", default="auto",
+                    choices=["auto", "fused", "fused_otf"],
+                    help="fused kernel of a native preset: K2 (fused) over "
+                         "precomputed key matrices, K1 (fused_otf) over the "
+                         "compact keys, or auto: K2 when its matrices fit "
+                         "the card's free memory, else K1.  A kernel asked "
+                         "for that cannot run exits 2.  The staged lookup "
+                         "runs both families on K1")
+    ap.add_argument("--bsk-limbs", type=int, default=N_LIMBS,
+                    choices=range(1, N_LIMBS + 1), metavar="{1,2,3,4}",
+                    help="8-bit limbs of the bootstrapping key kept, most "
+                         "significant first (3: a quantized key); native "
+                         "presets only")
+    ap.add_argument("--trace", metavar="LOGDIR", default=None,
+                    help="write a torch.profiler Chrome trace of the timed "
+                         "loop into LOGDIR")
     ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
                     help="default: cpu with --quick, else cuda")
     args = ap.parse_args(argv)
@@ -180,8 +348,28 @@ def main(argv=None) -> int:
         print("--device cuda: no CUDA device is available (--quick runs on "
               "the CPU)", file=sys.stderr)
         return 2
-    batch = min(args.batch, 8) if args.quick else args.batch
-    result = staged_p32_bench(batch, args.iters, args.quick, device)
+    if args.preset == "p32" and not args.native_p32:
+        if args.orientation == "fused" or args.bsk_limbs != N_LIMBS:
+            print("the staged p32 lookup runs both families on K1 "
+                  "(fused_otf) with all key limbs; --orientation fused and "
+                  "--bsk-limbs take a native preset", file=sys.stderr)
+            return 2
+        batch = (min(args.batch, QUICK_BATCH["staged"]) if args.quick
+                 else args.batch)
+        result = staged_p32_bench(batch, args.iters, args.quick, device,
+                                  args.trace)
+    else:
+        params = QUICK_PARAMS if args.quick else PRESETS[args.preset][0]
+        batch = (min(args.batch, QUICK_BATCH["native"]) if args.quick
+                 else args.batch)
+        try:
+            orientation = bench_orientation(params, args.orientation,
+                                            args.bsk_limbs, device)
+        except ValueError as e:
+            print(e, file=sys.stderr)
+            return 2
+        result = native_bench(params, batch, args.iters, orientation,
+                              args.bsk_limbs, device, args.trace)
     print(json.dumps(result))
     return 1 if result["errors"] else 0
 

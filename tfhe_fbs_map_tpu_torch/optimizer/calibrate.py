@@ -77,7 +77,7 @@ def families() -> dict[str, tuple[TFHEParams, bool]]:
     # and the p32 preset
     out["kreyvium_native"] = (_curve(10, 642, 1, 1024, 4, 5, 7, 2), False)
     out["p22"] = (_curve(22, 738, 2, 1024, 3, 8, 8, 2), False)
-    out["p32"] = (_curve(32, 706, 1, 2048, 3, 7, 7, 2), False)
+    out["p32"] = (PRESETS["p32"][0], False)
     return out
 
 

@@ -92,9 +92,11 @@ PRESETS: dict[str, tuple[TFHEParams, float | None]] = {
     "test": (TEST_PARAMS, None),
     # bench.py's anchor for the s8 matmul / fused paths
     "anchor": (_curve(4, 546, 2, 512, 2, 8, 4, 3), None),
-    # bench.py --preset p8 / p16
+    # bench.py --preset p8 / p16, and --preset p32 --native-p32 (one N=2048
+    # bootstrap a lookup)
     "p8": (_curve(8, 642, 2, 512, 2, 8, 6, 2), None),
     "p16": (_curve(16, 642, 1, 1024, 3, 6, 6, 2), None),
+    "p32": (_curve(32, 706, 1, 2048, 3, 7, 7, 2), None),
     # optimize(4, 6, max_p_error=1e-7): mapped AES-128 (norm2_linprod 6)
     "aes128_p4": (_curve(4, 578, 2, 512, 2, 8, 6, 2), 4.332587781355008e-08),
 }
