@@ -56,12 +56,24 @@ Phases, each printed with what ran and how long it took:
    noise budget, so that run is held to report its errors beside the noise
    model's rate and to exit 1 on them; then c6288r, the 16x16 multiplier,
    mapped at p=4 with ``--opt`` by the port's own ``frontend.cli`` (944
-   bootstraps) and run as phase 7 runs its programs, at batch 64.
+   bootstraps) and run as phase 7 runs its programs, at batch 64;
+9. the dp mesh on the one card, two shards on it (so it proves slicing,
+   per-shard launches, reassembly and the multi-process wiring, and
+   measures no scaling): (a) ``sharded_bootstrap`` at the bench's anchor
+   family, 1,024 ciphertexts, through K1 and through K2, each bitwise equal
+   to the one-device launch with exactly 2 launches of its kernel; (b) the
+   mapped AES-128 program at batch 16 through the mesh executor on K1,
+   its final wire buffer bitwise equal to the one-device run's, bit-exact,
+   230 × 2 K1 launches; (c) the dry run's staged p=32 program at the
+   ``p32_staged`` families through K1, likewise; (d) the runtime CLI as two
+   processes over gloo (``--mesh auto``, AES-128 at batch 8, K1), rank 0's
+   line bit-exact with dp 2, 230 K1 launches in each rank; (e)
+   ``bench_multichip`` at its defaults, errors 0.
 
 Before the last line it prints one JSON object with a row per kernel (no
 PyTorch call computes the n-step recurrence, so ``library_ms`` is null;
 ``launches`` sums the kernel's launches over the main paths of phases 5 to
-8, each counted from 0, ``launches_by_path`` splits them;
+9, each counted from 0, ``launches_by_path`` splits them;
 ``staged_launches`` and ``bench_launches`` hold the full-length checks of
 phases 4 and 8) and the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
@@ -74,6 +86,8 @@ import argparse
 import contextlib
 import io
 import json
+import os
+import socket
 import subprocess
 import sys
 import time
@@ -779,6 +793,177 @@ def map_c6288r() -> None:
                          f"bootstraps (rc {rc}), want {C6288R_BOOTSTRAPS}")
 
 
+# phase 9: ciphertexts of the sharded FBS at the anchor (512 a shard, the
+# bench's launch); AES-128's batch through the mesh executor (8 a shard, the
+# batch of phase 5); the staged dry run's batch; the two ranks' timeout each
+MESH_FBS_BATCH = 1024
+MESH_AES_BATCH = 16
+MESH_STAGED_BATCH = 4
+RANK_TIMEOUT = 300
+# a rank of phase 9 (d): the runtime CLI's main, then its launch counts
+RANK = ("import json, sys\n"
+        "from tfhe_fbs_map_tpu_torch.ops.fused_blind_rotate import LAUNCHES\n"
+        "from tfhe_fbs_map_tpu_torch.runtime.cli import main\n"
+        "rc = main(sys.argv[1:])\n"
+        "print('# launches ' + json.dumps(LAUNCHES), file=sys.stderr)\n"
+        "sys.exit(rc)\n")
+
+
+def card_mesh():
+    """Two dp positions on the one card."""
+    from tfhe_fbs_map_tpu_torch.parallel import make_mesh
+    return make_mesh(["cuda"] * 2)
+
+
+def want_launches(kern: str, n: int) -> dict:
+    return {kern: n, "k2" if kern == "k1" else "k1": 0}
+
+
+def check_mesh_fbs(presets) -> dict:
+    """Phase 9 (a): ``sharded_bootstrap`` on two shards of the card at the
+    anchor, through each kernel: bitwise equal to the one-device launch,
+    with 2 launches of the kernel and none of the other."""
+    import torch
+    from tfhe_fbs_map_tpu_torch.parallel import dryrun
+
+    out = {}
+    for orient, kern in (("fused_otf", "k1"), ("fused", "k2")):
+        t0 = time.time()
+        res = dryrun.sharded_fbs(card_mesh(), presets["anchor"][0], orient,
+                                 MESH_FBS_BATCH)
+        log(f"  sharded FBS at anchor, {MESH_FBS_BATCH} ciphertexts on 2 "
+            f"shards via {kern}: bit_exact {res['bit_exact']}, launches "
+            f"{res['launches']} ({time.time() - t0:.1f} s)")
+        if not res["bit_exact"] or res["launches"] != want_launches(kern, 2):
+            raise SystemExit(f"sharded FBS via {kern}: {res}")
+        out[kern] = res["launches"][kern]
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_mesh_aes(presets, smi: str) -> dict:
+    """Phase 9 (b): AES-128 at batch 16 through the mesh executor on two
+    shards (K1), against the same run on one device."""
+    import numpy as np
+    import torch
+    from tfhe_fbs_map_tpu_torch.frontend.lut_program import parse_lbf
+    from tfhe_fbs_map_tpu_torch.ops.blind_rotate import prepare_fast_keys
+    from tfhe_fbs_map_tpu_torch.parallel import dryrun
+    from tfhe_fbs_map_tpu_torch.tfhe import generate_keys
+
+    with open(ROOT / AES_LBF) as f:
+        prog = parse_lbf(f.read())
+    mesh = card_mesh()
+    keys = generate_keys(presets["aes128_p4"][0], seed=42,
+                         device=mesh.devices[0])
+    fast = prepare_fast_keys(keys, orientation="fused_otf")
+    rng = np.random.default_rng(42)
+    values = {n.name: rng.integers(0, 2, MESH_AES_BATCH)
+              for n in prog.nodes if n.kind == "input"}
+    res = dryrun.mesh_against_one_device(mesh, prog, keys, fast, values, 43,
+                                         prog.eval(values))
+    log(f"  AES-128, batch {MESH_AES_BATCH}: 2 shards run_s "
+        f"{res['run_s']:.3f}, one device {res['one_s']:.3f} s; bit_exact "
+        f"{res['bit_exact']}, launches {res['launches']} on {smi}")
+    if not res["bit_exact"] or res["launches"] != want_launches(
+            "k1", 2 * res["calls"]):
+        raise SystemExit(f"mesh AES-128: {res}")
+    del keys, fast
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_mesh_staged(presets) -> dict:
+    """Phase 9 (c): the dry run's staged p=32 program at the p32_staged
+    families on two shards through K1, against one device."""
+    from tfhe_fbs_map_tpu_torch.parallel import dryrun
+    from tfhe_fbs_map_tpu_torch.tfhe.params import STAGED_PRESETS
+
+    preset = STAGED_PRESETS["p32_staged"]
+    res = dryrun.staged_p32(card_mesh(), preset.fam1, preset.fam2,
+                            "fused_otf", MESH_STAGED_BATCH)
+    log(f"  staged p32 dry run on 2 shards: bit_exact {res['bit_exact']}, "
+        f"{res['calls']} family calls, launches {res['launches']}")
+    if not res["bit_exact"] or res["launches"] != want_launches(
+            "k1", 2 * res["calls"]):
+        raise SystemExit(f"mesh staged p32: {res}")
+    return res
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_two_processes(smi: str) -> dict:
+    """Phase 9 (d): the runtime CLI as two processes over gloo on the one
+    card, ``--mesh auto``: rank 0 alone prints the line, bit-exact with dp
+    2; each rank launches K1 once a level.  The kernels are built already,
+    so no rank runs nvcc."""
+    import torch
+
+    torch.cuda.empty_cache()
+    argv = [AES_LBF, "--params", "aes128_p4", "--orientation", "fused_otf",
+            "--batch", "8", "--mesh", "auto"]
+    port = str(free_port())
+    procs = []
+    t0 = time.time()
+    try:
+        for rank in range(2):
+            env = {**os.environ, "MASTER_ADDR": "127.0.0.1",
+                   "MASTER_PORT": port, "WORLD_SIZE": "2",
+                   "RANK": str(rank)}
+            env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", RANK, *argv], cwd=ROOT, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        outs = [p.communicate(timeout=RANK_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    counts = []
+    for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in err.splitlines() if ln.startswith("# launches ")]
+        if p.returncode != 0 or not lines:
+            raise SystemExit(f"rank {rank} exited {p.returncode}:\n{err}")
+        counts.append(json.loads(lines[-1][len("# launches "):]))
+    res = json.loads(outs[0][0].strip().splitlines()[-1])
+    log(f"  2 processes, {' '.join(argv)} -> rc 0 and 0 in "
+        f"{time.time() - t0:.1f} s")
+    log(f"  {json.dumps(res)}")
+    log(f"  kernel launches by rank: {counts}; run_s {res['run_s']} on "
+        f"{smi}")
+    if (res["mesh"] != {"dp": 2, "tp": 1} or not res["bit_exact"]
+            or outs[1][0].strip()
+            or any(c != want_launches("k1", res["levels"]) for c in counts)):
+        raise SystemExit("the 2-process run: want dp 2, bit-exact, rank 0's "
+                         "line alone and K1 once a level in each rank")
+    res["launches"] = [c["k1"] for c in counts]
+    return res
+
+
+def run_bench_multichip(smi: str, launches: dict) -> dict:
+    """Phase 9 (e): ``bench_multichip`` at its defaults: errors 0, K1 (its
+    default) launched once a call a position, 1 + iters calls."""
+    import torch
+    from tfhe_fbs_map_tpu_torch import bench_multichip
+
+    torch.cuda.empty_cache()
+    rc, res, counts = entry_point(bench_multichip.main, [], launches)
+    if rc != 0 or res["errors"] or counts != want_launches(
+            "k1", res["dp"] * (1 + bench_multichip.ITERS)):
+        raise SystemExit(f"bench_multichip: rc {rc}, {res}, {counts}")
+    log(f"  bench_multichip: {res['value']} boots/s over dp={res['dp']} "
+        f"({res['boots_per_sec_per_chip']} a position, "
+        f"{res['batch_per_chip']} ciphertexts a position), errors 0, on "
+        f"{smi}")
+    res["launches"] = counts["k1"]
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -883,6 +1068,17 @@ def main(argv=None) -> int:
         f"batch {c6288r['batch']}, {c6288r['levels']} levels) on {smi}")
     log(f"[bench and c6288r] {time.time() - t0:.1f} s")
 
+    # --- 9. the dp mesh, two shards on the one card --------------------------
+    t0 = time.time()
+    log("  two positions on one card: slicing, launches and reassembly are "
+        "checked; no scaling is measured")
+    mesh_fbs = check_mesh_fbs(PRESETS)
+    mesh_aes = run_mesh_aes(PRESETS, smi)
+    mesh_staged = run_mesh_staged(PRESETS)
+    two = run_two_processes(smi)
+    multichip = run_bench_multichip(smi, fbr.LAUNCHES)
+    log(f"[mesh] {time.time() - t0:.1f} s")
+
     # launches of each kernel on every main path, each counted from 0
     by_path = {"k2": {"aes128_p4 auto": runs["k2"]["launches"]},
                "k1": {"aes128_p4 fused_otf": runs["k1"]["launches"],
@@ -894,6 +1090,14 @@ def main(argv=None) -> int:
         for kern, n in res["all_launches"].items():
             if n:
                 by_path[kern][label] = n
+    for kern, n in mesh_fbs.items():
+        by_path[kern]["mesh sharded FBS anchor dp=2"] = n
+    by_path["k1"].update({
+        "mesh aes128_p4 fused_otf dp=2": mesh_aes["launches"]["k1"],
+        "mesh staged p32 dry run dp=2": mesh_staged["launches"]["k1"],
+        "2 processes aes128_p4 rank 0": two["launches"][0],
+        "2 processes aes128_p4 rank 1": two["launches"][1],
+        "bench_multichip": multichip["launches"]})
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[kern],
          "replaces": REPLACES[kern], "launches": sum(by_path[kern].values()),

@@ -63,6 +63,49 @@ def test_keys_and_checkpoint_flags(full_adder_blif, capsys, tmp_path):
     assert first["bit_exact"] and second["bit_exact"]
 
 
+def test_mesh_run_equals_one_device(full_adder_blif, capsys, monkeypatch):
+    """``--mesh 4`` on the CPU: four positions, bit-exact, and the decoded
+    outputs of the run without a mesh (same seed, same draws)."""
+    from tfhe_fbs_map_tpu_torch.runtime.executor import CircuitExecutor
+    decoded = []
+    decrypt = CircuitExecutor.decrypt_outputs
+
+    def spy(self, buf):
+        out = decrypt(self, buf)
+        # the whole buffer, or under a mesh the list of shards (not each)
+        if isinstance(buf, list) or self.mesh is None:
+            decoded.append(out)
+        return out
+    monkeypatch.setattr(CircuitExecutor, "decrypt_outputs", spy)
+    base = [full_adder_blif, "--map", "--batch", "8", "--device", "cpu",
+            "--test-params", "--orientation", "fused_otf"]
+    runs = []
+    for extra in ([], ["--mesh", "4"]):
+        assert main(base + extra) == 0
+        out = capsys.readouterr()
+        runs.append(json.loads(out.out.strip().splitlines()[-1]))
+    assert "# mesh: dp=4 tp=1" in out.err
+    one, mesh = runs
+    assert one["mesh"] is None and mesh["mesh"] == {"dp": 4, "tp": 1}
+    assert one["bit_exact"] and mesh["bit_exact"]
+    assert len(decoded) == 2 and decoded[0].keys() == decoded[1].keys()
+    for k in decoded[0]:
+        assert np.array_equal(decoded[0][k], decoded[1][k]), k
+
+
+@pytest.mark.parametrize("args,rc,why", [
+    (["--batch", "6", "--mesh", "4"], 1, "divisible by dp=4"),
+    (["--mesh", "2,2"], 2, "tp=2 is not supported"),
+    (["--mesh", "0"], 2, "want DP, DP,TP or auto"),
+    (["--mesh", "x"], 2, "want DP, DP,TP or auto"),
+])
+def test_mesh_refusals(full_adder_blif, capsys, args, rc, why):
+    assert main([full_adder_blif, "--map", "--device", "cpu",
+                 "--test-params", *args]) == rc
+    out = capsys.readouterr()
+    assert why in out.err and not out.out
+
+
 def test_cuda_without_a_device_fails_clearly(full_adder_blif, capsys,
                                             monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

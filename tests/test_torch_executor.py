@@ -189,17 +189,21 @@ def test_adaptive_checkpoint_budget(tmp_path, tkeys):
 
 
 def test_refuses_mesh_and_staged_keys(tkeys):
-    """A mesh is refused by both pipelines; staged keys are taken without
-    one (``test_torch_staged_executor.py``), keys of no family are not."""
+    """Both pipelines take a dp mesh (``test_torch_parallel.py``) and refuse
+    anything else as one; staged keys are taken (``test_torch_staged_
+    executor.py``), keys of no family are not."""
+    from tfhe_fbs_map_tpu_torch.parallel import make_mesh
     from tfhe_fbs_map_tpu_torch.tfhe.params import STAGED_PRESETS
     from tfhe_fbs_map_tpu_torch.tfhe.staged import generate_staged_keys
     prog = mapped("full_adder")
     preset = STAGED_PRESETS["staged_test"]
     skeys = generate_staged_keys(preset.p, preset.fam1, preset.fam2,
                                  device="cpu")
+    mesh = make_mesh(["cpu"] * 2)
     for keys in (tkeys, skeys):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(TypeError, match="Mesh"):
             texec.CircuitExecutor(prog, keys, mesh=object())
+        assert texec.CircuitExecutor(prog, keys, mesh=mesh).mesh is mesh
     assert texec.CircuitExecutor(prog, skeys).staged
     with pytest.raises(TypeError):
         texec.CircuitExecutor(prog, object())

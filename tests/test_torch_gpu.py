@@ -257,6 +257,71 @@ def test_cli_on_cuda(cuda, tmp_path, capsys):
         assert fbr.LAUNCHES[key] > before
 
 
+@pytest.mark.parametrize("orientation,key", [("fused_otf", "k1"),
+                                             ("fused", "k2")])
+def test_sharded_bootstrap_on_one_card(cuda, orientation, key):
+    """Two dp shards on one card, each one launch of the kernel, bitwise
+    equal to the one-device launch."""
+    from tfhe_fbs_map_tpu_torch.parallel import (make_mesh, shard_batch,
+                                                 sharded_bootstrap)
+    keys = generate_keys(TEST_PARAMS, seed=4, device=cuda)
+    fast = prepare_fast_keys(keys, orientation=orientation)
+    values = np.random.default_rng(5).integers(0, 2, 128)
+    cts = encrypt_values(keys, values, np.random.default_rng(6))
+    tv, post = build_test_vector([0, 1], TEST_PARAMS)
+    tvs = torch.from_numpy(np.tile(tv, (len(values), 1))).to(cuda)
+    posts = torch.full((len(values),), post, dtype=torch.int32, device=cuda)
+    want = functional_bootstrap_fast(fast, cts, tvs, posts)
+    mesh = make_mesh([cuda, cuda])
+    shards = [shard_batch(mesh, x) for x in (cts, tvs, posts)]
+    before = dict(fbr.LAUNCHES)
+    got = sharded_bootstrap(mesh, fast)(*shards)
+    torch.cuda.synchronize()
+    assert {k: fbr.LAUNCHES[k] - before[k] for k in before} \
+        == {key: 2, ("k2" if key == "k1" else "k1"): 0}
+    assert torch.equal(torch.cat(got), want)
+
+
+@pytest.mark.parametrize("orientation,key", [("fused_otf", "k1"),
+                                             ("fused", "k2")])
+def test_mesh_executor_on_one_card(cuda, orientation, key):
+    """The full adder (the dry run's) through the executor on two shards of
+    one card: the final wire buffer bitwise equal to one device's, the
+    decryptions to the circuit's, one launch a level a shard."""
+    from tfhe_fbs_map_tpu_torch.parallel import dryrun, make_mesh
+    res = dryrun.full_adder(make_mesh([cuda, cuda]), TEST_PARAMS,
+                            orientation, 8)
+    assert res["bit_exact"]
+    assert res["launches"][key] == 2 * res["levels"]
+
+
+def test_level_step_issues_without_a_host_sync(cuda):
+    """A native level step through K1 never waits for the card: under a
+    mesh the host issues every shard's level while the others run."""
+    from tfhe_fbs_map_tpu_torch.frontend.lut_program import LutProgram
+    from tfhe_fbs_map_tpu_torch.runtime.executor import CircuitExecutor
+    keys = generate_keys(TEST_PARAMS, seed=4, device=cuda)
+    fast = prepare_fast_keys(keys, orientation="fused_otf")
+    prog = LutProgram()
+    a, b = prog.input("a"), prog.input("b")
+    x = prog.bootstrap(prog.linear([1, 1], [a, b], 0), [0, 1, 0])
+    prog.output("y", prog.bootstrap(prog.linear([1, 1], [x, a], 0),
+                                    [1, 0, 1]))
+    ex = CircuitExecutor(prog, keys, fast_keys=fast)
+    assert len(ex.levels) == 2
+    values = {n: np.ones(16, np.int64) for n in ("a", "b")}
+    buf = ex.encrypt_inputs(values, np.random.default_rng(2))
+    ex.step(buf.clone(), 0)               # builds and plans K1 once
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for lv in range(len(ex.levels)):
+            buf = ex.step(buf, lv)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("orientation", ["fused", "fused_otf"])
 def test_model_waves_equal_the_device_plan(cuda, orientation):
     """The runtime model plans every launch as the card does: the same

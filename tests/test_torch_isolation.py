@@ -31,7 +31,9 @@ def test_every_module_imports_with_jax_blocked():
     names = modules()
     assert "tfhe_fbs_map_tpu_torch.ops.fused_blind_rotate" in names
     assert "tfhe_fbs_map_tpu_torch.frontend.mapping.heuristic" in names
-    for name in ("frontend.opt", "frontend.cli", "utils.profiling", "bench"):
+    for name in ("frontend.opt", "frontend.cli", "utils.profiling", "bench",
+                 "bench_multichip", "parallel", "parallel.mesh",
+                 "parallel.distributed", "parallel.dryrun"):
         assert f"tfhe_fbs_map_tpu_torch.{name}" in names
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"

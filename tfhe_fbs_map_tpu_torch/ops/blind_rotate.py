@@ -58,6 +58,18 @@ class FastKeys:
         rows = self.ksk_matrix.shape[0]
         return self.ksk_matrix.reshape(rows, N_LIMBS, -1).permute(1, 0, 2)
 
+    @property
+    def device(self) -> torch.device:
+        return self.bsk_kernels.device
+
+    def to(self, device) -> "FastKeys":
+        """The same key layouts on ``device`` (a copy; ``self`` where they
+        already lie there)."""
+        if torch.device(device) == self.device:
+            return self
+        return FastKeys(self.params, self.bsk_kernels.to(device),
+                        self.ksk_matrix.to(device), self.orientation)
+
 
 def fused_key_bytes(params: TFHEParams, bsk_limbs: int = N_LIMBS) -> int:
     """Bytes of the precomputed ``"fused"`` key matrices."""
@@ -139,10 +151,11 @@ def keyswitch_fast(big_cts: torch.Tensor, fast: FastKeys) -> torch.Tensor:
     digits = gadget_decompose(big_cts[:, :kn], params.ksk_base_log,
                               params.ksk_level)
     flat = digits.reshape(batch, kn * params.ksk_level).to(torch.int8)
-    prods = int8_matmul(flat, fast.ksk_matrix).reshape(batch, N_LIMBS, d)
-    scale = torch.tensor([1 << (LIMB_BITS * m) for m in range(N_LIMBS)],
-                         dtype=I64, device=big_cts.device)
-    out = -(prods.to(I64) * scale[None, :, None]).sum(1)
+    prods = int8_matmul(flat, fast.ksk_matrix).reshape(batch, N_LIMBS, d) \
+        .to(I64)
+    # limb weights as Python ints: a tensor of them built on the card would
+    # block the host until the device's queue drains
+    out = -sum(prods[:, m] * (1 << (LIMB_BITS * m)) for m in range(N_LIMBS))
     out[:, params.lwe_dim] += big_cts[:, kn].to(I64)
     return wrap32(out)
 

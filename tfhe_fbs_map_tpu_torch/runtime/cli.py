@@ -15,6 +15,16 @@ preset (``--params aes128_p4``, ``kreyvium_p10_staged``, …) pins them.
     python -m tfhe_fbs_map_tpu_torch.runtime prog.lbf --batch 8 --p-error 1e-7
     python -m tfhe_fbs_map_tpu_torch.runtime prog.lbf --params aes128_p4 --batch 8
     python -m tfhe_fbs_map_tpu_torch.runtime c.blif --map --test-params --device cpu
+    python -m tfhe_fbs_map_tpu_torch.runtime prog.lbf --params aes128_p4 --mesh auto
+    torchrun --nproc-per-node 2 -m tfhe_fbs_map_tpu_torch.runtime prog.lbf \\
+        --params aes128_p4 --mesh auto
+
+``--mesh`` runs the executor dp-parallel over the evaluation batch
+(:mod:`..parallel`).  Under ``torchrun`` (or ``MASTER_ADDR``,
+``MASTER_PORT``, ``WORLD_SIZE`` and ``RANK`` set by hand) every process
+builds the same keys and whole-batch ciphertexts from ``--seed`` and runs
+its slice; ``run_s`` is the wall time between two barriers around the run,
+and process 0 alone prints the JSON line of the gathered outputs.
 """
 
 from __future__ import annotations
@@ -192,6 +202,43 @@ def predicted_run_s(ex, orients: list[str], bsk_limbs: int,
     return us * batch / 1e6
 
 
+def mesh_from_arg(spec: str, device: torch.device):
+    """The mesh of ``--mesh spec`` on ``device``'s type: "auto" is every
+    device of every process (each process's GPUs,
+    :func:`..parallel.distributed.local_gpus`; one position a process on the
+    CPU), "DP" or "DP,1" DP positions over all processes (on CUDA dealt
+    round-robin over each process's GPUs, so DP=2 on one card is two shards
+    on it).  Joins the process group first when the environment names one.
+    Raises ValueError on a spec it cannot run: not DP[,TP], tp != 1, or a
+    DP the processes do not divide."""
+    import torch.distributed as dist
+
+    from ..parallel.distributed import (global_mesh, init_distributed,
+                                        local_gpus)
+    from ..parallel.mesh import check_tp
+
+    world = dist.get_world_size() if init_distributed() else 1
+    if spec == "auto":
+        return global_mesh(devices=["cpu"] if device.type == "cpu"
+                           else None)
+    try:
+        parts = [int(x) for x in spec.split(",")]
+    except ValueError:
+        parts = []
+    if len(parts) not in (1, 2) or parts[0] < 1:
+        raise ValueError(f"--mesh {spec}: want DP, DP,TP or auto")
+    dp, tp = (parts + [1])[:2]
+    check_tp(tp)
+    if dp % world:
+        raise ValueError(f"--mesh {spec}: dp={dp} is not a multiple of the "
+                         f"{world} processes")
+    per = dp // world
+    if device.type == "cpu":
+        return global_mesh(devices=["cpu"] * per)
+    gpus = local_gpus()
+    return global_mesh(devices=[gpus[i % len(gpus)] for i in range(per)])
+
+
 def family_json(params) -> dict:
     """A family's sizes as the CLI's JSON line names them."""
     return {"p": params.p, "n": params.lwe_dim, "k": params.glwe_dim,
@@ -263,6 +310,11 @@ def main(argv=None) -> int:
                          "kernel, which also runs both staged families, "
                          "and an error if the kernel cannot serve the "
                          "parameters; generic on the CPU)")
+    ap.add_argument("--mesh", default=None, metavar="DP[,TP]|auto",
+                    help="run the executor mesh-parallel: 'DP' (or 'DP,1') "
+                         "positions, or 'auto' (all devices of all "
+                         "processes on dp).  dp shards the evaluation batch; "
+                         "tp must be 1")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
 
@@ -287,6 +339,27 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     device = torch.device(args.device)
+    mesh, dp = None, 1
+    if args.mesh:
+        try:
+            mesh = mesh_from_arg(args.mesh, device)
+        except ValueError as e:
+            print(e, file=sys.stderr)
+            return 2
+        dp = mesh.dp
+        if args.batch % dp:
+            print(f"--batch {args.batch} must be divisible by dp={dp}",
+                  file=sys.stderr)
+            return 1
+        if args.checkpoint and mesh.spans_processes:
+            print("--checkpoint: a mesh that spans processes cannot "
+                  "checkpoint", file=sys.stderr)
+            return 2
+        device = mesh.devices[0]
+        print(f"# mesh: dp={dp} tp=1", file=sys.stderr)
+    from ..parallel.distributed import (barrier, gather_outputs,
+                                        process_index)
+    rank = process_index()
 
     from ..frontend.lut_program import parse_lbf
     from ..frontend.mapping.basic import BasicMapper
@@ -327,7 +400,8 @@ def main(argv=None) -> int:
     p_error = None
     if not pinned:
         try:
-            pick = optimizer_pick(prog, p_run, args.batch, args.staged,
+            # each device launches its V/dp evaluations
+            pick = optimizer_pick(prog, p_run, args.batch // dp, args.staged,
                                   args.p_error, args.staged_margin)
         except NoParameters as e:
             print(e, file=sys.stderr)
@@ -372,7 +446,7 @@ def main(argv=None) -> int:
         keys = generate_keys(params, seed=args.seed, device=device)
         families = [keys]
         print(f"# keygen: {time.time() - t0:.1f}s", file=sys.stderr)
-        if args.save_keys:
+        if args.save_keys and rank == 0:
             save_keys(args.save_keys, keys)
 
     rng = np.random.default_rng(args.seed)
@@ -385,7 +459,10 @@ def main(argv=None) -> int:
     fam_params = [k.params for k in families]
     try:
         if args.orientation == "auto":
-            orients = pick_orientations(fam_params, device,
+            # the kernel must fit the fullest device of the mesh
+            free = (min(map(free_memory, mesh.distinct))
+                    if mesh is not None and device.type == "cuda" else None)
+            orients = pick_orientations(fam_params, device, free,
                                         bsk_limbs=bsk_limbs)
         else:
             orients = [args.orientation] * len(families)
@@ -406,23 +483,29 @@ def main(argv=None) -> int:
         print(f"# fast keys ({'+'.join(orients)}): {time.time() - t0:.1f}s",
               file=sys.stderr)
 
-    ex = CircuitExecutor(prog, keys, fast_keys=fast)
+    ex = CircuitExecutor(prog, keys, fast_keys=fast, mesh=mesh)
+    devices = mesh.distinct if mesh is not None else [device]
+
+    def sync():
+        if device.type == "cuda":
+            for d in devices:
+                torch.cuda.synchronize(d)
+        barrier()
+
     t0 = time.time()
     buf0 = ex.encrypt_inputs(values, rng)
     enc_s = time.time() - t0
     run_s = None
-    for rep in range(max(1, args.repeat)):
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+    for i in range(max(1, args.repeat)):
+        sync()
         t0 = time.time()
         # checkpointing only applies to the first run: later repeats are
         # steady-state timing and must not resume from its snapshots
-        buf = ex.run(buf0, checkpoint=args.checkpoint if rep == 0 else None,
+        buf = ex.run(buf0, checkpoint=args.checkpoint if i == 0 else None,
                      checkpoint_every=args.checkpoint_every)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        sync()
         run_s = time.time() - t0
-    got = ex.decrypt_outputs(buf)
+    got = gather_outputs(ex.decrypt_outputs(buf))
 
     errors = wrong_bits = 0
     for k, want in oracle.items():
@@ -430,11 +513,14 @@ def main(argv=None) -> int:
         if bad:
             errors += 1
             wrong_bits += bad
-            print(f"MISMATCH on output {k}: want {np.asarray(want)} "
-                  f"got {got[k]}", file=sys.stderr)
+            if rank == 0:
+                print(f"MISMATCH on output {k}: want {np.asarray(want)} "
+                      f"got {got[k]}", file=sys.stderr)
+    if rank != 0:
+        return 1 if errors else 0
 
     total_boots = ex.num_bootstraps * args.batch
-    predicted = (predicted_run_s(ex, orients, bsk_limbs, args.batch)
+    predicted = (predicted_run_s(ex, orients, bsk_limbs, args.batch // dp)
                  if device.type == "cuda" else None)
     print(json.dumps({
         "staged": staged,
@@ -447,7 +533,7 @@ def main(argv=None) -> int:
         "levels": len(ex.levels),
         "bootstraps": ex.num_bootstraps,
         "batch": args.batch,
-        "mesh": None,
+        "mesh": mesh.shape if mesh is not None else None,
         "orientation": (dict(zip(("fam1", "fam2"), orients)) if staged
                         else orients[0]),
         "device": (torch.cuda.get_device_name(device)

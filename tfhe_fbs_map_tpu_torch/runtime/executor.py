@@ -1,6 +1,6 @@
 """Batched homomorphic executor for mapped FBS programs.
 
-The counterpart of ``tfhe_fbs_map_tpu.runtime.executor`` on one device.  A
+The counterpart of ``tfhe_fbs_map_tpu.runtime.executor``.  A
 :class:`LutProgram` is compiled into per-level plans (bootstraps grouped by
 depth, each level padded to a power-of-two bootstrap count, padding results
 sent to one dummy wire row); :meth:`CircuitExecutor.run` is a Python loop of
@@ -15,8 +15,15 @@ sent to one dummy wire row); :meth:`CircuitExecutor.run` is a Python loop of
   fam2 call (stage 2 of the splits, then the fam2 singles), and wires are
   produced pre-scaled to what their consumers need.
 
-Not here yet: multi-device execution and grouping levels into one launch;
-the constructor refuses a mesh.
+Under a dp mesh (:mod:`..parallel.mesh`) the wire buffer is a list of
+per-position ``[W, V/dp, d]`` shards, the evaluation batch split in mesh
+order.  The whole batch is encrypted with one rng, as on one device, and
+then split, so every draw and every bit equals the one-device run's.  Each
+level runs :meth:`CircuitExecutor.step` on every shard in turn, with that
+device's keys and plan tensors (one copy a device), and nothing waits for a
+device between levels: each device's stream orders its own work.
+
+Not here yet: grouping levels into one launch.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import torch
 
 from ..frontend.lut_program import (LutProgram, N_BOOT, N_CONST, N_INPUT,
                                     N_LIN)
+from ..parallel.mesh import Mesh, shard_batch
 from ..tfhe.encrypt import decode, encode, lwe_encrypt, lwe_phase
 from ..tfhe.keys import TFHEKeys
 from ..tfhe.numeric import I64, wrap32
@@ -505,16 +513,19 @@ def _staged_level_step(keys1: TFHEKeys, keys2: TFHEKeys, fast1, fast2,
 
 class CircuitExecutor:
     def __init__(self, prog: LutProgram, keys: TFHEKeys | StagedKeys,
-                 fast_keys=None, mesh=None):
+                 fast_keys=None, mesh: Mesh | None = None):
         """``keys``: :class:`TFHEKeys` (native pipeline) or
-        :class:`StagedKeys` (staged pipeline); they fix the device.
-        ``fast_keys``: for the native pipeline an optional
-        :class:`..ops.blind_rotate.FastKeys`, for the staged one an
+        :class:`StagedKeys` (staged pipeline); they fix the device the
+        inputs are encrypted on.  ``fast_keys``: for the native pipeline an
+        optional :class:`..ops.blind_rotate.FastKeys`, for the staged one an
         optional pair (fast1, fast2); a family without fast keys runs the
-        generic bootstrap."""
-        if mesh is not None:
-            raise NotImplementedError("multi-device execution is not "
-                                      "ported yet")
+        generic bootstrap.  ``mesh``: an optional dp
+        :class:`..parallel.mesh.Mesh`; the buffers of :meth:`encrypt_inputs`
+        and :meth:`run` are then lists of shards, and the keys are copied
+        once to each of the mesh's devices."""
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh: a parallel.mesh.Mesh, not "
+                            f"{type(mesh).__name__}")
         self.staged = isinstance(keys, StagedKeys)
         if self.staged:
             if fast_keys is not None and len(fast_keys) != 2:
@@ -531,6 +542,7 @@ class CircuitExecutor:
         self.prog = prog
         self.keys = keys
         self.fast_keys = fast_keys
+        self.mesh = mesh
         self.device = keys.device
         self.plan = plan
         self.input_rows = plan.input_rows
@@ -540,32 +552,66 @@ class CircuitExecutor:
         self.num_wires = plan.num_wires
         self.num_bootstraps = plan.num_bootstraps
         self._plan_device = None
+        self._replicas = {self.device: (keys, fast_keys)}
+        # copy the keys and plans to every device of the mesh now, not
+        # inside the first timed level
+        for dev in mesh.distinct if mesh is not None else ():
+            self._replica(dev)
+            self.plan_tensors(dev)
 
-    def plan_tensors(self) -> list[tuple[torch.Tensor, ...]]:
-        """Per-level plan tensors on the device, uploaded once."""
+    def _replica(self, device: torch.device):
+        """(keys, fast keys) on ``device``: the executor's own on their
+        device, elsewhere copies made once."""
+        if device not in self._replicas:
+            fast = self.fast_keys
+            if fast is not None:
+                fast = (tuple(f.to(device) for f in fast) if self.staged
+                        else fast.to(device))
+            self._replicas[device] = (self.keys.to(device), fast)
+        return self._replicas[device]
+
+    def plan_tensors(self, device: torch.device | None = None
+                     ) -> list[tuple[torch.Tensor, ...]]:
+        """Per-level plan tensors on ``device`` (default the keys'),
+        uploaded once a device."""
+        device = self.device if device is None else device
         if self._plan_device is None:
-            self._plan_device = [
-                tuple(torch.from_numpy(x).to(self.device) for x in p.arrays())
+            self._plan_device = {}
+        if device not in self._plan_device:
+            self._plan_device[device] = [
+                tuple(torch.from_numpy(x).to(device) for x in p.arrays())
                 for p in self.levels]
-        return self._plan_device
+        return self._plan_device[device]
 
     def step(self, buf: torch.Tensor, lv: int) -> torch.Tensor:
-        """Run level ``lv`` in place on ``buf``; returns it."""
-        plan = self.plan_tensors()[lv]
+        """Run level ``lv`` in place on ``buf`` (one device's buffer or
+        shard, with that device's keys); returns it."""
+        keys, fast = self._replica(buf.device)
+        plan = self.plan_tensors(buf.device)[lv]
         if self.staged:
-            fast1, fast2 = self.fast_keys or (None, None)
-            return _staged_level_step(self.keys.keys1, self.keys.keys2,
-                                      fast1, fast2, self.levels[lv].n_splits,
-                                      buf, *plan)
-        return _level_step(self.keys, self.fast_keys, buf, *plan)
+            fast1, fast2 = fast or (None, None)
+            return _staged_level_step(keys.keys1, keys.keys2, fast1, fast2,
+                                      self.levels[lv].n_splits, buf, *plan)
+        return _level_step(keys, fast, buf, *plan)
+
+    def _shard(self, buf: torch.Tensor):
+        """A whole-batch buffer as :meth:`run` takes it: on the keys' device
+        without a mesh, else this process's shards."""
+        if self.mesh is None:
+            return buf.to(self.device)
+        return shard_batch(self.mesh, buf, axis=1)
 
     def encrypt_inputs(self, values: dict[str, np.ndarray],
-                       rng: np.random.Generator) -> torch.Tensor:
+                       rng: np.random.Generator):
         """The initial wire buffer [num_wires, V, kN+1]: all inputs in one
         encryption, with the JAX executor's draws.  Staged inputs are
         encrypted pre-scaled to their consumers' torus multiple, under
-        fam1's key and noise."""
+        fam1's key and noise.  Under a mesh the whole batch is encrypted
+        the same way and this process's dp shards are returned."""
         v = len(next(iter(values.values()))) if values else 1
+        if self.mesh is not None and v % self.mesh.dp:
+            raise ValueError(f"batch {v} must be divisible by the dp axis "
+                             f"({self.mesh.dp})")
         d = self.params.big_dim + 1
         buf = torch.zeros((self.num_wires, v, d), dtype=torch.int32,
                           device=self.device)
@@ -582,35 +628,50 @@ class CircuitExecutor:
             rows = torch.tensor([self.input_rows[n] for n in names],
                                 device=self.device)
             buf[rows] = cts.reshape(len(names), v, d)
-        return buf
+        return buf if self.mesh is None else self._shard(buf)
 
-    def run(self, buf: torch.Tensor, checkpoint: str | None = None,
+    def run(self, buf, checkpoint: str | None = None,
             checkpoint_every: int | None = None,
-            checkpoint_budget: float = 0.1) -> torch.Tensor:
-        """Execute all levels on a copy of ``buf``; returns the filled wire
-        buffer.
+            checkpoint_budget: float = 0.1):
+        """Execute all levels on a copy of ``buf`` (a tensor, or under a
+        mesh this process's shards); returns the filled wire buffer in the
+        same form.
 
-        ``checkpoint``: optional ``.npz`` path.  The buffer is saved (keys
-        ``buf``, ``level``, ``num_levels``, as the JAX executor saves it) and
-        a matching file resumes the run after its level.
+        ``checkpoint``: optional ``.npz`` path.  The whole buffer is saved
+        (keys ``buf``, ``level``, ``num_levels``, as the JAX executor saves
+        it; under a mesh the shards gathered in batch order) and a matching
+        file resumes the run after its level, on whatever mesh this
+        executor has.  Not for a mesh that spans processes.
         ``checkpoint_every``: fixed level interval; default: adaptive, a
         snapshot is taken when the time spent on snapshots stays within
         ``checkpoint_budget`` of the elapsed run, priced by the last one."""
+        if checkpoint is not None and self.mesh is not None \
+                and self.mesh.spans_processes:
+            raise ValueError("checkpoints of a mesh that spans processes "
+                             "are not supported")
+        if (self.mesh is not None) == isinstance(buf, torch.Tensor):
+            raise TypeError("run takes a list of shards under a mesh, a "
+                            "tensor without one")
         t_run = time.time()
         spent, cost_est = 0.0, 0.0
         start = 0
-        buf = buf.clone()
+        shards = [s.clone() for s in (buf if self.mesh is not None
+                                      else [buf])]
         if checkpoint is not None:
+            whole = (shards[0].shape[0], sum(s.shape[1] for s in shards),
+                     shards[0].shape[2])
             try:
                 with np.load(checkpoint) as z:
                     if z["num_levels"] == len(self.levels) \
-                            and z["buf"].shape == tuple(buf.shape):
+                            and z["buf"].shape == whole:
                         start = int(z["level"]) + 1
-                        buf = torch.from_numpy(z["buf"]).to(self.device)
+                        loaded = self._shard(torch.from_numpy(z["buf"]))
+                        shards = loaded if self.mesh is not None \
+                            else [loaded]
             except FileNotFoundError:
                 pass
         for lv in range(start, len(self.levels)):
-            buf = self.step(buf, lv)
+            shards = [self.step(s, lv) for s in shards]
             if checkpoint is None or lv + 1 >= len(self.levels):
                 continue
             if checkpoint_every is not None:
@@ -620,18 +681,24 @@ class CircuitExecutor:
                     time.time() - t_run)
             if due:
                 t0 = time.time()
-                np.savez(checkpoint, buf=buf.cpu().numpy(), level=lv,
-                         num_levels=len(self.levels))
+                np.savez(checkpoint, buf=np.concatenate(
+                    [s.cpu().numpy() for s in shards], axis=1), level=lv,
+                    num_levels=len(self.levels))
                 cost_est = time.time() - t0
                 spent += cost_est
                 print(f"# checkpoint level {lv}: {cost_est:.2f}s (total "
                       f"{spent:.2f}s of {time.time() - t_run:.2f}s)",
                       file=sys.stderr)
-        return buf
+        return shards if self.mesh is not None else shards[0]
 
-    def decrypt_outputs(self, buf: torch.Tensor) -> dict[str, np.ndarray]:
+    def decrypt_outputs(self, buf) -> dict[str, np.ndarray]:
         """All outputs in one gather + lincomb + phase, decoded on the wire
-        grid."""
+        grid; of a list of shards, each decrypted on its device and the
+        outputs joined along the batch in mesh order."""
+        if isinstance(buf, (list, tuple)):
+            parts = [self.decrypt_outputs(s) for s in buf]
+            return {k: np.concatenate([p[k] for p in parts])
+                    for k in parts[0]}
         params = self.params
         out: dict[str, np.ndarray] = {}
         v = buf.shape[1]
@@ -655,7 +722,7 @@ class CircuitExecutor:
         lin = (torch.from_numpy(cfs).to(dev)[:, :, None, None] * cts).sum(1)
         lin[:, :, -1] += torch.from_numpy(consts).to(dev)[:, None]
         lin = wrap32(lin)
-        phases = lwe_phase(self.keys.extracted_key,
+        phases = lwe_phase(self._replica(dev)[0].extracted_key,
                            lin.reshape(-1, lin.shape[-1])).cpu().numpy()
         decoded = decode(phases, params).reshape(len(names), v)
         for o, name in enumerate(names):

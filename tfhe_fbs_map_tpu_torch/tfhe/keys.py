@@ -58,6 +58,16 @@ class TFHEKeys:
         """Big LWE key [kN]: the GLWE key coefficients in extract order."""
         return self.glwe_key.reshape(-1)
 
+    def to(self, device) -> "TFHEKeys":
+        """The same key material on ``device``: a copy, never new keys
+        (``self`` where it already lies there)."""
+        if torch.device(device) == self.device:
+            return self
+        return dataclasses.replace(
+            self, lwe_key=self.lwe_key.to(device),
+            glwe_key=self.glwe_key.to(device), bsk=self.bsk.to(device),
+            ksk=self.ksk.to(device))
+
 
 def keys_from_numpy(params: TFHEParams, lwe_key, glwe_key, bsk, ksk, *,
                     device) -> TFHEKeys:

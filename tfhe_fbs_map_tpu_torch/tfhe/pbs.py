@@ -116,10 +116,12 @@ def sample_extract(acc: torch.Tensor, params: TFHEParams) -> torch.Tensor:
 
 
 def add_body(cts: torch.Tensor, x) -> torch.Tensor:
-    """Add ``x`` ([B] or a scalar) to the body column, mod 2^32."""
+    """Add ``x`` ([B] or a scalar) to the body column, mod 2^32.  A Python
+    scalar stays on the host: copying it to the card would block the host
+    until the device's queue drains."""
     out = cts.clone()
-    out[:, -1] = wrap32(cts[:, -1].to(I64) + torch.as_tensor(
-        x, device=cts.device).to(I64))
+    x = x.to(I64) if isinstance(x, torch.Tensor) else int(x)
+    out[:, -1] = wrap32(cts[:, -1].to(I64) + x)
     return out
 
 

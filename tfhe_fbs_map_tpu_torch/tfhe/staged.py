@@ -151,6 +151,14 @@ class StagedKeys:
     def device(self) -> torch.device:
         return self.keys1.device
 
+    def to(self, device) -> "StagedKeys":
+        """Both families' key material on ``device`` (copies, never new
+        keys)."""
+        if torch.device(device) == self.device:
+            return self
+        return StagedKeys(p=self.p, keys1=self.keys1.to(device),
+                          keys2=self.keys2.to(device))
+
 
 def generate_staged_keys(p: int, params1: TFHEParams, params2: TFHEParams,
                          seed: int = 0, *, device) -> StagedKeys:
