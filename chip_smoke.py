@@ -68,12 +68,22 @@ Phases, each printed with what ran and how long it took:
    ``p32_staged`` families through K1, likewise; (d) the runtime CLI as two
    processes over gloo (``--mesh auto``, AES-128 at batch 8, K1), rank 0's
    line bit-exact with dp 2, 230 K1 launches in each rank; (e)
-   ``bench_multichip`` at its defaults, errors 0.
+   ``bench_multichip`` at its defaults, errors 0;
+10. CUDA graphs: AES-128 at batch 8 through K1 and through ``auto`` (K2),
+    staged Kreyvium-1152 at batch 16 (K1) and AES-128 at batch 16 on two
+    shards of the card (K1), each as the eager level loop (one ``step`` a
+    level, as ``run`` walks with a checkpoint) and as ``run``'s replay of
+    one CUDA graph a level group, in turns (eager, graph, graph, eager,
+    the last two under ``torch.profiler``): each ``run_s``, the capture's
+    seconds, the device's idle share over a whole run of each, the final
+    wire buffers bitwise equal and bit-exact, and the same launches in
+    every run (230, 230, 28 and 460).
 
 Before the last line it prints one JSON object with a row per kernel (no
 PyTorch call computes the n-step recurrence, so ``library_ms`` is null;
 ``launches`` sums the kernel's launches over the main paths of phases 5 to
-9, each counted from 0, ``launches_by_path`` splits them;
+10, each counted from 0, ``launches_by_path`` splits them (phase 10's
+graph runs as ``graphs ...``);
 ``staged_launches`` and ``bench_launches`` hold the full-length checks of
 phases 4 and 8) and the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
@@ -964,6 +974,144 @@ def run_bench_multichip(smi: str, launches: dict) -> dict:
     return res
 
 
+# phase 10: (label, program, preset, batch, orientation or "auto", dp)
+GRAPH_RUNS = (
+    ("aes128_p4 fused_otf", AES_LBF, "aes128_p4", 8, "fused_otf", 1),
+    ("aes128_p4 auto", AES_LBF, "aes128_p4", 8, "auto", 1),
+    (f"{KREYVIUM_PRESET} auto", KREYVIUM_LBF, KREYVIUM_PRESET, KREYVIUM_BATCH,
+     "auto", 1),
+    ("aes128_p4 fused_otf dp=2", AES_LBF, "aes128_p4", MESH_AES_BATCH,
+     "fused_otf", 2),
+)
+
+
+def graph_executor(lbf: str, preset: str, batch: int, orientation: str,
+                   dp: int):
+    """The executor, input buffer and family calls of a phase-10 run, made
+    as the runtime CLI makes them (keys from seed 42, ``auto`` by
+    ``pick_orientations``, inputs from ``default_rng(42)``)."""
+    import numpy as np
+    import torch
+    from tfhe_fbs_map_tpu_torch.frontend.lut_program import parse_lbf
+    from tfhe_fbs_map_tpu_torch.ops.blind_rotate import prepare_fast_keys
+    from tfhe_fbs_map_tpu_torch.runtime.cli import pick_orientations
+    from tfhe_fbs_map_tpu_torch.runtime.executor import CircuitExecutor
+    from tfhe_fbs_map_tpu_torch.tfhe import generate_keys
+    from tfhe_fbs_map_tpu_torch.tfhe.params import PRESETS, STAGED_PRESETS
+    from tfhe_fbs_map_tpu_torch.tfhe.staged import generate_staged_keys
+
+    with open(ROOT / lbf) as f:
+        prog = parse_lbf(f.read())
+    dev = torch.device("cuda", torch.cuda.current_device())
+    if preset in STAGED_PRESETS:
+        pre = STAGED_PRESETS[preset]
+        keys = generate_staged_keys(pre.p, pre.fam1, pre.fam2, seed=42,
+                                    device=dev)
+        families = [keys.keys1, keys.keys2]
+    else:
+        keys = generate_keys(PRESETS[preset][0], seed=42, device=dev)
+        families = [keys]
+    orients = (pick_orientations([k.params for k in families], dev)
+               if orientation == "auto" else [orientation] * len(families))
+    fast = [prepare_fast_keys(k, orientation=o)
+            for k, o in zip(families, orients)]
+    ex = CircuitExecutor(prog, keys, fast_keys=tuple(fast) if len(fast) > 1
+                         else fast[0], mesh=card_mesh() if dp > 1 else None)
+    rng = np.random.default_rng(42)
+    values = {n.name: rng.integers(0, 2, batch)
+              for n in prog.nodes if n.kind == "input"}
+    buf = ex.encrypt_inputs(values, rng)
+    calls = (sum(bool(lv.wire_idx1.shape[0]) + bool(lv.wire_idx2.shape[0])
+                 for lv in ex.levels) if ex.staged else len(ex.levels))
+    return ex, buf, dp * calls, KERNEL[orients[0]], prog.eval(values)
+
+
+def eager_run(ex, buf):
+    """The level loop ``run`` walks with a checkpoint: one ``step`` a level
+    on every shard."""
+    shards = [s.clone() for s in (buf if isinstance(buf, list) else [buf])]
+    for lv in range(len(ex.levels)):
+        shards = [ex.step(s, lv) for s in shards]
+    return shards if isinstance(buf, list) else shards[0]
+
+
+def share(x) -> str:
+    """An idle share, or "not measured" where the profiler saw no device
+    activity."""
+    return "not measured" if x is None else f"{x:.4f}"
+
+
+def run_graphs(smi: str, launches: dict) -> list[dict]:
+    """Phase 10: each of GRAPH_RUNS as the eager level loop and as the
+    graph replay, in turns (eager, graph, graph, eager), each run's wall
+    seconds between two synchronisations, the last two under
+    ``torch.profiler`` (the device's idle share over the whole run), and
+    the capture's seconds; the launches of each run (equal, one a family
+    call a position) and the final wire buffers (bitwise equal, and
+    bit-exact)."""
+    import numpy as np
+    import torch
+    from tfhe_fbs_map_tpu_torch.runtime.profile import trace_run
+
+    rows = []
+    for label, lbf, preset, batch, orientation, dp in GRAPH_RUNS:
+        torch.cuda.empty_cache()
+        ex, buf, calls, kern, oracle = graph_executor(lbf, preset, batch,
+                                                      orientation, dp)
+        dev = ex.device
+        got = {}
+        runs = {"eager": lambda: got.setdefault("eager", eager_run(ex, buf)),
+                "graph": lambda: got.setdefault("graph", ex.run(buf))}
+        secs, idle, counts = {"eager": [], "graph": []}, {}, []
+        torch.cuda.synchronize()
+        for i, kind in enumerate(("eager", "graph", "graph", "eager")):
+            if i == 1:
+                t0 = time.time()
+                graphs = ex.capture(buf)
+                torch.cuda.synchronize()
+                capture_s = time.time() - t0
+            for k in launches:
+                launches[k] = 0
+            if i < 2:
+                torch.cuda.synchronize()
+                t0 = time.time()
+                runs[kind]()
+                torch.cuda.synchronize()
+                secs[kind].append(time.time() - t0)
+            else:
+                traced = trace_run(dev, runs[kind])
+                secs[kind].append(traced["wall_s"])
+                idle[kind] = traced["idle_share"]
+            counts.append(dict(launches))
+        outs = {kind: (b if isinstance(b, list) else [b])
+                for kind, b in got.items()}
+        same = all(torch.equal(a, b) for a, b in zip(outs["eager"],
+                                                      outs["graph"]))
+        dec = ex.decrypt_outputs(got["graph"])
+        exact = all(np.array_equal(np.asarray(v), dec[k])
+                    for k, v in oracle.items())
+        want = want_launches(kern, calls)
+        log(f"  {label}, batch {batch}: eager run_s "
+            f"{secs['eager'][0]:.3f}, graph {secs['graph'][0]:.3f}, then "
+            f"under the profiler graph {secs['graph'][1]:.3f}, eager "
+            f"{secs['eager'][1]:.3f}; capture {capture_s:.3f} s ({graphs} "
+            f"graphs, {len(ex.groups)} groups); device idle eager "
+            f"{share(idle['eager'])}, graph {share(idle['graph'])}; buffers "
+            f"{'bitwise equal' if same else 'DIFFER'}, bit_exact {exact}; "
+            f"launches {counts} on {smi}")
+        if not same or not exact or any(c != want for c in counts):
+            raise SystemExit(f"phase 10 {label}: graph and eager disagree "
+                             f"or launched {counts}, want {want}")
+        rows.append({"label": label, "kernel": kern, "launches": calls,
+                     "eager_run_s": secs["eager"],
+                     "graph_run_s": secs["graph"], "profiled": [2, 3],
+                     "capture_s": capture_s, "graphs": graphs,
+                     "groups": len(ex.groups), "idle_share": idle})
+        del ex, buf, got, outs, runs
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -1079,6 +1227,11 @@ def main(argv=None) -> int:
     multichip = run_bench_multichip(smi, fbr.LAUNCHES)
     log(f"[mesh] {time.time() - t0:.1f} s")
 
+    # --- 10. CUDA graphs against the eager level loop ------------------------
+    t0 = time.time()
+    graph_rows = run_graphs(smi, fbr.LAUNCHES)
+    log(f"[graphs] {time.time() - t0:.1f} s")
+
     # launches of each kernel on every main path, each counted from 0
     by_path = {"k2": {"aes128_p4 auto": runs["k2"]["launches"]},
                "k1": {"aes128_p4 fused_otf": runs["k1"]["launches"],
@@ -1098,6 +1251,9 @@ def main(argv=None) -> int:
         "2 processes aes128_p4 rank 0": two["launches"][0],
         "2 processes aes128_p4 rank 1": two["launches"][1],
         "bench_multichip": multichip["launches"]})
+    for row in graph_rows:
+        by_path[row["kernel"]][f"graphs {row['label']}"] = row["launches"]
+    log(json.dumps({"graphs": graph_rows}))
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[kern],
          "replaces": REPLACES[kern], "launches": sum(by_path[kern].values()),

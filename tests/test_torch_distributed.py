@@ -13,14 +13,19 @@ from pathlib import Path
 
 import pytest
 import torch
+import torch.distributed as dist
 
 from tfhe_fbs_map_tpu.frontend import HeuristicMapper
 from tfhe_fbs_map_tpu.frontend.circuits import build_bench
+from tfhe_fbs_map_tpu_torch.parallel.distributed import shutdown
 from tfhe_fbs_map_tpu_torch.runtime.cli import main
 
 ROOT = Path(__file__).resolve().parents[1]
 # per worker: python, torch and the gloo rendezvous, then a tiny run
 WORKER_TIMEOUT = 50
+# rendezvous attempts, each on a fresh port, and how a taken port shows
+RENDEZVOUS_TRIES = 3
+IN_USE = "EADDRINUSE"
 # the fields of the JSON line that are not wall times
 TIMES = {"encrypt_s", "run_s", "boots_per_sec"}
 
@@ -46,8 +51,19 @@ def full_adder_lbf(tmp_path_factory):
 
 def run_ranks(argv: list[str], world: int = 2) -> list[tuple]:
     """``python -m tfhe_fbs_map_tpu_torch.runtime argv`` as ``world``
-    processes of one group; (exit code, stdout, stderr) of each."""
-    port = _free_port()
+    processes of one group; (exit code, stdout, stderr) of each.  The port
+    is free when it is picked but may be taken before rank 0 binds it (the
+    other test workers open sockets too); then rank 0 fails at once, the
+    others are stopped, and the group is started again on a fresh
+    port."""
+    for _ in range(RENDEZVOUS_TRIES):
+        ranks = _run_ranks(argv, world, _free_port())
+        if not any(IN_USE in err for _, _, err in ranks):
+            break
+    return ranks
+
+
+def _run_ranks(argv: list[str], world: int, port: int) -> list[tuple]:
     procs = []
     try:
         for rank in range(world):
@@ -59,7 +75,11 @@ def run_ranks(argv: list[str], world: int = 2) -> list[tuple]:
                 [sys.executable, "-m", "tfhe_fbs_map_tpu_torch.runtime",
                  *argv], cwd=ROOT, env=env, stdout=subprocess.PIPE,
                 stderr=subprocess.PIPE, text=True))
-        outs = [p.communicate(timeout=WORKER_TIMEOUT) for p in procs]
+        outs = [procs[0].communicate(timeout=WORKER_TIMEOUT)]
+        if IN_USE in outs[0][1]:
+            # rank 0 could not bind the port; the others wait for it
+            return [(procs[0].returncode, *outs[0])]
+        outs += [p.communicate(timeout=WORKER_TIMEOUT) for p in procs[1:]]
     finally:
         for p in procs:
             if p.poll() is None:
@@ -93,3 +113,19 @@ def test_two_process_mesh_refuses_a_checkpoint(full_adder_lbf, tmp_path):
                                    "--device", "cpu", "--mesh", "auto",
                                    "--checkpoint", ckpt]):
         assert rc == 2 and out == "" and "spans processes" in err
+
+
+def test_cli_keeps_a_group_its_caller_holds(full_adder_lbf, capsys):
+    """The CLI leaves a process group it joined itself (a rank that exits
+    with its gloo group alive can abort in the group's destructor, which
+    made ``test_two_process_mesh_run`` fail now and then), and keeps one
+    its caller holds."""
+    dist.init_process_group("gloo", world_size=1, rank=0,
+                            init_method=f"tcp://127.0.0.1:{_free_port()}")
+    try:
+        assert main([full_adder_lbf, "--test-params", "--device", "cpu",
+                     "--batch", "2"]) == 0
+        assert dist.is_initialized()
+    finally:
+        shutdown()
+    assert not dist.is_initialized()

@@ -397,3 +397,195 @@ def test_k1_wait_that_gives_up_fails_the_launch(cuda):
                          cwd=Path(__file__).resolve().parents[1],
                          capture_output=True, text=True, timeout=900)
     assert res.returncode == 3, res.stdout + res.stderr
+
+
+def full_adder_program():
+    """The full adder mapped by the basic mapper: three levels in two level
+    groups, the first of two levels."""
+    from tfhe_fbs_map_tpu_torch.frontend import BasicMapper, BitCircuit
+    fa = BitCircuit()
+    a, b, cin = (fa.add_input(n) for n in ("a", "b", "cin"))
+    p = fa.xor_(a, b)
+    fa.set_output("s", fa.xor_(p, cin))
+    fa.set_output("cout", fa.or_(fa.and_(a, b), fa.and_(p, cin)))
+    prog = BasicMapper().map(fa)
+    prog.remove_dangling_nodes()
+    return prog
+
+
+def path_executor(cuda, path):
+    """(executor, input buffer, family calls a run, kernel counter) for a
+    path: native through K1 (``fused_otf``), K2 (``fused``) or the generic
+    bootstrap at the test parameters, or the staged pair through K1 at the
+    p32_staged families with n cut to 16."""
+    from dataclasses import replace
+
+    from tfhe_fbs_map_tpu_torch.runtime.executor import CircuitExecutor
+    from tfhe_fbs_map_tpu_torch.tfhe.params import STAGED_PRESETS
+    from tfhe_fbs_map_tpu_torch.tfhe.staged import generate_staged_keys
+    rng = np.random.default_rng(2)
+    if path == "staged":
+        preset = STAGED_PRESETS["p32_staged"]
+        fam1, fam2 = (replace(f, lwe_dim=16)
+                      for f in (preset.fam1, preset.fam2))
+        keys = generate_staged_keys(32, fam1, fam2, seed=3, device=cuda)
+        fast = tuple(prepare_fast_keys(k, orientation="fused_otf")
+                     for k in (keys.keys1, keys.keys2))
+        prog, key = mixed_program(rng), "k1"
+    else:
+        keys = generate_keys(TEST_PARAMS, seed=4, device=cuda)
+        fast = (None if path == "generic"
+                else prepare_fast_keys(keys, orientation=path))
+        prog = full_adder_program()
+        key = {"fused_otf": "k1", "fused": "k2", "generic": None}[path]
+    ex = CircuitExecutor(prog, keys, fast_keys=fast)
+    values = {n.name: rng.integers(0, 2, 16)
+              for n in prog.nodes if n.kind == "input"}
+    buf = ex.encrypt_inputs(values, np.random.default_rng(5))
+    calls = (sum(bool(lv.wire_idx1.shape[0]) + bool(lv.wire_idx2.shape[0])
+                 for lv in ex.levels) if ex.staged else len(ex.levels))
+    return ex, buf, calls, key
+
+
+PATHS = ["fused_otf", "fused", "generic", "staged"]
+
+
+@pytest.mark.parametrize("path", PATHS)
+def test_graph_replay_equals_the_eager_loop(cuda, path):
+    """``run`` replays one CUDA graph a level group: its buffer is bitwise
+    equal to the eager level loop's, the capture launches nothing, and each
+    replay adds each kernel's launches of a run."""
+    ex, buf, calls, key = path_executor(cuda, path)
+    assert len(ex.groups) < len(ex.levels) or path == "staged"
+    want = buf.clone()
+    for lv in range(len(ex.levels)):
+        want = ex.step(want, lv)
+    torch.cuda.synchronize()
+    before = dict(fbr.LAUNCHES)
+    assert ex.capture(buf) == len(ex.groups)
+    torch.cuda.synchronize()
+    assert fbr.LAUNCHES == before
+    assert ex.capture(buf) == 0
+    for i in range(2):
+        got = ex.run(buf)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        assert got.data_ptr() != buf.data_ptr()
+    grew = {k: fbr.LAUNCHES[k] - before[k] for k in before}
+    assert grew == {k: 2 * calls * (k == key) for k in grew}
+
+
+def test_graphs_of_two_shards_on_one_card(cuda):
+    """Under a mesh of two positions on one card each shard has its own
+    static buffer and graphs: the shards equal the one-device run's, and a
+    run launches K1 once a level a shard."""
+    from tfhe_fbs_map_tpu_torch.parallel import make_mesh, shard_batch
+    from tfhe_fbs_map_tpu_torch.runtime.executor import CircuitExecutor
+    ex, buf, calls, _ = path_executor(cuda, "fused_otf")
+    want = ex.run(buf)
+    mesh = make_mesh([cuda, cuda])
+    two = CircuitExecutor(ex.prog, ex.keys, fast_keys=ex.fast_keys,
+                          mesh=mesh)
+    shards = shard_batch(mesh, buf, axis=1)
+    assert two.capture(shards) == 2 * len(two.groups)
+    before = fbr.LAUNCHES["k1"]
+    got = two.run(shards)
+    torch.cuda.synchronize()
+    assert fbr.LAUNCHES["k1"] - before == 2 * calls
+    assert torch.equal(torch.cat(got, dim=1), want)
+
+
+@pytest.mark.parametrize("path", ["fused", "generic", "staged"])
+def test_level_step_is_sync_free_on_every_path(cuda, path):
+    """K2's, the generic bootstrap's and the staged pair's level steps
+    never wait for the card either (K1's:
+    ``test_level_step_issues_without_a_host_sync``)."""
+    ex, buf, _, _ = path_executor(cuda, path)
+    ex.step(buf.clone(), 0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for lv in range(len(ex.levels)):
+            buf = ex.step(buf, lv)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+SYNC_IN_CAPTURE = """
+import sys
+import numpy as np
+import torch
+from tfhe_fbs_map_tpu_torch.frontend.lut_program import LutProgram
+from tfhe_fbs_map_tpu_torch.runtime import executor
+from tfhe_fbs_map_tpu_torch.tfhe import TEST_PARAMS, generate_keys
+keys = generate_keys(TEST_PARAMS, seed=4, device="cuda")
+prog = LutProgram()
+x = prog.bootstrap(prog.input("a"), [0, 1])
+prog.output("y", prog.bootstrap(x, [1, 0]))
+ex = executor.CircuitExecutor(prog, keys)
+buf = ex.encrypt_inputs({"a": np.ones(4, np.int64)},
+                        np.random.default_rng(1))
+inner = executor._lincomb_flat
+def synced(*args):
+    out = inner(*args)
+    if out.sum().item() == 0.5:
+        print("unreachable")
+    return out
+executor._lincomb_flat = synced
+try:
+    ex.run(buf)
+except RuntimeError as e:
+    print("capture raised:", e)
+    sys.exit(3)
+print("run returned")
+"""
+
+
+def test_a_capture_that_meets_a_sync_raises(cuda):
+    """A host sync inside a level makes ``run``'s capture raise; nothing
+    falls back to the eager loop.  A failed capture can leave the CUDA
+    context unusable, so it runs in a child."""
+    res = subprocess.run([sys.executable, "-c", SYNC_IN_CAPTURE],
+                         cwd=Path(__file__).resolve().parents[1],
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 3, res.stdout + res.stderr
+
+
+def test_graphs_die_with_the_executor(cuda):
+    """The graphs, their memory pool and the static buffers belong to the
+    executor: once it is deleted and the cache emptied, the reserved
+    memory is back within 1% of what it was."""
+    import gc
+
+    def one_run():
+        ex, buf, _, _ = path_executor(cuda, "fused_otf")
+        out = ex.run(buf)
+        torch.cuda.synchronize()
+        return out.sum().item()
+
+    one_run()                 # the capture stream's cuBLAS workspace
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    one_run()
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert abs(torch.cuda.memory_reserved() - base) <= 0.01 * base
+
+
+@pytest.mark.parametrize("orientation,key", [("fused_otf", "k1"),
+                                             ("fused", "k2")])
+def test_calibration_times_the_work_around_the_kernel_alone(cuda,
+                                                            orientation, key):
+    """The calibration's ``around_ms`` is a one-level graph's replay with
+    the kernel's node left out: the kernel is launched only by the
+    warm-up and the timed steps, and no graph is kept."""
+    from tfhe_fbs_map_tpu_torch.optimizer import calibrate
+    ex = calibrate._executor(TEST_PARAMS, orientation, cuda)
+    before = fbr.LAUNCHES[key]
+    pt = calibrate.time_point(ex, 16, 8, reps=2)
+    assert fbr.LAUNCHES[key] - before == 1 + 2 * pt["iters"]
+    assert len(pt["all_around_ms"]) == 2
+    assert pt["around_ms"] > 0 and pt["kernel_ms"] > 0
+    assert ex._graphs == {}

@@ -7,6 +7,7 @@ runtime-model tests, mirrored; every optimizer pick gets a prediction; and
 the calibration's fit, on points made from known constants."""
 
 import math
+import statistics
 from pathlib import Path
 
 import pytest
@@ -303,7 +304,8 @@ def test_fit_recovers_known_constants():
         points.append({"family": "f", "key": key, "kernel": "fused_otf",
                        "rows": rows, "plan": plan, "waves": waves,
                        "kernel_ms": kern / 1e3,
-                       "step_ms": (kern + around) / 1e3})
+                       "step_ms": (kern + around) / 1e3,
+                       "around_ms": around / 1e3})
     raw = {"card": "NVIDIA H100 80GB HBM3, 700.00 W", "device": "h100",
            "sms": sms, "k2_memory": 80e9, "resident": {}, "points": points,
            "generic": dict(points[0], kernel="generic", step_ms=500.0)}
@@ -316,6 +318,65 @@ def test_fit_recovers_known_constants():
     assert cal["profile"]["eff_otf"] == cal["profile"]["eff_fused"] \
         == e["eff"]
     assert math.isclose(e["scale"], 1.0, rel_tol=1e-9)
+
+
+def test_fit_takes_the_graph_around_and_keeps_the_kernel_fit():
+    """The work around the kernel is fitted from the points' ``around_ms``
+    (timed alone, a one-level graph without the kernel's node) and the
+    kernel entries from ``kernel_ms``: the eager ``step_ms`` moves neither
+    (rel_tol 1e-9)."""
+    sms, F, tau, a, b = 132, 700.0, 72.9, 300.0, 1.1e-3
+    key = "642,1,1024,4,6"
+    points = []
+    for rows, plan, waves in ((512, [64, 4, 64], 1), (2048, [64, 2, 64], 1),
+                              (8192, [64, 1, 64], 1)):
+        kern = F + waves * plan[0] * sms / plan[1] * tau
+        points.append({"family": "f", "key": key, "kernel": "fused_otf",
+                       "rows": rows, "plan": plan, "waves": waves,
+                       "kernel_ms": kern / 1e3,
+                       "step_ms": (kern + 5 * a) / 1e3,
+                       "around_ms": (a + b * rows * 1025) / 1e3})
+    raw = {"card": "NVIDIA H100 80GB HBM3, 700.00 W", "device": "h100",
+           "sms": sms, "k2_memory": 80e9, "resident": {}, "points": points,
+           "generic": dict(points[0], kernel="generic", step_ms=500.0)}
+    graph = calibrate.fit(raw)
+    e = graph["families"][key]
+    for got, want in ((e["fixed_us"], F), (e["tau_us"], tau),
+                      (e["around_a_us"], a), (e["around_b_us"], b),
+                      (graph["around"]["around_a_us"], a),
+                      (graph["around"]["around_b_us"], b)):
+        assert math.isclose(got, want, rel_tol=1e-9)
+    for pt in points:
+        pt["step_ms"] *= 3
+    again = calibrate.fit(raw)
+    assert again["families"] == graph["families"]
+    assert again["kernels"] == graph["kernels"]
+    assert again["around"] == graph["around"]
+
+
+def test_time_point_times_the_work_around_the_kernel_alone(monkeypatch):
+    """A point's ``around_ms`` is timed with the kernel left out: the fused
+    blind rotation runs only in the warm-up and the timed steps (on the
+    CPU the work around it is ``ex.step`` with the kernel's call left
+    out; on the card a one-level graph's replay), and no graph is kept."""
+    from tfhe_fbs_map_tpu_torch.ops import blind_rotate as br
+    from tfhe_fbs_map_tpu_torch.ops.blind_rotate import prepare_fast_keys
+    keys = generate_keys(TEST_PARAMS, seed=0, device=CPU)
+    ex = CircuitExecutor(chain_program(2, 2), keys,
+                         fast_keys=prepare_fast_keys(keys, "fused_otf"))
+    calls, inner = [], br.blind_rotate_fused
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return inner(*args, **kw)
+
+    monkeypatch.setattr(br, "blind_rotate_fused", counted)
+    pt = calibrate.time_point(ex, 2, 2, reps=2)
+    assert len(calls) == 1 + 2 * pt["iters"]
+    assert pt["kernel_ms"] > 0 and len(pt["all_around_ms"]) == 2
+    assert pt["around_ms"] == statistics.median(pt["all_around_ms"]) > 0
+    assert br.blind_rotate_fused is counted
+    assert len(ex.levels) == 1 and ex._graphs == {}
 
 
 def test_validate_rows():

@@ -11,8 +11,10 @@ shapes), one family at a time, it times
 several ciphertexts a call, through the kernel the runtime CLI would run
 (``pick_orientations``: a native family by free memory, a staged one on
 K1): CUDA events around chained calls, the median of three repetitions,
-and the fused kernel's own span inside every call.  Ciphertexts a call go
-from 64 to 8192, so K1's and K2's plans cross wave boundaries.  It also
+and the fused kernel's own span inside every call; then the work around
+the kernel alone, as ``CircuitExecutor.run`` executes a level: the replay
+of a one-level CUDA graph captured with the kernel left out.  Ciphertexts
+a call go from 64 to 8192, so K1's and K2's plans cross wave boundaries.  It also
 times the generic path at one family, and asks the card how many clusters
 it runs at once for every plan the model can choose.
 
@@ -22,7 +24,8 @@ points (``--dry`` refits from them):
 
 * per family (key ``n,k,N,l,ks_l``): the kernel's fixed term and its time a
   wave unit (``kernel = F + waves · cb · sms / cluster · τ``), and the work
-  around the kernel (``a + b · rows · (kN+1)``);
+  around the kernel (``a + b · rows · (kN+1)``, from the points'
+  ``around_ms``);
 * per kernel: the median efficiency against the data sheet's int8 rate and
   the median fixed term, which families without an entry take; the around
   fit across all points; the generic path's slowdown per bootstrap; the
@@ -32,6 +35,7 @@ points (``--dry`` refits from them):
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -121,15 +125,16 @@ def synth_level(params: TFHEParams, nb: int):
 
 
 def time_point(ex, nb: int, v: int, reps: int = 3) -> dict:
-    """``ex.step`` on a synthetic level of ``nb`` bootstraps × ``v``
-    evaluations: a warm-up call, then ``reps`` repetitions of chained calls,
-    each timed with CUDA events (the host clock on the CPU), and the fused
-    kernel's span in each call.  Medians over the repetitions, ms."""
+    """A synthetic level of ``nb`` bootstraps × ``v`` evaluations through
+    ``ex.step``: a warm-up call, then ``reps`` repetitions of chained
+    calls, each timed with CUDA events (the host clock on the CPU), and the
+    fused kernel's span in each call.  Where a kernel ran, the work around
+    it is then timed alone, the same way (:func:`time_around`).  Medians
+    over the repetitions, ms."""
     from ..runtime.profile import _ms, _stamp, _sync, _timed_rotations
 
     device = ex.device
     ex.levels = [synth_level(ex.params, nb)]
-    ex._plan_device = None
     buf = torch.zeros((3, v, ex.params.big_dim + 1), dtype=torch.int32,
                       device=device)
     _sync(device)
@@ -150,9 +155,64 @@ def time_point(ex, nb: int, v: int, reps: int = 3) -> dict:
         steps.append(_ms(start, end) / iters)
         if spans:
             kernels.append(sum(_ms(a, b) for a, b, *_ in spans) / len(spans))
-    return {"nb": nb, "v": v, "rows": nb * v, "iters": iters,
-            "step_ms": statistics.median(steps), "all_step_ms": steps,
-            "kernel_ms": statistics.median(kernels) if kernels else None}
+    out = {"nb": nb, "v": v, "rows": nb * v, "iters": iters,
+           "step_ms": statistics.median(steps), "all_step_ms": steps,
+           "kernel_ms": statistics.median(kernels) if kernels else None}
+    if kernels:
+        around = time_around(ex, buf, iters, reps)
+        out.update(around_ms=statistics.median(around), all_around_ms=around)
+    return out
+
+
+@contextlib.contextmanager
+def _without_rotations():
+    """Every fused blind-rotation call of the fast bootstrap launches
+    nothing and returns an uninitialised accumulator of its shape
+    ([k+1, B, N] int32): a level then runs only the work around the
+    kernel."""
+    from ..ops import blind_rotate as br
+    inner = br.blind_rotate_fused
+
+    def left_out(b_init, a_t, test_polys, kernels, params, *args, **kw):
+        return test_polys.new_empty((params.glwe_dim + 1,)
+                                    + tuple(test_polys.shape))
+
+    br.blind_rotate_fused = left_out
+    try:
+        yield
+    finally:
+        br.blind_rotate_fused = inner
+
+
+def time_around(ex, buf: torch.Tensor, iters: int, reps: int) -> list[float]:
+    """ms a call of ``ex``'s one level with its kernel calls left out
+    (:func:`_without_rotations`), ``reps`` repetitions of ``iters`` chained
+    calls: on the card the level as ``run`` executes it, a one-level CUDA
+    graph captured without the kernel's node and replayed; on the CPU
+    ``ex.step``.  The graph is dropped after."""
+    from ..runtime.profile import _ms, _stamp, _sync
+
+    device = buf.device
+    with _without_rotations():
+        if device.type == "cuda":
+            graphs = ex._graphs_of([buf])
+            call = graphs.replay
+        else:
+            def call():
+                ex.step(buf, 0)
+        times = []
+        try:
+            for _ in range(reps):
+                _sync(device)
+                start = _stamp(device)
+                for _ in range(iters):
+                    call()
+                end = _stamp(device)
+                _sync(device)
+                times.append(_ms(start, end) / iters)
+        finally:
+            ex._graphs.clear()
+    return times
 
 
 def time_family(name: str, params: TFHEParams, staged: bool,
@@ -175,7 +235,9 @@ def time_family(name: str, params: TFHEParams, staged: bool,
                   limbs=4, **_device_plan(params, r, orient, device))
         out.append(pt)
         print(f"# {name} rows={r}: step {pt['step_ms']:.3f} ms, kernel "
-              f"{pt['kernel_ms']:.3f} ms, plan {pt['plan']} waves "
+              f"{pt['kernel_ms']:.3f} ms, around {pt['around_ms']:.4f} ms "
+              f"{[round(x, 4) for x in pt['all_around_ms']]}, plan "
+              f"{pt['plan']} waves "
               f"{pt['waves']}", file=sys.stderr)
         if pt["step_ms"] > MAX_CALL_MS:
             break
@@ -279,8 +341,7 @@ def fit(raw: dict) -> dict:
         ideal = 2.0 * (n * (k + 1) ** 2 * l * N * N * 4
                        + k * N * ks_l * (n + 1) * 4) / PEAK_INT8_OPS * 1e6
         around = _line([pt["rows"] * (k * N + 1) for pt in pts],
-                       [(pt["step_ms"] - pt["kernel_ms"]) * 1e3
-                        for pt in pts])
+                       [pt["around_ms"] * 1e3 for pt in pts])
         entries[key] = {"name": pts[0]["family"], "kernel": kern,
                         "fixed_us": fixed, "tau_us": tau,
                         "eff": ideal / tau,
@@ -298,7 +359,7 @@ def fit(raw: dict) -> dict:
     for pt in raw["points"]:
         _, k, N, *_ = (int(x) for x in pt["key"].split(","))
         xs.append(pt["rows"] * (k * N + 1))
-        ys.append((pt["step_ms"] - pt["kernel_ms"]) * 1e3)
+        ys.append(pt["around_ms"] * 1e3)
     a, b = _line(xs, ys)
     profile = DeviceProfile(
         name="h100", int8_ops=PEAK_INT8_OPS, mem_bytes=PEAK_BYTES,

@@ -29,7 +29,8 @@ import torch.distributed as dist
 from .mesh import Mesh, check_tp, make_mesh
 
 __all__ = ["init_distributed", "global_mesh", "local_gpus",
-           "gather_outputs", "barrier", "process_index", "TIMEOUT"]
+           "gather_outputs", "barrier", "process_index", "shutdown",
+           "TIMEOUT"]
 
 # How long a collective (or the rendezvous) waits for the other processes
 # before it raises.
@@ -67,6 +68,14 @@ def init_distributed(coordinator: str | None = None,
                             world_size=num_processes, rank=process_id,
                             timeout=TIMEOUT)
     return True
+
+
+def shutdown() -> None:
+    """Leave the process group (nothing in a single process).  A process
+    that exits with its gloo group alive can abort in the group's
+    destructor ("terminate called without an active exception")."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def process_index() -> int:

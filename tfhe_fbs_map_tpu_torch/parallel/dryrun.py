@@ -91,7 +91,8 @@ def mesh_against_one_device(mesh: Mesh, prog, keys, fast, values,
                             seed: int, oracle,
                             modulus: int | None = None) -> dict:
     """``prog`` run under ``mesh`` and on its first device alone, with the
-    same keys and the inputs encrypted from ``default_rng(seed)``: whether
+    same keys and the inputs encrypted from ``default_rng(seed)`` (on the
+    card each executor's graphs captured before its timed run): whether
     the final wire buffers are bitwise equal and the mesh's decryptions
     equal ``oracle`` (mod ``modulus`` where given); the mesh run's
     fused-kernel launches and both runs' wall seconds; the family calls a
@@ -101,9 +102,11 @@ def mesh_against_one_device(mesh: Mesh, prog, keys, fast, values,
 
     one = CircuitExecutor(prog, keys, fast_keys=fast)
     buf1 = one.encrypt_inputs(values, np.random.default_rng(seed))
+    one.capture(buf1)
     want, _, one_s = _counted(mesh, lambda: one.run(buf1))
     ex = CircuitExecutor(prog, keys, fast_keys=fast, mesh=mesh)
     buf0 = ex.encrypt_inputs(values, np.random.default_rng(seed))
+    ex.capture(buf0)
     shards, launches, run_s = _counted(mesh, lambda: ex.run(buf0))
     got = torch.cat([s.to(want.device) for s in shards], dim=1)
     outs = ex.decrypt_outputs(shards)

@@ -25,6 +25,12 @@ preset (``--params aes128_p4``, ``kreyvium_p10_staged``, …) pins them.
 builds the same keys and whole-batch ciphertexts from ``--seed`` and runs
 its slice; ``run_s`` is the wall time between two barriers around the run,
 and process 0 alone prints the JSON line of the gathered outputs.
+
+On a CUDA device the executor replays one CUDA graph a level group
+(:meth:`..runtime.executor.CircuitExecutor.run`); they are captured after
+the inputs are encrypted and before the timed window (``# graphs:`` on
+stderr), so ``run_s`` is replay alone.  ``--checkpoint`` runs the first
+repeat's levels one by one, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -248,6 +254,20 @@ def family_json(params) -> dict:
 
 
 def main(argv=None) -> int:
+    """The runtime CLI; a process group it joins it also leaves."""
+    import torch.distributed as dist
+
+    from ..parallel.distributed import shutdown
+
+    held = dist.is_initialized()      # the caller's group stays
+    try:
+        return _run(argv)
+    finally:
+        if not held:
+            shutdown()
+
+
+def _run(argv=None) -> int:
     from ..tfhe.params import PRESETS, STAGED_PRESETS
 
     ap = argparse.ArgumentParser(
@@ -495,6 +515,14 @@ def main(argv=None) -> int:
     t0 = time.time()
     buf0 = ex.encrypt_inputs(values, rng)
     enc_s = time.time() - t0
+    if device.type == "cuda" and (not args.checkpoint or args.repeat > 1):
+        # the graphs a run without a checkpoint replays, captured before
+        # the timed window
+        t0 = time.time()
+        ex.capture(buf0)
+        positions = f" x {len(mesh.devices)} positions" if mesh else ""
+        print(f"# graphs: {len(ex.groups)} groups{positions} captured in "
+              f"{time.time() - t0:.1f}s", file=sys.stderr)
     run_s = None
     for i in range(max(1, args.repeat)):
         sync()

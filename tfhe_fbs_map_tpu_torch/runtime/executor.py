@@ -3,8 +3,7 @@
 The counterpart of ``tfhe_fbs_map_tpu.runtime.executor``.  A
 :class:`LutProgram` is compiled into per-level plans (bootstraps grouped by
 depth, each level padded to a power-of-two bootstrap count, padding results
-sent to one dummy wire row); :meth:`CircuitExecutor.run` is a Python loop of
-:meth:`CircuitExecutor.step` over the levels.  Two pipelines:
+sent to one dummy wire row).  Two pipelines:
 
 * native, one parameter family (:func:`compile_program`,
   :func:`_level_step`): each level is one gather + integer lincomb and one
@@ -15,15 +14,22 @@ sent to one dummy wire row); :meth:`CircuitExecutor.run` is a Python loop of
   fam2 call (stage 2 of the splits, then the fam2 singles), and wires are
   produced pre-scaled to what their consumers need.
 
+:meth:`CircuitExecutor.run` walks the level groups (:func:`level_groups`:
+runs of consecutive levels whose plan tensors have the same shapes, which
+the JAX executor runs as one ``lax.scan`` each).  On a CUDA device each
+group is one CUDA graph, captured once a wire-buffer layout
+(:meth:`CircuitExecutor.capture`) and replayed; on the CPU the group's
+levels run one :meth:`CircuitExecutor.step` after another.  With a
+checkpoint, ``run`` steps level by level, as JAX does.
+
 Under a dp mesh (:mod:`..parallel.mesh`) the wire buffer is a list of
 per-position ``[W, V/dp, d]`` shards, the evaluation batch split in mesh
 order.  The whole batch is encrypted with one rng, as on one device, and
 then split, so every draw and every bit equals the one-device run's.  Each
-level runs :meth:`CircuitExecutor.step` on every shard in turn, with that
-device's keys and plan tensors (one copy a device), and nothing waits for a
-device between levels: each device's stream orders its own work.
-
-Not here yet: grouping levels into one launch.
+position runs every level with its device's keys and plan tensors (one
+copy a device), and on the card has its own static buffer and graphs;
+nothing waits for a device between levels: each device's stream orders its
+own work.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ import torch
 
 from ..frontend.lut_program import (LutProgram, N_BOOT, N_CONST, N_INPUT,
                                     N_LIN)
+from ..ops import fused_blind_rotate as fbr
 from ..parallel.mesh import Mesh, shard_batch
 from ..tfhe.encrypt import decode, encode, lwe_encrypt, lwe_phase
 from ..tfhe.keys import TFHEKeys
@@ -48,7 +55,7 @@ from ..tfhe.staged import SELECT_P, StagedKeys, split_node
 
 __all__ = ["CircuitExecutor", "LevelPlan", "StagedLevelPlan",
            "compile_program", "compile_staged", "staged_probe",
-           "staged_level_routes", "native_level_boots"]
+           "staged_level_routes", "native_level_boots", "level_groups"]
 
 
 @dataclass
@@ -511,6 +518,62 @@ def _staged_level_step(keys1: TFHEKeys, keys2: TFHEKeys, fast1, fast2,
     return buf
 
 
+def level_groups(levels: list, staged: bool) -> list[range]:
+    """The runs of consecutive levels whose plan tensors have the same
+    shapes (and, staged, the same ``n_splits``), in order: the groups the
+    JAX executor's ``_scan_groups_from(0)`` stacks into one ``lax.scan``
+    each."""
+    groups: list[range] = []
+    last = None
+    for lv, plan in enumerate(levels):
+        key = tuple(x.shape for x in plan.arrays())
+        if staged:
+            key = (plan.n_splits,) + key
+        if groups and key == last:
+            groups[-1] = range(groups[-1].start, lv + 1)
+        else:
+            groups.append(range(lv, lv + 1))
+        last = key
+    return groups
+
+
+# One capture stream a device for the whole process, as torch.cuda.graph
+# keeps one: cuBLAS keeps a workspace for every stream it has run on, so a
+# stream of each executor's own would leave one behind for each.
+_CAPTURE_STREAMS: dict[torch.device, torch.cuda.Stream] = {}
+
+
+def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+    if device not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+    return _CAPTURE_STREAMS[device]
+
+
+def _layout(shards: list[torch.Tensor]) -> tuple:
+    """The key of a wire buffer's graphs: each position's device and
+    shape."""
+    return tuple((s.device, tuple(s.shape)) for s in shards)
+
+
+class _Graphs:
+    """The captured level groups of one wire-buffer layout: a static buffer
+    a position, and for each group and position (group-major, the order of
+    capture and of replay) a CUDA graph and the kernel launches one replay
+    of it makes."""
+
+    def __init__(self, statics: list[torch.Tensor]):
+        self.statics = statics
+        self.graphs: list[tuple[torch.cuda.CUDAGraph, dict]] = []
+
+    def replay(self) -> None:
+        """Every group on every position, in place on the static buffers;
+        each replay adds its launches to ``fbr.LAUNCHES``."""
+        for graph, launches in self.graphs:
+            graph.replay()
+            for k, n in launches.items():
+                fbr.LAUNCHES[k] += n
+
+
 class CircuitExecutor:
     def __init__(self, prog: LutProgram, keys: TFHEKeys | StagedKeys,
                  fast_keys=None, mesh: Mesh | None = None):
@@ -551,13 +614,29 @@ class CircuitExecutor:
         self.dummy_row = plan.dummy_row
         self.num_wires = plan.num_wires
         self.num_bootstraps = plan.num_bootstraps
-        self._plan_device = None
         self._replicas = {self.device: (keys, fast_keys)}
         # copy the keys and plans to every device of the mesh now, not
         # inside the first timed level
         for dev in mesh.distinct if mesh is not None else ():
             self._replica(dev)
             self.plan_tensors(dev)
+
+    @property
+    def levels(self) -> list:
+        return self._levels
+
+    @levels.setter
+    def levels(self, levels: list) -> None:
+        """New levels drop what was built from the old ones: the plan
+        tensors on the devices and the captured graphs."""
+        self._levels = levels
+        self._plan_device = None
+        self._graphs: dict[tuple, _Graphs] = {}
+
+    @property
+    def groups(self) -> list[range]:
+        """The level groups :meth:`run` walks (:func:`level_groups`)."""
+        return level_groups(self.levels, self.staged)
 
     def _replica(self, device: torch.device):
         """(keys, fast keys) on ``device``: the executor's own on their
@@ -630,12 +709,95 @@ class CircuitExecutor:
             buf[rows] = cts.reshape(len(names), v, d)
         return buf if self.mesh is None else self._shard(buf)
 
+    def _shards(self, buf) -> list[torch.Tensor]:
+        """``buf`` as :meth:`run` takes it, as a list of shards."""
+        if (self.mesh is not None) == isinstance(buf, torch.Tensor):
+            raise TypeError("run takes a list of shards under a mesh, a "
+                            "tensor without one")
+        return list(buf) if self.mesh is not None else [buf]
+
+    def capture(self, buf) -> int:
+        """Capture the CUDA graphs :meth:`run` replays for ``buf``'s layout
+        (a tensor, or under a mesh this process's shards) now, so that no
+        timed run pays for it; returns how many it captured (groups ×
+        positions): 0 off the card or when they exist already.  ``buf``'s
+        values are not used."""
+        shards = self._shards(buf)
+        if shards[0].device.type != "cuda" or _layout(shards) in self._graphs:
+            return 0
+        return len(self._graphs_of(shards).graphs)
+
+    def _graphs_of(self, shards: list[torch.Tensor]) -> _Graphs:
+        """The graphs of the shards' layout, captured where they are not."""
+        key = _layout(shards)
+        if key not in self._graphs:
+            self._graphs[key] = self._capture(shards)
+        return self._graphs[key]
+
+    def _capture(self, shards: list[torch.Tensor]) -> _Graphs:
+        """One CUDA graph for every level group at every position, captured
+        group-major (the order :meth:`_Graphs.replay` replays them in), the
+        graphs of a device in one memory pool, each reading and writing its
+        position's static buffer.
+
+        First each device runs the first level of every group once, on a
+        scratch copy, on the capture stream: that builds and loads the
+        kernels and fills their plan caches and cuBLAS's workspace, so that
+        nothing in a capture waits for the card.  The warm-up's launches
+        and the ones a capture counts are taken back out of
+        ``fbr.LAUNCHES``; each replay adds its graph's.  A capture that
+        meets a host sync raises."""
+        devices = list(dict.fromkeys(s.device for s in shards))
+        pools = {}
+        before = dict(fbr.LAUNCHES)
+        try:
+            for dev in devices:
+                self._replica(dev)
+                self.plan_tensors(dev)
+                stream = _capture_stream(dev)
+                stream.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.device(dev), torch.cuda.stream(stream):
+                    scratch = next(s for s in shards
+                                   if s.device == dev).clone()
+                    for group in self.groups:
+                        self.step(scratch, group.start)
+                    del scratch
+                torch.cuda.current_stream(dev).wait_stream(stream)
+                pools[dev] = torch.cuda.graph_pool_handle()
+        finally:
+            fbr.LAUNCHES.update(before)
+        graphs = _Graphs([torch.empty_like(s) for s in shards])
+        for group in self.groups:
+            for static in graphs.statics:
+                dev = static.device
+                graph = torch.cuda.CUDAGraph()
+                before = dict(fbr.LAUNCHES)
+                try:
+                    with torch.cuda.device(dev), torch.cuda.graph(
+                            graph, pool=pools[dev],
+                            stream=_capture_stream(dev)):
+                        for lv in group:
+                            self.step(static, lv)
+                finally:
+                    launches = {k: fbr.LAUNCHES[k] - before[k]
+                                for k in before}
+                    for k, n in launches.items():
+                        fbr.LAUNCHES[k] -= n
+                graphs.graphs.append((graph, launches))
+        return graphs
+
     def run(self, buf, checkpoint: str | None = None,
             checkpoint_every: int | None = None,
             checkpoint_budget: float = 0.1):
         """Execute all levels on a copy of ``buf`` (a tensor, or under a
         mesh this process's shards); returns the filled wire buffer in the
         same form.
+
+        Without a checkpoint on a CUDA device it copies ``buf`` into the
+        static buffers of its layout, replays every level group's graph
+        (capturing them first where :meth:`capture` has not) and returns
+        copies.  On the CPU, and with a checkpoint, the levels run one
+        :meth:`step` after another, which is each group's levels in turn.
 
         ``checkpoint``: optional ``.npz`` path.  The whole buffer is saved
         (keys ``buf``, ``level``, ``num_levels``, as the JAX executor saves
@@ -645,18 +807,22 @@ class CircuitExecutor:
         ``checkpoint_every``: fixed level interval; default: adaptive, a
         snapshot is taken when the time spent on snapshots stays within
         ``checkpoint_budget`` of the elapsed run, priced by the last one."""
+        shards = self._shards(buf)
+        if checkpoint is None and shards[0].device.type == "cuda":
+            graphs = self._graphs_of(shards)
+            for static, s in zip(graphs.statics, shards):
+                static.copy_(s)
+            graphs.replay()
+            shards = [static.clone() for static in graphs.statics]
+            return shards if self.mesh is not None else shards[0]
         if checkpoint is not None and self.mesh is not None \
                 and self.mesh.spans_processes:
             raise ValueError("checkpoints of a mesh that spans processes "
                              "are not supported")
-        if (self.mesh is not None) == isinstance(buf, torch.Tensor):
-            raise TypeError("run takes a list of shards under a mesh, a "
-                            "tensor without one")
         t_run = time.time()
         spent, cost_est = 0.0, 0.0
         start = 0
-        shards = [s.clone() for s in (buf if self.mesh is not None
-                                      else [buf])]
+        shards = [s.clone() for s in shards]
         if checkpoint is not None:
             whole = (shards[0].shape[0], sum(s.shape[1] for s in shards),
                      shards[0].shape[2])

@@ -5,11 +5,12 @@
         [--levels 40] [--trace-levels 40] [--tile-sweep] [--out prof.json]
 
 Runs the program's levels one at a time through ``CircuitExecutor.step``,
-as ``CircuitExecutor.run`` does, and times every level and every fused
-blind-rotation call inside it (CUDA events on the card, the host clock on
-the CPU), grouped by ciphertexts a level and, for each parameter family
-(``fam1``/``fam2`` of a staged preset, ``native`` otherwise), by
-ciphertexts a launch.  When every level ran it decrypts and checks the
+as ``CircuitExecutor.run`` does with a checkpoint (without one it replays
+a CUDA graph a level group, which hides the levels), and times every level
+and every fused blind-rotation call inside it (CUDA events on the card,
+the host clock on the CPU), grouped by ciphertexts a level and, for each
+parameter family (``fam1``/``fam2`` of a staged preset, ``native``
+otherwise), by ciphertexts a launch.  When every level ran it decrypts and checks the
 outputs against ``LutProgram.eval``.  It then runs the first
 ``--trace-levels`` levels again under ``torch.profiler``: the device's busy
 time, its idle share between the first and the last kernel, and the
@@ -36,7 +37,7 @@ import torch
 from ..tfhe.params import StagedPreset
 from .executor import CircuitExecutor
 
-__all__ = ["profile_program"]
+__all__ = ["profile_program", "trace_run"]
 
 
 def _stamp(device: torch.device):
@@ -137,32 +138,30 @@ def time_levels(ex: CircuitExecutor, buf: torch.Tensor,
     }
 
 
-def trace_levels(ex: CircuitExecutor, buf: torch.Tensor, levels: int,
-                 top: int = 12) -> dict:
-    """The first ``levels`` levels under ``torch.profiler``: device busy
-    time (union of kernel spans), idle share between the first and the last
-    kernel, and the kernels with the most device time.  Device numbers are
-    None where the profiler recorded no device activity."""
+def trace_run(device: torch.device, fn, top: int = 12) -> dict:
+    """``fn()`` under ``torch.profiler``, synchronized: its wall seconds
+    (the profiler's start and stop left out), the device's busy time (union of kernel spans), its idle share between
+    the first and the last kernel, and the kernels with the most device
+    time.  Device numbers are None where the profiler recorded no device
+    activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    device = ex.device
-    acts = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
-    buf = buf.clone()
+    # only the device's activity is read; on the card the host's events
+    # would only slow the trace down
+    acts = [ProfilerActivity.CUDA if device.type == "cuda"
+            else ProfilerActivity.CPU]
     _sync(device)
-    t0 = time.perf_counter()
     with profile(activities=acts) as prof:
-        for lv in range(levels):
-            buf = ex.step(buf, lv)
+        t0 = time.perf_counter()
+        fn()
         _sync(device)
-    wall = time.perf_counter() - t0
+        wall = time.perf_counter() - t0
     kernels = [e for e in prof.events()
                if e.device_type == DeviceType.CUDA]
-    res = {"window_levels": levels, "wall_s": wall,
-           "device_events": len(kernels), "busy_s": None, "idle_share": None,
-           "first_span_to_last_s": None, "top_kernels_ms": []}
+    res = {"wall_s": wall, "device_events": len(kernels), "busy_s": None,
+           "idle_share": None, "first_span_to_last_s": None,
+           "top_kernels_ms": []}
     if not kernels:
         return res
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
@@ -186,6 +185,18 @@ def trace_levels(ex: CircuitExecutor, buf: torch.Tensor, levels: int,
                                       in per_name.items()),
                                      key=lambda r: -r[1])[:top])
     return res
+
+
+def trace_levels(ex: CircuitExecutor, buf: torch.Tensor, levels: int,
+                 top: int = 12) -> dict:
+    """The first ``levels`` levels, stepped one by one, under
+    ``torch.profiler`` (:func:`trace_run`)."""
+    buf = buf.clone()
+
+    def walk():
+        for lv in range(levels):
+            ex.step(buf, lv)
+    return {"window_levels": levels, **trace_run(ex.device, walk, top)}
 
 
 def tile_sweep(fast, batch: int, reps: int = 2) -> dict:
