@@ -71,21 +71,38 @@ Phases, each printed with what ran and how long it took:
    ``bench_multichip`` at its defaults, errors 0;
 10. CUDA graphs: AES-128 at batch 8 through K1 and through ``auto`` (K2),
     staged Kreyvium-1152 at batch 16 (K1) and AES-128 at batch 16 on two
-    shards of the card (K1), each as the eager level loop (one ``step`` a
-    level, as ``run`` walks with a checkpoint) and as ``run``'s replay of
-    one CUDA graph a level group, in turns (eager, graph, graph, eager,
-    the last two under ``torch.profiler``): each ``run_s``, the capture's
-    seconds, the device's idle share over a whole run of each, the final
-    wire buffers bitwise equal and bit-exact, and the same launches in
-    every run (230, 230, 28 and 460).
+    shards of the card (K1), each once as ``run``'s replay of one CUDA
+    graph a level group and then once as the eager level loop (one
+    ``step`` a level, as ``run`` walks with a checkpoint), AES-128 through
+    K1 both under ``torch.profiler``: each ``run_s``, the capture's seconds,
+    the device's idle share over a whole run of each on the profiled row,
+    the final wire buffers bitwise equal and bit-exact, and the same
+    launches in both runs (230, 230, 28 and 460);
+11. the harness: (a) K1 at N=4096 (k=1, l=2, b=8) bitwise against its
+    plain version at n=8 at the plan ``k1_plan`` picks for 64, 512, 2048
+    and 533 (a ragged tile) ciphertexts, at 4 and 3 limbs, then at full
+    length (n=700, 512 ciphertexts) with both times and the bound; (b)
+    ``harness.sweep`` (c17 and c432r at p=3, 4 with their p=2 ``basic``
+    baselines; s9234r at p=22 and its baseline) into a temporary
+    directory, every row's H100 ``boot_cost`` and ``native_rt_est`` finite
+    (s9234r p=22 also ``staged_rt_est``) and printed beside the committed
+    TPU row, the reference's; (c) each program the sweep wrote through the
+    runtime CLI as phase 7 runs its programs, at batch 16 and ``--p-error
+    1e-7``, s9234r p=22 with ``--staged on``, ``off`` and ``auto``: every
+    run bit-exact with the priced kernel once a family call, ``run_s``
+    beside the sweep's estimate of the route taken at that error target
+    (which must equal ``predicted_run_s`` within 1%), and whether ``auto``
+    took the faster route; then ``harness.analyse`` over the aggregates
+    and the runs.
 
 Before the last line it prints one JSON object with a row per kernel (no
 PyTorch call computes the n-step recurrence, so ``library_ms`` is null;
 ``launches`` sums the kernel's launches over the main paths of phases 5 to
-10, each counted from 0, ``launches_by_path`` splits them (phase 10's
-graph runs as ``graphs ...``);
-``staged_launches`` and ``bench_launches`` hold the full-length checks of
-phases 4 and 8) and the card's name and power limit; the last line is
+11, each counted from 0, ``launches_by_path`` splits them (phase 10's
+graph runs as ``graphs ...``, phase 11's as ``sweep ...``);
+``staged_launches``, ``bench_launches`` and ``n4096_launches`` hold the
+full-length checks of phases 4, 8 and 11) and the card's name and power
+limit; the last line is
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
 on any failure, without a CUDA device, or away from a checkout of the repo.
 """
@@ -100,6 +117,7 @@ import os
 import socket
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -251,9 +269,9 @@ def check_k1(fbr, presets, worst: dict) -> None:
         # kreyvium_p10_staged's fam1 (its fam2 has fam2's shape)
         ("kreyvium fam1 k=1 N=1024 l=4 b=5 n=8", shape_params(1, 1024, 4, 5),
          8, 4, staged, {}),
-        # native p32, at the largest N K1 serves
-        (f"k=1 N={fbr.K1_MAX_N} l=3 b=7 n=8",
-         shape_params(1, fbr.K1_MAX_N, 3, 7), 8, 4, batches, {}),
+        # native p32 (N=4096 is phase 11's)
+        ("native p32 k=1 N=2048 l=3 b=7 n=8", shape_params(1, 2048, 3, 7),
+         8, 4, batches, {}),
     ]
     for label, params, steps, limbs, sizes, forced in cases:
         for batch in sizes:
@@ -452,6 +470,53 @@ def check_staged_launches(fbr, worst: dict) -> list[dict]:
     return rows
 
 
+# phase 11 (a): K1 at N=4096 (k=1, l=2, b=8): the checks' steps and
+# ciphertexts (533 leaves a ragged last tile), then one launch at full
+# length, as a (1, 4096) family of the optimizer's grid runs it
+N4096 = (1, 4096, 2, 8)
+N4096_STEPS = 8
+N4096_BATCHES = (64, 512, 2048, 533)
+N4096_FULL = (700, 512)
+
+
+def check_k1_4096(fbr, worst: dict) -> list[dict]:
+    """Phase 11 (a): K1 at N=4096 bitwise against its plain version on the
+    card, at the plan k1_plan picks for each batch at 4 and 3 limbs, then at
+    full length (n=700, 512 ciphertexts) with both times and the bound."""
+    import torch
+
+    params = shape_params(*N4096)
+    for batch in N4096_BATCHES:
+        for limbs in (4, 3):
+            dev = kernel_inputs(params, N4096_STEPS, batch, limbs, True,
+                                seed=13)
+            plain = fbr.blind_rotate_k1_plain(*dev, params)
+            got = fbr.blind_rotate_k1(*dev, params)
+            torch.cuda.synchronize()
+            plan = fbr.k1_device_plan(batch, params, dev[0].device, limbs)
+            stages, smem = fbr.k1_layout(plan, limbs)
+            report("k1", f"k=1 N=4096 l=2 b=8 n={N4096_STEPS} limbs={limbs} "
+                   f"B={batch} plan cb={plan.cb} cluster={plan.cluster} "
+                   f"nw={plan.nw} stages={stages} smem={smem}",
+                   int((got.long() - plain.long()).abs().max()), worst)
+            del dev, plain, got
+    steps, batch = N4096_FULL
+    dev = kernel_inputs(params, steps, batch, 4, True, seed=14)
+    k_ms, k_out = cuda_ms(lambda: fbr.blind_rotate_k1(*dev, params), 1)
+    p_ms, p_out = once_ms(lambda: fbr.blind_rotate_k1_plain(*dev, params))
+    b_ms, b_by = bound_ms(params, steps, batch, dev[3])
+    err = int((k_out.long() - p_out.long()).abs().max())
+    report("k1", f"k=1 N=4096 l=2 b=8 full length n={steps} B={batch} "
+           f"({fbr.k1_device_plan(batch, params, dev[0].device)}): kernel "
+           f"{k_ms:.3f} ms, plain version {p_ms:.3f} ms, bound {b_ms:.3f} ms "
+           f"({b_by})", err, worst)
+    del dev, k_out, p_out
+    torch.cuda.empty_cache()
+    return [{"launch": "k=1 N=4096 l=2 b=8", "n": steps,
+             "ciphertexts": batch, "max_abs_err": err, "ms": k_ms,
+             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}]
+
+
 def entry_point(main, argv: list, launches: dict) -> tuple[int, dict, dict]:
     """``main(argv)`` of an entry point, as a user calls it, with the launch
     counts set to 0 just before and read just after; returns its exit code,
@@ -608,12 +673,13 @@ def check_pick(fbr, pick, sizes: list[list[int]], worst: dict) -> list[str]:
     return model
 
 
-def run_optimizer(label: str, lbf: str, batch: int, fbr,
-                  worst: dict) -> dict:
+def run_optimizer(label: str, lbf: str, batch: int, fbr, worst: dict,
+                  staged: str = "auto", fbs_size: int | None = None) -> dict:
     """The runtime CLI on ``lbf`` with the optimizer's picks, as a user runs
-    it with no ``--params``: the picks checked against the card first
-    (:func:`check_pick`), then the run required bit-exact, on the families
-    picked, and to launch the priced kernel once for every family call."""
+    it with no ``--params`` (and ``--staged staged``, ``--fbs_size`` where
+    given): the picks checked against the card first (:func:`check_pick`),
+    then the run required bit-exact, on the families picked, and to launch
+    the priced kernel once for every family call."""
     from tfhe_fbs_map_tpu_torch.frontend.lut_program import parse_lbf
     from tfhe_fbs_map_tpu_torch.runtime.cli import family_json, optimizer_pick
     from tfhe_fbs_map_tpu_torch.runtime.executor import (compile_staged,
@@ -623,8 +689,8 @@ def run_optimizer(label: str, lbf: str, batch: int, fbr,
 
     with open(ROOT / lbf) as f:
         prog = parse_lbf(f.read())
-    p = prog.fbs_size or prog.min_fbs_size()
-    pick = optimizer_pick(prog, p, batch, "auto", P_ERROR)
+    p = fbs_size or prog.fbs_size or prog.min_fbs_size()
+    pick = optimizer_pick(prog, p, batch, staged, P_ERROR)
     if pick.staged:
         routes = staged_level_routes(prog, p)
         fam_calls = ([(ns, f1) for ns, f1, _ in routes],
@@ -644,7 +710,9 @@ def run_optimizer(label: str, lbf: str, batch: int, fbr,
         f"families {[family_json(f) for f in pick.families]}")
     orients = check_pick(fbr, pick, sizes, worst)
     kern = KERNEL[orients[0]]
-    res = run_cli([lbf, "--batch", str(batch), "--p-error", str(P_ERROR)],
+    res = run_cli([lbf, "--batch", str(batch), "--p-error", str(P_ERROR),
+                   "--staged", staged]
+                  + (["--fbs_size", str(fbs_size)] if fbs_size else []),
                   kern, fbr.LAUNCHES)
     want = ({"fam1": orients[0], "fam2": orients[1]} if pick.staged
             else orients[0])
@@ -974,7 +1042,9 @@ def run_bench_multichip(smi: str, launches: dict) -> dict:
     return res
 
 
-# phase 10: (label, program, preset, batch, orientation or "auto", dp)
+# phase 10: (label, program, preset, batch, orientation or "auto", dp); the
+# row whose two runs go under torch.profiler for the device's idle share
+GRAPH_PROFILED = "aes128_p4 fused_otf"
 GRAPH_RUNS = (
     ("aes128_p4 fused_otf", AES_LBF, "aes128_p4", 8, "fused_otf", 1),
     ("aes128_p4 auto", AES_LBF, "aes128_p4", 8, "auto", 1),
@@ -1042,13 +1112,15 @@ def share(x) -> str:
 
 
 def run_graphs(smi: str, launches: dict) -> list[dict]:
-    """Phase 10: each of GRAPH_RUNS as the eager level loop and as the
-    graph replay, in turns (eager, graph, graph, eager), each run's wall
-    seconds between two synchronisations, the last two under
-    ``torch.profiler`` (the device's idle share over the whole run), and
-    the capture's seconds; the launches of each run (equal, one a family
-    call a position) and the final wire buffers (bitwise equal, and
-    bit-exact)."""
+    """Phase 10: each of GRAPH_RUNS once as the graph replay and then once
+    as the eager level loop, each run's wall seconds between two
+    synchronisations (for GRAPH_PROFILED both runs under ``torch.profiler``,
+    with the device's idle share over the whole run), and the capture's
+    seconds; the launches of each run (equal, one a family call a position)
+    and the final wire buffers (bitwise equal, and bit-exact).  The graph
+    runs first: the capture's warm-up builds the plan tensors and the
+    library workspaces, which the eager loop then finds built too, so both
+    timed runs are warm."""
     import numpy as np
     import torch
     from tfhe_fbs_map_tpu_torch.runtime.profile import trace_run
@@ -1062,26 +1134,27 @@ def run_graphs(smi: str, launches: dict) -> list[dict]:
         got = {}
         runs = {"eager": lambda: got.setdefault("eager", eager_run(ex, buf)),
                 "graph": lambda: got.setdefault("graph", ex.run(buf))}
-        secs, idle, counts = {"eager": [], "graph": []}, {}, []
+        profiled = label == GRAPH_PROFILED
+        secs, idle, counts = {}, {}, []
         torch.cuda.synchronize()
-        for i, kind in enumerate(("eager", "graph", "graph", "eager")):
-            if i == 1:
+        for kind in ("graph", "eager"):
+            if kind == "graph":
                 t0 = time.time()
                 graphs = ex.capture(buf)
                 torch.cuda.synchronize()
                 capture_s = time.time() - t0
             for k in launches:
                 launches[k] = 0
-            if i < 2:
+            if profiled:
+                traced = trace_run(dev, runs[kind])
+                secs[kind] = traced["wall_s"]
+                idle[kind] = traced["idle_share"]
+            else:
                 torch.cuda.synchronize()
                 t0 = time.time()
                 runs[kind]()
                 torch.cuda.synchronize()
-                secs[kind].append(time.time() - t0)
-            else:
-                traced = trace_run(dev, runs[kind])
-                secs[kind].append(traced["wall_s"])
-                idle[kind] = traced["idle_share"]
+                secs[kind] = time.time() - t0
             counts.append(dict(launches))
         outs = {kind: (b if isinstance(b, list) else [b])
                 for kind, b in got.items()}
@@ -1091,25 +1164,166 @@ def run_graphs(smi: str, launches: dict) -> list[dict]:
         exact = all(np.array_equal(np.asarray(v), dec[k])
                     for k, v in oracle.items())
         want = want_launches(kern, calls)
-        log(f"  {label}, batch {batch}: eager run_s "
-            f"{secs['eager'][0]:.3f}, graph {secs['graph'][0]:.3f}, then "
-            f"under the profiler graph {secs['graph'][1]:.3f}, eager "
-            f"{secs['eager'][1]:.3f}; capture {capture_s:.3f} s ({graphs} "
-            f"graphs, {len(ex.groups)} groups); device idle eager "
-            f"{share(idle['eager'])}, graph {share(idle['graph'])}; buffers "
-            f"{'bitwise equal' if same else 'DIFFER'}, bit_exact {exact}; "
-            f"launches {counts} on {smi}")
+        idle_txt = (f"under the profiler, device idle eager "
+                    f"{share(idle['eager'])}, graph {share(idle['graph'])}"
+                    if profiled else "not profiled")
+        log(f"  {label}, batch {batch}: eager run_s {secs['eager']:.3f}, "
+            f"graph {secs['graph']:.3f} ({idle_txt}); capture "
+            f"{capture_s:.3f} s ({graphs} graphs, {len(ex.groups)} "
+            f"groups); buffers {'bitwise equal' if same else 'DIFFER'}, "
+            f"bit_exact {exact}; launches {counts} on {smi}")
         if not same or not exact or any(c != want for c in counts):
             raise SystemExit(f"phase 10 {label}: graph and eager disagree "
                              f"or launched {counts}, want {want}")
         rows.append({"label": label, "kernel": kern, "launches": calls,
                      "eager_run_s": secs["eager"],
-                     "graph_run_s": secs["graph"], "profiled": [2, 3],
+                     "graph_run_s": secs["graph"], "profiled": profiled,
                      "capture_s": capture_s, "graphs": graphs,
                      "groups": len(ex.groups), "idle_share": idle})
         del ex, buf, got, outs, runs
     torch.cuda.empty_cache()
     return rows
+
+
+# phase 11 (b): the sweep's runs, (suite, benchmarks, sizes); (c): the batch
+# its programs run at (the sweep's RT_BATCH), and the program run staged,
+# native and auto
+SWEEP_RUNS = (("iscas85", ["c17", "c432r"], "3,4"),
+              ("iscas89", ["s9234r"], "22"))
+SWEEP_BATCH = 16
+SWEEP_STAGED = ("s9234r", 22)
+SWEEP_COLUMNS = ("boot_cost", "total_cost", "native_rt_est", "staged_rt_est")
+
+
+def finite(x) -> bool:
+    return isinstance(x, (int, float)) and x == x and abs(x) != float("inf")
+
+
+def run_sweeps(root: Path) -> list[dict]:
+    """Phase 11 (b): ``harness.sweep`` as a user runs it, into ``root``;
+    every row needs a finite ``boot_cost`` and ``native_rt_est`` (s9234r at
+    p=22 also ``staged_rt_est``), printed beside the committed TPU row of
+    the same (bench, p, mapper), the reference's."""
+    from tfhe_fbs_map_tpu_torch.harness import sweep
+
+    rows = []
+    for suite, benches, sizes in SWEEP_RUNS:
+        argv = ["--suite", suite, "--bench", *benches, "--sizes", sizes,
+                "--root", str(root)]
+        t0 = time.time()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = sweep.main(argv)
+        priced = [ln for ln in out.getvalue().splitlines()
+                  if ln.startswith("priced ")]
+        log(f"  harness.sweep {' '.join(argv[:-2])} -> rc {rc} in "
+            f"{time.time() - t0:.1f} s; {'; '.join(priced)}")
+        if rc:
+            raise SystemExit(f"harness.sweep {' '.join(argv)}: rc {rc}")
+        tpu = {(r["bench"], r["fbs_size"], r["mapper"]): r
+               for r in sweep.read_rows(ROOT / "outputs"
+                                        / f"{suite}_agg_est.csv")}
+        for r in sweep.read_rows(root / suite / f"{suite}_agg_est.csv"):
+            key = (r["bench"], r["fbs_size"], r["mapper"])
+            need = ["boot_cost", "native_rt_est"] + (
+                ["staged_rt_est"] if key[:2] == SWEEP_STAGED else [])
+            if not all(finite(r.get(k)) for k in need):
+                raise SystemExit(f"sweep row {key}: {need} not all finite: "
+                                 f"{r}")
+            ref = tpu.get(key, {})
+            log(f"  {key[0]} p={key[1]} {key[2]}: {r['nb_bootstrap']} "
+                f"bootstraps, norm2 {r['norm2_linprod']}"
+                + (" (the H100 row priced at the least p its tables "
+                   "need, the TPU row at the label's p=2)"
+                   if key[2] == "basic" else ""))
+            for k in SWEEP_COLUMNS:
+                log(f"    {k:<14} H100 (this run) {r.get(k, '-')!s:>12}   "
+                    f"TPU (the reference's, committed) "
+                    f"{ref.get(k, '-') if ref else 'no row'}")
+            rows.append(r)
+    return rows
+
+
+def run_sweep_programs(rows: list[dict], root: Path, fbr, worst: dict,
+                       smi: str) -> list[tuple[str, dict]]:
+    """Phase 11 (c): each program the sweep wrote through the runtime CLI
+    at SWEEP_BATCH with the optimizer's picks at ``--p-error 1e-7``
+    (:func:`run_optimizer`: bit-exact, the priced kernel once a family
+    call), s9234r at p=22 ``--staged on``, ``off`` and ``auto``; each JSON
+    line saved under ``root/runs`` and the analysis tables printed over
+    them and the sweep's aggregates.  Each run's ``run_s`` is printed
+    against the sweep's estimate of it: the row priced again by
+    ``add_estimates`` at the run's error target, whose ``*_rt_est`` of the
+    route taken must be the CLI's ``predicted_run_s`` within 1%.  A
+    ``basic`` baseline is labelled p=2 (the reference's convention) while
+    its 2-input gates' tables need a larger p: the sweep prices it and it
+    runs at the least p that realizes them, ``--fbs_size`` as a user passes
+    it."""
+    from tfhe_fbs_map_tpu_torch.frontend.lut_program import parse_lbf
+    from tfhe_fbs_map_tpu_torch.harness import analyse, sweep
+
+    runs = []
+    (root / "runs").mkdir()
+    estimates = [dict(r) for r in rows]
+    sweep.add_estimates(estimates, root / "runs_estimated.csv",
+                        p_error=P_ERROR)
+    for r, est in zip(rows, estimates):
+        lbf = r["output_lbf"]
+        stem = Path(lbf).stem
+        with open(lbf) as f:
+            prog = parse_lbf(f.read())
+        p_min = prog.min_fbs_size()
+        fbs_size = p_min if p_min > (prog.fbs_size or 0) else None
+        if fbs_size:
+            log(f"  {stem}: its tables need p={p_min} (the .lbf says "
+                f"p={prog.fbs_size}), run with --fbs_size {p_min}")
+        modes = (("on", "off", "auto")
+                 if (r["bench"], r["fbs_size"]) == SWEEP_STAGED
+                 else ("auto",))
+        got = {}
+        for mode in modes:
+            label = f"sweep {stem} staged={mode}"
+            res = run_optimizer(label, lbf, SWEEP_BATCH, fbr, worst, mode,
+                                fbs_size)
+            got[mode] = res
+            runs.append((label, res))
+            col = "staged_rt_est" if res["staged"] else "native_rt_est"
+            if not finite(est[col]) or res["predicted_run_s"] is None:
+                raise SystemExit(f"{label}: no {col} from the sweep "
+                                 f"({est[col]!r}) or no CLI prediction")
+            est_s = est[col] * SWEEP_BATCH / 1e6
+            log(f"  {label}: run_s {res['run_s']} against the sweep's "
+                f"{col} at p_error {P_ERROR}, {est[col]} us an evaluation "
+                f"= {est_s:.6f} s at batch {SWEEP_BATCH} (run_s / sweep "
+                f"{res['run_s'] / est_s:.3f}); the CLI predicted "
+                f"{res['predicted_run_s']}; on {smi}")
+            if abs(est_s / res["predicted_run_s"] - 1) > 0.01:
+                raise SystemExit(f"{label}: the sweep prices the run at "
+                                 f"{est_s} s, the CLI at "
+                                 f"{res['predicted_run_s']} s")
+            name = stem if mode == "auto" else f"{stem}_{mode}"
+            (root / "runs" / f"{name}.json").write_text(
+                json.dumps({k: v for k, v in res.items()
+                            if k not in ("launches", "all_launches")}))
+        if len(got) == 3:
+            staged_s, native_s = got["on"]["run_s"], got["off"]["run_s"]
+            faster = "staged" if staged_s < native_s else "native"
+            took = "staged" if got["auto"]["staged"] else "native"
+            log(f"  {stem} at batch {SWEEP_BATCH}: staged run_s {staged_s} "
+                f"(predicted {got['on']['predicted_run_s']}), native "
+                f"{native_s} (predicted {got['off']['predicted_run_s']}); "
+                f"native / staged {native_s / staged_s:.3f}; auto routed "
+                f"{took} (run_s {got['auto']['run_s']}), the faster was "
+                f"{faster}: routing took the faster: {took == faster}; on "
+                f"{smi}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        analyse.main([str(root / s / f"{s}_agg_est.csv")
+                      for s, _, _ in SWEEP_RUNS]
+                     + ["--measured", str(root / "runs")])
+    for line in out.getvalue().splitlines():
+        log(f"  {line}")
+    return runs
 
 
 def main(argv=None) -> int:
@@ -1232,6 +1446,15 @@ def main(argv=None) -> int:
     graph_rows = run_graphs(smi, fbr.LAUNCHES)
     log(f"[graphs] {time.time() - t0:.1f} s")
 
+    # --- 11. K1 at N=4096; the sweep priced on the H100, and its programs ----
+    t0 = time.time()
+    n4096 = check_k1_4096(fbr, worst)
+    with tempfile.TemporaryDirectory() as tmp:
+        sweep_rows = run_sweeps(Path(tmp))
+        sweep_runs = run_sweep_programs(sweep_rows, Path(tmp), fbr, worst,
+                                        smi)
+    log(f"[harness] {time.time() - t0:.1f} s")
+
     # launches of each kernel on every main path, each counted from 0
     by_path = {"k2": {"aes128_p4 auto": runs["k2"]["launches"]},
                "k1": {"aes128_p4 fused_otf": runs["k1"]["launches"],
@@ -1239,7 +1462,8 @@ def main(argv=None) -> int:
                       "bench p32": p32["launches"]}}
     for label, (kern, n) in benches.items():
         by_path[kern][label] = n
-    for label, res in opt_runs + [("c6288r optimizer", c6288r)]:
+    for label, res in opt_runs + [("c6288r optimizer", c6288r)] \
+            + sweep_runs:
         for kern, n in res["all_launches"].items():
             if n:
                 by_path[kern][label] = n
@@ -1261,7 +1485,8 @@ def main(argv=None) -> int:
          "max_abs_err": worst[kern], "ms": timing[kern][0],
          "plain_ms": timing[kern][1], "bound_ms": timing[kern][2],
          "bound_by": timing[kern][3], "library_ms": None,
-         **({"staged_launches": staged_k1} if kern == "k1" else {}),
+         **({"staged_launches": staged_k1, "n4096_launches": n4096}
+            if kern == "k1" else {}),
          "bench_launches": bench_k[kern]}
         for kern, name in (("k2", "fused_blind_rotate_k2"),
                            ("k1", "fused_blind_rotate_k1"))]}))

@@ -33,7 +33,14 @@ def test_every_module_imports_with_jax_blocked():
     assert "tfhe_fbs_map_tpu_torch.frontend.mapping.heuristic" in names
     for name in ("frontend.opt", "frontend.cli", "utils.profiling", "bench",
                  "bench_multichip", "parallel", "parallel.mesh",
-                 "parallel.distributed", "parallel.dryrun"):
+                 "parallel.distributed", "parallel.dryrun",
+                 "frontend.circuits", "frontend.circuits.dsl",
+                 "frontend.circuits.generators",
+                 "frontend.circuits.epfl_control",
+                 "frontend.circuits.bench_regen",
+                 "frontend.circuits.aes128", "optimizer.native", "harness",
+                 "harness.sweep", "harness.reestimate_staged",
+                 "harness.analyse"):
         assert f"tfhe_fbs_map_tpu_torch.{name}" in names
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"
@@ -50,6 +57,7 @@ def test_every_module_imports_with_jax_blocked():
 
 def test_no_jax_import_in_sources():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert PKG / "frontend" / "circuits" / "__main__.py" in files
     for f in files:
         text = f.read_text()
         assert not JAX_IMPORT.search(text), f

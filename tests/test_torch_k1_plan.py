@@ -36,10 +36,11 @@ def shape(k, N, l, b):
                       lwe_noise_std=0.0, glwe_noise_std=0.0)
 
 
-# every preset, the staged p32 pipeline's two families, native p32
+# every preset, the staged p32 pipeline's two families, native p32, and
+# the (1, 4096) shape of the optimizer's grid (chip_smoke.py phase 11 (a))
 SHAPES = {**{name: p for name, (p, _) in PRESETS.items()},
           "fam1": shape(1, 1024, 3, 6), "fam2": shape(2, 512, 4, 5),
-          "p32": shape(1, 2048, 3, 7)}
+          "p32": shape(1, 2048, 3, 7), "n4096": shape(1, 4096, 2, 8)}
 
 
 @pytest.mark.parametrize("name", sorted(SHAPES))
@@ -93,8 +94,10 @@ def test_plan_overrides_and_refusals():
     assert f"multiple of {fbr.K1_SLICE}" in fbr.unsupported(small, otf=True)
     wide = TFHEParams(**{**vars(params), "poly_size": 1 << 15})
     assert "overflow" in fbr.unsupported(wide, otf=True)
-    # served up to the largest N the card checks it at
-    for n, why in ((fbr.K1_MAX_N, None), (2 * fbr.K1_MAX_N, "checked at")):
+    # served up to the largest N the card checks it at: chip_smoke.py phase
+    # 11 (a) holds it bitwise at N=4096
+    assert fbr.K1_MAX_N == 4096
+    for n, why in ((2048, None), (4096, None), (8192, "checked at")):
         got = fbr.unsupported(TFHEParams(**{**vars(params), "poly_size": n}),
                               otf=True)
         assert got is None if why is None else why in got

@@ -181,16 +181,19 @@ def test_presets_are_the_ports_own_picks():
 # ------------------------------------------------------ the H100 profile
 
 def test_h100_profile_never_prices_an_unserved_kernel():
-    """N=4096 (the last GLWE shape of the native search) has no kernel on
-    the card: K1 stops at 2048 and K2's matrices do not fit, so the model
-    prices K1 and the candidate is not served; under the JAX profile the
-    same candidate is served."""
+    """At N=4096 (the last GLWE shape of the native search) K2's matrices
+    do not fit, so the model prices K1, which serves it (``K1_MAX_N``);
+    above K1's limit (N=8192) the priced K1 serves nothing and the
+    candidate is not served; under the JAX profile it is."""
     profile = TO.h100_profile()
     params = PRESETS["p16"][0]
     big = replace(params, glwe_dim=1, poly_size=4096)
     assert profile.kernel(642, 1, 4096, 3) == "fused_otf"
-    assert not profile.serves(big)
-    assert JAX_PROFILE.serves(big)
+    assert profile.serves(big)
+    huge = replace(params, glwe_dim=1, poly_size=8192)
+    assert profile.kernel(642, 1, 8192, 3) == "fused_otf"
+    assert not profile.serves(huge)
+    assert JAX_PROFILE.serves(huge)
     assert profile.kernel(642, 1, 1024, 3, staged=True) == "fused_otf"
     assert profile.kernel(578, 2, 512, 2) == pick_kernel(
         PRESETS["aes128_p4"][0], profile.k2_memory)

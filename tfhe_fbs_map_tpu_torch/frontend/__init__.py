@@ -5,8 +5,8 @@ uses, kept equal to them (``tests/test_torch_frontend.py``,
 ``tests/test_torch_frontend_cli.py``): the bit-level circuit, the ``.lbf``
 program IR and its parser, the circuit parsers, the AIG logic optimizer
 (``opt.optimize``), the basic and heuristic mappers and the mapping CLI
-(``python -m tfhe_fbs_map_tpu_torch.frontend.cli``).  The circuit
-generators are not copied: the port parses the files they wrote.
+(``python -m tfhe_fbs_map_tpu_torch.frontend.cli``) and the benchmark
+generators (:mod:`.circuits`, ``tests/test_torch_circuits.py``).
 """
 
 from .bit_circuit import BitCircuit, BitNode, CONST0, CONST1

@@ -68,14 +68,16 @@ SMEM_MAX = 232448
 # K1: ciphertexts per cluster tile and coefficients per warpgroup (the
 # wgmma's N) it is instantiated for, largest first; contraction bytes per
 # ring stage; accumulator registers a thread may hold ((cb/64)·L·nw/2);
-# CTAs a cluster; the largest N it serves (the largest chip_smoke.py holds
-# it bitwise against its plain version at).
+# CTAs a cluster; the largest N it serves: chip_smoke.py phase 11 (a) holds
+# it bitwise against its plain version at N = 4096 (k=1, every plan k1_plan
+# picks for 64, 512 and 2048 ciphertexts, 4 and 3 limbs, a ragged tile) and
+# runs it at full length there (n=700, 512 ciphertexts).
 K1_TILES = (128, 64)
 K1_WIDTHS = (64, 32)
 K1_SLICE = 256
 K1_ACC_REGS = 128
 K1_MAX_CLUSTER = 16
-K1_MAX_N = 2048
+K1_MAX_N = 4096
 # K2: ciphertexts per cluster tile it is instantiated for, largest first;
 # coefficients per column chunk (times L limbs: the GEMM columns one pass
 # holds in registers); contraction bytes per ring stage; digit rows a stage

@@ -48,8 +48,8 @@ from ..ops.blind_rotate import FUSED_HEADROOM, N_LIMBS, pick_kernel
 from ..ops.fused_blind_rotate import unsupported
 
 __all__ = ["main", "pick_orientations", "check_kernel", "optimizer_pick",
-           "Pick", "NoParameters", "FUSED_HEADROOM", "STAGED_MARGIN",
-           "free_memory", "predicted_run_s", "family_json"]
+           "staged_solution", "Pick", "NoParameters", "FUSED_HEADROOM",
+           "STAGED_MARGIN", "free_memory", "predicted_run_s", "family_json"]
 
 # Route staged only when its predicted runtime beats native's by this
 # factor; the launch-aware runtime model prices the per-level launches and
@@ -119,47 +119,62 @@ class Pick(NamedTuple):
     staged_us: float | None
 
 
+def staged_solution(prog, p_run: int, p_error: float | None = None,
+                    search=None):
+    """The staged families the optimizer picks for ``prog`` at ``p_run``
+    (None when none meet the error target), as the JAX CLI and sweep pick
+    them: the keyless staged probe, then ``optimize_staged`` over the
+    program's route mix, retried at ``big_dim=2048``.  ``search``: the
+    staged search (default :func:`..optimizer.optimize_staged`; the sweep
+    passes its C++ twin).  Raises ValueError when the program has nodes the
+    staged pipeline cannot realize."""
+    from ..optimizer import optimize_staged
+    from .executor import staged_probe
+
+    search = search or optimize_staged
+    kw = {"max_p_error": p_error} if p_error is not None else {}
+    eff1, eff2, counts = staged_probe(prog, p_run)
+    # the objective is the whole program's cost under its route mix; wires
+    # made by fam1 singles carry fam1's noise, so any f1 route takes the
+    # conservative max(v1, v2) wire bound
+    kw.update(weight1=counts["f1"] + counts["split"],
+              weight2=counts["f2"] + counts["split"],
+              wires_from_stage2=counts["f1"] == 0)
+    sol = search(p_run, eff1, eff2, **kw)
+    if sol is None:
+        # high effective norms: the kN=2048 master's keys are cleaner
+        sol = search(p_run, eff1, eff2, big_dim=2048, **kw)
+    return sol
+
+
 def optimizer_pick(prog, p_run: int, batch: int, staged: str = "auto",
                    p_error: float | None = None,
                    margin: float = STAGED_MARGIN) -> Pick:
     """The parameters of a run, as the JAX CLI picks them
     (``tfhe_fbs_map_tpu/runtime/cli.py:133-241``): for an even ``p_run`` ≥
-    10 (unless ``staged`` is "off") the keyless staged probe and
-    ``optimize_staged`` over the program's route mix, retried at
-    ``big_dim=2048``; then ``optimize(p_run, norm2_linprod)``; the route is
+    10 (unless ``staged`` is "off") :func:`staged_solution`; then
+    ``optimize(p_run, norm2_linprod)``; the route is
     staged when ``staged`` is "on", when only the staged search found
     parameters, or when the runtime model prices it below ``margin`` times
     native.  Raises :class:`NoParameters` when no parameters meet the
     target, or when ``staged`` is "on" and the program has no staged
     parameters."""
-    from ..optimizer import optimize, optimize_staged
+    from ..optimizer import optimize
     from ..optimizer.runtime_model import (predict_native_us,
                                            predict_staged_us)
-    from .executor import (native_level_boots, staged_level_routes,
-                           staged_probe)
+    from .executor import native_level_boots, staged_level_routes
 
     kw = {"max_p_error": p_error} if p_error is not None else {}
     staged_sol = routes = None
     if staged != "off" and p_run >= 10 and p_run % 2 == 0:
         try:
-            eff1, eff2, counts = staged_probe(prog, p_run)
+            staged_sol = staged_solution(prog, p_run, p_error)
         except ValueError as e:
             if staged == "on":
                 raise NoParameters(f"--staged on: {e}") from e
             print(f"# staged: not realizable ({str(e)[:120]}...)",
                   file=sys.stderr)
         else:
-            # the objective is the whole program's cost under its route
-            # mix; wires made by fam1 singles carry fam1's noise, so any f1
-            # route takes the conservative max(v1, v2) wire bound
-            skw = dict(kw, weight1=counts["f1"] + counts["split"],
-                       weight2=counts["f2"] + counts["split"],
-                       wires_from_stage2=counts["f1"] == 0)
-            staged_sol = optimize_staged(p_run, eff1, eff2, **skw)
-            if staged_sol is None:
-                # high effective norms: the kN=2048 master's keys are cleaner
-                staged_sol = optimize_staged(p_run, eff1, eff2,
-                                             big_dim=2048, **skw)
             if staged_sol is not None:
                 routes = staged_level_routes(prog, p_run)
     if staged == "on" and staged_sol is None:
