@@ -93,16 +93,34 @@ Phases, each printed with what ran and how long it took:
     beside the sweep's estimate of the route taken at that error target
     (which must equal ``predicted_run_s`` within 1%), and whether ``auto``
     took the faster route; then ``harness.analyse`` over the aggregates
-    and the runs.
+    and the runs;
+12. K1 at N = 32, 64 and 128, through its small-N kernel: (a) bitwise
+    against K1's plain version at N ∈ {32, 64, 128} × k ∈ {1, 2} × l ∈ {2,
+    3} (b = 8 or 7), n=8, 21 to 2048 ciphertexts, 4 and 3 limbs, then at
+    full length at every small-N launch of the paths in (b) and (c) (the
+    dry run's FBS, N=64; ``bench --quick``, N=128; the p32 quick bench's
+    fam2, N=128; ``bench_multichip --quick``, N=128, at 16 ciphertexts and
+    at the study's 48), shapes read from the modules that run them, with
+    both times and the bound; (b)
+    the quick modes on the card, errors 0: ``bench --quick --orientation
+    fused_otf`` (9 K1 launches), ``bench --preset p32 --quick`` (18: fam1,
+    N=256, on K1's ring kernel, fam2, N=128, on the small-N one) and
+    ``bench_multichip --quick`` (3 a position); (c) ``parallel.dryrun`` on
+    two shards at the JAX dry run's families, bit-exact, and
+    ``harness.scaling_study --device cuda --quick`` over the visible cards,
+    its JSON printed on a line of its own.
 
 Before the last line it prints one JSON object with a row per kernel (no
 PyTorch call computes the n-step recurrence, so ``library_ms`` is null;
 ``launches`` sums the kernel's launches over the main paths of phases 5 to
-11, each counted from 0, ``launches_by_path`` splits them (phase 10's
-graph runs as ``graphs ...``, phase 11's as ``sweep ...``);
-``staged_launches``, ``bench_launches`` and ``n4096_launches`` hold the
-full-length checks of phases 4, 8 and 11) and the card's name and power
-limit; the last line is
+12, each counted from 0, ``launches_by_path`` splits them (phase 10's
+graph runs as ``graphs ...``, phase 11's as ``sweep ...``); the small-N
+kernel counts its launches as K1's, so its row sums the paths whose every
+K1 launch is at N < 256 and lists the mixed ones apart
+(``mixed_k1_launches_by_path``); ``staged_launches``, ``bench_launches``,
+``n4096_launches`` and ``small_n_launches`` hold the full-length checks of
+phases 4, 8, 11 and 12) and the card's name and power limit; the last line
+is
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
 on any failure, without a CUDA device, or away from a checkout of the repo.
 """
@@ -128,9 +146,12 @@ KREYVIUM_PRESET = "kreyvium_p10_staged"
 KREYVIUM_BATCH = 16
 # the JAX package's Pallas kernel bodies each CUDA kernel replaces
 REPLACES = {"k2": "tfhe_fbs_map_tpu/ops/fused_blind_rotate.py:102",
-            "k1": "tfhe_fbs_map_tpu/ops/fused_blind_rotate.py:160"}
+            "k1": "tfhe_fbs_map_tpu/ops/fused_blind_rotate.py:160",
+            "k1_small": "tfhe_fbs_map_tpu/ops/fused_blind_rotate.py:160"}
 SOURCE = {"k2": "tfhe_fbs_map_tpu_torch/ops/csrc/fused_blind_rotate_k2.cu",
-          "k1": "tfhe_fbs_map_tpu_torch/ops/csrc/fused_blind_rotate.cu"}
+          "k1": "tfhe_fbs_map_tpu_torch/ops/csrc/fused_blind_rotate.cu",
+          "k1_small":
+          "tfhe_fbs_map_tpu_torch/ops/csrc/fused_blind_rotate_k1_small.cu"}
 # Batch of one full level of the mapped AES-128 program at --batch 8: most
 # of its 230 levels pad to 128 bootstraps.
 LEVEL_BATCH = 1024
@@ -342,7 +363,7 @@ def check_k2(fbr, presets, worst: dict) -> None:
 
 def check_kernels(fbr, presets) -> dict:
     """Phase 3: each kernel bitwise against its plain version."""
-    worst = {"k1": 0, "k2": 0}
+    worst = {"k1": 0, "k2": 0, "k1_small": 0}
     check_k1(fbr, presets, worst)
     check_k2(fbr, presets, worst)
     return worst
@@ -1325,6 +1346,152 @@ def run_sweep_programs(rows: list[dict], root: Path, fbr, worst: dict,
         log(f"  {line}")
     return runs
 
+# phase 12 (a): K1 at N = 32, 64 and 128, its small-N kernel: the checks'
+# shapes (k, N, l, b), steps and ciphertexts
+SMALL_N_SHAPES = [(k, N, l, 8 if l == 2 else 7) for N in (32, 64, 128)
+                  for k in (1, 2) for l in (2, 3)]
+SMALL_N_STEPS = 8
+SMALL_N_BATCHES = (21, 64, 512, 2048)
+
+
+def small_n_launches() -> list[tuple]:
+    """Phase 12's own small-N launches at full length, (label, params,
+    ciphertexts), read from the modules whose main paths make them, so
+    that no path's shape goes unchecked: the dry run's FBS (8 a position),
+    ``bench --quick``'s chain, the p32 quick bench's fam2 (5 lookups x 8
+    ciphertexts), ``bench_multichip --quick`` (16 a position, its cap)
+    and, last, its family at the scaling study's ``--batch-per-chip``
+    default of 48."""
+    from tfhe_fbs_map_tpu_torch import bench, bench_multichip
+    from tfhe_fbs_map_tpu_torch.parallel.dryrun import DRYRUN_PARAMS
+    from tfhe_fbs_map_tpu_torch.tfhe.params import STAGED_PRESETS
+
+    fam2 = STAGED_PRESETS["staged_test"].fam2
+    return [("dry run FBS", DRYRUN_PARAMS, 8),
+            ("bench --quick", bench.QUICK_PARAMS,
+             bench.QUICK_BATCH["native"]),
+            ("bench p32 --quick fam2", fam2,
+             bench.LANES * bench.QUICK_BATCH["staged"]),
+            ("bench_multichip --quick", bench_multichip.QUICK_PARAMS, 16),
+            ("bench_multichip --quick family at 48",
+             bench_multichip.QUICK_PARAMS, 48)]
+
+
+# phase 12 (c): the scaling study's time limit
+STUDY_TIMEOUT = 600
+
+
+def check_k1_small(fbr, worst: dict) -> list[dict]:
+    """Phase 12 (a): K1's small-N kernel bitwise against K1's plain version
+    on the card at every shape, batch and 4 and 3 limbs, then at the JAX
+    package's small-N launches at full length with both times and the
+    bound."""
+    import torch
+
+    for shape in SMALL_N_SHAPES:
+        params = shape_params(*shape)
+        for batch in SMALL_N_BATCHES:
+            for limbs in (4, 3):
+                dev = kernel_inputs(params, SMALL_N_STEPS, batch, limbs,
+                                    True, seed=15)
+                plain = fbr.blind_rotate_k1_plain(*dev, params)
+                got = fbr.blind_rotate_k1(*dev, params)
+                torch.cuda.synchronize()
+                plan = fbr.k1_device_plan(batch, params, got.device, limbs)
+                smem, ctas = fbr.k1_small_layout(plan, params, limbs)
+                report("k1_small", "k={} N={} l={} b={} n={} ".format(
+                    *shape, SMALL_N_STEPS) + f"limbs={limbs} B={batch} "
+                    f"plan {plan} smem {smem} resident {ctas}",
+                    int((got.long() - plain.long()).abs().max()), worst)
+    out = []
+    for label, params, batch in small_n_launches():
+        steps = params.lwe_dim
+        label = (f"{label} k={params.glwe_dim} N={params.poly_size} "
+                 f"l={params.bsk_level} b={params.bsk_base_log}")
+        dev = kernel_inputs(params, steps, batch, 4, True, seed=16)
+        k_ms, k_out = cuda_ms(lambda: fbr.blind_rotate_k1(*dev, params),
+                              REPS)
+        p_ms, p_out = once_ms(lambda: fbr.blind_rotate_k1_plain(*dev,
+                                                                params))
+        b_ms, b_by = bound_ms(params, steps, batch, dev[3])
+        err = int((k_out.long() - p_out.long()).abs().max())
+        report("k1_small", f"{label} full length n={steps} B={batch}: "
+               f"kernel {k_ms:.4f} ms, plain version {p_ms:.3f} ms, bound "
+               f"{b_ms:.5f} ms ({b_by})", err, worst)
+        out.append({"launch": label, "n": steps, "ciphertexts": batch,
+                    "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                    "bound_ms": b_ms, "bound_by": b_by})
+    return out
+
+
+def run_quick_modes(smi: str, launches: dict) -> dict:
+    """Phase 12 (b): the quick modes on the card, their N=128 families
+    through K1: ``bench --quick --orientation fused_otf`` (1 + iters
+    launches, all on the small-N kernel), ``bench --preset p32 --quick``
+    (two a step: fam1, N=256, on K1's ring kernel, fam2, N=128, on the
+    small-N kernel) and ``bench_multichip --quick`` (1 + 2 calls a
+    position, all small-N); each with errors 0."""
+    from tfhe_fbs_map_tpu_torch import bench, bench_multichip
+
+    out = {}
+    steps = 1 + bench.ITERS
+    for label, main, argv, want in (
+            ("bench --quick fused_otf", bench.main,
+             ["--quick", "--orientation", "fused_otf"], lambda r: steps),
+            ("bench p32 --quick", bench.main, ["--preset", "p32", "--quick"],
+             lambda r: 2 * steps),
+            ("bench_multichip --quick", bench_multichip.main, ["--quick"],
+             lambda r: r["dp"] * (1 + 2))):
+        rc, res, counts = entry_point(main, argv, launches)
+        if rc != 0 or res["errors"] or counts != want_launches(
+                "k1", want(res)):
+            raise SystemExit(f"{label}: rc {rc}, {res}, launches {counts}")
+        log(f"  {label}: {res['value']} {res.get('unit', 'boots/s')}, "
+            f"errors 0, {counts['k1']} K1 launches, on {smi}")
+        out[label] = counts["k1"]
+    return out
+
+
+def run_dryrun_jax_families(smi: str) -> list[dict]:
+    """Phase 12 (c): ``parallel.dryrun`` on two shards of the card at the
+    JAX dry run's families (the FBS at N=64 through the small-N kernel, the
+    full adder at N=256 and the staged program at N=256 and N=128), each
+    bit-exact against one device, K1 only."""
+    from tfhe_fbs_map_tpu_torch.parallel import dryrun
+
+    mesh = card_mesh()
+    results = dryrun.dryrun(mesh)
+    for res in results:
+        log(f"  dryrun_multichip[{res['part']}]: mesh={mesh.shape} "
+            f"batch={res['batch']} launches={res['launches']} "
+            f"bit_exact={res['bit_exact']} on {smi}")
+        if not res["bit_exact"] or res["launches"]["k2"] \
+                or not res["launches"]["k1"]:
+            raise SystemExit(f"dry run {res['part']}: {res}")
+    if results[0]["launches"]["k1"] != mesh.dp:
+        raise SystemExit(f"dry run FBS: want one K1 launch a position, got "
+                         f"{results[0]['launches']}")
+    return results
+
+
+def run_scaling_study(tmp: Path) -> dict:
+    """Phase 12 (c): ``harness.scaling_study --device cuda --quick`` over
+    the visible cards, as a user runs it; its JSON."""
+    out = tmp / "scaling_cuda.json"
+    t0 = time.time()
+    res = subprocess.run(
+        [sys.executable, "-m", "tfhe_fbs_map_tpu_torch.harness.scaling_study",
+         "--device", "cuda", "--quick", "--out", str(out)], cwd=ROOT,
+        capture_output=True, text=True, timeout=STUDY_TIMEOUT)
+    for line in res.stdout.splitlines():
+        log(f"  {line}")
+    if res.returncode != 0:
+        raise SystemExit(f"scaling study: rc {res.returncode}\n"
+                         f"{res.stderr[-3000:]}")
+    study = json.loads(out.read_text())
+    log(f"  scaling study in {time.time() - t0:.1f} s")
+    return study
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1455,6 +1622,18 @@ def main(argv=None) -> int:
                                         smi)
     log(f"[harness] {time.time() - t0:.1f} s")
 
+    # --- 12. K1 at N = 32, 64, 128; the quick modes; dry run and study ----
+    t0 = time.time()
+    small_k = check_k1_small(fbr, worst)
+    quick = run_quick_modes(smi, fbr.LAUNCHES)
+    for k in fbr.LAUNCHES:
+        fbr.LAUNCHES[k] = 0
+    dry = run_dryrun_jax_families(smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        study = run_scaling_study(Path(tmp))
+    log(json.dumps({"scaling_study": study}))
+    log(f"[small N] {time.time() - t0:.1f} s")
+
     # launches of each kernel on every main path, each counted from 0
     by_path = {"k2": {"aes128_p4 auto": runs["k2"]["launches"]},
                "k1": {"aes128_p4 fused_otf": runs["k1"]["launches"],
@@ -1477,6 +1656,20 @@ def main(argv=None) -> int:
         "bench_multichip": multichip["launches"]})
     for row in graph_rows:
         by_path[row["kernel"]][f"graphs {row['label']}"] = row["launches"]
+    # phase 12: every K1 launch of these paths is at N < 256, the small-N
+    # kernel's; the p32 quick bench and the dry run's staged program
+    # launch K1 at N=256 and N=128 alike, the full adder at N=256
+    by_path["k1_small"] = {
+        "bench --quick fused_otf": quick["bench --quick fused_otf"],
+        "bench_multichip --quick": quick["bench_multichip --quick"],
+        "dry run FBS dp=2": dry[0]["launches"]["k1"]}
+    by_path["k1"]["dry run full adder dp=2"] = dry[1]["launches"]["k1"]
+    mixed = {"bench p32 --quick (fam1 N=256 on k1, fam2 N=128 here)":
+             quick["bench p32 --quick"],
+             "dry run staged p32 dp=2 (f1 N=256 on k1, f2 N=128 here)":
+             dry[2]["launches"]["k1"]}
+    timing["k1_small"] = tuple(small_k[-1][k] for k in (
+        "ms", "plain_ms", "bound_ms", "bound_by"))
     log(json.dumps({"graphs": graph_rows}))
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[kern],
@@ -1487,9 +1680,12 @@ def main(argv=None) -> int:
          "bound_by": timing[kern][3], "library_ms": None,
          **({"staged_launches": staged_k1, "n4096_launches": n4096}
             if kern == "k1" else {}),
-         "bench_launches": bench_k[kern]}
+         **({"mixed_k1_launches_by_path": mixed,
+             "small_n_launches": small_k} if kern == "k1_small"
+            else {"bench_launches": bench_k[kern]})}
         for kern, name in (("k2", "fused_blind_rotate_k2"),
-                           ("k1", "fused_blind_rotate_k1"))]}))
+                           ("k1", "fused_blind_rotate_k1"),
+                           ("k1_small", "fused_blind_rotate_k1_small"))]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

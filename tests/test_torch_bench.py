@@ -73,11 +73,12 @@ def test_xor_chain_equals_the_jax_generic_chain(orientation):
 
 
 def test_quick_command_on_the_cpu():
-    """The default anchor preset shrunk by --quick, as a user runs it."""
+    """The default anchor preset shrunk by --quick, as a user runs it on
+    the CPU (``--device cpu``; the default is the card)."""
     env = {**os.environ, "OMP_NUM_THREADS": "1"}
     res = subprocess.run([sys.executable, "-m", "tfhe_fbs_map_tpu_torch.bench",
-                          "--quick"], cwd=ROOT, env=env, capture_output=True,
-                         text=True, timeout=600)
+                          "--quick", "--device", "cpu"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=600)
     assert res.returncode == 0, res.stderr
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert set(out) == JAX_KEYS | {"orientation", "bsk_limbs"}
@@ -94,8 +95,8 @@ def test_quick_command_on_the_cpu():
 def test_quick_flags(argv, orientation, limbs, capsys, tmp_path):
     """--orientation, --bsk-limbs and --trace reach the run."""
     logdir = tmp_path / "trace"
-    rc = bench.main(["--quick", "--iters", "2", "--batch", "8",
-                     "--trace", str(logdir)] + argv)
+    rc = bench.main(["--quick", "--device", "cpu", "--iters", "2", "--batch",
+                     "8", "--trace", str(logdir)] + argv)
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert rc == 0 and out["errors"] == 0 and out["batch"] == 8
     assert (out["orientation"], out["bsk_limbs"]) == (orientation, limbs)
@@ -152,4 +153,7 @@ def test_without_cuda_exits_2(capsys):
         pytest.skip("a CUDA device is present")
     assert bench.main([]) == 2
     assert bench.main(["--preset", "p32", "--native-p32"]) == 2
+    # --quick runs on the card too, unless asked for the CPU
+    assert bench.main(["--quick"]) == 2
+    assert bench.main(["--preset", "p32", "--quick"]) == 2
     assert "no CUDA device" in capsys.readouterr().err

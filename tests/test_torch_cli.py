@@ -194,30 +194,44 @@ def test_auto_orientation_by_free_memory():
     assert pick_orientation(params, torch.device("cpu")) == "generic"
 
 
-@pytest.mark.parametrize("field,value,auto", [
-    ("bsk_base_log", 9, None),      # digits no longer fit int8
-    ("bsk_level", 4, None),         # b·l = 32
-    ("poly_size", 16, None),        # N not a multiple of 32
-    ("poly_size", 8192, "fused"),   # above the largest N K1 is checked at
-    ("poly_size", 64, "fused"),     # K1's contraction slices need N % 256
-])
-def test_auto_orientation_refuses_what_no_kernel_serves(field, value, auto):
+AUTO_CASES = [
+    ("bsk_base_log", 9, None, None),      # digits no longer fit int8
+    ("bsk_level", 4, None, None),         # b·l = 32
+    ("poly_size", 16, None, None),        # N not a multiple of 32
+    ("poly_size", 96, None, None),        # N not a power of two
+    ("poly_size", 8192, "fused", None),   # above the largest N K1 serves
+    ("poly_size", 64, "fused", "fused_otf"),  # K1 through its small-N kernel
+]
+
+
+@pytest.mark.parametrize("field,value,auto,tight", AUTO_CASES,
+                         ids=[f"{f}-{v}-{a}" for f, v, a, _ in AUTO_CASES])
+def test_auto_orientation_refuses_what_no_kernel_serves(field, value, auto,
+                                                        tight):
     """On CUDA ``auto`` picks a kernel that can serve the parameters or
-    raises: it never falls back to the plain bootstrap on the card."""
+    raises: it never falls back to the plain bootstrap on the card.
+    ``auto``: its pick with room for K2's matrices; ``tight``: with 1 GB,
+    where only K1 can run (None: it raises)."""
     from dataclasses import replace
     from tfhe_fbs_map_tpu_torch.runtime.cli import check_kernel
     params = replace(PRESETS["aes128_p4"][0], **{field: value})
     cuda = torch.device("cuda")
     assert pick_orientation(params, torch.device("cpu")) == "generic"
-    with pytest.raises(ValueError, match="--orientation generic"):
+    if tight is None:
+        with pytest.raises(ValueError, match="--orientation generic"):
+            check_kernel(params, "fused_otf")
+    else:
         check_kernel(params, "fused_otf")
     if auto is None:
         with pytest.raises(ValueError, match="--orientation generic"):
             pick_orientation(params, cuda, free_bytes=1 << 50)
     else:
         assert pick_orientation(params, cuda, free_bytes=1 << 50) == auto
+    if tight is None:
         with pytest.raises(ValueError, match="fused_otf"):
             pick_orientation(params, cuda, free_bytes=1 << 30)
+    else:
+        assert pick_orientation(params, cuda, free_bytes=1 << 30) == tight
 
 
 # ------------------------------------------------------------- staged
@@ -313,8 +327,9 @@ def test_bench_p32_quick_on_the_cpu():
     # one thread, as in this process: the test workers share the cores
     env = {**os.environ, "OMP_NUM_THREADS": "1"}
     res = subprocess.run([sys.executable, "-m", "tfhe_fbs_map_tpu_torch.bench",
-                          "--preset", "p32", "--quick"], cwd=root, env=env,
-                         capture_output=True, text=True, timeout=600)
+                          "--preset", "p32", "--quick", "--device", "cpu"],
+                         cwd=root, env=env, capture_output=True, text=True,
+                         timeout=600)
     assert res.returncode == 0, res.stderr
     out = json.loads(res.stdout.strip().splitlines()[-1])
     assert set(out) == BENCH_KEYS

@@ -369,7 +369,7 @@ from tfhe_fbs_map_tpu_torch.tfhe import TEST_PARAMS as P
 path = _build.BUILD_DIR / "k1_spin0" / "k1.so"
 _build.compile_library([_build.CSRC / "fused_blind_rotate.cu"], path,
                        ("-DFBR_SPIN=0",))
-lib = _build.bind(path, k2=False)
+lib = _build.bind(path, full=False)
 g = torch.Generator(device="cuda").manual_seed(3)
 N, k1, rows = P.poly_size, P.glwe_dim + 1, (P.glwe_dim + 1) * P.bsk_level
 def rand(lo, hi, shape, dtype):
@@ -589,3 +589,94 @@ def test_calibration_times_the_work_around_the_kernel_alone(cuda,
     assert len(pt["all_around_ms"]) == 2
     assert pt["around_ms"] > 0 and pt["kernel_ms"] > 0
     assert ex._graphs == {}
+
+
+# K1 below N=256: its small-N kernel at N = 32, 64 and 128
+SMALL_N = [(N, k, l) for N in (32, 64, 128) for k in (1, 2) for l in (2, 3)]
+
+
+@pytest.mark.parametrize("N,k,l", SMALL_N)
+def test_small_n_k1_equals_plain(cuda, N, k, l):
+    """The small-N kernel, bitwise against K1's plain version on the card,
+    at 4 and 3 limbs and a ragged and a full batch, one launch counted as
+    K1's each."""
+    from tfhe_fbs_map_tpu_torch.tfhe.params import TFHEParams
+    params = TFHEParams(p=4, lwe_dim=8, glwe_dim=k, poly_size=N,
+                        bsk_level=l, bsk_base_log=8 if l == 2 else 7,
+                        ksk_level=1, ksk_base_log=2, lwe_noise_std=0.0,
+                        glwe_noise_std=0.0)
+    assert fbr.unsupported(params, otf=True) is None
+    for batch in (21, 512):
+        for limbs in (4, 3):
+            b_init, a_t, tvs, keys = operands(params, batch, True, seed=N)
+            keys = keys[:, (4 - limbs) * (k + 1):].contiguous()
+            dev = [x.to(cuda) for x in (b_init, a_t, tvs, keys)]
+            plain = fbr.blind_rotate_k1_plain(*dev, params)
+            before = fbr.LAUNCHES["k1"]
+            got = fbr.blind_rotate_k1(*dev, params)
+            torch.cuda.synchronize()
+            assert fbr.LAUNCHES["k1"] == before + 1
+            assert torch.equal(got, plain), (batch, limbs)
+
+
+def test_small_n_layout_and_plan_on_the_card(cuda):
+    """The small-N kernel's shared memory, as it sizes it, fits a CTA at
+    the widest served shapes (b = 1, so l = 31, and the most columns) and
+    at the JAX package's small families; the card runs at least one CTA an
+    SM; and the card's plan is the one the runtime model prices."""
+    from tfhe_fbs_map_tpu_torch import bench, bench_multichip
+    from tfhe_fbs_map_tpu_torch.optimizer import runtime_model
+    from tfhe_fbs_map_tpu_torch.parallel.dryrun import DRYRUN_PARAMS
+    from tfhe_fbs_map_tpu_torch.tfhe.params import STAGED_PRESETS, TFHEParams
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    widest = [TFHEParams(p=4, lwe_dim=8, glwe_dim=fbr.K1S_MAX_KN // N - 1,
+                         poly_size=N, bsk_level=31, bsk_base_log=1,
+                         ksk_level=1, ksk_base_log=2, lwe_noise_std=0.0,
+                         glwe_noise_std=0.0) for N in (32, 64, 128)]
+    for params in widest + [DRYRUN_PARAMS, bench.QUICK_PARAMS,
+                            bench_multichip.QUICK_PARAMS,
+                            STAGED_PRESETS["staged_test"].fam2]:
+        assert fbr.unsupported(params, otf=True) is None
+        for limbs in (4, 3):
+            plan = fbr.k1_device_plan(512, params, cuda, limbs)
+            assert isinstance(plan, fbr.K1SmallPlan)
+            smem, ctas = fbr.k1_small_layout(plan, params, limbs)
+            assert 0 < smem <= fbr.SMEM_MAX and ctas >= sms
+        assert runtime_model.launch_plan(params, 512, "fused_otf")[0] \
+            == fbr.k1_device_plan(512, params, cuda)
+
+
+@pytest.mark.parametrize("argv,launches", [
+    (["--quick", "--orientation", "fused_otf"], 9),
+    (["--preset", "p32", "--quick"], 18),
+])
+def test_quick_bench_on_the_card(cuda, argv, launches, capsys):
+    """``bench --quick`` runs on the card by default, its N=128 families
+    through K1's small-N kernel: errors 0, one K1 launch a family call."""
+    from tfhe_fbs_map_tpu_torch import bench
+    before = dict(fbr.LAUNCHES)
+    assert bench.main(argv) == 0
+    torch.cuda.synchronize()
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["errors"] == 0
+    assert out["device"] == torch.cuda.get_device_name(0)
+    assert {k: fbr.LAUNCHES[k] - before[k] for k in before} \
+        == {"k1": launches, "k2": 0}
+
+
+def test_quick_multichip_and_dryrun_on_the_card(cuda, capsys):
+    """``bench_multichip --quick`` (N=128) through K1, 3 launches a
+    position (one checked and 2 timed calls under ``--quick``), and the dry
+    run at the JAX dry run's families (N=64, 256 and
+    128) on two shards of the card, bit-exact."""
+    from tfhe_fbs_map_tpu_torch import bench_multichip
+    from tfhe_fbs_map_tpu_torch.parallel import dryrun
+    before = fbr.LAUNCHES["k1"]
+    assert bench_multichip.main(["--quick", "--dp", "2"]) == 0
+    torch.cuda.synchronize()
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["errors"] == 0 and out["dp"] == 2
+    assert fbr.LAUNCHES["k1"] - before == 2 * (1 + 2)
+    assert dryrun.main(["--dp", "2"]) == 0
+    assert all(line.endswith("bit_exact=True")
+               for line in capsys.readouterr().out.strip().splitlines())

@@ -90,8 +90,15 @@ def test_plan_overrides_and_refusals():
     # a cluster that does not split the coefficients into whole chunks
     with pytest.raises(ValueError):
         fbr.k1_plan(1024, params, SMS, cluster=5)
+    # below K1_SLICE the small-N kernel serves a power of two from 32 up
+    # (tests/test_torch_k1_small_n.py); 16 and a non-power of two are not
     small = TFHEParams(**{**vars(params), "poly_size": 128})
-    assert f"multiple of {fbr.K1_SLICE}" in fbr.unsupported(small, otf=True)
+    assert small.poly_size < fbr.K1_SLICE
+    assert fbr.unsupported(small, otf=True) is None
+    for n, why in ((16, "multiple of 32"), (96, "power of two")):
+        got = fbr.unsupported(TFHEParams(**{**vars(params), "poly_size": n}),
+                              otf=True)
+        assert why in got
     wide = TFHEParams(**{**vars(params), "poly_size": 1 << 15})
     assert "overflow" in fbr.unsupported(wide, otf=True)
     # served up to the largest N the card checks it at: chip_smoke.py phase

@@ -80,8 +80,14 @@ def test_plan_overrides_and_refusals():
     assert fbr.k2_clusters(PRESETS["p16"][0]) == [16, 8, 4, 2, 1]
     bad = TFHEParams(**{**vars(params), "poly_size": 32, "bsk_level": 1})
     assert "multiple of 128" in fbr.unsupported(bad, otf=False)
-    # K1's contraction slices stay inside one row's N block
-    assert f"multiple of {fbr.K1_SLICE}" in fbr.unsupported(bad, otf=True)
+    # K1 serves it, through its kernel for N below K1_SLICE
+    assert bad.poly_size < fbr.K1_SLICE
+    assert fbr.unsupported(bad, otf=True) is None
+    # N = 16 and a non-power of two: neither kernel
+    for n, why in ((16, "multiple of 32"), (96, "power of two")):
+        odd = TFHEParams(**{**vars(bad), "poly_size": n})
+        for otf in (False, True):
+            assert why in fbr.unsupported(odd, otf=otf)
 
 
 # ------------------------------------------------ emulation of the kernel

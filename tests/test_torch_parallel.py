@@ -294,6 +294,29 @@ def test_init_distributed_single_process(monkeypatch):
     assert not torch.distributed.is_initialized()
 
 
+def test_dryrun_takes_the_jax_dry_run_families():
+    """The port's dry run runs the JAX dry run's families on both devices:
+    the sharded FBS at ``_tiny_setup``'s (N=64), the full adder at
+    ``TEST_PARAMS`` and the staged program at the two families
+    ``_dryrun_staged_executor`` builds (N=256 and N=128)."""
+    import ast
+    import inspect
+    from tfhe_fbs_map_tpu_torch.tfhe.params import (STAGED_PRESETS,
+                                                    TEST_PARAMS)
+
+    assert vars(dryrun.DRYRUN_PARAMS) == vars(G._tiny_setup()[0])
+    assert "TEST_PARAMS" in inspect.getsource(G._dryrun_mesh_executor)
+    assert vars(TEST_PARAMS) == vars(J.TEST_PARAMS)
+    tree = ast.parse(inspect.getsource(G._dryrun_staged_executor).strip())
+    fams = [{kw.arg: ast.literal_eval(kw.value) for kw in node.keywords}
+            for node in ast.walk(tree) if isinstance(node, ast.Call)
+            and getattr(node.func, "id", None) == "TFHEParams"]
+    staged = STAGED_PRESETS["staged_test"]
+    assert fams == [vars(staged.fam1), vars(staged.fam2)]
+    assert "generate_staged_keys(32, f1, f2, seed=3)" in inspect.getsource(
+        G._dryrun_staged_executor)
+
+
 def test_dryrun_on_the_cpu(capsys):
     assert dryrun.main(["--device", "cpu", "--dp", "4"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
@@ -325,9 +348,12 @@ def test_bench_multichip_quick_as_a_command():
 
 
 @pytest.mark.parametrize("argv", [["--quick", "--cpu-devices", "2", "--tp",
-                                   "2"], ["--quick"]])
+                                   "2"], ["--quick"], ["--quick", "--dp", "2"],
+                                  ["--quick", "--cpu-devices", "2", "--dp",
+                                   "2"]])
 def test_bench_multichip_refusals(argv, capsys, monkeypatch):
-    """tp != 1, and no mesh without a GPU unless --cpu-devices: exit 2."""
+    """tp != 1, no mesh without a GPU unless --cpu-devices, and --dp (the
+    GPUs' positions) beside --cpu-devices: exit 2."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
     assert bench_multichip.main(argv) == 2
     assert capsys.readouterr().out == ""

@@ -4,7 +4,8 @@
     python -m tfhe_fbs_map_tpu_torch.bench --preset p16 --orientation fused_otf
     python -m tfhe_fbs_map_tpu_torch.bench --preset p32 --native-p32
     python -m tfhe_fbs_map_tpu_torch.bench --preset p32      # staged lookups
-    python -m tfhe_fbs_map_tpu_torch.bench --quick           # tiny, on the CPU
+    python -m tfhe_fbs_map_tpu_torch.bench --quick           # tiny, on the GPU
+    python -m tfhe_fbs_map_tpu_torch.bench --quick --device cpu
 
 The port of the JAX package's root ``bench.py``.  The native presets
 (``anchor``, the ~128-bit p=4 headline set; ``p8``; ``p16``; ``p32`` with
@@ -15,8 +16,10 @@ names (``auto``: K2 when its key matrices fit the card's free memory, the
 runtime CLI's rule, else K1).  ``--preset p32`` alone is the staged p=32
 lookup (``staged_p32_bench``).  Every chain is decrypt-checked after its
 first step and after the timed loop, so only correct bootstraps are
-counted.  ``--quick`` takes the JAX bench's tiny insecure sets on the CPU,
-through the kernels' plain versions.  Prints one JSON object, the JAX
+counted.  ``--quick`` takes the JAX bench's tiny insecure sets (N=128,
+which K1 serves through its small-N kernel), on the card as the JAX bench
+runs it on its accelerator, or with ``--device cpu`` on the CPU through
+the kernels' plain versions.  Prints one JSON object, the JAX
 bench's keys (and ``orientation`` and ``bsk_limbs`` for a native preset),
 as its last line; exits 1 when a bootstrap decrypted wrong, 2 when the
 device or the kernel asked for cannot run.
@@ -322,7 +325,7 @@ def main(argv=None) -> int:
     ap.add_argument("--iters", type=int, default=ITERS)
     ap.add_argument("--quick", action="store_true",
                     help="tiny insecure parameters, batch at most 32 (8 "
-                         "staged), on the CPU unless --device cuda")
+                         "staged)")
     ap.add_argument("--orientation", default="auto",
                     choices=["auto", "fused", "fused_otf"],
                     help="fused kernel of a native preset: K2 (fused) over "
@@ -339,14 +342,13 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", metavar="LOGDIR", default=None,
                     help="write a torch.profiler Chrome trace of the timed "
                          "loop into LOGDIR")
-    ap.add_argument("--device", default=None, choices=["cuda", "cpu"],
-                    help="default: cpu with --quick, else cuda")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                    help="cpu: the kernels' plain versions (with --quick)")
     args = ap.parse_args(argv)
 
-    device = torch.device(args.device or ("cpu" if args.quick else "cuda"))
+    device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        print("--device cuda: no CUDA device is available (--quick runs on "
-              "the CPU)", file=sys.stderr)
+        print("--device cuda: no CUDA device is available", file=sys.stderr)
         return 2
     if args.preset == "p32" and not args.native_p32:
         if args.orientation == "fused" or args.bsk_limbs != N_LIMBS:

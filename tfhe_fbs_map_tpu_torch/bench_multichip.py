@@ -1,6 +1,7 @@
 """Batched bootstraps a second over a dp mesh.
 
     python -m tfhe_fbs_map_tpu_torch.bench_multichip           # every GPU
+    python -m tfhe_fbs_map_tpu_torch.bench_multichip --quick --dp 2
     python -m tfhe_fbs_map_tpu_torch.bench_multichip --quick --cpu-devices 4
 
 The port of ``experiments/bench_multichip.py``: ``--batch-per-chip``
@@ -10,11 +11,13 @@ runs the fused kernel on its slice with replicated keys,
 ``--iters`` timed calls each fed the last one's output.  Values in [0, 2]
 under the table [1, 0, 1], keys from seed 1 and values from seed 2, at the
 JAX script's family (n=630, k=2, N=512, l=2, b=8, key switch 5×3), or its
-tiny one with ``--quick``.  The mesh is every visible GPU, or
-``--cpu-devices`` positions on the CPU, where the kernels run their plain
-versions.  The chain is decrypt-checked after the first call and after the
-timed ones.  Per-chip figures divide by the positions used.  A mesh on one
-card measures no scaling.  Prints one JSON object, the JAX script's keys;
+tiny one with ``--quick`` (N=128: on the card K1's small-N kernel).  The
+mesh is every visible GPU, ``--dp`` positions dealt round-robin over them
+(more positions than cards share a card: ``devices`` in the JSON counts the
+cards), or ``--cpu-devices`` positions on the CPU, where the kernels run
+their plain versions.  The chain is decrypt-checked after the first call
+and after the timed ones.  Per-chip figures divide by the positions used.
+A mesh on one card measures no scaling.  Prints one JSON object, the JAX script's keys;
 exits 1 when a bootstrap decrypted wrong, 2 when the mesh cannot be made.
 """
 
@@ -55,6 +58,9 @@ def main(argv=None) -> int:
                          "a position and 2 timed calls")
     ap.add_argument("--cpu-devices", type=int, default=0,
                     help="N mesh positions on the CPU instead of the GPUs")
+    ap.add_argument("--dp", type=int, default=None,
+                    help="mesh positions over the GPUs, round-robin "
+                         "(default: one a GPU)")
     ap.add_argument("--tp", type=int, default=1,
                     help="must be 1: no port orientation shards the key "
                          "contraction")
@@ -66,8 +72,11 @@ def main(argv=None) -> int:
                        generate_keys)
 
     try:
+        if args.cpu_devices and args.dp is not None:
+            raise ValueError("--dp deals positions over the GPUs; "
+                             "--cpu-devices gives the CPU's")
         mesh = make_mesh(["cpu"] * args.cpu_devices if args.cpu_devices
-                         else None, tp=args.tp)
+                         else None, dp=args.dp, tp=args.tp)
     except (ValueError, RuntimeError) as e:
         print(e, file=sys.stderr)
         return 2

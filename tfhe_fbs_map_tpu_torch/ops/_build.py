@@ -82,18 +82,21 @@ def build() -> Path:
     return path
 
 
-def bind(path: Path, k2: bool = True) -> ctypes.CDLL:
+def bind(path: Path, full: bool = True) -> ctypes.CDLL:
     """Load the library at ``path`` and declare its C entries' arguments
-    (``k2=False`` for a library of K1's source alone)."""
+    (``full=False`` for a library of K1's source alone, without K2 and the
+    small-N K1)."""
     lib = ctypes.CDLL(str(path))
     p, i, ip = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
     entries = {"fbr_k1_blind_rotate": [p] * 6 + [i] * 10 + [p],
                "fbr_k1_max_clusters": [i] * 4 + [ip],
                "fbr_k1_layout": [i] * 3 + [ip, ip],
                "fbr_error_string": [i]}
-    if k2:
+    if full:
         entries.update({"fbr_k2_blind_rotate": [p] * 6 + [i] * 11 + [p],
-                        "fbr_k2_max_clusters": [i] * 4 + [ip]})
+                        "fbr_k2_max_clusters": [i] * 4 + [ip],
+                        "fbr_k1s_blind_rotate": [p] * 5 + [i] * 8 + [p],
+                        "fbr_k1s_layout": [i] * 5 + [ip, ip]})
     for name, args in entries.items():
         fn = getattr(lib, name)
         fn.argtypes = args

@@ -36,6 +36,17 @@ Hopper counterparts of the two Pallas kernel bodies in
   cluster and the coefficients a warpgroup (``nw``, the ``wgmma`` width)
   by the shared-memory operand bytes a CTA reads; the kernel sizes its
   ring itself (:func:`k1_layout`).
+* **K1 below N=256** (``csrc/fused_blind_rotate_k1_small.cu``) replaces
+  ``_kernel_otf`` at N ∈ {32, 64, 128}, whose rows K1's 256-byte
+  contraction slices do not divide (the Pallas kernel takes any N, its
+  strip tile T = min(128, N)).  One CTA of eight warps owns a tile of 16
+  ciphertexts for all n steps with its ACC in shared memory; per input
+  component it copies the step's E rows and writes the reversed digits into
+  shared memory, and each warp runs ``mma.sync`` m16n8k32 on its n8 output
+  tiles, the Hankel B fragments read as funnel-shifted windows of E
+  (:func:`k1_small_plan`).  Below N=256 :func:`k1_plan` gives its plan,
+  so the card and the runtime model see one K1 plan, and
+  :func:`blind_rotate_k1` launches it and counts the launch as K1's.
 
 The monomial rotation X^a·x, which the TPU does with a barrel shifter
 because Mosaic has no lane rotate, is an index read in both.
@@ -57,8 +68,9 @@ from ..tfhe.params import TFHEParams
 
 __all__ = ["blind_rotate_fused", "blind_rotate_k1", "blind_rotate_k2",
            "blind_rotate_k1_plain", "blind_rotate_k2_plain", "k1_plan",
-           "k2_plan", "k1_device_plan", "device_plan", "k1_layout", "K1Plan",
-           "K2Plan", "LAUNCHES"]
+           "k2_plan", "k1_small_plan", "k1_device_plan", "device_plan",
+           "k1_layout", "k1_small_layout", "K1Plan", "K1SmallPlan", "K2Plan",
+           "LAUNCHES"]
 
 N_LIMBS = 4
 LAUNCHES = {"k1": 0, "k2": 0}
@@ -78,6 +90,14 @@ K1_SLICE = 256
 K1_ACC_REGS = 128
 K1_MAX_CLUSTER = 16
 K1_MAX_N = 4096
+# K1 below K1_SLICE (csrc/fused_blind_rotate_k1_small.cu): ciphertexts a
+# CTA (mma.sync's M); warps a CTA; the n8 output tiles a warp holds that it
+# is instantiated for, so (k+1)·N is at most K1S_WARPS·8·max(K1S_TILES_A_WARP).
+# The kernel sizes its shared memory itself (:func:`k1_small_layout`).
+K1S_TILE = 16
+K1S_WARPS = 8
+K1S_TILES_A_WARP = (1, 2, 4, 8)
+K1S_MAX_KN = K1S_WARPS * 8 * K1S_TILES_A_WARP[-1]
 # K2: ciphertexts per cluster tile it is instantiated for, largest first;
 # coefficients per column chunk (times L limbs: the GEMM columns one pass
 # holds in registers); contraction bytes per ring stage; digit rows a stage
@@ -207,6 +227,16 @@ class K1Plan(NamedTuple):
     nw: int
 
 
+class K1SmallPlan(NamedTuple):
+    """How K1 launches below N=K1_SLICE: ``cb`` ciphertexts a CTA, one CTA
+    a tile (``cluster`` 1), ``nt`` n8 output tiles a warp (warp w holds
+    tiles w, w+8, ...).  The kernel sizes its shared memory from (N, k+1,
+    l, limbs): :func:`k1_small_layout`."""
+    cb: int
+    nt: int
+    cluster = 1
+
+
 class K2Plan(NamedTuple):
     """How K2 launches: ``cb`` ciphertexts per tile, ``cluster`` CTAs per
     tile (CTA r owns coefficients [r·span, (r+1)·span) of the (k+1)·N, span
@@ -235,9 +265,11 @@ def k1_fits(cb: int, nw: int, n_limbs: int) -> bool:
 def k1_plan(batch: int, params: TFHEParams, sms: int,
             n_limbs: int = N_LIMBS, cb: int | None = None,
             cluster: int | None = None, nw: int | None = None,
-            resident: Callable[[K1Plan], int] | None = None) -> K1Plan:
+            resident: Callable[[K1Plan], int] | None = None
+            ) -> K1Plan | K1SmallPlan:
     """K1's launch plan for ``batch`` ciphertexts on ``sms`` SMs.
 
+    Below N=K1_SLICE the small-N kernel's one plan (:func:`k1_small_plan`).
     Among the tiles ``cb``, widths ``nw`` and cluster sizes that K1 is
     instantiated for (or the ones given), the cheapest by the shared-memory
     bytes the ``wgmma`` operands take per CTA: a CTA multiplies cb digit
@@ -246,6 +278,12 @@ def k1_plan(batch: int, params: TFHEParams, sms: int,
     nw) / nw.  A wave is as many clusters as ``resident(plan)`` says the
     card runs at once (default ``sms // cluster``).  Ties go to fewer CTAs,
     then larger tiles and widths."""
+    if params.poly_size < K1_SLICE:
+        return k1_small_plan(params, cb, cluster, nw)
+    if cb is not None and cb not in K1_TILES:
+        raise ValueError(f"batch tile {cb} not in {K1_TILES}")
+    if nw is not None and nw not in K1_WIDTHS:
+        raise ValueError(f"width {nw} not in {K1_WIDTHS}")
     if resident is None:
         def resident(p):
             return sms // p.cluster
@@ -270,6 +308,28 @@ def k1_plan(batch: int, params: TFHEParams, sms: int,
                          f"nw={nw} at {n_limbs} limbs: a cluster must split "
                          f"the (k+1)·N coefficients into whole chunks")
     return best[1]
+
+
+def k1_small_plan(params: TFHEParams, cb: int | None = None,
+                  cluster: int | None = None,
+                  nw: int | None = None) -> K1SmallPlan:
+    """The plan of K1's kernel for N < K1_SLICE: one CTA a tile of
+    K1S_TILE ciphertexts, and the fewest n8 tiles a warp it is instantiated
+    for that cover the (k+1)·N columns.  ``cb``, ``cluster`` and ``nw`` are
+    the ring kernel's knobs: only K1S_TILE, 1 and None are taken."""
+    if cb not in (None, K1S_TILE) or cluster not in (None, 1) \
+            or nw is not None:
+        raise ValueError(f"K1 below N={K1_SLICE} takes tiles of {K1S_TILE} "
+                         f"ciphertexts, no cluster and no nw; got "
+                         f"cb={cb} cluster={cluster} nw={nw}")
+    kn = (params.glwe_dim + 1) * params.poly_size
+    need = -(-kn // (8 * K1S_WARPS))
+    nt = next((t for t in K1S_TILES_A_WARP if t >= need), None)
+    if nt is None:
+        raise ValueError(f"(k+1)·N = {kn} > {K1S_MAX_KN}: the small-N K1 "
+                         f"holds at most {K1S_TILES_A_WARP[-1]} n8 tiles a "
+                         f"warp")
+    return K1SmallPlan(K1S_TILE, nt)
 
 
 def k2_clusters(params: TFHEParams) -> list[int]:
@@ -344,7 +404,7 @@ def device_plan(batch: int, params: TFHEParams, dev: torch.device,
 def k1_device_plan(batch: int, params: TFHEParams, dev: torch.device,
                    n_limbs: int = N_LIMBS, cb: int | None = None,
                    cluster: int | None = None, nw: int | None = None,
-                   lib: ctypes.CDLL | None = None) -> K1Plan:
+                   lib: ctypes.CDLL | None = None) -> K1Plan | K1SmallPlan:
     """The plan K1 launches with on ``dev``: :func:`k1_plan` with the
     card's SM count and the clusters it runs at once (as ``lib``, default
     the built library, reports them)."""
@@ -368,9 +428,12 @@ def unsupported(params: TFHEParams, otf: bool) -> str | None:
         return f"bsk_base_log * bsk_level = {b * l} >= 32"
     if n % 32:
         return f"poly_size {n} is not a multiple of 32"
+    if n & (n - 1):
+        return f"poly_size {n} is not a power of two"
     if otf:
-        if n % K1_SLICE:
-            return f"poly_size {n} is not a multiple of {K1_SLICE}"
+        if n < K1_SLICE and (params.glwe_dim + 1) * n > K1S_MAX_KN:
+            return (f"(k+1)·N = {(params.glwe_dim + 1) * n} > {K1S_MAX_KN}, "
+                    f"the most K1 below N={K1_SLICE} serves")
         if rows_n << (b + 6) >= 1 << 31:
             return (f"rows·N·2^(b-1)·128 = {rows_n << (b + 6)} could "
                     f"overflow the int32 sums")
@@ -433,33 +496,38 @@ def _raise_on(err: int, lib: ctypes.CDLL | None = None) -> None:
 def _launch_k1(b_init, a_t, test_polys, kernels, params: TFHEParams,
                cb: int | None, cluster: int | None, nw: int | None,
                lib: ctypes.CDLL | None = None) -> torch.Tensor:
-    """K1 on the card, through ``lib`` (default the built library)."""
+    """K1 on the card, through ``lib`` (default the built library), at the
+    plan :func:`k1_device_plan` gives: the ring kernel's, or below
+    N=K1_SLICE the small-N kernel's."""
     from . import _build
 
     n_limbs = _check(True, b_init, a_t, test_polys, kernels, params)
     dev = test_polys.device
     k1, n = params.glwe_dim + 1, params.poly_size
     batch, steps = test_polys.shape[0], a_t.shape[0]
-    if cb is not None and cb not in K1_TILES:
-        raise ValueError(f"batch tile {cb} not in {K1_TILES}")
-    if nw is not None and nw not in K1_WIDTHS:
-        raise ValueError(f"width {nw} not in {K1_WIDTHS}")
-    if batch == 0 or steps == 0:
-        return _init_acc(b_init, test_polys, params)
     lib = lib or _build.library()
-    out = torch.empty((k1, batch, n), dtype=I32, device=dev)
     plan = k1_device_plan(batch, params, dev, n_limbs, cb, cluster, nw,
                           lib)
+    if batch == 0 or steps == 0:
+        return _init_acc(b_init, test_polys, params)
+    out = torch.empty((k1, batch, n), dtype=I32, device=dev)
     with torch.cuda.device(dev):
-        tiles = -(-batch // plan.cb)
-        dig = torch.empty((tiles * plan.cb, k1 * params.bsk_level * n),
-                          dtype=torch.int8, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fbr_k1_blind_rotate(
-            b_init.data_ptr(), a_t.data_ptr(), test_polys.data_ptr(),
-            kernels.data_ptr(), out.data_ptr(), dig.data_ptr(), steps, batch,
-            n, k1, params.bsk_level, params.bsk_base_log, n_limbs, plan.cb,
-            plan.nw, plan.cluster, stream)
+        if isinstance(plan, K1SmallPlan):
+            err = lib.fbr_k1s_blind_rotate(
+                b_init.data_ptr(), a_t.data_ptr(), test_polys.data_ptr(),
+                kernels.data_ptr(), out.data_ptr(), steps, batch, n, k1,
+                params.bsk_level, params.bsk_base_log, n_limbs, plan.nt,
+                stream)
+        else:
+            tiles = -(-batch // plan.cb)
+            dig = torch.empty((tiles * plan.cb, k1 * params.bsk_level * n),
+                              dtype=torch.int8, device=dev)
+            err = lib.fbr_k1_blind_rotate(
+                b_init.data_ptr(), a_t.data_ptr(), test_polys.data_ptr(),
+                kernels.data_ptr(), out.data_ptr(), dig.data_ptr(), steps,
+                batch, n, k1, params.bsk_level, params.bsk_base_log, n_limbs,
+                plan.cb, plan.nw, plan.cluster, stream)
     _raise_on(err, lib)
     LAUNCHES["k1"] += 1
     return out
@@ -534,6 +602,23 @@ def k1_layout(plan: K1Plan, n_limbs: int = N_LIMBS,
     return stages.value, smem.value
 
 
+def k1_small_layout(plan: K1SmallPlan, params: TFHEParams,
+                    n_limbs: int = N_LIMBS,
+                    lib: ctypes.CDLL | None = None) -> tuple[int, int]:
+    """The dynamic shared memory (bytes) a CTA of K1's small-N ``plan``
+    launches with at ``params``, as the kernel sizes it, and the CTAs the
+    current card runs at once."""
+    from . import _build
+
+    lib = lib or _build.library()
+    smem, ctas = ctypes.c_int(0), ctypes.c_int(0)
+    _raise_on(lib.fbr_k1s_layout(params.poly_size, params.glwe_dim + 1,
+                                 params.bsk_level, n_limbs, plan.nt,
+                                 ctypes.byref(smem), ctypes.byref(ctas)),
+              lib)
+    return smem.value, ctas.value
+
+
 def _plain_slices(otf: bool, b_init, a_t, test_polys, kernels,
                   params: TFHEParams, batch_tile: int | None):
     plain = blind_rotate_k1_plain if otf else blind_rotate_k2_plain
@@ -570,7 +655,8 @@ def blind_rotate_k1(b_init, a_t, test_polys, kernels, params: TFHEParams,
     ``batch_tile``: ciphertexts per tile (CPU: per plain slice; CUDA: per
     cluster, one of ``K1_TILES``); ``cluster``: CTAs per tile; ``nw``:
     coefficients per warpgroup, one of ``K1_WIDTHS``.  All default to
-    :func:`k1_plan`'s choice."""
+    :func:`k1_plan`'s choice, which at N < K1_SLICE is the small-N kernel's
+    (:func:`k1_small_plan`: tiles of K1S_TILE, no cluster, no ``nw``)."""
     if test_polys.device.type != "cpu":
         return _launch_k1(b_init, a_t, test_polys, kernels, params,
                           batch_tile, cluster, nw)

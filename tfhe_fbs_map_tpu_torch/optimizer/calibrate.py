@@ -252,7 +252,9 @@ def _device_plan(params: TFHEParams, rows: int, orientation: str,
     card, and its waves."""
     if orientation == "fused_otf":
         plan = fbr.k1_device_plan(rows, params, device)
-        fit = fbr.k1_max_clusters(plan)
+        fit = (fbr.k1_small_layout(plan, params)[1]
+               if isinstance(plan, fbr.K1SmallPlan)
+               else fbr.k1_max_clusters(plan))
     else:
         plan = fbr.device_plan(rows, params, device)
         fit = fbr.k2_max_clusters(plan)

@@ -24,14 +24,14 @@ extern "C" {
 
 // DeviceProfile's fields that the search reads (the caller scales the
 // generic path's cost by generic_slowdown) and the serving limits of the
-// CUDA kernels (ops/fused_blind_rotate.py K1_SLICE, K1_MAX_N, K2_KC,
-// K2_CHUNK; ops/blind_rotate.py KSK_MAX_BASE_LOG), filled by
+// CUDA kernels (ops/fused_blind_rotate.py K1_SLICE, K1_MAX_N, K1S_MAX_KN,
+// K2_KC, K2_CHUNK; ops/blind_rotate.py KSK_MAX_BASE_LOG), filled by
 // optimizer/native.py.
 struct Profile {
   double int8_ops, mem_bytes, eff_fused, eff_otf;
   double k2_memory, k2_headroom;
   int32_t cuda_kernels;
-  int32_t k1_slice, k1_max_n, k2_kc, k2_chunk, ksk_max_base_log;
+  int32_t k1_slice, k1_max_n, k1s_max_kn, k2_kc, k2_chunk, ksk_max_base_log;
 };
 
 }  // extern "C"
@@ -108,10 +108,11 @@ double p_error_from_var(int p, double v_total) {
 // otf, else K2) serves gadget base b, levels l, at (k, N).
 bool kernel_serves(const Profile& pr, int k, int N, int l, int b, bool otf) {
   int64_t rows_n = int64_t(k + 1) * l * N;
-  if (b > 8 || b * l >= 32 || N % 32) return false;
+  if (b > 8 || b * l >= 32 || N % 32 || (N & (N - 1))) return false;
+  // K1 below k1_slice is its small-N kernel, up to k1s_max_kn columns
   if (otf)
-    return N % pr.k1_slice == 0 && (rows_n << (b + 6)) < (int64_t(1) << 31) &&
-           N <= pr.k1_max_n;
+    return (N >= pr.k1_slice || int64_t(k + 1) * N <= pr.k1s_max_kn) &&
+           (rows_n << (b + 6)) < (int64_t(1) << 31) && N <= pr.k1_max_n;
   // K2: whole contraction slices, and a cluster of one CTA splits the
   // (k+1)*N coefficients into whole column chunks (k2_clusters non-empty)
   return rows_n % pr.k2_kc == 0 && (int64_t(k + 1) * N) % pr.k2_chunk == 0;

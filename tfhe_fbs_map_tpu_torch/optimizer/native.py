@@ -22,7 +22,8 @@ import subprocess
 from pathlib import Path
 
 from ..ops.blind_rotate import KSK_MAX_BASE_LOG
-from ..ops.fused_blind_rotate import K1_MAX_N, K1_SLICE, K2_CHUNK, K2_KC
+from ..ops.fused_blind_rotate import (K1_MAX_N, K1_SLICE, K1S_MAX_KN,
+                                      K2_CHUNK, K2_KC)
 from ..tfhe.params import TFHEParams
 from .noise import P_ERROR_4_SIGMA
 from .optimizer import DeviceProfile, Solution, StagedSolution, h100_profile
@@ -47,7 +48,7 @@ class _CProfile(ctypes.Structure):
         ("int8_ops", f64), ("mem_bytes", f64), ("eff_fused", f64),
         ("eff_otf", f64), ("k2_memory", f64), ("k2_headroom", f64),
         ("cuda_kernels", i32), ("k1_slice", i32), ("k1_max_n", i32),
-        ("k2_kc", i32), ("k2_chunk", i32), ("ksk_max_base_log", i32),
+        ("k1s_max_kn", i32), ("k2_kc", i32), ("k2_chunk", i32), ("ksk_max_base_log", i32),
     ]
 
 
@@ -143,8 +144,8 @@ def profile_struct(profile: DeviceProfile) -> _CProfile:
     return _CProfile(
         profile.int8_ops, profile.mem_bytes, profile.eff_fused,
         profile.eff_otf, profile.k2_memory, profile.k2_headroom,
-        int(profile.cuda_kernels), K1_SLICE, K1_MAX_N, K2_KC, K2_CHUNK,
-        KSK_MAX_BASE_LOG)
+        int(profile.cuda_kernels), K1_SLICE, K1_MAX_N, K1S_MAX_KN, K2_KC,
+        K2_CHUNK, KSK_MAX_BASE_LOG)
 
 
 def optimize_native(p: int, sq_norm2: float,

@@ -13,11 +13,12 @@ and its time comes in waves of clusters, not in rows.  A call of ``rows``
 ciphertexts costs
 
 * the kernel: a fixed term plus ``waves × wave``.  The plan and its waves
-  are :func:`..ops.fused_blind_rotate.k1_plan` / ``k2_plan``'s, given the
-  calibrated card's SM count and the clusters it runs at once (the
-  ``resident`` table), so a prediction needs no card.  A wave of a plan
-  (tile ``cb``, ``cluster`` CTAs) carries ``cb · sms / cluster`` bootstraps'
-  work at the family's per-boot cost;
+  are :func:`..ops.fused_blind_rotate.k1_plan` / ``k2_plan``'s (below
+  N=256 K1's small-N plan, one CTA a tile of 16), given the calibrated
+  card's SM count and the clusters it runs at once (the ``resident`` table;
+  a plan it lacks runs one cluster an SM), so a prediction needs no card.
+  A wave of a plan (tile ``cb``, ``cluster`` CTAs) carries ``cb · sms /
+  cluster`` bootstraps' work at the family's per-boot cost;
 * the level's work around the kernel (gather and lincomb, key switch through
   ``torch._int_mm``, modswitch, extract, scatter): ``a + b · rows · (kN+1)``.
 
@@ -30,7 +31,8 @@ it; a family with no entry takes the fit across families of its kernel.
 
 from __future__ import annotations
 
-from ..ops.fused_blind_rotate import K1Plan, K2Plan, k1_plan, k2_plan
+from ..ops.fused_blind_rotate import (K1Plan, K1SmallPlan, K2Plan, k1_plan,
+                                      k2_plan)
 from ..tfhe.params import TFHEParams
 from .optimizer import (Solution, StagedSolution, bootstrap_cost_us,
                         calibration, h100_profile)
@@ -47,9 +49,11 @@ def family_key(params: TFHEParams) -> str:
 
 
 def resident_key(orientation: str, n_limbs: int,
-                 plan: K1Plan | K2Plan) -> str:
+                 plan: K1Plan | K1SmallPlan | K2Plan) -> str:
     """The resident table's key of a plan: kernel, limbs, tile, cluster
-    (and K1's width)."""
+    (and K1's width; the small-N K1's n8 tiles a warp)."""
+    if isinstance(plan, K1SmallPlan):
+        return f"k1s/{n_limbs}/{plan.nt}"
     if orientation == "fused_otf":
         return f"k1/{n_limbs}/{plan.cb}/{plan.cluster}/{plan.nw}"
     return f"k2/{n_limbs}/{plan.cb}/{plan.cluster}"
@@ -73,7 +77,8 @@ def _orientation(params: TFHEParams, orientation: str | None,
 
 
 def launch_plan(params: TFHEParams, rows: int, orientation: str,
-                bsk_limbs: int = 4) -> tuple[K1Plan | K2Plan, int]:
+                bsk_limbs: int = 4
+                ) -> tuple[K1Plan | K1SmallPlan | K2Plan, int]:
     """The plan and the waves of one launch of ``rows`` ciphertexts through
     ``orientation`` on the calibrated card."""
     cal = calibration()

@@ -17,10 +17,12 @@ The counterpart of ``__graft_entry__.dryrun_multichip`` (the JAX package's
 
 Each part returns its launches of the fused kernels under the mesh and
 whether the mesh's result is bitwise equal to the one device's and decrypts
-to the oracle.  On the CPU the parts take ``TEST_PARAMS`` and the
-``staged_test`` families, through the kernels' plain versions; on CUDA the
-bench's ``anchor`` family and the ``p32_staged`` families, which K1 serves
-(it does not serve the JAX dry run's N=64 and N=128).
+to the oracle.  The parts take the JAX dry run's own families on both
+devices: :data:`DRYRUN_PARAMS` (N=64) for the sharded FBS,
+``TEST_PARAMS`` for the full adder and the ``staged_test`` families (f1
+N=256, f2 N=128, keys from seed 3) for the staged program, all through K1
+(on the CPU through its plain version; on the card N < 256 through its
+small-N kernel).
 """
 
 from __future__ import annotations
@@ -33,10 +35,18 @@ import numpy as np
 import torch
 
 from ..ops import fused_blind_rotate as fbr
+from ..tfhe.params import TFHEParams
 from .mesh import Mesh, make_mesh, shard_batch, sharded_bootstrap
 
-__all__ = ["sharded_fbs", "mesh_against_one_device", "full_adder",
-           "staged_p32", "address_lut_program", "dryrun", "main"]
+__all__ = ["DRYRUN_PARAMS", "sharded_fbs", "mesh_against_one_device",
+           "full_adder", "staged_p32", "address_lut_program", "dryrun",
+           "main"]
+
+# the JAX dry run's tiny family (__graft_entry__.py _tiny_setup)
+DRYRUN_PARAMS = TFHEParams(p=4, lwe_dim=8, glwe_dim=1, poly_size=64,
+                           bsk_level=2, bsk_base_log=7, ksk_level=2,
+                           ksk_base_log=4, lwe_noise_std=2.0,
+                           glwe_noise_std=2.0)
 
 
 def _sync(mesh: Mesh) -> None:
@@ -190,17 +200,15 @@ def staged_p32(mesh: Mesh, fam1, fam2, orientation: str | None,
 
 def dryrun(mesh: Mesh) -> list[dict]:
     """The three parts on ``mesh`` (this process's positions only), at the
-    CPU's tiny families or the card's."""
-    from ..tfhe.params import PRESETS, STAGED_PRESETS, TEST_PARAMS
+    JAX dry run's families."""
+    from ..tfhe.params import STAGED_PRESETS, TEST_PARAMS
 
     if mesh.spans_processes:
         raise ValueError("the dry run takes a mesh of one process")
-    card = mesh.devices[0].type == "cuda"
-    params = PRESETS["anchor"][0] if card else TEST_PARAMS
-    staged = STAGED_PRESETS["p32_staged" if card else "staged_test"]
+    staged = STAGED_PRESETS["staged_test"]
     dp = mesh.dp
-    return [sharded_fbs(mesh, params, "fused_otf", 8 * dp),
-            full_adder(mesh, params, "fused_otf", 2 * dp),
+    return [sharded_fbs(mesh, DRYRUN_PARAMS, "fused_otf", 8 * dp),
+            full_adder(mesh, TEST_PARAMS, "fused_otf", 2 * dp),
             staged_p32(mesh, staged.fam1, staged.fam2, "fused_otf", 2 * dp)]
 
 

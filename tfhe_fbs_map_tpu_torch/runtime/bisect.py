@@ -70,7 +70,7 @@ def _build_all(srcs: dict[str, str]) -> dict[str, ctypes.CDLL]:
             src.parent.mkdir(parents=True, exist_ok=True)
             src.write_text(srcs[name])
             _build.compile_library([src], src.with_name("k1.so"))
-            return _build.bind(src.with_name("k1.so"), k2=False)
+            return _build.bind(src.with_name("k1.so"), full=False)
         return dict(zip(srcs, pool.map(one, srcs)))
 
 

@@ -202,7 +202,7 @@ def trace_levels(ex: CircuitExecutor, buf: torch.Tensor, levels: int,
 def tile_sweep(fast, batch: int, reps: int = 2) -> dict:
     """The kernel of the fast keys ``fast`` at ``batch`` ciphertexts over
     its launch knobs: every K1 (tile, cluster, warpgroup width) or K2 (tile,
-    cluster) plan.  ms per launch (CUDA events, after a warm-up launch);
+    cluster) plan; below N=256 K1's one small-N plan.  ms per launch (CUDA events, after a warm-up launch);
     every setting's output must equal the first one's."""
     from ..ops import fused_blind_rotate as fbr
 
@@ -219,12 +219,17 @@ def tile_sweep(fast, batch: int, reps: int = 2) -> dict:
                         device=dev, dtype=torch.int32)
     if otf:
         limbs = kern.shape[1] // (params.glwe_dim + 1)
-        knobs = {f"{cb}x{c}/{w}": dict(batch_tile=cb, cluster=c, nw=w)
-                 for cb in fbr.K1_TILES for w in fbr.K1_WIDTHS
-                 if fbr.k1_fits(cb, w, limbs)
-                 for c in fbr.k1_clusters(params, w)}
         plan = fbr.k1_device_plan(batch, params, dev, limbs)
-        default = f"{plan.cb}x{plan.cluster}/{plan.nw}"
+        if isinstance(plan, fbr.K1SmallPlan):
+            # the small-N kernel has one plan: its tile, no cluster, no nw
+            default = f"{plan.cb}x1/nt{plan.nt}"
+            knobs = {default: dict(batch_tile=plan.cb)}
+        else:
+            knobs = {f"{cb}x{c}/{w}": dict(batch_tile=cb, cluster=c, nw=w)
+                     for cb in fbr.K1_TILES for w in fbr.K1_WIDTHS
+                     if fbr.k1_fits(cb, w, limbs)
+                     for c in fbr.k1_clusters(params, w)}
+            default = f"{plan.cb}x{plan.cluster}/{plan.nw}"
     else:
         knobs = {f"{cb}x{c}": dict(batch_tile=cb, cluster=c)
                  for cb in fbr.K2_TILES for c in fbr.k2_clusters(params)}
