@@ -96,12 +96,18 @@ Phases, each printed with what ran and how long it took:
     and the runs;
 12. K1 at N = 32, 64 and 128, through its small-N kernel: (a) bitwise
     against K1's plain version at N ∈ {32, 64, 128} × k ∈ {1, 2} × l ∈ {2,
-    3} (b = 8 or 7), n=8, 21 to 2048 ciphertexts, 4 and 3 limbs, then at
-    full length at every small-N launch of the paths in (b) and (c) (the
-    dry run's FBS, N=64; ``bench --quick``, N=128; the p32 quick bench's
-    fam2, N=128; ``bench_multichip --quick``, N=128, at 16 ciphertexts and
-    at the study's 48), shapes read from the modules that run them, with
-    both times and the bound; (b)
+    3} (b = 8 or 7), n=8, 21 to 2048 ciphertexts, 4 and 3 limbs, and at
+    the widest served shapes (b = 1, l = 31, (k+1)·N = 512 at N = 32 and
+    128), where a step runs one digit pass a component, each plan logged
+    with its cluster (more than one CTA from (k+1)·N = 128 on) and the
+    clusters the card runs at once; then at full length at every small-N
+    launch of the paths in (b) and (c) (the dry run's FBS, N=64; ``bench
+    --quick``, N=128; the p32 quick bench's fam2, N=128;
+    ``bench_multichip --quick``, N=128, at 16 ciphertexts and at the
+    study's 48), shapes read from the modules that run them, with the
+    kernel's time issued eagerly, as the rows of K1 and K2 are timed, its
+    device time (the replay of a CUDA graph of its launches), the plain
+    version's and the bound; (b)
     the quick modes on the card, errors 0: ``bench --quick --orientation
     fused_otf`` (9 K1 launches), ``bench --preset p32 --quick`` (18: fam1,
     N=256, on K1's ring kernel, fam2, N=128, on the small-N one) and
@@ -112,6 +118,8 @@ Phases, each printed with what ran and how long it took:
 
 Before the last line it prints one JSON object with a row per kernel (no
 PyTorch call computes the n-step recurrence, so ``library_ms`` is null;
+the small-N kernel's ``ms`` is eager at the last launch of phase 12 (a),
+its ``graph_ms`` that launch's device time as a graph's replay;
 ``launches`` sums the kernel's launches over the main paths of phases 5 to
 12, each counted from 0, ``launches_by_path`` splits them (phase 10's
 graph runs as ``graphs ...``, phase 11's as ``sweep ...``); the small-N
@@ -695,12 +703,13 @@ def check_pick(fbr, pick, sizes: list[list[int]], worst: dict) -> list[str]:
 
 
 def run_optimizer(label: str, lbf: str, batch: int, fbr, worst: dict,
-                  staged: str = "auto", fbs_size: int | None = None) -> dict:
+                  staged: str = "auto") -> dict:
     """The runtime CLI on ``lbf`` with the optimizer's picks, as a user runs
-    it with no ``--params`` (and ``--staged staged``, ``--fbs_size`` where
-    given): the picks checked against the card first (:func:`check_pick`),
-    then the run required bit-exact, on the families picked, and to launch
-    the priced kernel once for every family call."""
+    it with no ``--params`` (and ``--staged staged``), at the least p its
+    tables need, as the CLI takes it: the picks checked against the card
+    first (:func:`check_pick`), then the run required bit-exact, on the
+    families picked, and to launch the priced kernel once for every family
+    call."""
     from tfhe_fbs_map_tpu_torch.frontend.lut_program import parse_lbf
     from tfhe_fbs_map_tpu_torch.runtime.cli import family_json, optimizer_pick
     from tfhe_fbs_map_tpu_torch.runtime.executor import (compile_staged,
@@ -710,7 +719,7 @@ def run_optimizer(label: str, lbf: str, batch: int, fbr, worst: dict,
 
     with open(ROOT / lbf) as f:
         prog = parse_lbf(f.read())
-    p = fbs_size or prog.fbs_size or prog.min_fbs_size()
+    p = max(prog.fbs_size or 0, prog.min_fbs_size())
     pick = optimizer_pick(prog, p, batch, staged, P_ERROR)
     if pick.staged:
         routes = staged_level_routes(prog, p)
@@ -732,9 +741,7 @@ def run_optimizer(label: str, lbf: str, batch: int, fbr, worst: dict,
     orients = check_pick(fbr, pick, sizes, worst)
     kern = KERNEL[orients[0]]
     res = run_cli([lbf, "--batch", str(batch), "--p-error", str(P_ERROR),
-                   "--staged", staged]
-                  + (["--fbs_size", str(fbs_size)] if fbs_size else []),
-                  kern, fbr.LAUNCHES)
+                   "--staged", staged], kern, fbr.LAUNCHES)
     want = ({"fam1": orients[0], "fam2": orients[1]} if pick.staged
             else orients[0])
     fams = ({"fam1": family_json(pick.families[0]),
@@ -1277,9 +1284,9 @@ def run_sweep_programs(rows: list[dict], root: Path, fbr, worst: dict,
     ``add_estimates`` at the run's error target, whose ``*_rt_est`` of the
     route taken must be the CLI's ``predicted_run_s`` within 1%.  A
     ``basic`` baseline is labelled p=2 (the reference's convention) while
-    its 2-input gates' tables need a larger p: the sweep prices it and it
-    runs at the least p that realizes them, ``--fbs_size`` as a user passes
-    it."""
+    its 2-input gates' tables need a larger p: the sweep prices it and the
+    CLI runs it at the least p that realizes them, with no
+    ``--fbs_size``."""
     from tfhe_fbs_map_tpu_torch.frontend.lut_program import parse_lbf
     from tfhe_fbs_map_tpu_torch.harness import analyse, sweep
 
@@ -1294,18 +1301,17 @@ def run_sweep_programs(rows: list[dict], root: Path, fbr, worst: dict,
         with open(lbf) as f:
             prog = parse_lbf(f.read())
         p_min = prog.min_fbs_size()
-        fbs_size = p_min if p_min > (prog.fbs_size or 0) else None
-        if fbs_size:
+        if p_min > (prog.fbs_size or 0):
             log(f"  {stem}: its tables need p={p_min} (the .lbf says "
-                f"p={prog.fbs_size}), run with --fbs_size {p_min}")
+                f"p={prog.fbs_size}); the CLI runs it at p={p_min} without "
+                f"--fbs_size")
         modes = (("on", "off", "auto")
                  if (r["bench"], r["fbs_size"]) == SWEEP_STAGED
                  else ("auto",))
         got = {}
         for mode in modes:
             label = f"sweep {stem} staged={mode}"
-            res = run_optimizer(label, lbf, SWEEP_BATCH, fbr, worst, mode,
-                                fbs_size)
+            res = run_optimizer(label, lbf, SWEEP_BATCH, fbr, worst, mode)
             got[mode] = res
             runs.append((label, res))
             col = "staged_rt_est" if res["staged"] else "native_rt_est"
@@ -1354,39 +1360,47 @@ SMALL_N_STEPS = 8
 SMALL_N_BATCHES = (21, 64, 512, 2048)
 
 
-def small_n_launches() -> list[tuple]:
-    """Phase 12's own small-N launches at full length, (label, params,
-    ciphertexts), read from the modules whose main paths make them, so
-    that no path's shape goes unchecked: the dry run's FBS (8 a position),
-    ``bench --quick``'s chain, the p32 quick bench's fam2 (5 lookups x 8
-    ciphertexts), ``bench_multichip --quick`` (16 a position, its cap)
-    and, last, its family at the scaling study's ``--batch-per-chip``
-    default of 48."""
-    from tfhe_fbs_map_tpu_torch import bench, bench_multichip
-    from tfhe_fbs_map_tpu_torch.parallel.dryrun import DRYRUN_PARAMS
-    from tfhe_fbs_map_tpu_torch.tfhe.params import STAGED_PRESETS
+# phase 12 (a): the widest served shapes (b = 1, l = 31, the most columns),
+# where a step runs one digit pass a component, at n=8 and 40 ciphertexts
+SMALL_N_WIDEST = [(512 // N - 1, N, 31, 1) for N in (32, 128)]
 
-    fam2 = STAGED_PRESETS["staged_test"].fam2
-    return [("dry run FBS", DRYRUN_PARAMS, 8),
-            ("bench --quick", bench.QUICK_PARAMS,
-             bench.QUICK_BATCH["native"]),
-            ("bench p32 --quick fam2", fam2,
-             bench.LANES * bench.QUICK_BATCH["staged"]),
-            ("bench_multichip --quick", bench_multichip.QUICK_PARAMS, 16),
-            ("bench_multichip --quick family at 48",
-             bench_multichip.QUICK_PARAMS, 48)]
+
+# phase 12 (a): launches a CUDA graph holds when the small-N kernel's
+# device time is taken (``runtime/bisect.py``'s ``graph_ms``: its sub-ms
+# launches issued eagerly can wait on the host's launch path)
+SMALL_N_GRAPH_REPS = 20
 
 
 # phase 12 (c): the scaling study's time limit
 STUDY_TIMEOUT = 600
 
 
+def small_plan_line(fbr, batch: int, params, limbs: int) -> str:
+    """The small-N plan the card launches, its shared memory as the kernel
+    counts it and the clusters of it the card runs at once; a cluster of
+    one CTA from (k+1)·N = 128 on fails."""
+    import torch
+    plan = fbr.k1_device_plan(batch, params, torch.device("cuda"), limbs)
+    smem, clusters = fbr.k1_small_layout(plan, params, limbs)
+    kn = (params.glwe_dim + 1) * params.poly_size
+    if kn >= 128 and plan.cluster == 1:
+        raise SystemExit(f"small-N plan {plan} at {params}: one CTA a "
+                         f"tile")
+    return (f"cluster {plan.cluster} nt {plan.nt} passes {plan.passes} "
+            f"smem {smem} resident clusters {clusters}")
+
+
 def check_k1_small(fbr, worst: dict) -> list[dict]:
     """Phase 12 (a): K1's small-N kernel bitwise against K1's plain version
-    on the card at every shape, batch and 4 and 3 limbs, then at the JAX
-    package's small-N launches at full length with both times and the
-    bound."""
+    on the card at every shape, batch and 4 and 3 limbs, and at the widest
+    served shapes (one digit pass a component), each plan logged with its
+    cluster and the clusters the card runs at once; then at the JAX
+    package's small-N launches at full length with the kernel's time issued
+    eagerly and its device time (a graph's replay), the plain version's and
+    the bound."""
     import torch
+    from tfhe_fbs_map_tpu_torch.runtime.bisect import (graph_ms,
+                                                       small_n_launches)
 
     for shape in SMALL_N_SHAPES:
         params = shape_params(*shape)
@@ -1397,12 +1411,24 @@ def check_k1_small(fbr, worst: dict) -> list[dict]:
                 plain = fbr.blind_rotate_k1_plain(*dev, params)
                 got = fbr.blind_rotate_k1(*dev, params)
                 torch.cuda.synchronize()
-                plan = fbr.k1_device_plan(batch, params, got.device, limbs)
-                smem, ctas = fbr.k1_small_layout(plan, params, limbs)
                 report("k1_small", "k={} N={} l={} b={} n={} ".format(
                     *shape, SMALL_N_STEPS) + f"limbs={limbs} B={batch} "
-                    f"plan {plan} smem {smem} resident {ctas}",
+                    + small_plan_line(fbr, batch, params, limbs),
                     int((got.long() - plain.long()).abs().max()), worst)
+    for shape in SMALL_N_WIDEST:
+        params = shape_params(*shape)
+        dev = kernel_inputs(params, SMALL_N_STEPS, 40, 4, True, seed=17)
+        plain = fbr.blind_rotate_k1_plain(*dev, params)
+        got = fbr.blind_rotate_k1(*dev, params)
+        torch.cuda.synchronize()
+        plan = fbr.k1_device_plan(40, params, got.device)
+        if plan.passes != params.glwe_dim + 1:
+            raise SystemExit(f"{shape}: want one digit pass a component, "
+                             f"the plan is {plan}")
+        report("k1_small", "widest k={} N={} l={} b={} n={} ".format(
+            *shape, SMALL_N_STEPS) + "limbs=4 B=40 "
+            + small_plan_line(fbr, 40, params, 4),
+            int((got.long() - plain.long()).abs().max()), worst)
     out = []
     for label, params, batch in small_n_launches():
         steps = params.lwe_dim
@@ -1411,16 +1437,20 @@ def check_k1_small(fbr, worst: dict) -> list[dict]:
         dev = kernel_inputs(params, steps, batch, 4, True, seed=16)
         k_ms, k_out = cuda_ms(lambda: fbr.blind_rotate_k1(*dev, params),
                               REPS)
+        g_ms = graph_ms(lambda: fbr.blind_rotate_k1(*dev, params),
+                        SMALL_N_GRAPH_REPS)
         p_ms, p_out = once_ms(lambda: fbr.blind_rotate_k1_plain(*dev,
                                                                 params))
         b_ms, b_by = bound_ms(params, steps, batch, dev[3])
         err = int((k_out.long() - p_out.long()).abs().max())
-        report("k1_small", f"{label} full length n={steps} B={batch}: "
-               f"kernel {k_ms:.4f} ms, plain version {p_ms:.3f} ms, bound "
-               f"{b_ms:.5f} ms ({b_by})", err, worst)
+        report("k1_small", f"{label} full length n={steps} B={batch} "
+               f"{small_plan_line(fbr, batch, params, 4)}: kernel "
+               f"{k_ms:.4f} ms (as a graph {g_ms:.4f} ms), "
+               f"plain version {p_ms:.3f} ms, bound {b_ms:.5f} ms "
+               f"({b_by})", err, worst)
         out.append({"launch": label, "n": steps, "ciphertexts": batch,
-                    "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-                    "bound_ms": b_ms, "bound_by": b_by})
+                    "max_abs_err": err, "ms": k_ms, "graph_ms": g_ms,
+                    "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by})
     return out
 
 
@@ -1680,7 +1710,8 @@ def main(argv=None) -> int:
          "bound_by": timing[kern][3], "library_ms": None,
          **({"staged_launches": staged_k1, "n4096_launches": n4096}
             if kern == "k1" else {}),
-         **({"mixed_k1_launches_by_path": mixed,
+         **({"graph_ms": small_k[-1]["graph_ms"],
+             "mixed_k1_launches_by_path": mixed,
              "small_n_launches": small_k} if kern == "k1_small"
             else {"bench_launches": bench_k[kern]})}
         for kern, name in (("k2", "fused_blind_rotate_k2"),

@@ -369,7 +369,7 @@ from tfhe_fbs_map_tpu_torch.tfhe import TEST_PARAMS as P
 path = _build.BUILD_DIR / "k1_spin0" / "k1.so"
 _build.compile_library([_build.CSRC / "fused_blind_rotate.cu"], path,
                        ("-DFBR_SPIN=0",))
-lib = _build.bind(path, full=False)
+lib = _build.bind(path, ("k1",))
 g = torch.Generator(device="cuda").manual_seed(3)
 N, k1, rows = P.poly_size, P.glwe_dim + 1, (P.glwe_dim + 1) * P.bsk_level
 def rand(lo, hi, shape, dtype):
@@ -591,26 +591,37 @@ def test_calibration_times_the_work_around_the_kernel_alone(cuda,
     assert ex._graphs == {}
 
 
-# K1 below N=256: its small-N kernel at N = 32, 64 and 128
+# K1 below N=256: its small-N kernel at N = 32, 64 and 128, and at the
+# widest served shapes (b = 1, l = 31, the most columns), where a step runs
+# one digit pass a component
 SMALL_N = [(N, k, l) for N in (32, 64, 128) for k in (1, 2) for l in (2, 3)]
+WIDEST = [(N, 512 // N - 1, 31) for N in (32, 64, 128)]
 
 
-@pytest.mark.parametrize("N,k,l", SMALL_N)
+def small_shape(N, k, l):
+    from tfhe_fbs_map_tpu_torch.tfhe.params import TFHEParams
+    return TFHEParams(p=4, lwe_dim=8, glwe_dim=k, poly_size=N, bsk_level=l,
+                      bsk_base_log=8 if l == 2 else 7 if l == 3 else 1,
+                      ksk_level=1, ksk_base_log=2, lwe_noise_std=0.0,
+                      glwe_noise_std=0.0)
+
+
+@pytest.mark.parametrize("N,k,l", SMALL_N + WIDEST)
 def test_small_n_k1_equals_plain(cuda, N, k, l):
     """The small-N kernel, bitwise against K1's plain version on the card,
     at 4 and 3 limbs and a ragged and a full batch, one launch counted as
-    K1's each."""
-    from tfhe_fbs_map_tpu_torch.tfhe.params import TFHEParams
-    params = TFHEParams(p=4, lwe_dim=8, glwe_dim=k, poly_size=N,
-                        bsk_level=l, bsk_base_log=8 if l == 2 else 7,
-                        ksk_level=1, ksk_base_log=2, lwe_noise_std=0.0,
-                        glwe_noise_std=0.0)
+    K1's each; on the largest cluster it is built for, one digit pass a
+    step at l ≤ 3 and one a component at l = 31."""
+    params = small_shape(N, k, l)
     assert fbr.unsupported(params, otf=True) is None
     for batch in (21, 512):
         for limbs in (4, 3):
             b_init, a_t, tvs, keys = operands(params, batch, True, seed=N)
             keys = keys[:, (4 - limbs) * (k + 1):].contiguous()
             dev = [x.to(cuda) for x in (b_init, a_t, tvs, keys)]
+            plan = fbr.k1_device_plan(batch, params, cuda, limbs)
+            assert plan.cluster == fbr.k1s_clusters(params, limbs)[0] > 1
+            assert plan.passes == (1 if l <= 3 else k + 1)
             plain = fbr.blind_rotate_k1_plain(*dev, params)
             before = fbr.LAUNCHES["k1"]
             got = fbr.blind_rotate_k1(*dev, params)
@@ -620,30 +631,61 @@ def test_small_n_k1_equals_plain(cuda, N, k, l):
 
 
 def test_small_n_layout_and_plan_on_the_card(cuda):
-    """The small-N kernel's shared memory, as it sizes it, fits a CTA at
-    the widest served shapes (b = 1, so l = 31, and the most columns) and
-    at the JAX package's small families; the card runs at least one CTA an
-    SM; and the card's plan is the one the runtime model prices."""
+    """The small-N kernel's shared memory, as it sizes it, is the host's
+    copy of its layout (``k1_small_smem``, which chose the plan's digit
+    passes) and fits a CTA at the widest served shapes (b = 1, so l = 31,
+    and the most columns) and at the JAX package's small families, for
+    every cluster it is built for; the card runs as many clusters of the
+    default plan as the calibration's resident table says where it has the
+    plan, and of every plan at least the fewest that table holds for a
+    small-N plan of its cluster size (one CTA an SM: more fit where shared
+    memory is small); every cluster the kernel is built for launches
+    bitwise; the card's plan is the one the runtime model prices."""
     from tfhe_fbs_map_tpu_torch import bench, bench_multichip
     from tfhe_fbs_map_tpu_torch.optimizer import runtime_model
+    from tfhe_fbs_map_tpu_torch.optimizer.optimizer import calibration
     from tfhe_fbs_map_tpu_torch.parallel.dryrun import DRYRUN_PARAMS
-    from tfhe_fbs_map_tpu_torch.tfhe.params import STAGED_PRESETS, TFHEParams
-    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    widest = [TFHEParams(p=4, lwe_dim=8, glwe_dim=fbr.K1S_MAX_KN // N - 1,
-                         poly_size=N, bsk_level=31, bsk_base_log=1,
-                         ksk_level=1, ksk_base_log=2, lwe_noise_std=0.0,
-                         glwe_noise_std=0.0) for N in (32, 64, 128)]
-    for params in widest + [DRYRUN_PARAMS, bench.QUICK_PARAMS,
-                            bench_multichip.QUICK_PARAMS,
-                            STAGED_PRESETS["staged_test"].fam2]:
+    from tfhe_fbs_map_tpu_torch.tfhe.params import STAGED_PRESETS
+    table = calibration()["resident"]
+    widest = [small_shape(*s) for s in WIDEST]
+    jax = [DRYRUN_PARAMS, bench.QUICK_PARAMS, bench_multichip.QUICK_PARAMS,
+           STAGED_PRESETS["staged_test"].fam2]
+    floor = {}
+    for key, clusters in table.items():
+        if key.startswith("k1s/"):
+            c = int(key.split("/")[2])
+            floor[c] = min(floor.get(c, clusters), clusters)
+    calibrated = 0
+    for params in jax + widest:
         assert fbr.unsupported(params, otf=True) is None
         for limbs in (4, 3):
             plan = fbr.k1_device_plan(512, params, cuda, limbs)
             assert isinstance(plan, fbr.K1SmallPlan)
-            smem, ctas = fbr.k1_small_layout(plan, params, limbs)
-            assert 0 < smem <= fbr.SMEM_MAX and ctas >= sms
+            _, clusters = fbr.k1_small_layout(plan, params, limbs)
+            key = runtime_model.resident_key("fused_otf", limbs, plan,
+                                             params)
+            if key in table:
+                assert clusters == table[key], key
+                calibrated += 1
+            assert clusters >= floor.get(plan.cluster, 1), plan
+            for c in fbr.k1s_clusters(params, limbs):
+                other = fbr.k1_small_plan(params, limbs, cluster=c)
+                smem, clusters = fbr.k1_small_layout(other, params, limbs)
+                assert smem == fbr.k1_small_smem(params, limbs, c,
+                                                 other.passes)
+                assert smem <= fbr.SMEM_MAX
+                assert clusters >= floor.get(c, 1), other
         assert runtime_model.launch_plan(params, 512, "fused_otf")[0] \
             == fbr.k1_device_plan(512, params, cuda)
+    assert calibrated >= 4
+    params = DRYRUN_PARAMS
+    b_init, a_t, tvs, keys = operands(params, 40, True, seed=5)
+    dev = [x.to(cuda) for x in (b_init, a_t, tvs, keys)]
+    plain = fbr.blind_rotate_k1_plain(*dev, params)
+    for c in fbr.k1s_clusters(params):
+        got = fbr.blind_rotate_k1(*dev, params, cluster=c)
+        torch.cuda.synchronize()
+        assert torch.equal(got, plain), c
 
 
 @pytest.mark.parametrize("argv,launches", [

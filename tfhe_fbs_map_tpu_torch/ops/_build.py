@@ -82,21 +82,25 @@ def build() -> Path:
     return path
 
 
-def bind(path: Path, full: bool = True) -> ctypes.CDLL:
-    """Load the library at ``path`` and declare its C entries' arguments
-    (``full=False`` for a library of K1's source alone, without K2 and the
-    small-N K1)."""
+def bind(path: Path, parts: tuple[str, ...] = ("k1", "k2", "k1s")
+         ) -> ctypes.CDLL:
+    """Load the library at ``path`` and declare the C entries of the
+    kernels in ``parts`` (a library built from some of the sources, as the
+    bisect and the give-up test build them, has only theirs)."""
     lib = ctypes.CDLL(str(path))
     p, i, ip = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
-    entries = {"fbr_k1_blind_rotate": [p] * 6 + [i] * 10 + [p],
-               "fbr_k1_max_clusters": [i] * 4 + [ip],
-               "fbr_k1_layout": [i] * 3 + [ip, ip],
-               "fbr_error_string": [i]}
-    if full:
+    entries = {}
+    if "k1" in parts:  # K1's source also holds fbr_error_string
+        entries.update({"fbr_error_string": [i],
+                        "fbr_k1_blind_rotate": [p] * 6 + [i] * 10 + [p],
+                        "fbr_k1_max_clusters": [i] * 4 + [ip],
+                        "fbr_k1_layout": [i] * 3 + [ip, ip]})
+    if "k2" in parts:
         entries.update({"fbr_k2_blind_rotate": [p] * 6 + [i] * 11 + [p],
-                        "fbr_k2_max_clusters": [i] * 4 + [ip],
-                        "fbr_k1s_blind_rotate": [p] * 5 + [i] * 8 + [p],
-                        "fbr_k1s_layout": [i] * 5 + [ip, ip]})
+                        "fbr_k2_max_clusters": [i] * 4 + [ip]})
+    if "k1s" in parts:
+        entries.update({"fbr_k1s_blind_rotate": [p] * 5 + [i] * 10 + [p],
+                        "fbr_k1s_layout": [i] * 7 + [ip, ip]})
     for name, args in entries.items():
         fn = getattr(lib, name)
         fn.argtypes = args

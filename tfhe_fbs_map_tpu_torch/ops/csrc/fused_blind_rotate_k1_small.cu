@@ -1,8 +1,8 @@
 // K1 at N = 32, 64 and 128, the "fused_otf" blind rotation for the rings
 // that K1's 256-byte contraction slices do not divide (sm_90a): all n CMux
-// steps of a tile of ciphertexts in one launch, the contraction on int8
-// tensor cores (mma.sync m16n8k32) with the key operand read out of the
-// compact keys in shared memory.
+// steps of a tile of 16 ciphertexts in one launch, on a thread-block
+// cluster, the contraction on int8 tensor cores (mma.sync m16n8k32) with
+// the key operand read out of the compact keys in shared memory.
 //
 // Replaces _kernel_otf of tfhe_fbs_map_tpu/ops/fused_blind_rotate.py
 // (:160-242) at N < 256 (the Pallas kernel takes any N, with its strip
@@ -12,26 +12,55 @@
 // M[(r, j), t] = E[N + t - j], and
 //   ACC[comp] += sum_limb (digits @ M_{limb,comp}) << 8*(limb + drop).
 //
-// The design is simple on purpose: one CTA of eight warps owns a tile of
-// kCB = 16 ciphertexts (mma's M) for all n steps, with the tile's ACC
-// [k+1][16][N] in shared memory.  A step walks the k+1 input components:
-// the CTA copies the step's E rows of that component (L*(k+1) runs of
-// l*2N bytes, 9.2 KB at k=2, N=128, l=3) from device memory into shared
-// memory and writes the component's digits there, reversed within each
-// row's N block (j' = N-1-j), which makes the key operand the Hankel
-// matrix B'[(lev, j'), t] = E[t + j' + 1] (as in K1, fused_blind_rotate.cu):
-// a B fragment of m16n8k32 is two 4-byte windows of one E row, read as two
-// aligned words and a funnel shift.  Warp w owns the n8 output tiles w,
-// w+8, ... of the (k+1)*N columns (NT of them) and keeps one int32
-// fragment a (limb, tile) over the whole contraction; after the last
-// component it adds them, shifted by limb, into ACC.
+// What bounds it on the H100.  A tile is M = 16 ciphertexts, so a step is a
+// thin product: 16 x rows*N x L*(k+1)*N int8 MACs (28 M at k=2, N=128, l=3,
+// L=4) on operands that live in shared memory, and a launch at the JAX
+// package's sizes (8-48 ciphertexts, n = 8-32 steps) is n such steps in
+// series: latency, some 1,000x its card-wide bound.  With one CTA a tile
+// (the first version of this kernel) a launch kept 1-3 of the 132 SMs busy
+// and the products were 76-84% of it (PERF.md, section 5).
+// This design spreads a step over a cluster of 8 CTAs; what is left of a
+// step at bench --quick (~4.5 us on an H100, PERF.md) is the products
+// (~1.4 us: the B windows' shared loads, then the mma.sync), the exchange
+// and the cluster barrier (~1 us), the digit pass (~0.64 us: what
+// no_digits saves, over 32 steps) and the CTA barriers and the slices'
+// reduction.
 //
-// What bounds it on the H100: nothing at these sizes is large.  A step at
-// k=2, N=128, l=3, L=4 is 16 x 1,152 x 1,536 int8 MACs a tile; the
-// operands come from shared memory through ldmatrix-free 32-bit loads, two
-// loads and a shift a B register, so the shared-memory pipe, not the
-// tensor cores, bounds the products, and the two barriers and the digit
-// pass a component are serial around them.  Making it fast is later work.
+// The design:
+// * a cluster of C CTAs a tile (kMaxCluster at most, the portable size):
+//   CTA r owns the columns [r*span, (r+1)*span) of the flattened (comp, t)
+//   axis, span = (k+1)*N / C, with all L limbs, so the limb shift-add stays
+//   inside the CTA.  Its warps form groups of NT n8 output tiles
+//   (tile_groups) and each group's warps split the contraction, so every
+//   warp keeps 4-16 independent int32 fragments whatever the span, and the
+//   slices' limb-shifted sums meet in shared memory (in the key stage the
+//   step is done with).  A CTA runs 1/C of the products and reads 1/C of
+//   the keys;
+// * every CTA keeps the whole tile's ACC [k+1][16][N] in shared memory,
+//   double-buffered: step i reads buffer i&1 and writes (i+1)&1.  A CTA
+//   computes all the digits itself (at most 6,144 coefficients a step on
+//   256 threads, cheaper than any exchange) and stores its span of the new
+//   ACC into every CTA's copy (st.shared::cluster).  One cluster barrier a
+//   step orders those remote stores and the next step's reads; ACC reaches
+//   device memory once, at the end;
+// * the keys of the next pass are in flight while this one computes: one
+//   warp brings the CTA's own E rows (L x its components x the pass's rows x
+//   2N bytes) with cp.async.bulk into the other of two stages, completing on
+//   that stage's mbarrier;
+// * one digit pass a step (PASSES = 1): the digits of all k+1 components
+//   are written at once, then three CTA barriers (digits written; products
+//   done; partial sums written) and the cluster barrier.  Where those
+//   digit rows and the two key stages do not fit 227 KB (large l), the step
+//   runs one pass a component (PASSES = k+1), each with its own digit rows
+//   and key stage and two barriers.  k1_small_plan
+//   (ops/fused_blind_rotate.py) picks which from this file's layout.
+// The digits are written reversed within each row's N block (j' = N-1-j),
+// which makes the key operand the Hankel matrix B'[(lev, j'), t] =
+// E[t + j' + 1] (as in K1, fused_blind_rotate.cu): a B fragment of
+// m16n8k32 is two 4-byte windows of one E row, read as two aligned words
+// and a funnel shift; the A fragment is one ldmatrix.  wgmma is not used:
+// its M of 64 rows would waste 3/4 of every product on a 16-ciphertext
+// tile.
 //
 // Exactness: |digit| <= 2^(b-1) <= 128, |key| <= 128 and
 // rows*N*2^(b+6) < 2^31 (unsupported() in ops/fused_blind_rotate.py), so
@@ -47,24 +76,61 @@
 namespace fbr {
 namespace k1s {
 
-constexpr int kCB = 16;                   // ciphertexts a CTA: mma's M
+constexpr int kCB = 16;                   // ciphertexts a tile: mma's M
 constexpr int kWarps = 8;                 // warps a CTA
 constexpr int kThreadsS = 32 * kWarps;
+constexpr int kMaxCluster = 8;            // CTAs a tile, at most
 constexpr int kAccPad = 8;   // words past each ACC row (epilogue banks)
 constexpr int kDigPad = 16;  // bytes past each digit row (fragment banks)
-constexpr int kEPad = 16;    // bytes past the E rows (a window's 2nd word)
+constexpr int kEPad = 16;    // bytes past a key stage (a window's 2nd word)
+constexpr int kRedPad = 8;   // words past each partial-sum row (store banks)
 
-// Dynamic shared memory of a CTA: ACC [k1][kCB][n + kAccPad] uint32, the
-// digits [kCB][l*n + kDigPad] int8, the E rows [L][k1][l][2n] int8 (the
-// launch side asks fbr_k1s_layout for it).
-__host__ __device__ inline int acc_bytes(int n, int k1) {
-  return 4 * k1 * kCB * (n + kAccPad);
+// A CTA's warps: groups of nt n8 output tiles, ceil(tiles / nt) rounded up
+// to a power of two (so they divide kWarps), each group's warps splitting
+// the contraction.
+__host__ __device__ inline int tile_groups(int tiles, int nt) {
+  int groups = 1;
+  while (groups * nt < tiles) groups *= 2;
+  return groups;
 }
-__host__ __device__ inline int dig_bytes(int n, int l) {
-  return kCB * (l * n + kDigPad);
+
+// The most output components the span of any CTA of a cluster of `cluster`
+// touches: the E rows a CTA copies are those of its components.
+__host__ __device__ inline int comps_a_cta(int n, int k1, int cluster) {
+  const int span = k1 * n / cluster;
+  int most = 0;
+  for (int r = 0; r < cluster; ++r) {
+    const int c = (r * span + span - 1) / n - r * span / n + 1;
+    most = c > most ? c : most;
+  }
+  return most;
 }
-inline int smem_bytes(int n, int k1, int l, int limbs) {
-  return acc_bytes(n, k1) + dig_bytes(n, l) + limbs * k1 * l * 2 * n + kEPad;
+
+// Dynamic shared memory of a CTA, byte offsets (the launch side asks
+// fbr_k1s_layout for the total): ACC 2 x [k1][kCB][n + kAccPad] uint32,
+// the digits [kCB][prow*n + kDigPad] int8 (prow = the E rows of a pass),
+// two key stages of [L][comps][prow][2n] int8 + kEPad, each also the room
+// of the contraction slices' partial sums [kWarps / groups][kCB][span +
+// kRedPad] uint32 once the last pass of a step is done with it, the
+// rotation amounts 2 x [kCB] int32, the stages' two mbarriers.
+struct Layout {
+  int dig, es, stage, amt, bar, total;
+};
+
+__host__ __device__ inline Layout layout(int n, int k1, int l, int limbs,
+                                         int cluster, int passes, int nt) {
+  const int prow = k1 * l / passes, span = k1 * n / cluster;
+  const int keys = limbs * comps_a_cta(n, k1, cluster) * prow * 2 * n + kEPad;
+  const int red =
+      kWarps / tile_groups(span / 8, nt) * kCB * (span + kRedPad) * 4;
+  Layout s;
+  s.dig = 2 * 4 * k1 * kCB * (n + kAccPad);
+  s.es = s.dig + kCB * (prow * n + kDigPad);
+  s.stage = keys > red ? keys : red;
+  s.amt = s.es + 2 * s.stage;
+  s.bar = s.amt + 2 * kCB * 4;
+  s.total = s.bar + 2 * 8;
+  return s;
 }
 
 // Bytes row[at .. at+3] as one little-endian word, at >= 0 any offset into
@@ -84,46 +150,198 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <int L, int NT>
-__global__ void __launch_bounds__(kThreadsS)
-k1s_kernel(const int32_t* __restrict__ b_init,
-           const int32_t* __restrict__ a_t, const int32_t* __restrict__ tv,
-           const int8_t* __restrict__ keys, int32_t* __restrict__ out,
-           int steps, int batch, int n, int k1, int l, int b) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gid = lane >> 2, tig = lane & 3;  // mma fragment coordinates
-  const int g0 = blockIdx.x * kCB;            // first ciphertext of the tile
-  const int log_n = __ffs(n) - 1;
-  const int accw = n + kAccPad;               // words an ACC row
-  const int drow = l * n + kDigPad;           // bytes a digit row
-  const int rows = k1 * l, two_n = 2 * n;
-  const int tiles = k1 * n / 8;               // n8 output tiles
-  constexpr int drop = 4 - L;
-  uint32_t* acc = reinterpret_cast<uint32_t*>(smem);  // [k1][kCB][accw]
-  int8_t* dig = reinterpret_cast<int8_t*>(smem + acc_bytes(n, k1));
-  int8_t* es = dig + dig_bytes(n, l);                 // [L][k1][l][2n]
+// The m16n8k32 A fragment of 16 rows x 32 bytes: lane i gives the address
+// of row (i & 7) + 8 * ((i >> 3) & 1), byte 16 * (i >> 4).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(addr)
+      : "memory");
+}
 
-  // the digits' constants, as digit_pass in fused_blind_rotate.cuh
+// Every thread of every CTA of the cluster: the shared-memory stores before
+// it, this CTA's and the remote ones, are visible to the cluster after.
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// {v0, v1} to the shared-memory address `addr` of this CTA, in CTA `rank`
+// of the cluster.
+__device__ __forceinline__ void store_to(uint32_t addr, int rank,
+                                         uint32_t v0, uint32_t v1) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(addr), "r"(rank));
+  asm volatile("st.shared::cluster.v2.u32 [%0], {%1, %2};\n" ::"r"(remote),
+               "r"(v0), "r"(v1)
+               : "memory");
+}
+
+// Digits of X^a * ACC[c] - ACC[c] for the components c0 .. c0 + nc - 1 of
+// the tile (rotation amounts amt[g]), balanced and biased-added as
+// digit_pass in fused_blind_rotate.cuh, into dig [kCB][drow]: coefficient t
+// of (component c0 + ci, level lev) at column (ci*l + lev)*n + n-1-t.  Four
+// coefficients a thread at a time; rows past the batch (g >= live) get zero
+// digits.
+__device__ __forceinline__ void write_digits(const uint32_t* acc,
+                                             int8_t* dig, const int* amt,
+                                             int c0, int nc, int live, int n,
+                                             int log_n, int l, int b,
+                                             int accw, int drow) {
   const int bl = b * l, half = 1 << (b - 1);
   const uint32_t mask = (1u << b) - 1, rnd = 1u << (31 - bl);
   uint32_t bias = 0;
   for (int j = 0; j < l; ++j) bias += static_cast<uint32_t>(half) << (b * j);
+  // kCB * (n / 4) = 4n groups a component
+  for (int e = threadIdx.x; e < nc << (log_n + 2); e += kThreadsS) {
+    const int ci = e >> (log_n + 2), g = (e >> (log_n - 2)) & (kCB - 1);
+    const int t = 4 * (e & (n / 4 - 1));
+    uint32_t* dp =
+        reinterpret_cast<uint32_t*>(dig + g * drow + ci * l * n + (n - 4 - t));
+    if (g >= live) {
+      for (int lev = 0; lev < l; ++lev) dp[lev * (n / 4)] = 0;
+      continue;
+    }
+    // rotated_coef(row, t + j, a, n) for j < 4: the words (t + j - a) mod
+    // n, from the two aligned 16-byte blocks that hold them
+    const int a = amt[g], am = a & (n - 1);
+    const bool flip = (a & n) != 0;
+    const uint32_t* row = acc + ((c0 + ci) * kCB + g) * accw;
+    const int from = (t - am) & (n - 1), sh4 = from & 3, blk = from & ~3;
+    const uint4 own = *reinterpret_cast<const uint4*>(row + t);
+    const uint4 x0 = *reinterpret_cast<const uint4*>(row + blk);
+    const uint4 x1 =
+        *reinterpret_cast<const uint4*>(row + ((blk + 4) & (n - 1)));
+    const uint32_t o[4] = {own.x, own.y, own.z, own.w};
+    const uint32_t x[8] = {x0.x, x0.y, x0.z, x0.w, x1.x, x1.y, x1.z, x1.w};
+    uint32_t z[6];
+#pragma unroll
+    for (int k = 0; k < 6; ++k) z[k] = (sh4 & 2) ? x[k + 2] : x[k];
+    uint32_t w[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t v = (sh4 & 1) ? z[j + 1] : z[j];  // x[sh4 + j]
+      const uint32_t rot = ((t + j < am) != flip) ? 0u - v : v;
+      w[j] = ((rot - o[j] + rnd) >> (32 - bl)) + bias;
+    }
+    for (int lev = 0; lev < l; ++lev) {
+      const int sh = b * (l - 1 - lev);
+      uint32_t packed = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        packed |= ((((w[j] >> sh) & mask) - half) & 0xFFu) << (8 * (3 - j));
+      dp[lev * (n / 4)] = packed;
+    }
+  }
+}
 
-  // ACC = (0, ..., 0, X^{b_init} * tv)
+template <int L, int NT, int PASSES_ALL>
+__global__ void __launch_bounds__(kThreadsS)
+k1s_kernel(const int32_t* __restrict__ b_init,
+           const int32_t* __restrict__ a_t, const int32_t* __restrict__ tv,
+           const int8_t* __restrict__ keys, int32_t* __restrict__ out,
+           int steps, int batch, int n, int k1, int l, int b, int cluster) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gid = lane >> 2, tig = lane & 3;  // mma fragment coordinates
+  const int rank = static_cast<int>(cluster_rank());
+  const int g0 = (blockIdx.x / cluster) * kCB;  // first ciphertext of the tile
+  const int live = min(kCB, batch - g0);        // its rows inside the batch
+  const int log_n = __ffs(n) - 1;
+  const int accw = n + kAccPad, rows = k1 * l, two_n = 2 * n;
+  // PASSES_ALL: one pass of all k1 components a step; else one a component
+  const int passes = PASSES_ALL ? 1 : k1, cpp = k1 / passes;
+  const int prow = rows / passes;             // E rows (digit rows) a pass
+  const int drow = prow * n + kDigPad;        // bytes a digit row
+  const int span = k1 * n / cluster, q_lo = rank * span;
+  const int tiles = span / 8;                 // n8 output tiles of the CTA
+  const int c_lo = q_lo >> log_n;             // the CTA's first component
+  const int nc = ((q_lo + span - 1) >> log_n) - c_lo + 1;
+  const int run = prow * two_n;               // bytes a (limb, comp) copy
+  // warp = (contraction slice ks, tile group tg): the group's NT tiles over
+  // the slice's chunks of every pass
+  const int groups = tile_groups(tiles, NT), slices = kWarps / groups;
+  const int tg = warp % groups, ks = warp / groups;
+  const int rs = span + kRedPad;              // words a partial-sum row
+  const Layout lay = layout(n, k1, l, L, cluster, passes, NT);
+  constexpr int drop = 4 - L;
+  const int acc_words = k1 * kCB * accw;
+  uint32_t* acc = reinterpret_cast<uint32_t*>(smem);  // 2 x [k1][kCB][accw]
+  int8_t* dig = reinterpret_cast<int8_t*>(smem + lay.dig);
+  int8_t* es = reinterpret_cast<int8_t*>(smem + lay.es);  // 2 stages
+  int* amt = reinterpret_cast<int*>(smem + lay.amt);      // 2 x [kCB]
+  const uint32_t bar = smem_u32(smem + lay.bar);          // 2 mbarriers
+
+  // the E rows of pass u (step u / passes, pass u % passes) of every limb
+  // and of this CTA's components into stage u & 1, by warp 0
+  auto fetch = [&](int u) {
+    const int i = u / passes, p = u - i * passes;
+    const uint32_t full = bar + 8 * (u & 1);
+    const uint32_t dst = smem_u32(es + (u & 1) * lay.stage);
+    if (lane == 0) mbar_expect_tx(full, L * nc * run);
+    __syncwarp();
+    for (int j = lane; j < L * nc; j += 32) {
+      const int lb = j / nc, c = j - lb * nc;
+      bulk_load(dst + j * run,
+                keys + ((static_cast<size_t>(i) * L * k1 + lb * k1 + c_lo +
+                         c) * rows + p * prow) * two_n,
+                run, full);
+    }
+  };
+
+  // the first pass's keys come while the tile's ACC is set up
+  if (warp == 0) {
+    if (lane == 0) {
+      mbar_init(bar, 1);
+      mbar_init(bar + 8, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncwarp();
+    fetch(0);
+  }
+  // ACC = (0, ..., 0, X^{b_init} * tv), the whole tile, in buffer 0
   for (int e = tid; e < k1 * kCB * n; e += kThreadsS) {
-    const int c = e / (kCB * n), g = (e >> log_n) % kCB, t = e & (n - 1);
-    const int gg = g0 + g;
+    const int c = e >> (log_n + 4), g = (e >> log_n) & (kCB - 1);
+    const int t = e & (n - 1);
     uint32_t v = 0;
-    if (c == k1 - 1 && gg < batch)
-      v = rotated_coef(
-          reinterpret_cast<const uint32_t*>(tv) + static_cast<size_t>(gg) * n,
-          t, b_init[gg], n);
+    if (c == k1 - 1 && g < live)
+      v = rotated_coef(reinterpret_cast<const uint32_t*>(tv) +
+                           static_cast<size_t>(g0 + g) * n,
+                       t, b_init[g0 + g], n);
     acc[(c * kCB + g) * accw + t] = v;
   }
+  if (tid < kCB) amt[tid] = tid < live ? a_t[g0 + tid] : 0;
+  // every CTA of the cluster runs and has its ACC, and every thread sees
+  // the mbarriers: remote stores and waits may start
+  cluster_barrier();
+
+  // this lane's ldmatrix row of the digits, and its tiles' columns in a
+  // stage plus 4*tig + 1 (B'[k][t] = E[t + j' + 1])
+  const uint32_t a_lane = smem_u32(dig) +
+                          ((lane & 7) + ((lane >> 3) & 1) * 8) * drow +
+                          16 * (lane >> 4);
+  int bo[NT];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    const int q = q_lo + 8 * (tg * NT + nt) + gid;
+    bo[nt] = ((q >> log_n) - c_lo) * prow * two_n + (q & (n - 1)) +
+             4 * tig + 1;
+  }
+  const int chunks = prow * (n >> 5), cl = log_n - 5;  // 32-byte chunks
+  const int kc_lo = ks * chunks / slices, kc_hi = (ks + 1) * chunks / slices;
+  const int lstride = nc * run;  // bytes from one limb's rows to the next
 
   int d[L][NT][4];
-  for (int i = 0; i < steps; ++i) {
+  for (int i = 0, u = 0; i < steps; ++i) {
+    const uint32_t* cur = acc + (i & 1) * acc_words;
+    uint32_t* nxt = acc + ((i + 1) & 1) * acc_words;
+    // the next step's amounts: loaded now, stored after this step's digits
+    int next_amt = 0;
+    if (tid < live && i + 1 < steps)
+      next_amt = __ldg(a_t + static_cast<size_t>(i + 1) * batch + g0 + tid);
 #pragma unroll
     for (int lb = 0; lb < L; ++lb)
 #pragma unroll
@@ -131,88 +349,68 @@ k1s_kernel(const int32_t* __restrict__ b_init,
 #pragma unroll
         for (int r = 0; r < 4; ++r) d[lb][nt][r] = 0;
 
-    for (int ci = 0; ci < k1; ++ci) {
-      // the last component's products and the epilogue are done with the
-      // digits, the E rows and ACC
+    for (int p = 0; p < passes; ++p, ++u) {
+      // the previous pass's products are done with the digits and with
+      // stage (u + 1) & 1 (at p = 0: the step's cluster barrier)
+      if (p > 0) __syncthreads();
+      if (warp == 0 && u + 1 < steps * passes) fetch(u + 1);
+      write_digits(cur, dig, amt + (i & 1) * kCB, p * cpp, cpp, live, n,
+                   log_n, l, b, accw, drow);
       __syncthreads();
-      // E rows (ci*l .. ci*l + l - 1) of every (limb, comp): L*k1 runs
-      const int run = l * two_n / 16;  // uint4 a run
-      const uint4* src = reinterpret_cast<const uint4*>(keys);
-      uint4* dst = reinterpret_cast<uint4*>(es);
-      for (int e = tid; e < L * k1 * run; e += kThreadsS) {
-        const int r = e / run, o = e - r * run;  // r = limb*k1 + comp
-        dst[e] = __ldg(src + ((static_cast<size_t>(i) * L * k1 + r) * rows +
-                              ci * l) * two_n / 16 + o);
-      }
-      // digits of X^{a_i} * ACC[ci] - ACC[ci], four coefficients a thread,
-      // written reversed: coefficient t of level lev at lev*n + n-1-t
-      for (int e = tid; e < kCB * (n / 4); e += kThreadsS) {
-        const int g = e / (n / 4), t = 4 * (e % (n / 4)), gg = g0 + g;
-        uint32_t* dp =
-            reinterpret_cast<uint32_t*>(dig + g * drow + (n - 4 - t));
-        if (gg >= batch) {
-          for (int lev = 0; lev < l; ++lev) dp[lev * (n / 4)] = 0;
-          continue;
-        }
-        const int a = a_t[static_cast<size_t>(i) * batch + gg];
-        const uint32_t* row = acc + (ci * kCB + g) * accw;
-        uint32_t w[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          w[j] = ((rotated_coef(row, t + j, a, n) - row[t + j] + rnd) >>
-                  (32 - bl)) + bias;
-        for (int lev = 0; lev < l; ++lev) {
-          const int sh = b * (l - 1 - lev);
-          uint32_t packed = 0;
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            packed |= ((((w[j] >> sh) & mask) - half) & 0xFFu)
-                      << (8 * (3 - j));
-          dp[lev * (n / 4)] = packed;
-        }
-      }
-      __syncthreads();
+      mbar_wait(bar + 8 * (u & 1), (u >> 1) & 1);
 
-      // products over the component's contraction (lev, j'), 32 at a time:
-      // A[g][k] = digits, B'[k][t] = E[limb][comp][ci*l + lev][t + j' + 1]
-      for (int lev = 0; lev < l; ++lev)
-        for (int j0 = 0; j0 < n; j0 += 32) {
-          const int8_t* ar = dig + lev * n + j0 + 4 * tig;
-          uint32_t a[4];
-          a[0] = *reinterpret_cast<const uint32_t*>(ar + gid * drow);
-          a[1] = *reinterpret_cast<const uint32_t*>(ar + (gid + 8) * drow);
-          a[2] = *reinterpret_cast<const uint32_t*>(ar + gid * drow + 16);
-          a[3] =
-              *reinterpret_cast<const uint32_t*>(ar + (gid + 8) * drow + 16);
+      // products over the warp's chunks of the pass's contraction (r, j'):
+      // chunk kc = r * n/32 + j0/32, A[g][k] = digits at byte 32*kc + k of
+      // row g, B'[k][t] = E[limb][comp][r][t + j0 + k + 1]; the operands of
+      // chunk kc + 1 are loaded while chunk kc's products issue
+      const int8_t* stage = es + (u & 1) * lay.stage;
+      auto load = [&](int kc, uint32_t(&a)[4], uint32_t(&bw)[NT][L][2]) {
+        ldmatrix_x4(a, a_lane + 32 * kc);
+        const int ko = (kc >> cl) * two_n + ((kc & ((1 << cl) - 1)) << 5);
 #pragma unroll
-          for (int nt = 0; nt < NT; ++nt) {
-            const int tile = warp + kWarps * nt;
-            if (tile < tiles) {
-              const int q = 8 * tile + gid;  // this lane's B column
-              const int co = q >> log_n, t = q & (n - 1);
-              const int at = t + j0 + 4 * tig + 1;
+        for (int nt = 0; nt < NT; ++nt)
+          if (tg * NT + nt < tiles)
 #pragma unroll
-              for (int lb = 0; lb < L; ++lb) {
-                const int8_t* er = es + ((lb * k1 + co) * l + lev) * two_n;
-                mma_s8(d[lb][nt], a, window(er, at), window(er, at + 16));
-              }
+            for (int lb = 0; lb < L; ++lb) {
+              const int8_t* er = stage + lb * lstride;
+              bw[nt][lb][0] = window(er, bo[nt] + ko);
+              bw[nt][lb][1] = window(er, bo[nt] + ko + 16);
             }
-          }
+      };
+      auto product = [&](const uint32_t(&a)[4],
+                         const uint32_t(&bw)[NT][L][2]) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          if (tg * NT + nt < tiles)
+#pragma unroll
+            for (int lb = 0; lb < L; ++lb)
+              mma_s8(d[lb][nt], a, bw[nt][lb][0], bw[nt][lb][1]);
+      };
+      uint32_t a0[4], b0[NT][L][2], a1[4], b1[NT][L][2];
+      if (kc_lo < kc_hi) load(kc_lo, a0, b0);
+      for (int kc = kc_lo; kc < kc_hi; kc += 2) {
+        if (kc + 1 < kc_hi) load(kc + 1, a1, b1);
+        product(a0, b0);
+        if (kc + 1 < kc_hi) {
+          if (kc + 2 < kc_hi) load(kc + 2, a0, b0);
+          product(a1, b1);
         }
+      }
     }
 
-    // ACC[comp] += sum_limb d << 8*(limb + drop): each (row, column) of the
-    // fragments is this thread's alone, and no thread reads ACC until the
-    // next step's first barrier
+    // the slice's partial sums, limbs shifted in (mod 2^32), into red
+    // [ks][g][column of the span], in the stage the step's last pass is
+    // done with once every warp's products are (its next fill is issued
+    // after the cluster barrier)
+    uint32_t* red =
+        reinterpret_cast<uint32_t*>(es + ((u - 1) & 1) * lay.stage);
+    __syncthreads();
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
-      const int tile = warp + kWarps * nt;
+      const int tile = tg * NT + nt;
       if (tile < tiles) {
-        const int q = 8 * tile + 2 * tig;
-        const int co = q >> log_n, t = q & (n - 1);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          uint32_t* ap = acc + (co * kCB + gid + 8 * h) * accw + t;
           uint32_t v0 = 0, v1 = 0;
 #pragma unroll
           for (int lb = 0; lb < L; ++lb) {
@@ -220,62 +418,97 @@ k1s_kernel(const int32_t* __restrict__ b_init,
             v0 += static_cast<uint32_t>(d[lb][nt][2 * h]) << sh;
             v1 += static_cast<uint32_t>(d[lb][nt][2 * h + 1]) << sh;
           }
-          ap[0] += v0;
-          ap[1] += v1;
+          *reinterpret_cast<uint2*>(
+              red + (ks * kCB + gid + 8 * h) * rs + 8 * tile + 2 * tig) =
+              make_uint2(v0, v1);
         }
       }
     }
-  }
-  __syncthreads();
+    fence_async_shared();  // before the stage's next cp.async.bulk fill
+    __syncthreads();
 
+    // ACC[comp] += the slices' sums on the CTA's span: read from this CTA's
+    // copy of buffer i&1, stored into buffer (i+1)&1 of every CTA's copy (no
+    // CTA reads buffer (i+1)&1 before the cluster barrier below)
+    const uint32_t nxt_s = smem_u32(nxt);
+    const int pairs = span / 2;
+    for (int e = tid; e < live * pairs; e += kThreadsS) {
+      const int g = e / pairs, c = 2 * (e - g * pairs);
+      const int q = q_lo + c, co = q >> log_n, t = q & (n - 1);
+      const int off = (co * kCB + g) * accw + t;
+      uint32_t v0 = cur[off], v1 = cur[off + 1];
+      for (int k = 0; k < slices; ++k) {
+        const uint2 part =
+            *reinterpret_cast<const uint2*>(red + (k * kCB + g) * rs + c);
+        v0 += part.x;
+        v1 += part.y;
+      }
+      for (int j = 0; j < cluster; ++j) {
+        const int peer = rank + j < cluster ? rank + j : rank + j - cluster;
+        store_to(nxt_s + 4 * off, peer, v0, v1);
+      }
+    }
+    if (tid < kCB) amt[((i + 1) & 1) * kCB + tid] = next_amt;
+    cluster_barrier();
+  }
+
+  // the CTA's span of the final ACC, buffer steps & 1
+  const uint32_t* fin = acc + (steps & 1) * acc_words;
   uint32_t* o = reinterpret_cast<uint32_t*>(out);  // [k1][batch][n]
-  for (int e = tid; e < k1 * kCB * n; e += kThreadsS) {
-    const int c = e / (kCB * n), g = (e >> log_n) % kCB, t = e & (n - 1);
-    const int gg = g0 + g;
-    if (gg < batch)
-      o[(static_cast<size_t>(c) * batch + gg) * n + t] =
-          acc[(c * kCB + g) * accw + t];
+  for (int e = tid; e < live * span; e += kThreadsS) {
+    const int g = e / span, q = q_lo + e - g * span;
+    const int c = q >> log_n, t = q & (n - 1);
+    o[(static_cast<size_t>(c) * batch + g0 + g) * n + t] =
+        fin[(c * kCB + g) * accw + t];
   }
 }
 
-template <int L, int NT>
+template <int L, int NT, int PASSES_ALL>
 cudaError_t launch(const void* b_init, const void* a_t, const void* tv,
                    const void* keys, void* out, int steps, int batch, int n,
-                   int k1, int l, int b, cudaStream_t stream) {
-  auto kern = k1s_kernel<L, NT>;
-  const int smem = smem_bytes(n, k1, l, L);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                   int k1, int l, int b, int cluster, cudaStream_t stream) {
+  auto kern = k1s_kernel<L, NT, PASSES_ALL>;
+  const int smem =
+      layout(n, k1, l, L, cluster, PASSES_ALL ? 1 : k1, NT).total;
+  cudaError_t err = prepare_kernel(kern, cluster, smem);
   if (err != cudaSuccess) return err;
-  kern<<<(batch + kCB - 1) / kCB, kThreadsS, smem, stream>>>(
-      static_cast<const int32_t*>(b_init), static_cast<const int32_t*>(a_t),
-      static_cast<const int32_t*>(tv), static_cast<const int8_t*>(keys),
-      static_cast<int32_t*>(out), steps, batch, n, k1, l, b);
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg =
+      cluster_config((batch + kCB - 1) / kCB * cluster, cluster, smem, attr,
+                     stream, kThreadsS);
+  err = cudaLaunchKernelEx(&cfg, kern, static_cast<const int32_t*>(b_init),
+                           static_cast<const int32_t*>(a_t),
+                           static_cast<const int32_t*>(tv),
+                           static_cast<const int8_t*>(keys),
+                           static_cast<int32_t*>(out), steps, batch, n, k1, l,
+                           b, cluster);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-// CTAs of (L, NT) at this shape the current card runs at once.
-template <int L, int NT>
-cudaError_t resident(int n, int k1, int l, int* ctas) {
-  auto kern = k1s_kernel<L, NT>;
-  const int smem = smem_bytes(n, k1, l, L);
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
-                                                        kThreadsS, smem);
-  *ctas = sms * per_sm;
-  return err;
+// Clusters of (L, NT, PASSES_ALL) at this shape the current card runs at
+// once (cudaOccupancyMaxActiveClusters).
+template <int L, int NT, int PASSES_ALL>
+cudaError_t resident(int n, int k1, int l, int cluster, int* clusters) {
+  return max_active_clusters(
+      k1s_kernel<L, NT, PASSES_ALL>, cluster,
+      layout(n, k1, l, L, cluster, PASSES_ALL ? 1 : k1, NT).total, clusters,
+      kThreadsS);
 }
 
-// The shapes the kernel serves: N a power of two in [32, 128] and the n8
-// tiles of the warps covering the (k+1)*N columns.
-inline bool serves(int n, int k1, int nt) {
-  return n >= 32 && n <= 128 && !(n & (n - 1)) && nt * 8 * kWarps >= k1 * n;
+// The shapes the kernel serves: N a power of two in [32, 128]; a cluster of
+// at most kMaxCluster CTAs whose spans are whole n8 tiles, in groups of nt
+// a warp that divide the warps; one pass a step or one a component; the
+// layout within the 227 KB a CTA may have.
+inline bool serves(int n, int k1, int l, int limbs, int cluster, int nt,
+                   int passes) {
+  if (n < 32 || n > 128 || (n & (n - 1)) || k1 < 2 || l < 1 ||
+      cluster < 1 || cluster > kMaxCluster || (k1 * n) % cluster)
+    return false;
+  const int span = k1 * n / cluster, groups = tile_groups(span / 8, nt);
+  return span % 8 == 0 && groups <= kWarps && kWarps % groups == 0 &&
+         (passes == 1 || passes == k1) &&
+         layout(n, k1, l, limbs, cluster, passes, nt).total <= 232448;
 }
 
 }  // namespace k1s
@@ -283,39 +516,54 @@ inline bool serves(int n, int k1, int nt) {
 
 // (limbs, n8 output tiles a warp)
 #define FBR_K1S_CASES(X)                                                   \
-  X(1, 1) X(1, 2) X(1, 4) X(1, 8) X(2, 1) X(2, 2) X(2, 4) X(2, 8) X(3, 1) \
-  X(3, 2) X(3, 4) X(3, 8) X(4, 1) X(4, 2) X(4, 4) X(4, 8)
+  X(1, 1) X(1, 2) X(1, 4) X(2, 1) X(2, 2) X(2, 4) X(3, 1) X(3, 2) X(3, 4) \
+  X(4, 1) X(4, 2) X(4, 4)
 
-// C entry: returns the launch's cudaError_t (0 on success).  `nt` is the
-// number of n8 output tiles a warp holds (nt * 8 warps * 8 >= (k+1)*N,
-// k1_small_plan); N a power of two in [32, 128].
+// C entry: returns the launch's cudaError_t (0 on success).  The plan
+// (k1_small_plan): `cluster` CTAs a tile of 16 ciphertexts, `nt` n8 output
+// tiles a warp (1, 2 or 4: a CTA's warps are groups of them, each group's
+// warps splitting the contraction, tile_groups), `passes` digit passes a step
+// (1: all k+1 components at once; k+1: one a component).  N a power of two
+// in [32, 128].
 extern "C" int fbr_k1s_blind_rotate(const void* b_init, const void* a_t,
                                     const void* tv, const void* keys,
                                     void* out, int steps, int batch, int n,
                                     int k1, int l, int b, int n_limbs,
-                                    int nt, void* stream) {
+                                    int cluster, int nt, int passes,
+                                    void* stream) {
   using namespace fbr::k1s;
-  if (!serves(n, k1, nt)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!serves(n, k1, l, n_limbs, cluster, nt, passes))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
 #define FBR_K1S_LAUNCH(L, NT)                                                \
   if (n_limbs == L && nt == NT)                                              \
-    return static_cast<int>(fbr::k1s::launch<L, NT>(                         \
-        b_init, a_t, tv, keys, out, steps, batch, n, k1, l, b, st));
+    return static_cast<int>(                                                 \
+        passes == 1 ? fbr::k1s::launch<L, NT, 1>(b_init, a_t, tv, keys, out, \
+                                                 steps, batch, n, k1, l, b,  \
+                                                 cluster, st)                \
+                    : fbr::k1s::launch<L, NT, 0>(b_init, a_t, tv, keys, out, \
+                                                 steps, batch, n, k1, l, b,  \
+                                                 cluster, st));
   FBR_K1S_CASES(FBR_K1S_LAUNCH)
 #undef FBR_K1S_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The dynamic shared memory a CTA launches with at (n, k1, l, n_limbs, nt),
-// into *smem, and the CTAs the current card runs at once, into *ctas.
-extern "C" int fbr_k1s_layout(int n, int k1, int l, int n_limbs, int nt,
-                              int* smem, int* ctas) {
+// The dynamic shared memory a CTA of the plan (cluster, nt, passes)
+// launches with at (n, k1, l, n_limbs), into *smem, and the clusters the
+// current card runs at once, into *clusters.
+extern "C" int fbr_k1s_layout(int n, int k1, int l, int n_limbs, int cluster,
+                              int nt, int passes, int* smem, int* clusters) {
   using namespace fbr::k1s;
-  if (!serves(n, k1, nt)) return static_cast<int>(cudaErrorInvalidValue);
-  *smem = smem_bytes(n, k1, l, n_limbs);
+  if (!serves(n, k1, l, n_limbs, cluster, nt, passes))
+    return static_cast<int>(cudaErrorInvalidValue);
+  *smem = layout(n, k1, l, n_limbs, cluster, passes, nt).total;
 #define FBR_K1S_RESIDENT(L, NT)                                              \
   if (n_limbs == L && nt == NT)                                              \
-    return static_cast<int>(fbr::k1s::resident<L, NT>(n, k1, l, ctas));
+    return static_cast<int>(                                                 \
+        passes == 1                                                          \
+            ? fbr::k1s::resident<L, NT, 1>(n, k1, l, cluster, clusters)      \
+            : fbr::k1s::resident<L, NT, 0>(n, k1, l, cluster, clusters));
   FBR_K1S_CASES(FBR_K1S_RESIDENT)
 #undef FBR_K1S_RESIDENT
   return static_cast<int>(cudaErrorInvalidValue);

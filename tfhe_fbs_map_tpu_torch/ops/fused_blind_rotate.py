@@ -39,13 +39,20 @@ Hopper counterparts of the two Pallas kernel bodies in
 * **K1 below N=256** (``csrc/fused_blind_rotate_k1_small.cu``) replaces
   ``_kernel_otf`` at N ∈ {32, 64, 128}, whose rows K1's 256-byte
   contraction slices do not divide (the Pallas kernel takes any N, its
-  strip tile T = min(128, N)).  One CTA of eight warps owns a tile of 16
-  ciphertexts for all n steps with its ACC in shared memory; per input
-  component it copies the step's E rows and writes the reversed digits into
-  shared memory, and each warp runs ``mma.sync`` m16n8k32 on its n8 output
-  tiles, the Hankel B fragments read as funnel-shifted windows of E
-  (:func:`k1_small_plan`).  Below N=256 :func:`k1_plan` gives its plan,
-  so the card and the runtime model see one K1 plan, and
+  strip tile T = min(128, N)).  A thread-block cluster of ``cluster`` CTAs
+  owns a tile of 16 ciphertexts for all n steps; CTA r computes the
+  columns [r·span, (r+1)·span) of the (k+1)·N with all their limbs, its
+  warps ``mma.sync`` m16n8k32 on groups of its n8 output tiles over slices
+  of the contraction, the Hankel B fragments read as funnel-shifted windows
+  of E, the slices' sums met in shared memory.  Every CTA keeps the whole
+  tile's ACC in shared memory, double-buffered, computes all the digits
+  itself and stores its span of the new ACC into every CTA's copy
+  (distributed shared memory), one cluster barrier a step; the next pass's
+  E rows arrive by ``cp.async.bulk`` while this one computes.  A step
+  writes the digits of all k+1 components in one pass, or, where those and
+  the key stages do not fit shared memory (large l), one pass a component
+  (:func:`k1_small_plan`).  Below N=256 :func:`k1_plan` gives its plan, so
+  the card and the runtime model see one K1 plan, and
   :func:`blind_rotate_k1` launches it and counts the launch as K1's.
 
 The monomial rotation X^a·x, which the TPU does with a barrel shifter
@@ -59,6 +66,7 @@ kernel or raise.  ``LAUNCHES`` counts kernel launches per wrapper.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Callable, NamedTuple
 
 import torch
@@ -69,8 +77,8 @@ from ..tfhe.params import TFHEParams
 __all__ = ["blind_rotate_fused", "blind_rotate_k1", "blind_rotate_k2",
            "blind_rotate_k1_plain", "blind_rotate_k2_plain", "k1_plan",
            "k2_plan", "k1_small_plan", "k1_device_plan", "device_plan",
-           "k1_layout", "k1_small_layout", "K1Plan", "K1SmallPlan", "K2Plan",
-           "LAUNCHES"]
+           "k1_layout", "k1_small_layout", "k1_small_smem", "k1s_clusters",
+           "K1Plan", "K1SmallPlan", "K2Plan", "LAUNCHES"]
 
 N_LIMBS = 4
 LAUNCHES = {"k1": 0, "k2": 0}
@@ -91,13 +99,27 @@ K1_ACC_REGS = 128
 K1_MAX_CLUSTER = 16
 K1_MAX_N = 4096
 # K1 below K1_SLICE (csrc/fused_blind_rotate_k1_small.cu): ciphertexts a
-# CTA (mma.sync's M); warps a CTA; the n8 output tiles a warp holds that it
-# is instantiated for, so (k+1)·N is at most K1S_WARPS·8·max(K1S_TILES_A_WARP).
-# The kernel sizes its shared memory itself (:func:`k1_small_layout`).
+# tile (mma.sync's M); warps a CTA; the n8 output tiles a warp holds that it
+# is instantiated for (NT: a CTA's warps form groups of NT tiles, as many as
+# cover its tiles rounded up to a power of two, each group's warps
+# splitting the contraction: :func:`k1s_groups`); CTAs a cluster; the
+# widest span of columns a CTA takes; the most columns (k+1)·N it serves
+# (chip_smoke.py phase 12 (a) holds it bitwise at N ∈ {32, 64, 128}, k ∈
+# {1, 2} and at the widest shapes).  Its shared memory, as the source lays
+# it out (:func:`k1_small_smem`; the kernel's own count:
+# :func:`k1_small_layout`): ACC 2 × [k+1][16][N + K1S_ACC_PAD] uint32, the
+# digits [16][prow·N + K1S_DIG_PAD], two key stages of [L][comps][prow][2N]
+# + K1S_E_PAD, each also the room of the slices' partial sums
+# [slices][16][span + K1S_RED_PAD] uint32, the amounts and two mbarriers
+# (K1S_EXTRA).
 K1S_TILE = 16
 K1S_WARPS = 8
-K1S_TILES_A_WARP = (1, 2, 4, 8)
-K1S_MAX_KN = K1S_WARPS * 8 * K1S_TILES_A_WARP[-1]
+K1S_TILES_A_WARP = (1, 2, 4)
+K1S_MAX_CLUSTER = 8
+K1S_MAX_SPAN = 128
+K1S_MAX_KN = 512
+K1S_ACC_PAD, K1S_DIG_PAD, K1S_E_PAD, K1S_RED_PAD = 8, 16, 16, 8
+K1S_EXTRA = 2 * K1S_TILE * 4 + 2 * 8
 # K2: ciphertexts per cluster tile it is instantiated for, largest first;
 # coefficients per column chunk (times L limbs: the GEMM columns one pass
 # holds in registers); contraction bytes per ring stage; digit rows a stage
@@ -228,13 +250,17 @@ class K1Plan(NamedTuple):
 
 
 class K1SmallPlan(NamedTuple):
-    """How K1 launches below N=K1_SLICE: ``cb`` ciphertexts a CTA, one CTA
-    a tile (``cluster`` 1), ``nt`` n8 output tiles a warp (warp w holds
-    tiles w, w+8, ...).  The kernel sizes its shared memory from (N, k+1,
-    l, limbs): :func:`k1_small_layout`."""
+    """How K1 launches below N=K1_SLICE: ``cb`` ciphertexts a tile,
+    ``cluster`` CTAs a tile (CTA r owns columns [r·span, (r+1)·span) of the
+    (k+1)·N, span = (k+1)·N / cluster), ``nt`` n8 output tiles a warp (the
+    CTA's span/8 tiles in :func:`k1s_groups` groups; warp w holds group
+    w % groups over contraction slice w // groups), ``passes`` digit passes
+    a step (1: all k+1 components at once; k+1: one a component).  The
+    kernel sizes its shared memory itself (:func:`k1_small_layout`)."""
     cb: int
+    cluster: int
     nt: int
-    cluster = 1
+    passes: int
 
 
 class K2Plan(NamedTuple):
@@ -279,7 +305,7 @@ def k1_plan(batch: int, params: TFHEParams, sms: int,
     card runs at once (default ``sms // cluster``).  Ties go to fewer CTAs,
     then larger tiles and widths."""
     if params.poly_size < K1_SLICE:
-        return k1_small_plan(params, cb, cluster, nw)
+        return k1_small_plan(params, n_limbs, cb, cluster, nw)
     if cb is not None and cb not in K1_TILES:
         raise ValueError(f"batch tile {cb} not in {K1_TILES}")
     if nw is not None and nw not in K1_WIDTHS:
@@ -310,26 +336,87 @@ def k1_plan(batch: int, params: TFHEParams, sms: int,
     return best[1]
 
 
-def k1_small_plan(params: TFHEParams, cb: int | None = None,
-                  cluster: int | None = None,
+def k1s_clusters(params: TFHEParams, n_limbs: int = N_LIMBS) -> list[int]:
+    """Cluster sizes the small-N K1 is built for at ``params`` and
+    ``n_limbs``, largest first: at most K1S_MAX_CLUSTER CTAs, each a span
+    of whole n8 tiles, at most K1S_MAX_SPAN columns, in a CTA's shared
+    memory (:func:`k1_small_smem`, one digit pass a step or a component)."""
+    k1 = params.glwe_dim + 1
+    kn = k1 * params.poly_size
+    return [c for c in range(K1S_MAX_CLUSTER, 0, -1)
+            if kn % c == 0 and (kn // c) % 8 == 0
+            and kn // c <= K1S_MAX_SPAN
+            and k1_small_smem(params, n_limbs, c, k1) <= SMEM_MAX]
+
+
+def k1s_tiles_a_warp(span: int) -> int:
+    """n8 tiles a warp holds at a CTA span: all the span's (up to the most
+    it is built for), so that the warps split the contraction."""
+    tiles = span // 8
+    return next(t for t in K1S_TILES_A_WARP
+                if t >= tiles or t == K1S_TILES_A_WARP[-1])
+
+
+def k1s_groups(span: int, nt: int) -> int:
+    """Groups of ``nt`` n8 tiles a CTA's warps form at a span: as many as
+    cover its tiles, rounded up to a power of two (``tile_groups`` in the
+    source), so that they divide the warps."""
+    groups = 1
+    while groups * nt < span // 8:
+        groups *= 2
+    return groups
+
+
+def k1_small_smem(params: TFHEParams, n_limbs: int, cluster: int,
+                  passes: int) -> int:
+    """Shared memory (bytes) a CTA of the small-N K1 takes, as its source
+    lays it out (``layout`` in ``csrc/fused_blind_rotate_k1_small.cu``):
+    the host's copy, which chooses the clusters and the digit passes
+    without a card (``tests/test_torch_gpu.py`` holds it to the kernel's
+    own count, :func:`k1_small_layout`)."""
+    k1, n = params.glwe_dim + 1, params.poly_size
+    prow = k1 * params.bsk_level // passes
+    span = k1 * n // cluster
+    comps = max((r * span + span - 1) // n - r * span // n + 1
+                for r in range(cluster))
+    slices = K1S_WARPS // k1s_groups(span, k1s_tiles_a_warp(span))
+    stage = max(n_limbs * comps * prow * 2 * n + K1S_E_PAD,
+                slices * K1S_TILE * (span + K1S_RED_PAD) * 4)
+    return (2 * 4 * k1 * K1S_TILE * (n + K1S_ACC_PAD)
+            + K1S_TILE * (prow * n + K1S_DIG_PAD) + 2 * stage + K1S_EXTRA)
+
+
+@functools.lru_cache(maxsize=256)
+def k1_small_plan(params: TFHEParams, n_limbs: int = N_LIMBS,
+                  cb: int | None = None, cluster: int | None = None,
                   nw: int | None = None) -> K1SmallPlan:
-    """The plan of K1's kernel for N < K1_SLICE: one CTA a tile of
-    K1S_TILE ciphertexts, and the fewest n8 tiles a warp it is instantiated
-    for that cover the (k+1)·N columns.  ``cb``, ``cluster`` and ``nw`` are
-    the ring kernel's knobs: only K1S_TILE, 1 and None are taken."""
-    if cb not in (None, K1S_TILE) or cluster not in (None, 1) \
-            or nw is not None:
+    """The plan of K1's kernel for N < K1_SLICE at ``n_limbs``: tiles of
+    K1S_TILE ciphertexts on clusters of ``cluster`` CTAs, by default the
+    largest it is built for (:func:`k1s_clusters`), whose warps hold all
+    the CTA's n8 tiles and split the contraction
+    (:func:`k1s_tiles_a_warp`).  A step writes all its digits in one pass
+    where they and the two key stages fit a CTA's shared memory, else one
+    pass a component.  ``cb`` and ``nw`` are the ring kernel's knobs: only
+    K1S_TILE and None are taken; a cluster the kernel is not built for is
+    refused.  Cached: every launch asks for it."""
+    if cb not in (None, K1S_TILE) or nw is not None:
         raise ValueError(f"K1 below N={K1_SLICE} takes tiles of {K1S_TILE} "
-                         f"ciphertexts, no cluster and no nw; got "
-                         f"cb={cb} cluster={cluster} nw={nw}")
-    kn = (params.glwe_dim + 1) * params.poly_size
-    need = -(-kn // (8 * K1S_WARPS))
-    nt = next((t for t in K1S_TILES_A_WARP if t >= need), None)
-    if nt is None:
+                         f"ciphertexts and no nw; got cb={cb} nw={nw}")
+    k1 = params.glwe_dim + 1
+    kn = k1 * params.poly_size
+    served = k1s_clusters(params, n_limbs) if kn <= K1S_MAX_KN else []
+    if not served:
         raise ValueError(f"(k+1)·N = {kn} > {K1S_MAX_KN}: the small-N K1 "
                          f"holds at most {K1S_TILES_A_WARP[-1]} n8 tiles a "
-                         f"warp")
-    return K1SmallPlan(K1S_TILE, nt)
+                         f"warp on clusters of at most {K1S_MAX_CLUSTER}")
+    if cluster is not None and cluster not in served:
+        raise ValueError(f"cluster {cluster}: K1 below N={K1_SLICE} is "
+                         f"built for clusters {served} at (k+1)·N = {kn}")
+    cluster = cluster or served[0]
+    passes = (1 if k1_small_smem(params, n_limbs, cluster, 1) <= SMEM_MAX
+              else k1)   # a served cluster fits one pass a component
+    return K1SmallPlan(K1S_TILE, cluster, k1s_tiles_a_warp(kn // cluster),
+                       passes)
 
 
 def k2_clusters(params: TFHEParams) -> list[int]:
@@ -488,7 +575,9 @@ def _check(otf: bool, b_init, a_t, test_polys, kernels,
 def _raise_on(err: int, lib: ctypes.CDLL | None = None) -> None:
     if err != 0:
         from . import _build
-        msg = (lib or _build.library()).fbr_error_string(err)
+        text = getattr(lib, "fbr_error_string", None) \
+            or _build.library().fbr_error_string
+        msg = text(err)
         raise RuntimeError(f"fused blind rotation launch failed: "
                            f"{ctypes.string_at(msg).decode()} ({err})")
 
@@ -517,8 +606,8 @@ def _launch_k1(b_init, a_t, test_polys, kernels, params: TFHEParams,
             err = lib.fbr_k1s_blind_rotate(
                 b_init.data_ptr(), a_t.data_ptr(), test_polys.data_ptr(),
                 kernels.data_ptr(), out.data_ptr(), steps, batch, n, k1,
-                params.bsk_level, params.bsk_base_log, n_limbs, plan.nt,
-                stream)
+                params.bsk_level, params.bsk_base_log, n_limbs, plan.cluster,
+                plan.nt, plan.passes, stream)
         else:
             tiles = -(-batch // plan.cb)
             dig = torch.empty((tiles * plan.cb, k1 * params.bsk_level * n),
@@ -606,17 +695,17 @@ def k1_small_layout(plan: K1SmallPlan, params: TFHEParams,
                     n_limbs: int = N_LIMBS,
                     lib: ctypes.CDLL | None = None) -> tuple[int, int]:
     """The dynamic shared memory (bytes) a CTA of K1's small-N ``plan``
-    launches with at ``params``, as the kernel sizes it, and the CTAs the
-    current card runs at once."""
+    launches with at ``params``, as the kernel sizes it, and the clusters
+    of the plan the current card runs at once."""
     from . import _build
 
     lib = lib or _build.library()
-    smem, ctas = ctypes.c_int(0), ctypes.c_int(0)
+    smem, clusters = ctypes.c_int(0), ctypes.c_int(0)
     _raise_on(lib.fbr_k1s_layout(params.poly_size, params.glwe_dim + 1,
-                                 params.bsk_level, n_limbs, plan.nt,
-                                 ctypes.byref(smem), ctypes.byref(ctas)),
-              lib)
-    return smem.value, ctas.value
+                                 params.bsk_level, n_limbs, plan.cluster,
+                                 plan.nt, plan.passes, ctypes.byref(smem),
+                                 ctypes.byref(clusters)), lib)
+    return smem.value, clusters.value
 
 
 def _plain_slices(otf: bool, b_init, a_t, test_polys, kernels,
@@ -656,7 +745,8 @@ def blind_rotate_k1(b_init, a_t, test_polys, kernels, params: TFHEParams,
     cluster, one of ``K1_TILES``); ``cluster``: CTAs per tile; ``nw``:
     coefficients per warpgroup, one of ``K1_WIDTHS``.  All default to
     :func:`k1_plan`'s choice, which at N < K1_SLICE is the small-N kernel's
-    (:func:`k1_small_plan`: tiles of K1S_TILE, no cluster, no ``nw``)."""
+    (:func:`k1_small_plan`: tiles of K1S_TILE, a cluster of
+    :func:`k1s_clusters`, no ``nw``)."""
     if test_polys.device.type != "cpu":
         return _launch_k1(b_init, a_t, test_polys, kernels, params,
                           batch_tile, cluster, nw)

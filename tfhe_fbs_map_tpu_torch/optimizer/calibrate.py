@@ -2,6 +2,7 @@
 
     python -m tfhe_fbs_map_tpu_torch.optimizer.calibrate
     python -m tfhe_fbs_map_tpu_torch.optimizer.calibrate --dry   # refit
+    python -m tfhe_fbs_map_tpu_torch.optimizer.calibrate --only k1s
 
 The port of ``experiments/calibrate_runtime.py``.  For each parameter family
 (the presets anchor, p8, p16 and aes128_p4, both families of each staged
@@ -30,6 +31,15 @@ points (``--dry`` refits from them):
   the median fixed term, which families without an entry take; the around
   fit across all points; the generic path's slowdown per bootstrap; the
   free device memory K2's matrices may take.
+
+K1's small-N kernel (N < 256) is timed apart, at the families of
+:func:`small_families` (``raw["k1s_points"]``, and the clusters its plans
+run at once in the resident table): their family entries and the
+kernel-wide ``k1s`` fit (fixed term, efficiency and the median scale of
+its per-boot cost), which a small-N family without an entry takes.  Every
+other entry is fitted from ``raw["points"]`` alone.  ``--only k1s`` times
+the small-N kernel alone and adds its points to the existing file, whose
+other entries then stay as they were.
 """
 
 from __future__ import annotations
@@ -83,6 +93,15 @@ def families() -> dict[str, tuple[TFHEParams, bool]]:
     out["p22"] = (_curve(22, 738, 2, 1024, 3, 8, 8, 2), False)
     out["p32"] = (PRESETS["p32"][0], False)
     return out
+
+
+def small_families() -> dict[str, tuple[TFHEParams, bool]]:
+    """name -> (params, staged) of the families K1's small-N kernel is
+    timed at: ``bench --quick``'s (k=1, N=128, l=2) and the p32 quick
+    bench's fam2 (k=2, N=128, l=3), the shapes of its longest launches."""
+    from .. import bench
+    return {"bench_quick": (bench.QUICK_PARAMS, False),
+            "staged_test.fam2": (STAGED_PRESETS["staged_test"].fam2, True)}
 
 
 def card() -> str:
@@ -216,13 +235,15 @@ def time_around(ex, buf: torch.Tensor, iters: int, reps: int) -> list[float]:
 
 
 def time_family(name: str, params: TFHEParams, staged: bool,
-                device: torch.device) -> list[dict]:
-    """Every point of one family, through the kernel the CLI would run."""
+                device: torch.device, orient: str | None = None
+                ) -> list[dict]:
+    """Every point of one family, through ``orient`` (default the kernel
+    the CLI would run)."""
     from ..runtime.cli import pick_orientations
     from ..runtime.profile import _sync
 
-    orient = ("fused_otf" if staged
-              else pick_orientations([params], device)[0])
+    orient = orient or ("fused_otf" if staged
+                        else pick_orientations([params], device)[0])
     t0 = time.time()
     ex = _executor(params, orient, device)
     _sync(device)
@@ -325,30 +346,39 @@ def _through(x, y) -> tuple[float, float]:
     return f, tau
 
 
+def _family_entry(pts: list[dict], sms: int) -> dict:
+    """A family's kernel fit (fixed term, time a wave unit, efficiency) and
+    around fit from its points."""
+    n, k, N, l, ks_l = (int(x) for x in pts[0]["key"].split(","))
+    units = [pt["waves"] * pt["plan"][0] * sms / pt["plan"][1]
+             for pt in pts]
+    fixed, tau = _through(units, [pt["kernel_ms"] * 1e3 for pt in pts])
+    ideal = 2.0 * (n * (k + 1) ** 2 * l * N * N * 4
+                   + k * N * ks_l * (n + 1) * 4) / PEAK_INT8_OPS * 1e6
+    around = _line([pt["rows"] * (k * N + 1) for pt in pts],
+                   [pt["around_ms"] * 1e3 for pt in pts])
+    return {"name": pts[0]["family"], "kernel": pts[0]["kernel"],
+            "fixed_us": fixed, "tau_us": tau, "eff": ideal / tau,
+            "around_a_us": around[0], "around_b_us": around[1]}
+
+
+def _by_family(points: list[dict]) -> dict[str, list[dict]]:
+    fams: dict[str, list[dict]] = {}
+    for pt in points:
+        fams.setdefault(pt["key"], []).append(pt)
+    return fams
+
+
 def fit(raw: dict) -> dict:
     """The calibration from the raw record (``points``, ``generic``,
-    ``sms``, ``resident``, ``k2_memory``, ``card``, ``device``)."""
+    ``sms``, ``resident``, ``k2_memory``, ``card``, ``device``, and the
+    small-N kernel's ``k1s_points`` where timed)."""
     sms = raw["sms"]
-    fams = {}
-    for pt in raw["points"]:
-        fams.setdefault(pt["key"], []).append(pt)
     per_kernel: dict[str, list] = {"fused": [], "fused_otf": []}
     entries = {}
-    for key, pts in fams.items():
-        n, k, N, l, ks_l = (int(x) for x in key.split(","))
-        kern = pts[0]["kernel"]
-        units = [pt["waves"] * pt["plan"][0] * sms / pt["plan"][1]
-                 for pt in pts]
-        fixed, tau = _through(units, [pt["kernel_ms"] * 1e3 for pt in pts])
-        ideal = 2.0 * (n * (k + 1) ** 2 * l * N * N * 4
-                       + k * N * ks_l * (n + 1) * 4) / PEAK_INT8_OPS * 1e6
-        around = _line([pt["rows"] * (k * N + 1) for pt in pts],
-                       [pt["around_ms"] * 1e3 for pt in pts])
-        entries[key] = {"name": pts[0]["family"], "kernel": kern,
-                        "fixed_us": fixed, "tau_us": tau,
-                        "eff": ideal / tau,
-                        "around_a_us": around[0], "around_b_us": around[1]}
-        per_kernel[kern].append(entries[key])
+    for key, pts in _by_family(raw["points"]).items():
+        entries[key] = _family_entry(pts, sms)
+        per_kernel[entries[key]["kernel"]].append(entries[key])
     kernels = {kern: {"eff": statistics.median(e["eff"] for e in es),
                       "fixed_us": statistics.median(e["fixed_us"]
                                                     for e in es),
@@ -368,10 +398,22 @@ def fit(raw: dict) -> dict:
         eff_fused=kernels["fused"]["eff"],
         eff_otf=kernels["fused_otf"]["eff"], k2_memory=raw["k2_memory"],
         k2_headroom=FUSED_HEADROOM, generic_slowdown=1.0)
+    # the small-N K1's families: their own entries and the kernel-wide
+    # ``k1s`` fit, apart from the ring kernels' fits above
+    small = {key: _family_entry(pts, sms)
+             for key, pts in _by_family(raw.get("k1s_points", [])).items()}
+    entries.update(small)
     for key, e in entries.items():
         n, k, N, l, ks_l = (int(x) for x in key.split(","))
         e["scale"] = e["tau_us"] / bootstrap_cost_us(
             n, k, N, l, ks_l, 4, profile, e["kernel"])
+    if small:
+        es = list(small.values())
+        kernels["k1s"] = {
+            "eff": statistics.median(e["eff"] for e in es),
+            "fixed_us": statistics.median(e["fixed_us"] for e in es),
+            "scale": statistics.median(e["scale"] for e in es),
+            "families": sorted(e["name"] for e in es)}
     g = raw["generic"]
     n, k, N, l, ks_l = (int(x) for x in g["key"].split(","))
     slowdown = g["step_ms"] * 1e3 / g["rows"] / bootstrap_cost_us(
@@ -385,7 +427,8 @@ def fit(raw: dict) -> dict:
 
 
 def measure(device: torch.device) -> dict:
-    """Time every family and the generic path on the card."""
+    """Time every family, the small-N kernel's (:func:`measure_small`) and
+    the generic path on the card."""
     from ..runtime.cli import free_memory
 
     fams = families()
@@ -405,21 +448,56 @@ def measure(device: torch.device) -> dict:
                    kernel="generic")
     print(f"# generic {GENERIC_FAMILY} rows={GENERIC_ROWS}: "
           f"{generic['step_ms']:.1f} ms", file=sys.stderr)
+    small, small_resident = measure_small(device)
     return {"card": card(), "device": torch.cuda.get_device_name(device),
             "torch": torch.__version__, "sms": sms, "k2_memory": free,
-            "resident": resident, "points": points, "generic": generic}
+            "resident": {**resident, **small_resident}, "points": points,
+            "generic": generic, "k1s_points": small,
+            "k1s_card": card()}
+
+
+def measure_small(device: torch.device) -> tuple[list[dict], dict]:
+    """Time K1's small-N kernel at every family of :func:`small_families`
+    (through ``fused_otf``, as the CLI runs N < 256 there); the points, and
+    the clusters the card runs at once of each plan they launched, at
+    every limb count the optimizer picks."""
+    points, resident = [], {}
+    for name, (params, staged) in small_families().items():
+        pts = time_family(name, params, staged, device, "fused_otf")
+        points += pts
+        for pt in pts:
+            for limbs in LIMBS:
+                plan = fbr.k1_device_plan(pt["rows"], params, device, limbs)
+                resident[resident_key("fused_otf", limbs, plan, params)] = \
+                    fbr.k1_small_layout(plan, params, limbs)[1]
+    return points, resident
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dry", action="store_true",
                     help="refit from the raw points of the existing file")
+    ap.add_argument("--only", choices=("k1s",), default=None,
+                    help="time only K1's small-N kernel and add its points "
+                         "to the existing file")
     ap.add_argument("--out", default=str(CALIBRATION))
     args = ap.parse_args(argv)
 
     if args.dry:
         with open(args.out) as f:
             raw = json.load(f)["raw"]
+    elif args.only == "k1s":
+        if not torch.cuda.is_available():
+            print("calibrate: no CUDA device; the calibration is measured "
+                  "on the card", file=sys.stderr)
+            return 2
+        with open(CALIBRATION) as f:
+            raw = json.load(f)["raw"]
+        device = torch.device("cuda")
+        points, resident = measure_small(device)
+        raw["k1s_points"] = points
+        raw["k1s_card"] = card()
+        raw["resident"] = {**raw["resident"], **resident}
     else:
         if not torch.cuda.is_available():
             print("calibrate: no CUDA device; the calibration is measured "

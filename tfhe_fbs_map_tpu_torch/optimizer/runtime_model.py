@@ -26,13 +26,14 @@ Constants come from ``calibration_h100.json`` (``python -m
 tfhe_fbs_map_tpu_torch.optimizer.calibrate`` on the card): per family, keyed
 by ``(n, k, N, l, ks_l)`` and kept for the kernel it was timed through, the
 kernel's fixed term and the scale of its per-boot cost, and the work around
-it; a family with no entry takes the fit across families of its kernel.
+it; a family with no entry takes the fit across families of its kernel
+(below N=256 the fit of K1's small-N kernel, ``k1s``).
 """
 
 from __future__ import annotations
 
-from ..ops.fused_blind_rotate import (K1Plan, K1SmallPlan, K2Plan, k1_plan,
-                                      k2_plan)
+from ..ops.fused_blind_rotate import (K1_SLICE, K1Plan, K1SmallPlan, K2Plan,
+                                      k1_plan, k2_plan)
 from ..tfhe.params import TFHEParams
 from .optimizer import (Solution, StagedSolution, bootstrap_cost_us,
                         calibration, h100_profile)
@@ -49,11 +50,16 @@ def family_key(params: TFHEParams) -> str:
 
 
 def resident_key(orientation: str, n_limbs: int,
-                 plan: K1Plan | K1SmallPlan | K2Plan) -> str:
+                 plan: K1Plan | K1SmallPlan | K2Plan,
+                 params: TFHEParams | None = None) -> str:
     """The resident table's key of a plan: kernel, limbs, tile, cluster
-    (and K1's width; the small-N K1's n8 tiles a warp)."""
+    (and K1's width; the small-N K1's cluster, n8 tiles a warp, digit
+    passes a step and the shape (k+1)xNxl of ``params``, which sizes its
+    shared memory and so how many fit)."""
     if isinstance(plan, K1SmallPlan):
-        return f"k1s/{n_limbs}/{plan.nt}"
+        return (f"k1s/{n_limbs}/{plan.cluster}/{plan.nt}/{plan.passes}/"
+                f"{params.glwe_dim + 1}x{params.poly_size}x"
+                f"{params.bsk_level}")
     if orientation == "fused_otf":
         return f"k1/{n_limbs}/{plan.cb}/{plan.cluster}/{plan.nw}"
     return f"k2/{n_limbs}/{plan.cb}/{plan.cluster}"
@@ -85,7 +91,7 @@ def launch_plan(params: TFHEParams, rows: int, orientation: str,
     sms, table = cal["sms"], cal["resident"]
 
     def resident(plan):
-        return table.get(resident_key(orientation, bsk_limbs, plan),
+        return table.get(resident_key(orientation, bsk_limbs, plan, params),
                          sms // plan.cluster)
 
     fn = k1_plan if orientation == "fused_otf" else k2_plan
@@ -97,6 +103,21 @@ def launch_plan(params: TFHEParams, rows: int, orientation: str,
 def _entry(params: TFHEParams, orientation: str) -> dict | None:
     entry = calibration()["families"].get(family_key(params))
     return entry if entry and entry["kernel"] == orientation else None
+
+
+def _kernel_fit(params: TFHEParams, orientation: str) -> tuple[float, float]:
+    """(fixed µs, scale of the per-boot cost) of a call through
+    ``orientation`` at ``params``: the family's own calibration entry, else
+    the fit across the kernel's families; below N=K1_SLICE K1 runs its
+    small-N kernel, whose fit is ``k1s`` (where the calibration has one)."""
+    entry = _entry(params, orientation)
+    if entry:
+        return entry["fixed_us"], entry["scale"]
+    kernels = calibration()["kernels"]
+    fit = kernels[orientation]
+    if orientation == "fused_otf" and params.poly_size < K1_SLICE:
+        fit = kernels.get("k1s", fit)
+    return fit["fixed_us"], fit.get("scale", 1.0)
 
 
 def _cost(params: TFHEParams, orientation: str, bsk_limbs: int) -> float:
@@ -119,9 +140,7 @@ def launch_us(params: TFHEParams, rows: int, orientation: str | None = None,
     per-boot roofline cost (default the kernel's at ``bsk_limbs``)."""
     orient = _orientation(params, orientation, bsk_limbs, staged)
     cal = calibration()
-    entry = _entry(params, orient)
-    fixed = (entry or cal["kernels"][orient])["fixed_us"]
-    scale = entry["scale"] if entry else 1.0
+    fixed, scale = _kernel_fit(params, orient)
     if cost_us is None:
         cost_us = _cost(params, orient, bsk_limbs)
     plan, waves = launch_plan(params, rows, orient, bsk_limbs)
@@ -138,9 +157,8 @@ def slope_us(params: TFHEParams, cost_us: float | None = None,
     orient = _orientation(params, orientation, bsk_limbs)
     if cost_us is None:
         cost_us = _cost(params, orient, bsk_limbs)
-    entry = _entry(params, orient)
     _, b = _around(params, orient)
-    return cost_us * (entry["scale"] if entry else 1.0) \
+    return cost_us * _kernel_fit(params, orient)[1] \
         + b * (params.big_dim + 1)
 
 

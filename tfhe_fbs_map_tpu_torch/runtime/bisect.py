@@ -1,13 +1,20 @@
-"""Where K1's time goes: its CUDA source with one phase left out, timed.
+"""Where a fused kernel's time goes: its CUDA source with one phase left out,
+timed.
 
     python -m tfhe_fbs_map_tpu_torch.runtime.bisect \\
         [--params aes128_p4] [--batch 1024] [--reps 2] [--out bisect.json]
+    python -m tfhe_fbs_map_tpu_torch.runtime.bisect --kernel k1s \\
+        [--reps 20] [--out bisect.json]
 
-Builds one library per variant of ``ops/csrc/fused_blind_rotate.cu`` with
-``nvcc`` (all at once, into ``build/``), then times each variant's K1 launch
-at the preset's full n steps on the same random operands (CUDA events, after
-a warm-up launch), at the plan ``k1_plan`` picks and at the 128-ciphertext
-plan ``128x8/32``.  The variants:
+Builds one library per variant of a kernel's source with ``nvcc`` (all at
+once, into ``build/``), then times each variant's launch on the same random
+operands (CUDA events, after a warm-up launch; for the small-N kernel also
+as the replay of a CUDA graph of the launches, ``graph_ms``: its sub-ms
+launches can outrun the host's launch path).
+
+``--kernel k1`` (the default) bisects ``ops/csrc/fused_blind_rotate.cu`` at
+the preset's full n steps, at the plan ``k1_plan`` picks and at the
+128-ciphertext plan ``128x8/32``.  The variants:
 
 * ``base``: the source as it is;
 * ``no_products``: the consumers issue no ``wgmma``;
@@ -15,9 +22,25 @@ plan ``128x8/32``.  The variants:
 * ``no_products_no_build``: both;
 * ``no_digits``: no digit pass.
 
+``--kernel k1s`` bisects K1's small-N kernel,
+``ops/csrc/fused_blind_rotate_k1_small.cu``, at the five full-length
+launches of :func:`small_n_launches`.  The variants:
+
+* ``base``: the source as it is;
+* ``no_products``: no ``mma.sync`` (and so none of its operand loads);
+* ``no_key_copy``: the step's key rows are not brought into shared memory
+  (nor waited for);
+* ``no_digits``: the digit pass stores no digit (and so computes none);
+* ``mma_only``: the products' ``mma.sync`` on operands from registers;
+* ``loads_only``: the products' shared loads, no ``mma.sync``;
+* ``no_exchange``: a CTA stores its span of ACC into its own copy only;
+* ``local_only``: that, and a CTA barrier in place of the step's cluster
+  barrier.
+
 Only ``base`` computes the blind rotation; the others are timed only (their
 outputs are compared with ``base`` and reported, not required).  Needs a
-CUDA device and ``nvcc``.  Prints one JSON object as its last line.
+CUDA device and ``nvcc``.  Prints the card's name and power limit, then one
+JSON object as its last line.
 """
 
 from __future__ import annotations
@@ -25,6 +48,8 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
+import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
@@ -34,6 +59,35 @@ PRODUCTS = "sl != 0 || k != 0);"
 BUILD = "      if (lb < L) {\n        const int w0"
 DIGITS = ("    digit_pass<CB, true>(acc, dig, amt[i & 1], g0, q_lo, span, "
           "batch, n, l, b,\n                         K);\n")
+
+# The small-N kernel's phases: the edits of each variant, every one of
+# which must apply to exactly one statement.  mma_only and loads_only split
+# the products into their mma.sync (operands from registers) and their
+# shared loads (kept alive by an xor); no_exchange and local_only take out
+# the exchange of ACC over the cluster.
+K1S_PHASES = {
+    "no_products": [(r"mma_s8\(d\[lb\]\[nt\],[^;]*\);", "(void)0;")],
+    "no_key_copy": [(r"mbar_expect_tx\([^;]*\);", "(void)0;"),
+                    (r"bulk_load\([^;]*\);", "(void)0;"),
+                    (r"mbar_wait\([^;]*\);", "(void)0;")],
+    "no_digits": [(r"dp\[lev \* \(n / 4\)\] = packed;", "(void)0;")],
+    "mma_only": [(r"window\(er, bo\[nt\] \+ ko \+ 16\)",
+                  "static_cast<uint32_t>(bo[nt] + ko + 16)"),
+                 (r"window\(er, bo\[nt\] \+ ko\)",
+                  "static_cast<uint32_t>(bo[nt] + ko)"),
+                 (r"ldmatrix_x4\(a, a_lane \+ 32 \* kc\);",
+                  "a[0] = kc; a[1] = kc + 1; a[2] = kc + 2; a[3] = kc + 3;")],
+    "loads_only": [(r"mma_s8\(d\[lb\]\[nt\],[^;]*\);",
+                    "d[lb][nt][0] ^= a[0] ^ a[1] ^ a[2] ^ a[3] ^ "
+                    "bw[nt][lb][0] ^ bw[nt][lb][1];")],
+    "no_exchange": [(r"for \(int j = 0; j < cluster; \+\+j\) \{",
+                     "for (int j = 0; j < 1; ++j) {")],
+    "local_only": [(r"for \(int j = 0; j < cluster; \+\+j\) \{",
+                    "for (int j = 0; j < 1; ++j) {"),
+                   (r"(= next_amt;\s*)cluster_barrier\(\);",
+                    r"\1__syncthreads();")],
+}
+K1S_SOURCE = "fused_blind_rotate_k1_small.cu"
 
 
 def _products(src: str) -> str:
@@ -60,18 +114,66 @@ def variants(src: str) -> dict[str, str]:
     }
 
 
-def _build_all(srcs: dict[str, str]) -> dict[str, ctypes.CDLL]:
+def k1s_variants(src: str) -> dict[str, str]:
+    """The small-N kernel's source with each phase left out; raises if the
+    source no longer has a statement a variant removes."""
+    out = {"base": src}
+    for name, edits in K1S_PHASES.items():
+        text = src
+        for pat, repl in edits:
+            if len(re.findall(pat, src)) != 1:
+                raise ValueError(f"small-N source: {name} finds no unique "
+                                 f"{pat!r}")
+            text = re.sub(pat, repl, text)
+        out[name] = text
+    return out
+
+
+def _build_all(srcs: dict[str, str], file_name: str,
+               parts: tuple[str, ...]) -> dict[str, ctypes.CDLL]:
     from ..ops import _build
 
     root = _build.BUILD_DIR / "bisect"
     with ThreadPoolExecutor(len(srcs)) as pool:
         def one(name):
-            src = root / name / "fused_blind_rotate.cu"
+            src = root / name / file_name
             src.parent.mkdir(parents=True, exist_ok=True)
             src.write_text(srcs[name])
-            _build.compile_library([src], src.with_name("k1.so"))
-            return _build.bind(src.with_name("k1.so"), full=False)
+            so = src.with_name("kernel.so")
+            _build.compile_library([src], so)
+            return _build.bind(so, parts)
         return dict(zip(srcs, pool.map(one, srcs)))
+
+
+def timed_ms(call, reps: int) -> float:
+    """Mean ms of ``reps`` launches of ``call``, CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        call()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(call, reps: int, replays: int = 3) -> float:
+    """Mean ms a launch of ``call`` on the device alone: ``reps`` launches
+    captured in one CUDA graph, one warm-up replay, then ``replays``
+    replays timed with CUDA events (a sub-ms launch issued eagerly may
+    wait on the host's launch path instead)."""
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            call()
+    graph.replay()
+    torch.cuda.synchronize()
+    return timed_ms(graph.replay, replays) / reps
 
 
 def bisect(params, batch: int, reps: int, seed: int = 9) -> dict:
@@ -79,26 +181,14 @@ def bisect(params, batch: int, reps: int, seed: int = 9) -> dict:
     from ..ops import _build
     from ..ops import fused_blind_rotate as fbr
 
-    dev = torch.device("cuda")
-    k1, N, n = params.glwe_dim + 1, params.poly_size, params.lwe_dim
-    rows = k1 * params.bsk_level
-    g = torch.Generator(device=dev).manual_seed(seed)
-
-    def rand(lo, hi, shape, dtype):
-        return torch.randint(lo, hi, shape, generator=g, device=dev,
-                             dtype=dtype)
-
-    b_init = rand(0, 2 * N, (batch, 1), torch.int32)
-    a_t = rand(0, 2 * N, (n, batch, 1), torch.int32)
-    tvs = rand(-2 ** 31, 2 ** 31, (batch, N), torch.int32)
-    keys = rand(-128, 128, (n, fbr.N_LIMBS * k1, rows, 2 * N), torch.int8)
+    b_init, a_t, tvs, keys = operands(params, batch, seed)
     default = fbr.k1_plan(batch, params, torch.cuda.get_device_properties(
-        dev).multi_processor_count)
+        0).multi_processor_count)
     plans = {f"{default.cb}x{default.cluster}/{default.nw}":
              default._asdict(),
              "128x8/32": dict(cb=128, cluster=8, nw=32)}
     src = (_build.CSRC / "fused_blind_rotate.cu").read_text()
-    libs = _build_all(variants(src))
+    libs = _build_all(variants(src), "fused_blind_rotate.cu", ("k1",))
     res, ref = {}, {}
     for name, lib in libs.items():
         for label, kw in plans.items():
@@ -107,34 +197,117 @@ def bisect(params, batch: int, reps: int, seed: int = 9) -> dict:
                                       kw["cb"], kw["cluster"], kw["nw"], lib)
             out = call()
             torch.cuda.synchronize()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(reps):
-                call()
-            end.record()
-            torch.cuda.synchronize()
             ref.setdefault(label, out)
             res[f"{name} {label}"] = {
-                "ms": start.elapsed_time(end) / reps,
+                "ms": timed_ms(call, reps),
                 "equal_to_base": bool(torch.equal(out, ref[label]))}
-    return {"batch": batch, "steps": n, "variants": res}
+    return {"batch": batch, "steps": params.lwe_dim, "variants": res}
+
+
+def small_n_launches() -> list[tuple]:
+    """K1's small-N launches at full length, (label, params, ciphertexts),
+    read from the modules whose main paths make them: the dry run's FBS (8
+    a position), ``bench --quick``'s chain, the p32 quick bench's fam2 (5
+    lookups x 8 ciphertexts), ``bench_multichip --quick`` (16 a position,
+    its cap) and, last, its family at the scaling study's
+    ``--batch-per-chip`` default of 48."""
+    from .. import bench, bench_multichip
+    from ..parallel.dryrun import DRYRUN_PARAMS
+    from ..tfhe.params import STAGED_PRESETS
+
+    fam2 = STAGED_PRESETS["staged_test"].fam2
+    return [("dry run FBS", DRYRUN_PARAMS, 8),
+            ("bench --quick", bench.QUICK_PARAMS,
+             bench.QUICK_BATCH["native"]),
+            ("bench p32 --quick fam2", fam2,
+             bench.LANES * bench.QUICK_BATCH["staged"]),
+            ("bench_multichip --quick", bench_multichip.QUICK_PARAMS, 16),
+            ("bench_multichip --quick family at 48",
+             bench_multichip.QUICK_PARAMS, 48)]
+
+
+def operands(params, batch: int, seed: int):
+    """Random operands of a full-length K1 launch (n steps, 4 limbs), drawn
+    on the card."""
+    from ..ops import fused_blind_rotate as fbr
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    k1, N, n = params.glwe_dim + 1, params.poly_size, params.lwe_dim
+    rows = k1 * params.bsk_level
+
+    def rand(lo, hi, shape, dtype):
+        return torch.randint(lo, hi, shape, generator=g, device=dev,
+                             dtype=dtype)
+
+    return (rand(0, 2 * N, (batch, 1), torch.int32),
+            rand(0, 2 * N, (n, batch, 1), torch.int32),
+            rand(-2 ** 31, 2 ** 31, (batch, N), torch.int32),
+            rand(-128, 128, (n, fbr.N_LIMBS * k1, rows, 2 * N), torch.int8))
+
+
+def bisect_small(reps: int, seed: int = 9) -> dict:
+    """ms per launch of every variant of the small-N kernel at each launch
+    of :func:`small_n_launches`, eagerly and as a graph's replay."""
+    from ..ops import _build
+    from ..ops import fused_blind_rotate as fbr
+
+    src = (_build.CSRC / K1S_SOURCE).read_text()
+    libs = _build_all(k1s_variants(src), K1S_SOURCE, ("k1s",))
+    out = []
+    for label, params, batch in small_n_launches():
+        args = operands(params, batch, seed)
+        plan = fbr.k1_plan(batch, params, 132, fbr.N_LIMBS)
+        row = {"launch": label, "k": params.glwe_dim, "N": params.poly_size,
+               "l": params.bsk_level, "b": params.bsk_base_log,
+               "n": params.lwe_dim, "ciphertexts": batch,
+               "plan": plan._asdict(), "variants": {}}
+        base = None
+        for name, lib in libs.items():
+            def call(lib=lib):
+                return fbr._launch_k1(*args, params, None, None, None, lib)
+            got = call()
+            torch.cuda.synchronize()
+            base = got if base is None else base
+            row["variants"][name] = {
+                "ms": timed_ms(call, reps), "graph_ms": graph_ms(call, reps),
+                "equal_to_base": bool(torch.equal(got, base))}
+        out.append(row)
+    return {"kernel": "k1s", "reps": reps, "launches": out}
+
+
+def card() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
 
 
 def main(argv=None) -> int:
     from ..tfhe.params import PRESETS
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--params", choices=sorted(PRESETS), default="aes128_p4")
-    ap.add_argument("--batch", type=int, default=1024)
-    ap.add_argument("--reps", type=int, default=2)
+    ap.add_argument("--kernel", choices=("k1", "k1s"), default="k1")
+    ap.add_argument("--params", choices=sorted(PRESETS), default="aes128_p4",
+                    help="k1: the preset whose shape is timed")
+    ap.add_argument("--batch", type=int, default=1024,
+                    help="k1: ciphertexts a launch")
+    ap.add_argument("--reps", type=int, default=None,
+                    help="timed launches a variant (k1: 2, k1s: 20)")
     ap.add_argument("--out", default=None, help="also write the JSON here")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("bisect: needs a CUDA device", file=sys.stderr)
         return 2
-    res = bisect(PRESETS[args.params][0], args.batch, args.reps)
+    smi = card()
+    print(smi, flush=True)
+    if args.kernel == "k1s":
+        res = bisect_small(args.reps or 20)
+    else:
+        res = bisect(PRESETS[args.params][0], args.batch, args.reps or 2)
     res["device"] = torch.cuda.get_device_name(0)
+    res["card"] = smi
     if args.out:
         with open(args.out, "w") as f:
             json.dump(res, f, indent=1)

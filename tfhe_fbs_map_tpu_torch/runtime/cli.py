@@ -425,7 +425,10 @@ def _run(argv=None) -> int:
             prog = parse_lbf(f.read())
 
     stats = prog.stats()
-    p_needed = prog.fbs_size or prog.min_fbs_size()
+    # the least p every table is realizable at: a basic-mapped program is
+    # labelled p=2 although its 2-input gates need p=3 (the sweep prices
+    # it so, harness/sweep.py)
+    p_needed = max(prog.fbs_size or 0, prog.min_fbs_size())
     p_run = max(p_needed, args.fbs_size or p_needed)
     print(f"# program: {stats} (p={p_needed})", file=sys.stderr)
 

@@ -202,8 +202,9 @@ def trace_levels(ex: CircuitExecutor, buf: torch.Tensor, levels: int,
 def tile_sweep(fast, batch: int, reps: int = 2) -> dict:
     """The kernel of the fast keys ``fast`` at ``batch`` ciphertexts over
     its launch knobs: every K1 (tile, cluster, warpgroup width) or K2 (tile,
-    cluster) plan; below N=256 K1's one small-N plan.  ms per launch (CUDA events, after a warm-up launch);
-    every setting's output must equal the first one's."""
+    cluster) plan; below N=256 every cluster K1's small-N kernel is built
+    for.  ms per launch (CUDA events, after a warm-up launch); every
+    setting's output must equal the first one's."""
     from ..ops import fused_blind_rotate as fbr
 
     params, kern = fast.params, fast.bsk_kernels
@@ -221,9 +222,10 @@ def tile_sweep(fast, batch: int, reps: int = 2) -> dict:
         limbs = kern.shape[1] // (params.glwe_dim + 1)
         plan = fbr.k1_device_plan(batch, params, dev, limbs)
         if isinstance(plan, fbr.K1SmallPlan):
-            # the small-N kernel has one plan: its tile, no cluster, no nw
-            default = f"{plan.cb}x1/nt{plan.nt}"
-            knobs = {default: dict(batch_tile=plan.cb)}
+            # the small-N kernel's knob is its cluster (tiles of 16, no nw)
+            knobs = {f"{plan.cb}x{c}": dict(batch_tile=plan.cb, cluster=c)
+                     for c in fbr.k1s_clusters(params, limbs)}
+            default = f"{plan.cb}x{plan.cluster}"
         else:
             knobs = {f"{cb}x{c}/{w}": dict(batch_tile=cb, cluster=c, nw=w)
                      for cb in fbr.K1_TILES for w in fbr.K1_WIDTHS
