@@ -114,7 +114,24 @@ Phases, each printed with what ran and how long it took:
     ``bench_multichip --quick`` (3 a position); (c) ``parallel.dryrun`` on
     two shards at the JAX dry run's families, bit-exact, and
     ``harness.scaling_study --device cuda --quick`` over the visible cards,
-    its JSON printed on a line of its own.
+    its JSON printed on a line of its own;
+13. the ``matmul`` orientation (one ``torch._int_mm`` a CMux step over K2's
+    key matrices, the JAX package's XLA scan) and the mesh's tp axis: (a)
+    its FBS at n=578, B=1024 (phase 4's shape) and at the bench anchor,
+    B=512, bitwise against K2's FBS on the same keys and inputs at 4 and 3
+    key limbs, its ms a launch eagerly and as a CUDA graph's replay with
+    K2's FBS timed beside it, the peak memory of a launch's n steps at 24
+    ciphertexts above their start (under half a step's key matrix: no
+    slice is copied), the launch and those steps issued under
+    ``torch.cuda.set_sync_debug_mode("error")``; (b) ``runtime.profile``'s
+    step variants at both shapes, ``mm_only`` µs a step × n the library time
+    of the launch's contractions; (c) tp=2 as two positions of the card:
+    the sharded matmul FBS at the anchor bitwise against the tp=1 FBS, and
+    the runtime CLI on c17 (mapped by the port's ``frontend.cli``) with
+    ``--orientation matmul`` at ``--mesh 1,2`` and ``2,2`` beside tp=1 and
+    K1, all bit-exact with equal decoded outputs; (d) on 2 or more cards
+    the sharded FBS at tp=2 over two cards, else a line that says it did
+    not run.
 
 Before the last line it prints one JSON object with a row per kernel (no
 PyTorch call computes the n-step recurrence, so ``library_ms`` is null;
@@ -127,7 +144,10 @@ kernel counts its launches as K1's, so its row sums the paths whose every
 K1 launch is at N < 256 and lists the mixed ones apart
 (``mixed_k1_launches_by_path``); ``staged_launches``, ``bench_launches``,
 ``n4096_launches`` and ``small_n_launches`` hold the full-length checks of
-phases 4, 8, 11 and 12) and the card's name and power limit; the last line
+phases 4, 8, 11 and 12; K2's row also holds ``matmul_orientation``, phase
+13's times, which are n ``torch._int_mm`` calls and the work around them,
+not one PyTorch call, so ``library_ms`` stays null) and the card's name
+and power limit; the last line
 is
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
 on any failure, without a CUDA device, or away from a checkout of the repo.
@@ -1492,11 +1512,13 @@ def run_dryrun_jax_families(smi: str) -> list[dict]:
     mesh = card_mesh()
     results = dryrun.dryrun(mesh)
     for res in results:
-        log(f"  dryrun_multichip[{res['part']}]: mesh={mesh.shape} "
+        log(f"  dryrun_multichip[{res['part']}]: mesh={res['mesh']} "
             f"batch={res['batch']} launches={res['launches']} "
             f"bit_exact={res['bit_exact']} on {smi}")
+        # the matmul parts launch no fused kernel
+        k1_wanted = "matmul" not in res["part"]
         if not res["bit_exact"] or res["launches"]["k2"] \
-                or not res["launches"]["k1"]:
+                or bool(res["launches"]["k1"]) != k1_wanted:
             raise SystemExit(f"dry run {res['part']}: {res}")
     if results[0]["launches"]["k1"] != mesh.dp:
         raise SystemExit(f"dry run FBS: want one K1 launch a position, got "
@@ -1521,6 +1543,240 @@ def run_scaling_study(tmp: Path) -> dict:
     study = json.loads(out.read_text())
     log(f"  scaling study in {time.time() - t0:.1f} s")
     return study
+
+
+# phase 13: the matmul orientation's launches (preset, ciphertexts): phase
+# 4's level shape and the bench anchor's
+MATMUL_LAUNCHES = (("aes128_p4", LEVEL_BATCH), ("anchor", 512))
+# phase 13 (a): ciphertexts of the steps whose peak memory is read
+MATMUL_PEAK_BATCH = 24
+# phase 13 (b): steps a timed scan of a step variant, and timed scans
+STEP_VARIANT_STEPS = 64
+STEP_VARIANT_ITERS = 2
+# phase 13 (c): c17 mapped at p=4 by the port's CLI, run at batch 8
+C17 = "benchmarks/iscas85/c17.bench"
+C17_LBF = "build/c17_4_search_opt.lbf"
+TP_CLI_RUNS = (("tp=1 matmul", ["--orientation", "matmul"]),
+               ("K1", ["--orientation", "fused_otf"]),
+               ("matmul --mesh 1,2", ["--orientation", "matmul", "--mesh",
+                                      "1,2"]),
+               ("matmul --mesh 2,2", ["--orientation", "matmul", "--mesh",
+                                      "2,2"]))
+
+
+def matmul_inputs(keys, batch: int, seed: int):
+    """``batch`` ciphertexts of values in [0, 3) under the table [1, 0, 1]
+    (the bench's chain): (ciphertexts, test polynomials, offsets)."""
+    import numpy as np
+    import torch
+    from tfhe_fbs_map_tpu_torch.tfhe import build_test_vector, encrypt_values
+
+    rng = np.random.default_rng(seed)
+    cts = encrypt_values(keys, rng.integers(0, 3, batch), rng)
+    tv, post = build_test_vector([1, 0, 1], keys.params)
+    tvs = torch.from_numpy(np.tile(np.asarray(tv, np.int32), (batch, 1))) \
+        .to(keys.device)
+    posts = torch.full((batch,), int(np.int64(post).astype(np.uint32)
+                                     .astype(np.int32)),
+                       dtype=torch.int32, device=keys.device)
+    return cts, tvs, posts
+
+
+def check_matmul(presets, fbr, smi: str) -> list[dict]:
+    """Phase 13 (a) and (b): at each of MATMUL_LAUNCHES the matmul FBS
+    bitwise against K2's on the same keys (one key tensor for both) at 4
+    and 3 limbs, both timed eagerly and as graph replays at 4 limbs, the
+    launch's peak memory and host syncs checked; then the step variants."""
+    import torch
+    from tfhe_fbs_map_tpu_torch.ops.blind_rotate import (
+        FastKeys, cmux_partial, functional_bootstrap_fast, prepare_fast_keys)
+    from tfhe_fbs_map_tpu_torch.runtime.bisect import graph_ms
+    from tfhe_fbs_map_tpu_torch.runtime.profile import step_variants
+    from tfhe_fbs_map_tpu_torch.tfhe import generate_keys
+    from tfhe_fbs_map_tpu_torch.tfhe.numeric import wrap32
+
+    dev = torch.device("cuda")
+    rows = []
+    for preset, batch in MATMUL_LAUNCHES:
+        params = presets[preset][0]
+        keys = generate_keys(params, seed=11, device=dev)
+        args = matmul_inputs(keys, batch, 12)
+        row = {"preset": preset, "n": params.lwe_dim, "ciphertexts": batch}
+        for limbs in (4, 3):
+            fast = prepare_fast_keys(keys, "fused", limbs)
+            mm = FastKeys(params, fast.bsk_kernels, fast.ksk_matrix,
+                          "matmul")
+            before = dict(fbr.LAUNCHES)
+            got = functional_bootstrap_fast(mm, *args)
+            torch.cuda.synchronize()
+            if fbr.LAUNCHES != before:
+                raise SystemExit("the matmul FBS launched a fused kernel")
+            want = functional_bootstrap_fast(fast, *args)
+            err = int((got.long() - want.long()).abs().max())
+            log(f"  matmul FBS at {preset}, n={params.lwe_dim}, B={batch}, "
+                f"{limbs} limbs: {'bitwise equal' if err == 0 else 'MISMATCH'}"
+                f" to K2's FBS (max_abs_err {err})")
+            if err:
+                raise SystemExit(f"matmul FBS != K2's at {preset}, {limbs} "
+                                 f"limbs")
+            row[f"max_abs_err_{limbs}_limbs"] = err
+            if limbs == 3:
+                continue
+            fbs_mm = lambda: functional_bootstrap_fast(mm, *args)  # noqa
+            fbs_k2 = lambda: functional_bootstrap_fast(fast, *args)  # noqa
+            row["k2_fbs_ms"], _ = cuda_ms(fbs_k2, REPS)
+            row["matmul_ms"], _ = cuda_ms(fbs_mm, 1)
+            row["matmul_graph_ms"] = graph_ms(fbs_mm, 1, 2)
+            row["k2_fbs_graph_ms"] = graph_ms(fbs_k2, 1, 2)
+            # the launch's n CMux steps at MATMUL_PEAK_BATCH ciphertexts on
+            # the same keys, whose temporaries are small beside a step's
+            # key matrix, so a copy of a key slice would show in the
+            # steps' peak memory
+            g = torch.Generator(device=dev).manual_seed(13)
+            k1, N = params.glwe_dim + 1, params.poly_size
+            acc = torch.randint(-2 ** 31, 2 ** 31, (MATMUL_PEAK_BATCH, k1, N),
+                                generator=g, device=dev,
+                                dtype=torch.int64).to(torch.int32)
+            amounts = torch.randint(0, 2 * N, (params.lwe_dim,
+                                               MATMUL_PEAK_BATCH),
+                                    generator=g, device=dev)
+            cmux_partial(acc, amounts[0], mm, 0)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                fbs_mm()
+                torch.cuda.reset_peak_memory_stats(dev)
+                base = torch.cuda.memory_allocated(dev)
+                for i in range(params.lwe_dim):
+                    acc = wrap32(acc.long()
+                                 + cmux_partial(acc, amounts[i], mm, i))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            row["peak_rise_mb"] = (torch.cuda.max_memory_allocated(dev)
+                                   - base) / 1e6
+            row["step_key_mb"] = mm.bsk_kernels[0].numel() / 1e6
+            torch.cuda.reset_peak_memory_stats(dev)
+            if row["peak_rise_mb"] >= row["step_key_mb"] / 2:
+                raise SystemExit(f"{params.lwe_dim} matmul steps of "
+                                 f"{MATMUL_PEAK_BATCH} ciphertexts rose "
+                                 f"{row['peak_rise_mb']} MB: a key slice "
+                                 f"was copied")
+            log(f"  matmul at {preset} B={batch}: eager "
+                f"{row['matmul_ms']:.3f} ms, graph "
+                f"{row['matmul_graph_ms']:.3f} ms; K2's FBS eager "
+                f"{row['k2_fbs_ms']:.3f}, graph {row['k2_fbs_graph_ms']:.3f}"
+                f" ms, on {smi}; its {params.lwe_dim} steps at "
+                f"{MATMUL_PEAK_BATCH} ciphertexts rose "
+                f"{row['peak_rise_mb']:.2f} MB (a step's key "
+                f"{row['step_key_mb']:.2f} MB: no key slice copied); the "
+                f"launch and the steps issued with no host sync")
+            del fbs_mm, fbs_k2
+        del keys, fast, mm, args, got, want, acc
+        torch.cuda.empty_cache()
+        variants = step_variants(dev, batch, STEP_VARIANT_STEPS,
+                                 STEP_VARIANT_ITERS, params)
+        for v in variants:
+            log(f"  step variant {json.dumps(v)}")
+        mm_only = next(v for v in variants if v["variant"] == "mm_only")
+        int_mm = next(v for v in variants if v["variant"] == "int_mm")
+        row["mm_only_us_per_step"] = mm_only["us_per_step"]
+        row["mm_only_x_n_ms"] = mm_only["ms_per_launch"]
+        row["int_mm_x_n_ms"] = int_mm["ms_per_launch"]
+        row["step_variants"] = {v["variant"]: v["us_per_step"]
+                                for v in variants}
+        log(f"  mm_only at {preset} B={batch}: {mm_only['us_per_step']} µs a "
+            f"step x n={params.lwe_dim} = {mm_only['ms_per_launch']} ms, the "
+            f"library time of the launch's contractions and limb combines; "
+            f"torch._int_mm alone {int_mm['us_per_step']} µs a step x n = "
+            f"{int_mm['ms_per_launch']} ms, on {smi}")
+        rows.append(row)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def map_c17() -> None:
+    """Phase 13 (c): c17 mapped at p=4 with ``--opt`` by the port's CLI."""
+    from tfhe_fbs_map_tpu_torch.frontend.cli import main as map_main
+
+    (ROOT / C17_LBF).parent.mkdir(exist_ok=True)
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = map_main([str(ROOT / C17), "--type", "bench", "--fbs_size", "4",
+                       "--opt", "--output_lbf", str(ROOT / C17_LBF)])
+    if rc != 0:
+        raise SystemExit(f"mapping c17: rc {rc}")
+
+
+def check_tp_axis(presets, fbr, smi: str) -> dict:
+    """Phase 13 (c) and (d): tp=2 as two positions of the card (the sharded
+    matmul FBS at the anchor, and the runtime CLI on c17), then over two
+    cards where there are two."""
+    import numpy as np
+    import torch
+    from tfhe_fbs_map_tpu_torch.parallel import dryrun, make_mesh
+    from tfhe_fbs_map_tpu_torch.runtime.cli import main as cli_main
+    from tfhe_fbs_map_tpu_torch.runtime.executor import CircuitExecutor
+
+    out = {}
+    t0 = time.time()
+    res = dryrun.sharded_fbs(make_mesh(["cuda"] * 2, tp=2),
+                             presets["anchor"][0], "matmul", 512)
+    log(f"  sharded matmul FBS at the anchor, 512 ciphertexts, tp=2 on one "
+        f"card: bit_exact {res['bit_exact']} against tp=1, launches "
+        f"{res['launches']} ({time.time() - t0:.1f} s)")
+    if not res["bit_exact"] or any(res["launches"].values()):
+        raise SystemExit(f"sharded matmul FBS at tp=2: {res}")
+    out["fbs_tp2_one_card"] = res["bit_exact"]
+    torch.cuda.empty_cache()
+
+    map_c17()
+    decoded = []
+    inner = CircuitExecutor.decrypt_outputs
+
+    def spy(self, buf):
+        got = inner(self, buf)
+        if isinstance(buf, list) or self.mesh is None:
+            decoded.append(got)
+        return got
+    CircuitExecutor.decrypt_outputs = spy
+    try:
+        for label, extra in TP_CLI_RUNS:
+            rc, res, counts = entry_point(
+                cli_main, [C17_LBF, "--params", "aes128_p4", "--batch", "8",
+                           *extra], fbr.LAUNCHES)
+            # K1 a level; the matmul runs launch no fused kernel
+            if rc or not res["bit_exact"] or (
+                    counts["k2"] or bool(counts["k1"]) != (label == "K1")):
+                raise SystemExit(f"c17 {label}: rc {rc}, {res}, launches "
+                                 f"{counts}")
+            log(f"  c17 {label}: bit_exact {res['bit_exact']}, mesh "
+                f"{res['mesh']}, run_s {res['run_s']} on {smi}")
+            out[f"c17 {label}"] = {"bit_exact": res["bit_exact"],
+                                   "mesh": res["mesh"], "run_s": res["run_s"]}
+            torch.cuda.empty_cache()
+    finally:
+        CircuitExecutor.decrypt_outputs = inner
+    first = decoded[0]
+    if len(decoded) != len(TP_CLI_RUNS) or any(
+            d.keys() != first.keys() or any(
+                not np.array_equal(d[k], first[k]) for k in first)
+            for d in decoded):
+        raise SystemExit("c17: the runs' decoded outputs differ")
+    log("  c17: the decoded outputs of tp=1 matmul, K1, --mesh 1,2 and "
+        "--mesh 2,2 are equal")
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log("  (d) tp over two cards: not run, this machine has one card")
+    else:
+        res = dryrun.sharded_fbs(make_mesh(["cuda:0", "cuda:1"], tp=2),
+                                 presets["anchor"][0], "matmul", 512)
+        log(f"  (d) sharded matmul FBS at tp=2 over cuda:0 and cuda:1: "
+            f"bit_exact {res['bit_exact']}")
+        if not res["bit_exact"]:
+            raise SystemExit(f"tp over two cards: {res}")
+        out["fbs_tp2_two_cards"] = res["bit_exact"]
+    return out
 
 
 def main(argv=None) -> int:
@@ -1664,6 +1920,13 @@ def main(argv=None) -> int:
     log(json.dumps({"scaling_study": study}))
     log(f"[small N] {time.time() - t0:.1f} s")
 
+    # --- 13. the matmul orientation and tp ----------------------------------
+    t0 = time.time()
+    matmul = check_matmul(PRESETS, fbr, smi)
+    tp = check_tp_axis(PRESETS, fbr, smi)
+    log(json.dumps({"matmul": matmul, "tp": tp}))
+    log(f"[matmul and tp] {time.time() - t0:.1f} s")
+
     # launches of each kernel on every main path, each counted from 0
     by_path = {"k2": {"aes128_p4 auto": runs["k2"]["launches"]},
                "k1": {"aes128_p4 fused_otf": runs["k1"]["launches"],
@@ -1710,6 +1973,7 @@ def main(argv=None) -> int:
          "bound_by": timing[kern][3], "library_ms": None,
          **({"staged_launches": staged_k1, "n4096_launches": n4096}
             if kern == "k1" else {}),
+         **({"matmul_orientation": matmul} if kern == "k2" else {}),
          **({"graph_ms": small_k[-1]["graph_ms"],
              "mixed_k1_launches_by_path": mixed,
              "small_n_launches": small_k} if kern == "k1_small"

@@ -96,10 +96,15 @@ def test_mesh_run_equals_one_device(full_adder_blif, capsys, monkeypatch):
 @pytest.mark.parametrize("args,rc,why", [
     (["--batch", "6", "--mesh", "4"], 1, "divisible by dp=4"),
     (["--mesh", "2,2"], 2, "tp=2 is not supported"),
+    (["--mesh", "2,2", "--orientation", "fused_otf"], 2,
+     "is not supported by --orientation fused_otf: tp shards the key "
+     "contraction of the matmul orientation alone (--orientation matmul)"),
     (["--mesh", "0"], 2, "want DP, DP,TP or auto"),
     (["--mesh", "x"], 2, "want DP, DP,TP or auto"),
 ])
 def test_mesh_refusals(full_adder_blif, capsys, args, rc, why):
+    """tp > 1 only under --orientation matmul (auto never picks it), and
+    the message says so."""
     assert main([full_adder_blif, "--map", "--device", "cpu",
                  "--test-params", *args]) == rc
     out = capsys.readouterr()

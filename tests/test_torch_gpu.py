@@ -437,7 +437,8 @@ def path_executor(cuda, path):
         fast = (None if path == "generic"
                 else prepare_fast_keys(keys, orientation=path))
         prog = full_adder_program()
-        key = {"fused_otf": "k1", "fused": "k2", "generic": None}[path]
+        key = {"fused_otf": "k1", "fused": "k2", "generic": None,
+               "matmul": None}[path]
     ex = CircuitExecutor(prog, keys, fast_keys=fast)
     values = {n.name: rng.integers(0, 2, 16)
               for n in prog.nodes if n.kind == "input"}
@@ -447,7 +448,7 @@ def path_executor(cuda, path):
     return ex, buf, calls, key
 
 
-PATHS = ["fused_otf", "fused", "generic", "staged"]
+PATHS = ["fused_otf", "fused", "generic", "staged", "matmul"]
 
 
 @pytest.mark.parametrize("path", PATHS)
@@ -495,10 +496,10 @@ def test_graphs_of_two_shards_on_one_card(cuda):
     assert torch.equal(torch.cat(got, dim=1), want)
 
 
-@pytest.mark.parametrize("path", ["fused", "generic", "staged"])
+@pytest.mark.parametrize("path", ["fused", "generic", "staged", "matmul"])
 def test_level_step_is_sync_free_on_every_path(cuda, path):
-    """K2's, the generic bootstrap's and the staged pair's level steps
-    never wait for the card either (K1's:
+    """K2's, the generic bootstrap's, the staged pair's and the matmul
+    orientation's level steps never wait for the card either (K1's:
     ``test_level_step_issues_without_a_host_sync``)."""
     ex, buf, _, _ = path_executor(cuda, path)
     ex.step(buf.clone(), 0)
@@ -722,3 +723,111 @@ def test_quick_multichip_and_dryrun_on_the_card(cuda, capsys):
     assert dryrun.main(["--dp", "2"]) == 0
     assert all(line.endswith("bit_exact=True")
                for line in capsys.readouterr().out.strip().splitlines())
+
+
+# ------------------------------------------------ the matmul orientation
+
+def aes_shape(lwe_dim: int = 8):
+    """The aes128_p4 family (k=2, N=512, l=2, b=8) with n cut."""
+    from dataclasses import replace
+    from tfhe_fbs_map_tpu_torch.tfhe.params import PRESETS
+    return replace(PRESETS["aes128_p4"][0], lwe_dim=lwe_dim)
+
+
+def identity_batch(keys, batch, seed):
+    from tfhe_fbs_map_tpu_torch.tfhe.encrypt import decrypt_values
+    rng = np.random.default_rng(seed)
+    values = rng.integers(0, 3, batch)
+    cts = encrypt_values(keys, values, rng)
+    tv, post = build_test_vector([1, 0, 1], keys.params)
+    tvs = torch.from_numpy(np.tile(tv, (batch, 1))).to(keys.device)
+    posts = torch.full((batch,), int(np.int64(post).astype(np.uint32)
+                                     .astype(np.int32)),
+                       dtype=torch.int32, device=keys.device)
+    return values, (cts, tvs, posts), decrypt_values
+
+
+@pytest.mark.parametrize("limbs", [4, 3])
+def test_matmul_fbs_equals_k2(cuda, limbs):
+    """The matmul orientation on the card (``torch._int_mm`` a step over
+    K2's key matrices) is bitwise K2's FBS, at 4 and at 3 key limbs, and
+    launches no fused kernel."""
+    keys = generate_keys(aes_shape(), seed=6, device=cuda)
+    _, args, _ = identity_batch(keys, 96, 7)
+    k2 = functional_bootstrap_fast(prepare_fast_keys(keys, "fused", limbs),
+                                   *args)
+    mm = prepare_fast_keys(keys, "matmul", limbs)
+    before = dict(fbr.LAUNCHES)
+    got = functional_bootstrap_fast(mm, *args)
+    torch.cuda.synchronize()
+    assert fbr.LAUNCHES == before
+    assert torch.equal(got, k2)
+
+
+def test_matmul_launch_copies_no_key_slice(cuda, monkeypatch):
+    """Every step hands ``torch._int_mm`` its [D, T] key matrix as the
+    transposed view of the key tensor, and cuBLAS takes it as it lies: a
+    launch's peak memory stays under half of one step's matrix (18.9 MB
+    here) above what it started from, where one copy of a slice would add
+    all of it."""
+    keys = generate_keys(aes_shape(4), seed=6, device=cuda)
+    _, args, _ = identity_batch(keys, 24, 8)
+    fast = prepare_fast_keys(keys, "matmul")
+    kern = fast.bsk_kernels
+    functional_bootstrap_fast(fast, *args)         # cuBLAS's workspace
+    torch.cuda.synchronize()
+    operands = []
+    inner = torch._int_mm
+
+    def spy(a, b):
+        operands.append(b)
+        return inner(a, b)
+    monkeypatch.setattr(torch, "_int_mm", spy)
+    torch.cuda.reset_peak_memory_stats(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    functional_bootstrap_fast(fast, *args)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated(cuda) - base
+    slice_bytes = kern[0].numel()
+    assert rise < slice_bytes // 2, (rise, slice_bytes)
+    steps = [b for b in operands if b.shape == kern[0].t().shape]
+    assert len(steps) == kern.shape[0]
+    for i, b in enumerate(steps):
+        assert b.data_ptr() == kern[i].data_ptr()
+        assert b.stride() == (1, b.shape[0])
+
+
+@pytest.mark.parametrize("dp", [1, 2])
+def test_tp2_on_one_card(cuda, dp):
+    """tp=2 as two positions of one card: the sharded matmul FBS at (dp, 2)
+    equals the one-device FBS at every position, its launch waits on the
+    host nowhere, and the mesh executor at (1, 2) equals one device's."""
+    from tfhe_fbs_map_tpu_torch.parallel import (make_mesh, shard_batch,
+                                                 sharded_bootstrap)
+    keys = generate_keys(aes_shape(), seed=6, device=cuda)
+    _, args, _ = identity_batch(keys, 64, 9)
+    fast = prepare_fast_keys(keys, "matmul")
+    want = functional_bootstrap_fast(fast, *args)
+    mesh = make_mesh([cuda] * (2 * dp), tp=2)
+    fn = sharded_bootstrap(mesh, fast)
+    shards = [shard_batch(mesh, x) for x in args]
+    fn(*shards)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fn(*shards)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    for group in mesh.groups(got):
+        assert torch.equal(group[0], group[1])
+    assert torch.equal(torch.cat(mesh.leaders(got)), want)
+    if dp == 1:
+        from tfhe_fbs_map_tpu_torch.runtime.executor import CircuitExecutor
+        ex, buf, _, _ = path_executor(cuda, "matmul")
+        one = ex.run(buf)
+        two = CircuitExecutor(ex.prog, ex.keys, fast_keys=ex.fast_keys,
+                              mesh=mesh)
+        assert two.capture(shard_batch(mesh, buf, axis=1)) == 0
+        got = two.run(shard_batch(mesh, buf, axis=1))
+        assert torch.equal(got[0], one) and torch.equal(got[1], one)

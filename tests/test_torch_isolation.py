@@ -41,7 +41,8 @@ def test_every_module_imports_with_jax_blocked():
                  "frontend.circuits.aes128", "optimizer.native", "harness",
                  "harness.sweep", "harness.reestimate_staged",
                  "harness.analyse", "harness.scaling_study",
-                 "parallel.worker"):
+                 "parallel.worker", "ops.blind_rotate", "runtime.profile",
+                 "runtime.executor", "runtime.cli"):
         assert f"tfhe_fbs_map_tpu_torch.{name}" in names
     code = ("import importlib, sys\n"
             "sys.modules['jax'] = None\n"

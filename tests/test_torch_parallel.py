@@ -90,10 +90,13 @@ def test_mesh_shape_positions_and_refusals(monkeypatch):
     assert mesh.distinct == [CPU] and not mesh.spans_processes
     with pytest.raises(ValueError, match="cannot form mesh"):
         make_mesh(["cpu"] * 3, dp=4)
+    # tp > 1 is a mesh of matmul positions (test_torch_tp.py); tp=0 none,
+    # and a tp that does not divide a process's positions is refused
+    assert make_mesh(["cpu"] * 2, tp=2).shape == {"dp": 1, "tp": 2}
+    with pytest.raises(ValueError, match="at least one position"):
+        make_mesh(["cpu"] * 2, tp=0)
     for tp in (2, 0):
-        with pytest.raises(ValueError, match="no port orientation shards"):
-            make_mesh(["cpu"] * 2, tp=tp)
-        with pytest.raises(ValueError, match="no port orientation shards"):
+        with pytest.raises(ValueError, match="must divide the 1 local"):
             global_mesh(tp=tp, devices=["cpu"])
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -322,8 +325,11 @@ def test_dryrun_on_the_cpu(capsys):
     lines = capsys.readouterr().out.strip().splitlines()
     assert [line.split("]")[0] for line in lines] == [
         "dryrun_multichip[fbs", "dryrun_multichip[executor/full_adder",
-        "dryrun_multichip[staged-executor/p32"]
+        "dryrun_multichip[staged-executor/p32",
+        "dryrun_multichip[entry/matmul", "dryrun_multichip[matmul/tp"]
     assert all(line.endswith("bit_exact=True") for line in lines)
+    # JAX's matmul run at tp=2 on an even count of at least 4 positions
+    assert "mesh={'dp': 2, 'tp': 2}" in lines[-1]
 
 
 # experiments/bench_multichip.py:117-127, the JAX script's JSON keys
@@ -352,8 +358,9 @@ def test_bench_multichip_quick_as_a_command():
                                   ["--quick", "--cpu-devices", "2", "--dp",
                                    "2"]])
 def test_bench_multichip_refusals(argv, capsys, monkeypatch):
-    """tp != 1, no mesh without a GPU unless --cpu-devices, and --dp (the
-    GPUs' positions) beside --cpu-devices: exit 2."""
+    """--tp 2 without --orientation matmul, no mesh without a GPU unless
+    --cpu-devices, and --dp (the GPUs' positions) beside --cpu-devices:
+    exit 2."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
     assert bench_multichip.main(argv) == 2
     assert capsys.readouterr().out == ""

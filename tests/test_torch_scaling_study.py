@@ -47,8 +47,15 @@ def test_cpu_study_has_the_jax_keys(cpu_study):
     assert all(p["errors"] == 0 and p["value"] > 0 for p in res["points"])
     # --quick caps the batch a position at 16, as in the JAX study
     assert all(p["batch_per_chip"] == 16 for p in res["points"])
-    assert res["tp_points"] == [] and res["tp2_efficiency"] is None
-    assert "no tp" in res["note"]
+    # JAX's two tp points: matmul at dp=1 on one pinned core, tp=2 on two
+    m1, m2 = res["tp_points"]
+    assert (m1["dp"], m1["tp"], m2["dp"], m2["tp"]) == (1, 1, 1, 2)
+    assert m1["errors"] == m2["errors"] == 0
+    assert m1["orientation"] == m2["orientation"] == "matmul"
+    assert (m1["pinned_cores"], m2["pinned_cores"]) == (1, 2)
+    assert res["tp2_efficiency"] == round(m2["value"] / (2 * m1["value"]),
+                                          3)
+    assert "tp=2 = the matmul orientation" in res["note"]
 
 
 def test_cpu_study_efficiency_over_pinned_points(cpu_study):
@@ -72,10 +79,12 @@ def test_cpu_study_two_gloo_ranks_are_ok(cpu_study):
 
 
 def fake_point(values):
-    def run_point(n, batch, iters, orientation, device, quick, cards=0):
+    def run_point(n, batch, iters, orientation, device, quick, cards=0,
+                  tp=1):
         r = {"metric": "bootstraps_per_sec_total", "value": values[n],
-             "devices": min(n, cards) if device == "cuda" else 1, "dp": n,
-             "tp": 1, "boots_per_sec_per_chip": values[n] / n,
+             "devices": min(n, cards) if device == "cuda" else 1,
+             "dp": n // tp, "tp": tp,
+             "boots_per_sec_per_chip": values[n] / n,
              "batch_per_chip": batch, "orientation": orientation,
              "errors": 0}
         if device == "cpu":
@@ -99,6 +108,8 @@ def test_efficiency_leaves_out_oversubscribed_points(monkeypatch):
     assert res["efficiency_core_proportional"] == {1: 1.0, 2: 0.9}
     assert (res["efficiency"], res["efficiency_devices"]) == (0.9, 2)
     assert res["oversubscribed_total_boots_per_sec"] == {4: 200.0, 8: 210.0}
+    # both tp points pinned: value(tp=2) / (2 value(tp=1))
+    assert res["tp2_efficiency"] == 0.9
 
 
 def test_one_card_claims_no_scaling(monkeypatch):
@@ -120,6 +131,9 @@ def test_one_card_claims_no_scaling(monkeypatch):
     assert set(res["oversubscribed_total_boots_per_sec"]) == {2, 4, 8}
     assert res["card"] == "NVIDIA H100 80GB HBM3, 700.00 W"
     assert res["cards"] == 1 and "only dp=1 is real" in res["note"]
+    # the tp=2 point shares the card: kept, no efficiency
+    assert [p["shared_card"] for p in res["tp_points"]] == [False, True]
+    assert res["tp2_efficiency"] is None
 
 
 def test_a_point_with_errors_exits_1(monkeypatch, tmp_path, capsys):

@@ -2,6 +2,7 @@
 
     python -m tfhe_fbs_map_tpu_torch.bench                   # anchor, B=512
     python -m tfhe_fbs_map_tpu_torch.bench --preset p16 --orientation fused_otf
+    python -m tfhe_fbs_map_tpu_torch.bench --orientation matmul --bsk-limbs 3
     python -m tfhe_fbs_map_tpu_torch.bench --preset p32 --native-p32
     python -m tfhe_fbs_map_tpu_torch.bench --preset p32      # staged lookups
     python -m tfhe_fbs_map_tpu_torch.bench --quick           # tiny, on the GPU
@@ -13,8 +14,10 @@ The port of the JAX package's root ``bench.py``.  The native presets
 in [0, 2] under the table [1, 0, 1], a fresh bootstrap output fed back
 through the same bootstrap, through the fused kernel ``--orientation``
 names (``auto``: K2 when its key matrices fit the card's free memory, the
-runtime CLI's rule, else K1).  ``--preset p32`` alone is the staged p=32
-lookup (``staged_p32_bench``).  Every chain is decrypt-checked after its
+runtime CLI's rule, else K1) or through ``matmul``, the JAX bench's XLA
+anchor: one ``torch._int_mm`` a CMux step over K2's key matrices
+(``--bsk-limbs 3``: a quantized key).  ``--preset p32`` alone is the
+staged p=32 lookup (``staged_p32_bench``).  Every chain is decrypt-checked after its
 first step and after the timed loop, so only correct bootstraps are
 counted.  ``--quick`` takes the JAX bench's tiny insecure sets (N=128,
 which K1 serves through its small-N kernel), on the card as the JAX bench
@@ -131,7 +134,9 @@ def bench_orientation(params: TFHEParams, orientation: str, bsk_limbs: int,
     K1, ``"fused_otf"``).  An orientation asked for must be served and, for
     K2, fit: ValueError otherwise, since the bench never runs another kernel
     than the one asked for.  On the CPU both wrappers run their plain
-    versions, and ``auto`` takes ``"fused"``, the JAX bench's default."""
+    versions, and ``auto`` takes ``"fused"``, the JAX bench's default.
+    ``"matmul"`` holds K2's key matrices too, so on CUDA they must fit as
+    K2's do."""
     from .ops.blind_rotate import FUSED_HEADROOM, fused_key_bytes
     from .runtime.cli import check_kernel, free_memory, pick_orientations
 
@@ -143,9 +148,11 @@ def bench_orientation(params: TFHEParams, orientation: str, bsk_limbs: int,
         return pick_orientations([params], device, free_bytes, bsk_limbs)[0]
     check_kernel(params, orientation)
     need = fused_key_bytes(params, bsk_limbs)
-    if orientation == "fused" and need + FUSED_HEADROOM > free_bytes:
+    if orientation in ("fused", "matmul") \
+            and need + FUSED_HEADROOM > free_bytes:
         raise ValueError(
-            f"--orientation fused: K2's key matrices take {need / 1e9:.1f} "
+            f"--orientation {orientation}: K2's key matrices take "
+            f"{need / 1e9:.1f} "
             f"GB, with {FUSED_HEADROOM >> 30} GiB to spare, and the card has "
             f"{free_bytes / 1e9:.1f} GB free; --orientation fused_otf runs "
             f"K1 on the compact keys")
@@ -327,13 +334,14 @@ def main(argv=None) -> int:
                     help="tiny insecure parameters, batch at most 32 (8 "
                          "staged)")
     ap.add_argument("--orientation", default="auto",
-                    choices=["auto", "fused", "fused_otf"],
-                    help="fused kernel of a native preset: K2 (fused) over "
+                    choices=["auto", "fused", "fused_otf", "matmul"],
+                    help="path of a native preset: K2 (fused) over "
                          "precomputed key matrices, K1 (fused_otf) over the "
                          "compact keys, or auto: K2 when its matrices fit "
-                         "the card's free memory, else K1.  A kernel asked "
-                         "for that cannot run exits 2.  The staged lookup "
-                         "runs both families on K1")
+                         "the card's free memory, else K1; matmul: one "
+                         "torch._int_mm a CMux step over K2's matrices.  "
+                         "A path asked for that cannot run exits 2.  The "
+                         "staged lookup runs both families on K1")
     ap.add_argument("--bsk-limbs", type=int, default=N_LIMBS,
                     choices=range(1, N_LIMBS + 1), metavar="{1,2,3,4}",
                     help="8-bit limbs of the bootstrapping key kept, most "

@@ -1,22 +1,27 @@
-"""Batched bootstraps a second over a dp mesh.
+"""Batched bootstraps a second over a (dp, tp) mesh.
 
     python -m tfhe_fbs_map_tpu_torch.bench_multichip           # every GPU
     python -m tfhe_fbs_map_tpu_torch.bench_multichip --quick --dp 2
     python -m tfhe_fbs_map_tpu_torch.bench_multichip --quick --cpu-devices 4
+    python -m tfhe_fbs_map_tpu_torch.bench_multichip --quick --cpu-devices 4 \\
+        --tp 2 --orientation matmul
 
 The port of ``experiments/bench_multichip.py``: ``--batch-per-chip``
-ciphertexts a mesh position, the whole batch split over dp (each position
+ciphertexts a dp group, the whole batch split over dp (each position
 runs the fused kernel on its slice with replicated keys,
-:func:`.parallel.mesh.sharded_bootstrap`), one checked call, then
+:func:`.parallel.mesh.sharded_bootstrap`; with ``--orientation matmul`` and
+``--tp`` > 1 a group's tp positions each hold a slice of the key
+contraction and sum their partial products every step), one checked call, then
 ``--iters`` timed calls each fed the last one's output.  Values in [0, 2]
 under the table [1, 0, 1], keys from seed 1 and values from seed 2, at the
 JAX script's family (n=630, k=2, N=512, l=2, b=8, key switch 5×3), or its
 tiny one with ``--quick`` (N=128: on the card K1's small-N kernel).  The
-mesh is every visible GPU, ``--dp`` positions dealt round-robin over them
-(more positions than cards share a card: ``devices`` in the JSON counts the
-cards), or ``--cpu-devices`` positions on the CPU, where the kernels run
-their plain versions.  The chain is decrypt-checked after the first call
-and after the timed ones.  Per-chip figures divide by the positions used.
+mesh is every visible GPU (dp = GPUs / tp), ``--dp`` groups of ``--tp``
+positions dealt round-robin over them (more positions than cards share a
+card: ``devices`` in the JSON counts the cards), or ``--cpu-devices``
+positions on the CPU (dp = positions / tp), where the kernels run their
+plain versions.  The chain is decrypt-checked after the first call and
+after the timed ones.  Per-chip figures divide by the positions used.
 A mesh on one card measures no scaling.  Prints one JSON object, the JAX script's keys;
 exits 1 when a bootstrap decrypted wrong, 2 when the mesh cannot be made.
 """
@@ -52,22 +57,24 @@ def main(argv=None) -> int:
     ap.add_argument("--batch-per-chip", type=int, default=512)
     ap.add_argument("--iters", type=int, default=ITERS)
     ap.add_argument("--orientation", default="fused_otf",
-                    choices=["fused", "fused_otf"])
+                    choices=["fused", "fused_otf", "matmul"])
     ap.add_argument("--quick", action="store_true",
                     help="the tiny insecure family, at most 16 ciphertexts "
                          "a position and 2 timed calls")
     ap.add_argument("--cpu-devices", type=int, default=0,
                     help="N mesh positions on the CPU instead of the GPUs")
     ap.add_argument("--dp", type=int, default=None,
-                    help="mesh positions over the GPUs, round-robin "
-                         "(default: one a GPU)")
+                    help="dp groups over the GPUs, round-robin (default: "
+                         "the GPUs over tp)")
     ap.add_argument("--tp", type=int, default=1,
-                    help="must be 1: no port orientation shards the key "
-                         "contraction")
+                    help="tensor-parallel mesh axis: shards the key "
+                         "contraction of --orientation matmul (the "
+                         "partial products meet once a step)")
     args = ap.parse_args(argv)
 
     from .ops.blind_rotate import prepare_fast_keys
-    from .parallel.mesh import make_mesh, shard_batch, sharded_bootstrap
+    from .parallel.mesh import (check_tp, make_mesh, shard_batch,
+                                sharded_bootstrap)
     from .tfhe import (build_test_vector, decrypt_values, encrypt_values,
                        generate_keys)
 
@@ -75,6 +82,7 @@ def main(argv=None) -> int:
         if args.cpu_devices and args.dp is not None:
             raise ValueError("--dp deals positions over the GPUs; "
                              "--cpu-devices gives the CPU's")
+        check_tp(args.tp, args.orientation)
         mesh = make_mesh(["cpu"] * args.cpu_devices if args.cpu_devices
                          else None, dp=args.dp, tp=args.tp)
     except (ValueError, RuntimeError) as e:
@@ -114,7 +122,8 @@ def main(argv=None) -> int:
         want = np.asarray(TABLE)[values]
         if calls % 2 == 0:
             want = 1 - want
-        got = decrypt_values(keys, torch.cat([o.to(dev) for o in out]))
+        got = decrypt_values(keys, torch.cat([o.to(dev)
+                                              for o in mesh.leaders(out)]))
         return int(np.sum(got != want))
 
     out = fn(cts_s, tvs_s, posts_s)
@@ -134,8 +143,9 @@ def main(argv=None) -> int:
         "value": round(boots_per_sec, 1),
         "devices": len(mesh.distinct),
         "dp": dp,
-        "tp": 1,
-        "boots_per_sec_per_chip": round(boots_per_sec / dp, 1),
+        "tp": mesh.tp,
+        "boots_per_sec_per_chip": round(boots_per_sec
+                                        / len(mesh.devices), 1),
         "batch_per_chip": args.batch_per_chip,
         "orientation": args.orientation,
         "errors": n_bad,

@@ -26,9 +26,16 @@ is taken over the real points only:
 Then the multi-process points: 2 and 4 processes of
 :mod:`..parallel.worker` in one gloo group, each running one dp-sharded
 bootstrap on the global mesh and checking its decryptions bitwise; each
-point gives ``ok``, ``errors`` and ``wall_s``.  The port has no tp (no
-port orientation shards the key contraction, ``parallel.mesh.check_tp``),
-so ``tp_points`` is empty and ``tp2_efficiency`` null.
+point gives ``ok``, ``errors`` and ``wall_s``.
+
+Then JAX's two tp points: ``bench_multichip --orientation matmul`` at
+dp=1 on one position (on the CPU pinned to one core) and at tp=2 on two
+(two cores), the same batch a group, so the ideal is twice the rate:
+
+    tp2_efficiency = value(tp=2) / (2 · value(tp=1))
+
+taken where both points are real (on one card the tp=2 point shares it
+and the efficiency is null; the points are kept).
 
 Writes one JSON object with the JAX study's keys, plus ``device`` (and on
 the card its name and power limit from ``nvidia-smi``), to ``--out``
@@ -67,14 +74,16 @@ class PointFailed(Exception):
 
 
 def run_point(n: int, batch: int, iters: int, orientation: str,
-              device: str, quick: bool, cards: int = 0) -> dict:
-    """``bench_multichip`` at dp ``n``: its JSON line, with
-    ``pinned_cores`` (CPU: the cores it was pinned to, None when
-    oversubscribed) or ``shared_card`` (CUDA: more positions than the
-    ``cards``).  Raises PointFailed on a failed run or decode errors."""
+              device: str, quick: bool, cards: int = 0,
+              tp: int = 1) -> dict:
+    """``bench_multichip`` on ``n`` positions, groups of ``tp`` (dp =
+    n / tp): its JSON line, with ``pinned_cores`` (CPU: the cores it was
+    pinned to, None when oversubscribed) or ``shared_card`` (CUDA: more
+    positions than the ``cards``).  Raises PointFailed on a failed run or
+    decode errors."""
     cmd = [sys.executable, "-m", "tfhe_fbs_map_tpu_torch.bench_multichip",
            "--batch-per-chip", str(batch), "--iters", str(iters),
-           "--orientation", orientation]
+           "--orientation", orientation, "--tp", str(tp)]
     pin = None
     if device == "cpu":
         cmd += ["--quick", "--cpu-devices", str(n)]
@@ -85,15 +94,16 @@ def run_point(n: int, batch: int, iters: int, orientation: str,
             pin = n
             cmd = ["taskset", "-c", f"0-{n - 1}" if n > 1 else "0"] + cmd
     else:
-        cmd += ["--dp", str(n)] + (["--quick"] if quick else [])
+        cmd += ["--dp", str(n // tp)] + (["--quick"] if quick else [])
     out = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
                          timeout=POINT_TIMEOUT)
     lines = [ln for ln in out.stdout.splitlines() if ln.startswith("{")]
     r = json.loads(lines[-1]) if lines else {}
+    label = f"{n} positions, tp={tp}"
     if r.get("errors"):
-        raise PointFailed(f"dp={n}: {r['errors']} decode errors")
+        raise PointFailed(f"{label}: {r['errors']} decode errors")
     if out.returncode != 0 or not r:
-        raise PointFailed(f"dp={n}: exit {out.returncode}\n{out.stderr}")
+        raise PointFailed(f"{label}: exit {out.returncode}\n{out.stderr}")
     if device == "cpu":
         r["pinned_cores"] = pin
     else:
@@ -204,19 +214,29 @@ def study(device: str, batch: int, iters: int, orientation: str,
         if mp["errors"]:
             raise PointFailed(f"procs={mp['procs']}: {mp['errors']} ranks "
                               f"failed\n" + "\n".join(mp["output"]))
+    tp_pts = [run_point(n, batch, iters, "matmul", device, quick, cards,
+                        tp=n) for n in (1, 2)]
+    tp_real = all(p["pinned_cores"] if device == "cpu"
+                  else not p["shared_card"] for p in tp_pts)
+    tp_eff = (round(tp_pts[1]["value"] / (2 * tp_pts[0]["value"]), 3)
+              if tp_real else None)
+    print(f"tp=2: {tp_pts[1]['value']} boots/s total vs matmul dp=1 "
+          f"{tp_pts[0]['value']} -> efficiency {tp_eff}", flush=True)
     if device == "cpu":
         note = ("CPU mesh: host cores stand in for chips on the pinned "
-                "points (taskset), no interconnect; dp only, keys "
+                "points (taskset), no interconnect; dp points: keys "
                 "replicated, no collectives in the hot path")
     else:
         note = (f"{cards} visible card(s): a point with more positions than "
                 f"cards shares a card and is left out of the efficiency"
                 + ("; on one card only dp=1 is real, so no scaling is "
                    "measured" if cards == 1 else ""))
-    note += ("; multiprocess = parallel.worker processes in one gloo group, "
-             "correctness evidence; no tp: no port orientation shards the "
-             "key contraction (parallel.mesh.check_tp), so tp_points is "
-             "empty and tp2_efficiency null")
+    note += ("; tp=2 = the matmul orientation with the key contraction "
+             "sharded, the partial products summed once a CMux step"
+             + ("" if tp_real else " (the tp=2 point shares a card: no "
+                "efficiency)")
+             + "; multiprocess = parallel.worker processes in one gloo "
+             "group, correctness evidence")
     return {
         "metric": f"dp_scaling_efficiency_{device}",
         "device": device, **extra,
@@ -229,8 +249,8 @@ def study(device: str, batch: int, iters: int, orientation: str,
         "efficiency_devices": top if top and top > 1 else None,
         "oversubscribed_total_boots_per_sec": {
             p["dp"]: p["value"] for p in points if p not in real},
-        "tp_points": [],
-        "tp2_efficiency": None,
+        "tp_points": tp_pts,
+        "tp2_efficiency": tp_eff,
         "multiprocess_points": mp_pts,
         "note": note,
     }

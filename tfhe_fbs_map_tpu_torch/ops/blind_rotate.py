@@ -1,10 +1,20 @@
-"""Fast-path functional bootstrap: int8-limb key switch, modswitch, the fused
-blind-rotation kernels, sample extract.
+"""Fast-path functional bootstrap: int8-limb key switch, modswitch, the
+blind rotation, sample extract.
 
-The counterpart of the ``"fused"`` and ``"fused_otf"`` orientations of
-``tfhe_fbs_map_tpu.ops.blind_rotate``, bitwise equal to them and to the
-generic path of :mod:`..tfhe.pbs`.  The TPU-only conv orientations and the
-XLA ``matmul`` scan have no counterpart.
+The counterpart of the ``"fused"``, ``"fused_otf"`` and ``"matmul"``
+orientations of ``tfhe_fbs_map_tpu.ops.blind_rotate``, bitwise equal to
+them and to the generic path of :mod:`..tfhe.pbs`:
+
+* ``"fused"`` and ``"fused_otf"`` run the n CMux steps in one launch of
+  the fused kernels (:mod:`.fused_blind_rotate`);
+* ``"matmul"`` is the JAX package's XLA scan: each step one int8 product
+  ``torch._int_mm`` of the step's gadget digits [B, rows·N] and the same
+  key matrix K2 streams, then the limbs shift-added, with the rotation and
+  the digits plain PyTorch around it (:func:`cmux_partial`).  Its key
+  contraction can be split over tp positions (:func:`shard_contraction`,
+  :func:`bootstrap_matmul`).
+
+The TPU-only conv orientations have no counterpart.
 
 Keys are split into balanced 8-bit limbs (``signed_limbs``); ``bsk_limbs``
 < 4 drops the least significant ones (a quantized bootstrapping key).
@@ -16,15 +26,20 @@ import torch
 
 from ..tfhe.keys import TFHEKeys
 from ..tfhe.numeric import I32, I64, gadget_decompose, int8_matmul, \
-    signed_limbs, u32, wrap32
+    int8_matmul_nt, signed_limbs, u32, wrap32
 from ..tfhe.params import Q_BITS, TFHEParams
 from ..tfhe.pbs import add_body, sample_extract
-from .fused_blind_rotate import N_LIMBS, blind_rotate_fused, unsupported
-from .polymul import negacyclic_matrix
+from .fused_blind_rotate import (N_LIMBS, blind_rotate_fused,
+                                 decompose_digits, unsupported)
+from .polymul import monomial_rotate, negacyclic_matrix
 
 __all__ = ["FastKeys", "prepare_fast_keys", "keyswitch_fast",
            "functional_bootstrap_fast", "fused_key_bytes", "pick_kernel",
-           "FUSED_HEADROOM", "KSK_MAX_BASE_LOG"]
+           "shard_contraction", "bootstrap_matmul", "cmux_partial",
+           "rotate", "step_digits", "key_product",
+           "ORIENTATIONS", "FUSED_HEADROOM", "KSK_MAX_BASE_LOG"]
+
+ORIENTATIONS = ("fused", "fused_otf", "matmul")
 
 LIMB_BITS = 8
 # The key switch's gadget digits must fit int8 with their sign.
@@ -35,23 +50,28 @@ FUSED_HEADROOM = 4 << 30
 
 
 class FastKeys:
-    """Device-side key material for the fused kernels.
+    """Device-side key material of the fast bootstrap.
 
-    ``bsk_kernels``: ``"fused"`` [n, L·(k+1)·N, rows·N] int8, K-major: each
-    step's matrix is the transpose of the JAX package's [rows·N, L·(k+1)·N],
-    since the int8 tensor-core B operand wants the contraction contiguous;
-    or ``"fused_otf"`` [n, L·(k+1), rows, 2N] int8, the JAX package's layout.
-    ``ksk_matrix``: the key-switch key's limbs as one [kN·l_ks, 4·(n+1)]
-    int8 matrix for ``torch._int_mm``; ``ksk_limbs`` views it in the JAX
-    layout [4, kN·l_ks, n+1].
+    ``bsk_kernels``: ``"fused"`` and ``"matmul"`` [n, L·(k+1)·N, rows·N]
+    int8, K-major: each step's matrix is the transpose of the JAX
+    package's [rows·N, L·(k+1)·N], since the int8 tensor-core B operand
+    wants the contraction contiguous; or ``"fused_otf"`` [n, L·(k+1), rows,
+    2N] int8, the JAX package's layout.  ``ksk_matrix``: the key-switch
+    key's limbs as one [kN·l_ks, 4·(n+1)] int8 matrix for ``torch._int_mm``;
+    ``ksk_limbs`` views it in the JAX layout [4, kN·l_ks, n+1].
+
+    ``shard`` (index, tp): the slice of the key contraction this copy holds
+    (:func:`shard_contraction`); (0, 1) is the whole of it.
     """
 
     def __init__(self, params: TFHEParams, bsk_kernels: torch.Tensor,
-                 ksk_matrix: torch.Tensor, orientation: str):
+                 ksk_matrix: torch.Tensor, orientation: str,
+                 shard: tuple[int, int] = (0, 1)):
         self.params = params
         self.bsk_kernels = bsk_kernels
         self.ksk_matrix = ksk_matrix
         self.orientation = orientation
+        self.shard = shard
 
     @property
     def ksk_limbs(self) -> torch.Tensor:
@@ -68,11 +88,13 @@ class FastKeys:
         if torch.device(device) == self.device:
             return self
         return FastKeys(self.params, self.bsk_kernels.to(device),
-                        self.ksk_matrix.to(device), self.orientation)
+                        self.ksk_matrix.to(device), self.orientation,
+                        self.shard)
 
 
 def fused_key_bytes(params: TFHEParams, bsk_limbs: int = N_LIMBS) -> int:
-    """Bytes of the precomputed ``"fused"`` key matrices."""
+    """Bytes of the precomputed key matrices of ``"fused"`` and
+    ``"matmul"``."""
     k1, N = params.glwe_dim + 1, params.poly_size
     return params.lwe_dim * (k1 * params.bsk_level * N) * bsk_limbs * k1 * N
 
@@ -112,13 +134,14 @@ def _fused_step(bsk_i: torch.Tensor, params: TFHEParams,
 
 def prepare_fast_keys(keys: TFHEKeys, orientation: str = "fused",
                       bsk_limbs: int = N_LIMBS) -> FastKeys:
-    """Key layouts of the fused kernels, built on the keys' device.
+    """Key layouts of ``orientation``, built on the keys' device.
 
-    ``"fused"`` fills one preallocated int8 tensor one step at a time, so
-    the int64 temporaries stay at one step's matrices (~150 MB at
+    ``"fused"`` and ``"matmul"`` share one layout (as in the JAX package),
+    filled into one preallocated int8 tensor one step at a time, so the
+    int64 temporaries stay at one step's matrices (~150 MB at
     ``aes128_p4``) next to the 10.9 GB result."""
     params = keys.params
-    assert orientation in ("fused", "fused_otf"), orientation
+    assert orientation in ORIENTATIONS, orientation
     assert params.bsk_base_log <= 8
     assert params.ksk_base_log <= KSK_MAX_BASE_LOG
     assert 1 <= bsk_limbs <= N_LIMBS
@@ -143,21 +166,55 @@ def prepare_fast_keys(keys: TFHEKeys, orientation: str = "fused",
     return FastKeys(params, kern, _ksk_matrix(keys), orientation)
 
 
-def keyswitch_fast(big_cts: torch.Tensor, fast: FastKeys) -> torch.Tensor:
-    """Key switch [B, kN+1] -> [B, n+1] as one int8 matmul over all four
-    key limbs, limbs recombined with wrapping shifts."""
+def _slice_cols(x: torch.Tensor, shard: tuple[int, int],
+                width: int) -> torch.Tensor:
+    """Columns [index·width, (index+1)·width) of ``x`` [B, C], the ones past
+    C zeros: the operand of a contraction slice (:func:`shard_contraction`).
+    The whole of ``x`` where it is not sharded."""
+    index, tp = shard
+    if tp == 1 and width == x.shape[1]:
+        return x
+    lo = index * width
+    part = x[:, lo:lo + width]
+    if part.shape[1] < width:
+        part = torch.nn.functional.pad(part, (0, width - part.shape[1]))
+    return part.contiguous()
+
+
+def keyswitch_partial(big_cts: torch.Tensor, fast: FastKeys) -> torch.Tensor:
+    """The key switch's product over ``fast``'s rows of the key-switch key
+    (all of them unless ``fast`` is a contraction slice): [B, kN+1] ->
+    Σ_rows digit·key [B, n+1] int32, as one int8 matmul over all four key
+    limbs, limbs recombined mod 2^32.  Linear in the rows, so the slices'
+    partials add up to the whole product."""
     params = fast.params
     kn, batch, d = params.big_dim, big_cts.shape[0], params.lwe_dim + 1
     digits = gadget_decompose(big_cts[:, :kn], params.ksk_base_log,
                               params.ksk_level)
     flat = digits.reshape(batch, kn * params.ksk_level).to(torch.int8)
+    flat = _slice_cols(flat, fast.shard, fast.ksk_matrix.shape[0])
     prods = int8_matmul(flat, fast.ksk_matrix).reshape(batch, N_LIMBS, d) \
         .to(I64)
     # limb weights as Python ints: a tensor of them built on the card would
     # block the host until the device's queue drains
-    out = -sum(prods[:, m] * (1 << (LIMB_BITS * m)) for m in range(N_LIMBS))
-    out[:, params.lwe_dim] += big_cts[:, kn].to(I64)
+    return wrap32(sum(prods[:, m] * (1 << (LIMB_BITS * m))
+                      for m in range(N_LIMBS)))
+
+
+def _keyswitch_finish(product: torch.Tensor, big_cts: torch.Tensor,
+                      params: TFHEParams) -> torch.Tensor:
+    """The switched ciphertext [B, n+1] from the whole product: its
+    negation, plus the body."""
+    out = -product.to(I64)
+    out[:, params.lwe_dim] += big_cts[:, params.big_dim].to(I64)
     return wrap32(out)
+
+
+def keyswitch_fast(big_cts: torch.Tensor, fast: FastKeys) -> torch.Tensor:
+    """Key switch [B, kN+1] -> [B, n+1] as one int8 matmul over all four
+    key limbs, limbs recombined with wrapping shifts."""
+    return _keyswitch_finish(keyswitch_partial(big_cts, fast), big_cts,
+                             fast.params)
 
 
 def _modswitch(x: torch.Tensor, params: TFHEParams) -> torch.Tensor:
@@ -167,11 +224,169 @@ def _modswitch(x: torch.Tensor, params: TFHEParams) -> torch.Tensor:
     return (u >> (Q_BITS - log2n1)).to(I32)
 
 
+# ----------------------------------------------------------- matmul
+
+def _contraction_width(params: TFHEParams, tp: int) -> int:
+    """Columns of each of ``tp`` slices of the contraction rows·N: a
+    multiple of 8 (``torch._int_mm``'s), the last slice zero-padded."""
+    t = (params.glwe_dim + 1) * params.bsk_level * params.poly_size
+    return -(-t // (8 * tp)) * 8
+
+
+def shard_contraction(fast: FastKeys, index: int, tp: int) -> FastKeys:
+    """Slice ``index`` of ``tp`` of a ``"matmul"`` key's contractions, as
+    the JAX package shards them over its mesh's tp axis: [n, D, T/tp] of
+    the bootstrapping key (the columns [index·T/tp, (index+1)·T/tp) of
+    every step's matrix, T = rows·N) and the same share of the key-switch
+    key's rows.  Where tp does not divide a contraction (or T/tp is not a
+    multiple of 8) the last slice is padded with zero rows, which add
+    nothing to a product.  A new contiguous tensor on ``fast``'s
+    device."""
+    if fast.orientation != "matmul" or fast.shard != (0, 1):
+        raise ValueError(f"shard_contraction: a whole \"matmul\" key, not "
+                         f"{fast.orientation!r} slice {fast.shard}")
+    if not 0 <= index < tp:
+        raise ValueError(f"slice {index} of {tp}")
+    if tp == 1:
+        return fast
+
+    def cut(x: torch.Tensor, dim: int, width: int) -> torch.Tensor:
+        part = x.narrow(dim, index * width,
+                        max(0, min(width, x.shape[dim] - index * width)))
+        pad = [0, 0] * (x.ndim - 1 - dim) + [0, width - part.shape[dim]]
+        return torch.nn.functional.pad(part, pad).contiguous()
+
+    rows = fast.ksk_matrix.shape[0]
+    bsk = cut(fast.bsk_kernels, 2, _contraction_width(fast.params, tp))
+    ksk = cut(fast.ksk_matrix, 0, -(-rows // (8 * tp)) * 8)
+    return FastKeys(fast.params, bsk, ksk, "matmul", (index, tp))
+
+
+def _init_acc(b_t: torch.Tensor, test_polys: torch.Tensor,
+              params: TFHEParams) -> torch.Tensor:
+    """ACC [B, k+1, N] int32: zero masks, the body the test polynomial
+    rotated by (2N − b) mod 2N."""
+    k, N = params.glwe_dim, params.poly_size
+    acc = torch.zeros((b_t.shape[0], k + 1, N), dtype=I32,
+                      device=b_t.device)
+    acc[:, k] = monomial_rotate(test_polys, (2 * N - b_t) % (2 * N))
+    return acc
+
+
+def rotate(acc: torch.Tensor, amount: torch.Tensor) -> torch.Tensor:
+    """X^amount · ACC as int64 (congruent mod 2^32): [B, k+1, N], amount
+    [B] in [0, 2N).  A gather from [ACC, −ACC], whose index (t − a) mod 2N
+    folds X^N = −1 into the table."""
+    batch, k1, n = acc.shape
+    ar = torch.arange(n, device=acc.device)
+    idx = (ar - amount.to(I64)[:, None]) % (2 * n)           # [B, N]
+    a64 = acc.to(I64)
+    ext = torch.cat([a64, -a64], dim=-1)                      # [B, k1, 2N]
+    return ext.gather(-1, idx[:, None, :].expand(batch, k1, n))
+
+
+def step_digits(diff: torch.Tensor, params: TFHEParams) -> torch.Tensor:
+    """Gadget digits of ``diff`` [B, k+1, N] (any integer dtype, congruent
+    mod 2^32) as the product's operand [B, rows·N] int8, row-major
+    (component, level), then j: the balanced digits of
+    :func:`..tfhe.numeric.gadget_decompose`, by the fused kernels' biased
+    add (:func:`.fused_blind_rotate.decompose_digits`), which has no carry
+    loop."""
+    digits = decompose_digits(diff, params.bsk_base_log, params.bsk_level)
+    return torch.stack(digits, dim=2).to(torch.int8) \
+        .view(diff.shape[0], -1)
+
+
+def key_product(flat: torch.Tensor, fast: FastKeys,
+                step: int) -> torch.Tensor:
+    """The digits [B, rows·N] times step ``step``'s key matrix over
+    ``fast``'s slice of the contraction, the limbs shift-added:
+    [B, (k+1)·N] int64, congruent mod 2^32 to the product.  One
+    ``torch._int_mm`` of the digits and the step's [D, T] matrix read as it
+    lies in the key (never copied)."""
+    kern = fast.bsk_kernels[step]                             # [D, T/tp]
+    flat = _slice_cols(flat, fast.shard, kern.shape[1])
+    prods = int8_matmul_nt(flat, kern).to(I64)                # [B, D]
+    k1n = (fast.params.glwe_dim + 1) * fast.params.poly_size
+    limbs = kern.shape[0] // k1n
+    prods = prods.view(flat.shape[0], limbs, k1n)
+    drop = N_LIMBS - limbs
+    return sum(prods[:, m] * (1 << (LIMB_BITS * (m + drop)))
+               for m in range(limbs))
+
+
+def cmux_partial(acc: torch.Tensor, amount: torch.Tensor,
+                 fast: FastKeys, step: int) -> torch.Tensor:
+    """One CMux step's external product GGSW_step ⊡ (X^amount·ACC − ACC)
+    over ``fast``'s slice of the contraction: [B, k+1, N] int64, congruent
+    mod 2^32 (linear, so the slices' partials add up to the whole
+    product).  JAX's matmul branch of ``external_product_conv`` and
+    ``_combine_limbs``: :func:`rotate`, :func:`step_digits`,
+    :func:`key_product`.  ``amount``: [B] rotation amounts in [0, 2N)."""
+    a64 = acc.to(I64)
+    diff = rotate(a64, amount) - a64
+    return key_product(step_digits(diff, fast.params), fast, step) \
+        .view(acc.shape)
+
+
+def _all_reduce(parts: list[torch.Tensor]) -> list[torch.Tensor]:
+    """The sum mod 2^32 of ``parts`` (one integer tensor a position), on
+    each position's device, congruent mod 2^32: the parts as int32 (what
+    moves between devices), summed once a device with the other devices'
+    parts copied in.  A copy between two cards is ordered after the work
+    that made it and before the work that reads it by CUDA events on both
+    devices' streams, so the host never waits.  One part is its own sum."""
+    if len(parts) == 1:
+        return parts
+    parts = [wrap32(p) for p in parts]
+    sums: dict[torch.device, torch.Tensor] = {}
+    for p in parts:
+        if p.device not in sums:
+            sums[p.device] = sum(q.to(p.device).to(I64) for q in parts)
+    return [sums[p.device] for p in parts]
+
+
+def bootstrap_matmul(shards: list[FastKeys], big_cts: list[torch.Tensor],
+                     test_polys: list[torch.Tensor],
+                     posts: list[torch.Tensor]) -> list[torch.Tensor]:
+    """Batched FBS through the ``"matmul"`` orientation, its contractions
+    split over the positions of one tp group: ``shards[j]`` is slice j of
+    the keys (:func:`shard_contraction`; one whole key for tp = 1), and
+    every position holds the same ciphertexts, test polynomials and
+    offsets on its device.  The key switch's partial sums are reduced once
+    a bootstrap, each CMux step's once a step ([B, k+1, N] int32, the limbs
+    already combined), and every position adds the sum to its own copy of
+    ACC, so each returns the same [B, kN+1] outputs.  JAX
+    ``_fbs_fast_impl``'s matmul scan (``ops/blind_rotate.py:350-372``),
+    with the port's gather rotation in place of the one-hot one; on CUDA it
+    issues every step without a host sync."""
+    params = shards[0].params
+    n = params.lwe_dim
+    body = [add_body(c, params.half_window) for c in big_cts]
+    ks = _all_reduce([keyswitch_partial(c, f) for c, f in zip(body, shards)])
+    small = [_keyswitch_finish(p, c, params) for p, c in zip(ks, body)]
+    amounts = [_modswitch(s, params) for s in small]          # [B, n+1]
+    acc = [_init_acc(a[:, n], tv, params)
+           for a, tv in zip(amounts, test_polys)]
+    steps = [a[:, :n].t().contiguous() for a in amounts]      # [n, B]
+    for i in range(n):
+        parts = [cmux_partial(x, a[i], f, i)
+                 for x, a, f in zip(acc, steps, shards)]
+        acc = [wrap32(x.to(I64) + s)
+               for x, s in zip(acc, _all_reduce(parts))]
+    return [add_body(sample_extract(x, params), p)
+            for x, p in zip(acc, posts)]
+
+
 def functional_bootstrap_fast(fast: FastKeys, big_cts: torch.Tensor,
                               test_polys: torch.Tensor,
                               posts: torch.Tensor) -> torch.Tensor:
-    """Batched FBS through the fused kernel of ``fast.orientation``;
-    semantics identical to :func:`..tfhe.pbs.functional_bootstrap`."""
+    """Batched FBS through ``fast.orientation``: one launch of its fused
+    kernel, or the ``"matmul"`` scan (:func:`bootstrap_matmul` on one
+    position); semantics identical to
+    :func:`..tfhe.pbs.functional_bootstrap`."""
+    if fast.orientation == "matmul":
+        return bootstrap_matmul([fast], [big_cts], [test_polys], [posts])[0]
     params = fast.params
     n, N = params.lwe_dim, params.poly_size
     small = keyswitch_fast(add_body(big_cts, params.half_window), fast)

@@ -71,7 +71,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from ..tfhe.numeric import I32, I64, int8_matmul, u32, wrap32
+from ..tfhe.numeric import I32, I64, int8_matmul, round_shift_right, wrap32
 from ..tfhe.params import TFHEParams
 
 __all__ = ["blind_rotate_fused", "blind_rotate_k1", "blind_rotate_k2",
@@ -159,7 +159,7 @@ def decompose_digits(diff: torch.Tensor, base_log: int,
     biased add of the TPU ``_decompose_digits``: adding ``half`` at every
     level position lets the digit carries ride one add's carry chain."""
     b, l = base_log, levels
-    closest = ((u32(diff) + (1 << (31 - b * l))) & 0xFFFFFFFF) >> (32 - b * l)
+    closest = round_shift_right(diff, 32 - b * l)
     half, mask = 1 << (b - 1), (1 << b) - 1
     w = (closest + sum(half << (b * i) for i in range(l))) & 0xFFFFFFFF
     return [(((w >> (b * i)) & mask) - half).to(I32) for i in range(l)][::-1]

@@ -3,9 +3,10 @@
 The counterpart of ``tfhe_fbs_map_tpu.parallel.distributed``.  Every
 process builds the same keys and the same whole-batch ciphertexts from one
 seed and keeps its dp slices; the global mesh lists each process's
-positions, ordered process-major as ``jax.devices()`` orders them.  The hot
-path has no collectives: the only ones are on the host, gathering the
-decoded outputs and the barriers around a timed run.  So the process group
+positions, ordered process-major as ``jax.devices()`` orders them, and
+each tp group lies inside one process.  The hot path has no collectives
+between processes: the only ones are on the host, gathering the decoded
+outputs and the barriers around a timed run.  So the process group
 is gloo, which also runs on the CPU and lets two ranks share one GPU
 (NCCL refuses that).
 
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .mesh import Mesh, check_tp, make_mesh
+from .mesh import Mesh, make_mesh
 
 __all__ = ["init_distributed", "global_mesh", "local_gpus",
            "gather_outputs", "barrier", "process_index", "shutdown",
@@ -108,13 +109,19 @@ def local_gpus() -> list[torch.device]:
 
 
 def global_mesh(tp: int = 1, devices=None) -> Mesh:
-    """The dp mesh over every process's positions, process-major.
+    """The (dp, tp) mesh over every process's positions, process-major,
+    tp innermost.
 
     ``devices``: this process's positions (default: :func:`local_gpus`);
-    every process must have as many.  Outside a process group it is
-    :func:`.mesh.make_mesh` of them."""
-    check_tp(tp)
-    local = make_mesh(local_gpus() if devices is None else devices)
+    every process must have as many, and ``tp`` must divide that number,
+    JAX's rule: a tp group may not span processes, since its partial
+    products meet every CMux step (gloo carries only host objects).
+    Outside a process group it is :func:`.mesh.make_mesh` of them."""
+    positions = list(local_gpus() if devices is None else devices)
+    if tp < 1 or len(positions) % tp:
+        raise ValueError(f"tp={tp} must divide the {len(positions)} local "
+                         f"positions (a tp group may not span processes)")
+    local = make_mesh(positions, tp=tp)
     if not dist.is_initialized():
         return local
     counts: list = [None] * dist.get_world_size()
@@ -122,8 +129,9 @@ def global_mesh(tp: int = 1, devices=None) -> Mesh:
     if len(set(counts)) != 1:
         raise ValueError(f"processes hold {counts} positions: every "
                          f"process must hold as many")
-    n = counts[0]
-    return Mesh(local.devices, n * len(counts), dist.get_rank() * n)
+    groups = counts[0] // tp
+    return Mesh(local.devices, groups * len(counts),
+                dist.get_rank() * groups, tp)
 
 
 def gather_outputs(outputs: dict[str, np.ndarray]

@@ -1,5 +1,6 @@
-"""Dry run of the dp mesh: a batched FBS, the full-adder executor and the
-staged p=32 executor, each held bit-exact to one device.
+"""Dry run of the mesh: a batched FBS, the full-adder executor, the staged
+p=32 executor and the matmul orientation, each held bit-exact to one
+device.
 
     python -m tfhe_fbs_map_tpu_torch.parallel.dryrun --device cpu --dp 8
     python -m tfhe_fbs_map_tpu_torch.parallel.dryrun --dp 2   # on the GPUs
@@ -13,16 +14,23 @@ The counterpart of ``__graft_entry__.dryrun_multichip`` (the JAX package's
   search mapper) through :class:`..runtime.executor.CircuitExecutor` under
   the mesh against the same run on one device;
 * :func:`staged_p32`: the size-32 address-LUT program (a two-stage split
-  and a select) through the staged executor under the mesh, likewise.
+  and a select) through the staged executor under the mesh, likewise;
+* :func:`entry_fbs`: ``__graft_entry__.entry``'s single-device FBS, the
+  ``"matmul"`` orientation, against the fused kernel's and the values;
+* :func:`sharded_fbs` again through ``"matmul"``, the JAX dry run's
+  "matmul/GSPMD" run: on a (dp/2, 2) mesh of the same positions where
+  they are even and at least 4 (the key contraction split over tp=2),
+  else on the dp mesh.
 
-Each part returns its launches of the fused kernels under the mesh and
-whether the mesh's result is bitwise equal to the one device's and decrypts
-to the oracle.  The parts take the JAX dry run's own families on both
-devices: :data:`DRYRUN_PARAMS` (N=64) for the sharded FBS,
+Each part returns its mesh's shape, its launches of the fused kernels
+under the mesh (none through ``"matmul"``) and whether the mesh's result
+is bitwise equal to the one device's and decrypts to the oracle.  The
+parts take the JAX dry run's own families on both devices:
+:data:`DRYRUN_PARAMS` (N=64) for the sharded FBS and the matmul runs,
 ``TEST_PARAMS`` for the full adder and the ``staged_test`` families (f1
-N=256, f2 N=128, keys from seed 3) for the staged program, all through K1
-(on the CPU through its plain version; on the card N < 256 through its
-small-N kernel).
+N=256, f2 N=128, keys from seed 3) for the staged program, all but the
+matmul runs through K1 (on the CPU through its plain version; on the card
+N < 256 through its small-N kernel).
 """
 
 from __future__ import annotations
@@ -39,8 +47,8 @@ from ..tfhe.params import TFHEParams
 from .mesh import Mesh, make_mesh, shard_batch, sharded_bootstrap
 
 __all__ = ["DRYRUN_PARAMS", "sharded_fbs", "mesh_against_one_device",
-           "full_adder", "staged_p32", "address_lut_program", "dryrun",
-           "main"]
+           "full_adder", "staged_p32", "address_lut_program", "entry_fbs",
+           "matmul_mesh", "dryrun", "main"]
 
 # the JAX dry run's tiny family (__graft_entry__.py _tiny_setup)
 DRYRUN_PARAMS = TFHEParams(p=4, lwe_dim=8, glwe_dim=1, poly_size=64,
@@ -66,18 +74,12 @@ def _counted(mesh: Mesh, fn):
         time.time() - t0
 
 
-def sharded_fbs(mesh: Mesh, params, orientation: str, batch: int,
-                seed: int = 5) -> dict:
-    """``batch`` ciphertexts of bits through the identity table, sharded
-    over ``mesh`` and on its first device alone."""
-    from ..ops.blind_rotate import (functional_bootstrap_fast,
-                                    prepare_fast_keys)
-    from ..tfhe import (build_test_vector, decrypt_values, encrypt_values,
-                        generate_keys)
+def _identity_batch(params, batch: int, seed: int, dev: torch.device):
+    """Keys from ``seed`` and ``batch`` encrypted bits under the identity
+    table: (keys, values, ciphertexts, test polynomials, offsets)."""
+    from ..tfhe import build_test_vector, encrypt_values, generate_keys
 
-    dev = mesh.devices[0]
     keys = generate_keys(params, seed=seed, device=dev)
-    fast = prepare_fast_keys(keys, orientation=orientation)
     rng = np.random.default_rng(seed)
     values = rng.integers(0, 2, batch)
     cts = encrypt_values(keys, values, rng)
@@ -87,14 +89,62 @@ def sharded_fbs(mesh: Mesh, params, orientation: str, batch: int,
     posts = torch.full((batch,), int(np.int64(post).astype(np.uint32)
                                      .astype(np.int32)),
                        dtype=torch.int32, device=dev)
+    return keys, values, cts, tvs, posts
+
+
+def sharded_fbs(mesh: Mesh, params, orientation: str, batch: int,
+                seed: int = 5) -> dict:
+    """``batch`` ciphertexts of bits through the identity table, sharded
+    over ``mesh`` and on its first device alone."""
+    from ..ops.blind_rotate import (functional_bootstrap_fast,
+                                    prepare_fast_keys)
+    from ..tfhe import decrypt_values
+
+    dev = mesh.devices[0]
+    keys, values, cts, tvs, posts = _identity_batch(params, batch, seed, dev)
+    fast = prepare_fast_keys(keys, orientation=orientation)
     want = functional_bootstrap_fast(fast, cts, tvs, posts)
     fn = sharded_bootstrap(mesh, fast)
     shards = [shard_batch(mesh, x) for x in (cts, tvs, posts)]
     got, launches, _ = _counted(mesh, lambda: fn(*shards))
-    got = torch.cat([g.to(dev) for g in got])
-    return {"part": "fbs", "batch": batch, "launches": launches,
+    got = torch.cat([g.to(dev) for g in mesh.leaders(got)])
+    return {"part": "fbs" if orientation != "matmul" else "matmul/tp",
+            "mesh": mesh.shape, "batch": batch, "launches": launches,
             "bit_exact": bool(torch.equal(got, want)) and np.array_equal(
                 decrypt_values(keys, got), values)}
+
+
+def entry_fbs(device, params=DRYRUN_PARAMS, batch: int = 8,
+              seed: int = 0) -> dict:
+    """``__graft_entry__.entry``'s forward step on one device: the
+    ``"matmul"`` FBS of ``batch`` encrypted bits (its ``_tiny_setup``: seed
+    0, the identity table), bitwise against the fused kernel's
+    (``"fused_otf"``) and decrypting to the bits."""
+    from ..ops.blind_rotate import (functional_bootstrap_fast,
+                                    prepare_fast_keys)
+    from ..tfhe import decrypt_values
+
+    dev = torch.device(device)
+    keys, values, cts, tvs, posts = _identity_batch(params, batch, seed, dev)
+    mm = prepare_fast_keys(keys, orientation="matmul")
+    mesh = make_mesh([dev])
+    got, launches, _ = _counted(
+        mesh, lambda: functional_bootstrap_fast(mm, cts, tvs, posts))
+    want = functional_bootstrap_fast(
+        prepare_fast_keys(keys, orientation="fused_otf"), cts, tvs, posts)
+    return {"part": "entry/matmul", "mesh": mesh.shape, "batch": batch,
+            "launches": launches,
+            "bit_exact": bool(torch.equal(got, want)) and np.array_equal(
+                decrypt_values(keys, got), values)}
+
+
+def matmul_mesh(mesh: Mesh) -> Mesh:
+    """The JAX dry run's mesh for its matmul run: the same positions as
+    (dp/2, 2) where there are an even number, at least 4, else ``mesh``."""
+    n = len(mesh.devices)
+    if mesh.spans_processes or n % 2 or n < 4:
+        return mesh
+    return make_mesh(mesh.devices, tp=2)
 
 
 def mesh_against_one_device(mesh: Mesh, prog, keys, fast, values,
@@ -127,7 +177,8 @@ def mesh_against_one_device(mesh: Mesh, prog, keys, fast, values,
             else np.array_equal(a, b)
     calls = (sum(bool(lv.wire_idx1.shape[0]) + bool(lv.wire_idx2.shape[0])
                  for lv in ex.levels) if ex.staged else len(ex.levels))
-    return {"batch": len(next(iter(values.values()))), "launches": launches,
+    return {"mesh": mesh.shape,
+            "batch": len(next(iter(values.values()))), "launches": launches,
             "levels": len(ex.levels), "calls": calls,
             "bootstraps": ex.num_bootstraps, "run_s": run_s, "one_s": one_s,
             "bit_exact": bool(torch.equal(got, want))
@@ -199,7 +250,7 @@ def staged_p32(mesh: Mesh, fam1, fam2, orientation: str | None,
 
 
 def dryrun(mesh: Mesh) -> list[dict]:
-    """The three parts on ``mesh`` (this process's positions only), at the
+    """The five parts on ``mesh`` (this process's positions only), at the
     JAX dry run's families."""
     from ..tfhe.params import STAGED_PRESETS, TEST_PARAMS
 
@@ -209,7 +260,9 @@ def dryrun(mesh: Mesh) -> list[dict]:
     dp = mesh.dp
     return [sharded_fbs(mesh, DRYRUN_PARAMS, "fused_otf", 8 * dp),
             full_adder(mesh, TEST_PARAMS, "fused_otf", 2 * dp),
-            staged_p32(mesh, staged.fam1, staged.fam2, "fused_otf", 2 * dp)]
+            staged_p32(mesh, staged.fam1, staged.fam2, "fused_otf", 2 * dp),
+            entry_fbs(mesh.devices[0]),
+            sharded_fbs(matmul_mesh(mesh), DRYRUN_PARAMS, "matmul", 8 * dp)]
 
 
 def main(argv=None) -> int:
@@ -229,7 +282,7 @@ def main(argv=None) -> int:
         mesh = make_mesh(dp=args.dp)
     results = dryrun(mesh)
     for res in results:
-        print(f"dryrun_multichip[{res['part']}]: mesh={mesh.shape} "
+        print(f"dryrun_multichip[{res['part']}]: mesh={res['mesh']} "
               f"batch={res['batch']} launches={res['launches']} "
               f"bit_exact={res['bit_exact']}")
     return 0 if all(r["bit_exact"] for r in results) else 1

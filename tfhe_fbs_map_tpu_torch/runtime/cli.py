@@ -16,15 +16,19 @@ preset (``--params aes128_p4``, ``kreyvium_p10_staged``, …) pins them.
     python -m tfhe_fbs_map_tpu_torch.runtime prog.lbf --params aes128_p4 --batch 8
     python -m tfhe_fbs_map_tpu_torch.runtime c.blif --map --test-params --device cpu
     python -m tfhe_fbs_map_tpu_torch.runtime prog.lbf --params aes128_p4 --mesh auto
+    python -m tfhe_fbs_map_tpu_torch.runtime prog.lbf --params aes128_p4 \\
+        --orientation matmul --mesh 2,2
     torchrun --nproc-per-node 2 -m tfhe_fbs_map_tpu_torch.runtime prog.lbf \\
         --params aes128_p4 --mesh auto
 
 ``--mesh`` runs the executor dp-parallel over the evaluation batch
-(:mod:`..parallel`).  Under ``torchrun`` (or ``MASTER_ADDR``,
-``MASTER_PORT``, ``WORLD_SIZE`` and ``RANK`` set by hand) every process
-builds the same keys and whole-batch ciphertexts from ``--seed`` and runs
-its slice; ``run_s`` is the wall time between two barriers around the run,
-and process 0 alone prints the JSON line of the gathered outputs.
+(:mod:`..parallel`), and with ``--orientation matmul`` tp-parallel over
+the key contraction (``--mesh DP,TP``; the fused kernels take tp = 1).
+Under ``torchrun`` (or ``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``
+and ``RANK`` set by hand) every process builds the same keys and
+whole-batch ciphertexts from ``--seed`` and runs its slice; ``run_s`` is
+the wall time between two barriers around the run, and process 0 alone
+prints the JSON line of the gathered outputs.
 
 On a CUDA device the executor replays one CUDA graph a level group
 (:meth:`..runtime.executor.CircuitExecutor.run`); they are captured after
@@ -55,6 +59,8 @@ __all__ = ["main", "pick_orientations", "check_kernel", "optimizer_pick",
 # factor; the launch-aware runtime model prices the per-level launches and
 # the padding, so the default trusts it.
 STAGED_MARGIN = 1.0
+# The matmul orientation's gadget digits must fit int8 with their sign.
+MATMUL_MAX_BASE_LOG = 8
 
 
 def pick_orientations(families, device: torch.device,
@@ -93,7 +99,15 @@ def free_memory(device: torch.device) -> int:
 
 def check_kernel(params, orientation: str) -> None:
     """Raise ValueError when the CUDA kernel of ``orientation`` cannot
-    serve ``params``."""
+    serve ``params`` (``"matmul"``, ``torch._int_mm`` a step, takes every
+    family whose digits fit int8 and whose N is a multiple of 8)."""
+    if orientation == "matmul":
+        if params.bsk_base_log > MATMUL_MAX_BASE_LOG \
+                or params.poly_size % 8:
+            raise ValueError(f"--orientation matmul wants bsk_base_log <= "
+                             f"{MATMUL_MAX_BASE_LOG} and N a multiple of "
+                             f"8, not {params}")
+        return
     why = unsupported(params, otf=orientation == "fused_otf")
     if why is not None:
         raise ValueError(
@@ -223,15 +237,18 @@ def predicted_run_s(ex, orients: list[str], bsk_limbs: int,
     return us * batch / 1e6
 
 
-def mesh_from_arg(spec: str, device: torch.device):
+def mesh_from_arg(spec: str, device: torch.device,
+                  orientation: str | None = None):
     """The mesh of ``--mesh spec`` on ``device``'s type: "auto" is every
-    device of every process (each process's GPUs,
+    device of every process on dp (each process's GPUs,
     :func:`..parallel.distributed.local_gpus`; one position a process on the
-    CPU), "DP" or "DP,1" DP positions over all processes (on CUDA dealt
-    round-robin over each process's GPUs, so DP=2 on one card is two shards
-    on it).  Joins the process group first when the environment names one.
-    Raises ValueError on a spec it cannot run: not DP[,TP], tp != 1, or a
-    DP the processes do not divide."""
+    CPU), "DP" or "DP,TP" DP groups of TP positions over all processes, tp
+    innermost (on CUDA dealt round-robin over each process's GPUs, so
+    "2" or "1,2" on one card is two positions on it).  Joins the process
+    group first when the environment names one.  Raises ValueError on a
+    spec it cannot run: not DP[,TP], tp > 1 under another ``orientation``
+    than "matmul" (None: the generic bootstrap), or a DP the processes do
+    not divide."""
     import torch.distributed as dist
 
     from ..parallel.distributed import (global_mesh, init_distributed,
@@ -249,15 +266,16 @@ def mesh_from_arg(spec: str, device: torch.device):
     if len(parts) not in (1, 2) or parts[0] < 1:
         raise ValueError(f"--mesh {spec}: want DP, DP,TP or auto")
     dp, tp = (parts + [1])[:2]
-    check_tp(tp)
+    check_tp(tp, orientation)
     if dp % world:
         raise ValueError(f"--mesh {spec}: dp={dp} is not a multiple of the "
                          f"{world} processes")
-    per = dp // world
+    per = dp // world * tp
     if device.type == "cpu":
-        return global_mesh(devices=["cpu"] * per)
+        return global_mesh(tp, devices=["cpu"] * per)
     gpus = local_gpus()
-    return global_mesh(devices=[gpus[i % len(gpus)] for i in range(per)])
+    return global_mesh(tp, devices=[gpus[i % len(gpus)]
+                                    for i in range(per)])
 
 
 def family_json(params) -> dict:
@@ -338,18 +356,22 @@ def _run(argv=None) -> int:
                          "prediction beats native by this factor (default "
                          "%(default)s)")
     ap.add_argument("--orientation", default="auto",
-                    choices=["auto", "fused", "fused_otf", "generic"],
+                    choices=["auto", "fused", "fused_otf", "matmul",
+                             "generic"],
                     help="bootstrap path of every family (auto: on CUDA the "
                          "fused kernel over precomputed key matrices when "
                          "they fit free device memory, else the compact-key "
                          "kernel, which also runs both staged families, "
                          "and an error if the kernel cannot serve the "
-                         "parameters; generic on the CPU)")
+                         "parameters; generic on the CPU; auto never picks "
+                         "matmul: one torch._int_mm a CMux step over the "
+                         "fused key matrices, the only path tp shards)")
     ap.add_argument("--mesh", default=None, metavar="DP[,TP]|auto",
-                    help="run the executor mesh-parallel: 'DP' (or 'DP,1') "
-                         "positions, or 'auto' (all devices of all "
-                         "processes on dp).  dp shards the evaluation batch; "
-                         "tp must be 1")
+                    help="run the executor mesh-parallel: 'DP,TP' positions "
+                         "(e.g. 4,2), 'DP' (tp=1), or 'auto' (all devices "
+                         "of all processes on dp).  dp shards the "
+                         "evaluation batch; tp shards the key contraction "
+                         "of --orientation matmul")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
 
@@ -377,7 +399,7 @@ def _run(argv=None) -> int:
     mesh, dp = None, 1
     if args.mesh:
         try:
-            mesh = mesh_from_arg(args.mesh, device)
+            mesh = mesh_from_arg(args.mesh, device, args.orientation)
         except ValueError as e:
             print(e, file=sys.stderr)
             return 2
@@ -391,7 +413,7 @@ def _run(argv=None) -> int:
                   "checkpoint", file=sys.stderr)
             return 2
         device = mesh.devices[0]
-        print(f"# mesh: dp={dp} tp=1", file=sys.stderr)
+        print(f"# mesh: dp={dp} tp={mesh.tp}", file=sys.stderr)
     from ..parallel.distributed import (barrier, gather_outputs,
                                         process_index)
     rank = process_index()
@@ -510,6 +532,11 @@ def _run(argv=None) -> int:
     except ValueError as e:
         print(e, file=sys.stderr)
         return 2
+    if staged and mesh is not None and "matmul" in orients:
+        print("the staged executor under a mesh takes the fused "
+              "orientations: --orientation matmul runs staged on one "
+              "device", file=sys.stderr)
+        return 2
     fast = None
     if orients[0] != "generic":
         t0 = time.time()
@@ -537,10 +564,13 @@ def _run(argv=None) -> int:
         # the graphs a run without a checkpoint replays, captured before
         # the timed window
         t0 = time.time()
-        ex.capture(buf0)
-        positions = f" x {len(mesh.devices)} positions" if mesh else ""
-        print(f"# graphs: {len(ex.groups)} groups{positions} captured in "
-              f"{time.time() - t0:.1f}s", file=sys.stderr)
+        if ex.capture(buf0):
+            positions = f" x {len(mesh.devices)} positions" if mesh else ""
+            print(f"# graphs: {len(ex.groups)} groups{positions} captured "
+                  f"in {time.time() - t0:.1f}s", file=sys.stderr)
+        else:
+            print("# graphs: none (tp > 1 runs its levels eagerly)",
+                  file=sys.stderr)
     run_s = None
     for i in range(max(1, args.repeat)):
         sync()

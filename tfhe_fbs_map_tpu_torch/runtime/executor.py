@@ -22,14 +22,20 @@ group is one CUDA graph, captured once a wire-buffer layout
 levels run one :meth:`CircuitExecutor.step` after another.  With a
 checkpoint, ``run`` steps level by level, as JAX does.
 
-Under a dp mesh (:mod:`..parallel.mesh`) the wire buffer is a list of
-per-position ``[W, V/dp, d]`` shards, the evaluation batch split in mesh
-order.  The whole batch is encrypted with one rng, as on one device, and
-then split, so every draw and every bit equals the one-device run's.  Each
-position runs every level with its device's keys and plan tensors (one
-copy a device), and on the card has its own static buffer and graphs;
-nothing waits for a device between levels: each device's stream orders its
-own work.
+Under a (dp, tp) mesh (:mod:`..parallel.mesh`) the wire buffer is a list
+of per-position ``[W, V/dp, d]`` shards, the evaluation batch split in mesh
+order over dp; the tp positions of a dp group each hold that group's shard
+(a wire buffer is cheap to repeat), and its outputs are read from the
+first.  The whole batch is encrypted with one rng, as on one device, and
+then split, so every draw and every bit equals the one-device run's.  At
+tp = 1 each position runs every level with its device's keys and plan
+tensors (one copy a device), and on the card has its own static buffer and
+graphs; nothing waits for a device between levels: each device's stream
+orders its own work.  At tp > 1 (the ``"matmul"`` orientation only, JAX's
+GSPMD level step) each level is one :func:`_tp_level_step` a dp group, its
+bootstrap's key contraction split over the group's positions, each holding
+its slice of the keys; those levels run eagerly, one after another, with
+no graphs.
 """
 
 from __future__ import annotations
@@ -45,7 +51,8 @@ import torch
 from ..frontend.lut_program import (LutProgram, N_BOOT, N_CONST, N_INPUT,
                                     N_LIN)
 from ..ops import fused_blind_rotate as fbr
-from ..parallel.mesh import Mesh, shard_batch
+from ..parallel.mesh import (Mesh, check_tp, group_bootstrap,
+                             position_keys, shard_batch)
 from ..tfhe.encrypt import decode, encode, lwe_encrypt, lwe_phase
 from ..tfhe.keys import TFHEKeys
 from ..tfhe.numeric import I64, wrap32
@@ -477,18 +484,38 @@ def _run_fbs(keys: TFHEKeys, fast_keys, flat, tvs, posts, v: int):
     return functional_bootstrap(keys, flat, tvs_flat, posts_flat)
 
 
-def _level_step(keys: TFHEKeys, fast_keys, buf, wire_idx, coefs, consts,
-                tvs, posts, out_rows) -> torch.Tensor:
-    """One native level, in place on ``buf`` [W, V, d]: lincombs of gathered
-    wires, one batched FBS, results scattered to ``out_rows``."""
-    nb = wire_idx.shape[0]
+def _scatter(buf, fresh, out_rows) -> torch.Tensor:
+    """A level's fresh ciphertexts [V·nb, d] into rows ``out_rows`` of
+    ``buf`` [W, V, d], in place."""
+    nb = out_rows.shape[0]
     _, v, d = buf.shape
-    fresh = _run_fbs(keys, fast_keys, _lincomb_flat(buf, wire_idx, coefs,
-                                                    consts), tvs, posts, v)
     # padding slots all bootstrap the zero ciphertext to the same value, so
     # the repeated dummy row in out_rows is written with equal rows
     buf[out_rows.to(I64)] = fresh.reshape(v, nb, d).transpose(0, 1)
     return buf
+
+
+def _level_step(keys: TFHEKeys, fast_keys, buf, wire_idx, coefs, consts,
+                tvs, posts, out_rows) -> torch.Tensor:
+    """One native level, in place on ``buf`` [W, V, d]: lincombs of gathered
+    wires, one batched FBS, results scattered to ``out_rows``."""
+    fresh = _run_fbs(keys, fast_keys, _lincomb_flat(buf, wire_idx, coefs,
+                                                    consts), tvs, posts,
+                     buf.shape[1])
+    return _scatter(buf, fresh, out_rows)
+
+
+def _tp_level_step(keys: list, bufs: list, plans: list) -> list:
+    """One native level of a tp group, in place on each position's buffer
+    (the same values in each): every position forms the same lincombs, the
+    group runs one batched FBS, its key contraction split over the
+    positions' slices of the ``"matmul"`` keys, and every position
+    scatters the results into its buffer."""
+    v = bufs[0].shape[1]
+    flats = [_lincomb_flat(b, *p[:3]) for b, p in zip(bufs, plans)]
+    fresh = group_bootstrap(keys, flats, [p[3].repeat(v, 1) for p in plans],
+                            [p[4].repeat(v) for p in plans])
+    return [_scatter(b, f, p[5]) for b, f, p in zip(bufs, fresh, plans)]
 
 
 def _staged_level_step(keys1: TFHEKeys, keys2: TFHEKeys, fast1, fast2,
@@ -582,10 +609,13 @@ class CircuitExecutor:
         inputs are encrypted on.  ``fast_keys``: for the native pipeline an
         optional :class:`..ops.blind_rotate.FastKeys`, for the staged one an
         optional pair (fast1, fast2); a family without fast keys runs the
-        generic bootstrap.  ``mesh``: an optional dp
+        generic bootstrap.  ``mesh``: an optional (dp, tp)
         :class:`..parallel.mesh.Mesh`; the buffers of :meth:`encrypt_inputs`
-        and :meth:`run` are then lists of shards, and the keys are copied
-        once to each of the mesh's devices."""
+        and :meth:`run` are then lists of shards, one a position, and the
+        keys are copied once to each of the mesh's devices (at tp > 1 each
+        position's slice of them).  A mesh with tp > 1 takes native
+        ``"matmul"`` keys alone, and a staged run under a mesh the fused
+        orientations (JAX's rules): ValueError otherwise."""
         if mesh is not None and not isinstance(mesh, Mesh):
             raise TypeError(f"mesh: a parallel.mesh.Mesh, not "
                             f"{type(mesh).__name__}")
@@ -593,6 +623,10 @@ class CircuitExecutor:
         if self.staged:
             if fast_keys is not None and len(fast_keys) != 2:
                 raise ValueError("staged fast_keys: a (fast1, fast2) pair")
+            if mesh is not None and any(
+                    f.orientation == "matmul" for f in fast_keys or ()):
+                raise ValueError("the staged executor under a mesh takes "
+                                 "the fused orientations, not matmul")
             self.params = keys.wire_params
             plan = compile_staged(prog, keys.p, keys.keys1.params,
                                   keys.keys2.params)
@@ -615,6 +649,12 @@ class CircuitExecutor:
         self.num_wires = plan.num_wires
         self.num_bootstraps = plan.num_bootstraps
         self._replicas = {self.device: (keys, fast_keys)}
+        self.tp = mesh.tp if mesh is not None else 1
+        self._tp_keys = None
+        if self.tp > 1:
+            first = fast_keys[0] if self.staged and fast_keys else fast_keys
+            check_tp(self.tp, getattr(first, "orientation", None))
+            self._tp_keys = position_keys(mesh, fast_keys)
         # copy the keys and plans to every device of the mesh now, not
         # inside the first timed level
         for dev in mesh.distinct if mesh is not None else ():
@@ -640,9 +680,10 @@ class CircuitExecutor:
 
     def _replica(self, device: torch.device):
         """(keys, fast keys) on ``device``: the executor's own on their
-        device, elsewhere copies made once."""
+        device, elsewhere copies made once (at tp > 1 no fast keys: each
+        position holds its slice of them)."""
         if device not in self._replicas:
-            fast = self.fast_keys
+            fast = self.fast_keys if self.tp == 1 else None
             if fast is not None:
                 fast = (tuple(f.to(device) for f in fast) if self.staged
                         else fast.to(device))
@@ -664,7 +705,11 @@ class CircuitExecutor:
 
     def step(self, buf: torch.Tensor, lv: int) -> torch.Tensor:
         """Run level ``lv`` in place on ``buf`` (one device's buffer or
-        shard, with that device's keys); returns it."""
+        shard, with that device's keys); returns it.  At tp > 1 a level
+        is a tp group's, not one shard's: ValueError."""
+        if self.tp > 1:
+            raise ValueError("at tp > 1 a level runs on a tp group's "
+                             "shards together (run)")
         keys, fast = self._replica(buf.device)
         plan = self.plan_tensors(buf.device)[lv]
         if self.staged:
@@ -672,6 +717,19 @@ class CircuitExecutor:
             return _staged_level_step(keys.keys1, keys.keys2, fast1, fast2,
                                       self.levels[lv].n_splits, buf, *plan)
         return _level_step(keys, fast, buf, *plan)
+
+    def _step_all(self, shards: list[torch.Tensor], lv: int
+                  ) -> list[torch.Tensor]:
+        """Level ``lv`` on every shard: one :meth:`step` a position, or at
+        tp > 1 one :func:`_tp_level_step` a dp group."""
+        if self.tp == 1:
+            return [self.step(s, lv) for s in shards]
+        out = []
+        for keys, bufs in zip(self.mesh.groups(self._tp_keys),
+                              self.mesh.groups(shards)):
+            plans = [self.plan_tensors(b.device)[lv] for b in bufs]
+            out += _tp_level_step(keys, bufs, plans)
+        return out
 
     def _shard(self, buf: torch.Tensor):
         """A whole-batch buffer as :meth:`run` takes it: on the keys' device
@@ -709,6 +767,11 @@ class CircuitExecutor:
             buf[rows] = cts.reshape(len(names), v, d)
         return buf if self.mesh is None else self._shard(buf)
 
+    def _leaders(self, shards) -> list[torch.Tensor]:
+        """The shard of each dp group's first position."""
+        return self.mesh.leaders(shards) if self.mesh is not None \
+            else list(shards)
+
     def _shards(self, buf) -> list[torch.Tensor]:
         """``buf`` as :meth:`run` takes it, as a list of shards."""
         if (self.mesh is not None) == isinstance(buf, torch.Tensor):
@@ -720,10 +783,11 @@ class CircuitExecutor:
         """Capture the CUDA graphs :meth:`run` replays for ``buf``'s layout
         (a tensor, or under a mesh this process's shards) now, so that no
         timed run pays for it; returns how many it captured (groups ×
-        positions): 0 off the card or when they exist already.  ``buf``'s
-        values are not used."""
+        positions): 0 off the card, at tp > 1 (eager levels) or when they
+        exist already.  ``buf``'s values are not used."""
         shards = self._shards(buf)
-        if shards[0].device.type != "cuda" or _layout(shards) in self._graphs:
+        if shards[0].device.type != "cuda" or self.tp > 1 \
+                or _layout(shards) in self._graphs:
             return 0
         return len(self._graphs_of(shards).graphs)
 
@@ -793,22 +857,26 @@ class CircuitExecutor:
         mesh this process's shards); returns the filled wire buffer in the
         same form.
 
-        Without a checkpoint on a CUDA device it copies ``buf`` into the
-        static buffers of its layout, replays every level group's graph
-        (capturing them first where :meth:`capture` has not) and returns
-        copies.  On the CPU, and with a checkpoint, the levels run one
-        :meth:`step` after another, which is each group's levels in turn.
+        Without a checkpoint on a CUDA device at tp = 1 it copies ``buf``
+        into the static buffers of its layout, replays every level group's
+        graph (capturing them first where :meth:`capture` has not) and
+        returns copies.  On the CPU, with a checkpoint, and at tp > 1 the
+        levels run one after another (:meth:`step` a position, at tp > 1
+        one tp group's step a dp group), which is each group's levels in
+        turn.
 
         ``checkpoint``: optional ``.npz`` path.  The whole buffer is saved
         (keys ``buf``, ``level``, ``num_levels``, as the JAX executor saves
-        it; under a mesh the shards gathered in batch order) and a matching
+        it; under a mesh each dp group's first shard, gathered in batch
+        order) and a matching
         file resumes the run after its level, on whatever mesh this
         executor has.  Not for a mesh that spans processes.
         ``checkpoint_every``: fixed level interval; default: adaptive, a
         snapshot is taken when the time spent on snapshots stays within
         ``checkpoint_budget`` of the elapsed run, priced by the last one."""
         shards = self._shards(buf)
-        if checkpoint is None and shards[0].device.type == "cuda":
+        if checkpoint is None and shards[0].device.type == "cuda" \
+                and self.tp == 1:
             graphs = self._graphs_of(shards)
             for static, s in zip(graphs.statics, shards):
                 static.copy_(s)
@@ -824,7 +892,8 @@ class CircuitExecutor:
         start = 0
         shards = [s.clone() for s in shards]
         if checkpoint is not None:
-            whole = (shards[0].shape[0], sum(s.shape[1] for s in shards),
+            whole = (shards[0].shape[0],
+                     sum(s.shape[1] for s in self._leaders(shards)),
                      shards[0].shape[2])
             try:
                 with np.load(checkpoint) as z:
@@ -837,7 +906,7 @@ class CircuitExecutor:
             except FileNotFoundError:
                 pass
         for lv in range(start, len(self.levels)):
-            shards = [self.step(s, lv) for s in shards]
+            shards = self._step_all(shards, lv)
             if checkpoint is None or lv + 1 >= len(self.levels):
                 continue
             if checkpoint_every is not None:
@@ -848,7 +917,8 @@ class CircuitExecutor:
             if due:
                 t0 = time.time()
                 np.savez(checkpoint, buf=np.concatenate(
-                    [s.cpu().numpy() for s in shards], axis=1), level=lv,
+                    [s.cpu().numpy() for s in self._leaders(shards)],
+                    axis=1), level=lv,
                     num_levels=len(self.levels))
                 cost_est = time.time() - t0
                 spent += cost_est
@@ -859,10 +929,10 @@ class CircuitExecutor:
 
     def decrypt_outputs(self, buf) -> dict[str, np.ndarray]:
         """All outputs in one gather + lincomb + phase, decoded on the wire
-        grid; of a list of shards, each decrypted on its device and the
-        outputs joined along the batch in mesh order."""
+        grid; of a list of shards, each dp group's first decrypted on its
+        device and the outputs joined along the batch in mesh order."""
         if isinstance(buf, (list, tuple)):
-            parts = [self.decrypt_outputs(s) for s in buf]
+            parts = [self.decrypt_outputs(s) for s in self._leaders(buf)]
             return {k: np.concatenate([p[k] for p in parts])
                     for k in parts[0]}
         params = self.params

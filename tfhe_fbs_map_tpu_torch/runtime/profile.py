@@ -20,6 +20,23 @@ its launch knobs: K1's (ciphertexts per tile, CTAs per cluster,
 coefficients per warpgroup) and K2's (ciphertexts per tile, CTAs per
 cluster) plans; every setting's output must be the same.  Prints one JSON
 object as its last line.
+
+    python -m tfhe_fbs_map_tpu_torch.runtime.profile --step-variants \\
+        [--batch 512] [--steps 64] [--iters 4]
+
+times the ``"matmul"`` orientation's CMux step in pieces instead, the port
+of ``experiments/profile_step.py``: at the bench anchor's shapes (k=2,
+N=512, l=2, b=8, four key limbs; random keys, ``--steps`` of them) the
+variants ``full`` (rotation, digits, the int8 product, the limb combine:
+:func:`..ops.blind_rotate.cmux_partial`), ``rot_only``, ``mm_only`` (the
+product and the combine of fixed digits), ``dec_only`` (the step's
+digits and a sum) and ``mm_rot`` (rotation and product, no digits), and beside JAX's
+five ``int_mm``, the ``torch._int_mm`` call alone; each one JSON line with
+µs a step and the boots/s it implies at the anchor's n=546.  On the card
+a variant is timed as the replay of a CUDA graph of its ``--steps`` steps
+(JAX times one jitted scan), its eager time beside it; ``mm_only`` × n is
+the library time of the launch's contractions with their limb combine,
+``int_mm`` × n of the products alone.
 """
 
 from __future__ import annotations
@@ -37,7 +54,10 @@ import torch
 from ..tfhe.params import StagedPreset
 from .executor import CircuitExecutor
 
-__all__ = ["profile_program", "trace_run"]
+__all__ = ["profile_program", "trace_run", "step_variants", "VARIANTS"]
+
+# experiments/profile_step.py's five, then the product alone
+VARIANTS = ("full", "rot_only", "mm_only", "dec_only", "mm_rot", "int_mm")
 
 
 def _stamp(device: torch.device):
@@ -307,16 +327,121 @@ def profile_program(prog, params, batch: int, orientation: str,
     return out
 
 
+def step_variants(device: torch.device, batch: int = 512, steps: int = 64,
+                  iters: int = 4, params=None, seed: int = 0) -> list[dict]:
+    """Each of :data:`VARIANTS` run over ``steps`` CMux steps of
+    ``params`` (default the bench anchor, ``PRESETS["anchor"]``) on
+    random operands, ``iters`` times: one dict a variant with µs a step
+    (on CUDA a CUDA graph's replay, ``eager_us_per_step`` beside it; on the
+    CPU the host clock), that times the anchor's n (``ms_per_launch``), ms
+    a bootstrap and the boots/s they imply."""
+    from ..ops.blind_rotate import (FastKeys, N_LIMBS, key_product, rotate,
+                                    step_digits)
+    from ..tfhe.numeric import I32, I64, int8_matmul_nt, wrap32
+    from ..tfhe.params import PRESETS
+
+    params = params or PRESETS["anchor"][0]
+    n_boot = params.lwe_dim
+    k1, N, l = params.glwe_dim + 1, params.poly_size, params.bsk_level
+    t_len = k1 * l * N
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def ints(lo, hi, shape, dtype):
+        return torch.randint(lo, hi, shape, generator=g, device=device,
+                             dtype=torch.int64).to(dtype)
+
+    kern = torch.randint(-128, 128, (steps, N_LIMBS * k1 * N, t_len),
+                         generator=g, device=device, dtype=torch.int8)
+    fast = FastKeys(params, kern, torch.zeros(8, 8, dtype=torch.int8,
+                                              device=device), "matmul")
+    acc0 = ints(-2 ** 31, 2 ** 31, (batch, k1, N), I32)
+    a_t = ints(0, 2 * N, (steps, batch), I32)
+    digits_fix = ints(-128, 128, (batch, t_len), torch.int8)
+
+    def add(acc, x):
+        return wrap32(acc.to(I64) + x.to(I64).view(acc.shape))
+
+    def step(name: str, acc, i: int):
+        if name == "full":
+            diff = rotate(acc, a_t[i]) - acc.to(I64)
+            return add(acc, key_product(step_digits(diff, params), fast, i))
+        if name == "rot_only":
+            return wrap32(rotate(acc, a_t[i]) + 1)
+        if name == "mm_only":
+            return add(acc, key_product(digits_fix, fast, i))
+        if name == "int_mm":
+            int8_matmul_nt(digits_fix, kern[i])
+            return acc
+        if name == "dec_only":
+            d = step_digits(acc, params).view(batch, k1, l, N)
+            return add(acc, d.to(I64).sum(2))
+        # mm_rot: the rotated difference itself as int8 digits, twice
+        diff = (rotate(acc, a_t[i]) - acc.to(I64)).to(torch.int8)
+        flat = diff.reshape(batch, k1 * N).repeat(1, t_len // (k1 * N))
+        return add(acc, key_product(flat, fast, i))
+
+    def scan(name: str, acc):
+        for i in range(steps):
+            acc = step(name, acc, i)
+        return acc
+
+    out = []
+    for name in VARIANTS:
+        if device.type == "cuda":
+            static = acc0.clone()
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                scan(name, static)                    # warm-up
+            torch.cuda.current_stream(device).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                static.copy_(scan(name, static))
+            graph.replay()
+            t0 = _stamp(device)
+            for _ in range(iters):
+                graph.replay()
+            t1 = _stamp(device)
+            _sync(device)
+            us = _ms(t0, t1) * 1e3 / (iters * steps)
+            e0 = _stamp(device)
+            acc = acc0
+            for _ in range(iters):
+                acc = scan(name, acc)
+            e1 = _stamp(device)
+            _sync(device)
+            eager = _ms(e0, e1) * 1e3 / (iters * steps)
+            del graph, static
+        else:
+            scan(name, acc0)                          # warm-up
+            t0 = _stamp(device)
+            acc = acc0
+            for _ in range(iters):
+                acc = scan(name, acc)
+            us = _ms(t0, _stamp(device)) * 1e3 / (iters * steps)
+            eager = us
+        out.append({
+            "variant": name, "us_per_step": round(us, 3),
+            "eager_us_per_step": round(eager, 3), "batch": batch,
+            "steps": steps, "n": n_boot,
+            "ms_per_launch": round(us * n_boot / 1e3, 4),
+            "ms_per_boot": round(us * n_boot / 1e3 / batch, 6),
+            "implied_boots_per_s": round(batch / (us * n_boot / 1e6), 1)})
+    return out
+
+
 def main(argv=None) -> int:
     from ..frontend.lut_program import parse_lbf
     from ..tfhe.params import PRESETS, STAGED_PRESETS
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("filename", help=".lbf program")
+    ap.add_argument("filename", nargs="?", help=".lbf program")
     ap.add_argument("--params", choices=sorted(PRESETS) + sorted(
         STAGED_PRESETS), default="test",
         help="a one-family preset, or a staged one (two families)")
-    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="evaluations (default 8), or with --step-variants "
+                         "ciphertexts (default 512)")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--orientation", default="fused_otf",
                     choices=["fused", "fused_otf"])
@@ -328,17 +453,33 @@ def main(argv=None) -> int:
     ap.add_argument("--tile-sweep", action="store_true",
                     help="time the kernel at every launch plan (CUDA)")
     ap.add_argument("--out", default=None, help="also write the JSON here")
+    ap.add_argument("--step-variants", action="store_true",
+                    help="time the matmul orientation's CMux step in "
+                         "pieces at the bench's shapes (no program)")
+    ap.add_argument("--steps", type=int, default=64,
+                    help="--step-variants: steps a timed scan")
+    ap.add_argument("--iters", type=int, default=4,
+                    help="--step-variants: timed scans a variant")
     args = ap.parse_args(argv)
 
     if args.device == "cuda" and not torch.cuda.is_available():
         print("--device cuda: no CUDA device is available", file=sys.stderr)
         return 2
     device = torch.device(args.device)
+    if args.step_variants:
+        for res in step_variants(device, args.batch or 512, args.steps,
+                                 args.iters):
+            if device.type == "cuda":
+                res["device"] = torch.cuda.get_device_name(device)
+            print(json.dumps(res), flush=True)
+        return 0
+    if args.filename is None:
+        ap.error("a program (.lbf) or --step-variants")
     with open(args.filename) as f:
         prog = parse_lbf(f.read())
     params = (STAGED_PRESETS[args.params] if args.params in STAGED_PRESETS
               else PRESETS[args.params][0])
-    res = profile_program(prog, params, args.batch, args.orientation,
+    res = profile_program(prog, params, args.batch or 8, args.orientation,
                           device, args.levels, args.trace_levels,
                           args.tile_sweep, args.seed)
     if device.type == "cuda":

@@ -123,3 +123,22 @@ def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if (kp, np_) != (k, n):
         b = torch.nn.functional.pad(b, (0, np_ - n, 0, kp - k))
     return torch._int_mm(a.contiguous(), b.contiguous())[:m, :n]
+
+
+def int8_matmul_nt(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
+    """int8 [M, K] @ ``b_t.T`` -> int32 [M, N], ``b_t`` a row-major [N, K].
+
+    ``b_t.t()`` is the column-major [K, N] operand cuBLASLt's int8 GEMM
+    takes as it lies (the "TN" layout), so ``_int_mm`` gets that view and
+    ``b_t`` is never copied, where :func:`int8_matmul` would make it
+    contiguous.  K and N must be multiples of 8; ``a`` is zero-padded to
+    17 rows where it has fewer."""
+    m, k = a.shape
+    n = b_t.shape[0]
+    if k % 8 or n % 8 or b_t.stride(1) != 1:
+        raise ValueError(f"int8_matmul_nt: want K ({k}) and N ({n}) "
+                         f"multiples of 8 and a row-major b_t, got strides "
+                         f"{b_t.stride()}")
+    if m < 17:
+        a = torch.nn.functional.pad(a, (0, 0, 0, 17 - m))
+    return torch._int_mm(a.contiguous(), b_t.t())[:m]
