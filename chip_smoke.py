@@ -131,7 +131,23 @@ Phases, each printed with what ran and how long it took:
     ``--orientation matmul`` at ``--mesh 1,2`` and ``2,2`` beside tp=1 and
     K1, all bit-exact with equal decoded outputs; (d) on 2 or more cards
     the sharded FBS at tp=2 over two cards, else a line that says it did
-    not run.
+    not run;
+14. the conv orientations ``keys_rhs``, ``keys_lhs`` and ``keys_lhs_bf16``
+    (one library product a CMux step of the step's compact-key windows,
+    the JAX package's XLA convolutions): (a) at the JAX bench's conv anchor
+    (n=630, k=2, N=512, l=3, b=7; 512 ciphertexts) and at Kreyvium-1152's
+    fam1 (n=642, k=1, N=1024, l=4, b=5; 1,024), each one's FBS bitwise
+    against K1's and K2's (where K2 serves and its matrices fit) on the
+    same keys and inputs, launching no fused kernel; its ms a launch
+    eagerly and as a CUDA graph's replay beside K1's and K2's, its key
+    bytes beside K1's and ``fused_key_bytes``, and the rise in peak memory
+    of its n steps at 24 ciphertexts (under two steps' matrices: one is
+    built a step), issued under ``torch.cuda.set_sync_debug_mode("error")``;
+    (b) Kreyvium-1152 at ``kreyvium_p10_staged``, batch 2, through the
+    runtime CLI with ``--orientation keys_lhs`` and with K1, both
+    bit-exact with equal decoded outputs, the conv run launching no fused
+    kernel, ``run_s`` of each; (c) ``keys_lhs`` sharded over dp=2 on two
+    positions of the card, bitwise to one position.
 
 Before the last line it prints one JSON object with a row per kernel (no
 PyTorch call computes the n-step recurrence, so ``library_ms`` is null;
@@ -146,7 +162,8 @@ K1 launch is at N < 256 and lists the mixed ones apart
 ``n4096_launches`` and ``small_n_launches`` hold the full-length checks of
 phases 4, 8, 11 and 12; K2's row also holds ``matmul_orientation``, phase
 13's times, which are n ``torch._int_mm`` calls and the work around them,
-not one PyTorch call, so ``library_ms`` stays null) and the card's name
+not one PyTorch call, so ``library_ms`` stays null; K1's row likewise holds
+``conv_orientations``, phase 14 (a)'s rows) and the card's name
 and power limit; the last line
 is
 ``{"ok": true, "device": {...}}``.  It exits non-zero, printing no result,
@@ -1779,6 +1796,226 @@ def check_tp_axis(presets, fbr, smi: str) -> dict:
     return out
 
 
+# phase 14: the conv orientations (keys_rhs, keys_lhs, keys_lhs_bf16) at
+# (label, family, ciphertexts): the JAX bench's conv anchor at its batch,
+# and Kreyvium-1152's fam1 at the fam1 call of (b)'s run
+CONV = ("keys_rhs", "keys_lhs", "keys_lhs_bf16")
+CONV_LAUNCHES = (("conv anchor", "anchor", 512),
+                 ("kreyvium fam1", "fam1", 1024))
+# (a): ciphertexts of the steps whose peak memory is read; (b): the batch
+# of the end-to-end Kreyvium-1152 runs; (c): the dp=2 FBS's ciphertexts
+CONV_PEAK_BATCH = 24
+CONV_KREYVIUM_BATCH = 2
+CONV_MESH_BATCH = 512
+
+
+def conv_families() -> dict:
+    from tfhe_fbs_map_tpu_torch.bench import CONV_ANCHOR
+    from tfhe_fbs_map_tpu_torch.tfhe.params import STAGED_PRESETS
+    return {"anchor": CONV_ANCHOR,
+            "fam1": STAGED_PRESETS[KREYVIUM_PRESET].fam1}
+
+
+def conv_peak(fast, params, dev) -> tuple[float, float]:
+    """The rise in peak memory (MB) over a launch's n CMux steps at
+    CONV_PEAK_BATCH ciphertexts on ``fast``'s keys, issued under the sync
+    debug mode's "error", and one step's key matrix (MB)."""
+    import torch
+    from tfhe_fbs_map_tpu_torch.ops.blind_rotate import (cmux_partial,
+                                                         conv_step_matrix)
+    from tfhe_fbs_map_tpu_torch.tfhe.numeric import wrap32
+
+    step = conv_step_matrix(fast.bsk_kernels[0], params, fast.orientation)
+    step_mb = step.numel() * step.element_size() / 1e6
+    del step
+    g = torch.Generator(device=dev).manual_seed(13)
+    k1, N = params.glwe_dim + 1, params.poly_size
+    acc = torch.randint(-2 ** 31, 2 ** 31, (CONV_PEAK_BATCH, k1, N),
+                        generator=g, device=dev,
+                        dtype=torch.int64).to(torch.int32)
+    amounts = torch.randint(0, 2 * N, (params.lwe_dim, CONV_PEAK_BATCH),
+                            generator=g, device=dev)
+    cmux_partial(acc, amounts[0], fast, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(params.lwe_dim):
+            acc = wrap32(acc.long() + cmux_partial(acc, amounts[i], fast, i))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    rise = (torch.cuda.max_memory_allocated(dev) - base) / 1e6
+    torch.cuda.reset_peak_memory_stats(dev)
+    return rise, step_mb
+
+
+def check_conv(fbr, smi: str) -> list[dict]:
+    """Phase 14 (a): at each of CONV_LAUNCHES each conv orientation's FBS
+    bitwise against K1's and, where K2 serves the family and its matrices
+    fit, K2's on the same keys and inputs; each timed eagerly and as a
+    graph's replay beside K1 (and K2), its key bytes beside
+    ``fused_key_bytes``, and the peak memory of its n steps."""
+    import torch
+    from tfhe_fbs_map_tpu_torch.ops.blind_rotate import (
+        FUSED_HEADROOM, functional_bootstrap_fast, fused_key_bytes,
+        prepare_fast_keys)
+    from tfhe_fbs_map_tpu_torch.runtime.bisect import graph_ms
+    from tfhe_fbs_map_tpu_torch.runtime.cli import free_memory
+    from tfhe_fbs_map_tpu_torch.tfhe import generate_keys
+
+    dev = torch.device("cuda")
+    fams = conv_families()
+    rows = []
+    for label, fam, batch in CONV_LAUNCHES:
+        params = fams[fam]
+        keys = generate_keys(params, seed=11, device=dev)
+        args = matmul_inputs(keys, batch, 12)
+        kernels = {"k1": prepare_fast_keys(keys, "fused_otf")}
+        if fbr.unsupported(params, otf=False) is None and fused_key_bytes(
+                params) + FUSED_HEADROOM <= free_memory(dev):
+            kernels["k2"] = prepare_fast_keys(keys, "fused")
+        wants, times = {}, {}
+        for kern, fast in kernels.items():
+            fn = lambda: functional_bootstrap_fast(fast, *args)  # noqa
+            times[f"{kern}_ms"], wants[kern] = cuda_ms(fn, REPS)
+            times[f"{kern}_graph_ms"] = graph_ms(fn, 1, 2)
+        if "k2" in wants and not torch.equal(wants["k1"], wants["k2"]):
+            raise SystemExit(f"K1's and K2's FBS differ at {label}")
+        bound, by = bound_ms(params, params.lwe_dim, batch,
+                             kernels["k1"].bsk_kernels)
+        key_mb = {"k1": kernels["k1"].bsk_kernels.numel() / 1e6,
+                  "fused": fused_key_bytes(params) / 1e6}
+        del kernels, fast, fn
+        torch.cuda.empty_cache()
+        log(f"  {label} (n={params.lwe_dim}, k={params.glwe_dim}, "
+            f"N={params.poly_size}, l={params.bsk_level}, "
+            f"b={params.bsk_base_log}), B={batch}: K1 eager "
+            f"{times['k1_ms']:.3f} ms, graph {times['k1_graph_ms']:.3f} ms"
+            + (f"; K2 eager {times['k2_ms']:.3f}, graph "
+               f"{times['k2_graph_ms']:.3f} ms" if "k2_ms" in times
+               else "; K2 not run (does not serve or fit)")
+            + f"; bound {bound:.3f} ms ({by}), on {smi}")
+        for orientation in CONV:
+            fast = prepare_fast_keys(keys, orientation)
+            fn = lambda: functional_bootstrap_fast(fast, *args)  # noqa
+            before = dict(fbr.LAUNCHES)
+            got = fn()
+            torch.cuda.synchronize()
+            if fbr.LAUNCHES != before:
+                raise SystemExit(f"{orientation} launched a fused kernel")
+            err = max(int((got.long() - w.long()).abs().max())
+                      for w in wants.values())
+            log(f"  {orientation} FBS at {label}: "
+                f"{'bitwise equal' if err == 0 else 'MISMATCH'} to "
+                f"{' and '.join(k.upper() for k in wants)}'s (max_abs_err "
+                f"{err})")
+            if err:
+                raise SystemExit(f"{orientation} FBS != the kernels' at "
+                                 f"{label}")
+            row = {"label": label, "orientation": orientation,
+                   "n": params.lwe_dim, "ciphertexts": batch,
+                   "max_abs_err": err, "bound_ms": bound, "bound_by": by,
+                   **times}
+            row["ms"], _ = cuda_ms(fn, 1)
+            row["graph_ms"] = graph_ms(fn, 1, 2)
+            row["key_mb"] = (fast.bsk_kernels.numel()
+                             * fast.bsk_kernels.element_size() / 1e6)
+            row["k1_key_mb"], row["fused_key_mb"] = key_mb["k1"], \
+                key_mb["fused"]
+            row["peak_rise_mb"], row["step_matrix_mb"] = conv_peak(
+                fast, params, dev)
+            if row["peak_rise_mb"] >= 2 * row["step_matrix_mb"]:
+                raise SystemExit(f"{orientation} at {label}: the n steps "
+                                 f"rose {row['peak_rise_mb']} MB, more than "
+                                 f"two steps' matrices")
+            row["x_k1_graph"] = row["graph_ms"] / times["k1_graph_ms"]
+            log(f"  {orientation} at {label}: eager {row['ms']:.3f} ms, "
+                f"graph {row['graph_ms']:.3f} ms ({row['x_k1_graph']:.2f}x "
+                f"K1's graph); "
+                f"keys {row['key_mb']:.1f} MB (K1 {key_mb['k1']:.1f}, K2's "
+                f"matrices {key_mb['fused']:.1f}); its {params.lwe_dim} "
+                f"steps at {CONV_PEAK_BATCH} ciphertexts rose "
+                f"{row['peak_rise_mb']:.2f} MB (a step's matrix "
+                f"{row['step_matrix_mb']:.2f} MB), issued with no host "
+                f"sync; on {smi}")
+            rows.append(row)
+            del fast, fn, got
+            torch.cuda.empty_cache()
+        del keys, args, wants
+        torch.cuda.empty_cache()
+    return rows
+
+
+def run_conv_kreyvium(fbr, smi: str) -> dict:
+    """Phase 14 (b): Kreyvium-1152 at the staged preset through the runtime
+    CLI with ``--orientation keys_lhs`` and with K1, at
+    CONV_KREYVIUM_BATCH: both bit-exact with equal decoded outputs, the
+    conv run launching no fused kernel."""
+    import numpy as np
+    import torch
+    from tfhe_fbs_map_tpu_torch.runtime.cli import main as cli_main
+    from tfhe_fbs_map_tpu_torch.runtime.executor import CircuitExecutor
+
+    decoded = []
+    inner = CircuitExecutor.decrypt_outputs
+
+    def spy(self, buf):
+        got = inner(self, buf)
+        decoded.append(got)
+        return got
+    CircuitExecutor.decrypt_outputs = spy
+    out = {}
+    try:
+        for label, orientation in (("K1", "fused_otf"),
+                                   ("keys_lhs", "keys_lhs")):
+            rc, res, counts = entry_point(
+                cli_main, [KREYVIUM_LBF, "--params", KREYVIUM_PRESET,
+                           "--batch", str(CONV_KREYVIUM_BATCH),
+                           "--orientation", orientation], fbr.LAUNCHES)
+            if rc or not res["bit_exact"] or counts["k2"] or (
+                    bool(counts["k1"]) != (label == "K1")):
+                raise SystemExit(f"Kreyvium-1152 through {label}: rc {rc}, "
+                                 f"{res}, launches {counts}")
+            log(f"  Kreyvium-1152 through {label}, batch "
+                f"{CONV_KREYVIUM_BATCH}: bit_exact {res['bit_exact']}, "
+                f"run_s {res['run_s']}, launches {counts}, on {smi}")
+            out[label] = {"run_s": res["run_s"], "bit_exact":
+                          res["bit_exact"], "launches": counts}
+            torch.cuda.empty_cache()
+    finally:
+        CircuitExecutor.decrypt_outputs = inner
+    if len(decoded) != 2:
+        raise SystemExit(f"Kreyvium-1152: {len(decoded)} decodings, want 2")
+    one, two = decoded
+    if one.keys() != two.keys() or any(not np.array_equal(one[k], two[k])
+                                       for k in one):
+        raise SystemExit("Kreyvium-1152: keys_lhs and K1 decode differently")
+    log("  Kreyvium-1152: the decoded outputs of keys_lhs and K1 are equal")
+    return out
+
+
+def check_conv_mesh(smi: str) -> dict:
+    """Phase 14 (c): keys_lhs sharded over a dp=2 mesh of two positions of
+    the card, bitwise to one position, no fused kernel launched."""
+    import torch
+    from tfhe_fbs_map_tpu_torch.parallel import dryrun, make_mesh
+
+    t0 = time.time()
+    res = dryrun.sharded_fbs(make_mesh(["cuda"] * 2),
+                             conv_families()["anchor"], "keys_lhs",
+                             CONV_MESH_BATCH)
+    log(f"  sharded keys_lhs FBS at the conv anchor, {CONV_MESH_BATCH} "
+        f"ciphertexts, dp=2 on one card: bit_exact {res['bit_exact']} "
+        f"against one position, launches {res['launches']} "
+        f"({time.time() - t0:.1f} s, {smi})")
+    if not res["bit_exact"] or any(res["launches"].values()):
+        raise SystemExit(f"sharded keys_lhs FBS at dp=2: {res}")
+    torch.cuda.empty_cache()
+    return {"fbs_dp2_one_card": res["bit_exact"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quick", action="store_true",
@@ -1927,6 +2164,15 @@ def main(argv=None) -> int:
     log(json.dumps({"matmul": matmul, "tp": tp}))
     log(f"[matmul and tp] {time.time() - t0:.1f} s")
 
+    # --- 14. the conv orientations ------------------------------------------
+    t0 = time.time()
+    conv = check_conv(fbr, smi)
+    conv_krey = run_conv_kreyvium(fbr, smi)
+    conv_mesh = check_conv_mesh(smi)
+    log(json.dumps({"conv": conv, "conv_kreyvium": conv_krey,
+                    "conv_mesh": conv_mesh}))
+    log(f"[conv orientations] {time.time() - t0:.1f} s")
+
     # launches of each kernel on every main path, each counted from 0
     by_path = {"k2": {"aes128_p4 auto": runs["k2"]["launches"]},
                "k1": {"aes128_p4 fused_otf": runs["k1"]["launches"],
@@ -1971,8 +2217,8 @@ def main(argv=None) -> int:
          "max_abs_err": worst[kern], "ms": timing[kern][0],
          "plain_ms": timing[kern][1], "bound_ms": timing[kern][2],
          "bound_by": timing[kern][3], "library_ms": None,
-         **({"staged_launches": staged_k1, "n4096_launches": n4096}
-            if kern == "k1" else {}),
+         **({"staged_launches": staged_k1, "n4096_launches": n4096,
+             "conv_orientations": conv} if kern == "k1" else {}),
          **({"matmul_orientation": matmul} if kern == "k2" else {}),
          **({"graph_ms": small_k[-1]["graph_ms"],
              "mixed_k1_launches_by_path": mixed,

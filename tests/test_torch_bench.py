@@ -54,10 +54,21 @@ def jax_chain(batch: int):
         yield np.asarray(cts)
 
 
-@pytest.mark.parametrize("orientation", ["fused", "fused_otf"])
+def test_conv_anchor_is_the_jax_bench_one():
+    """bench.py:104-111, the set the JAX bench takes for a conv
+    orientation."""
+    assert vars(bench.CONV_ANCHOR) == vars(J.TFHEParams(
+        p=4, lwe_dim=630, glwe_dim=2, poly_size=512, bsk_level=3,
+        bsk_base_log=7, ksk_level=5, ksk_base_log=3,
+        lwe_noise_std=2.0 ** (32 - 15.0), glwe_noise_std=2.0 ** (32 - 25.0)))
+
+
+@pytest.mark.parametrize("orientation", ["fused", "fused_otf", "keys_rhs",
+                                         "keys_lhs", "keys_lhs_bf16"])
 def test_xor_chain_equals_the_jax_generic_chain(orientation):
     """The chain after its first step and after two timed steps is bitwise
-    the JAX generic chain's, through either kernel's plain version."""
+    the JAX generic chain's, through either kernel's plain version and
+    through each conv orientation."""
     batch = bench.QUICK_BATCH["native"]
     keys = generate_keys(bench.QUICK_PARAMS, seed=1, device="cpu")
     chain = bench.XorChain(keys, prepare_fast_keys(keys, orientation), batch)
@@ -91,6 +102,9 @@ def test_quick_command_on_the_cpu():
 @pytest.mark.parametrize("argv,orientation,limbs", [
     (["--orientation", "fused_otf"], "fused_otf", 4),
     (["--bsk-limbs", "3"], "fused", 3),
+    (["--orientation", "keys_rhs"], "keys_rhs", 4),
+    (["--orientation", "keys_lhs"], "keys_lhs", 4),
+    (["--orientation", "keys_lhs_bf16"], "keys_lhs_bf16", 4),
 ])
 def test_quick_flags(argv, orientation, limbs, capsys, tmp_path):
     """--orientation, --bsk-limbs and --trace reach the run."""
@@ -139,6 +153,11 @@ def fake_card(monkeypatch):
      "K2's key matrices take 142.1 GB"),
     (["--preset", "p32", "--orientation", "fused"], "staged p32 lookup"),
     (["--preset", "p32", "--bsk-limbs", "3"], "staged p32 lookup"),
+    (["--preset", "p32", "--orientation", "keys_lhs"], "staged p32 lookup"),
+    (["--orientation", "keys_rhs", "--bsk-limbs", "3"],
+     "keys_rhs keeps all 4 key limbs"),
+    (["--preset", "p8", "--orientation", "keys_lhs"],
+     "up to bsk_base_log 7, not 8"),
 ])
 def test_kernel_that_cannot_run_exits_2(argv, why, fake_card, capsys):
     """No fallback: a kernel asked for that cannot run is refused before

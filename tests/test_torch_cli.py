@@ -37,7 +37,8 @@ def last_json(capsys):
 
 
 @pytest.mark.parametrize("orientation", ["generic", "fused", "fused_otf",
-                                         "auto"])
+                                         "auto", "keys_rhs", "keys_lhs",
+                                         "keys_lhs_bf16"])
 def test_cpu_run_is_bit_exact(full_adder_blif, capsys, orientation):
     rc = main([full_adder_blif, "--map", "--fbs_size", "4", "--batch", "4",
                "--device", "cpu", "--test-params",
@@ -48,6 +49,40 @@ def test_cpu_run_is_bit_exact(full_adder_blif, capsys, orientation):
                                   else orientation)
     assert res["bootstraps"] >= 1 and res["batch"] == 4
     assert res["expected_flips"] is None and res["mesh"] is None
+
+
+@pytest.mark.parametrize("orientation", ["keys_rhs", "keys_lhs",
+                                         "keys_lhs_bf16"])
+def test_conv_run_equals_the_jax_cli(full_adder_blif, capsys, monkeypatch,
+                                     orientation):
+    """``--orientation keys_*`` on the CPU against the JAX CLI with the same
+    arguments: the final wire buffer bitwise and the same decoded outputs
+    (same seed, same draws)."""
+    from tfhe_fbs_map_tpu.runtime.cli import main as jax_cli
+    from tfhe_fbs_map_tpu.runtime.executor import CircuitExecutor as JEx
+    from tfhe_fbs_map_tpu_torch.runtime.executor import CircuitExecutor
+    runs = []
+    for cls in (JEx, CircuitExecutor):
+        decrypt = cls.decrypt_outputs
+
+        def spy(self, buf, decrypt=decrypt):
+            out = decrypt(self, buf)
+            runs.append((np.asarray(buf), out))
+            return out
+        monkeypatch.setattr(cls, "decrypt_outputs", spy)
+    argv = [full_adder_blif, "--map", "--batch", "4", "--test-params",
+            "--orientation", orientation]
+    assert jax_cli(argv) == 0
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])[
+        "bit_exact"]
+    assert main(argv + ["--device", "cpu"]) == 0
+    res = last_json(capsys)
+    assert res["bit_exact"] and res["orientation"] == orientation
+    assert res["bsk_limbs"] == 4
+    (jbuf, jout), (buf, out) = runs
+    assert np.array_equal(jbuf, buf)
+    assert jout.keys() == out.keys()
+    assert all(np.array_equal(np.asarray(jout[k]), out[k]) for k in out)
 
 
 def test_keys_and_checkpoint_flags(full_adder_blif, capsys, tmp_path):

@@ -438,7 +438,8 @@ def path_executor(cuda, path):
                 else prepare_fast_keys(keys, orientation=path))
         prog = full_adder_program()
         key = {"fused_otf": "k1", "fused": "k2", "generic": None,
-               "matmul": None}[path]
+               "matmul": None, "keys_rhs": None, "keys_lhs": None,
+               "keys_lhs_bf16": None}[path]
     ex = CircuitExecutor(prog, keys, fast_keys=fast)
     values = {n.name: rng.integers(0, 2, 16)
               for n in prog.nodes if n.kind == "input"}
@@ -448,7 +449,8 @@ def path_executor(cuda, path):
     return ex, buf, calls, key
 
 
-PATHS = ["fused_otf", "fused", "generic", "staged", "matmul"]
+PATHS = ["fused_otf", "fused", "generic", "staged", "matmul", "keys_rhs",
+         "keys_lhs", "keys_lhs_bf16"]
 
 
 @pytest.mark.parametrize("path", PATHS)
@@ -496,11 +498,12 @@ def test_graphs_of_two_shards_on_one_card(cuda):
     assert torch.equal(torch.cat(got, dim=1), want)
 
 
-@pytest.mark.parametrize("path", ["fused", "generic", "staged", "matmul"])
+@pytest.mark.parametrize("path", ["fused", "generic", "staged", "matmul",
+                                  "keys_rhs", "keys_lhs", "keys_lhs_bf16"])
 def test_level_step_is_sync_free_on_every_path(cuda, path):
-    """K2's, the generic bootstrap's, the staged pair's and the matmul
-    orientation's level steps never wait for the card either (K1's:
-    ``test_level_step_issues_without_a_host_sync``)."""
+    """K2's, the generic bootstrap's, the staged pair's, the matmul
+    orientation's and the conv orientations' level steps never wait for
+    the card either (K1's: ``test_level_step_issues_without_a_host_sync``)."""
     ex, buf, _, _ = path_executor(cuda, path)
     ex.step(buf.clone(), 0)
     torch.cuda.synchronize()
@@ -831,3 +834,62 @@ def test_tp2_on_one_card(cuda, dp):
         assert two.capture(shard_batch(mesh, buf, axis=1)) == 0
         got = two.run(shard_batch(mesh, buf, axis=1))
         assert torch.equal(got[0], one) and torch.equal(got[1], one)
+
+
+# ------------------------------------------------ the conv orientations
+
+CONV = ["keys_rhs", "keys_lhs", "keys_lhs_bf16"]
+
+
+def conv_shapes():
+    """The conv anchor (k=2, N=512, l=3, b=7) and Kreyvium-1152's fam1
+    (k=1, N=1024, l=4, b=5), n cut to 8."""
+    from dataclasses import replace
+    from tfhe_fbs_map_tpu_torch.bench import CONV_ANCHOR
+    from tfhe_fbs_map_tpu_torch.tfhe.params import STAGED_PRESETS
+    fam1 = STAGED_PRESETS["kreyvium_p10_staged"].fam1
+    return [replace(p, lwe_dim=8) for p in (CONV_ANCHOR, fam1)]
+
+
+@pytest.mark.parametrize("orientation", CONV)
+def test_conv_fbs_equals_k1(cuda, orientation):
+    """Each conv orientation on the card (one library product a step) is
+    bitwise K1's FBS, and K2's, at both shapes, and launches no fused
+    kernel."""
+    for params in conv_shapes():
+        keys = generate_keys(params, seed=6, device=cuda)
+        _, args, _ = identity_batch(keys, 96, 7)
+        want = functional_bootstrap_fast(
+            prepare_fast_keys(keys, "fused_otf"), *args)
+        k2 = functional_bootstrap_fast(prepare_fast_keys(keys, "fused"),
+                                       *args)
+        assert torch.equal(k2, want)
+        conv = prepare_fast_keys(keys, orientation)
+        before = dict(fbr.LAUNCHES)
+        got = functional_bootstrap_fast(conv, *args)
+        torch.cuda.synchronize()
+        assert fbr.LAUNCHES == before
+        assert torch.equal(got, want), params
+
+
+@pytest.mark.parametrize("orientation", CONV)
+def test_conv_launch_builds_one_step_matrix(cuda, orientation):
+    """A launch's peak memory rises by about one step's key matrix (28.3
+    MB int8 at the conv anchor, twice that for keys_rhs's 2N contraction
+    and the bf16 layout), never by n of them."""
+    from tfhe_fbs_map_tpu_torch.ops.blind_rotate import conv_step_matrix
+    params = conv_shapes()[0]
+    keys = generate_keys(params, seed=6, device=cuda)
+    _, args, _ = identity_batch(keys, 24, 8)
+    fast = prepare_fast_keys(keys, orientation)
+    functional_bootstrap_fast(fast, *args)          # cuBLAS's workspace
+    torch.cuda.synchronize()
+    step = conv_step_matrix(fast.bsk_kernels[0], params, orientation)
+    step_bytes = step.numel() * step.element_size()
+    del step
+    torch.cuda.reset_peak_memory_stats(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    functional_bootstrap_fast(fast, *args)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated(cuda) - base
+    assert step_bytes <= rise < 2 * step_bytes, (rise, step_bytes)

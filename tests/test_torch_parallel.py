@@ -234,6 +234,28 @@ def test_mesh_executor_full_adder(orientation):
         assert np.array_equal(np.asarray(w), outs[k]), k
 
 
+@pytest.mark.parametrize("orientation", ["keys_lhs", "keys_rhs"])
+def test_mesh_executor_conv_dp2(orientation):
+    """A conv orientation under a dp=2 mesh, batch 8: the final wire buffer
+    equals JAX's ``shard_map`` executor's and the port's on one device, the
+    keys copied once a position's device, and it decrypts to the
+    circuit."""
+    circ, jprog = mapped("full_adder")
+    jk = J.generate_keys(J.TEST_PARAMS, seed=7)
+    rng = np.random.default_rng(8)
+    values = {i.name: rng.integers(0, 2, 8) for i in circ.inputs}
+    want, whole, shards, ex = executor_runs(jprog, jk, carried(jk), values,
+                                            orientation, 2, seed=9)
+    assert len(shards) == 2 and all(s.shape[1] == 4 for s in shards)
+    assert ex._replica(CPU)[1].orientation == orientation
+    got = torch.cat(shards, dim=1)
+    assert torch.equal(got, whole)
+    assert np.array_equal(got.numpy(), want)
+    outs = ex.decrypt_outputs(shards)
+    for k, w in circ.eval(values).items():
+        assert np.array_equal(np.asarray(w), outs[k]), k
+
+
 def test_checkpoint_written_at_dp4_resumes_at_dp1_and_dp2(tmp_path):
     """The snapshot is the whole buffer in the JAX format; it resumes on any
     mesh, or on none, to the same final buffer.  The resumed runs start

@@ -120,6 +120,8 @@ def test_rejects_unsplittable():
     ("mixed", 32, ("fused_otf", "fused"), 4),
     ("mixed", 32, (None, None), 3),
     ("kreyvium_iter_v1", 10, (None, None), 2),
+    ("mixed", 32, ("keys_lhs", "keys_rhs"), 3),
+    ("mixed", 32, ("keys_lhs_bf16", "keys_lhs_bf16"), 2),
 ])
 def test_wire_buffer_equal_after_every_level(name, p, orients, vectors):
     """Same keys (carried across), same rng: the buffer after encryption

@@ -3,6 +3,7 @@
     python -m tfhe_fbs_map_tpu_torch.bench                   # anchor, B=512
     python -m tfhe_fbs_map_tpu_torch.bench --preset p16 --orientation fused_otf
     python -m tfhe_fbs_map_tpu_torch.bench --orientation matmul --bsk-limbs 3
+    python -m tfhe_fbs_map_tpu_torch.bench --orientation keys_lhs
     python -m tfhe_fbs_map_tpu_torch.bench --preset p32 --native-p32
     python -m tfhe_fbs_map_tpu_torch.bench --preset p32      # staged lookups
     python -m tfhe_fbs_map_tpu_torch.bench --quick           # tiny, on the GPU
@@ -16,10 +17,13 @@ through the same bootstrap, through the fused kernel ``--orientation``
 names (``auto``: K2 when its key matrices fit the card's free memory, the
 runtime CLI's rule, else K1) or through ``matmul``, the JAX bench's XLA
 anchor: one ``torch._int_mm`` a CMux step over K2's key matrices
-(``--bsk-limbs 3``: a quantized key).  ``--preset p32`` alone is the
-staged p=32 lookup (``staged_p32_bench``).  Every chain is decrypt-checked after its
-first step and after the timed loop, so only correct bootstraps are
-counted.  ``--quick`` takes the JAX bench's tiny insecure sets (N=128,
+(``--bsk-limbs 3``: a quantized key), or through a conv orientation
+(``keys_rhs``, ``keys_lhs``, ``keys_lhs_bf16``: one product a CMux step
+of the step's compact-key windows, all four key limbs), whose anchor is
+the JAX bench's own conv set :data:`CONV_ANCHOR`.  ``--preset p32``
+alone is the staged p=32 lookup (``staged_p32_bench``).  Every chain is
+decrypt-checked after its first step and after the timed loop, so only
+correct bootstraps are counted.  ``--quick`` takes the JAX bench's tiny insecure sets (N=128,
 which K1 serves through its small-N kernel), on the card as the JAX bench
 runs it on its accelerator, or with ``--device cpu`` on the CPU through
 the kernels' plain versions.  Prints one JSON object, the JAX
@@ -39,11 +43,12 @@ import time
 import numpy as np
 import torch
 
+from .ops.blind_rotate import CONV_ORIENTATIONS
 from .ops.fused_blind_rotate import N_LIMBS
 from .tfhe.params import PRESETS, TFHEParams
 
-__all__ = ["QUICK_PARAMS", "XorChain", "bench_orientation", "native_bench",
-           "staged_p32_bench", "run_chain", "main"]
+__all__ = ["QUICK_PARAMS", "CONV_ANCHOR", "XorChain", "bench_orientation",
+           "native_bench", "staged_p32_bench", "run_chain", "main"]
 
 LANES = 5
 COEFS = [1, 2, 4, 8, 16]
@@ -57,6 +62,12 @@ QUICK_PARAMS = TFHEParams(p=4, lwe_dim=32, glwe_dim=1, poly_size=128,
                           ksk_base_log=4, lwe_noise_std=4.0,
                           glwe_noise_std=4.0)
 QUICK_BATCH = {"native": 32, "staged": 8}
+# bench.py:104-111, the JAX bench's anchor for the conv orientations: ~128
+# bits at kN = 1024, n = 630, base 2^7 (their digits fit int8 negated)
+CONV_ANCHOR = TFHEParams(p=4, lwe_dim=630, glwe_dim=2, poly_size=512,
+                         bsk_level=3, bsk_base_log=7, ksk_level=5,
+                         ksk_base_log=3, lwe_noise_std=2.0 ** 17,
+                         glwe_noise_std=2.0 ** 7)
 
 
 def _sync(device: torch.device) -> None:
@@ -136,10 +147,18 @@ def bench_orientation(params: TFHEParams, orientation: str, bsk_limbs: int,
     than the one asked for.  On the CPU both wrappers run their plain
     versions, and ``auto`` takes ``"fused"``, the JAX bench's default.
     ``"matmul"`` holds K2's key matrices too, so on CUDA they must fit as
-    K2's do."""
+    K2's do.  A conv orientation, on either device, keeps all four key
+    limbs and must run ``params`` (``check_kernel``)."""
     from .ops.blind_rotate import FUSED_HEADROOM, fused_key_bytes
     from .runtime.cli import check_kernel, free_memory, pick_orientations
 
+    if orientation in CONV_ORIENTATIONS:
+        if bsk_limbs != N_LIMBS:
+            raise ValueError(f"--orientation {orientation} keeps all "
+                             f"{N_LIMBS} key limbs; --bsk-limbs {bsk_limbs} "
+                             f"takes fused, fused_otf or matmul")
+        check_kernel(params, orientation, device)
+        return orientation
     if device.type != "cuda":
         return "fused" if orientation == "auto" else orientation
     if free_bytes is None:
@@ -334,14 +353,17 @@ def main(argv=None) -> int:
                     help="tiny insecure parameters, batch at most 32 (8 "
                          "staged)")
     ap.add_argument("--orientation", default="auto",
-                    choices=["auto", "fused", "fused_otf", "matmul"],
+                    choices=["auto", "fused", "fused_otf", "matmul",
+                             "keys_lhs", "keys_lhs_bf16", "keys_rhs"],
                     help="path of a native preset: K2 (fused) over "
                          "precomputed key matrices, K1 (fused_otf) over the "
                          "compact keys, or auto: K2 when its matrices fit "
                          "the card's free memory, else K1; matmul: one "
-                         "torch._int_mm a CMux step over K2's matrices.  "
-                         "A path asked for that cannot run exits 2.  The "
-                         "staged lookup runs both families on K1")
+                         "torch._int_mm a CMux step over K2's matrices; "
+                         "keys_*: the JAX package's conv orientations, the "
+                         "anchor preset then being its conv set (n=630, "
+                         "l=3, b=7).  A path asked for that cannot run exits "
+                         "2.  The staged lookup runs both families on K1")
     ap.add_argument("--bsk-limbs", type=int, default=N_LIMBS,
                     choices=range(1, N_LIMBS + 1), metavar="{1,2,3,4}",
                     help="8-bit limbs of the bootstrapping key kept, most "
@@ -359,17 +381,24 @@ def main(argv=None) -> int:
         print("--device cuda: no CUDA device is available", file=sys.stderr)
         return 2
     if args.preset == "p32" and not args.native_p32:
-        if args.orientation == "fused" or args.bsk_limbs != N_LIMBS:
-            print("the staged p32 lookup runs both families on K1 "
-                  "(fused_otf) with all key limbs; --orientation fused and "
-                  "--bsk-limbs take a native preset", file=sys.stderr)
+        if args.orientation not in ("auto", "fused_otf") \
+                or args.bsk_limbs != N_LIMBS:
+            print(f"the staged p32 lookup runs both families on K1 "
+                  f"(fused_otf) with all key limbs; --orientation "
+                  f"{args.orientation} and --bsk-limbs take a native preset",
+                  file=sys.stderr)
             return 2
         batch = (min(args.batch, QUICK_BATCH["staged"]) if args.quick
                  else args.batch)
         result = staged_p32_bench(batch, args.iters, args.quick, device,
                                   args.trace)
     else:
-        params = QUICK_PARAMS if args.quick else PRESETS[args.preset][0]
+        if args.quick:
+            params = QUICK_PARAMS
+        elif args.preset == "anchor" and args.orientation in CONV_ORIENTATIONS:
+            params = CONV_ANCHOR
+        else:
+            params = PRESETS[args.preset][0]
         batch = (min(args.batch, QUICK_BATCH["native"]) if args.quick
                  else args.batch)
         try:

@@ -1,9 +1,8 @@
 """Fast-path functional bootstrap: int8-limb key switch, modswitch, the
 blind rotation, sample extract.
 
-The counterpart of the ``"fused"``, ``"fused_otf"`` and ``"matmul"``
-orientations of ``tfhe_fbs_map_tpu.ops.blind_rotate``, bitwise equal to
-them and to the generic path of :mod:`..tfhe.pbs`:
+The counterpart of every orientation of ``tfhe_fbs_map_tpu.ops.blind_rotate``,
+bitwise equal to it and to the generic path of :mod:`..tfhe.pbs`:
 
 * ``"fused"`` and ``"fused_otf"`` run the n CMux steps in one launch of
   the fused kernels (:mod:`.fused_blind_rotate`);
@@ -12,12 +11,19 @@ them and to the generic path of :mod:`..tfhe.pbs`:
   key matrix K2 streams, then the limbs shift-added, with the rotation and
   the digits plain PyTorch around it (:func:`cmux_partial`).  Its key
   contraction can be split over tp positions (:func:`shard_contraction`,
-  :func:`bootstrap_matmul`).
-
-The TPU-only conv orientations have no counterpart.
+  :func:`bootstrap_matmul`);
+* the conv orientations ``"keys_rhs"``, ``"keys_lhs"`` and
+  ``"keys_lhs_bf16"`` hold JAX's compact conv keys, bitwise its tensors,
+  and run the same scan: each step builds its key's Hankel windows once
+  as the B operand of one product (:func:`conv_step_matrix`), ``torch._int_mm``
+  for the int8 layouts and, for the bf16 one, ``torch.mm`` with fp32
+  output over two sub-digit operands, exact while every sum stays below
+  2^24 (:func:`conv_product`).  On the CPU the bf16 product runs in
+  float64, which gives the same integers.
 
 Keys are split into balanced 8-bit limbs (``signed_limbs``); ``bsk_limbs``
-< 4 drops the least significant ones (a quantized bootstrapping key).
+< 4 drops the least significant ones (a quantized bootstrapping key) in
+the fused and matmul layouts; the conv layouts keep all four, as JAX's do.
 """
 
 from __future__ import annotations
@@ -36,14 +42,24 @@ from .polymul import monomial_rotate, negacyclic_matrix
 __all__ = ["FastKeys", "prepare_fast_keys", "keyswitch_fast",
            "functional_bootstrap_fast", "fused_key_bytes", "pick_kernel",
            "shard_contraction", "bootstrap_matmul", "cmux_partial",
-           "rotate", "step_digits", "key_product",
-           "ORIENTATIONS", "FUSED_HEADROOM", "KSK_MAX_BASE_LOG"]
+           "rotate", "step_digits", "key_product", "external_product_conv",
+           "conv_unsupported", "conv_step_matrix", "conv_product",
+           "ORIENTATIONS", "CONV_ORIENTATIONS", "FUSED_HEADROOM",
+           "KSK_MAX_BASE_LOG", "CONV_MAX_BASE_LOG"]
 
-ORIENTATIONS = ("fused", "fused_otf", "matmul")
+CONV_ORIENTATIONS = ("keys_rhs", "keys_lhs", "keys_lhs_bf16")
+ORIENTATIONS = ("fused", "fused_otf", "matmul") + CONV_ORIENTATIONS
 
 LIMB_BITS = 8
 # The key switch's gadget digits must fit int8 with their sign.
 KSK_MAX_BASE_LOG = 7
+# The conv orientations negate the bootstrap's digits ([-d, d]); they fit
+# int8 up to base 2^7 (JAX blind_rotate.py:82-85).
+CONV_MAX_BASE_LOG = 7
+# keys_lhs_bf16 accumulates in fp32, exact while every sum stays below 2^24:
+# a sub-digit |d_lo| <= 8 times a limb |x| <= 128, summed over rows·N.
+BF16_EXACT = 1 << 24
+BF16_TERM = 8 * 128
 # Device memory left free beside the "fused" key matrices when a native run
 # takes K2: room for the wire buffer and one level's temporaries.
 FUSED_HEADROOM = 4 << 30
@@ -55,10 +71,15 @@ class FastKeys:
     ``bsk_kernels``: ``"fused"`` and ``"matmul"`` [n, L·(k+1)·N, rows·N]
     int8, K-major: each step's matrix is the transpose of the JAX
     package's [rows·N, L·(k+1)·N], since the int8 tensor-core B operand
-    wants the contraction contiguous; or ``"fused_otf"`` [n, L·(k+1), rows,
-    2N] int8, the JAX package's layout.  ``ksk_matrix``: the key-switch
-    key's limbs as one [kN·l_ks, 4·(n+1)] int8 matrix for ``torch._int_mm``;
-    ``ksk_limbs`` views it in the JAX layout [4, kN·l_ks, n+1].
+    wants the contraction contiguous; ``"fused_otf"`` [n, L·(k+1), rows,
+    2N] int8, the JAX package's layout; or a conv orientation's JAX
+    layout, component-major in the second axis: ``"keys_rhs"`` [n,
+    (k+1)·4, rows, N] int8, the reversed limbs of each key polynomial K,
+    ``"keys_lhs"`` [n, (k+1)·4, rows, 2N] int8, the limbs of its extension
+    [−K, K], and ``"keys_lhs_bf16"`` the same in bfloat16.
+    ``ksk_matrix``: the key-switch key's limbs as one [kN·l_ks, 4·(n+1)]
+    int8 matrix for ``torch._int_mm``; ``ksk_limbs`` views it in the JAX
+    layout [4, kN·l_ks, n+1].
 
     ``shard`` (index, tp): the slice of the key contraction this copy holds
     (:func:`shard_contraction`); (0, 1) is the whole of it.
@@ -132,6 +153,62 @@ def _fused_step(bsk_i: torch.Tensor, params: TFHEParams,
     return limbs.reshape(bsk_limbs * k1 * N, rows * N).to(torch.int8)
 
 
+def conv_unsupported(params: TFHEParams, orientation: str,
+                     device: torch.device | None = None) -> str | None:
+    """Why the conv ``orientation`` cannot run ``params`` (on ``device``),
+    or None: the negated digits must fit int8 (``bsk_base_log`` ≤ 7, JAX's
+    rule), each step's product takes N a multiple of 8 (``torch._int_mm``'s
+    shapes), and ``"keys_lhs_bf16"`` is exact only while rows·N·8·128 <
+    2^24 and, on CUDA, needs a bf16 product with fp32 output
+    (``torch.mm(..., out_dtype=torch.float32)``, ``aten::mm.dtype``)."""
+    rows = (params.glwe_dim + 1) * params.bsk_level
+    N = params.poly_size
+    if params.bsk_base_log > CONV_MAX_BASE_LOG:
+        return (f"the conv orientations negate the bootstrap's digits, "
+                f"which fit int8 up to bsk_base_log {CONV_MAX_BASE_LOG}, not "
+                f"{params.bsk_base_log}")
+    if N % 8:
+        return f"N={N} is not a multiple of 8"
+    if orientation == "keys_lhs_bf16":
+        if rows * N * BF16_TERM >= BF16_EXACT:
+            return (f"rows·N·8·128 = {rows * N * BF16_TERM} reaches 2^24, "
+                    f"where fp32 sums of the bf16 products stop being exact")
+        if device is not None and torch.device(device).type == "cuda":
+            return _bf16_mm_missing(torch.device(device))
+    return None
+
+
+def _bf16_mm_missing(device: torch.device) -> str | None:
+    """None when ``torch.mm`` multiplies bf16 operands into fp32 on
+    ``device`` (one product of two 8×8 matrices), else what is missing."""
+    a = torch.ones((8, 8), dtype=torch.bfloat16, device=device)
+    try:
+        torch.mm(a, a, out_dtype=torch.float32)
+    except (TypeError, RuntimeError, NotImplementedError) as e:
+        return (f"this PyTorch ({torch.__version__}) has no bf16 product "
+                f"with fp32 output on {device} (torch.mm(..., "
+                f"out_dtype=torch.float32), aten::mm.dtype): {e}")
+    return None
+
+
+def _conv_keys(bsk: torch.Tensor, orientation: str) -> torch.Tensor:
+    """JAX's conv key layouts (``blind_rotate.py:181-198``) of ``bsk`` [n,
+    rows, k+1, N]: component-major [n, (k+1)·4, rows, N or 2N]."""
+    n, rows, k1, N = bsk.shape
+    if orientation == "keys_rhs":
+        limbs = signed_limbs(bsk, N_LIMBS, LIMB_BITS)       # [n,r,k+1,N,L]
+        kern = limbs.permute(0, 2, 4, 1, 3).flip(-1)         # reversed
+    else:
+        # the extension [−K, K] in int64 first: an int8 limb of −128 has no
+        # negation, and the split is linear position by position
+        b64 = bsk.to(I64)
+        limbs = signed_limbs(torch.cat([-b64, b64], dim=-1), N_LIMBS,
+                             LIMB_BITS)                      # [n,r,k+1,2N,L]
+        kern = limbs.permute(0, 2, 4, 1, 3)                  # [n,k+1,L,r,2N]
+    dtype = torch.bfloat16 if orientation == "keys_lhs_bf16" else torch.int8
+    return kern.reshape(n, k1 * N_LIMBS, rows, -1).to(dtype).contiguous()
+
+
 def prepare_fast_keys(keys: TFHEKeys, orientation: str = "fused",
                       bsk_limbs: int = N_LIMBS) -> FastKeys:
     """Key layouts of ``orientation``, built on the keys' device.
@@ -139,9 +216,19 @@ def prepare_fast_keys(keys: TFHEKeys, orientation: str = "fused",
     ``"fused"`` and ``"matmul"`` share one layout (as in the JAX package),
     filled into one preallocated int8 tensor one step at a time, so the
     int64 temporaries stay at one step's matrices (~150 MB at
-    ``aes128_p4``) next to the 10.9 GB result."""
+    ``aes128_p4``) next to the 10.9 GB result.  The conv orientations keep
+    all four limbs and raise ValueError where :func:`conv_unsupported`
+    says they cannot run."""
     params = keys.params
     assert orientation in ORIENTATIONS, orientation
+    if orientation in CONV_ORIENTATIONS:
+        if bsk_limbs != N_LIMBS:
+            raise ValueError(f"--orientation {orientation} keeps all "
+                             f"{N_LIMBS} key limbs (JAX's conv layouts), "
+                             f"not {bsk_limbs}")
+        why = conv_unsupported(params, orientation, keys.device)
+        if why is not None:
+            raise ValueError(f"--orientation {orientation}: {why}")
     assert params.bsk_base_log <= 8
     assert params.ksk_base_log <= KSK_MAX_BASE_LOG
     assert 1 <= bsk_limbs <= N_LIMBS
@@ -158,6 +245,8 @@ def prepare_fast_keys(keys: TFHEKeys, orientation: str = "fused",
         ext = ext.permute(0, 4, 2, 1, 3)                    # [n,L,k+1,r,2N]
         kern = ext.reshape(n, bsk_limbs * k1, rows, 2 * N) \
             .to(torch.int8).contiguous()
+    elif orientation in CONV_ORIENTATIONS:
+        kern = _conv_keys(keys.bsk, orientation)
     else:
         kern = torch.empty((n, bsk_limbs * k1 * N, rows * N),
                            dtype=torch.int8, device=keys.device)
@@ -297,22 +386,115 @@ def step_digits(diff: torch.Tensor, params: TFHEParams) -> torch.Tensor:
         .view(diff.shape[0], -1)
 
 
-def key_product(flat: torch.Tensor, fast: FastKeys,
-                step: int) -> torch.Tensor:
-    """The digits [B, rows·N] times step ``step``'s key matrix over
-    ``fast``'s slice of the contraction, the limbs shift-added:
-    [B, (k+1)·N] int64, congruent mod 2^32 to the product.  One
-    ``torch._int_mm`` of the digits and the step's [D, T] matrix read as it
-    lies in the key (never copied)."""
-    kern = fast.bsk_kernels[step]                             # [D, T/tp]
-    flat = _slice_cols(flat, fast.shard, kern.shape[1])
+def _matmul_product(flat: torch.Tensor, kern: torch.Tensor,
+                    params: TFHEParams) -> torch.Tensor:
+    """The digits [B, T] times a ``"matmul"`` step's [D, T] matrix, the
+    limbs shift-added: [B, (k+1)·N] int64.  One ``torch._int_mm`` of the
+    digits and ``kern`` read as it lies in the key (never copied)."""
     prods = int8_matmul_nt(flat, kern).to(I64)                # [B, D]
-    k1n = (fast.params.glwe_dim + 1) * fast.params.poly_size
+    k1n = (params.glwe_dim + 1) * params.poly_size
     limbs = kern.shape[0] // k1n
     prods = prods.view(flat.shape[0], limbs, k1n)
     drop = N_LIMBS - limbs
     return sum(prods[:, m] * (1 << (LIMB_BITS * (m + drop)))
                for m in range(limbs))
+
+
+def key_product(flat: torch.Tensor, fast: FastKeys,
+                step: int) -> torch.Tensor:
+    """The digits [B, rows·N] times step ``step``'s key, the limbs
+    shift-added: [B, (k+1)·N] int64, congruent mod 2^32 to the product.
+    ``"matmul"``: over ``fast``'s slice of the contraction
+    (:func:`_matmul_product`); a conv orientation: :func:`conv_product`."""
+    kern = fast.bsk_kernels[step]
+    if fast.orientation in CONV_ORIENTATIONS:
+        return conv_product(flat, kern, fast.params, fast.orientation)
+    return _matmul_product(_slice_cols(flat, fast.shard, kern.shape[1]),
+                           kern, fast.params)
+
+
+# ------------------------------------------------------------- conv
+
+def conv_step_matrix(kern: torch.Tensor, params: TFHEParams,
+                     orientation: str) -> torch.Tensor:
+    """A conv step's key ``kern`` (``bsk_kernels[i]``, [(k+1)·4, rows, W])
+    as the B operand of its product: row-major [(k+1)·4·N, C] in ``kern``'s
+    dtype, row (component, limb, t), column (row r, m).  A view of the key's
+    windows, reshaped: the step's one copy of its key.
+
+    * ``"keys_lhs"``, ``"keys_lhs_bf16"``: C = rows·N, entry E[t + 1 + m]
+      of the extension E = [−K, K]; against the reversed digits this is
+      JAX's conv with the digits as weights, its output shifted by one.
+    * ``"keys_rhs"``: C = rows·2N, entry K̃[t + m] of the limbs of K
+      zero-padded to [0]·(N−1), K, [0]·N; against the reversed extension
+      [−d, d] of the digits, which carries the negacyclic sign (JAX's conv
+      with the key as weights), since a negated int8 limb of −128 has no
+      int8 form."""
+    N = params.poly_size
+    if orientation == "keys_rhs":
+        padded = torch.nn.functional.pad(kern.flip(-1), (N - 1, N))
+        win = padded.unfold(-1, 2 * N, 1)[:, :, :N]           # [G, r, N, 2N]
+    else:
+        win = kern.unfold(-1, N, 1)[:, :, 1:]                 # [G, r, N, N]
+    return win.permute(0, 2, 1, 3).reshape(-1, win.shape[1] * win.shape[3])
+
+
+def _bf16_product(d: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
+    """int8 digits ``d`` [B, C] times the bf16 matrix ``mat`` [D, C]ᵀ,
+    exactly, as int64 [B, D]: JAX's two sub-digit products, d = 16·d_hi +
+    d_lo with |d_lo| ≤ 8 and |d_hi| ≤ 4, here one product of the 2B rows
+    [d_lo; d_hi] with fp32 output on CUDA (every sum an integer below
+    2^24, :func:`conv_unsupported`) and in float64 on the CPU."""
+    d = d.to(torch.int16)
+    lo = ((d + 8) & 15) - 8                                   # [-8, 7]
+    both = torch.cat([lo, (d - lo) >> 4])                     # hi in [-4, 4]
+    if d.is_cuda:
+        out = torch.mm(both.to(torch.bfloat16), mat.t(),
+                       out_dtype=torch.float32)
+    else:
+        out = both.to(torch.float64) @ mat.to(torch.float64).t()
+    out = out.to(I64)
+    batch = d.shape[0]
+    return out[:batch] + out[batch:] * 16
+
+
+def conv_product(flat: torch.Tensor, kern: torch.Tensor, params: TFHEParams,
+                 orientation: str) -> torch.Tensor:
+    """The digits ``flat`` [B, rows·N] int8 (:func:`step_digits`) times one
+    step's conv key ``kern``, the limbs shift-added: [B, (k+1)·N] int64,
+    congruent mod 2^32 to JAX's ``external_product_conv``.  One product of
+    the reversed digits (``"keys_rhs"``: their extension) and
+    :func:`conv_step_matrix`: ``torch._int_mm`` for the int8 layouts, the
+    sub-digit bf16 product for ``"keys_lhs_bf16"``."""
+    batch, N = flat.shape[0], params.poly_size
+    k1 = params.glwe_dim + 1
+    d = flat.view(batch, -1, N).flip(-1)                      # reversed
+    if orientation == "keys_rhs":
+        d = torch.cat([d, -d], dim=-1)                    # [−d, d] reversed
+    d = d.reshape(batch, -1)
+    mat = conv_step_matrix(kern, params, orientation)
+    if orientation == "keys_lhs_bf16":
+        prods = _bf16_product(d, mat)
+    else:
+        prods = int8_matmul_nt(d, mat).to(I64)
+    prods = prods.view(batch, k1, N_LIMBS, N)                 # (comp, limb)
+    return sum(prods[:, :, m] * (1 << (LIMB_BITS * m))
+               for m in range(N_LIMBS)).view(batch, k1 * N)
+
+
+def external_product_conv(diff: torch.Tensor, kernels: torch.Tensor,
+                          params: TFHEParams,
+                          orientation: str = "keys_rhs") -> torch.Tensor:
+    """GGSW ⊡ diff for one step, [B, k+1, N] -> [B, k+1, N] int32: JAX's
+    public ``external_product_conv``, every branch.  ``kernels``: one
+    step's key in ``orientation``'s layout (``bsk_kernels[i]``; for
+    ``"matmul"`` the port's K-major [D, T], the transpose of JAX's)."""
+    flat = step_digits(diff.to(I64), params)
+    if orientation == "matmul":
+        prods = _matmul_product(flat, kernels, params)
+    else:
+        prods = conv_product(flat, kernels, params, orientation)
+    return wrap32(prods).view(diff.shape)
 
 
 def cmux_partial(acc: torch.Tensor, amount: torch.Tensor,
@@ -349,8 +531,9 @@ def _all_reduce(parts: list[torch.Tensor]) -> list[torch.Tensor]:
 def bootstrap_matmul(shards: list[FastKeys], big_cts: list[torch.Tensor],
                      test_polys: list[torch.Tensor],
                      posts: list[torch.Tensor]) -> list[torch.Tensor]:
-    """Batched FBS through the ``"matmul"`` orientation, its contractions
-    split over the positions of one tp group: ``shards[j]`` is slice j of
+    """Batched FBS through JAX's XLA scan: the ``"matmul"`` orientation,
+    its contractions split over the positions of one tp group, or a conv
+    orientation at one position (tp = 1): ``shards[j]`` is slice j of
     the keys (:func:`shard_contraction`; one whole key for tp = 1), and
     every position holds the same ciphertexts, test polynomials and
     offsets on its device.  The key switch's partial sums are reduced once
@@ -358,8 +541,9 @@ def bootstrap_matmul(shards: list[FastKeys], big_cts: list[torch.Tensor],
     already combined), and every position adds the sum to its own copy of
     ACC, so each returns the same [B, kN+1] outputs.  JAX
     ``_fbs_fast_impl``'s matmul scan (``ops/blind_rotate.py:350-372``),
-    with the port's gather rotation in place of the one-hot one; on CUDA it
-    issues every step without a host sync."""
+    with the port's gather rotation in place of the one-hot one, and its
+    conv ``fori_loop`` (``:361-366``); on CUDA it issues every step without
+    a host sync."""
     params = shards[0].params
     n = params.lwe_dim
     body = [add_body(c, params.half_window) for c in big_cts]
@@ -382,10 +566,10 @@ def functional_bootstrap_fast(fast: FastKeys, big_cts: torch.Tensor,
                               test_polys: torch.Tensor,
                               posts: torch.Tensor) -> torch.Tensor:
     """Batched FBS through ``fast.orientation``: one launch of its fused
-    kernel, or the ``"matmul"`` scan (:func:`bootstrap_matmul` on one
-    position); semantics identical to
+    kernel, or the ``"matmul"`` or conv scan (:func:`bootstrap_matmul` on
+    one position); semantics identical to
     :func:`..tfhe.pbs.functional_bootstrap`."""
-    if fast.orientation == "matmul":
+    if fast.orientation not in ("fused", "fused_otf"):
         return bootstrap_matmul([fast], [big_cts], [test_polys], [posts])[0]
     params = fast.params
     n, N = params.lwe_dim, params.poly_size

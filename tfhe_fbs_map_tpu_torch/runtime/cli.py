@@ -18,12 +18,15 @@ preset (``--params aes128_p4``, ``kreyvium_p10_staged``, …) pins them.
     python -m tfhe_fbs_map_tpu_torch.runtime prog.lbf --params aes128_p4 --mesh auto
     python -m tfhe_fbs_map_tpu_torch.runtime prog.lbf --params aes128_p4 \\
         --orientation matmul --mesh 2,2
+    python -m tfhe_fbs_map_tpu_torch.runtime prog.lbf \\
+        --params kreyvium_p10_staged --orientation keys_lhs
     torchrun --nproc-per-node 2 -m tfhe_fbs_map_tpu_torch.runtime prog.lbf \\
         --params aes128_p4 --mesh auto
 
 ``--mesh`` runs the executor dp-parallel over the evaluation batch
 (:mod:`..parallel`), and with ``--orientation matmul`` tp-parallel over
-the key contraction (``--mesh DP,TP``; the fused kernels take tp = 1).
+the key contraction (``--mesh DP,TP``; the fused kernels and the conv
+orientations take tp = 1).
 Under ``torchrun`` (or ``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``
 and ``RANK`` set by hand) every process builds the same keys and
 whole-batch ciphertexts from ``--seed`` and runs its slice; ``run_s`` is
@@ -48,7 +51,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.blind_rotate import FUSED_HEADROOM, N_LIMBS, pick_kernel
+from ..ops.blind_rotate import (CONV_ORIENTATIONS, FUSED_HEADROOM, N_LIMBS,
+                                conv_unsupported, pick_kernel)
 from ..ops.fused_blind_rotate import unsupported
 
 __all__ = ["main", "pick_orientations", "check_kernel", "optimizer_pick",
@@ -97,10 +101,19 @@ def free_memory(device: torch.device) -> int:
                    - torch.cuda.memory_allocated(device))
 
 
-def check_kernel(params, orientation: str) -> None:
+def check_kernel(params, orientation: str,
+                 device: torch.device | None = None) -> None:
     """Raise ValueError when the CUDA kernel of ``orientation`` cannot
     serve ``params`` (``"matmul"``, ``torch._int_mm`` a step, takes every
-    family whose digits fit int8 and whose N is a multiple of 8)."""
+    family whose digits fit int8 and whose N is a multiple of 8), or when
+    a conv orientation cannot run them on ``device``
+    (:func:`..ops.blind_rotate.conv_unsupported`: rules of its layout, so
+    on the CPU too)."""
+    if orientation in CONV_ORIENTATIONS:
+        why = conv_unsupported(params, orientation, device)
+        if why is not None:
+            raise ValueError(f"--orientation {orientation}: {why}")
+        return
     if orientation == "matmul":
         if params.bsk_base_log > MATMUL_MAX_BASE_LOG \
                 or params.poly_size % 8:
@@ -357,6 +370,7 @@ def _run(argv=None) -> int:
                          "%(default)s)")
     ap.add_argument("--orientation", default="auto",
                     choices=["auto", "fused", "fused_otf", "matmul",
+                             "keys_lhs", "keys_lhs_bf16", "keys_rhs",
                              "generic"],
                     help="bootstrap path of every family (auto: on CUDA the "
                          "fused kernel over precomputed key matrices when "
@@ -365,7 +379,10 @@ def _run(argv=None) -> int:
                          "and an error if the kernel cannot serve the "
                          "parameters; generic on the CPU; auto never picks "
                          "matmul: one torch._int_mm a CMux step over the "
-                         "fused key matrices, the only path tp shards)")
+                         "fused key matrices, the only path tp shards, nor "
+                         "keys_*: the JAX package's conv orientations over "
+                         "compact keys, one product a CMux step of the "
+                         "step's key windows, b <= 7, all key limbs)")
     ap.add_argument("--mesh", default=None, metavar="DP[,TP]|auto",
                     help="run the executor mesh-parallel: 'DP,TP' positions "
                          "(e.g. 4,2), 'DP' (tp=1), or 'auto' (all devices "
@@ -526,17 +543,26 @@ def _run(argv=None) -> int:
                                         bsk_limbs=bsk_limbs)
         else:
             orients = [args.orientation] * len(families)
-            if args.orientation != "generic" and device.type == "cuda":
+            if args.orientation != "generic" and (
+                    device.type == "cuda"
+                    or args.orientation in CONV_ORIENTATIONS):
                 for params in fam_params:
-                    check_kernel(params, args.orientation)
+                    check_kernel(params, args.orientation, device)
     except ValueError as e:
         print(e, file=sys.stderr)
         return 2
-    if staged and mesh is not None and "matmul" in orients:
-        print("the staged executor under a mesh takes the fused "
-              "orientations: --orientation matmul runs staged on one "
-              "device", file=sys.stderr)
+    if staged and mesh is not None and orients[0] not in (
+            "generic", "fused", "fused_otf"):
+        print(f"the staged executor under a mesh takes the fused "
+              f"orientations: --orientation {orients[0]} runs staged on "
+              f"one device", file=sys.stderr)
         return 2
+    if orients[0] in CONV_ORIENTATIONS and bsk_limbs != N_LIMBS:
+        # the optimizer's quantized key has no conv layout; all four limbs
+        # add no noise to what it allowed for (JAX runs them too)
+        print(f"# {orients[0]} keeps all {N_LIMBS} key limbs (the "
+              f"optimizer's pick: {bsk_limbs})", file=sys.stderr)
+        bsk_limbs = N_LIMBS
     fast = None
     if orients[0] != "generic":
         t0 = time.time()

@@ -615,7 +615,8 @@ class CircuitExecutor:
         keys are copied once to each of the mesh's devices (at tp > 1 each
         position's slice of them).  A mesh with tp > 1 takes native
         ``"matmul"`` keys alone, and a staged run under a mesh the fused
-        orientations (JAX's rules): ValueError otherwise."""
+        orientations, not ``"matmul"`` nor a conv one (JAX's rules,
+        ``executor.py:546-548``): ValueError otherwise."""
         if mesh is not None and not isinstance(mesh, Mesh):
             raise TypeError(f"mesh: a parallel.mesh.Mesh, not "
                             f"{type(mesh).__name__}")
@@ -624,9 +625,12 @@ class CircuitExecutor:
             if fast_keys is not None and len(fast_keys) != 2:
                 raise ValueError("staged fast_keys: a (fast1, fast2) pair")
             if mesh is not None and any(
-                    f.orientation == "matmul" for f in fast_keys or ()):
-                raise ValueError("the staged executor under a mesh takes "
-                                 "the fused orientations, not matmul")
+                    f.orientation not in ("fused", "fused_otf")
+                    for f in fast_keys or ()):
+                raise ValueError(
+                    "the staged executor under a mesh takes the fused "
+                    "orientations, not " + "+".join(
+                        f.orientation for f in fast_keys))
             self.params = keys.wire_params
             plan = compile_staged(prog, keys.p, keys.keys1.params,
                                   keys.keys2.params)
