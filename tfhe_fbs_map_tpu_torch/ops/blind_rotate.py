@@ -35,6 +35,7 @@ from ..tfhe.numeric import I32, I64, gadget_decompose, int8_matmul, \
     int8_matmul_nt, signed_limbs, u32, wrap32
 from ..tfhe.params import Q_BITS, TFHEParams
 from ..tfhe.pbs import add_body, sample_extract
+from ..utils import profiling
 from .fused_blind_rotate import (N_LIMBS, blind_rotate_fused,
                                  decompose_digits, unsupported)
 from .polymul import monomial_rotate, negacyclic_matrix
@@ -564,13 +565,20 @@ def bootstrap_matmul(shards: list[FastKeys], big_cts: list[torch.Tensor],
 
 def functional_bootstrap_fast(fast: FastKeys, big_cts: torch.Tensor,
                               test_polys: torch.Tensor,
-                              posts: torch.Tensor) -> torch.Tensor:
+                              posts: torch.Tensor,
+                              launch: profiling.Launch | None = None
+                              ) -> torch.Tensor:
     """Batched FBS through ``fast.orientation``: one launch of its fused
     kernel, or the ``"matmul"`` or conv scan (:func:`bootstrap_matmul` on
     one position); semantics identical to
-    :func:`..tfhe.pbs.functional_bootstrap`."""
+    :func:`..tfhe.pbs.functional_bootstrap`.  ``launch``: the call's entry
+    of the launch record, made at the fused kernel's launch
+    (:func:`.fused_blind_rotate.blind_rotate_fused`) or around a library
+    orientation's whole scan."""
     if fast.orientation not in ("fused", "fused_otf"):
-        return bootstrap_matmul([fast], [big_cts], [test_polys], [posts])[0]
+        with profiling.launch(launch):
+            return bootstrap_matmul([fast], [big_cts], [test_polys],
+                                    [posts])[0]
     params = fast.params
     n, N = params.lwe_dim, params.poly_size
     small = keyswitch_fast(add_body(big_cts, params.half_window), fast)
@@ -579,5 +587,5 @@ def functional_bootstrap_fast(fast: FastKeys, big_cts: torch.Tensor,
     b_init = ((2 * N - b_t) % (2 * N))[:, None].contiguous()
     a_steps = a_t.t()[:, :, None].contiguous()
     acc = blind_rotate_fused(b_init, a_steps, test_polys.contiguous(),
-                             fast.bsk_kernels, params)
+                             fast.bsk_kernels, params, launch=launch)
     return add_body(sample_extract(acc.permute(1, 0, 2), params), posts)

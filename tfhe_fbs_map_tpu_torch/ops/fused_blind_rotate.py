@@ -73,12 +73,13 @@ import torch
 
 from ..tfhe.numeric import I32, I64, int8_matmul, round_shift_right, wrap32
 from ..tfhe.params import TFHEParams
+from ..utils import profiling
 
 __all__ = ["blind_rotate_fused", "blind_rotate_k1", "blind_rotate_k2",
            "blind_rotate_k1_plain", "blind_rotate_k2_plain", "k1_plan",
            "k2_plan", "k1_small_plan", "k1_device_plan", "device_plan",
            "k1_layout", "k1_small_layout", "k1_small_smem", "k1s_clusters",
-           "K1Plan", "K1SmallPlan", "K2Plan", "LAUNCHES"]
+           "K1Plan", "K1SmallPlan", "K2Plan", "LAUNCHES", "kernel_path"]
 
 N_LIMBS = 4
 LAUNCHES = {"k1": 0, "k2": 0}
@@ -754,8 +755,23 @@ def blind_rotate_k1(b_init, a_t, test_polys, kernels, params: TFHEParams,
                          batch_tile)
 
 
+def kernel_path(orientation: str | None, params: TFHEParams) -> str:
+    """What runs a blind rotation of ``params`` through ``orientation``, as
+    the launch record names it: ``"k2"`` for ``"fused"``, ``"k1"`` for
+    ``"fused_otf"`` (``"k1s"`` below N=K1_SLICE, its small-N kernel), the
+    orientation's name for a library one, ``"generic"`` for None (no fast
+    keys)."""
+    if orientation == "fused":
+        return "k2"
+    if orientation == "fused_otf":
+        return "k1s" if params.poly_size < K1_SLICE else "k1"
+    return orientation or "generic"
+
+
 def blind_rotate_fused(b_init, a_t, test_polys, kernels, params: TFHEParams,
-                       batch_tile: int | None = None) -> torch.Tensor:
+                       batch_tile: int | None = None,
+                       launch: profiling.Launch | None = None
+                       ) -> torch.Tensor:
     """All-steps-fused blind rotation -> accumulator [k+1, B, N] int32.
 
     ``b_init``: [B, 1] int32 initial amounts ((2N − b~) mod 2N); ``a_t``:
@@ -763,6 +779,9 @@ def blind_rotate_fused(b_init, a_t, test_polys, kernels, params: TFHEParams,
     int32; ``kernels``: K2's [n, L·(k+1)·N, rows·N] or K1's
     [n, L·(k+1), rows, 2N] int8.  ``batch_tile``: ciphertexts per tile
     (CPU: per slice; CUDA: per cluster, default chosen by :func:`k1_plan`
-    or :func:`k2_plan`); the last tile may be ragged."""
+    or :func:`k2_plan`); the last tile may be ragged.  ``launch``: the
+    family call's entry of the launch record, made at the launch
+    (:func:`..utils.profiling.launch`)."""
     fn = blind_rotate_k1 if kernels.ndim == 4 else blind_rotate_k2
-    return fn(b_init, a_t, test_polys, kernels, params, batch_tile)
+    with profiling.launch(launch):
+        return fn(b_init, a_t, test_polys, kernels, params, batch_tile)

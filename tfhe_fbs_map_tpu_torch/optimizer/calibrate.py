@@ -150,7 +150,8 @@ def time_point(ex, nb: int, v: int, reps: int = 3) -> dict:
     fused kernel's span in each call.  Where a kernel ran, the work around
     it is then timed alone, the same way (:func:`time_around`).  Medians
     over the repetitions, ms."""
-    from ..runtime.profile import _ms, _stamp, _sync, _timed_rotations
+    from ..runtime.profile import _ms, _stamp, _sync
+    from ..utils import profiling
 
     device = ex.device
     ex.levels = [synth_level(ex.params, nb)]
@@ -164,16 +165,17 @@ def time_point(ex, nb: int, v: int, reps: int = 3) -> dict:
     iters = max(1, min(8, int(200.0 / max(first_ms, 1e-3))))
     steps, kernels = [], []
     for _ in range(reps):
-        spans = []
-        with _timed_rotations(device, spans):
+        with profiling.collect(stamp=lambda: _stamp(device)) as got:
             start = _stamp(device)
             for _ in range(iters):
                 ex.step(buf, 0)
             end = _stamp(device)
         _sync(device)
         steps.append(_ms(start, end) / iters)
+        spans = [(a, b) for launch, a, b in got.spans
+                 if launch.path in profiling.KERNEL_PATHS]
         if spans:
-            kernels.append(sum(_ms(a, b) for a, b, *_ in spans) / len(spans))
+            kernels.append(sum(_ms(a, b) for a, b in spans) / len(spans))
     out = {"nb": nb, "v": v, "rows": nb * v, "iters": iters,
            "step_ms": statistics.median(steps), "all_step_ms": steps,
            "kernel_ms": statistics.median(kernels) if kernels else None}

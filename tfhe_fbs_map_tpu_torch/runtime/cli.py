@@ -37,12 +37,15 @@ On a CUDA device the executor replays one CUDA graph a level group
 (:meth:`..runtime.executor.CircuitExecutor.run`); they are captured after
 the inputs are encrypted and before the timed window (``# graphs:`` on
 stderr), so ``run_s`` is replay alone.  ``--checkpoint`` runs the first
-repeat's levels one by one, as the JAX CLI does.
+repeat's levels one by one, as the JAX CLI does.  ``--trace DIR`` writes
+the Chrome trace of the last repeat (``utils.profiling.torch_trace``),
+with the executor's host spans beside the device's kernels.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 import time
@@ -54,6 +57,7 @@ import torch
 from ..ops.blind_rotate import (CONV_ORIENTATIONS, FUSED_HEADROOM, N_LIMBS,
                                 conv_unsupported, pick_kernel)
 from ..ops.fused_blind_rotate import unsupported
+from ..utils.profiling import torch_trace
 
 __all__ = ["main", "pick_orientations", "check_kernel", "optimizer_pick",
            "staged_solution", "Pick", "NoParameters", "FUSED_HEADROOM",
@@ -390,6 +394,11 @@ def _run(argv=None) -> int:
                          "evaluation batch; tp shards the key contraction "
                          "of --orientation matmul")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--trace", default=None, metavar="DIR",
+                    help="write the Chrome trace of the timed run (the "
+                         "last repeat) to DIR, with the executor's spans "
+                         "(tfhe.run, tfhe.replay, ...) on its timeline; "
+                         "run_s then includes the profiler's cost")
     args = ap.parse_args(argv)
 
     if args.device == "cuda" and not torch.cuda.is_available():
@@ -598,15 +607,23 @@ def _run(argv=None) -> int:
             print("# graphs: none (tp > 1 runs its levels eagerly)",
                   file=sys.stderr)
     run_s = None
-    for i in range(max(1, args.repeat)):
-        sync()
-        t0 = time.time()
-        # checkpointing only applies to the first run: later repeats are
-        # steady-state timing and must not resume from its snapshots
-        buf = ex.run(buf0, checkpoint=args.checkpoint if i == 0 else None,
-                     checkpoint_every=args.checkpoint_every)
-        sync()
-        run_s = time.time() - t0
+    repeats = max(1, args.repeat)
+    for i in range(repeats):
+        traced = args.trace is not None and i == repeats - 1
+        with (torch_trace(args.trace) if traced
+              else contextlib.nullcontext()) as trace_path:
+            sync()
+            t0 = time.time()
+            # checkpointing only applies to the first run: later repeats
+            # are steady-state timing and must not resume from its
+            # snapshots
+            buf = ex.run(buf0,
+                         checkpoint=args.checkpoint if i == 0 else None,
+                         checkpoint_every=args.checkpoint_every)
+            sync()
+            run_s = time.time() - t0
+        if traced:
+            print(f"# trace: {trace_path}", file=sys.stderr)
     got = gather_outputs(ex.decrypt_outputs(buf))
 
     errors = wrong_bits = 0

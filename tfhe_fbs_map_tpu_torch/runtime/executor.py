@@ -40,10 +40,12 @@ no graphs.
 
 from __future__ import annotations
 
+import contextlib
 import math
 import sys
 import time
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -59,6 +61,7 @@ from ..tfhe.numeric import I64, wrap32
 from ..tfhe.params import TFHEParams
 from ..tfhe.pbs import build_test_vector, functional_bootstrap
 from ..tfhe.staged import SELECT_P, StagedKeys, split_node
+from ..utils import profiling
 
 __all__ = ["CircuitExecutor", "LevelPlan", "StagedLevelPlan",
            "compile_program", "compile_staged", "staged_probe",
@@ -472,16 +475,19 @@ def _lincomb_flat(buf, wire_idx, coefs, consts) -> torch.Tensor:
     return wrap32(lin).transpose(0, 1).reshape(v * nb, d)
 
 
-def _run_fbs(keys: TFHEKeys, fast_keys, flat, tvs, posts, v: int):
+def _run_fbs(keys: TFHEKeys, fast_keys, flat, tvs, posts, v: int,
+             launch: profiling.Launch | None = None):
     """One batched FBS of the V-major flat batch, the per-bootstrap test
-    polynomials and offsets repeated for each of the V evaluations."""
+    polynomials and offsets repeated for each of the V evaluations.
+    ``launch``: the call's entry of the launch record."""
     tvs_flat = tvs.repeat(v, 1)
     posts_flat = posts.repeat(v)
     if fast_keys is not None:
         from ..ops.blind_rotate import functional_bootstrap_fast
         return functional_bootstrap_fast(fast_keys, flat, tvs_flat,
-                                         posts_flat)
-    return functional_bootstrap(keys, flat, tvs_flat, posts_flat)
+                                         posts_flat, launch)
+    with profiling.launch(launch):
+        return functional_bootstrap(keys, flat, tvs_flat, posts_flat)
 
 
 def _scatter(buf, fresh, out_rows) -> torch.Tensor:
@@ -496,43 +502,51 @@ def _scatter(buf, fresh, out_rows) -> torch.Tensor:
 
 
 def _level_step(keys: TFHEKeys, fast_keys, buf, wire_idx, coefs, consts,
-                tvs, posts, out_rows) -> torch.Tensor:
+                tvs, posts, out_rows, launch: profiling.Launch | None = None
+                ) -> torch.Tensor:
     """One native level, in place on ``buf`` [W, V, d]: lincombs of gathered
-    wires, one batched FBS, results scattered to ``out_rows``."""
+    wires, one batched FBS, results scattered to ``out_rows``.
+    ``launch``: the FBS call's entry of the launch record."""
     fresh = _run_fbs(keys, fast_keys, _lincomb_flat(buf, wire_idx, coefs,
                                                     consts), tvs, posts,
-                     buf.shape[1])
+                     buf.shape[1], launch)
     return _scatter(buf, fresh, out_rows)
 
 
-def _tp_level_step(keys: list, bufs: list, plans: list) -> list:
+def _tp_level_step(keys: list, bufs: list, plans: list,
+                   launches: list | None = None) -> list:
     """One native level of a tp group, in place on each position's buffer
     (the same values in each): every position forms the same lincombs, the
     group runs one batched FBS, its key contraction split over the
     positions' slices of the ``"matmul"`` keys, and every position
-    scatters the results into its buffer."""
+    scatters the results into its buffer.  ``launches``: the FBS call's
+    entries of the launch record, one a position."""
     v = bufs[0].shape[1]
     flats = [_lincomb_flat(b, *p[:3]) for b, p in zip(bufs, plans)]
-    fresh = group_bootstrap(keys, flats, [p[3].repeat(v, 1) for p in plans],
-                            [p[4].repeat(v) for p in plans])
+    with profiling.launch(*(launches or ())):
+        fresh = group_bootstrap(keys, flats,
+                                [p[3].repeat(v, 1) for p in plans],
+                                [p[4].repeat(v) for p in plans])
     return [_scatter(b, f, p[5]) for b, f, p in zip(bufs, fresh, plans)]
 
 
 def _staged_level_step(keys1: TFHEKeys, keys2: TFHEKeys, fast1, fast2,
                        n_splits: int, buf, wi1, cf1, cs1, tvs1, ps1,
                        out_rows1, wi2, cf2, cs2, tvs2, ps2,
-                       out_rows) -> torch.Tensor:
+                       out_rows, launches: tuple = (None, None)
+                       ) -> torch.Tensor:
     """One staged level, in place on ``buf``: the fam1 call (stage 1 of the
     ``n_splits`` split nodes, then the fam1 singles) and its scatter, then
     the fam2 call, whose first ``n_splits`` rows add the stage-1 outputs G,
     and its scatter.  Split and padding rows of the fam1 call land on the
-    dummy row."""
+    dummy row.  ``launches``: the two calls' entries of the launch
+    record."""
     _, v, d = buf.shape
     nb1, nb2 = wi1.shape[0], wi2.shape[0]
     g = None
     if nb1:
         out1 = _run_fbs(keys1, fast1, _lincomb_flat(buf, wi1, cf1, cs1),
-                        tvs1, ps1, v).reshape(v, nb1, d)
+                        tvs1, ps1, v, launches[0]).reshape(v, nb1, d)
         g = out1[:, :n_splits]                            # [V, ns, d]
         buf[out_rows1.to(I64)] = out1.transpose(0, 1)
     if nb2:
@@ -540,7 +554,7 @@ def _staged_level_step(keys1: TFHEKeys, keys2: TFHEKeys, fast1, fast2,
         if n_splits:
             lead = flat2.view(v, nb2, d)[:, :n_splits]
             lead.copy_(wrap32(lead.to(I64) + g.to(I64)))
-        out2 = _run_fbs(keys2, fast2, flat2, tvs2, ps2, v)
+        out2 = _run_fbs(keys2, fast2, flat2, tvs2, ps2, v, launches[1])
         buf[out_rows.to(I64)] = out2.reshape(v, nb2, d).transpose(0, 1)
     return buf
 
@@ -582,23 +596,47 @@ def _layout(shards: list[torch.Tensor]) -> tuple:
     return tuple((s.device, tuple(s.shape)) for s in shards)
 
 
+class _Graph(NamedTuple):
+    graph: torch.cuda.CUDAGraph
+    launches: tuple          # its family calls' entries, made at capture
+    counts: dict             # its kernel launches under LAUNCHES' keys
+    span: str                # the host span of its replay
+
+
 class _Graphs:
     """The captured level groups of one wire-buffer layout: a static buffer
     a position, and for each group and position (group-major, the order of
-    capture and of replay) a CUDA graph and the kernel launches one replay
-    of it makes."""
+    capture and of replay) a CUDA graph with the launch record's entries
+    of its family calls."""
 
     def __init__(self, statics: list[torch.Tensor]):
         self.statics = statics
-        self.graphs: list[tuple[torch.cuda.CUDAGraph, dict]] = []
+        self.graphs: list[_Graph] = []
 
-    def replay(self) -> None:
+    def replay(self, batch: int | None = None) -> None:
         """Every group on every position, in place on the static buffers;
-        each replay adds its launches to ``fbr.LAUNCHES``."""
-        for graph, launches in self.graphs:
-            graph.replay()
-            for k, n in launches.items():
+        each replay adds its kernel launches to ``fbr.LAUNCHES``.  In traced
+        run ``batch`` each replay is a host span and appends its entries to
+        the launch record."""
+        for g in self.graphs:
+            if batch is None:
+                g.graph.replay()
+            else:
+                with profiling.span(g.span, True):
+                    g.graph.replay()
+                profiling.record(g.launches, batch)
+            for k, n in g.counts.items():
                 fbr.LAUNCHES[k] += n
+
+
+def _take_back(entries) -> dict[str, int]:
+    """Take the fused-kernel launches of ``entries`` back out of
+    ``fbr.LAUNCHES`` (a capture's, which launched nothing, or a warm-up's);
+    returns them."""
+    counts = profiling.launch_counts(entries)
+    for k, n in counts.items():
+        fbr.LAUNCHES[k] -= n
+    return counts
 
 
 class CircuitExecutor:
@@ -640,6 +678,7 @@ class CircuitExecutor:
         else:
             raise TypeError(f"keys: TFHEKeys or StagedKeys, not "
                             f"{type(keys).__name__}")
+        profiling.tracing()              # a profiler off now ends a session
         self.prog = prog
         self.keys = keys
         self.fast_keys = fast_keys
@@ -672,10 +711,12 @@ class CircuitExecutor:
     @levels.setter
     def levels(self, levels: list) -> None:
         """New levels drop what was built from the old ones: the plan
-        tensors on the devices and the captured graphs."""
+        tensors on the devices, the captured graphs and the family calls'
+        counts."""
         self._levels = levels
         self._plan_device = None
         self._graphs: dict[tuple, _Graphs] = {}
+        self._family_calls: dict[int, list] = {}
 
     @property
     def groups(self) -> list[range]:
@@ -707,6 +748,44 @@ class CircuitExecutor:
                 for p in self.levels]
         return self._plan_device[device]
 
+    def family_calls(self, lv: int) -> list[tuple[str, int, int]]:
+        """(family, bootstraps launched, real bootstraps) of each family
+        call of level ``lv`` for one evaluation: ``native``, or ``fam1``
+        and ``fam2`` (a call of none launched is not made).  Real are the
+        out-rows that are not the dummy row, and a staged fam1 call's
+        ``n_splits`` split rows."""
+        if lv not in self._family_calls:
+            plan, dummy = self.levels[lv], self.dummy_row
+            if self.staged:
+                calls = [("fam1", plan.wire_idx1.shape[0],
+                          int(np.sum(plan.out_rows1 != dummy))
+                          + plan.n_splits),
+                         ("fam2", plan.wire_idx2.shape[0],
+                          int(np.sum(plan.out_rows != dummy)))]
+            else:
+                calls = [("native", plan.wire_idx.shape[0],
+                          int(np.sum(plan.out_rows != dummy)))]
+            self._family_calls[lv] = calls
+        return self._family_calls[lv]
+
+    def _launches(self, buf: torch.Tensor, lv: int) -> list:
+        """The launch record's entries of level ``lv``'s family calls on
+        ``buf``'s position, one a family (None for each where no
+        :func:`..utils.profiling.collect` block is open)."""
+        calls = self.family_calls(lv)
+        if not profiling.collecting():
+            return [None] * len(calls)
+        fasts = self.fast_keys if self.staged else (self.fast_keys,)
+        params = ((self.keys.keys1.params, self.keys.keys2.params)
+                  if self.staged else (self.keys.params,))
+        v, dev = buf.shape[1], str(buf.device)
+        return [profiling.Launch(
+                    None, lv, fam, dev,
+                    fbr.kernel_path(getattr(f, "orientation", None), p),
+                    nb * v, real * v)
+                for (fam, nb, real), f, p in zip(calls, fasts or (None,) * 2,
+                                                 params)]
+
     def step(self, buf: torch.Tensor, lv: int) -> torch.Tensor:
         """Run level ``lv`` in place on ``buf`` (one device's buffer or
         shard, with that device's keys); returns it.  At tp > 1 a level
@@ -716,11 +795,13 @@ class CircuitExecutor:
                              "shards together (run)")
         keys, fast = self._replica(buf.device)
         plan = self.plan_tensors(buf.device)[lv]
+        launches = self._launches(buf, lv)
         if self.staged:
             fast1, fast2 = fast or (None, None)
             return _staged_level_step(keys.keys1, keys.keys2, fast1, fast2,
-                                      self.levels[lv].n_splits, buf, *plan)
-        return _level_step(keys, fast, buf, *plan)
+                                      self.levels[lv].n_splits, buf, *plan,
+                                      launches=launches)
+        return _level_step(keys, fast, buf, *plan, launch=launches[0])
 
     def _step_all(self, shards: list[torch.Tensor], lv: int
                   ) -> list[torch.Tensor]:
@@ -732,7 +813,8 @@ class CircuitExecutor:
         for keys, bufs in zip(self.mesh.groups(self._tp_keys),
                               self.mesh.groups(shards)):
             plans = [self.plan_tensors(b.device)[lv] for b in bufs]
-            out += _tp_level_step(keys, bufs, plans)
+            out += _tp_level_step(keys, bufs, plans,
+                                  [self._launches(b, lv)[0] for b in bufs])
         return out
 
     def _shard(self, buf: torch.Tensor):
@@ -790,6 +872,7 @@ class CircuitExecutor:
         positions): 0 off the card, at tp > 1 (eager levels) or when they
         exist already.  ``buf``'s values are not used."""
         shards = self._shards(buf)
+        profiling.tracing()              # a profiler off now ends a session
         if shards[0].device.type != "cuda" or self.tp > 1 \
                 or _layout(shards) in self._graphs:
             return 0
@@ -811,47 +894,48 @@ class CircuitExecutor:
         First each device runs the first level of every group once, on a
         scratch copy, on the capture stream: that builds and loads the
         kernels and fills their plan caches and cuBLAS's workspace, so that
-        nothing in a capture waits for the card.  The warm-up's launches
-        and the ones a capture counts are taken back out of
-        ``fbr.LAUNCHES``; each replay adds its graph's.  A capture that
-        meets a host sync raises."""
+        nothing in a capture waits for the card.  Each graph keeps the
+        launch record's entries of the family calls it captured; the
+        kernel launches of those and of the warm-up's are taken back out
+        of ``fbr.LAUNCHES`` (:func:`_take_back`), and each replay adds its
+        graph's.  A capture that meets a host sync raises."""
         devices = list(dict.fromkeys(s.device for s in shards))
         pools = {}
-        before = dict(fbr.LAUNCHES)
-        try:
-            for dev in devices:
-                self._replica(dev)
-                self.plan_tensors(dev)
-                stream = _capture_stream(dev)
-                stream.wait_stream(torch.cuda.current_stream(dev))
-                with torch.cuda.device(dev), torch.cuda.stream(stream):
-                    scratch = next(s for s in shards
-                                   if s.device == dev).clone()
-                    for group in self.groups:
-                        self.step(scratch, group.start)
-                    del scratch
-                torch.cuda.current_stream(dev).wait_stream(stream)
-                pools[dev] = torch.cuda.graph_pool_handle()
-        finally:
-            fbr.LAUNCHES.update(before)
+        with profiling.collect() as warm:
+            try:
+                for dev in devices:
+                    self._replica(dev)
+                    self.plan_tensors(dev)
+                    stream = _capture_stream(dev)
+                    stream.wait_stream(torch.cuda.current_stream(dev))
+                    with torch.cuda.device(dev), torch.cuda.stream(stream):
+                        scratch = next(s for s in shards
+                                       if s.device == dev).clone()
+                        for group in self.groups:
+                            self.step(scratch, group.start)
+                        del scratch
+                    torch.cuda.current_stream(dev).wait_stream(stream)
+                    pools[dev] = torch.cuda.graph_pool_handle()
+            finally:
+                _take_back(warm.entries)
         graphs = _Graphs([torch.empty_like(s) for s in shards])
-        for group in self.groups:
+        for i, group in enumerate(self.groups):
             for static in graphs.statics:
                 dev = static.device
                 graph = torch.cuda.CUDAGraph()
-                before = dict(fbr.LAUNCHES)
-                try:
-                    with torch.cuda.device(dev), torch.cuda.graph(
-                            graph, pool=pools[dev],
-                            stream=_capture_stream(dev)):
-                        for lv in group:
-                            self.step(static, lv)
-                finally:
-                    launches = {k: fbr.LAUNCHES[k] - before[k]
-                                for k in before}
-                    for k, n in launches.items():
-                        fbr.LAUNCHES[k] -= n
-                graphs.graphs.append((graph, launches))
+                with profiling.collect() as got:
+                    try:
+                        with torch.cuda.device(dev), torch.cuda.graph(
+                                graph, pool=pools[dev],
+                                stream=_capture_stream(dev)):
+                            for lv in group:
+                                self.step(static, lv)
+                    finally:
+                        counts = _take_back(got.entries)
+                graphs.graphs.append(_Graph(
+                    graph, tuple(got.entries), counts,
+                    f"tfhe.replay g{i} levels {group.start}-"
+                    f"{group.stop - 1} {dev}"))
         return graphs
 
     def run(self, buf, checkpoint: str | None = None,
@@ -869,6 +953,9 @@ class CircuitExecutor:
         one tp group's step a dp group), which is each group's levels in
         turn.
 
+        While a torch profiler records, the run is a host span with the
+        spans and launch record of :mod:`..utils.profiling` inside it.
+
         ``checkpoint``: optional ``.npz`` path.  The whole buffer is saved
         (keys ``buf``, ``level``, ``num_levels``, as the JAX executor saves
         it; under a mesh each dp group's first shard, gathered in batch
@@ -878,14 +965,27 @@ class CircuitExecutor:
         ``checkpoint_every``: fixed level interval; default: adaptive, a
         snapshot is taken when the time spent on snapshots stays within
         ``checkpoint_budget`` of the elapsed run, priced by the last one."""
+        args = (buf, checkpoint, checkpoint_every, checkpoint_budget)
+        if not profiling.tracing():
+            return self._run(*args, None)
+        with profiling.span("tfhe.run", True):
+            return self._run(*args, profiling.begin_batch())
+
+    def _run(self, buf, checkpoint, checkpoint_every, checkpoint_budget,
+             batch: int | None):
+        """:meth:`run`; ``batch``: the traced run's index in the launch
+        record (None: untraced)."""
+        traced = batch is not None
         shards = self._shards(buf)
         if checkpoint is None and shards[0].device.type == "cuda" \
                 and self.tp == 1:
             graphs = self._graphs_of(shards)
-            for static, s in zip(graphs.statics, shards):
-                static.copy_(s)
-            graphs.replay()
-            shards = [static.clone() for static in graphs.statics]
+            with profiling.span("tfhe.copy_in", traced):
+                for static, s in zip(graphs.statics, shards):
+                    static.copy_(s)
+            graphs.replay(batch)
+            with profiling.span("tfhe.copy_out", traced):
+                shards = [static.clone() for static in graphs.statics]
             return shards if self.mesh is not None else shards[0]
         if checkpoint is not None and self.mesh is not None \
                 and self.mesh.spans_processes:
@@ -909,26 +1009,29 @@ class CircuitExecutor:
                             else [loaded]
             except FileNotFoundError:
                 pass
-        for lv in range(start, len(self.levels)):
-            shards = self._step_all(shards, lv)
-            if checkpoint is None or lv + 1 >= len(self.levels):
-                continue
-            if checkpoint_every is not None:
-                due = (lv + 1) % checkpoint_every == 0
-            else:
-                due = spent + cost_est < checkpoint_budget * (
-                    time.time() - t_run)
-            if due:
-                t0 = time.time()
-                np.savez(checkpoint, buf=np.concatenate(
-                    [s.cpu().numpy() for s in self._leaders(shards)],
-                    axis=1), level=lv,
-                    num_levels=len(self.levels))
-                cost_est = time.time() - t0
-                spent += cost_est
-                print(f"# checkpoint level {lv}: {cost_est:.2f}s (total "
-                      f"{spent:.2f}s of {time.time() - t_run:.2f}s)",
-                      file=sys.stderr)
+        with (profiling.collect(batch=batch) if traced
+              else contextlib.nullcontext()):
+            for lv in range(start, len(self.levels)):
+                with profiling.span(f"tfhe.level {lv}", traced):
+                    shards = self._step_all(shards, lv)
+                if checkpoint is None or lv + 1 >= len(self.levels):
+                    continue
+                if checkpoint_every is not None:
+                    due = (lv + 1) % checkpoint_every == 0
+                else:
+                    due = spent + cost_est < checkpoint_budget * (
+                        time.time() - t_run)
+                if due:
+                    t0 = time.time()
+                    np.savez(checkpoint, buf=np.concatenate(
+                        [s.cpu().numpy() for s in self._leaders(shards)],
+                        axis=1), level=lv,
+                        num_levels=len(self.levels))
+                    cost_est = time.time() - t0
+                    spent += cost_est
+                    print(f"# checkpoint level {lv}: {cost_est:.2f}s "
+                          f"(total {spent:.2f}s of "
+                          f"{time.time() - t_run:.2f}s)", file=sys.stderr)
         return shards if self.mesh is not None else shards[0]
 
     def decrypt_outputs(self, buf) -> dict[str, np.ndarray]:

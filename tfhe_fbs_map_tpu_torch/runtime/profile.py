@@ -8,7 +8,8 @@ Runs the program's levels one at a time through ``CircuitExecutor.step``,
 as ``CircuitExecutor.run`` does with a checkpoint (without one it replays
 a CUDA graph a level group, which hides the levels), and times every level
 and every fused blind-rotation call inside it (CUDA events on the card,
-the host clock on the CPU), grouped by ciphertexts a level and, for each
+the host clock on the CPU, paired with the calls' entries of the launch
+record, ``utils.profiling``), grouped by ciphertexts a level and, for each
 parameter family (``fam1``/``fam2`` of a staged preset, ``native``
 otherwise), by ciphertexts a launch.  When every level ran it decrypts and checks the
 outputs against ``LutProgram.eval``.  It then runs the first
@@ -42,7 +43,6 @@ the library time of the launch's contractions with their limb combine,
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import sys
 import time
@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from ..tfhe.params import StagedPreset
+from ..utils import profiling
 from .executor import CircuitExecutor
 
 __all__ = ["profile_program", "trace_run", "step_variants", "VARIANTS"]
@@ -79,55 +80,31 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-@contextlib.contextmanager
-def _timed_rotations(device: torch.device, spans: list):
-    """Stamp both sides of every fused blind-rotation call of the fast
-    bootstrap; ``spans`` collects (start, end, params, ciphertexts)."""
-    from ..ops import blind_rotate as br
-    inner = br.blind_rotate_fused
-
-    def timed(b_init, a_t, test_polys, kernels, params, *args, **kw):
-        t0 = _stamp(device)
-        out = inner(b_init, a_t, test_polys, kernels, params, *args, **kw)
-        spans.append((t0, _stamp(device), params, test_polys.shape[0]))
-        return out
-
-    br.blind_rotate_fused = timed
-    try:
-        yield
-    finally:
-        br.blind_rotate_fused = inner
-
-
-def _family(ex: CircuitExecutor, params) -> str:
-    if not ex.staged:
-        return "native"
-    return "fam1" if params == ex.keys.keys1.params else "fam2"
-
-
 def time_levels(ex: CircuitExecutor, buf: torch.Tensor,
                 levels: int) -> tuple[torch.Tensor, dict]:
     """Run the first ``levels`` levels on a copy of ``buf``; per-level times
     grouped by ciphertexts a level, and per-launch times by family and
-    ciphertexts a launch."""
+    ciphertexts a launch: the launch record's entries of the level's
+    family calls, each with its blind rotation's stamps
+    (:func:`..utils.profiling.collect`)."""
     device = ex.device
     buf = buf.clone()
-    stamps, spans = [], []
+    stamps = []
     _sync(device)
     t0 = time.perf_counter()
-    with _timed_rotations(device, spans):
+    with profiling.collect(stamp=lambda: _stamp(device)) as got:
         for lv in range(levels):
-            start, first = _stamp(device), len(spans)
+            start, first = _stamp(device), len(got.spans)
             buf = ex.step(buf, lv)
-            stamps.append((start, _stamp(device), first, len(spans)))
+            stamps.append((start, _stamp(device), first, len(got.spans)))
     _sync(device)
     wall = time.perf_counter() - t0
     groups = defaultdict(lambda: [0, 0.0, 0.0])
     fams = defaultdict(lambda: defaultdict(lambda: [0, 0.0]))
     level_ms = kernel_ms = 0.0
     for a, b, lo, hi in stamps:
-        launches = [(_family(ex, prm), width, _ms(ka, kb))
-                    for ka, kb, prm, width in spans[lo:hi]]
+        launches = [(launch.family, launch.launched, _ms(ka, kb))
+                    for launch, ka, kb in got.spans[lo:hi]]
         g = groups[sum(w for _, w, _ in launches)]
         g[0] += 1
         g[1] += _ms(a, b)
