@@ -23,8 +23,8 @@ Phases, each printed with what ran and how long it took:
    staged main paths, at full length (n=642 up to 8192 ciphertexts, n=674
    at 2560);
 5. the main path: the runtime CLI on the mapped AES-128 program, once with
-   ``--orientation auto`` (K2 when its key matrices fit) and once with
-   ``fused_otf`` (K1), each required bit-exact and to have launched its
+   ``--orientation auto`` (K1, of the lower calibrated price) and once with
+   ``fused`` (K2), each required bit-exact and to have launched its
    kernel;
 6. the staged main path: the runtime CLI on the Kreyvium-1152 program at
    the ``kreyvium_p10_staged`` preset with ``--orientation auto``, required
@@ -48,9 +48,10 @@ Phases, each printed with what ran and how long it took:
    launches at full length (every step, 512 ciphertexts: K2 at anchor, p8
    and p16, K1 at anchor and native p32) against its plain version,
    bitwise, with both times and the bound; then ``bench.main`` at
-   ``--preset anchor`` (``auto``: K2), anchor ``--orientation fused_otf``
-   (K1), anchor ``--bsk-limbs 3`` (K2 on a quantized key), ``p8``,
-   ``p16`` (K2) and ``p32 --native-p32`` (K1 at N=2048), each required to
+   ``--preset anchor`` (``auto``: K1, of the lower calibrated price),
+   anchor ``--orientation fused`` (K2), anchor ``--bsk-limbs 3
+   --orientation fused`` (K2 on a quantized key), ``p8``, ``p16`` (``auto``:
+   K1) and ``p32 --native-p32`` (K1 at N=2048), each required to
    launch the kernel its JSON names 1 + iters times and the other never,
    and to report 0 errors; the quantized key is far outside the anchor's
    noise budget, so that run is held to report its errors beside the noise
@@ -69,7 +70,7 @@ Phases, each printed with what ran and how long it took:
    processes over gloo (``--mesh auto``, AES-128 at batch 8, K1), rank 0's
    line bit-exact with dp 2, 230 K1 launches in each rank; (e)
    ``bench_multichip`` at its defaults, errors 0;
-10. CUDA graphs: AES-128 at batch 8 through K1 and through ``auto`` (K2),
+10. CUDA graphs: AES-128 at batch 8 through K1 and through K2,
     staged Kreyvium-1152 at batch 16 (K1) and AES-128 at batch 16 on two
     shards of the card (K1), each once as ``run``'s replay of one CUDA
     graph a level group and then once as the eager level loop (one
@@ -692,7 +693,7 @@ def check_pick(fbr, pick, sizes: list[list[int]], worst: dict) -> list[str]:
     dev = torch.device("cuda")
     profile = h100_profile()
     model = [profile.kernel(f.lwe_dim, f.glwe_dim, f.poly_size, f.bsk_level,
-                            pick.bsk_limbs, pick.staged)
+                            f.ksk_level, pick.bsk_limbs, pick.staged)
              for f in pick.families]
     card = pick_orientations(list(pick.families), dev,
                              bsk_limbs=pick.bsk_limbs)
@@ -807,7 +808,8 @@ def run_optimizer_path(fbr, worst: dict) -> list[tuple[str, dict]]:
 
 
 # phase 8: the bench's kernel launches at full length, (preset, kernel), at
-# the bench's default batch; anchor on both kernels, the rest on auto's
+# the bench's default batch; anchor on both kernels, p8 and p16 on K2 (which
+# ``--orientation fused`` runs), p32 on K1
 BENCH_BATCH = 512
 BENCH_LAUNCHES = (("anchor", "k2"), ("anchor", "k1"), ("p8", "k2"),
                   ("p16", "k2"), ("p32", "k1"))
@@ -817,13 +819,13 @@ BENCH_LAUNCHES = (("anchor", "k2"), ("anchor", "k1"), ("p8", "k2"),
 # bench measured 63/512 wrong at its r1 anchor), so that run is held to
 # report its errors and exit 1 on them, not to 0 errors.
 BENCH_RUNS = (
-    ("bench anchor", ["--preset", "anchor"], "k2", 0),
-    ("bench anchor fused_otf", ["--preset", "anchor", "--orientation",
-                                "fused_otf"], "k1", 0),
-    ("bench anchor bsk_limbs=3", ["--preset", "anchor", "--bsk-limbs", "3"],
-     "k2", 1),
-    ("bench p8", ["--preset", "p8"], "k2", 0),
-    ("bench p16", ["--preset", "p16"], "k2", 0),
+    ("bench anchor", ["--preset", "anchor"], "k1", 0),
+    ("bench anchor fused", ["--preset", "anchor", "--orientation", "fused"],
+     "k2", 0),
+    ("bench anchor bsk_limbs=3", ["--preset", "anchor", "--bsk-limbs", "3",
+                                  "--orientation", "fused"], "k2", 1),
+    ("bench p8", ["--preset", "p8"], "k1", 0),
+    ("bench p16", ["--preset", "p16"], "k1", 0),
     ("bench p32 native", ["--preset", "p32", "--native-p32"], "k1", 0),
 )
 # the 16x16 multiplier, mapped by the port's CLI (944 bootstraps), then run
@@ -1112,7 +1114,7 @@ def run_bench_multichip(smi: str, launches: dict) -> dict:
 GRAPH_PROFILED = "aes128_p4 fused_otf"
 GRAPH_RUNS = (
     ("aes128_p4 fused_otf", AES_LBF, "aes128_p4", 8, "fused_otf", 1),
-    ("aes128_p4 auto", AES_LBF, "aes128_p4", 8, "auto", 1),
+    ("aes128_p4 fused", AES_LBF, "aes128_p4", 8, "fused", 1),
     (f"{KREYVIUM_PRESET} auto", KREYVIUM_LBF, KREYVIUM_PRESET, KREYVIUM_BATCH,
      "auto", 1),
     ("aes128_p4 fused_otf dp=2", AES_LBF, "aes128_p4", MESH_AES_BATCH,
@@ -2071,8 +2073,8 @@ def main(argv=None) -> int:
 
     # --- 5. the main path ----------------------------------------------------
     t0 = time.time()
-    runs = {"k2": run_main_path("auto", "k2", fbr.LAUNCHES),
-            "k1": run_main_path("fused_otf", "k1", fbr.LAUNCHES)}
+    runs = {"k2": run_main_path("fused", "k2", fbr.LAUNCHES),
+            "k1": run_main_path("auto", "k1", fbr.LAUNCHES)}
     for kern, res in runs.items():
         log(f"  main path via {kern}: run_s {res['run_s']} boots_per_sec "
             f"{res['boots_per_sec']} ({res['bootstraps']} bootstraps x "
@@ -2097,7 +2099,7 @@ def main(argv=None) -> int:
     opt_runs = run_optimizer_path(fbr, worst)
     from tfhe_fbs_map_tpu_torch.optimizer import validate
     rows = [validate.row(label, res) for label, res in (
-        ("aes128_p4 auto", runs["k2"]), ("aes128_p4 fused_otf", runs["k1"]),
+        ("aes128_p4 fused", runs["k2"]), ("aes128_p4 auto", runs["k1"]),
         (f"{KREYVIUM_PRESET} auto", krey), *opt_runs)]
     log("  runtime model, predicted against measured run_s, on " + smi)
     for line in validate.table(rows).splitlines():
@@ -2174,8 +2176,8 @@ def main(argv=None) -> int:
     log(f"[conv orientations] {time.time() - t0:.1f} s")
 
     # launches of each kernel on every main path, each counted from 0
-    by_path = {"k2": {"aes128_p4 auto": runs["k2"]["launches"]},
-               "k1": {"aes128_p4 fused_otf": runs["k1"]["launches"],
+    by_path = {"k2": {"aes128_p4 fused": runs["k2"]["launches"]},
+               "k1": {"aes128_p4 auto": runs["k1"]["launches"],
                       f"{KREYVIUM_PRESET} auto": krey["launches"],
                       "bench p32": p32["launches"]}}
     for label, (kern, n) in benches.items():

@@ -119,12 +119,15 @@ def test_quick_flags(argv, orientation, limbs, capsys, tmp_path):
 
 
 @pytest.mark.parametrize("preset,kernel,gb", [
-    ("anchor", "fused", 10.3),
-    ("p8", "fused", 12.1),
-    ("p16", "fused", 32.3),
+    ("anchor", "fused_otf", 10.3),
+    ("p8", "fused_otf", 12.1),
+    ("p16", "fused_otf", 32.3),
     ("p32", "fused_otf", 142.1),
 ])
 def test_auto_pick_on_an_h100(preset, kernel, gb):
+    """K2's matrices fit an H100 at the anchor, p8 and p16, but K1 is
+    priced lower at each (the calibration's summed ``launch_us``); at p32
+    they do not fit."""
     from tfhe_fbs_map_tpu_torch.ops.blind_rotate import fused_key_bytes
     params = PRESETS[preset][0]
     assert round(fused_key_bytes(params) / 1e9, 1) == gb

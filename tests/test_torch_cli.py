@@ -223,15 +223,26 @@ def pick_orientation(params, device, free_bytes=None):
     return pick_orientations([params], device, free_bytes)[0]
 
 
-def test_auto_orientation_by_free_memory():
+def test_auto_orientation_by_free_memory(monkeypatch):
+    """AES-128's K2 matrices (10.9 GB) fit a card with 79 GiB free, and K1
+    is priced lower there (``runtime_model.kernel_us``): K1 whatever the
+    memory.  Where K2 is priced lower (K1 charged 30 ms a launch), K2 runs
+    when its matrices fit and K1 when they do not."""
+    import copy
     from tfhe_fbs_map_tpu_torch.ops.blind_rotate import fused_key_bytes
+    from tfhe_fbs_map_tpu_torch.optimizer import runtime_model as rm
     params = PRESETS["aes128_p4"][0]
     assert fused_key_bytes(params) == 578 * 3072 * 6144
     assert np.isclose(fused_key_bytes(params) / 1e9, 10.9, atol=0.05)
     cuda = torch.device("cuda")
-    assert pick_orientation(params, cuda, free_bytes=79 << 30) == "fused"
+    assert pick_orientation(params, cuda, free_bytes=79 << 30) == "fused_otf"
     assert pick_orientation(params, cuda, free_bytes=12 << 30) == "fused_otf"
     assert pick_orientation(params, torch.device("cpu")) == "generic"
+    cal = copy.deepcopy(rm.calibration())
+    cal["families"][rm.entry_key(params, "fused_otf")]["fixed_us"] = 30e3
+    monkeypatch.setattr(rm, "calibration", lambda: cal)
+    assert pick_orientation(params, cuda, free_bytes=79 << 30) == "fused"
+    assert pick_orientation(params, cuda, free_bytes=12 << 30) == "fused_otf"
 
 
 AUTO_CASES = [
@@ -338,7 +349,8 @@ def test_staged_presets_are_the_optimizer_picks(name, p, norms, kw):
 def test_auto_staged_orientations_fit_together(name):
     """``auto`` sends both staged families to K1, even where their K2
     matrices (59-67 GB) fit an 80 GB card's free memory together, as they
-    do at both presets; fam1 alone goes to K2 when it fits."""
+    do at both presets; fam1 alone, as a native family, takes the kernel
+    of the lower calibrated price, K1 at both."""
     from tfhe_fbs_map_tpu_torch.ops.blind_rotate import fused_key_bytes
     preset = STAGED_PRESETS[name]
     fams = [preset.fam1, preset.fam2]
@@ -352,7 +364,8 @@ def test_auto_staged_orientations_fit_together(name):
     cuda = torch.device("cuda")
     assert pick_orientations(fams, cuda, free_bytes=card) \
         == ["fused_otf"] * 2
-    assert pick_orientations(fams[:1], cuda, free_bytes=card) == ["fused"]
+    assert pick_orientations(fams[:1], cuda, free_bytes=card) \
+        == ["fused_otf"]
     assert pick_orientations(fams, torch.device("cpu")) == ["generic"] * 2
 
 

@@ -453,7 +453,7 @@ def test_model_prices_the_small_kernel_with_its_own_fit(monkeypatch):
                              "families": ["x"]}
     monkeypatch.setattr(runtime_model, "calibration", lambda: cal)
     params = shape(1, 64, 2, 8)                  # no entry of its own
-    assert runtime_model.family_key(params) not in cal["families"]
+    assert runtime_model._entry(params, "fused_otf") is None
     plan, waves = runtime_model.launch_plan(params, 512, "fused_otf")
     assert isinstance(plan, fbr.K1SmallPlan)
     cost = runtime_model._cost(params, "fused_otf", 4)
@@ -531,7 +531,7 @@ def test_calibration_has_the_small_kernels_point():
     small = calibrate.small_families()
     assert cal["kernels"]["k1s"]["families"] == sorted(small)
     for name, (params, _) in small.items():
-        entry = cal["families"][runtime_model.family_key(params)]
+        entry = cal["families"][runtime_model.entry_key(params, "fused_otf")]
         assert entry["name"] == name and entry["kernel"] == "fused_otf"
         assert runtime_model._kernel_fit(params, "fused_otf") == (
             entry["fixed_us"], entry["scale"])

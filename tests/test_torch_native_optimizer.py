@@ -11,6 +11,7 @@ functions equal ``optimizer/noise.py``, ``bootstrap_cost_us`` and
 hides behind equal solutions.  The library is built with ``g++`` at first
 use; the tests skip only where there is none."""
 
+import copy
 import ctypes
 import math
 import shutil
@@ -24,6 +25,7 @@ import tfhe_fbs_map_tpu_torch.ops.fused_blind_rotate as fbr
 import tfhe_fbs_map_tpu_torch.optimizer.native as NAT
 import tfhe_fbs_map_tpu_torch.optimizer.noise as TN
 import tfhe_fbs_map_tpu_torch.optimizer.optimizer as TO
+import tfhe_fbs_map_tpu_torch.optimizer.runtime_model as RM
 from tfhe_fbs_map_tpu_torch.tfhe.params import TFHEParams
 
 pytestmark = pytest.mark.skipif(shutil.which("g++") is None,
@@ -192,5 +194,96 @@ def test_bootstrap_cost_and_serving_equal_python(profile, n, k, N, l, b):
             for limbs in (3, 4):
                 for staged in (False, True):
                     assert bool(fns["nv_serves"](
-                        n, k, NN, l, b, ks_b, limbs, staged, prof)) \
+                        n, k, NN, l, b, 2, ks_b, limbs, staged, prof)) \
                         == profile.serves(params, limbs, staged)
+
+
+# ------------------------------------------- the kernel pick, K1 against K2
+
+@pytest.fixture()
+def mixed(monkeypatch):
+    """A calibration in which K1 pays 30 ms a launch, across families and
+    in every family's K1 entry: the pick then takes K2 at some families of
+    the native grid and K1 at others."""
+    cal = copy.deepcopy(RM.calibration())
+    cal["kernels"]["fused_otf"]["fixed_us"] = 30e3
+    for e in cal["families"].values():
+        if e["kernel"] == "fused_otf":
+            e["fixed_us"] = 30e3
+    monkeypatch.setattr(RM, "calibration", lambda: cal)
+    return cal
+
+
+def shell(n, k, N, l, ks_l) -> TFHEParams:
+    return TFHEParams(p=2, lwe_dim=n, glwe_dim=k, poly_size=N, bsk_level=l,
+                      bsk_base_log=1, ksk_level=ks_l, ksk_base_log=1,
+                      lwe_noise_std=0.0, glwe_noise_std=0.0)
+
+
+def test_priced_shapes_hold_every_shape_the_searches_walk():
+    staged = {(k, big // k) for big in (1024, 2048) for k in (1, 2)}
+    assert set(TO.GLWE_SHAPES) | staged <= set(NAT.PRICED_SHAPES)
+    assert min(N for _, N in NAT.PRICED_SHAPES) >= fbr.K1_SLICE
+
+
+def test_mixed_calibration_takes_both_kernels(mixed):
+    pr = TO.h100_profile()
+    picks = {pr.kernel(n, k, N, l, 6) for k, N in TO.GLWE_SHAPES
+             for n in (450, 578, 1066) for l in (1, 2, 4)}
+    assert picks == {"fused", "fused_otf"}
+
+
+@pytest.mark.parametrize("p,norm2,p_error", GRID)
+def test_native_equals_python_under_a_mixed_pick(p, norm2, p_error, mixed):
+    """Where the calibration sends some families to K2 and others to K1,
+    the native search still returns the Python one's solution."""
+    want = TO.optimize(p, norm2, p_error)
+    same(NAT.optimize_native(p, norm2, p_error), want)
+
+
+@pytest.mark.parametrize("calibrated", ["shipped", "mixed"])
+@pytest.mark.parametrize("k,N", TO.GLWE_SHAPES)
+def test_kernel_price_and_pick_equal_python(k, N, calibrated, request):
+    """``nv_kernel_us`` is ``runtime_model.kernel_us`` to the bit, and
+    ``nv_prices_otf`` is ``DeviceProfile.kernel``, K1 against K2, at every
+    shape of the native grid, at 3 and 4 limbs."""
+    if calibrated == "mixed":
+        request.getfixturevalue("mixed")
+    fns = NAT.native_model_fns()
+    profile = TO.h100_profile()
+    prof = ctypes.byref(NAT.profile_struct(profile))
+    for n in (450, 578, 642, 1066):
+        for l in (1, 2, 3, 4):
+            for ks_l in (2, 6):
+                params = shell(n, k, N, l, ks_l)
+                for limbs in (3, 4):
+                    for code, orient in ((0, "fused"), (1, "fused_otf")):
+                        assert fns["nv_kernel_us"](
+                            n, k, N, l, ks_l, limbs, code, prof) \
+                            == RM.kernel_us(params, orient, limbs, profile)
+                    otf = profile.kernel(n, k, N, l, ks_l, limbs)
+                    assert bool(fns["nv_prices_otf"](
+                        n, k, N, l, ks_l, limbs, 0, prof)) \
+                        == (otf == "fused_otf")
+
+
+def test_native_prices_every_calibrated_family():
+    """At every family the calibration holds an entry of (at N >= 256),
+    the native price and pick are the Python ones: the entries reach the
+    native core."""
+    fns = NAT.native_model_fns()
+    profile = TO.h100_profile()
+    prof = ctypes.byref(NAT.profile_struct(profile))
+    seen = 0
+    for key in RM.calibration()["families"]:
+        n, k, N, l, ks_l = (int(x) for x in key.split("/")[0].split(","))
+        if N < fbr.K1_SLICE:
+            continue
+        params = shell(n, k, N, l, ks_l)
+        for code, orient in ((0, "fused"), (1, "fused_otf")):
+            assert fns["nv_kernel_us"](n, k, N, l, ks_l, 4, code, prof) \
+                == RM.kernel_us(params, orient, 4, profile)
+        assert bool(fns["nv_prices_otf"](n, k, N, l, ks_l, 4, 0, prof)) \
+            == (profile.kernel(n, k, N, l, ks_l) == "fused_otf")
+        seen += 1
+    assert seen >= 11

@@ -188,14 +188,14 @@ def test_h100_profile_never_prices_an_unserved_kernel():
     profile = TO.h100_profile()
     params = PRESETS["p16"][0]
     big = replace(params, glwe_dim=1, poly_size=4096)
-    assert profile.kernel(642, 1, 4096, 3) == "fused_otf"
+    assert profile.kernel(642, 1, 4096, 3, 6) == "fused_otf"
     assert profile.serves(big)
     huge = replace(params, glwe_dim=1, poly_size=8192)
-    assert profile.kernel(642, 1, 8192, 3) == "fused_otf"
+    assert profile.kernel(642, 1, 8192, 3, 6) == "fused_otf"
     assert not profile.serves(huge)
     assert JAX_PROFILE.serves(huge)
-    assert profile.kernel(642, 1, 1024, 3, staged=True) == "fused_otf"
-    assert profile.kernel(578, 2, 512, 2) == pick_kernel(
+    assert profile.kernel(642, 1, 1024, 3, 6, staged=True) == "fused_otf"
+    assert profile.kernel(578, 2, 512, 2, 6) == pick_kernel(
         PRESETS["aes128_p4"][0], profile.k2_memory)
 
 

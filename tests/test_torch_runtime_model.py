@@ -109,19 +109,22 @@ def test_calibration_names_the_card_and_keys_families_fully():
     assert "H100" in cal["card"] and cal["card"].endswith(" W")
     assert cal["sms"] == cal["raw"]["sms"] > 0
     for key, entry in cal["families"].items():
-        assert len(key.split(",")) == 5            # n, k, N, l, ks_l
-        assert entry["kernel"] in ("fused", "fused_otf")
+        family, _, kernel = key.partition("/")
+        assert len(family.split(",")) == 5         # n, k, N, l, ks_l
+        assert kernel == entry["kernel"] in ("fused", "fused_otf")
     names = {e["name"] for e in cal["families"].values()}
     assert set(calibrate.families()) <= names
-    # the staged families were timed through K1, as the CLI runs them
+    # the staged families were timed through K1, as the CLI runs them;
+    # every family through the kernel the model prices for it
     for name, (params, staged) in calibrate.families().items():
-        entry = cal["families"][rm.family_key(params)]
+        assert rm._entry(params, "fused_otf")["name"] == name
         if staged:
-            assert entry["kernel"] == "fused_otf"
+            assert rm._entry(params, "fused") is None
         else:
-            assert entry["kernel"] == h100_profile().kernel(
+            kern = h100_profile().kernel(
                 params.lwe_dim, params.glwe_dim, params.poly_size,
-                params.bsk_level)
+                params.bsk_level, params.ksk_level)
+            assert rm._entry(params, kern)["name"] == name
 
 
 @pytest.mark.parametrize("i", range(len(recorded_points())))
@@ -171,7 +174,8 @@ STAGED = [
 def served(profile, params, bsk_limbs=4, staged=False) -> str:
     """The kernel the model prices for ``params``, checked to serve it."""
     kern = profile.kernel(params.lwe_dim, params.glwe_dim, params.poly_size,
-                          params.bsk_level, bsk_limbs, staged)
+                          params.bsk_level, params.ksk_level, bsk_limbs,
+                          staged)
     assert unsupported(params, kern == "fused_otf") is None
     assert params.bsk_base_log <= 8
     assert params.ksk_base_log <= KSK_MAX_BASE_LOG
@@ -310,7 +314,7 @@ def test_fit_recovers_known_constants():
            "sms": sms, "k2_memory": 80e9, "resident": {}, "points": points,
            "generic": dict(points[0], kernel="generic", step_ms=500.0)}
     cal = calibrate.fit(raw)
-    e = cal["families"][key]
+    e = cal["families"][f"{key}/fused_otf"]
     for got, want in ((e["fixed_us"], F), (e["tau_us"], tau),
                       (e["around_a_us"], a), (e["around_b_us"], b)):
         assert math.isclose(got, want, rel_tol=1e-9)
@@ -340,7 +344,7 @@ def test_fit_takes_the_graph_around_and_keeps_the_kernel_fit():
            "sms": sms, "k2_memory": 80e9, "resident": {}, "points": points,
            "generic": dict(points[0], kernel="generic", step_ms=500.0)}
     graph = calibrate.fit(raw)
-    e = graph["families"][key]
+    e = graph["families"][f"{key}/fused_otf"]
     for got, want in ((e["fixed_us"], F), (e["tau_us"], tau),
                       (e["around_a_us"], a), (e["around_b_us"], b),
                       (graph["around"]["around_a_us"], a),

@@ -139,12 +139,13 @@ def bench_orientation(params: TFHEParams, orientation: str, bsk_limbs: int,
                       device: torch.device,
                       free_bytes: int | None = None) -> str:
     """The fused kernel a native bench runs.  On CUDA, ``auto`` is the
-    runtime CLI's ``pick_orientations`` (K2, ``"fused"``, when K2 serves
-    ``params`` and its ``bsk_limbs`` key matrices fit ``free_bytes``, by
-    default the card's free memory, with ``FUSED_HEADROOM`` to spare; else
-    K1, ``"fused_otf"``).  An orientation asked for must be served and, for
-    K2, fit: ValueError otherwise, since the bench never runs another kernel
-    than the one asked for.  On the CPU both wrappers run their plain
+    runtime CLI's ``pick_orientations`` (K1, ``"fused_otf"``, where K2,
+    ``"fused"``, does not serve ``params`` or its ``bsk_limbs`` key
+    matrices do not fit ``free_bytes``, by default the card's free memory,
+    with ``FUSED_HEADROOM`` to spare; else the one of the lower calibrated
+    price).  An orientation asked for must be
+    served and, for K2, fit: ValueError otherwise, since the bench never
+    runs another kernel than the one asked for.  On the CPU both wrappers run their plain
     versions, and ``auto`` takes ``"fused"``, the JAX bench's default.
     ``"matmul"`` holds K2's key matrices too, so on CUDA they must fit as
     K2's do.  A conv orientation, on either device, keeps all four key

@@ -122,17 +122,28 @@ def fused_key_bytes(params: TFHEParams, bsk_limbs: int = N_LIMBS) -> int:
 
 
 def pick_kernel(params: TFHEParams, memory: float, bsk_limbs: int = N_LIMBS,
-                headroom: float = FUSED_HEADROOM, served: bool = True) -> str:
-    """The kernel one native family takes: ``"fused"`` (K2) when its key
-    matrices plus ``headroom`` fit ``memory`` bytes (and, with ``served``,
-    K2 serves ``params``), else ``"fused_otf"`` (K1).  The runtime CLI's
+                headroom: float = FUSED_HEADROOM, served: bool = True,
+                profile=None) -> str:
+    """The kernel one native family takes, ``"fused"`` (K2) or
+    ``"fused_otf"`` (K1).  K1 where K2 does not serve ``params`` or its key
+    matrices plus ``headroom`` do not fit ``memory`` bytes; K2 where K1
+    does not serve them; else the one of the lower calibrated price
+    (:func:`..optimizer.runtime_model.kernel_us`: a call of each launch
+    size the calibration timed, summed, at ``profile``'s per-boot costs),
+    K1 on a tie.  Without ``served`` (the JAX module's model) no kernel's
+    rules apply and the matrices' fit alone decides.  The runtime CLI's
     ``--orientation auto`` passes the card's free memory, the cost model
     its device profile's, so the model prices the kernel that runs."""
     if served and unsupported(params, otf=False) is not None:
         return "fused_otf"
-    if fused_key_bytes(params, bsk_limbs) + headroom <= memory:
+    if fused_key_bytes(params, bsk_limbs) + headroom > memory:
+        return "fused_otf"
+    if not served or unsupported(params, otf=True) is not None:
         return "fused"
-    return "fused_otf"
+    from ..optimizer.runtime_model import kernel_us
+    k2 = kernel_us(params, "fused", bsk_limbs, profile)
+    return "fused" if k2 < kernel_us(params, "fused_otf", bsk_limbs,
+                                     profile) else "fused_otf"
 
 
 def _ksk_matrix(keys: TFHEKeys) -> torch.Tensor:

@@ -7,30 +7,34 @@
 The port of ``experiments/calibrate_runtime.py``.  For each parameter family
 (the presets anchor, p8, p16 and aes128_p4, both families of each staged
 preset, the optimizer's native pick for Kreyvium-1152, and the p22 and p32
-shapes), one family at a time, it times
+shapes), one family and kernel at a time, it times
 ``CircuitExecutor.step`` on a synthetic level of identity bootstraps at
-several ciphertexts a call, through the kernel the runtime CLI would run
-(``pick_orientations``: a native family by free memory, a staged one on
-K1): CUDA events around chained calls, the median of three repetitions,
-and the fused kernel's own span inside every call; then the work around
-the kernel alone, as ``CircuitExecutor.run`` executes a level: the replay
-of a one-level CUDA graph captured with the kernel left out.  Ciphertexts
-a call go from 64 to 8192, so K1's and K2's plans cross wave boundaries.  It also
-times the generic path at one family, and asks the card how many clusters
-it runs at once for every plan the model can choose.
+several ciphertexts a call, through every kernel ``--orientation auto``
+may run the family on (:func:`kernels`: a native family through K1 and,
+where K2 serves it and its matrices fit the card, K2, whose calibrated
+prices then decide between them; a staged one on K1, which runs it): CUDA
+events around chained calls, the median of three repetitions, and the
+fused kernel's own span inside every call; then the work around the
+kernel alone, as ``CircuitExecutor.run`` executes a level: the replay of a
+one-level CUDA graph captured with the kernel left out.  Ciphertexts a
+call go from 64 to 8192 (``runtime_model.ROWS``), so K1's and K2's plans
+cross wave boundaries.  It also times the generic path at one family, and
+asks the card how many clusters it runs at once for every plan the model
+can choose.
 
 It then fits, and writes ``calibration_h100.json`` beside this file, with
 the card's name and power limit as ``nvidia-smi`` prints them and the raw
 points (``--dry`` refits from them):
 
-* per family (key ``n,k,N,l,ks_l``): the kernel's fixed term and its time a
-  wave unit (``kernel = F + waves · cb · sms / cluster · τ``), and the work
-  around the kernel (``a + b · rows · (kN+1)``, from the points'
-  ``around_ms``);
+* per family and kernel timed (key ``n,k,N,l,ks_l/<kernel>``): the
+  kernel's fixed term and its time a wave unit (``kernel = F + waves · cb ·
+  sms / cluster · τ``), and the work around the kernel (``a + b · rows ·
+  (kN+1)``, from the points' ``around_ms``);
 * per kernel: the median efficiency against the data sheet's int8 rate and
-  the median fixed term, which families without an entry take; the around
-  fit across all points; the generic path's slowdown per bootstrap; the
-  free device memory K2's matrices may take.
+  the median fixed term, which families without an entry of that kernel
+  take; the around fit across all points; the generic path's slowdown per
+  bootstrap (over K2's roofline cost at its family); the free device
+  memory K2's matrices may take.
 
 K1's small-N kernel (N < 256) is timed apart, at the families of
 :func:`small_families` (``raw["k1s_points"]``, and the clusters its plans
@@ -56,17 +60,16 @@ import numpy as np
 import torch
 
 from ..ops import fused_blind_rotate as fbr
-from ..ops.blind_rotate import FUSED_HEADROOM
+from ..ops.blind_rotate import FUSED_HEADROOM, fused_key_bytes
 from ..tfhe.params import PRESETS, STAGED_PRESETS, TFHEParams, _curve
 from .optimizer import (CALIBRATION, GLWE_SHAPES, DeviceProfile,
                         bootstrap_cost_us)
-from .runtime_model import family_key, resident_key
+from .runtime_model import ROWS, family_key, resident_key
 
 # The H100 SXM data sheet's dense int8 rate and memory rate.
 PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
-# Ciphertexts a call (8 evaluations × 8 … 1024 bootstraps).
-ROWS = (64, 128, 256, 512, 1024, 2048, 4096, 8192)
+# Evaluations a call: each of ROWS is BATCH × 8 … 1024 bootstraps.
 BATCH = 8
 # A family stops growing its calls once one takes longer than this.
 MAX_CALL_MS = 1500.0
@@ -93,6 +96,19 @@ def families() -> dict[str, tuple[TFHEParams, bool]]:
     out["p22"] = (_curve(22, 738, 2, 1024, 3, 8, 8, 2), False)
     out["p32"] = (PRESETS["p32"][0], False)
     return out
+
+
+def kernels(params: TFHEParams, staged: bool, free: int) -> list[str]:
+    """The kernels a family is timed through: K1 for a staged family, as
+    the CLI runs both; for a native one each fused kernel that serves it,
+    K2 only where its matrices fit ``free`` bytes with ``FUSED_HEADROOM``
+    to spare (``--orientation auto`` compares the two by these points)."""
+    if staged:
+        return ["fused_otf"]
+    return [o for o in ("fused", "fused_otf")
+            if fbr.unsupported(params, otf=o == "fused_otf") is None
+            and (o == "fused_otf"
+                 or fused_key_bytes(params) + FUSED_HEADROOM <= free)]
 
 
 def small_families() -> dict[str, tuple[TFHEParams, bool]]:
@@ -236,16 +252,11 @@ def time_around(ex, buf: torch.Tensor, iters: int, reps: int) -> list[float]:
     return times
 
 
-def time_family(name: str, params: TFHEParams, staged: bool,
-                device: torch.device, orient: str | None = None
-                ) -> list[dict]:
-    """Every point of one family, through ``orient`` (default the kernel
-    the CLI would run)."""
-    from ..runtime.cli import pick_orientations
+def time_family(name: str, params: TFHEParams, device: torch.device,
+                orient: str) -> list[dict]:
+    """Every point of one family, through ``orient``."""
     from ..runtime.profile import _sync
 
-    orient = orient or ("fused_otf" if staged
-                        else pick_orientations([params], device)[0])
     t0 = time.time()
     ex = _executor(params, orient, device)
     _sync(device)
@@ -365,9 +376,10 @@ def _family_entry(pts: list[dict], sms: int) -> dict:
 
 
 def _by_family(points: list[dict]) -> dict[str, list[dict]]:
+    """The points of each family and kernel, by entry key."""
     fams: dict[str, list[dict]] = {}
     for pt in points:
-        fams.setdefault(pt["key"], []).append(pt)
+        fams.setdefault(f"{pt['key']}/{pt['kernel']}", []).append(pt)
     return fams
 
 
@@ -406,7 +418,7 @@ def fit(raw: dict) -> dict:
              for key, pts in _by_family(raw.get("k1s_points", [])).items()}
     entries.update(small)
     for key, e in entries.items():
-        n, k, N, l, ks_l = (int(x) for x in key.split(","))
+        n, k, N, l, ks_l = (int(x) for x in key.split("/")[0].split(","))
         e["scale"] = e["tau_us"] / bootstrap_cost_us(
             n, k, N, l, ks_l, 4, profile, e["kernel"])
     if small:
@@ -416,10 +428,12 @@ def fit(raw: dict) -> dict:
             "fixed_us": statistics.median(e["fixed_us"] for e in es),
             "scale": statistics.median(e["scale"] for e in es),
             "families": sorted(e["name"] for e in es)}
+    # the generic path's time a bootstrap over K2's roofline cost at its
+    # family: a fixed kernel, so that the fit reads no other calibration
     g = raw["generic"]
     n, k, N, l, ks_l = (int(x) for x in g["key"].split(","))
     slowdown = g["step_ms"] * 1e3 / g["rows"] / bootstrap_cost_us(
-        n, k, N, l, ks_l, 4, profile)
+        n, k, N, l, ks_l, 4, profile, "fused")
     profile_d = dict(vars(profile), generic_slowdown=slowdown)
     return {"card": raw["card"], "device": raw["device"], "sms": sms,
             "profile": profile_d, "kernels": kernels,
@@ -442,7 +456,8 @@ def measure(device: torch.device) -> dict:
           f"{time.time() - t0:.1f}s", file=sys.stderr)
     points = []
     for name, (params, staged) in fams.items():
-        points += time_family(name, params, staged, device)
+        for orient in kernels(params, staged, free):
+            points += time_family(name, params, device, orient)
     params = fams[GENERIC_FAMILY][0]
     ex = _executor(params, "generic", device)
     generic = time_point(ex, GENERIC_ROWS // BATCH, BATCH, reps=2)
@@ -464,8 +479,8 @@ def measure_small(device: torch.device) -> tuple[list[dict], dict]:
     the clusters the card runs at once of each plan they launched, at
     every limb count the optimizer picks."""
     points, resident = [], {}
-    for name, (params, staged) in small_families().items():
-        pts = time_family(name, params, staged, device, "fused_otf")
+    for name, (params, _) in small_families().items():
+        pts = time_family(name, params, device, "fused_otf")
         points += pts
         for pt in pts:
             for limbs in LIMBS:

@@ -4,9 +4,10 @@
 // enumeration for enumeration, as the JAX package's native/optimizer.cpp
 // mirrors the JAX search.  The device constants are not compiled in: every
 // search takes a Profile, the fields of the Python DeviceProfile plus the
-// CUDA kernels' serving limits, so one build prices any card.  The Python
-// module is the reference; tests/test_torch_native_optimizer.py holds the
-// two equal, solution for solution and function for function.
+// CUDA kernels' serving limits and the calibration's prices of K1 and K2,
+// so one build prices any card.  The Python module is the reference;
+// tests/test_torch_native_optimizer.py holds the two equal, solution for
+// solution and function for function.
 //
 // Every floating-point expression keeps the Python module's operation order
 // (x ** 2 is pow(x, 2.0)), so the floats are the same bits.  Build with
@@ -23,15 +24,31 @@
 extern "C" {
 
 // DeviceProfile's fields that the search reads (the caller scales the
-// generic path's cost by generic_slowdown) and the serving limits of the
+// generic path's cost by generic_slowdown), the serving limits of the
 // CUDA kernels (ops/fused_blind_rotate.py K1_SLICE, K1_MAX_N, K1S_MAX_KN,
-// K2_KC, K2_CHUNK; ops/blind_rotate.py KSK_MAX_BASE_LOG), filled by
-// optimizer/native.py.
+// K2_KC, K2_CHUNK; ops/blind_rotate.py KSK_MAX_BASE_LOG), and what
+// runtime_model.kernel_us reads of the calibration: the launch sizes it
+// sums over, each shape's plans at them (waves and cb·sms/cluster, from
+// runtime_model.launch_plan; the shapes are every (k, N) the searches
+// walk, at N >= k1_slice, whose plans do not depend on l), the kernels'
+// fits across families and the families' own entries.  Kernel index 0 is
+// K2 ("fused"), 1 K1 ("fused_otf").  Filled by optimizer/native.py.
 struct Profile {
   double int8_ops, mem_bytes, eff_fused, eff_otf;
   double k2_memory, k2_headroom;
   int32_t cuda_kernels;
   int32_t k1_slice, k1_max_n, k1s_max_kn, k2_kc, k2_chunk, ksk_max_base_log;
+  int32_t n_rows;
+  const int32_t* rows;         // [n_rows]
+  int32_t n_shapes;
+  const int32_t* shapes;       // [n_shapes][3]: k, N, bsk limbs
+  const int32_t* waves;        // [n_shapes][2][n_rows]
+  const double* units;         // [n_shapes][2][n_rows]: cb·sms/cluster
+  double fixed_us[2], scale[2];
+  double around_a_us, around_b_us;
+  int32_t n_entries;
+  const int32_t* entry_keys;   // [n_entries][6]: n, k, N, l, ks_l, kernel
+  const double* entry_fits;    // [n_entries][4]: fixed, scale, a, b
 };
 
 }  // extern "C"
@@ -124,30 +141,15 @@ int64_t fused_key_bytes(int n, int k, int N, int l, int bsk_limbs) {
   return int64_t(n) * (k1 * l * N) * bsk_limbs * k1 * N;
 }
 
-// DeviceProfile.kernel(): true for K1 ("fused_otf"), false for K2
-// ("fused").  Its shell has gadget base 1, which K2's size rules ignore.
-bool prices_otf(const Profile& pr, int n, int k, int N, int l, int bsk_limbs,
-                bool staged) {
-  if (staged && pr.cuda_kernels) return true;
-  if (pr.cuda_kernels && !kernel_serves(pr, k, N, l, 1, false)) return true;
-  return !(double(fused_key_bytes(n, k, N, l, bsk_limbs)) + pr.k2_headroom <=
-           pr.k2_memory);
-}
-
-// DeviceProfile.serves()
-bool serves(const Profile& pr, int n, int k, int N, int l, int b, int ks_b,
-            int bsk_limbs, bool staged) {
-  if (!pr.cuda_kernels) return true;
-  bool otf = prices_otf(pr, n, k, N, l, bsk_limbs, staged);
-  return ks_b <= pr.ksk_max_base_log && kernel_serves(pr, k, N, l, b, otf);
-}
+bool prices_otf(const Profile& pr, int n, int k, int N, int l, int ks_l,
+                int bsk_limbs, bool staged);
 
 // optimizer.py bootstrap_cost_us(); orientation -1: the kernel the profile
 // prices, 0: K2, 1: K1.
 double bootstrap_cost_us(const Profile& pr, int n, int k, int N, int br_l,
                          int ks_l, int bsk_limbs, int orientation) {
   bool otf = orientation < 0
-                 ? prices_otf(pr, n, k, N, br_l, bsk_limbs, false)
+                 ? prices_otf(pr, n, k, N, br_l, ks_l, bsk_limbs, false)
                  : orientation == 1;
   double eff = otf ? pr.eff_otf : pr.eff_fused;
   int64_t br_macs =
@@ -157,6 +159,67 @@ double bootstrap_cost_us(const Profile& pr, int n, int k, int N, int br_l,
   int64_t acc_bytes = int64_t(n) * 3 * (k + 1) * N * 4;
   double mem_s = double(acc_bytes) / pr.mem_bytes;
   return std::max(compute_s, mem_s) * 1e6;
+}
+
+// runtime_model.kernel_us(): launch_us of one call of each launch size
+// through K1 (otf) or K2, at the profile's per-boot cost, summed in order;
+// NaN for a shape outside the profile's plans.
+double kernel_us(const Profile& pr, int n, int k, int N, int l, int ks_l,
+                 int bsk_limbs, bool otf) {
+  int s = 0;
+  while (s < pr.n_shapes &&
+         !(pr.shapes[3 * s] == k && pr.shapes[3 * s + 1] == N &&
+           pr.shapes[3 * s + 2] == bsk_limbs))
+    ++s;
+  if (s == pr.n_shapes) return NAN;
+  const int kern = otf ? 1 : 0;
+  // the family's own entry of this kernel, else the kernel's fit
+  double fixed = pr.fixed_us[kern], scale = pr.scale[kern];
+  double a = pr.around_a_us, b = pr.around_b_us;
+  for (int e = 0; e < pr.n_entries; ++e) {
+    const int32_t* key = pr.entry_keys + 6 * e;
+    if (key[0] == n && key[1] == k && key[2] == N && key[3] == l &&
+        key[4] == ks_l && key[5] == kern) {
+      const double* fit = pr.entry_fits + 4 * e;
+      fixed = fit[0], scale = fit[1], a = fit[2], b = fit[3];
+      break;
+    }
+  }
+  const double cost = bootstrap_cost_us(pr, n, k, N, l, ks_l, bsk_limbs, kern);
+  double total = 0.0;
+  for (int r = 0; r < pr.n_rows; ++r) {
+    const int i = (2 * s + kern) * pr.n_rows + r;
+    const double wave = pr.units[i] * cost * scale;
+    total += fixed + double(pr.waves[i]) * wave + a +
+             b * double(pr.rows[r]) * double(k * N + 1);
+  }
+  return total;
+}
+
+// DeviceProfile.kernel() through ops/blind_rotate.py pick_kernel(): true
+// for K1 ("fused_otf"), false for K2 ("fused").  K1 where K2 does not serve
+// the family or its matrices do not fit, K2 where K1 does not serve it,
+// else the lower kernel_us (K1 on a tie); without cuda_kernels the fit
+// alone.  Its shell has gadget base 1, which neither kernel's size rules
+// read.
+bool prices_otf(const Profile& pr, int n, int k, int N, int l, int ks_l,
+                int bsk_limbs, bool staged) {
+  if (staged && pr.cuda_kernels) return true;
+  if (pr.cuda_kernels && !kernel_serves(pr, k, N, l, 1, false)) return true;
+  if (!(double(fused_key_bytes(n, k, N, l, bsk_limbs)) + pr.k2_headroom <=
+        pr.k2_memory))
+    return true;
+  if (!pr.cuda_kernels || !kernel_serves(pr, k, N, l, 1, true)) return false;
+  const double k2 = kernel_us(pr, n, k, N, l, ks_l, bsk_limbs, false);
+  return !(k2 < kernel_us(pr, n, k, N, l, ks_l, bsk_limbs, true));
+}
+
+// DeviceProfile.serves()
+bool serves(const Profile& pr, int n, int k, int N, int l, int b, int ks_l,
+            int ks_b, int bsk_limbs, bool staged) {
+  if (!pr.cuda_kernels) return true;
+  bool otf = prices_otf(pr, n, k, N, l, ks_l, bsk_limbs, staged);
+  return ks_b <= pr.ksk_max_base_log && kernel_serves(pr, k, N, l, b, otf);
 }
 
 // ------------------------------------------------------- optimize()
@@ -209,8 +272,8 @@ int32_t optimize_params(int32_t p, double sq_norm2, double max_p_error,
                     p_error_atomic(p, sq_norm2, n, k, N, br_l, br_b, ks_l,
                                    ks_b, lwe_std, glwe_std, drop);
                 if (perr > max_p_error) continue;
-                if (fast_path_only &&
-                    !serves(pr, n, k, N, br_l, br_b, ks_b, 4 - drop, false))
+                if (fast_path_only && !serves(pr, n, k, N, br_l, br_b, ks_l,
+                                              ks_b, 4 - drop, false))
                   continue;
                 found = true;
                 best_cost = cost;
@@ -268,8 +331,9 @@ void staged_candidates(const Profile& pr, int n, int min_N, int select_p,
         const double vw = var_blind_rotate(n, k, N, bl, bb, g);
         for (int kl = 1; kl <= 8; ++kl) {
           if (!best_kb[kl]) continue;
-          if (!serves(pr, n, k, N, bl, bb, best_kb[kl], 4, true)) continue;
-          const int orient = prices_otf(pr, n, k, N, bl, 4, true) ? 1 : 0;
+          if (!serves(pr, n, k, N, bl, bb, kl, best_kb[kl], 4, true))
+            continue;
+          const int orient = prices_otf(pr, n, k, N, bl, kl, 4, true) ? 1 : 0;
           out.push_back({bootstrap_cost_us(pr, n, k, N, bl, kl, 4, orient),
                          vw, best_v[kl], ms, k, N, bl, bb, kl, best_kb[kl]});
         }
@@ -364,9 +428,18 @@ double nv_bootstrap_cost_us(int32_t n, int32_t k, int32_t N, int32_t br_l,
                            orientation);
 }
 int32_t nv_serves(int32_t n, int32_t k, int32_t N, int32_t l, int32_t b,
-                  int32_t ks_b, int32_t bsk_limbs, int32_t staged,
-                  const Profile* prof) {
-  return serves(*prof, n, k, N, l, b, ks_b, bsk_limbs, staged != 0);
+                  int32_t ks_l, int32_t ks_b, int32_t bsk_limbs,
+                  int32_t staged, const Profile* prof) {
+  return serves(*prof, n, k, N, l, b, ks_l, ks_b, bsk_limbs, staged != 0);
+}
+double nv_kernel_us(int32_t n, int32_t k, int32_t N, int32_t l, int32_t ks_l,
+                    int32_t bsk_limbs, int32_t otf, const Profile* prof) {
+  return kernel_us(*prof, n, k, N, l, ks_l, bsk_limbs, otf != 0);
+}
+int32_t nv_prices_otf(int32_t n, int32_t k, int32_t N, int32_t l,
+                      int32_t ks_l, int32_t bsk_limbs, int32_t staged,
+                      const Profile* prof) {
+  return prices_otf(*prof, n, k, N, l, ks_l, bsk_limbs, staged != 0);
 }
 
 }  // extern "C"

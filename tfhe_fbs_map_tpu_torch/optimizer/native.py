@@ -3,8 +3,11 @@
 ``optimizer/csrc/optimizer.cpp`` is the C++ counterpart of
 :mod:`.optimizer`, as ``native/optimizer.cpp`` is the JAX package's: the
 same grids, order and pruning, and the serving rules of the CUDA kernels.
-It takes the :class:`DeviceProfile` as an argument, so one build prices any
-card.  It is built with ``g++`` at first use into the git-ignored
+It takes the :class:`DeviceProfile` as an argument, with what
+:func:`.runtime_model.kernel_us` reads of the calibration (the plans at its
+launch sizes of every shape of :data:`PRICED_SHAPES`, the kernels' fits
+and the families' entries), so one build prices any card.  It is built
+with ``g++`` at first use into the git-ignored
 ``build/tfhe_fbs_map_tpu_torch/`` beside the package (the library's name
 carries a hash of the source and flags) and is host code: no device runs it.
 :func:`optimize_native` and :func:`optimize_staged_native` return what
@@ -25,11 +28,20 @@ from ..ops.blind_rotate import KSK_MAX_BASE_LOG
 from ..ops.fused_blind_rotate import (K1_MAX_N, K1_SLICE, K1S_MAX_KN,
                                       K2_CHUNK, K2_KC)
 from ..tfhe.params import TFHEParams
+from . import runtime_model
 from .noise import P_ERROR_4_SIGMA
 from .optimizer import DeviceProfile, Solution, StagedSolution, h100_profile
 
 __all__ = ["native_available", "native_model_fns", "optimize_native",
-           "optimize_staged_native", "profile_struct"]
+           "optimize_staged_native", "profile_struct", "PRICED_SHAPES"]
+
+# The (k, N) shapes whose launch plans the native core is handed: every
+# shape the searches walk (``GLWE_SHAPES``, the staged shapes) and their
+# neighbours, at N >= K1_SLICE, where a plan does not depend on l.
+PRICED_SHAPES = tuple((k, N) for k in (1, 2, 3, 4)
+                      for N in (256, 512, 1024, 2048, 4096, 8192))
+# the kernels by the native core's index
+KERNELS = ("fused", "fused_otf")
 
 SRC = Path(__file__).resolve().parent / "csrc" / "optimizer.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" \
@@ -41,6 +53,7 @@ GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-ffp-contract=off"]
 _lib = None
 
 i32, f64 = ctypes.c_int32, ctypes.c_double
+I32P, F64P = ctypes.POINTER(i32), ctypes.POINTER(f64)
 
 
 class _CProfile(ctypes.Structure):
@@ -48,7 +61,13 @@ class _CProfile(ctypes.Structure):
         ("int8_ops", f64), ("mem_bytes", f64), ("eff_fused", f64),
         ("eff_otf", f64), ("k2_memory", f64), ("k2_headroom", f64),
         ("cuda_kernels", i32), ("k1_slice", i32), ("k1_max_n", i32),
-        ("k1s_max_kn", i32), ("k2_kc", i32), ("k2_chunk", i32), ("ksk_max_base_log", i32),
+        ("k1s_max_kn", i32), ("k2_kc", i32), ("k2_chunk", i32),
+        ("ksk_max_base_log", i32),
+        ("n_rows", i32), ("rows", I32P), ("n_shapes", i32),
+        ("shapes", I32P), ("waves", I32P), ("units", F64P),
+        ("fixed_us", f64 * 2), ("scale", f64 * 2), ("around_a_us", f64),
+        ("around_b_us", f64), ("n_entries", i32), ("entry_keys", I32P),
+        ("entry_fits", F64P),
     ]
 
 
@@ -75,7 +94,7 @@ class _CStagedSolution(ctypes.Structure):
 
 _PROFILE = ctypes.POINTER(_CProfile)
 # the exported model functions' arguments (each returns a double, but
-# nv_serves an int)
+# those of _INT_FNS an int)
 _MODEL_FNS = {
     "nv_var_blind_rotate": [i32, i32, i32, i32, i32, f64],
     "nv_var_keyswitch": [i32, i32, i32, i32, f64],
@@ -85,8 +104,12 @@ _MODEL_FNS = {
                           f64, i32],
     "nv_p_error_from_var": [i32, f64],
     "nv_bootstrap_cost_us": [i32, i32, i32, i32, i32, i32, i32, _PROFILE],
-    "nv_serves": [i32, i32, i32, i32, i32, i32, i32, i32, _PROFILE],
+    "nv_serves": [i32, i32, i32, i32, i32, i32, i32, i32, i32, _PROFILE],
+    "nv_kernel_us": [i32, i32, i32, i32, i32, i32, i32, _PROFILE],
+    "nv_prices_otf": [i32, i32, i32, i32, i32, i32, i32, _PROFILE],
 }
+# the model functions that return an int
+_INT_FNS = ("nv_serves", "nv_prices_otf")
 
 
 def library_path() -> Path:
@@ -118,7 +141,7 @@ def _load() -> ctypes.CDLL:
         ctypes.POINTER(_CStagedSolution)]
     for name, argtypes in _MODEL_FNS.items():
         fn = getattr(lib, name)
-        fn.restype = i32 if name == "nv_serves" else f64
+        fn.restype = i32 if name in _INT_FNS else f64
         fn.argtypes = argtypes
     _lib = lib
     return lib
@@ -139,13 +162,47 @@ def native_model_fns() -> dict:
     return {name: getattr(lib, name) for name in _MODEL_FNS}
 
 
+def _array(ctype, values):
+    return (ctype * len(values))(*values)
+
+
 def profile_struct(profile: DeviceProfile) -> _CProfile:
-    """``profile`` and the CUDA kernels' serving limits as the C struct."""
+    """``profile``, the CUDA kernels' serving limits and the calibration's
+    prices as the C struct (it holds its arrays)."""
+    cal = runtime_model.calibration()
+    rows = runtime_model.ROWS
+    shapes, waves, units = [], [], []
+    for k, N in PRICED_SHAPES:
+        shell = TFHEParams(p=2, lwe_dim=1, glwe_dim=k, poly_size=N,
+                           bsk_level=1, bsk_base_log=1, ksk_level=1,
+                           ksk_base_log=1, lwe_noise_std=0.0,
+                           glwe_noise_std=0.0)
+        for limbs in (3, 4):
+            shapes += [k, N, limbs]
+            for orient in KERNELS:
+                for r in rows:
+                    plan, w = runtime_model.launch_plan(shell, r, orient,
+                                                        limbs)
+                    waves.append(w)
+                    units.append(plan.cb * cal["sms"] / plan.cluster)
+    keys, fits = [], []
+    for key, e in cal["families"].items():
+        if e["kernel"] in KERNELS:
+            keys += [int(x) for x in key.split("/")[0].split(",")]
+            keys.append(KERNELS.index(e["kernel"]))
+            fits += [e["fixed_us"], e["scale"], e["around_a_us"],
+                     e["around_b_us"]]
+    fit = [cal["kernels"][o] for o in KERNELS]
     return _CProfile(
         profile.int8_ops, profile.mem_bytes, profile.eff_fused,
         profile.eff_otf, profile.k2_memory, profile.k2_headroom,
         int(profile.cuda_kernels), K1_SLICE, K1_MAX_N, K1S_MAX_KN, K2_KC,
-        K2_CHUNK, KSK_MAX_BASE_LOG)
+        K2_CHUNK, KSK_MAX_BASE_LOG, len(rows), _array(i32, rows),
+        len(PRICED_SHAPES) * 2, _array(i32, shapes), _array(i32, waves),
+        _array(f64, units), (f64 * 2)(*(f["fixed_us"] for f in fit)),
+        (f64 * 2)(*(f.get("scale", 1.0) for f in fit)),
+        cal["around"]["around_a_us"], cal["around"]["around_b_us"],
+        len(keys) // 6, _array(i32, keys), _array(f64, fits))
 
 
 def optimize_native(p: int, sq_norm2: float,

@@ -64,19 +64,24 @@ class DeviceProfile:
     generic_slowdown: float
     cuda_kernels: bool = True
 
-    def kernel(self, n: int, k: int, N: int, br_l: int,
+    def kernel(self, n: int, k: int, N: int, br_l: int, ks_l: int,
                bsk_limbs: int = 4, staged: bool = False) -> str:
         """The kernel the model prices for a family of these sizes: K1 for
         a staged family, else :func:`..ops.blind_rotate.pick_kernel` at
-        ``k2_memory`` (the gadget base does not enter K2's size rules)."""
+        ``k2_memory``, priced at this profile's efficiencies: K1 where K2
+        does not serve the family or its matrices do not fit, else the one
+        of the lower calibrated price (``ks_l`` names the family's
+        calibration entries; the gadget base enters neither kernel's size
+        rules)."""
         if staged and self.cuda_kernels:
             return "fused_otf"
         shell = TFHEParams(p=2, lwe_dim=n, glwe_dim=k, poly_size=N,
-                           bsk_level=br_l, bsk_base_log=1, ksk_level=1,
+                           bsk_level=br_l, bsk_base_log=1, ksk_level=ks_l,
                            ksk_base_log=1, lwe_noise_std=0.0,
                            glwe_noise_std=0.0)
         return pick_kernel(shell, self.k2_memory, bsk_limbs,
-                           self.k2_headroom, served=self.cuda_kernels)
+                           self.k2_headroom, served=self.cuda_kernels,
+                           profile=self)
 
     def serves(self, params: TFHEParams, bsk_limbs: int = 4,
                staged: bool = False) -> bool:
@@ -84,7 +89,8 @@ class DeviceProfile:
         if not self.cuda_kernels:
             return True
         otf = self.kernel(params.lwe_dim, params.glwe_dim, params.poly_size,
-                          params.bsk_level, bsk_limbs, staged) == "fused_otf"
+                          params.bsk_level, params.ksk_level, bsk_limbs,
+                          staged) == "fused_otf"
         return (params.ksk_base_log <= KSK_MAX_BASE_LOG
                 and unsupported(params, otf) is None)
 
@@ -122,7 +128,7 @@ def bootstrap_cost_us(n: int, k: int, N: int, br_l: int, ks_l: int,
     memory rate.  ``bsk_limbs`` < 4 (quantized BSK) removes the dropped
     limbs' MACs."""
     pr = profile or h100_profile()
-    orient = orientation or pr.kernel(n, k, N, br_l, bsk_limbs)
+    orient = orientation or pr.kernel(n, k, N, br_l, ks_l, bsk_limbs)
     eff = pr.eff_fused if orient == "fused" else pr.eff_otf
     # blind rotate: n conv steps of rows x N x (k+1) x N MACs per kept limb
     br_macs = n * (k + 1) ** 2 * br_l * N * N * bsk_limbs
@@ -293,7 +299,8 @@ def optimize_staged(p: int, sq_norm1: float = 4.0, sq_norm2: float = 2.0,
                     for kl, (ksv, kb) in ks_best.items():
                         if not served(n, k, N, bl, bb, kl, kb):
                             continue
-                        orient = pr.kernel(n, k, N, bl, staged=True)
+                        orient = pr.kernel(n, k, N, bl, kl,
+                                           staged=True)
                         out.append((bootstrap_cost_us(n, k, N, bl, kl,
                                                       profile=pr,
                                                       orientation=orient),

@@ -23,11 +23,16 @@ ciphertexts costs
   ``torch._int_mm``, modswitch, extract, scatter): ``a + b · rows · (kN+1)``.
 
 Constants come from ``calibration_h100.json`` (``python -m
-tfhe_fbs_map_tpu_torch.optimizer.calibrate`` on the card): per family, keyed
-by ``(n, k, N, l, ks_l)`` and kept for the kernel it was timed through, the
-kernel's fixed term and the scale of its per-boot cost, and the work around
-it; a family with no entry takes the fit across families of its kernel
-(below N=256 the fit of K1's small-N kernel, ``k1s``).
+tfhe_fbs_map_tpu_torch.optimizer.calibrate`` on the card): per family and
+kernel it was timed through, keyed ``n,k,N,l,ks_l/<kernel>``
+(:func:`entry_key`), the kernel's fixed term and the scale of its per-boot
+cost, and the work around it; a family with no entry of a kernel takes the
+fit across families of that kernel (below N=256 the fit of K1's small-N
+kernel, ``k1s``).
+
+:func:`kernel_us` is the price ``--orientation auto`` compares K1 and K2
+by (:func:`..ops.blind_rotate.pick_kernel`): a call of each of the
+calibration's launch sizes :data:`ROWS`, summed.
 """
 
 from __future__ import annotations
@@ -39,14 +44,24 @@ from .optimizer import (Solution, StagedSolution, bootstrap_cost_us,
                         calibration, h100_profile)
 
 __all__ = ["predict_native_us", "predict_staged_us", "call_fixed_us",
-           "slope_us", "launch_us", "launch_plan", "bucket", "family_key",
-           "resident_key"]
+           "slope_us", "launch_us", "kernel_us", "launch_plan", "bucket",
+           "family_key", "entry_key", "resident_key", "ROWS"]
+
+# Ciphertexts a call the calibration times (8 evaluations × 8 … 1024
+# bootstraps), and the launch sizes ``kernel_us`` sums over.
+ROWS = (64, 128, 256, 512, 1024, 2048, 4096, 8192)
 
 
 def family_key(params: TFHEParams) -> str:
     """A calibration entry's key: ``n,k,N,l,ks_l``."""
     return (f"{params.lwe_dim},{params.glwe_dim},{params.poly_size},"
             f"{params.bsk_level},{params.ksk_level}")
+
+
+def entry_key(params: TFHEParams, orientation: str) -> str:
+    """A calibration entry's key: ``n,k,N,l,ks_l/<kernel>``, one entry a
+    family and kernel timed."""
+    return f"{family_key(params)}/{orientation}"
 
 
 def resident_key(orientation: str, n_limbs: int,
@@ -79,7 +94,13 @@ def _orientation(params: TFHEParams, orientation: str | None,
         return orientation
     return h100_profile().kernel(params.lwe_dim, params.glwe_dim,
                                  params.poly_size, params.bsk_level,
-                                 bsk_limbs, staged)
+                                 params.ksk_level, bsk_limbs, staged)
+
+
+# launch_plan's and kernel_us' answers, per calibration (held beside them,
+# so that its id names it while cached)
+_PLANS: dict = {}
+_PRICES: dict = {}
 
 
 def launch_plan(params: TFHEParams, rows: int, orientation: str,
@@ -88,6 +109,11 @@ def launch_plan(params: TFHEParams, rows: int, orientation: str,
     """The plan and the waves of one launch of ``rows`` ciphertexts through
     ``orientation`` on the calibrated card."""
     cal = calibration()
+    key = (id(cal), params.glwe_dim, params.poly_size, params.bsk_level,
+           rows, orientation, bsk_limbs)
+    hit = _PLANS.get(key)
+    if hit is not None and hit[0] is cal:
+        return hit[1]
     sms, table = cal["sms"], cal["resident"]
 
     def resident(plan):
@@ -97,12 +123,13 @@ def launch_plan(params: TFHEParams, rows: int, orientation: str,
     fn = k1_plan if orientation == "fused_otf" else k2_plan
     plan = fn(rows, params, sms, bsk_limbs, resident=resident)
     tiles = -(-max(rows, 1) // plan.cb)
-    return plan, -(-tiles // max(1, resident(plan)))
+    out = plan, -(-tiles // max(1, resident(plan)))
+    _PLANS[key] = (cal, out)
+    return out
 
 
 def _entry(params: TFHEParams, orientation: str) -> dict | None:
-    entry = calibration()["families"].get(family_key(params))
-    return entry if entry and entry["kernel"] == orientation else None
+    return calibration()["families"].get(entry_key(params, orientation))
 
 
 def _kernel_fit(params: TFHEParams, orientation: str) -> tuple[float, float]:
@@ -147,6 +174,32 @@ def launch_us(params: TFHEParams, rows: int, orientation: str | None = None,
     wave = plan.cb * cal["sms"] / plan.cluster * cost_us * scale
     a, b = _around(params, orient)
     return fixed + waves * wave + a + b * rows * (params.big_dim + 1)
+
+
+def kernel_us(params: TFHEParams, orientation: str, bsk_limbs: int = 4,
+              profile=None) -> float:
+    """µs of one call of each of :data:`ROWS` ciphertexts through
+    ``orientation``, summed: the price ``auto`` compares the kernels by.
+    Each call is :func:`launch_us` at the per-boot cost of ``profile``
+    (default the calibrated H100's), summed in ``ROWS``' order (the native
+    optimizer sums the same floats in the same order).  Cached per
+    calibration, as :func:`launch_plan` is: the optimizer asks for every
+    family of its grid."""
+    cal = calibration()
+    key = (id(cal), family_key(params), orientation, bsk_limbs, profile)
+    hit = _PRICES.get(key)
+    if hit is not None and hit[0] is cal:
+        return hit[1]
+    cost = bootstrap_cost_us(params.lwe_dim, params.glwe_dim,
+                             params.poly_size, params.bsk_level,
+                             params.ksk_level, bsk_limbs, profile,
+                             orientation)
+    total = 0.0
+    for rows in ROWS:
+        total += launch_us(params, rows, orientation, bsk_limbs,
+                           cost_us=cost)
+    _PRICES[key] = (cal, total)
+    return total
 
 
 def slope_us(params: TFHEParams, cost_us: float | None = None,

@@ -5,7 +5,7 @@
 
 The port of ``experiments/validate_runtime_model.py``.  Without arguments it
 makes the runtime CLI runs ``chip_smoke.py`` makes (:data:`RUNS`: mapped
-AES-128 at the ``aes128_p4`` preset through ``auto`` and through K1,
+AES-128 at the ``aes128_p4`` preset through ``auto`` (K1) and through K2,
 Kreyvium-1152 at the staged preset, and both programs with the parameters
 the optimizer picks at ``--p-error 1e-7``); given files, it reads their JSON
 lines (the CLI's last lines).  Each run's line carries the prediction the
@@ -31,8 +31,8 @@ KREYVIUM_LBF = "outputs/generated/kreyvium_stream_v1_10_search.lbf"
 RUNS = (
     ("aes128_p4 auto", [AES_LBF, "--params", "aes128_p4", "--batch", "8",
                         "--orientation", "auto"]),
-    ("aes128_p4 fused_otf", [AES_LBF, "--params", "aes128_p4", "--batch",
-                             "8", "--orientation", "fused_otf"]),
+    ("aes128_p4 fused", [AES_LBF, "--params", "aes128_p4", "--batch", "8",
+                         "--orientation", "fused"]),
     ("kreyvium_p10_staged auto", [KREYVIUM_LBF, "--params",
                                   "kreyvium_p10_staged", "--batch", "16",
                                   "--orientation", "auto"]),

@@ -59,9 +59,10 @@ from ..ops.blind_rotate import (CONV_ORIENTATIONS, FUSED_HEADROOM, N_LIMBS,
 from ..ops.fused_blind_rotate import unsupported
 from ..utils.profiling import torch_trace
 
-__all__ = ["main", "pick_orientations", "check_kernel", "optimizer_pick",
-           "staged_solution", "Pick", "NoParameters", "FUSED_HEADROOM",
-           "STAGED_MARGIN", "free_memory", "predicted_run_s", "family_json"]
+__all__ = ["main", "pick_orientations", "kernel_prices", "check_kernel",
+           "optimizer_pick", "staged_solution", "Pick", "NoParameters",
+           "FUSED_HEADROOM", "STAGED_MARGIN", "free_memory",
+           "predicted_run_s", "family_json"]
 
 # Route staged only when its predicted runtime beats native's by this
 # factor; the launch-aware runtime model prices the per-level launches and
@@ -76,14 +77,14 @@ def pick_orientations(families, device: torch.device,
                       bsk_limbs: int = N_LIMBS) -> list[str]:
     """``--orientation auto`` for the parameter families of one run: generic
     on the CPU.  On CUDA one native family takes
-    :func:`..ops.blind_rotate.pick_kernel` at the card's free memory (K2,
-    "fused", when K2 serves it and its ``bsk_limbs`` key matrices fit with
-    ``FUSED_HEADROOM`` to spare, else K1, "fused_otf"): the rule the cost
-    model prices.  The two staged families both go to K1, the JAX
-    reference's choice at every staged preset: their K2 matrices take 59-67
-    GB, and on the Kreyvium preset K1 ran the whole path faster even before
-    K2's matrices are built (PERF.md); ``--orientation fused`` still asks
-    for K2.  On CUDA it raises ValueError when the kernel picked cannot
+    :func:`..ops.blind_rotate.pick_kernel` at the card's free memory (K1,
+    "fused_otf", where K2, "fused", does not serve it or its ``bsk_limbs``
+    key matrices do not fit with ``FUSED_HEADROOM`` to spare; else the one
+    of the lower calibrated price): the rule the cost model prices.  The
+    two staged families both go to K1, the JAX reference's choice at every
+    staged preset: their K2 matrices take 59-67 GB, and on the Kreyvium
+    preset K1 ran the whole path faster even before K2's matrices are
+    built (PERF.md); ``--orientation fused`` still asks for K2.  On CUDA it raises ValueError when the kernel picked cannot
     serve a family: the plain bootstrap runs there only when asked for."""
     if device.type != "cuda":
         return ["generic"] * len(families)
@@ -95,6 +96,16 @@ def pick_orientations(families, device: torch.device,
     for p, o in zip(families, orients):
         check_kernel(p, o)
     return orients
+
+
+def kernel_prices(params, bsk_limbs: int = N_LIMBS) -> dict[str, float]:
+    """What ``auto`` compares for a native family: each fused kernel that
+    serves ``params`` and its calibrated price, µs
+    (:func:`..optimizer.runtime_model.kernel_us`)."""
+    from ..optimizer.runtime_model import kernel_us
+    return {o: round(kernel_us(params, o, bsk_limbs), 1)
+            for o in ("fused", "fused_otf")
+            if unsupported(params, otf=o == "fused_otf") is None}
 
 
 def free_memory(device: torch.device) -> int:
@@ -664,6 +675,9 @@ def _run(argv=None) -> int:
                     "fam2": family_json(fam_params[1])} if staged
                    else family_json(fam_params[0])),
         "bsk_limbs": bsk_limbs,
+        "pick": (kernel_prices(fam_params[0], bsk_limbs)
+                 if args.orientation == "auto" and not staged
+                 and device.type == "cuda" else None),
         "p_error": p_error,
         "predicted": ({"native_run_s": _run_s(pick.native_us, args.batch),
                        "staged_run_s": _run_s(pick.staged_us, args.batch)}
