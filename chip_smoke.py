@@ -193,10 +193,13 @@ KREYVIUM_BATCH = 16
 # the JAX package's Pallas kernel bodies each CUDA kernel replaces
 REPLACES = {"k2": "tfhe_fbs_map_tpu/ops/fused_blind_rotate.py:102",
             "k1": "tfhe_fbs_map_tpu/ops/fused_blind_rotate.py:160",
-            "k1_small": "tfhe_fbs_map_tpu/ops/fused_blind_rotate.py:160"}
+            "k1_small": "tfhe_fbs_map_tpu/ops/fused_blind_rotate.py:160",
+            "k1_wide": "tfhe_fbs_map_tpu/ops/fused_blind_rotate.py:160"}
 SOURCE = {"k2": "tfhe_fbs_map_tpu_torch/ops/csrc/fused_blind_rotate_k2.cu",
           "k1": "tfhe_fbs_map_tpu_torch/ops/csrc/fused_blind_rotate.cu",
           "k1_small":
+          "tfhe_fbs_map_tpu_torch/ops/csrc/fused_blind_rotate_k1_small.cu",
+          "k1_wide":
           "tfhe_fbs_map_tpu_torch/ops/csrc/fused_blind_rotate_k1_small.cu"}
 # Batch of one full level of the mapped AES-128 program at --batch 8: most
 # of its 230 levels pad to 128 bootstraps.
@@ -311,7 +314,8 @@ def report(kern: str, label: str, err: int, worst: dict) -> None:
 
 def check_k1(fbr, presets, worst: dict) -> None:
     """Phase 3, K1: bitwise against its plain version on the card, at the
-    plans k1_plan picks and at every plan of one 1024-ciphertext level."""
+    plans of its ring kernel k1_plan picks and at every plan of one
+    1024-ciphertext level."""
     import torch
 
     aes = presets["aes128_p4"][0]
@@ -346,12 +350,14 @@ def check_k1(fbr, presets, worst: dict) -> None:
             plain = fbr.blind_rotate_k1_plain(*dev, params)
             plans = [(None, None, None)] + forced.get(batch, [])
             for cb, cluster, nw in plans:
+                # the ring kernel's plans (its small-tile plan: phase 12 (d))
                 plan = fbr.k1_device_plan(batch, params, dev[0].device,
-                                          limbs, cb, cluster, nw)
+                                          limbs, cb, cluster, nw,
+                                          route="k1")
                 fit = fbr.k1_max_clusters(plan, limbs)
                 stages, smem = fbr.k1_layout(plan, limbs)
                 got = fbr.blind_rotate_k1(*dev, params, batch_tile=cb,
-                                          cluster=cluster, nw=nw)
+                                          cluster=cluster, nw=nw, route="k1")
                 torch.cuda.synchronize()
                 err = int((got.long() - plain.long()).abs().max())
                 report("k1", f"{label} B={batch} plan cb={plan.cb} "
@@ -409,7 +415,7 @@ def check_k2(fbr, presets, worst: dict) -> None:
 
 def check_kernels(fbr, presets) -> dict:
     """Phase 3: each kernel bitwise against its plain version."""
-    worst = {"k1": 0, "k2": 0, "k1_small": 0}
+    worst = {"k1": 0, "k2": 0, "k1_small": 0, "k1_wide": 0}
     check_k1(fbr, presets, worst)
     check_k2(fbr, presets, worst)
     return worst
@@ -587,11 +593,14 @@ def check_k1_4096(fbr, worst: dict) -> list[dict]:
 def entry_point(main, argv: list, launches: dict) -> tuple[int, dict, dict]:
     """``main(argv)`` of an entry point, as a user calls it, with the launch
     counts set to 0 just before and read just after; returns its exit code,
-    its last line's JSON and the counts."""
+    its last line's JSON (with K1's launches by kernel, ``k1_kernels``) and
+    the counts."""
     import torch
+    from tfhe_fbs_map_tpu_torch.ops import fused_blind_rotate as fbr
 
     for k in launches:
         launches[k] = 0
+    before = dict(fbr.K1_KERNELS)
     out = io.StringIO()
     t0 = time.time()
     with contextlib.redirect_stdout(out):
@@ -601,8 +610,16 @@ def entry_point(main, argv: list, launches: dict) -> tuple[int, dict, dict]:
     res = json.loads(out.getvalue().strip().splitlines()[-1])
     log(f"  {' '.join(argv)} -> rc {rc} in {time.time() - t0:.1f} s")
     log(f"  {json.dumps(res)}")
-    log(f"  kernel launches in this run: {counts}")
+    res["k1_kernels"] = kernels_since(fbr, before)
+    log(f"  kernel launches in this run: {counts}, K1's by kernel "
+        f"{res['k1_kernels']}")
     return rc, res, counts
+
+
+def kernels_since(fbr, before: dict) -> dict:
+    """K1's launches by the kernel that ran them since ``before`` (a copy
+    of ``fbr.K1_KERNELS``)."""
+    return {k: fbr.K1_KERNELS[k] - n for k, n in before.items()}
 
 
 def run_cli(argv: list, expect: str, launches: dict) -> dict:
@@ -709,8 +726,8 @@ def check_pick(fbr, pick, sizes: list[list[int]], worst: dict) -> list[str]:
             plan, w = launch_plan(params, rows, orient, limbs)
             got = (fbr.k1_device_plan if otf else fbr.device_plan)(
                 rows, params, dev, limbs)
-            fit = (fbr.k1_max_clusters if otf else fbr.k2_max_clusters)(
-                got, limbs)
+            fit = (fbr.k1_resident(got, params, limbs) if otf
+                   else fbr.k2_max_clusters(got, limbs))
             tiles = -(-rows // got.cb)
             got_w = -(-tiles // max(1, fit))
             if (plan, w) != (got, got_w):
@@ -911,7 +928,7 @@ def run_benches(smi: str, presets, launches: dict) -> dict:
             log(f"  {label}: {res['errors']} wrong of {2 * res['batch']} "
                 f"checked (the noise model's p_error {rate:.3f} a "
                 f"bootstrap at {4 - dropped} limbs), rc {rc}")
-        out[label] = (kern, counts[kern])
+        out[label] = (kern, counts[kern], res["k1_kernels"])
     torch.cuda.empty_cache()
     return out
 
@@ -946,11 +963,14 @@ MESH_AES_BATCH = 16
 MESH_STAGED_BATCH = 4
 RANK_TIMEOUT = 300
 # a rank of phase 9 (d): the runtime CLI's main, then its launch counts
+# and K1's by kernel
 RANK = ("import json, sys\n"
-        "from tfhe_fbs_map_tpu_torch.ops.fused_blind_rotate import LAUNCHES\n"
+        "from tfhe_fbs_map_tpu_torch.ops.fused_blind_rotate import (\n"
+        "    K1_KERNELS, LAUNCHES)\n"
         "from tfhe_fbs_map_tpu_torch.runtime.cli import main\n"
         "rc = main(sys.argv[1:])\n"
         "print('# launches ' + json.dumps(LAUNCHES), file=sys.stderr)\n"
+        "print('# k1 kernels ' + json.dumps(K1_KERNELS), file=sys.stderr)\n"
         "sys.exit(rc)\n")
 
 
@@ -976,6 +996,8 @@ def check_mesh_fbs(presets) -> dict:
         t0 = time.time()
         res = dryrun.sharded_fbs(card_mesh(), presets["anchor"][0], orient,
                                  MESH_FBS_BATCH)
+        if kern == "k1":
+            out["k1_kernels"] = res["k1_kernels"]
         log(f"  sharded FBS at anchor, {MESH_FBS_BATCH} ciphertexts on 2 "
             f"shards via {kern}: bit_exact {res['bit_exact']}, launches "
             f"{res['launches']} ({time.time() - t0:.1f} s)")
@@ -1069,12 +1091,15 @@ def run_two_processes(smi: str) -> dict:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    counts = []
+    counts, kernels = [], []
     for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
         lines = [ln for ln in err.splitlines() if ln.startswith("# launches ")]
-        if p.returncode != 0 or not lines:
+        by_kernel = [ln for ln in err.splitlines()
+                     if ln.startswith("# k1 kernels ")]
+        if p.returncode != 0 or not lines or not by_kernel:
             raise SystemExit(f"rank {rank} exited {p.returncode}:\n{err}")
         counts.append(json.loads(lines[-1][len("# launches "):]))
+        kernels.append(json.loads(by_kernel[-1][len("# k1 kernels "):]))
     res = json.loads(outs[0][0].strip().splitlines()[-1])
     log(f"  2 processes, {' '.join(argv)} -> rc 0 and 0 in "
         f"{time.time() - t0:.1f} s")
@@ -1087,6 +1112,7 @@ def run_two_processes(smi: str) -> dict:
         raise SystemExit("the 2-process run: want dp 2, bit-exact, rank 0's "
                          "line alone and K1 once a level in each rank")
     res["launches"] = [c["k1"] for c in counts]
+    res["k1_kernels"] = kernels
     return res
 
 
@@ -1190,6 +1216,7 @@ def run_graphs(smi: str, launches: dict) -> list[dict]:
     timed runs are warm."""
     import numpy as np
     import torch
+    from tfhe_fbs_map_tpu_torch.ops import fused_blind_rotate as fbr
     from tfhe_fbs_map_tpu_torch.runtime.profile import trace_run
 
     rows = []
@@ -1212,6 +1239,7 @@ def run_graphs(smi: str, launches: dict) -> list[dict]:
                 capture_s = time.time() - t0
             for k in launches:
                 launches[k] = 0
+            before = dict(fbr.K1_KERNELS)
             if profiled:
                 traced = trace_run(dev, runs[kind])
                 secs[kind] = traced["wall_s"]
@@ -1223,6 +1251,8 @@ def run_graphs(smi: str, launches: dict) -> list[dict]:
                 torch.cuda.synchronize()
                 secs[kind] = time.time() - t0
             counts.append(dict(launches))
+            if kind == "graph":
+                kernels = kernels_since(fbr, before)
         outs = {kind: (b if isinstance(b, list) else [b])
                 for kind, b in got.items()}
         same = all(torch.equal(a, b) for a, b in zip(outs["eager"],
@@ -1243,7 +1273,7 @@ def run_graphs(smi: str, launches: dict) -> list[dict]:
             raise SystemExit(f"phase 10 {label}: graph and eager disagree "
                              f"or launched {counts}, want {want}")
         rows.append({"label": label, "kernel": kern, "launches": calls,
-                     "eager_run_s": secs["eager"],
+                     "k1_kernels": kernels, "eager_run_s": secs["eager"],
                      "graph_run_s": secs["graph"], "profiled": profiled,
                      "capture_s": capture_s, "graphs": graphs,
                      "groups": len(ex.groups), "idle_share": idle})
@@ -1414,6 +1444,15 @@ SMALL_N_GRAPH_REPS = 20
 STUDY_TIMEOUT = 600
 
 
+# phase 12 (d): K1's small-tile plan at N = 512, at every family it is
+# calibrated at: the launch sizes of one to 64 evaluations, at the steps
+# of phase 12 (a); the full-length launch the AES-128 cells make most
+WIDE_BATCHES = (1, 4, 21, 64, 128, 256, 512)
+# the row of the ``kernels`` line each route of phase 12 (d) reports under
+WIDE_ROW = {"k1": "k1", "k1s": "k1_wide"}
+WIDE_FULL = ("aes128_p4", 128)
+
+
 def small_plan_line(fbr, batch: int, params, limbs: int) -> str:
     """The small-N plan the card launches, its shared memory as the kernel
     counts it and the clusters of it the card runs at once; a cluster of
@@ -1493,6 +1532,76 @@ def check_k1_small(fbr, worst: dict) -> list[dict]:
     return out
 
 
+def check_k1_wide(fbr, worst: dict) -> dict:
+    """Phase 12 (d): K1 at N = 512 bitwise against its plain version on the
+    card at every family of ``calibrate.wide_families`` and
+    ``calibrate.fit_families``, every launch size
+    of WIDE_BATCHES and 4 and 3 limbs, on the plan ``k1_plan`` picks for
+    the family (its route from the calibration; the small-tile plan's
+    tile, cluster, n8 tiles a warp and passes logged), and at 128
+    ciphertexts on the small-tile plan of every tile and cluster it is
+    built for, whose shared memory as the kernel counts it must be the
+    host's; then the full-length launch of WIDE_FULL on each route, ms."""
+    import dataclasses
+    import torch
+    from tfhe_fbs_map_tpu_torch.optimizer import calibrate
+
+    dev = torch.device("cuda")
+    for name, (full, _) in {**calibrate.wide_families(),
+                            **calibrate.fit_families()}.items():
+        params = dataclasses.replace(full, lwe_dim=SMALL_N_STEPS)
+        for limbs in (4, 3):
+            for batch in WIDE_BATCHES:
+                inputs = kernel_inputs(params, SMALL_N_STEPS, batch, limbs,
+                                       True, seed=18)
+                plain = fbr.blind_rotate_k1_plain(*inputs, params)
+                route = fbr.k1_route(full, batch, limbs)
+                runs = [(route, None, None)] + [
+                    ("k1s", t, c) for t in fbr.K1S_WIDE_TILES
+                    for c in fbr.k1s_clusters(params, limbs, t)
+                    if batch == 128]
+                for r, t, c in runs:
+                    got = fbr.blind_rotate_k1(*inputs, params, batch_tile=t,
+                                              cluster=c, route=r)
+                    torch.cuda.synchronize()
+                    plan = fbr.k1_device_plan(batch, params, dev, limbs,
+                                              cb=t, cluster=c, route=r)
+                    line = f"route {r} {tuple(plan)}"
+                    if r == "k1s":
+                        smem, clusters = fbr.k1_small_layout(plan, params,
+                                                             limbs)
+                        want = fbr.k1_small_smem(params, limbs, plan.cluster,
+                                                 plan.passes, plan.cb)
+                        if smem != want:
+                            raise SystemExit(f"{name} {plan}: the kernel "
+                                             f"counts {smem} bytes, the "
+                                             f"host {want}")
+                        line += f" smem {smem} resident clusters {clusters}"
+                    report(WIDE_ROW[r], f"{name} n={SMALL_N_STEPS} "
+                           f"limbs={limbs} B={batch} {line}",
+                           int((got.long() - plain.long()).abs().max()),
+                           worst)
+    name, batch = WIDE_FULL
+    params = calibrate.wide_families()[name][0]
+    inputs = kernel_inputs(params, params.lwe_dim, batch, 4, True, seed=19)
+    p_ms, plain = once_ms(lambda: fbr.blind_rotate_k1_plain(*inputs, params))
+    b_ms, b_by = bound_ms(params, params.lwe_dim, batch, inputs[3])
+    out = {"launch": f"{name} full length", "n": params.lwe_dim,
+           "ciphertexts": batch, "plain_ms": p_ms, "bound_ms": b_ms,
+           "bound_by": b_by}
+    for r in fbr.K1_ROUTES:
+        ms, got = cuda_ms(lambda: fbr.blind_rotate_k1(*inputs, params,
+                                                      route=r), REPS)
+        plan = fbr.k1_device_plan(batch, params, dev, route=r)
+        out[r] = {"plan": list(plan), "ms": ms}
+        report(WIDE_ROW[r], f"{name} full length n={params.lwe_dim} "
+               f"B={batch} route {r} {tuple(plan)}: {ms:.3f} ms (plain "
+               f"version {p_ms:.3f} ms, bound {b_ms:.5f} ms, {b_by})",
+               int((got.long() - plain.long()).abs().max()), worst)
+    out["route"] = fbr.k1_route(params, batch)
+    return out
+
+
 def run_quick_modes(smi: str, launches: dict) -> dict:
     """Phase 12 (b): the quick modes on the card, their N=128 families
     through K1: ``bench --quick --orientation fused_otf`` (1 + iters
@@ -1517,7 +1626,7 @@ def run_quick_modes(smi: str, launches: dict) -> dict:
             raise SystemExit(f"{label}: rc {rc}, {res}, launches {counts}")
         log(f"  {label}: {res['value']} {res.get('unit', 'boots/s')}, "
             f"errors 0, {counts['k1']} K1 launches, on {smi}")
-        out[label] = counts["k1"]
+        out[label] = res["k1_kernels"]
     return out
 
 
@@ -2150,6 +2259,8 @@ def main(argv=None) -> int:
     # --- 12. K1 at N = 32, 64, 128; the quick modes; dry run and study ----
     t0 = time.time()
     small_k = check_k1_small(fbr, worst)
+    wide_k = check_k1_wide(fbr, worst)
+    log(json.dumps({"small_tile_k1": wide_k}))
     quick = run_quick_modes(smi, fbr.LAUNCHES)
     for k in fbr.LAUNCHES:
         fbr.LAUNCHES[k] = 0
@@ -2175,42 +2286,54 @@ def main(argv=None) -> int:
                     "conv_mesh": conv_mesh}))
     log(f"[conv orientations] {time.time() - t0:.1f} s")
 
-    # launches of each kernel on every main path, each counted from 0
+    # launches of each kernel on every main path, each counted from 0: K2's
+    # from LAUNCHES, K1's by the kernel that ran them (K1_KERNELS): its
+    # ring kernel, the small-N kernel (N < 256) and its small-tile plan
     by_path = {"k2": {"aes128_p4 fused": runs["k2"]["launches"]},
-               "k1": {"aes128_p4 auto": runs["k1"]["launches"],
-                      f"{KREYVIUM_PRESET} auto": krey["launches"],
-                      "bench p32": p32["launches"]}}
-    for label, (kern, n) in benches.items():
-        by_path[kern][label] = n
+               "k1": {}, "k1_small": {}, "k1_wide": {}}
+
+    def k1_path(label: str, kernels: dict) -> None:
+        for row, key in (("k1", "k1_kernel"), ("k1_small", "k1s_kernel"),
+                         ("k1_wide", "k1s_kernel_wide")):
+            if kernels[key]:
+                by_path[row][label] = kernels[key]
+
+    k1_path("aes128_p4 auto", runs["k1"]["k1_kernels"])
+    k1_path(f"{KREYVIUM_PRESET} auto", krey["k1_kernels"])
+    k1_path("bench p32", p32["k1_kernels"])
+    for label, (kern, n, kernels) in benches.items():
+        if kern == "k2":
+            by_path["k2"][label] = n
+        else:
+            k1_path(label, kernels)
     for label, res in opt_runs + [("c6288r optimizer", c6288r)] \
             + sweep_runs:
-        for kern, n in res["all_launches"].items():
-            if n:
-                by_path[kern][label] = n
-    for kern, n in mesh_fbs.items():
-        by_path[kern]["mesh sharded FBS anchor dp=2"] = n
-    by_path["k1"].update({
-        "mesh aes128_p4 fused_otf dp=2": mesh_aes["launches"]["k1"],
-        "mesh staged p32 dry run dp=2": mesh_staged["launches"]["k1"],
-        "2 processes aes128_p4 rank 0": two["launches"][0],
-        "2 processes aes128_p4 rank 1": two["launches"][1],
-        "bench_multichip": multichip["launches"]})
+        if res["all_launches"]["k2"]:
+            by_path["k2"][label] = res["all_launches"]["k2"]
+        k1_path(label, res["k1_kernels"])
+    by_path["k2"]["mesh sharded FBS anchor dp=2"] = mesh_fbs["k2"]
+    k1_path("mesh sharded FBS anchor dp=2", mesh_fbs["k1_kernels"])
+    k1_path("mesh aes128_p4 fused_otf dp=2", mesh_aes["k1_kernels"])
+    k1_path("mesh staged p32 dry run dp=2", mesh_staged["k1_kernels"])
+    for rank, kernels in enumerate(two["k1_kernels"]):
+        k1_path(f"2 processes aes128_p4 rank {rank}", kernels)
+    k1_path("bench_multichip", multichip["k1_kernels"])
     for row in graph_rows:
-        by_path[row["kernel"]][f"graphs {row['label']}"] = row["launches"]
-    # phase 12: every K1 launch of these paths is at N < 256, the small-N
-    # kernel's; the p32 quick bench and the dry run's staged program
-    # launch K1 at N=256 and N=128 alike, the full adder at N=256
-    by_path["k1_small"] = {
-        "bench --quick fused_otf": quick["bench --quick fused_otf"],
-        "bench_multichip --quick": quick["bench_multichip --quick"],
-        "dry run FBS dp=2": dry[0]["launches"]["k1"]}
-    by_path["k1"]["dry run full adder dp=2"] = dry[1]["launches"]["k1"]
-    mixed = {"bench p32 --quick (fam1 N=256 on k1, fam2 N=128 here)":
-             quick["bench p32 --quick"],
-             "dry run staged p32 dp=2 (f1 N=256 on k1, f2 N=128 here)":
-             dry[2]["launches"]["k1"]}
+        if row["kernel"] == "k2":
+            by_path["k2"][f"graphs {row['label']}"] = row["launches"]
+        else:
+            k1_path(f"graphs {row['label']}", row["k1_kernels"])
+    for label in ("bench --quick fused_otf", "bench p32 --quick",
+                  "bench_multichip --quick"):
+        k1_path(label, quick[label])
+    for res, label in zip(dry, ("dry run FBS dp=2",
+                                "dry run full adder dp=2",
+                                "dry run staged p32 dp=2")):
+        k1_path(label, res["k1_kernels"])
     timing["k1_small"] = tuple(small_k[-1][k] for k in (
         "ms", "plain_ms", "bound_ms", "bound_by"))
+    timing["k1_wide"] = (wide_k["k1s"]["ms"], wide_k["plain_ms"],
+                         wide_k["bound_ms"], wide_k["bound_by"])
     log(json.dumps({"graphs": graph_rows}))
     log(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": SOURCE[kern],
@@ -2223,12 +2346,14 @@ def main(argv=None) -> int:
              "conv_orientations": conv} if kern == "k1" else {}),
          **({"matmul_orientation": matmul} if kern == "k2" else {}),
          **({"graph_ms": small_k[-1]["graph_ms"],
-             "mixed_k1_launches_by_path": mixed,
-             "small_n_launches": small_k} if kern == "k1_small"
-            else {"bench_launches": bench_k[kern]})}
+             "small_n_launches": small_k} if kern == "k1_small" else {}),
+         **({"full_length": wide_k} if kern == "k1_wide" else {}),
+         **({"bench_launches": bench_k[kern]} if kern in bench_k else {})}
         for kern, name in (("k2", "fused_blind_rotate_k2"),
                            ("k1", "fused_blind_rotate_k1"),
-                           ("k1_small", "fused_blind_rotate_k1_small"))]}))
+                           ("k1_small", "fused_blind_rotate_k1_small"),
+                           ("k1_wide", "fused_blind_rotate_k1_small_wide"))
+    ]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -107,6 +107,10 @@ def test_k2_taken_where_its_price_is_lower(monkeypatch):
     k2["fixed_us"] = 0.0
     cal["families"][rm.entry_key(ANCHOR, "fused_otf")] = dict(
         k2, kernel="fused_otf", fixed_us=10e3)
+    # and no small-tile points of K1 nor their fit across families, which
+    # would undercut K2 at a few tiles
+    del cal["families"][rm.entry_key(ANCHOR, "k1s")]
+    del cal["kernels"]["k1s_wide"]
     monkeypatch.setattr(rm, "calibration", lambda: cal)
     assert rm.kernel_us(ANCHOR, "fused") < rm.kernel_us(ANCHOR, "fused_otf")
     assert pick_kernel(ANCHOR, CARD) == "fused"

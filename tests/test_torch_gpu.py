@@ -342,8 +342,8 @@ def test_model_waves_equal_the_device_plan(cuda, orientation):
                 plan, waves = launch_plan(params, rows, orientation, limbs)
                 got = (fbr.k1_device_plan if otf else fbr.device_plan)(
                     rows, params, cuda, limbs)
-                fit = (fbr.k1_max_clusters if otf
-                       else fbr.k2_max_clusters)(got, limbs)
+                fit = (fbr.k1_resident(got, params, limbs) if otf
+                       else fbr.k2_max_clusters(got, limbs))
                 tiles = -(-rows // got.cb)
                 assert (plan, waves) == (got, -(-tiles // max(1, fit)))
 
@@ -476,6 +476,37 @@ def test_graph_replay_equals_the_eager_loop(cuda, path):
         assert got.data_ptr() != buf.data_ptr()
     grew = {k: fbr.LAUNCHES[k] - before[k] for k in before}
     assert grew == {k: 2 * calls * (k == key) for k in grew}
+
+
+def test_graph_replay_counts_k1_by_kernel(cuda):
+    """A graph's capture adds nothing to ``K1_KERNELS`` and its replay adds
+    K1's launches by kernel as the eager level loop makes them: here the
+    full adder at AES-128's family, whose launches of 16 ciphertexts take
+    the small-tile plan."""
+    from tfhe_fbs_map_tpu_torch.runtime.executor import CircuitExecutor
+    from tfhe_fbs_map_tpu_torch.tfhe.params import PRESETS
+    keys = generate_keys(PRESETS["aes128_p4"][0], seed=4, device=cuda)
+    fast = prepare_fast_keys(keys, orientation="fused_otf")
+    ex = CircuitExecutor(full_adder_program(), keys, fast_keys=fast)
+    rng = np.random.default_rng(2)
+    values = {n.name: rng.integers(0, 2, 16)
+              for n in ex.prog.nodes if n.kind == "input"}
+    buf = ex.encrypt_inputs(values, np.random.default_rng(5))
+    before = dict(fbr.K1_KERNELS)
+    want = buf.clone()
+    for lv in range(len(ex.levels)):
+        want = ex.step(want, lv)
+    torch.cuda.synchronize()
+    eager = {k: fbr.K1_KERNELS[k] - n for k, n in before.items()}
+    assert eager["k1s_kernel_wide"] == len(ex.levels)
+    before = dict(fbr.K1_KERNELS)
+    assert ex.capture(buf) == len(ex.groups)
+    torch.cuda.synchronize()
+    assert fbr.K1_KERNELS == before
+    got = ex.run(buf)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert {k: fbr.K1_KERNELS[k] - n for k, n in before.items()} == eager
 
 
 def test_graphs_of_two_shards_on_one_card(cuda):
@@ -656,8 +687,11 @@ def test_small_n_layout_and_plan_on_the_card(cuda):
            STAGED_PRESETS["staged_test"].fam2]
     floor = {}
     for key, clusters in table.items():
-        if key.startswith("k1s/"):
-            c = int(key.split("/")[2])
+        # the small-N plans' entries (the small-tile plan's at N = 512 have
+        # more shared memory and warps a CTA)
+        parts = key.split("/")
+        if parts[0] == "k1s" and int(parts[-1].split("x")[1]) < fbr.K1_SLICE:
+            c = int(parts[2])
             floor[c] = min(floor.get(c, clusters), clusters)
     calibrated = 0
     for params in jax + widest:
@@ -690,6 +724,89 @@ def test_small_n_layout_and_plan_on_the_card(cuda):
         got = fbr.blind_rotate_k1(*dev, params, cluster=c)
         torch.cuda.synchronize()
         assert torch.equal(got, plain), c
+
+
+# K1's small-tile plan at N = 512: every family the calibration times it
+# at (calibrate.wide_families) and the shapes it takes by their fit
+# (calibrate.fit_families), a few steps, at the launch sizes of one to 64
+# evaluations
+WIDE_BATCHES = (1, 4, 21, 64, 128, 256, 512)
+
+
+def wide_families():
+    from tfhe_fbs_map_tpu_torch.optimizer import calibrate
+    return {name: params for name, (params, _) in
+            {**calibrate.wide_families(),
+             **calibrate.fit_families()}.items()}
+
+
+@pytest.mark.parametrize("name", ["aes128_p4", "anchor", "p8",
+                                  "kreyvium_p10_staged.fam2",
+                                  "p32_staged.fam2", "k=2 N=512 l=1",
+                                  "k=2 N=512 l=3"])
+def test_small_tile_k1_equals_plain(cuda, name):
+    """K1 at N = 512 on the plan ``k1_plan`` picks (the small-tile plan
+    where the calibration prices it lower, else the ring's) and on the
+    small-tile plan of every tile and cluster it is built for, bitwise
+    against the plain version at 4 and 3 limbs; one launch counted as K1's
+    each, and under ``K1_KERNELS`` as the kernel's that ran it."""
+    import dataclasses
+    full = wide_families()[name]
+    params = dataclasses.replace(full, lwe_dim=5)
+    for limbs in (4, 3):
+        for batch in WIDE_BATCHES:
+            b_init, a_t, tvs, keys = operands(params, batch, True,
+                                              seed=batch + limbs)
+            keys = keys[:, (4 - limbs) * (params.glwe_dim + 1):] \
+                .contiguous()
+            dev = [x.to(cuda) for x in (b_init, a_t, tvs, keys)]
+            plain = fbr.blind_rotate_k1_plain(*dev, params)
+            routes = [(None, None)] + [
+                (t, c) for t in fbr.K1S_WIDE_TILES
+                for c in fbr.k1s_clusters(params, limbs, t)
+                if batch in (21, 128)]
+            for t, c in routes:
+                before = fbr.LAUNCHES["k1"]
+                kernels = dict(fbr.K1_KERNELS)
+                # the full family's route (its calibrated entries) on the
+                # short one's steps
+                route = fbr.k1_route(full, batch, limbs) if c is None \
+                    else "k1s"
+                got = fbr.blind_rotate_k1(*dev, params, batch_tile=t,
+                                          cluster=c, route=route)
+                torch.cuda.synchronize()
+                assert fbr.LAUNCHES["k1"] == before + 1
+                ran = ("k1s_kernel_wide" if route == "k1s" else "k1_kernel")
+                assert {k: fbr.K1_KERNELS[k] - n
+                        for k, n in kernels.items()} == {
+                    k: int(k == ran) for k in kernels}
+                assert torch.equal(got, plain), (batch, limbs, t, c)
+
+
+def test_small_tile_layout_on_the_card(cuda):
+    """The small-tile plan's shared memory, as the kernel sizes it, is the
+    host's copy of its layout (``k1_small_smem``) at every family, tile and
+    cluster it is built for, at 4 and 3 limbs; the card runs as many
+    clusters of each as the calibration's resident table says; the card's
+    plan at every launch size is the runtime model's."""
+    from tfhe_fbs_map_tpu_torch.optimizer import runtime_model
+    from tfhe_fbs_map_tpu_torch.optimizer.optimizer import calibration
+    table = calibration()["resident"]
+    for params in wide_families().values():
+        for limbs in (4, 3):
+            for t in fbr.K1S_WIDE_TILES:
+                for c in fbr.k1s_clusters(params, limbs, t):
+                    plan = fbr.k1_wide_plan(1, params, 132, limbs, c, cb=t)
+                    smem, clusters = fbr.k1_small_layout(plan, params, limbs)
+                    assert smem == fbr.k1_small_smem(
+                        params, limbs, c, plan.passes, t) <= fbr.SMEM_MAX
+                    key = runtime_model.resident_key("fused_otf", limbs,
+                                                     plan, params)
+                    assert clusters == table[key], key
+            for batch in WIDE_BATCHES:
+                assert runtime_model.launch_plan(
+                    params, batch, "fused_otf", limbs)[0] \
+                    == fbr.k1_device_plan(batch, params, cuda, limbs)
 
 
 @pytest.mark.parametrize("argv,launches", [

@@ -51,6 +51,14 @@ def test_plan_fits_the_card(name, batch):
     kn = (params.glwe_dim + 1) * params.poly_size
     for limbs in (4, 3, 1):
         plan = fbr.k1_plan(batch, params, SMS, limbs)
+        if isinstance(plan, fbr.K1SmallPlan):
+            # the small-tile plan, where the calibration prices it lower
+            # (tests/test_torch_k1_small_n.py); one wave of clusters a tile
+            assert fbr.k1_route(params, batch, limbs) == "k1s"
+            assert plan.cluster in fbr.k1s_clusters(params, limbs, plan.cb)
+            assert plan.cb in fbr.K1S_WIDE_TILES and plan.passes == 1
+            continue
+        assert fbr.k1_route(params, batch, limbs) == "k1"
         assert plan.cb in fbr.K1_TILES and plan.nw in fbr.K1_WIDTHS
         assert fbr.k1_fits(plan.cb, plan.nw, limbs)
         assert 1 <= plan.cluster <= fbr.K1_MAX_CLUSTER
@@ -69,12 +77,15 @@ def test_plan_keeps_one_wave_of_resident_clusters():
     path's 1024-ciphertext level takes 16 tiles of 64 on clusters of 6."""
     h100 = {1: 132, 2: 66, 3: 39, 4: 30, 6: 17, 8: 15, 12: 7, 16: 7}
     params = PRESETS["aes128_p4"][0]
-    plan = fbr.k1_plan(1024, params, SMS, resident=lambda p: h100[p.cluster])
+    plan = fbr.k1_ring_plan(1024, params, SMS,
+                            resident=lambda p: h100[p.cluster])
     assert (plan.cb, plan.cluster, plan.nw) == (64, 6, 64)
     for batch in BATCHES:
-        plan = fbr.k1_plan(batch, params, SMS,
-                           resident=lambda p: h100[p.cluster])
-        assert -(-batch // plan.cb) <= h100[plan.cluster]
+        for plan in (fbr.k1_ring_plan(batch, params, SMS,
+                                      resident=lambda p: h100[p.cluster]),
+                     fbr.k1_plan(batch, params, SMS,
+                                 resident=lambda p: h100[p.cluster])):
+            assert -(-batch // plan.cb) <= h100[plan.cluster]
 
 
 def test_plan_overrides_and_refusals():
@@ -265,7 +276,7 @@ def test_emulated_schedule_equals_plain_and_jax(label, limbs, plan_of):
     b_init, a_t, tvs, keys = k1_operands(params, steps, batch, limbs,
                                          seed=limbs)
     kw = {} if plan_of == "default" else {"cb": 128, "nw": 32}
-    plan = fbr.k1_plan(batch, params, SMS, limbs, **kw)
+    plan = fbr.k1_ring_plan(batch, params, SMS, limbs, **kw)
     args = tuple(map(torch.from_numpy, (b_init, a_t, tvs)))
     got = emulate_k1(*args, torch.from_numpy(keys), params, plan)
     plain = fbr.blind_rotate_k1_plain(*args, torch.from_numpy(keys), params)

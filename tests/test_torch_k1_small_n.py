@@ -14,6 +14,7 @@ that owns the tile, then the limb combine; it is held bitwise against the
 plain version.  The CUDA kernel is held against the plain version on the
 card by ``chip_smoke.py`` phase 12 (a) and ``tests/test_torch_gpu.py``."""
 
+import dataclasses
 import math
 import re
 from pathlib import Path
@@ -79,7 +80,7 @@ def operands(params, steps, batch, limbs, seed):
     rows = k1 * params.bsk_level
     b_init = rng.integers(0, 2 * N, (batch, 1)).astype(np.int32)
     a_t = rng.integers(0, 2 * N, (steps, batch, 1)).astype(np.int32)
-    edges = np.array([0, N - 1, N, 2 * N - 1], dtype=np.int32)
+    edges = np.array([0, N - 1, N, 2 * N - 1], dtype=np.int32)[:batch]
     a_t[:, :4, 0] = edges
     b_init[:4, 0] = edges
     tvs = rng.integers(-2 ** 31, 2 ** 31, (batch, N)).astype(np.int32)
@@ -112,13 +113,20 @@ def test_plain_equals_jax_interpret(N, k, l, limbs):
 @pytest.mark.parametrize("name", sorted(PRESETS))
 @pytest.mark.parametrize("batch", BATCHES)
 def test_presets_stay_on_the_n256_kernel(name, batch):
-    """Every preset has N ≥ 256: K1 serves it with its ring kernel, whose
-    plan is unchanged; the small-N kernel takes none of them."""
+    """Every preset has N ≥ 256: K1 serves it with its ring kernel, or
+    where the calibration's own points of it price it lower its small-tile
+    plan (never its small-N plan); the ring kernel's plan is unchanged."""
     params = PRESETS[name][0]
     assert params.poly_size >= fbr.K1_SLICE
     assert fbr.unsupported(params, otf=True) is None
     plan = fbr.k1_plan(batch, params, 132)
-    assert plan.cb in fbr.K1_TILES and plan.nw in fbr.K1_WIDTHS
+    ring = fbr.k1_ring_plan(batch, params, 132)
+    assert ring.cb in fbr.K1_TILES and ring.nw in fbr.K1_WIDTHS
+    if runtime_model.small_tile_wins(params, batch):
+        assert plan == fbr.k1_wide_plan(batch, params, 132)
+        assert plan.cb in fbr.K1S_WIDE_TILES and plan.passes == 1
+    else:
+        assert plan == ring
 
 
 SMALL_SHAPES = {**JAX_SHAPES, **{
@@ -126,20 +134,21 @@ SMALL_SHAPES = {**JAX_SHAPES, **{
     for k in (1, 2) for N in SMALL_N for l in (2, 3)}}
 
 
-def owners(plan, kn, chunks):
+def owners(plan, kn, chunks, warps=fbr.K1S_WARPS, wide=False):
     """(column, contraction chunk) -> (CTA, warp) of every product the
     plan's CTAs and warps compute: CTA r the span [r·span, (r+1)·span),
-    its warps groups of nt n8 tiles, as many as cover them rounded up to a
-    power of two, warp w group w % groups over slice w // groups of the
-    ``chunks`` 32-byte chunks."""
+    its ``warps`` warps groups of nt n8 tiles, as many as cover them
+    rounded up to a power of two (at N ≥ 256, ``wide``, exactly as many),
+    warp w group w % groups over slice w // groups of the ``chunks``
+    32-byte chunks."""
     span = kn // plan.cluster
     tiles = span // 8
-    groups = fbr.k1s_groups(span, plan.nt)
-    assert groups >= -(-tiles // plan.nt) and fbr.K1S_WARPS % groups == 0
-    slices = fbr.K1S_WARPS // groups
+    groups = fbr.k1s_groups(span, plan.nt, wide)
+    assert groups >= -(-tiles // plan.nt) and warps % groups == 0
+    slices = warps // groups
     held = {}
     for r in range(plan.cluster):
-        for w in range(fbr.K1S_WARPS):
+        for w in range(warps):
             tg, ks = w % groups, w // groups
             for s in range(plan.nt):
                 tile = tg * plan.nt + s
@@ -305,16 +314,41 @@ def test_small_launch_refuses_ring_knobs():
 
 # ------------------------------------------------ emulation of the kernel
 
+def u32_words(buf: torch.Tensor) -> torch.Tensor:
+    """A byte buffer's little-endian 32-bit words, int64."""
+    w = buf.long().reshape(-1, 4) & 0xFF
+    return w[:, 0] | w[:, 1] << 8 | w[:, 2] << 16 | w[:, 3] << 24
+
+
+def b_operand(words, at_gen, at_flat, flat):
+    """The B fragment bytes [..., 32, span] as the kernel's warps read them,
+    each window as the two aligned words around it, funnel-shifted
+    (``window``); ``at_gen`` the byte each k row's window starts at as a
+    tile's own (``bo[nt] + ko``, + 16 for its second register),
+    ``at_flat`` as the group's where its tiles lie in one component
+    (``bo[0] + ko + 8m``), which must agree on every flat column."""
+    assert torch.equal(at_flat[..., flat], at_gen[..., flat])
+    at = torch.where(flat, at_flat, at_gen)
+    i = torch.arange(32)[:, None] % 4
+    lo = at >> 2
+    val = ((words[lo] | words[lo + 1] << 32) >> (8 * (at & 3))) & MASK
+    byte = (val >> (8 * i)) & 0xFF
+    return torch.where(byte >= 128, byte - 256, byte)
+
+
 def emulate_small(b_init, a_t, tvs, keys, params, plan):
     """The small-N K1's CUDA schedule in plain torch; keys
     [n, L·(k+1), rows, 2N].  Every CTA of a tile's cluster keeps its own
     copy of the tile's ACC, double-buffered; a step's CTA computes its
     digits from its copy of buffer i&1 (all k+1 components in one pass, or
     one pass a component, as the plan says), its span's products from the
-    key stage it copied, one int32 fragment sum a contraction slice (its
-    warps' share of every pass's chunks), the slices' limb-shifted sums
-    added mod 2^32, and stores its span of the new ACC into buffer (i+1)&1
-    of every copy."""
+    key stage it copied, read as the warps read it (a group of nt n8 tiles
+    in one component takes nt + 2 windows a chunk, any other tile two
+    windows of its own; each window two aligned words), one int32 fragment
+    sum a
+    contraction slice (its warps' share of every pass's chunks), the
+    slices' limb-shifted sums added mod 2^32, and stores its span of the
+    new ACC into buffer (i+1)&1 of every copy."""
     k1, N = params.glwe_dim + 1, params.poly_size
     l, b = params.bsk_level, params.bsk_base_log
     L = keys.shape[1] // k1
@@ -323,19 +357,26 @@ def emulate_small(b_init, a_t, tvs, keys, params, plan):
     span, passes = kn // C, plan.passes
     cpp, prow = k1 // passes, rows // passes
     bl, half = b * l, 1 << (b - 1)
+    bufs = 2
+    log_n = N.bit_length() - 1
 
     # every (column, chunk) product on exactly one (CTA, warp)
     chunks = prow * N // 32
     assert len(owners(plan, kn, chunks)) == kn * chunks
     slices = fbr.K1S_WARPS // fbr.k1s_groups(span, plan.nt)
-    slice_of = [ks for kc in range(chunks) for ks in range(slices)
-                if ks * chunks // slices <= kc < (ks + 1) * chunks // slices]
     # a B fragment's bytes: column (comp, t), contraction k of a 32-wide
     # chunk at j0 reads E[t + j0 + k + 1]; as two aligned words a window it
     # reads at most 4 bytes past the row, inside the next row or kEPad
     top = (N - 1) + (N - 32) + 31 + 1
     assert (top & ~3) + 7 < 2 * N + source_constant("kEPad")
+    # each lane's window starts: column q = q_lo + 8·tile + gid of tile nt
+    # of group tg, k = 16·h + 4·tig + i
+    nt = plan.nt
+    cols = torch.arange(span)
+    tile, gid = cols // 8, cols % 8
+    tg, ntl = tile // nt, tile % nt
     kk = torch.arange(32)[:, None]
+    hh, tig = kk // 16, (kk % 16) // 4
 
     def rotated(rows_, amt):
         """X^amt · rows, [cb, N] uint32 values in int64."""
@@ -346,60 +387,207 @@ def emulate_small(b_init, a_t, tvs, keys, params, plan):
             ^ ((amt & N) != 0)[:, None]
         return torch.where(neg, (-v) & MASK, v)
 
-    out = torch.zeros((batch, kn), dtype=torch.int64)
-    for tile in range(-(-batch // cb)):
-        g = torch.arange(tile * cb, min((tile + 1) * cb, batch))
-        live = len(g)
-        # copies [CTA][buffer][cb][(comp, t)]
-        acc = torch.zeros((C, 2, cb, kn), dtype=torch.int64)
-        acc[:, 0, :live, (k1 - 1) * N:] = rotated(tvs[g].long() & MASK,
-                                                  b_init[g, 0].long())
-        for i in range(a_t.shape[0]):
-            cur, nxt = i & 1, (i + 1) & 1
-            amt = torch.zeros(cb, dtype=torch.int64)
-            amt[:live] = a_t[i, g, 0].long()
-            spans = []
-            for r in range(C):
-                q = torch.arange(r * span, (r + 1) * span)
-                c_lo = r * span // N
-                nc = ((r + 1) * span - 1) // N - c_lo + 1
-                co, t = q // N - c_lo, q % N
-                d = torch.zeros((slices, L, cb, span), dtype=torch.float64)
-                for p in range(passes):
-                    dig = torch.zeros((cb, prow * N), dtype=torch.int64)
-                    for ci in range(cpp):
-                        own = acc[r, cur, :, (p * cpp + ci) * N:][:, :N]
-                        diff = (rotated(own, amt) - own) & MASK
-                        w = ((diff + (1 << (31 - bl))) & MASK) >> (32 - bl)
-                        w = w + sum(half << (b * j) for j in range(l))
-                        for lev in range(l):
-                            dl = ((w >> (b * (l - 1 - lev)))
-                                  & ((1 << b) - 1)) - half
-                            dig[:live, (ci * l + lev) * N + N - 1
-                                - torch.arange(N)] = dl[:live]
-                    # the stage as the bulk copies lay it: [L][nc][prow][2N]
-                    stage = torch.stack([
-                        keys[i, lb * k1 + c_lo + c, p * prow:(p + 1) * prow]
-                        for lb in range(L) for c in range(nc)]).long() \
-                        .reshape(L, nc, prow, 2 * N)
-                    for kc in range(chunks):
-                        rr, j0 = kc // (N // 32), kc % (N // 32) * 32
-                        a = dig[:, 32 * kc:32 * kc + 32].double()
-                        idx = t[None, :] + j0 + kk + 1         # [32, span]
-                        for lb in range(L):
-                            bm = stage[lb, co[None, :], rr, idx]
-                            d[slice_of[kc], lb] += a @ bm.double()
-                    # int32 fragment sums: exact and in range
-                    assert d.abs().max() < 2 ** 31
-                add = sum((d[ks, lb].long() & MASK) << 8 * (lb + 4 - L)
-                          for ks in range(slices)
-                          for lb in range(L)) & MASK          # [cb, span]
-                spans.append((acc[r, cur][:, q] + add) & MASK)
-            for r, new in enumerate(spans):
-                acc[:, nxt, :, r * span:(r + 1) * span] = new
-        fin = a_t.shape[0] & 1
-        assert all(torch.equal(acc[r, fin], acc[0, fin]) for r in range(C))
-        out[g] = acc[0, fin, :live]
+    # every tile at once: rows [tiles·cb], those past the batch with zero
+    # digits, never stored (the key operand does not depend on the tile)
+    rows_all = -(-batch // cb) * cb
+    live = torch.arange(rows_all) < batch
+    tv = torch.zeros((rows_all, N), dtype=torch.int64)
+    tv[:batch] = tvs.long() & MASK
+    b0 = torch.zeros(rows_all, dtype=torch.int64)
+    b0[:batch] = b_init[:, 0].long()
+    # copies [CTA][buffer][row][(comp, t)]
+    acc = torch.zeros((C, bufs, rows_all, kn), dtype=torch.int64)
+    acc[:, 0, :, (k1 - 1) * N:] = rotated(tv, b0) * live[:, None]
+    for i in range(a_t.shape[0]):
+        cur, nxt = i % bufs, (i + 1) % bufs
+        amt = torch.zeros(rows_all, dtype=torch.int64)
+        amt[:batch] = a_t[i, :, 0].long()
+        spans = []
+        for r in range(C):
+            q_lo = r * span
+            q = q_lo + cols
+            c_lo = q_lo // N
+            nc = (q_lo + span - 1) // N - c_lo + 1
+            bo = (((q >> log_n) - c_lo) * prow * 2 * N + (q & (N - 1))
+                  + 4 * tig + 1)                              # [32, span]
+            q_first = q_lo + 8 * tg * nt
+            flat = (((tg + 1) * nt <= span // 8)
+                    & ((q_first >> log_n) == ((q_first + 8 * nt - 1) >> log_n)))
+            qf = q_first + gid
+            bo0 = (((qf >> log_n) - c_lo) * prow * 2 * N + (qf & (N - 1))
+                   + 4 * tig + 1)
+            d = torch.zeros((slices, L, rows_all, span), dtype=torch.float64)
+            for p in range(passes):
+                dig = torch.zeros((rows_all, prow * N), dtype=torch.int64)
+                for ci in range(cpp):
+                    own = acc[r, cur, :, (p * cpp + ci) * N:][:, :N]
+                    diff = (rotated(own, amt) - own) & MASK
+                    w = ((diff + (1 << (31 - bl))) & MASK) >> (32 - bl)
+                    w = w + sum(half << (b * j) for j in range(l))
+                    for lev in range(l):
+                        dl = ((w >> (b * (l - 1 - lev))) & ((1 << b) - 1)) \
+                            - half
+                        dig[:, (ci * l + lev) * N + N - 1
+                            - torch.arange(N)] = dl * live[:, None]
+                # the stage as the bulk copies lay it: [L][nc][prow][2N]
+                # and kEPad bytes past it
+                stage = torch.cat([torch.stack([
+                    keys[i, lb * k1 + c_lo + c, p * prow:(p + 1) * prow]
+                    for lb in range(L) for c in range(nc)]).reshape(-1),
+                    torch.zeros(source_constant("kEPad"), dtype=torch.int8)])
+                words = u32_words(stage)
+                # every chunk and limb at once: [L, chunks, 32, span]
+                kc = torch.arange(chunks)
+                ko = (kc // (N // 32) * 2 * N + kc % (N // 32) * 32
+                      )[None, :, None, None]
+                ko = ko + (torch.arange(L) * nc * prow * 2 * N
+                           )[:, None, None, None]
+                bm = b_operand(words, ko + bo + 16 * hh,
+                               ko + bo0 + 8 * (ntl + 2 * hh), flat).double()
+                a = dig.reshape(rows_all, chunks, 32).double()
+                for ks in range(slices):
+                    lo = ks * chunks // slices
+                    hi = (ks + 1) * chunks // slices
+                    d[ks] += torch.einsum("gck,lcks->lgs", a[:, lo:hi],
+                                          bm[:, lo:hi])
+                # int32 fragment sums: exact and in range
+                assert d.abs().max() < 2 ** 31
+            add = sum((d[ks, lb].long() & MASK) << 8 * (lb + 4 - L)
+                      for ks in range(slices) for lb in range(L)) & MASK
+            spans.append((acc[r, cur][:, q] + add) & MASK)
+        for r, new in enumerate(spans):
+            acc[:, nxt, :, r * span:(r + 1) * span] = new * live[:, None]
+    fin = a_t.shape[0] % bufs
+    assert all(torch.equal(acc[r, fin], acc[0, fin]) for r in range(C))
+    out = acc[0, fin, :batch]
+    out = ((out + (1 << 31)) & MASK) - (1 << 31)
+    return out.reshape(batch, k1, N).permute(1, 0, 2)
+
+
+def emulate_wide(b_init, a_t, tvs, keys, params, plan):
+    """K1's small-tile schedule at N ≥ 256 (``k1s_kernel_wide``) in plain
+    torch; keys [n, L·(k+1), rows, 2N].  CTA r of a tile's cluster keeps
+    only its span of the ACC; a step's CTA computes the digits of its span,
+    8 coefficients an item, reading each item's rotated source words as
+    three aligned 4-word blocks from the CTAs that own them (each block
+    inside one owner's span), and stores them into every CTA's digits
+    (together the whole tile's, each column written once); then the
+    products of its span over all the digits and the step's rows in one
+    pass, read as the warps read them (:func:`b_operand`), the slices'
+    limb-shifted sums added into its span in place."""
+    k1, N = params.glwe_dim + 1, params.poly_size
+    l, b = params.bsk_level, params.bsk_base_log
+    L = keys.shape[1] // k1
+    batch, cb, C = tvs.shape[0], plan.cb, plan.cluster
+    kn, rows = k1 * N, k1 * l
+    span, nt = kn // C, plan.nt
+    assert plan.passes == 1 and span % 8 == 0
+    bl, half = b * l, 1 << (b - 1)
+    log_n = N.bit_length() - 1
+    chunks = rows * N // 32
+    warps = fbr.k1s_warps(params, cb)
+    assert len(owners(plan, kn, chunks, warps, True)) == kn * chunks
+    slices = warps // fbr.k1s_groups(span, nt, True)
+    cols = torch.arange(span)
+    tile, gid = cols // 8, cols % 8
+    tg, ntl = tile // nt, tile % nt
+    kk = torch.arange(32)[:, None]
+    hh, tig = kk // 16, (kk % 16) // 4
+    rows_all = -(-batch // cb) * cb
+    live = torch.arange(rows_all) < batch
+    g_idx = torch.arange(rows_all)[:, None, None]
+
+    # each CTA's span [C][row][span], X^{b_init}·tv in the last component
+    acc = torch.zeros((C, rows_all, span), dtype=torch.int64)
+    b0 = torch.zeros(rows_all, dtype=torch.int64)
+    b0[:batch] = b_init[:, 0].long()
+    tv = torch.zeros((rows_all, N), dtype=torch.int64)
+    tv[:batch] = tvs.long() & MASK
+    for r in range(C):
+        q = r * span + cols
+        last = q // N == k1 - 1
+        t = q % N
+        am, flip = b0[:, None] & (N - 1), (b0[:, None] & N) != 0
+        v = torch.gather(tv, 1, (t[None, :] - am) & (N - 1))
+        neg = (t[None, :] < am) ^ flip
+        v = torch.where(neg, (-v) & MASK, v)
+        acc[r] = torch.where(last[None, :] & live[:, None], v, 0)
+    for i in range(a_t.shape[0]):
+        amt = torch.zeros(rows_all, dtype=torch.int64)
+        amt[:batch] = a_t[i, :, 0].long()
+        am, flip = amt & (N - 1), (amt & N) != 0
+        dig = torch.zeros((rows_all, rows * N), dtype=torch.int64)
+        written = torch.zeros(rows * N, dtype=torch.int64)
+        for r in range(C):
+            q0 = r * span + torch.arange(0, span, 8)        # items
+            c, t0 = q0 // N, q0 % N
+            frm = (t0[None, :] - am[:, None]) & (N - 1)    # [row, item]
+            blk = frm & ~3
+            words = []
+            for h in range(3):
+                src = c[None, :] * N + ((blk + 4 * h) & (N - 1))
+                owner = src // span
+                off = src - owner * span
+                assert bool((off % 4 == 0).all())
+                assert bool((off <= span - 4).all())
+                words.append(acc[owner[..., None], g_idx,
+                                 off[..., None] + torch.arange(4)])
+            x = torch.cat(words, dim=-1)                    # [row, item, 12]
+            j = torch.arange(8)
+            v = torch.gather(x, 2, ((frm & 3)[..., None] + j).expand(
+                -1, -1, 8))                                  # x[sh4 + j]
+            t = t0[None, :, None] + j
+            neg = (t < am[:, None, None]) ^ flip[:, None, None]
+            rot = torch.where(neg, (-v) & MASK, v)
+            own = acc[r].reshape(rows_all, span // 8, 8)
+            w = ((((rot - own) & MASK) + (1 << (31 - bl))) & MASK) \
+                >> (32 - bl)
+            w = w + sum(half << (b * jj) for jj in range(l))
+            for lev in range(l):
+                dl = ((w >> (b * (l - 1 - lev))) & ((1 << b) - 1)) - half
+                col = ((c[:, None] * l + lev) * N + N - 1 - t[0]).reshape(-1)
+                dig[:, col] = (dl * live[:, None, None]).reshape(rows_all, -1)
+                written.index_add_(0, col, torch.ones_like(col))
+        assert bool((written == 1).all())
+        news = []
+        for r in range(C):
+            q_lo = r * span
+            q = q_lo + cols
+            c_lo = q_lo // N
+            nc = (q_lo + span - 1) // N - c_lo + 1
+            bo = (((q >> log_n) - c_lo) * rows * 2 * N + (q & (N - 1))
+                  + 4 * tig + 1)
+            q_first = q_lo + 8 * tg * nt
+            flat = (((tg + 1) * nt <= span // 8)
+                    & ((q_first >> log_n) == ((q_first + 8 * nt - 1) >> log_n)))
+            qf = q_first + gid
+            bo0 = (((qf >> log_n) - c_lo) * rows * 2 * N + (qf & (N - 1))
+                   + 4 * tig + 1)
+            stage = torch.cat([torch.stack([
+                keys[i, lb * k1 + c_lo + cc] for lb in range(L)
+                for cc in range(nc)]).reshape(-1),
+                torch.zeros(source_constant("kEPad"), dtype=torch.int8)])
+            words = u32_words(stage)
+            kc = torch.arange(chunks)
+            ko = (kc // (N // 32) * 2 * N + kc % (N // 32) * 32
+                  )[None, :, None, None]
+            ko = ko + (torch.arange(L) * nc * rows * 2 * N)[:, None, None, None]
+            bm = b_operand(words, ko + bo + 16 * hh,
+                           ko + bo0 + 8 * (ntl + 2 * hh), flat).double()
+            a = dig.reshape(rows_all, chunks, 32).double()
+            d = torch.zeros((slices, L, rows_all, span), dtype=torch.float64)
+            for ks in range(slices):
+                lo, hi = ks * chunks // slices, (ks + 1) * chunks // slices
+                d[ks] = torch.einsum("gck,lcks->lgs", a[:, lo:hi],
+                                     bm[:, lo:hi])
+            assert d.abs().max() < 2 ** 31
+            add = sum((d[ks, lb].long() & MASK) << 8 * (lb + 4 - L)
+                      for ks in range(slices) for lb in range(L)) & MASK
+            news.append((acc[r] + add) & MASK * live[:, None])
+        # every CTA's digits were read before any span changes (the cluster
+        # barrier after the digits)
+        acc = torch.stack(news)
+    out = acc.permute(1, 0, 2).reshape(rows_all, kn)[:batch]
     out = ((out + (1 << 31)) & MASK) - (1 << 31)
     return out.reshape(batch, k1, N).permute(1, 0, 2)
 
@@ -476,25 +664,30 @@ def test_model_prices_the_small_kernel_with_its_own_fit(monkeypatch):
 
 def test_bisect_variants_remove_one_phase_each():
     """The small-N bisect's source edits (``runtime/bisect.py --kernel
-    k1s``) still find what they remove in the kernel's source: each variant
-    differs from it, in its own way (the in-loop cluster barrier of
-    ``local_only``, not the one after the set-up), and the launches it
-    times are the full-length ones of the paths that run the kernel."""
+    k1s``) still find what they remove in the kernel's source, in both of
+    its kernels (the small-N one and the small-tile one at N ≥ 256, which
+    share the products): each variant differs from it, in its own way (the
+    in-loop cluster barriers of ``local_only``, not the ones after the
+    set-up), and the launches it times are the full-length ones of the
+    paths that run the kernel, then the AES-128 family's."""
     from tfhe_fbs_map_tpu_torch.runtime import bisect
     var = bisect.k1s_variants(K1S_SOURCE)
     assert var["base"] == K1S_SOURCE
-    assert K1S_SOURCE.count("mma_s8(d[lb][nt]") == 1
-    assert "mma_s8(d[lb][nt]" not in var["no_products"]
+    mma = "mma_s8(d[rt][lb][nt]"
+    assert K1S_SOURCE.count(mma) == 2
+    assert mma not in var["no_products"] and mma not in var["loads_only"]
     for call in ("bulk_load(", "mbar_expect_tx(", "mbar_wait("):
-        assert K1S_SOURCE.count(call) == 1 and call not in var["no_key_copy"]
+        assert K1S_SOURCE.count(call) == 2 and call not in var["no_key_copy"]
     assert "= packed;" not in var["no_digits"]
-    assert "ldmatrix_x4(a," not in var["mma_only"]
-    assert "window(er" not in var["mma_only"]
-    assert "mma_s8(d[lb][nt]" not in var["loads_only"]
+    assert "store_to(at, peer" not in var["no_digits"]
+    assert "ldmatrix_x4(a[rt]" not in var["mma_only"]
+    assert "window(" not in var["mma_only"].split("products(")[1] \
+        .split("\n}\n")[0]
     for name in ("no_exchange", "local_only"):
         assert "j < cluster; ++j" not in var[name]
-    assert K1S_SOURCE.count("cluster_barrier();") == 2
-    assert var["local_only"].count("cluster_barrier();") == 1
+    assert K1S_SOURCE.count("cluster_barrier();") == 5
+    assert var["local_only"].count("cluster_barrier();") == 2
+    assert "), owner)" not in var["local_only"]
     assert list(var) == ["base", "no_products", "no_key_copy", "no_digits",
                          "mma_only", "loads_only", "no_exchange",
                          "local_only"]
@@ -506,6 +699,8 @@ def test_bisect_variants_remove_one_phase_each():
         (JAX_SHAPES["staged fam2 N=128"], 40),
         (JAX_SHAPES["bench_multichip --quick N=128"], 16),
         (JAX_SHAPES["bench_multichip --quick N=128"], 48)]
+    assert [(p, b) for _, p, b in bisect.wide_launches()] == [
+        (PRESETS["aes128_p4"][0], 16), (PRESETS["aes128_p4"][0], 128)]
 
 
 def calibration_shell(key: str) -> TFHEParams:
@@ -542,6 +737,42 @@ def test_calibration_has_the_small_kernels_point():
             calibration_shell(pt["key"]), pt["rows"], pt["kernel"],
             pt["limbs"])
         assert list(plan) == pt["plan"] and waves == pt["waves"]
+    # the small-tile plan's points at N >= 256: every family of
+    # calibrate.wide_families at every launch size on every tile and
+    # cluster it is built for, the waves the model gives each; each
+    # family's entry holds its fastest at each launch size, and the model
+    # takes the plan of the least summed time over the families of a shape
+    wide = cal["raw"]["k1s_wide_plans"]
+    assert {pt["family"] for pt in wide} == set(calibrate.wide_families())
+    for name, (params, _) in calibrate.wide_families().items():
+        pts = [pt for pt in wide if pt["family"] == name]
+        want = {(r, t, c) for r in runtime_model.SMALL_ROWS
+                for t in fbr.K1S_WIDE_TILES
+                for c in fbr.k1s_clusters(params, 4, t)}
+        assert {(pt["rows"], *pt["plan"][:2]) for pt in pts} == want
+        for pt in pts:
+            plan = fbr.k1_wide_plan(pt["rows"], params, cal["sms"], 4,
+                                    pt["plan"][1], cb=pt["plan"][0])
+            assert list(plan) == pt["plan"]
+            assert pt["waves"] == runtime_model._waves(
+                pt["rows"], plan, lambda p: pt["resident"])
+            assert pt["resident"] == cal["resident"][
+                runtime_model.resident_key("fused_otf", 4, plan, params)]
+        entry = cal["families"][runtime_model.entry_key(params, "k1s")]
+        assert entry["name"] == name
+        assert entry["points"] == [
+            [r, min(pt["kernel_ms"] * 1e3 for pt in pts if pt["rows"] == r)]
+            for r in runtime_model.SMALL_ROWS]
+        for r in runtime_model.SMALL_ROWS:
+            same = [pt for pt in wide if pt["rows"] == r
+                    and runtime_model.shape_key(calibration_shell(pt["key"]))
+                    == runtime_model.shape_key(params)]
+            sums = {}
+            for pt in same:
+                t = tuple(pt["plan"][:2])
+                sums[t] = sums.get(t, 0.0) + pt["kernel_ms"] * 1e3
+            assert runtime_model.small_tile_pick(params, r) == min(
+                sums, key=sums.get)
     raw = copy.deepcopy(cal["raw"])
     del raw["k1s_points"]
     ring = calibrate.fit(raw)
@@ -549,9 +780,241 @@ def test_calibration_has_the_small_kernels_point():
     for key, entry in ring["families"].items():
         for field, value in entry.items():
             got = cal["families"][key][field]
-            assert got == value if isinstance(value, str) \
-                else math.isclose(got, value, rel_tol=1e-9)
+            if isinstance(value, str) or field == "points":
+                assert got == value
+            else:
+                assert math.isclose(got, value, rel_tol=1e-9)
     for kern in ("fused", "fused_otf"):
         for field in ("eff", "fixed_us"):
             assert math.isclose(cal["kernels"][kern][field],
                                 ring["kernels"][kern][field], rel_tol=1e-9)
+
+
+# ----------------------------------------- the small-tile plan at N = 512
+
+# the families K1's small-tile plan serves whose launches it takes
+# (calibrate.wide_families): AES-128's, the bench anchor's and Kreyvium's
+# fam2 (l = 4: one digit pass a component); two steps, so that the exchange
+# of a step meets the next step's digits
+WIDE = {"aes128_p4": PRESETS["aes128_p4"][0],
+        "anchor": PRESETS["anchor"][0],
+        "kreyvium fam2": STAGED_PRESETS["kreyvium_p10_staged"].fam2}
+WIDE_BATCHES = (1, 4, 21, 64, 128, 256)
+
+
+@pytest.mark.parametrize("name", sorted(WIDE))
+@pytest.mark.parametrize("batch", WIDE_BATCHES)
+@pytest.mark.parametrize("limbs", [4, 3])
+def test_emulated_wide_schedule_equals_plain(name, batch, limbs):
+    """K1's small-tile schedule at N = 512, on the plan the calibrated card
+    takes at ``batch`` (its tile of 16 or 32, cluster and n8 tiles a warp),
+    bitwise against the plain version."""
+    params = dataclasses.replace(WIDE[name], lwe_dim=2)
+    plan, _ = runtime_model.small_tile_plan(params, batch, limbs)
+    assert plan.cb in fbr.K1S_WIDE_TILES and plan.passes == 1
+    assert plan.cluster in fbr.k1s_clusters(params, limbs, plan.cb)
+    b_init, a_t, tvs, keys = operands(params, 2, batch, limbs,
+                                      seed=batch + limbs)
+    args = tuple(map(torch.from_numpy, (b_init, a_t, tvs, keys)))
+    got = emulate_wide(*args, params, plan)
+    assert torch.equal(got.to(torch.int32),
+                       fbr.blind_rotate_k1_plain(*args, params))
+
+
+def test_route_takes_the_small_tile_plan_by_price(monkeypatch):
+    """At N ≥ 256 ``k1_plan`` takes the small-tile plan exactly where the
+    family's own calibrated points (its ``.../k1s`` entry) price its kernel
+    below the ring kernel's plan at that launch size, and the runtime model
+    then prices the launch from those points alone; the launch record names
+    it ``k1s``; without such points or their fit across families the ring
+    serves."""
+    import copy
+    cal = copy.deepcopy(calibration())
+    aes = PRESETS["aes128_p4"][0]
+    for key in [k for k in cal["families"] if k.endswith("/k1s")]:
+        del cal["families"][key]
+    del cal["kernels"]["k1s_wide"]
+    monkeypatch.setattr(runtime_model, "calibration", lambda: cal)
+    for rows in (4, 64, 1024):
+        assert not runtime_model.small_tile_wins(aes, rows)
+        assert isinstance(fbr.k1_plan(rows, aes, 132), fbr.K1Plan)
+    # points at half the ring's kernel up to 64, twice it from 512: the
+    # small tiles win where their points are the lower
+    ring = {r: runtime_model.launch_us(aes, r, "fused_otf")
+            - runtime_model._around(aes, "fused_otf")[0]
+            - runtime_model._around(aes, "fused_otf")[1] * r
+            * (aes.big_dim + 1) for r in runtime_model.SMALL_ROWS}
+    cal = copy.deepcopy(cal)
+    cal["families"][runtime_model.entry_key(aes, "k1s")] = {
+        "name": "aes128_p4", "kernel": "k1s", "fixed_us": 0.0, "scale": 1.0,
+        "around_a_us": 0.0, "around_b_us": 0.0,
+        "points": [[r, us / 2 if r <= 64 else 2 * us]
+                   for r, us in ring.items()]}
+    for rows, small in ((4, True), (64, True), (1024, False)):
+        assert runtime_model.small_tile_wins(aes, rows) is small
+        plan = fbr.k1_plan(rows, aes, 132)
+        assert isinstance(plan, fbr.K1SmallPlan) is small
+        assert fbr.kernel_path("fused_otf", aes, rows) == (
+            "k1s" if small else "k1")
+        got, waves = runtime_model.launch_plan(aes, rows, "fused_otf")
+        assert got == fbr.k1_plan(
+            rows, aes, cal["sms"], resident=lambda p: cal["resident"].get(
+                runtime_model.resident_key("fused_otf", 4, p, aes),
+                cal["sms"] // p.cluster))
+        if small:
+            a, b = runtime_model._around(aes, "fused_otf")
+            want = ring[rows] / 2 + a + b * rows * (aes.big_dim + 1)
+            assert math.isclose(runtime_model.launch_us(aes, rows,
+                                                        "fused_otf"),
+                                want, rel_tol=1e-12)
+    # between points linear, past the last in proportion to the rows, at 3
+    # limbs scaled by the per-boot cost
+    pts = cal["families"][runtime_model.entry_key(aes, "k1s")]["points"]
+    assert math.isclose(runtime_model.small_tile_us(aes, 96),
+                        (pts[4][1] + pts[5][1]) / 2, rel_tol=1e-12)
+    assert math.isclose(runtime_model.small_tile_us(aes, 4096),
+                        2 * pts[-1][1], rel_tol=1e-12)
+    assert math.isclose(runtime_model.small_tile_us(aes, 4, 3),
+                        pts[0][1] * runtime_model._cost(aes, "fused_otf", 3)
+                        / runtime_model._cost(aes, "fused_otf", 4),
+                        rel_tol=1e-12)
+    anchor = PRESETS["anchor"][0]
+    assert not runtime_model.small_tile_wins(anchor, 4)
+    assert isinstance(fbr.k1_plan(1024, aes, 132, route="k1s"),
+                      fbr.K1SmallPlan)
+    assert fbr.kernel_path("fused_otf", anchor, 4, route="k1s") == "k1s"
+    assert isinstance(fbr.k1_plan(4, aes, 132, route="k1"), fbr.K1Plan)
+    with pytest.raises(ValueError):
+        fbr.k1_plan(4, aes, 132, route="k2")
+    # without its limbs (2) or past its widths the ring serves alone
+    assert fbr.k1_route(aes, 4, 2) == "k1"
+    assert fbr.k1s_clusters(shape(1, 2048, 2, 8)) == []
+
+
+def mapped_family(n: int, l: int, ks_l: int = 5) -> TFHEParams:
+    """A k = 2, N = 512 family the calibration did not time (the mapped
+    circuits' at their cheapest p: n 546 to 578, l 2 or 3)."""
+    return dataclasses.replace(PRESETS["aes128_p4"][0], lwe_dim=n,
+                               bsk_level=l, bsk_base_log=8, ksk_level=ks_l)
+
+
+@pytest.mark.parametrize("n", [546, 560, 578])
+@pytest.mark.parametrize("l", [1, 2, 3, 4])
+def test_family_without_points_takes_the_fit(n, l):
+    """A family with no small-tile points of its own is priced by their fit
+    across families: n times a step's µs at a shape the calibration timed,
+    else n·step_us + scale·cost; it takes the plan where that price is
+    below the ring's model, and the runtime model prices its launches so."""
+    cal = calibration()
+    fit = cal["kernels"]["k1s_wide"]
+    params = mapped_family(n, l)
+    assert runtime_model.entry_key(params, "k1s") not in cal["families"]
+    shape = fit["shapes"].get(runtime_model.shape_key(params))
+    if shape is not None:
+        want = [[r, n * s] for r, s in zip(fit["rows"], shape)]
+    else:
+        cost = runtime_model._cost(params, "fused_otf", 4)
+        want = [[r, n * a + b * cost]
+                for r, a, b in zip(fit["rows"], fit["step_us"], fit["scale"])]
+    assert runtime_model.small_points(params) == want
+    taken = set()
+    for rows in runtime_model.SMALL_ROWS:
+        for limbs in (4, 3):
+            small = runtime_model.small_tile_us(params, rows, limbs)
+            ring, waves = runtime_model.launch_plan(params, rows,
+                                                    "fused_otf", limbs, "k1")
+            ring_us = runtime_model._kernel_term(
+                params, ring, waves,
+                runtime_model._cost(params, "fused_otf", limbs),
+                runtime_model._kernel_fit(params, "fused_otf"))
+            wins = runtime_model.small_tile_wins(params, rows, limbs)
+            assert wins == (small < ring_us)
+            assert fbr.k1_route(params, rows, limbs) == (
+                "k1s" if wins else "k1")
+            taken.add(wins)
+            if wins:
+                a, b = runtime_model._around(params, "fused_otf")
+                assert runtime_model.launch_us(
+                    params, rows, "fused_otf", limbs) == \
+                    small + a + b * rows * (params.big_dim + 1)
+    assert taken == {True, False}
+
+
+def test_the_fit_holds_at_the_rings_timed_alone():
+    """Families of a (k, N) the calibration did not time the small-tile
+    plan at (here N = 256, and k = 1 at N = 512), or that it does not serve
+    at both limbs, have no price of it and keep the ring."""
+    for params in (shape(2, 256, 2, 8), dataclasses.replace(
+            PRESETS["aes128_p4"][0], glwe_dim=1),
+            mapped_family(560, 5, 5)):
+        assert runtime_model.small_points(params) is None
+        assert not any(runtime_model.small_tile_wins(params, r)
+                       for r in runtime_model.SMALL_ROWS)
+
+
+def test_calibrated_family_is_set_point_against_point(monkeypatch):
+    """Where the calibration has both routes' points at a launch size, the
+    route compares them; elsewhere the small-tile point meets the ring's
+    model.  A small-tile point between the ring's point (below) and its
+    model (above) keeps the ring where the ring was timed and takes the
+    small tiles where it was not."""
+    import copy
+    cal = copy.deepcopy(calibration())
+    aes = PRESETS["aes128_p4"][0]
+    ring_entry = cal["families"][runtime_model.entry_key(aes, "fused_otf")]
+    timed = dict(ring_entry["points"])
+    monkeypatch.setattr(runtime_model, "calibration", lambda: cal)
+    model = {}
+    for r in runtime_model.SMALL_ROWS:
+        ring, waves = runtime_model.launch_plan(aes, r, "fused_otf", 4, "k1")
+        model[r] = runtime_model._kernel_term(
+            aes, ring, waves, runtime_model._cost(aes, "fused_otf", 4),
+            runtime_model._kernel_fit(aes, "fused_otf"))
+    # the ring's points 10% below its model; the small tiles' 5% below it
+    ring_entry["points"] = [[r, 0.9 * model[r]] for r in timed
+                            if r in model]
+    cal["families"][runtime_model.entry_key(aes, "k1s")]["points"] = [
+        [r, 0.95 * model[r]] for r in runtime_model.SMALL_ROWS]
+    for r in runtime_model.SMALL_ROWS:
+        assert runtime_model.small_tile_wins(aes, r) == (r not in timed)
+    assert {r for r in runtime_model.SMALL_ROWS if r in timed} \
+        and {r for r in runtime_model.SMALL_ROWS if r not in timed}
+
+
+def test_small_tile_plan_is_the_one_timed_fastest(monkeypatch):
+    """Without a tile or cluster given, the small-tile plan at a shape the
+    calibration timed is the one it timed fastest at the least launch size
+    at or above the launch (its largest past them), where that plan serves
+    the limbs; elsewhere the fewest waves, then the smaller tile, then the
+    most CTAs a tile."""
+    import copy
+    cal = copy.deepcopy(calibration())
+    monkeypatch.setattr(runtime_model, "calibration", lambda: cal)
+    aes = PRESETS["aes128_p4"][0]
+    picks = cal["k1s_plans"][runtime_model.shape_key(aes)]
+    for rows in (1, 4, 21, 64, 100, 128, 256, 512, 4096):
+        r, cb, c = next((p for p in picks if p[0] >= rows), picks[-1])
+        assert runtime_model.small_tile_pick(aes, rows) == (cb, c)
+        plan = fbr.k1_wide_plan(rows, aes, 132)
+        assert (plan.cb, plan.cluster) == (cb, c)
+    # a pick the limbs do not serve, and a shape not timed: the rule
+    cal["k1s_plans"][runtime_model.shape_key(aes)] = [[4096, 32, 5]]
+
+    def rule(rows, params, resident):
+        best = None
+        for t in fbr.K1S_WIDE_TILES:
+            for c in fbr.k1s_clusters(params, 4, t):
+                plan = fbr.k1_wide_plan(rows, params, 132, 4, c, cb=t)
+                waves = -(-(-(-rows // t)) // resident(plan))
+                key = (waves, t, -c)
+                if best is None or key < best[0]:
+                    best = (key, plan)
+        return best[1]
+
+    for params in (aes, mapped_family(560, 3)):
+        for rows in (4, 64, 128, 256, 512):
+            assert fbr.k1_wide_plan(rows, params, 132) == rule(
+                rows, params, lambda p: 132 // p.cluster)
+            assert fbr.k1_wide_plan(rows, params, 132,
+                                    resident=lambda p: 7) == rule(
+                rows, params, lambda p: 7)

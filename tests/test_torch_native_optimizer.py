@@ -280,10 +280,55 @@ def test_native_prices_every_calibrated_family():
         if N < fbr.K1_SLICE:
             continue
         params = shell(n, k, N, l, ks_l)
-        for code, orient in ((0, "fused"), (1, "fused_otf")):
-            assert fns["nv_kernel_us"](n, k, N, l, ks_l, 4, code, prof) \
-                == RM.kernel_us(params, orient, 4, profile)
-        assert bool(fns["nv_prices_otf"](n, k, N, l, ks_l, 4, 0, prof)) \
-            == (profile.kernel(n, k, N, l, ks_l) == "fused_otf")
+        for limbs in (4, 3):
+            for code, orient in ((0, "fused"), (1, "fused_otf")):
+                assert fns["nv_kernel_us"](n, k, N, l, ks_l, limbs, code,
+                                           prof) \
+                    == RM.kernel_us(params, orient, limbs, profile)
+            assert bool(fns["nv_prices_otf"](n, k, N, l, ks_l, limbs, 0,
+                                             prof)) \
+                == (profile.kernel(n, k, N, l, ks_l, limbs) == "fused_otf")
         seen += 1
     assert seen >= 11
+
+
+@pytest.mark.parametrize("scale", [700.0, 1e3, 1.3e3])
+def test_native_prices_the_small_tile_route(monkeypatch, scale):
+    """Where a family has calibrated points of K1's small-tile plan (a
+    ``.../k1s`` entry; here one at every calibrated N = 512 family, its
+    kernel µs growing with the launch so that it wins some launch sizes and
+    loses others),
+    ``nv_kernel_us`` takes, launch size by launch size, the lower of its
+    kernel term and the ring kernel's, as ``runtime_model.kernel_us`` does:
+    to the bit, at 3 and 4 limbs, and the pick follows."""
+    cal = copy.deepcopy(RM.calibration())
+    for key, e in list(cal["families"].items()):
+        fam, kern = key.split("/")
+        if kern == "fused_otf" and int(fam.split(",")[2]) == 512:
+            cal["families"][f"{fam}/k1s"] = {
+                "name": e["name"], "kernel": "k1s", "fixed_us": 500.0,
+                "scale": 1.0, "around_a_us": 0.0, "around_b_us": 0.0,
+                "points": [[r, 5e3 + scale * r ** 0.5]
+                           for r in RM.SMALL_ROWS]}
+    monkeypatch.setattr(RM, "calibration", lambda: cal)
+    fns = NAT.native_model_fns()
+    profile = TO.h100_profile()
+    prof = ctypes.byref(NAT.profile_struct(profile))
+    routes = set()
+    for key in cal["families"]:
+        fam, kern = key.split("/")
+        if kern != "k1s":
+            continue
+        n, k, N, l, ks_l = (int(x) for x in fam.split(","))
+        params = shell(n, k, N, l, ks_l)
+        for limbs in (4, 3):
+            routes |= {RM.small_tile_wins(params, r, limbs)
+                       for r in RM.ROWS}
+            for code, orient in ((0, "fused"), (1, "fused_otf")):
+                assert fns["nv_kernel_us"](n, k, N, l, ks_l, limbs, code,
+                                           prof) \
+                    == RM.kernel_us(params, orient, limbs, profile)
+            assert bool(fns["nv_prices_otf"](n, k, N, l, ks_l, limbs, 0,
+                                             prof)) \
+                == (profile.kernel(n, k, N, l, ks_l, limbs) == "fused_otf")
+    assert routes == {True, False}

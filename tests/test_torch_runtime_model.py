@@ -111,7 +111,12 @@ def test_calibration_names_the_card_and_keys_families_fully():
     for key, entry in cal["families"].items():
         family, _, kernel = key.partition("/")
         assert len(family.split(",")) == 5         # n, k, N, l, ks_l
-        assert kernel == entry["kernel"] in ("fused", "fused_otf")
+        assert kernel == entry["kernel"] in ("fused", "fused_otf", "k1s")
+        if kernel == "k1s":
+            # K1's small-tile plan at N >= 256: its own points, priced by
+            # the launch size
+            assert int(family.split(",")[2]) >= fbr.K1_SLICE
+            assert [r for r, _ in entry["points"]] == list(rm.SMALL_ROWS)
     names = {e["name"] for e in cal["families"].values()}
     assert set(calibrate.families()) <= names
     # the staged families were timed through K1, as the CLI runs them;
@@ -134,8 +139,11 @@ def test_model_plan_is_the_cards(i):
     ``cudaOccupancyMaxActiveClusters``) are the model's, from the SM count
     and the resident table alone."""
     pt = recorded_points()[i]
+    # K1's points at N >= 256 were timed on its ring kernel
+    # (calibrate.time_family), whatever the route would take there now
     plan, waves = rm.launch_plan(shell(pt["key"]), pt["rows"], pt["kernel"],
-                                 pt["limbs"])
+                                 pt["limbs"],
+                                 "k1" if pt["kernel"] == "fused_otf" else None)
     assert list(plan) == pt["plan"] and waves == pt["waves"]
 
 
@@ -149,7 +157,7 @@ def test_model_plan_is_the_planners_under_the_table(kernel, key, limbs):
     params = shell(key)
 
     def resident(plan):
-        key = rm.resident_key(kernel, limbs, plan)
+        key = rm.resident_key(kernel, limbs, plan, params)
         assert key in table
         return table[key]
     fn = fbr.k1_plan if kernel == "fused_otf" else fbr.k2_plan

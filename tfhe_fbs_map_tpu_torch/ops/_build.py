@@ -99,8 +99,8 @@ def bind(path: Path, parts: tuple[str, ...] = ("k1", "k2", "k1s")
         entries.update({"fbr_k2_blind_rotate": [p] * 6 + [i] * 11 + [p],
                         "fbr_k2_max_clusters": [i] * 4 + [ip]})
     if "k1s" in parts:
-        entries.update({"fbr_k1s_blind_rotate": [p] * 5 + [i] * 10 + [p],
-                        "fbr_k1s_layout": [i] * 7 + [ip, ip]})
+        entries.update({"fbr_k1s_blind_rotate": [p] * 5 + [i] * 11 + [p],
+                        "fbr_k1s_layout": [i] * 8 + [ip, ip]})
     for name, args in entries.items():
         fn = getattr(lib, name)
         fn.argtypes = args

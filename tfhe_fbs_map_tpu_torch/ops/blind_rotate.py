@@ -83,17 +83,21 @@ class FastKeys:
     layout [4, kN·l_ks, n+1].
 
     ``shard`` (index, tp): the slice of the key contraction this copy holds
-    (:func:`shard_contraction`); (0, 1) is the whole of it.
+    (:func:`shard_contraction`); (0, 1) is the whole of it.  ``route``:
+    the route of every ``"fused_otf"`` launch at N ≥ 256 through these
+    keys (``fused_blind_rotate.K1_ROUTES``; None: the one
+    ``fused_blind_rotate.k1_route`` prices lower at each launch).
     """
 
     def __init__(self, params: TFHEParams, bsk_kernels: torch.Tensor,
                  ksk_matrix: torch.Tensor, orientation: str,
-                 shard: tuple[int, int] = (0, 1)):
+                 shard: tuple[int, int] = (0, 1), route: str | None = None):
         self.params = params
         self.bsk_kernels = bsk_kernels
         self.ksk_matrix = ksk_matrix
         self.orientation = orientation
         self.shard = shard
+        self.route = route
 
     @property
     def ksk_limbs(self) -> torch.Tensor:
@@ -111,7 +115,7 @@ class FastKeys:
             return self
         return FastKeys(self.params, self.bsk_kernels.to(device),
                         self.ksk_matrix.to(device), self.orientation,
-                        self.shard)
+                        self.shard, self.route)
 
 
 def fused_key_bytes(params: TFHEParams, bsk_limbs: int = N_LIMBS) -> int:
@@ -598,5 +602,6 @@ def functional_bootstrap_fast(fast: FastKeys, big_cts: torch.Tensor,
     b_init = ((2 * N - b_t) % (2 * N))[:, None].contiguous()
     a_steps = a_t.t()[:, :, None].contiguous()
     acc = blind_rotate_fused(b_init, a_steps, test_polys.contiguous(),
-                             fast.bsk_kernels, params, launch=launch)
+                             fast.bsk_kernels, params, launch=launch,
+                             route=fast.route)
     return add_body(sample_extract(acc.permute(1, 0, 2), params), posts)

@@ -54,13 +54,24 @@ Hopper counterparts of the two Pallas kernel bodies in
   (:func:`k1_small_plan`).  Below N=256 :func:`k1_plan` gives its plan, so
   the card and the runtime model see one K1 plan, and
   :func:`blind_rotate_k1` launches it and counts the launch as K1's.
+* **K1's small-tile plan at N ≥ 256** (the same source,
+  ``k1s_kernel_wide``): for launches of a few tiles, where the ring
+  kernel's tiles of 64 leave most SMs idle.  Tiles of 16 or 32 on clusters
+  of up to 16 CTAs; a CTA keeps only its span of the ACC, computes its
+  span's digits (the rotated source words read from their owners over
+  distributed shared memory) and stores them into every CTA, two cluster
+  barriers a step (:func:`k1_wide_plan`).  :func:`k1_route` takes it
+  where the calibration prices its kernel below the ring kernel's at the
+  launch size (``runtime_model.small_tile_wins``), and the launch record
+  then names it ``k1s``.
 
 The monomial rotation X^a·x, which the TPU does with a barrel shifter
 because Mosaic has no lane rotate, is an index read in both.
 
 Beside each kernel is its plain PyTorch version.  The wrappers take the
 plain version only for tensors on the CPU; for CUDA tensors they launch the
-kernel or raise.  ``LAUNCHES`` counts kernel launches per wrapper.
+kernel or raise.  ``LAUNCHES`` counts kernel launches per wrapper, and
+``K1_KERNELS`` K1's by the kernel that ran them.
 """
 
 from __future__ import annotations
@@ -77,12 +88,19 @@ from ..utils import profiling
 
 __all__ = ["blind_rotate_fused", "blind_rotate_k1", "blind_rotate_k2",
            "blind_rotate_k1_plain", "blind_rotate_k2_plain", "k1_plan",
+           "k1_ring_plan", "k1_wide_plan", "k1_route", "K1_ROUTES",
            "k2_plan", "k1_small_plan", "k1_device_plan", "device_plan",
            "k1_layout", "k1_small_layout", "k1_small_smem", "k1s_clusters",
-           "K1Plan", "K1SmallPlan", "K2Plan", "LAUNCHES", "kernel_path"]
+           "k1_resident",
+           "K1Plan", "K1SmallPlan", "K2Plan", "LAUNCHES", "K1_KERNELS",
+           "kernel_path"]
 
 N_LIMBS = 4
 LAUNCHES = {"k1": 0, "k2": 0}
+# K1's launches (each also one of LAUNCHES["k1"]) by the kernel that ran
+# them, as the device trace names it: the ring kernel, the small-N kernel
+# below N=K1_SLICE, its small-tile plan at N >= K1_SLICE
+K1_KERNELS = {"k1_kernel": 0, "k1s_kernel": 0, "k1s_kernel_wide": 0}
 
 # Shared memory a block may opt into on sm_90 (227 KB).
 SMEM_MAX = 232448
@@ -111,8 +129,8 @@ K1_MAX_N = 4096
 # :func:`k1_small_layout`): ACC 2 × [k+1][16][N + K1S_ACC_PAD] uint32, the
 # digits [16][prow·N + K1S_DIG_PAD], two key stages of [L][comps][prow][2N]
 # + K1S_E_PAD, each also the room of the slices' partial sums
-# [slices][16][span + K1S_RED_PAD] uint32, the amounts and two mbarriers
-# (K1S_EXTRA).
+# [slices][16][span + K1S_RED_PAD] uint32, the amounts [2][16] int32 and
+# two mbarriers.
 K1S_TILE = 16
 K1S_WARPS = 8
 K1S_TILES_A_WARP = (1, 2, 4)
@@ -120,7 +138,29 @@ K1S_MAX_CLUSTER = 8
 K1S_MAX_SPAN = 128
 K1S_MAX_KN = 512
 K1S_ACC_PAD, K1S_DIG_PAD, K1S_E_PAD, K1S_RED_PAD = 8, 16, 16, 8
-K1S_EXTRA = 2 * K1S_TILE * 4 + 2 * 8
+# Its small-tile plan at N ≥ K1_SLICE, for launches of few tiles
+# (``k1s_kernel_wide``, :func:`k1_wide_plan`; :func:`k1_route` sends a
+# launch to it where the calibration prices it below the ring kernel): N up
+# to K1S_WIDE_MAX_N at (k+1)·N up to K1S_WIDE_MAX_KN, tiles of
+# K1S_WIDE_TILES ciphertexts (32: two row tiles of mma.sync share each key
+# window), clusters up to K1S_WIDE_MAX_CLUSTER (non-portable above 8),
+# spans up to K1S_WIDE_MAX_SPAN, at the limbs the optimizer picks
+# (K1S_WIDE_LIMBS), one digit pass a step; a CTA keeps its span of the ACC
+# [tile][span + K1S_ACC_PAD] uint32, all the digits [tile][rows·N +
+# K1S_DIG_PAD] and two key stages of all the step's rows
+# (:func:`k1_small_smem`).  chip_smoke.py phase 12 (d) holds it bitwise at
+# every family it is calibrated at.  The routes of a K1 launch at N >=
+# K1_SLICE, as the launch record names them: the ring kernel, the
+# small-tile plan.
+K1S_WIDE_MAX_N = 512
+K1S_WIDE_MAX_KN = 1536
+K1S_WIDE_MAX_CLUSTER = 16
+K1S_WIDE_MAX_SPAN = 256
+K1S_WIDE_LIMBS = (3, 4)
+K1S_WIDE_TILES = (16, 32)
+# its warps a CTA at each tile: 12 at 16 (three a scheduler), 8 at 32
+K1S_WIDE_WARPS = {16: 12, 32: 8}
+K1_ROUTES = ("k1", "k1s")
 # K2: ciphertexts per cluster tile it is instantiated for, largest first;
 # coefficients per column chunk (times L limbs: the GEMM columns one pass
 # holds in registers); contraction bytes per ring stage; digit rows a stage
@@ -292,11 +332,41 @@ def k1_fits(cb: int, nw: int, n_limbs: int) -> bool:
 def k1_plan(batch: int, params: TFHEParams, sms: int,
             n_limbs: int = N_LIMBS, cb: int | None = None,
             cluster: int | None = None, nw: int | None = None,
-            resident: Callable[[K1Plan], int] | None = None
-            ) -> K1Plan | K1SmallPlan:
+            resident: Callable | None = None,
+            route: str | None = None) -> K1Plan | K1SmallPlan:
     """K1's launch plan for ``batch`` ciphertexts on ``sms`` SMs.
 
     Below N=K1_SLICE the small-N kernel's one plan (:func:`k1_small_plan`).
+    Above, the plan of ``route`` (one of K1_ROUTES): the small-tile plan
+    (``"k1s"``, :func:`k1_wide_plan`) or the ring kernel's (``"k1"``,
+    :func:`k1_ring_plan`).  Without one, a ``cb`` of K1S_WIDE_TILES names
+    the small-tile plan, another ``cb`` or an ``nw`` the ring's, and
+    otherwise :func:`k1_route` picks by price at ``batch``.  ``cluster`` is
+    taken by the plan of the route.  ``resident(plan)``: the clusters of a
+    plan the card runs at once (default ``sms // cluster``)."""
+    if params.poly_size < K1_SLICE:
+        return k1_small_plan(params, n_limbs, cb, cluster, nw)
+    if route is None:
+        route = ("k1s" if cb in K1S_WIDE_TILES
+                 else "k1" if cb is not None or nw is not None
+                 else k1_route(params, batch, n_limbs))
+    if route not in K1_ROUTES:
+        raise ValueError(f"route {route!r} not in {K1_ROUTES}")
+    if route == "k1s":
+        if nw is not None:
+            raise ValueError(f"the small-tile plan takes no nw; got {nw}")
+        return k1_wide_plan(batch, params, sms, n_limbs, cluster, resident,
+                            cb)
+    return k1_ring_plan(batch, params, sms, n_limbs, cb, cluster, nw,
+                        resident)
+
+
+def k1_ring_plan(batch: int, params: TFHEParams, sms: int,
+                 n_limbs: int = N_LIMBS, cb: int | None = None,
+                 cluster: int | None = None, nw: int | None = None,
+                 resident: Callable[[K1Plan], int] | None = None) -> K1Plan:
+    """The ring kernel's plan (N ≥ K1_SLICE).
+
     Among the tiles ``cb``, widths ``nw`` and cluster sizes that K1 is
     instantiated for (or the ones given), the cheapest by the shared-memory
     bytes the ``wgmma`` operands take per CTA: a CTA multiplies cb digit
@@ -305,8 +375,6 @@ def k1_plan(batch: int, params: TFHEParams, sms: int,
     nw) / nw.  A wave is as many clusters as ``resident(plan)`` says the
     card runs at once (default ``sms // cluster``).  Ties go to fewer CTAs,
     then larger tiles and widths."""
-    if params.poly_size < K1_SLICE:
-        return k1_small_plan(params, n_limbs, cb, cluster, nw)
     if cb is not None and cb not in K1_TILES:
         raise ValueError(f"batch tile {cb} not in {K1_TILES}")
     if nw is not None and nw not in K1_WIDTHS:
@@ -337,17 +405,53 @@ def k1_plan(batch: int, params: TFHEParams, sms: int,
     return best[1]
 
 
-def k1s_clusters(params: TFHEParams, n_limbs: int = N_LIMBS) -> list[int]:
+def k1_route(params: TFHEParams, rows: int,
+             n_limbs: int = N_LIMBS) -> str:
+    """Which kernel a K1 launch of ``rows`` ciphertexts runs, as the launch
+    record names it: ``"k1s"`` below N=K1_SLICE; above, ``"k1s"`` where the
+    small-tile plan serves the family at ``n_limbs`` and the calibration
+    prices it below the ring kernel's plan at ``rows``
+    (:func:`..optimizer.runtime_model.small_tile_wins`), else ``"k1"``."""
+    if params.poly_size < K1_SLICE:
+        return "k1s"
+    if not k1s_clusters(params, n_limbs):
+        return "k1"
+    from ..optimizer import runtime_model
+    return "k1s" if runtime_model.small_tile_wins(params, rows, n_limbs) \
+        else "k1"
+
+
+def _wide(params: TFHEParams) -> bool:
+    return params.poly_size >= K1_SLICE
+
+
+def k1s_clusters(params: TFHEParams, n_limbs: int = N_LIMBS,
+                 cb: int = K1S_TILE) -> list[int]:
     """Cluster sizes the small-N K1 is built for at ``params`` and
-    ``n_limbs``, largest first: at most K1S_MAX_CLUSTER CTAs, each a span
-    of whole n8 tiles, at most K1S_MAX_SPAN columns, in a CTA's shared
-    memory (:func:`k1_small_smem`, one digit pass a step or a component)."""
+    ``n_limbs``, largest first: at most K1S_MAX_CLUSTER CTAs (at N ≥
+    K1_SLICE K1S_WIDE_MAX_CLUSTER, and none past K1S_WIDE_MAX_N,
+    K1S_WIDE_MAX_KN or K1S_WIDE_LIMBS), each a span of whole n8 tiles, at
+    most K1S_MAX_SPAN (K1S_WIDE_MAX_SPAN) columns, in a CTA's shared memory
+    (:func:`k1_small_smem`, one digit pass a step or a component), at
+    tiles of ``cb``."""
     k1 = params.glwe_dim + 1
     kn = k1 * params.poly_size
-    return [c for c in range(K1S_MAX_CLUSTER, 0, -1)
-            if kn % c == 0 and (kn // c) % 8 == 0
-            and kn // c <= K1S_MAX_SPAN
-            and k1_small_smem(params, n_limbs, c, k1) <= SMEM_MAX]
+    wide = _wide(params)
+    if wide:
+        if (params.poly_size > K1S_WIDE_MAX_N or kn > K1S_WIDE_MAX_KN
+                or n_limbs not in K1S_WIDE_LIMBS):
+            return []
+        most, widest = K1S_WIDE_MAX_CLUSTER, K1S_WIDE_MAX_SPAN
+    else:
+        most, widest = K1S_MAX_CLUSTER, K1S_MAX_SPAN
+    # one digit pass a step at N >= K1_SLICE, else one a component at most
+    passes = 1 if wide else k1
+    warps = k1s_warps(params, cb)
+    return [c for c in range(most, 0, -1)
+            if kn % c == 0 and (kn // c) % 8 == 0 and kn // c <= widest
+            and warps % k1s_groups(kn // c, k1s_tiles_a_warp(kn // c),
+                                   wide) == 0
+            and k1_small_smem(params, n_limbs, c, passes, cb) <= SMEM_MAX]
 
 
 def k1s_tiles_a_warp(span: int) -> int:
@@ -358,33 +462,59 @@ def k1s_tiles_a_warp(span: int) -> int:
                 if t >= tiles or t == K1S_TILES_A_WARP[-1])
 
 
-def k1s_groups(span: int, nt: int) -> int:
+def k1s_groups(span: int, nt: int, wide: bool = False) -> int:
     """Groups of ``nt`` n8 tiles a CTA's warps form at a span: as many as
     cover its tiles, rounded up to a power of two (``tile_groups`` in the
-    source), so that they divide the warps."""
+    source), so that they divide the warps; at N ≥ K1_SLICE (``wide``,
+    ``wide_groups``) exactly as many, which must divide the warps."""
+    if wide:
+        return -(-(span // 8) // nt)
     groups = 1
     while groups * nt < span // 8:
         groups *= 2
     return groups
 
 
+def k1s_warps(params: TFHEParams, cb: int = K1S_TILE) -> int:
+    """Warps a CTA of the small-N K1 runs: K1S_WARPS, at N ≥ K1_SLICE
+    K1S_WIDE_WARPS of the tile."""
+    return K1S_WIDE_WARPS[cb] if _wide(params) else K1S_WARPS
+
+
 def k1_small_smem(params: TFHEParams, n_limbs: int, cluster: int,
-                  passes: int) -> int:
+                  passes: int, cb: int = K1S_TILE) -> int:
     """Shared memory (bytes) a CTA of the small-N K1 takes, as its source
-    lays it out (``layout`` in ``csrc/fused_blind_rotate_k1_small.cu``):
-    the host's copy, which chooses the clusters and the digit passes
-    without a card (``tests/test_torch_gpu.py`` holds it to the kernel's
-    own count, :func:`k1_small_layout`)."""
+    lays it out (``layout``, at N ≥ K1_SLICE ``layout_wide``, in
+    ``csrc/fused_blind_rotate_k1_small.cu``): the host's copy, which
+    chooses the clusters and the digit passes without a card
+    (``tests/test_torch_gpu.py`` holds it to the kernel's own count,
+    :func:`k1_small_layout`), at tiles of ``cb``."""
     k1, n = params.glwe_dim + 1, params.poly_size
     prow = k1 * params.bsk_level // passes
     span = k1 * n // cluster
     comps = max((r * span + span - 1) // n - r * span // n + 1
                 for r in range(cluster))
-    slices = K1S_WARPS // k1s_groups(span, k1s_tiles_a_warp(span))
+    slices = k1s_warps(params, cb) // k1s_groups(
+        span, k1s_tiles_a_warp(span), _wide(params))
     stage = max(n_limbs * comps * prow * 2 * n + K1S_E_PAD,
-                slices * K1S_TILE * (span + K1S_RED_PAD) * 4)
-    return (2 * 4 * k1 * K1S_TILE * (n + K1S_ACC_PAD)
-            + K1S_TILE * (prow * n + K1S_DIG_PAD) + 2 * stage + K1S_EXTRA)
+                slices * cb * (span + K1S_RED_PAD) * 4)
+    acc = (cb * (span + K1S_ACC_PAD) * 4 if _wide(params)
+           else 2 * 4 * k1 * cb * (n + K1S_ACC_PAD))
+    return (acc + cb * (prow * n + K1S_DIG_PAD) + 2 * stage + 2 * cb * 4
+            + 2 * 8)
+
+
+def _k1s_plan(params: TFHEParams, n_limbs: int, cluster: int,
+              cb: int = K1S_TILE) -> K1SmallPlan:
+    """The small-N kernel's plan on tiles of ``cb`` and clusters of
+    ``cluster`` (one it is built for): one digit pass a step where its
+    layout fits a CTA's shared memory (always at N ≥ K1_SLICE), else one a
+    component."""
+    k1 = params.glwe_dim + 1
+    passes = (1 if k1_small_smem(params, n_limbs, cluster, 1, cb)
+              <= SMEM_MAX else k1)   # a served cluster fits one a component
+    span = k1 * params.poly_size // cluster
+    return K1SmallPlan(cb, cluster, k1s_tiles_a_warp(span), passes)
 
 
 @functools.lru_cache(maxsize=256)
@@ -413,11 +543,55 @@ def k1_small_plan(params: TFHEParams, n_limbs: int = N_LIMBS,
     if cluster is not None and cluster not in served:
         raise ValueError(f"cluster {cluster}: K1 below N={K1_SLICE} is "
                          f"built for clusters {served} at (k+1)·N = {kn}")
-    cluster = cluster or served[0]
-    passes = (1 if k1_small_smem(params, n_limbs, cluster, 1) <= SMEM_MAX
-              else k1)   # a served cluster fits one pass a component
-    return K1SmallPlan(K1S_TILE, cluster, k1s_tiles_a_warp(kn // cluster),
-                       passes)
+    return _k1s_plan(params, n_limbs, cluster or served[0])
+
+
+def k1_wide_plan(batch: int, params: TFHEParams, sms: int,
+                 n_limbs: int = N_LIMBS, cluster: int | None = None,
+                 resident: Callable[[K1SmallPlan], int] | None = None,
+                 cb: int | None = None) -> K1SmallPlan:
+    """The small-tile plan of K1 at N ≥ K1_SLICE for ``batch``
+    ciphertexts, on tiles of ``cb`` and clusters of ``cluster`` where given.
+    Where neither is, the tile and cluster the calibration timed fastest at
+    the family's shape and the launch size
+    (``runtime_model.small_tile_pick``), if it timed that shape and they
+    serve ``n_limbs``.  Otherwise, among the tiles of K1S_WIDE_TILES and the
+    clusters each is built at (:func:`k1s_clusters`), the one of the fewest
+    waves, then the smaller tile, then the most CTAs a tile: a wave is as
+    many clusters as ``resident(plan)`` says the card runs at once (default
+    ``sms // cluster``)."""
+    kn = (params.glwe_dim + 1) * params.poly_size
+    tiles_ = [cb] if cb is not None else K1S_WIDE_TILES
+    served = {t: k1s_clusters(params, n_limbs, t) for t in tiles_}
+    if not any(served.values()):
+        raise ValueError(
+            f"the small-tile K1 serves N ≤ {K1S_WIDE_MAX_N} at (k+1)·N ≤ "
+            f"{K1S_WIDE_MAX_KN}, tiles of {K1S_WIDE_TILES} and "
+            f"{K1S_WIDE_LIMBS} limbs; got N = {params.poly_size}, (k+1)·N = "
+            f"{kn}, {n_limbs} limbs, tile {cb}")
+    if cluster is not None and not any(cluster in cs
+                                       for cs in served.values()):
+        raise ValueError(f"cluster {cluster}: the small-tile K1 is built for "
+                         f"clusters {served} at (k+1)·N = {kn}")
+    if cb is None and cluster is None:
+        from ..optimizer import runtime_model
+        pick = runtime_model.small_tile_pick(params, batch)
+        if pick is not None and pick[1] in served.get(pick[0], ()):
+            return _k1s_plan(params, n_limbs, pick[1], pick[0])
+    if resident is None:
+        def resident(p):
+            return sms // p.cluster
+    best = None
+    for t, cs in served.items():
+        tiles = -(-max(batch, 1) // t)
+        for c in [cluster] if cluster is not None else cs:
+            if c not in cs:
+                continue
+            plan = _k1s_plan(params, n_limbs, c, t)
+            key = (-(-tiles // max(1, resident(plan))), t, -c)
+            if best is None or key < best[0]:
+                best = (key, plan)
+    return best[1]
 
 
 def k2_clusters(params: TFHEParams) -> list[int]:
@@ -492,14 +666,16 @@ def device_plan(batch: int, params: TFHEParams, dev: torch.device,
 def k1_device_plan(batch: int, params: TFHEParams, dev: torch.device,
                    n_limbs: int = N_LIMBS, cb: int | None = None,
                    cluster: int | None = None, nw: int | None = None,
-                   lib: ctypes.CDLL | None = None) -> K1Plan | K1SmallPlan:
+                   lib: ctypes.CDLL | None = None,
+                   route: str | None = None) -> K1Plan | K1SmallPlan:
     """The plan K1 launches with on ``dev``: :func:`k1_plan` with the
     card's SM count and the clusters it runs at once (as ``lib``, default
     the built library, reports them)."""
     return _card_plan(dev, lambda sms, res: k1_plan(
-        batch, params, sms, n_limbs, cb, cluster, nw, res),
-        lambda p: k1_max_clusters(p, n_limbs, lib),
-        ("k1", n_limbs, getattr(lib, "_name", None)))
+        batch, params, sms, n_limbs, cb, cluster, nw, res, route),
+        lambda p: k1_resident(p, params, n_limbs, lib),
+        ("k1", n_limbs, getattr(lib, "_name", None), params.glwe_dim,
+         params.poly_size, params.bsk_level))
 
 
 _RESIDENT: dict = {}
@@ -519,6 +695,8 @@ def unsupported(params: TFHEParams, otf: bool) -> str | None:
     if n & (n - 1):
         return f"poly_size {n} is not a power of two"
     if otf:
+        # the small-tile plan at N >= K1_SLICE is an option of the ring
+        # kernel's families (k1s_clusters), not a limit of them
         if n < K1_SLICE and (params.glwe_dim + 1) * n > K1S_MAX_KN:
             return (f"(k+1)·N = {(params.glwe_dim + 1) * n} > {K1S_MAX_KN}, "
                     f"the most K1 below N={K1_SLICE} serves")
@@ -585,10 +763,13 @@ def _raise_on(err: int, lib: ctypes.CDLL | None = None) -> None:
 
 def _launch_k1(b_init, a_t, test_polys, kernels, params: TFHEParams,
                cb: int | None, cluster: int | None, nw: int | None,
-               lib: ctypes.CDLL | None = None) -> torch.Tensor:
+               lib: ctypes.CDLL | None = None,
+               route: str | None = None) -> torch.Tensor:
     """K1 on the card, through ``lib`` (default the built library), at the
-    plan :func:`k1_device_plan` gives: the ring kernel's, or below
-    N=K1_SLICE the small-N kernel's."""
+    plan :func:`k1_device_plan` gives: the ring kernel's, or the small-N
+    kernel's (below N=K1_SLICE, and above it on the small-tile plan, where
+    ``route`` or :func:`k1_route` takes it); counted under ``LAUNCHES`` and
+    ``K1_KERNELS``."""
     from . import _build
 
     n_limbs = _check(True, b_init, a_t, test_polys, kernels, params)
@@ -597,7 +778,7 @@ def _launch_k1(b_init, a_t, test_polys, kernels, params: TFHEParams,
     batch, steps = test_polys.shape[0], a_t.shape[0]
     lib = lib or _build.library()
     plan = k1_device_plan(batch, params, dev, n_limbs, cb, cluster, nw,
-                          lib)
+                          lib, route)
     if batch == 0 or steps == 0:
         return _init_acc(b_init, test_polys, params)
     out = torch.empty((k1, batch, n), dtype=I32, device=dev)
@@ -607,8 +788,8 @@ def _launch_k1(b_init, a_t, test_polys, kernels, params: TFHEParams,
             err = lib.fbr_k1s_blind_rotate(
                 b_init.data_ptr(), a_t.data_ptr(), test_polys.data_ptr(),
                 kernels.data_ptr(), out.data_ptr(), steps, batch, n, k1,
-                params.bsk_level, params.bsk_base_log, n_limbs, plan.cluster,
-                plan.nt, plan.passes, stream)
+                params.bsk_level, params.bsk_base_log, n_limbs, plan.cb,
+                plan.cluster, plan.nt, plan.passes, stream)
         else:
             tiles = -(-batch // plan.cb)
             dig = torch.empty((tiles * plan.cb, k1 * params.bsk_level * n),
@@ -620,6 +801,8 @@ def _launch_k1(b_init, a_t, test_polys, kernels, params: TFHEParams,
                 plan.cb, plan.nw, plan.cluster, stream)
     _raise_on(err, lib)
     LAUNCHES["k1"] += 1
+    K1_KERNELS["k1_kernel" if isinstance(plan, K1Plan) else "k1s_kernel"
+               if n < K1_SLICE else "k1s_kernel_wide"] += 1
     return out
 
 
@@ -678,6 +861,16 @@ def k1_max_clusters(plan: K1Plan, n_limbs: int = N_LIMBS,
     return count.value
 
 
+def k1_resident(plan: K1Plan | K1SmallPlan, params: TFHEParams,
+                n_limbs: int = N_LIMBS,
+                lib: ctypes.CDLL | None = None) -> int:
+    """Clusters of either of K1's plans at ``params`` the current card runs
+    at once."""
+    if isinstance(plan, K1SmallPlan):
+        return k1_small_layout(plan, params, n_limbs, lib)[1]
+    return k1_max_clusters(plan, n_limbs, lib)
+
+
 def k1_layout(plan: K1Plan, n_limbs: int = N_LIMBS,
               lib: ctypes.CDLL | None = None) -> tuple[int, int]:
     """The ring stages and the dynamic shared memory (bytes) a CTA of K1's
@@ -703,9 +896,10 @@ def k1_small_layout(plan: K1SmallPlan, params: TFHEParams,
     lib = lib or _build.library()
     smem, clusters = ctypes.c_int(0), ctypes.c_int(0)
     _raise_on(lib.fbr_k1s_layout(params.poly_size, params.glwe_dim + 1,
-                                 params.bsk_level, n_limbs, plan.cluster,
-                                 plan.nt, plan.passes, ctypes.byref(smem),
-                                 ctypes.byref(clusters)), lib)
+                                 params.bsk_level, n_limbs, plan.cb,
+                                 plan.cluster, plan.nt, plan.passes,
+                                 ctypes.byref(smem), ctypes.byref(clusters)),
+              lib)
     return smem.value, clusters.value
 
 
@@ -739,39 +933,52 @@ def blind_rotate_k2(b_init, a_t, test_polys, kernels, params: TFHEParams,
 def blind_rotate_k1(b_init, a_t, test_polys, kernels, params: TFHEParams,
                     batch_tile: int | None = None,
                     cluster: int | None = None,
-                    nw: int | None = None) -> torch.Tensor:
+                    nw: int | None = None,
+                    route: str | None = None) -> torch.Tensor:
     """K1 ("fused_otf"): keys [n, L·(k+1), rows, 2N] int8 -> ACC.
 
     ``batch_tile``: ciphertexts per tile (CPU: per plain slice; CUDA: per
-    cluster, one of ``K1_TILES``); ``cluster``: CTAs per tile; ``nw``:
-    coefficients per warpgroup, one of ``K1_WIDTHS``.  All default to
-    :func:`k1_plan`'s choice, which at N < K1_SLICE is the small-N kernel's
-    (:func:`k1_small_plan`: tiles of K1S_TILE, a cluster of
-    :func:`k1s_clusters`, no ``nw``)."""
+    cluster, one of ``K1_TILES``, or K1S_TILE for the small-N kernel);
+    ``cluster``: CTAs per tile; ``nw``: coefficients per warpgroup, one of
+    ``K1_WIDTHS``.  All default to :func:`k1_plan`'s choice, which at N <
+    K1_SLICE is the small-N kernel's (:func:`k1_small_plan`: tiles of
+    K1S_TILE, a cluster of :func:`k1s_clusters`, no ``nw``) and above it
+    the plan of ``route`` (K1_ROUTES), by default the one :func:`k1_route`
+    gives."""
     if test_polys.device.type != "cpu":
         return _launch_k1(b_init, a_t, test_polys, kernels, params,
-                          batch_tile, cluster, nw)
+                          batch_tile, cluster, nw, route=route)
     return _plain_slices(True, b_init, a_t, test_polys, kernels, params,
                          batch_tile)
 
 
-def kernel_path(orientation: str | None, params: TFHEParams) -> str:
+def kernel_path(orientation: str | None, params: TFHEParams,
+                rows: int | None = None, n_limbs: int = N_LIMBS,
+                route: str | None = None) -> str:
     """What runs a blind rotation of ``params`` through ``orientation``, as
     the launch record names it: ``"k2"`` for ``"fused"``, ``"k1"`` for
-    ``"fused_otf"`` (``"k1s"`` below N=K1_SLICE, its small-N kernel), the
+    ``"fused_otf"`` (``"k1s"`` for its small-N kernel: below N=K1_SLICE,
+    and above it where ``route``, or for a launch of ``rows`` ciphertexts
+    at ``n_limbs`` :func:`k1_route`, takes the small-tile plan), the
     orientation's name for a library one, ``"generic"`` for None (no fast
     keys)."""
     if orientation == "fused":
         return "k2"
     if orientation == "fused_otf":
-        return "k1s" if params.poly_size < K1_SLICE else "k1"
+        if params.poly_size < K1_SLICE:
+            return "k1s"
+        if route is not None:
+            return route
+        if rows is None:
+            return "k1"
+        return k1_route(params, rows, n_limbs)
     return orientation or "generic"
 
 
 def blind_rotate_fused(b_init, a_t, test_polys, kernels, params: TFHEParams,
                        batch_tile: int | None = None,
-                       launch: profiling.Launch | None = None
-                       ) -> torch.Tensor:
+                       launch: profiling.Launch | None = None,
+                       route: str | None = None) -> torch.Tensor:
     """All-steps-fused blind rotation -> accumulator [k+1, B, N] int32.
 
     ``b_init``: [B, 1] int32 initial amounts ((2N − b~) mod 2N); ``a_t``:
@@ -781,7 +988,11 @@ def blind_rotate_fused(b_init, a_t, test_polys, kernels, params: TFHEParams,
     (CPU: per slice; CUDA: per cluster, default chosen by :func:`k1_plan`
     or :func:`k2_plan`); the last tile may be ragged.  ``launch``: the
     family call's entry of the launch record, made at the launch
-    (:func:`..utils.profiling.launch`)."""
-    fn = blind_rotate_k1 if kernels.ndim == 4 else blind_rotate_k2
+    (:func:`..utils.profiling.launch`).  ``route``: K1's at N ≥ K1_SLICE
+    (:func:`blind_rotate_k1`)."""
     with profiling.launch(launch):
-        return fn(b_init, a_t, test_polys, kernels, params, batch_tile)
+        if kernels.ndim == 4:
+            return blind_rotate_k1(b_init, a_t, test_polys, kernels, params,
+                                   batch_tile, None, None, route)
+        return blind_rotate_k2(b_init, a_t, test_polys, kernels, params,
+                               batch_tile)

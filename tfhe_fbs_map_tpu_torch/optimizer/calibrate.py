@@ -40,10 +40,23 @@ K1's small-N kernel (N < 256) is timed apart, at the families of
 :func:`small_families` (``raw["k1s_points"]``, and the clusters its plans
 run at once in the resident table): their family entries and the
 kernel-wide ``k1s`` fit (fixed term, efficiency and the median scale of
-its per-boot cost), which a small-N family without an entry takes.  Every
-other entry is fitted from ``raw["points"]`` alone.  ``--only k1s`` times
-the small-N kernel alone and adds its points to the existing file, whose
-other entries then stay as they were.
+its per-boot cost), which a small-N family without an entry takes.  So is
+its small-tile plan at N ≥ 256, at the families of :func:`wide_families`
+and the launch sizes ``runtime_model.SMALL_ROWS``, on every tile and
+cluster it is built for (:func:`time_wide`: the kernel alone, full length,
+``raw["k1s_wide_plans"]``), and the clusters of each in the resident
+table.  From those come each family's ``.../k1s`` entry (``points``: its
+fastest plan's µs at each launch size, which price the plan), the plan
+timed fastest at each shape and launch size (``k1s_plans``, which
+``k1_wide_plan`` takes) and their fit across families (``kernels
+["k1s_wide"]``: at each launch size a fixed µs a step and a scale of the
+per-boot cost, which prices the families without points).  The ring
+kernel's points are timed with its route given (``FastKeys.route``), so
+neither reads the other, and each K1 entry at N ≥ 256 keeps its kernel µs
+at each launch size (``points``).  Every other entry is fitted from
+``raw["points"]`` alone.  ``--only k1s`` times the small-N kernel alone
+(both plans) and adds its points to the existing file, whose other entries
+then stay as they were.
 """
 
 from __future__ import annotations
@@ -64,7 +77,7 @@ from ..ops.blind_rotate import FUSED_HEADROOM, fused_key_bytes
 from ..tfhe.params import PRESETS, STAGED_PRESETS, TFHEParams, _curve
 from .optimizer import (CALIBRATION, GLWE_SHAPES, DeviceProfile,
                         bootstrap_cost_us)
-from .runtime_model import ROWS, family_key, resident_key
+from .runtime_model import ROWS, SMALL_ROWS, family_key, resident_key
 
 # The H100 SXM data sheet's dense int8 rate and memory rate.
 PEAK_INT8_OPS = 1979e12
@@ -120,6 +133,43 @@ def small_families() -> dict[str, tuple[TFHEParams, bool]]:
             "staged_test.fam2": (STAGED_PRESETS["staged_test"].fam2, True)}
 
 
+def wide_families() -> dict[str, tuple[TFHEParams, bool]]:
+    """name -> (params, staged) of the families of :func:`families` at N ≥
+    256 that K1's small-tile plan serves at every limb count the optimizer
+    picks: the families whose points it is timed at, and so the only ones
+    whose launches it can take."""
+    return {name: (params, staged)
+            for name, (params, staged) in families().items()
+            if params.poly_size >= fbr.K1_SLICE
+            and all(fbr.k1s_clusters(params, limbs) for limbs in LIMBS)}
+
+
+def fit_families() -> dict[str, tuple[TFHEParams, bool]]:
+    """name -> (params, staged) of the shapes K1's small-tile plan serves,
+    at both limbs the optimizer picks, at the (k, N) of
+    :func:`wide_families` with an l none of them has: AES-128's family at
+    that l (b = 8).  Their launches take the plan by the fit across
+    families (``runtime_model.small_points``), so the card's checks hold it
+    bitwise at them too."""
+    import dataclasses
+
+    aes = PRESETS["aes128_p4"][0]
+    wide = list(wide_families().values())
+    out = {}
+    for k, N in sorted({(p.glwe_dim, p.poly_size) for p, _ in wide}):
+        have = {p.bsk_level for p, _ in wide
+                if (p.glwe_dim, p.poly_size) == (k, N)}
+        for l in range(1, 32):
+            params = dataclasses.replace(aes, glwe_dim=k, poly_size=N,
+                                         bsk_level=l, bsk_base_log=8)
+            if l * 8 >= 32 or not all(fbr.k1s_clusters(params, limbs)
+                                      for limbs in LIMBS):
+                break
+            if l not in have:
+                out[f"k={k} N={N} l={l}"] = (params, False)
+    return out
+
+
 def card() -> str:
     """The card's name and power limit, as ``nvidia-smi`` prints them."""
     return subprocess.run(
@@ -128,9 +178,11 @@ def card() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def _executor(params: TFHEParams, orientation: str, device: torch.device):
+def _executor(params: TFHEParams, orientation: str, device: torch.device,
+              route: str | None = None):
     """A one-bootstrap program's executor over ``params``' keys, with the
-    fast keys of ``orientation`` (None: the generic path)."""
+    fast keys of ``orientation`` (None: the generic path) and K1's
+    ``route`` (``FastKeys.route``)."""
     from ..frontend.lut_program import LutProgram
     from ..ops.blind_rotate import prepare_fast_keys
     from ..runtime.executor import CircuitExecutor
@@ -139,6 +191,8 @@ def _executor(params: TFHEParams, orientation: str, device: torch.device):
     keys = generate_keys(params, seed=7, device=device)
     fast = (None if orientation == "generic"
             else prepare_fast_keys(keys, orientation=orientation))
+    if fast is not None:
+        fast.route = route
     prog = LutProgram()
     prog.output("o", prog.bootstrap(prog.input("x"), [0, 1]))
     return CircuitExecutor(prog, keys, fast_keys=fast)
@@ -254,11 +308,14 @@ def time_around(ex, buf: torch.Tensor, iters: int, reps: int) -> list[float]:
 
 def time_family(name: str, params: TFHEParams, device: torch.device,
                 orient: str) -> list[dict]:
-    """Every point of one family, through ``orient``."""
+    """Every point of one family, through ``orient`` (K1 at N ≥ 256 on its
+    ring kernel), at the launch sizes ``ROWS``."""
     from ..runtime.profile import _sync
 
     t0 = time.time()
-    ex = _executor(params, orient, device)
+    route = ("k1" if orient == "fused_otf"
+             and params.poly_size >= fbr.K1_SLICE else None)
+    ex = _executor(params, orient, device, route)
     _sync(device)
     print(f"# {name} ({family_key(params)}, {orient}): keys "
           f"{time.time() - t0:.1f}s", file=sys.stderr)
@@ -266,7 +323,7 @@ def time_family(name: str, params: TFHEParams, device: torch.device,
     for r in ROWS:
         pt = time_point(ex, r // BATCH, BATCH)
         pt.update(family=name, key=family_key(params), kernel=orient,
-                  limbs=4, **_device_plan(params, r, orient, device))
+                  limbs=4, **_device_plan(params, r, orient, device, route))
         out.append(pt)
         print(f"# {name} rows={r}: step {pt['step_ms']:.3f} ms, kernel "
               f"{pt['kernel_ms']:.3f} ms, around {pt['around_ms']:.4f} ms "
@@ -281,11 +338,11 @@ def time_family(name: str, params: TFHEParams, device: torch.device,
 
 
 def _device_plan(params: TFHEParams, rows: int, orientation: str,
-                 device: torch.device) -> dict:
+                 device: torch.device, route: str | None = None) -> dict:
     """The plan the kernel launches with for ``rows`` ciphertexts on the
-    card, and its waves."""
+    card (K1's on ``route``), and its waves."""
     if orientation == "fused_otf":
-        plan = fbr.k1_device_plan(rows, params, device)
+        plan = fbr.k1_device_plan(rows, params, device, route=route)
         fit = (fbr.k1_small_layout(plan, params)[1]
                if isinstance(plan, fbr.K1SmallPlan)
                else fbr.k1_max_clusters(plan))
@@ -295,6 +352,39 @@ def _device_plan(params: TFHEParams, rows: int, orientation: str,
     tiles = -(-rows // plan.cb)
     return {"plan": list(plan), "resident": fit,
             "waves": -(-tiles // max(1, fit))}
+
+
+def time_wide(name: str, params: TFHEParams, device: torch.device,
+              reps: int = 3) -> list[dict]:
+    """K1's small-tile plan at ``params`` on the card, the kernel alone at
+    full length (n steps, 4 limbs, operands drawn on the card), at every
+    launch size of ``SMALL_ROWS`` on every tile and cluster it is built
+    for: ms a launch, CUDA events over ``reps`` launches after a warm-up
+    one."""
+    from ..runtime.bisect import operands, timed_ms
+
+    out = []
+    for r in SMALL_ROWS:
+        args = operands(params, r, seed=r)
+        for cb in fbr.K1S_WIDE_TILES:
+            for c in fbr.k1s_clusters(params, fbr.N_LIMBS, cb):
+                def call(cb=cb, c=c):
+                    return fbr.blind_rotate_k1(*args, params, batch_tile=cb,
+                                               cluster=c)
+                call()
+                ms = timed_ms(call, reps)
+                plan = fbr.k1_device_plan(r, params, device, cb=cb,
+                                          cluster=c)
+                fit = fbr.k1_small_layout(plan, params)[1]
+                out.append({"family": name, "key": family_key(params),
+                            "kernel": "k1s", "limbs": 4, "rows": r,
+                            "plan": list(plan), "resident": fit,
+                            "waves": -(-(-(-r // cb)) // max(1, fit)),
+                            "kernel_ms": ms})
+                print(f"# {name} rows={r} tile {cb} cluster {c}: kernel "
+                      f"{ms:.3f} ms", file=sys.stderr)
+        del args
+    return out
 
 
 def resident_table(sms: int) -> dict[str, int]:
@@ -421,6 +511,18 @@ def fit(raw: dict) -> dict:
         n, k, N, l, ks_l = (int(x) for x in key.split("/")[0].split(","))
         e["scale"] = e["tau_us"] / bootstrap_cost_us(
             n, k, N, l, ks_l, 4, profile, e["kernel"])
+    # K1's points at N >= 256 (its ring kernel's), which the small-tile
+    # plan's are set against at the same launch size
+    for key, pts in _by_family(raw["points"]).items():
+        if key.endswith("/fused_otf") and int(key.split(",")[2]) \
+                >= fbr.K1_SLICE:
+            entries[key]["points"] = sorted(
+                [pt["rows"], pt["kernel_ms"] * 1e3] for pt in pts)
+    wide, plans, fit_wide = _fit_wide(raw.get("k1s_wide_plans", []),
+                                      profile)
+    entries.update(wide)
+    if fit_wide:
+        kernels["k1s_wide"] = fit_wide
     if small:
         es = list(small.values())
         kernels["k1s"] = {
@@ -438,8 +540,69 @@ def fit(raw: dict) -> dict:
     return {"card": raw["card"], "device": raw["device"], "sms": sms,
             "profile": profile_d, "kernels": kernels,
             "around": {"around_a_us": a, "around_b_us": b},
-            "families": entries, "resident": raw["resident"],
-            "raw": raw}
+            "families": entries, "k1s_plans": plans,
+            "resident": raw["resident"], "raw": raw}
+
+
+def _fit_wide(points: list[dict], profile: DeviceProfile
+              ) -> tuple[dict, dict, dict]:
+    """K1's small-tile plan from its points at every tile and cluster
+    (:func:`time_wide`): each family's ``.../k1s`` entry (``points``: at
+    each launch size the µs of its fastest plan), the plan of the least
+    summed µs over the families of each shape at each launch size
+    (``[rows, tile, cluster]``, keyed ``(k+1)xNxl``), and the fit across
+    families at each launch size of the fastest µs a step: at each shape
+    timed the median over its families (``shapes``; a step's time depends
+    on the shape alone), and across shapes step_us + scale·cost / n (cost:
+    the per-boot cost at 4 limbs), by least squares with step_us ≥ 0
+    (:func:`_through`), which holds at the (k, N) timed (``rings``)."""
+    best: dict[str, dict[int, float]] = {}
+    sums: dict[str, dict[int, dict]] = {}
+    names = {}
+    for pt in points:
+        key = f"{pt['key']}/k1s"
+        _, k, N, l, _ = (int(x) for x in pt["key"].split(","))
+        us = pt["kernel_ms"] * 1e3
+        fam = best.setdefault(key, {})
+        fam[pt["rows"]] = min(us, fam.get(pt["rows"], us))
+        names[key] = pt["family"]
+        plan = (pt["plan"][0], pt["plan"][1])
+        at = sums.setdefault(f"{k + 1}x{N}x{l}", {}).setdefault(
+            pt["rows"], {})
+        at[plan] = at.get(plan, 0.0) + us
+    entries = {key: {"name": names[key], "kernel": "k1s",
+                     "points": sorted([r, us] for r, us in fam.items())}
+               for key, fam in best.items()}
+    plans = {shape: [[r, *min(at, key=at.get)] for r, at in sorted(
+        by_rows.items())] for shape, by_rows in sums.items()}
+    if len(entries) < 2:
+        return entries, plans, {}
+    rows = sorted(set.intersection(*(set(f) for f in best.values())))
+    steps, costs = [], []
+    for key in best:
+        n, k, N, l, ks_l = (int(x) for x in key.split("/")[0].split(","))
+        steps.append(n)
+        costs.append(bootstrap_cost_us(n, k, N, l, ks_l, 4, profile,
+                                       "fused_otf") / n)
+    step, scale = [], []
+    for r in rows:
+        f, tau = _through(costs, [fam[r] / n for fam, n in zip(
+            best.values(), steps)])
+        step.append(f)
+        scale.append(tau)
+    by_shape: dict[str, list] = {}
+    for (key, fam), n in zip(best.items(), steps):
+        _, k, N, l, _ = (int(x) for x in key.split("/")[0].split(","))
+        by_shape.setdefault(f"{k + 1}x{N}x{l}", []).append(
+            [fam[r] / n for r in rows])
+    shapes = {shape: [statistics.median(col) for col in zip(*fams)]
+              for shape, fams in by_shape.items()}
+    rings = sorted({tuple(int(x) for x in key.split(",")[1:3])
+                    for key in best})
+    return entries, plans, {"rows": rows, "step_us": step, "scale": scale,
+                            "shapes": shapes, "rings": [list(r) for r in
+                                                        rings],
+                            "families": sorted(names.values())}
 
 
 def measure(device: torch.device) -> dict:
@@ -465,20 +628,24 @@ def measure(device: torch.device) -> dict:
                    kernel="generic")
     print(f"# generic {GENERIC_FAMILY} rows={GENERIC_ROWS}: "
           f"{generic['step_ms']:.1f} ms", file=sys.stderr)
-    small, small_resident = measure_small(device)
+    small, wide, small_resident = measure_small(device)
     return {"card": card(), "device": torch.cuda.get_device_name(device),
             "torch": torch.__version__, "sms": sms, "k2_memory": free,
             "resident": {**resident, **small_resident}, "points": points,
             "generic": generic, "k1s_points": small,
-            "k1s_card": card()}
+            "k1s_wide_plans": wide, "k1s_card": card()}
 
 
-def measure_small(device: torch.device) -> tuple[list[dict], dict]:
+def measure_small(device: torch.device
+                  ) -> tuple[list[dict], list[dict], dict]:
     """Time K1's small-N kernel at every family of :func:`small_families`
-    (through ``fused_otf``, as the CLI runs N < 256 there); the points, and
-    the clusters the card runs at once of each plan they launched, at
-    every limb count the optimizer picks."""
-    points, resident = [], {}
+    (through ``fused_otf``, as the CLI runs N < 256 there) and its
+    small-tile plan at every family of :func:`wide_families`
+    (:func:`time_wide`); the two lists of points, and the clusters the card
+    runs at once of each plan they launched (at N ≥ 256 of every tile and
+    cluster the plan may take, :func:`wide_resident`), at every limb count
+    the optimizer picks."""
+    points, wide, resident = [], [], {}
     for name, (params, _) in small_families().items():
         pts = time_family(name, params, device, "fused_otf")
         points += pts
@@ -487,7 +654,25 @@ def measure_small(device: torch.device) -> tuple[list[dict], dict]:
                 plan = fbr.k1_device_plan(pt["rows"], params, device, limbs)
                 resident[resident_key("fused_otf", limbs, plan, params)] = \
                     fbr.k1_small_layout(plan, params, limbs)[1]
-    return points, resident
+    for name, (params, _) in wide_families().items():
+        wide += time_wide(name, params, device)
+    return points, wide, {**resident, **wide_resident()}
+
+
+def wide_resident() -> dict[str, int]:
+    """The clusters the card runs at once of every tile and cluster of K1's
+    small-tile plan at the families of :func:`wide_families` and
+    :func:`fit_families`, at every limb count the optimizer picks."""
+    resident = {}
+    for params, _ in {**wide_families(), **fit_families()}.values():
+        for limbs in LIMBS:
+            for cb in fbr.K1S_WIDE_TILES:
+                for c in fbr.k1s_clusters(params, limbs, cb):
+                    plan = fbr.k1_wide_plan(1, params, 132, limbs, c, cb=cb)
+                    resident[resident_key("fused_otf", limbs, plan,
+                                          params)] = \
+                        fbr.k1_small_layout(plan, params, limbs)[1]
+    return resident
 
 
 def main(argv=None) -> int:
@@ -511,8 +696,10 @@ def main(argv=None) -> int:
         with open(CALIBRATION) as f:
             raw = json.load(f)["raw"]
         device = torch.device("cuda")
-        points, resident = measure_small(device)
+        points, wide, resident = measure_small(device)
         raw["k1s_points"] = points
+        raw.pop("k1s_wide_points", None)
+        raw["k1s_wide_plans"] = wide
         raw["k1s_card"] = card()
         raw["resident"] = {**raw["resident"], **resident}
     else:

@@ -31,8 +31,15 @@ extern "C" {
 // sums over, each shape's plans at them (waves and cb·sms/cluster, from
 // runtime_model.launch_plan; the shapes are every (k, N) the searches
 // walk, at N >= k1_slice, whose plans do not depend on l), the kernels'
-// fits across families and the families' own entries.  Kernel index 0 is
-// K2 ("fused"), 1 K1 ("fused_otf").  Filled by optimizer/native.py.
+// fits across families and the families' own entries, and K1's small-tile
+// plan at N >= k1_slice: where a family has its calibrated points, each
+// (family, limbs)'s kernel µs at the launch sizes where the route takes it
+// (runtime_model.small_tile_us and small_tile_wins; NaN where it does
+// not), else the fit across families at its own launch sizes
+// (runtime_model.small_points: n times a step's µs at a shape timed, else
+// n·step_us + scale·cost at 4 limbs) and the shapes it serves at 3 and 4
+// limbs.  Kernel index 0 is K2 ("fused"), 1 K1
+// ("fused_otf").  Filled by optimizer/native.py.
 struct Profile {
   double int8_ops, mem_bytes, eff_fused, eff_otf;
   double k2_memory, k2_headroom;
@@ -49,6 +56,18 @@ struct Profile {
   int32_t n_entries;
   const int32_t* entry_keys;   // [n_entries][6]: n, k, N, l, ks_l, kernel
   const double* entry_fits;    // [n_entries][4]: fixed, scale, a, b
+  int32_t n_small;
+  const int32_t* small_keys;   // [n_small][6]: n, k, N, l, ks_l, bsk limbs
+  const double* small_us;      // [n_small][n_rows]: its kernel's µs
+  int32_t n_fit;
+  const int32_t* fit_rows;     // [n_fit]: the fit's launch sizes
+  const double* fit_step_us;   // [n_fit]
+  const double* fit_scale;     // [n_fit]
+  int32_t n_shape_fit;
+  const int32_t* shape_fit_keys;  // [n_shape_fit][3]: k, N, l
+  const double* shape_fit_step;   // [n_shape_fit][n_fit]: µs a step
+  int32_t n_served;
+  const int32_t* served;       // [n_served][3]: k, N, l
 };
 
 }  // extern "C"
@@ -161,9 +180,32 @@ double bootstrap_cost_us(const Profile& pr, int n, int k, int N, int br_l,
   return std::max(compute_s, mem_s) * 1e6;
 }
 
+// runtime_model.small_tile_us() of a family without points at a launch
+// size, from the fit's points at 4 limbs (pts), scaled by cost / cost4.
+double fit_tile_us(const Profile& pr, const std::vector<double>& pts,
+                   int rows, double cost, double cost4) {
+  const int last = pr.n_fit - 1;
+  double us;
+  if (rows <= pr.fit_rows[0]) {
+    us = pts[0];
+  } else if (rows >= pr.fit_rows[last]) {
+    us = pts[last] * double(rows) / double(pr.fit_rows[last]);
+  } else {
+    int i = 1;
+    while (rows > pr.fit_rows[i]) ++i;
+    const int r0 = pr.fit_rows[i - 1], r1 = pr.fit_rows[i];
+    us = pts[i - 1] +
+         (pts[i] - pts[i - 1]) * double(rows - r0) / double(r1 - r0);
+  }
+  return us * (cost / cost4);
+}
+
 // runtime_model.kernel_us(): launch_us of one call of each launch size
 // through K1 (otf) or K2, at the profile's per-boot cost, summed in order;
-// NaN for a shape outside the profile's plans.
+// NaN for a shape outside the profile's plans.  K1's kernel term at a size
+// is its small-tile plan's where the route takes it
+// (runtime_model.small_tile_wins: the family's own price where it has
+// points, else the fit's where it prices lower), else the ring kernel's.
 double kernel_us(const Profile& pr, int n, int k, int N, int l, int ks_l,
                  int bsk_limbs, bool otf) {
   int s = 0;
@@ -185,13 +227,55 @@ double kernel_us(const Profile& pr, int n, int k, int N, int l, int ks_l,
       break;
     }
   }
+  int small = -1;
+  for (int e = 0; otf && e < pr.n_small; ++e) {
+    const int32_t* key = pr.small_keys + 6 * e;
+    if (key[0] == n && key[1] == k && key[2] == N && key[3] == l &&
+        key[4] == ks_l && key[5] == bsk_limbs) {
+      small = e;
+      break;
+    }
+  }
+  bool fit = otf && small < 0 && pr.n_fit > 0 && N >= pr.k1_slice &&
+             (bsk_limbs == 3 || bsk_limbs == 4);
+  if (fit) {
+    int e = 0;
+    while (e < pr.n_served &&
+           !(pr.served[3 * e] == k && pr.served[3 * e + 1] == N &&
+             pr.served[3 * e + 2] == l))
+      ++e;
+    fit = e < pr.n_served;
+  }
   const double cost = bootstrap_cost_us(pr, n, k, N, l, ks_l, bsk_limbs, kern);
+  double cost4 = 0.0;
+  std::vector<double> pts;
+  if (fit) {
+    cost4 = bootstrap_cost_us(pr, n, k, N, l, ks_l, 4, 1);
+    int sh = 0;
+    while (sh < pr.n_shape_fit &&
+           !(pr.shape_fit_keys[3 * sh] == k &&
+             pr.shape_fit_keys[3 * sh + 1] == N &&
+             pr.shape_fit_keys[3 * sh + 2] == l))
+      ++sh;
+    for (int j = 0; j < pr.n_fit; ++j)
+      pts.push_back(sh < pr.n_shape_fit
+                        ? double(n) * pr.shape_fit_step[sh * pr.n_fit + j]
+                        : double(n) * pr.fit_step_us[j] +
+                              pr.fit_scale[j] * cost4);
+  }
   double total = 0.0;
   for (int r = 0; r < pr.n_rows; ++r) {
     const int i = (2 * s + kern) * pr.n_rows + r;
     const double wave = pr.units[i] * cost * scale;
-    total += fixed + double(pr.waves[i]) * wave + a +
-             b * double(pr.rows[r]) * double(k * N + 1);
+    double term = fixed + double(pr.waves[i]) * wave;
+    if (small >= 0) {
+      const double tile = pr.small_us[small * pr.n_rows + r];
+      if (!std::isnan(tile)) term = tile;
+    } else if (fit) {
+      const double tile = fit_tile_us(pr, pts, pr.rows[r], cost, cost4);
+      if (tile < term) term = tile;
+    }
+    total += term + a + b * double(pr.rows[r]) * double(k * N + 1);
   }
   return total;
 }

@@ -6,7 +6,10 @@ same grids, order and pruning, and the serving rules of the CUDA kernels.
 It takes the :class:`DeviceProfile` as an argument, with what
 :func:`.runtime_model.kernel_us` reads of the calibration (the plans at its
 launch sizes of every shape of :data:`PRICED_SHAPES`, the kernels' fits
-and the families' entries), so one build prices any card.  It is built
+and the families' entries, and K1's small-tile plan: its price where a
+family has its calibrated points and the route takes it, and its fit
+across families with the shapes it serves), so one build prices any
+card.  It is built
 with ``g++`` at first use into the git-ignored
 ``build/tfhe_fbs_map_tpu_torch/`` beside the package (the library's name
 carries a hash of the source and flags) and is host code: no device runs it.
@@ -20,13 +23,14 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import subprocess
 from pathlib import Path
 
 from ..ops.blind_rotate import KSK_MAX_BASE_LOG
 from ..ops.fused_blind_rotate import (K1_MAX_N, K1_SLICE, K1S_MAX_KN,
-                                      K2_CHUNK, K2_KC)
+                                      K2_CHUNK, K2_KC, k1s_clusters)
 from ..tfhe.params import TFHEParams
 from . import runtime_model
 from .noise import P_ERROR_4_SIGMA
@@ -42,6 +46,9 @@ PRICED_SHAPES = tuple((k, N) for k in (1, 2, 3, 4)
                       for N in (256, 512, 1024, 2048, 4096, 8192))
 # the kernels by the native core's index
 KERNELS = ("fused", "fused_otf")
+# the gadget levels l up to which the native core is told the shapes K1's
+# small-tile plan serves (the searches walk l up to 5)
+SERVED_LEVELS = 8
 
 SRC = Path(__file__).resolve().parent / "csrc" / "optimizer.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" \
@@ -67,7 +74,11 @@ class _CProfile(ctypes.Structure):
         ("shapes", I32P), ("waves", I32P), ("units", F64P),
         ("fixed_us", f64 * 2), ("scale", f64 * 2), ("around_a_us", f64),
         ("around_b_us", f64), ("n_entries", i32), ("entry_keys", I32P),
-        ("entry_fits", F64P),
+        ("entry_fits", F64P), ("n_small", i32), ("small_keys", I32P),
+        ("small_us", F64P), ("n_fit", i32), ("fit_rows", I32P),
+        ("fit_step_us", F64P), ("fit_scale", F64P), ("n_shape_fit", i32),
+        ("shape_fit_keys", I32P), ("shape_fit_step", F64P),
+        ("n_served", i32), ("served", I32P),
     ]
 
 
@@ -181,8 +192,10 @@ def profile_struct(profile: DeviceProfile) -> _CProfile:
             shapes += [k, N, limbs]
             for orient in KERNELS:
                 for r in rows:
-                    plan, w = runtime_model.launch_plan(shell, r, orient,
-                                                        limbs)
+                    # K1's ring plan (its small-tile plan is priced apart)
+                    plan, w = runtime_model.launch_plan(
+                        shell, r, orient, limbs,
+                        "k1" if orient == "fused_otf" else None)
                     waves.append(w)
                     units.append(plan.cb * cal["sms"] / plan.cluster)
     keys, fits = [], []
@@ -192,6 +205,45 @@ def profile_struct(profile: DeviceProfile) -> _CProfile:
             keys.append(KERNELS.index(e["kernel"]))
             fits += [e["fixed_us"], e["scale"], e["around_a_us"],
                      e["around_b_us"]]
+    # K1's small-tile plan: the families with its calibrated points, at the
+    # limbs it serves, its kernel µs at the launch sizes where the route
+    # takes it (NaN where it does not)
+    skeys, sus = [], []
+    for key, e in cal["families"].items():
+        if e["kernel"] != "k1s":
+            continue
+        n, k, N, l, ks_l = (int(x) for x in key.split("/")[0].split(","))
+        shell = TFHEParams(p=2, lwe_dim=n, glwe_dim=k, poly_size=N,
+                           bsk_level=l, bsk_base_log=1, ksk_level=ks_l,
+                           ksk_base_log=1, lwe_noise_std=0.0,
+                           glwe_noise_std=0.0)
+        for limbs in (3, 4):
+            if not k1s_clusters(shell, limbs):
+                continue
+            skeys += [n, k, N, l, ks_l, limbs]
+            sus += [runtime_model.small_tile_us(shell, r, limbs)
+                    if runtime_model.small_tile_wins(shell, r, limbs)
+                    else math.nan for r in rows]
+    # its fit across families (and at each shape timed), and the (k, N, l)
+    # it serves at 3 and 4 limbs of the (k, N) timed
+    wide = cal["kernels"].get("k1s_wide", {"rows": [], "step_us": [],
+                                           "scale": [], "shapes": {},
+                                           "rings": []})
+    shape_keys, shape_steps = [], []
+    for key, steps in wide["shapes"].items():
+        k1, N, l = (int(x) for x in key.split("x"))
+        shape_keys += [k1 - 1, N, l]
+        shape_steps += steps
+    served = []
+    for k, N in PRICED_SHAPES:
+        for l in range(1, SERVED_LEVELS + 1):
+            shell = TFHEParams(p=2, lwe_dim=1, glwe_dim=k, poly_size=N,
+                               bsk_level=l, bsk_base_log=1, ksk_level=1,
+                               ksk_base_log=1, lwe_noise_std=0.0,
+                               glwe_noise_std=0.0)
+            if [k, N] in wide["rings"] and all(
+                    k1s_clusters(shell, limbs) for limbs in (3, 4)):
+                served += [k, N, l]
     fit = [cal["kernels"][o] for o in KERNELS]
     return _CProfile(
         profile.int8_ops, profile.mem_bytes, profile.eff_fused,
@@ -202,7 +254,12 @@ def profile_struct(profile: DeviceProfile) -> _CProfile:
         _array(f64, units), (f64 * 2)(*(f["fixed_us"] for f in fit)),
         (f64 * 2)(*(f.get("scale", 1.0) for f in fit)),
         cal["around"]["around_a_us"], cal["around"]["around_b_us"],
-        len(keys) // 6, _array(i32, keys), _array(f64, fits))
+        len(keys) // 6, _array(i32, keys), _array(f64, fits),
+        len(skeys) // 6, _array(i32, skeys), _array(f64, sus),
+        len(wide["rows"]), _array(i32, wide["rows"]),
+        _array(f64, wide["step_us"]), _array(f64, wide["scale"]),
+        len(shape_keys) // 3, _array(i32, shape_keys),
+        _array(f64, shape_steps), len(served) // 3, _array(i32, served))
 
 
 def optimize_native(p: int, sq_norm2: float,

@@ -14,7 +14,9 @@ ciphertexts costs
 
 * the kernel: a fixed term plus ``waves × wave``.  The plan and its waves
   are :func:`..ops.fused_blind_rotate.k1_plan` / ``k2_plan``'s (below
-  N=256 K1's small-N plan, one CTA a tile of 16), given the calibrated
+  N=256 K1's small-N plan, a cluster a tile of 16; above, where
+  :func:`small_tile_wins`, the same kernel's small-tile plan, priced from
+  its own points, :func:`small_tile_us`), given the calibrated
   card's SM count and the clusters it runs at once (the ``resident`` table;
   a plan it lacks runs one cluster an SM), so a prediction needs no card.
   A wave of a plan (tile ``cb``, ``cluster`` CTAs) carries ``cb · sms /
@@ -28,7 +30,13 @@ kernel it was timed through, keyed ``n,k,N,l,ks_l/<kernel>``
 (:func:`entry_key`), the kernel's fixed term and the scale of its per-boot
 cost, and the work around it; a family with no entry of a kernel takes the
 fit across families of that kernel (below N=256 the fit of K1's small-N
-kernel, ``k1s``).
+kernel, ``k1s``).  K1's small-tile plan at N ≥ 256 is priced from its own
+points, the family's ``.../k1s`` entry, and where a family has none from
+their fit across families, ``k1s_wide`` (:func:`small_tile_us`); it is
+taken where that price is below the ring kernel's: the ring's own point at
+the launch size where the calibration has both, else its model
+(:func:`small_tile_wins`).  Its tile and cluster are the ones the
+calibration timed fastest at the family's shape (:func:`small_tile_pick`).
 
 :func:`kernel_us` is the price ``--orientation auto`` compares K1 and K2
 by (:func:`..ops.blind_rotate.pick_kernel`): a call of each of the
@@ -38,18 +46,24 @@ calibration's launch sizes :data:`ROWS`, summed.
 from __future__ import annotations
 
 from ..ops.fused_blind_rotate import (K1_SLICE, K1Plan, K1SmallPlan, K2Plan,
-                                      k1_plan, k2_plan)
+                                      k1_plan, k1_ring_plan, k1_route,
+                                      k1_wide_plan, k1s_clusters, k2_plan)
 from ..tfhe.params import TFHEParams
 from .optimizer import (Solution, StagedSolution, bootstrap_cost_us,
                         calibration, h100_profile)
 
 __all__ = ["predict_native_us", "predict_staged_us", "call_fixed_us",
            "slope_us", "launch_us", "kernel_us", "launch_plan", "bucket",
-           "family_key", "entry_key", "resident_key", "ROWS"]
+           "family_key", "entry_key", "resident_key", "shape_key",
+           "small_tile_wins", "small_tile_us", "small_tile_plan",
+           "small_tile_pick", "small_points", "ROWS", "SMALL_ROWS"]
 
 # Ciphertexts a call the calibration times (8 evaluations × 8 … 1024
 # bootstraps), and the launch sizes ``kernel_us`` sums over.
 ROWS = (64, 128, 256, 512, 1024, 2048, 4096, 8192)
+# Ciphertexts a call the calibration times K1's small-tile plan at (N ≥
+# 256): the launches of one evaluation (4 …) up to where the ring wins.
+SMALL_ROWS = (4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048)
 
 
 def family_key(params: TFHEParams) -> str:
@@ -64,17 +78,24 @@ def entry_key(params: TFHEParams, orientation: str) -> str:
     return f"{family_key(params)}/{orientation}"
 
 
+def shape_key(params: TFHEParams) -> str:
+    """The key of a shape ``(k+1)xNxl``: the small-tile plans the
+    calibration timed fastest at it, and the resident table's small-N
+    keys, end in it."""
+    return f"{params.glwe_dim + 1}x{params.poly_size}x{params.bsk_level}"
+
+
 def resident_key(orientation: str, n_limbs: int,
                  plan: K1Plan | K1SmallPlan | K2Plan,
                  params: TFHEParams | None = None) -> str:
     """The resident table's key of a plan: kernel, limbs, tile, cluster
     (and K1's width; the small-N K1's cluster, n8 tiles a warp, digit
     passes a step and the shape (k+1)xNxl of ``params``, which sizes its
-    shared memory and so how many fit)."""
+    shared memory and so how many fit, and its tile where not 16)."""
     if isinstance(plan, K1SmallPlan):
-        return (f"k1s/{n_limbs}/{plan.cluster}/{plan.nt}/{plan.passes}/"
-                f"{params.glwe_dim + 1}x{params.poly_size}x"
-                f"{params.bsk_level}")
+        tile = "" if plan.cb == 16 else f"t{plan.cb}/"
+        return (f"k1s/{n_limbs}/{tile}{plan.cluster}/{plan.nt}/"
+                f"{plan.passes}/{shape_key(params)}")
     if orientation == "fused_otf":
         return f"k1/{n_limbs}/{plan.cb}/{plan.cluster}/{plan.nw}"
     return f"k2/{n_limbs}/{plan.cb}/{plan.cluster}"
@@ -97,33 +118,171 @@ def _orientation(params: TFHEParams, orientation: str | None,
                                  params.ksk_level, bsk_limbs, staged)
 
 
-# launch_plan's and kernel_us' answers, per calibration (held beside them,
-# so that its id names it while cached)
+# launch_plan's, small_tile_wins' and kernel_us' answers, per calibration
+# (held beside them, so that its id names it while cached)
 _PLANS: dict = {}
+_ROUTES: dict = {}
 _PRICES: dict = {}
 
 
+def _resident(table: dict, sms: int, orientation: str, n_limbs: int,
+              params: TFHEParams):
+    def resident(plan):
+        return table.get(resident_key(orientation, n_limbs, plan, params),
+                         sms // plan.cluster)
+    return resident
+
+
+def _kernel_term(params: TFHEParams, plan, waves: int, cost_us: float,
+                 fit: tuple[float, float]) -> float:
+    """µs of a launch's kernel: the fit's fixed term and ``waves`` waves of
+    ``plan`` at ``cost_us`` a bootstrap."""
+    fixed, scale = fit
+    wave = plan.cb * calibration()["sms"] / plan.cluster * cost_us * scale
+    return fixed + waves * wave
+
+
+def small_points(params: TFHEParams) -> list | None:
+    """K1's small-tile plan at N ≥ 256 at the launch sizes :data:`SMALL_ROWS`
+    at 4 limbs, [rows, kernel µs] each: the family's own calibrated points
+    (its ``.../k1s`` entry), else the fit across the families timed
+    (``kernels["k1s_wide"]``), where the plan serves the family at both
+    limbs the optimizer picks and families of its (k, N) were timed
+    (``rings``): n times the µs a step of its shape where families of that
+    shape were timed (``shapes``), else at each launch size a fixed µs a
+    step and a scale of the per-boot cost, n·step_us + scale·cost; else
+    None."""
+    cal = calibration()
+    entry = cal["families"].get(entry_key(params, "k1s"))
+    if entry is not None:
+        return entry["points"]
+    fit = cal["kernels"].get("k1s_wide")
+    if (fit is None
+            or [params.glwe_dim, params.poly_size] not in fit["rings"]
+            or not all(k1s_clusters(params, limbs) for limbs in (3, 4))):
+        return None
+    shape = fit["shapes"].get(shape_key(params))
+    if shape is not None:
+        return [[r, params.lwe_dim * s] for r, s in zip(fit["rows"], shape)]
+    cost = _cost(params, "fused_otf", 4)
+    return [[r, params.lwe_dim * a + b * cost]
+            for r, a, b in zip(fit["rows"], fit["step_us"], fit["scale"])]
+
+
+def small_tile_us(params: TFHEParams, rows: int, n_limbs: int = 4,
+                  cost_us: float | None = None) -> float | None:
+    """µs of the kernel of a K1 launch of ``rows`` ciphertexts on the
+    small-tile plan at N ≥ 256, from :func:`small_points` (kernel µs at the
+    launch sizes :data:`SMALL_ROWS`, at 4 limbs): linear between the two
+    points around ``rows``, the first below the first, in proportion to
+    ``rows`` past the last; scaled by the per-boot cost at ``n_limbs`` (or
+    ``cost_us``) over that at 4 limbs.  None where it has no points."""
+    pts = small_points(params)
+    if pts is None:
+        return None
+    if rows <= pts[0][0]:
+        us = pts[0][1]
+    elif rows >= pts[-1][0]:
+        us = pts[-1][1] * rows / pts[-1][0]
+    else:
+        i = next(i for i in range(1, len(pts)) if rows <= pts[i][0])
+        (r0, u0), (r1, u1) = pts[i - 1], pts[i]
+        us = u0 + (u1 - u0) * (rows - r0) / (r1 - r0)
+    if cost_us is None:
+        cost_us = _cost(params, "fused_otf", n_limbs)
+    return us * (cost_us / _cost(params, "fused_otf", 4))
+
+
+def small_tile_wins(params: TFHEParams, rows: int,
+                    n_limbs: int = 4) -> bool:
+    """Whether a K1 launch of ``rows`` ciphertexts at N ≥ 256 takes the
+    small-tile plan: it serves the family at ``n_limbs`` and its price
+    (:func:`small_tile_us`) is below the ring kernel's at ``rows``.  Where
+    the family has calibrated points of both at ``rows`` (the ring's in its
+    ``.../fused_otf`` entry), point against point; else against the ring's
+    model (its fixed term and waves on the calibrated card, at the
+    calibrated per-boot cost at ``n_limbs``).  The rule
+    :func:`..ops.fused_blind_rotate.k1_route` applies, and the native
+    optimizer's."""
+    cal = calibration()
+    key = (id(cal), family_key(params), rows, n_limbs)
+    hit = _ROUTES.get(key)
+    if hit is not None and hit[0] is cal:
+        return hit[1]
+    small = (small_tile_us(params, rows, n_limbs)
+             if k1s_clusters(params, n_limbs) else None)
+    wins = False
+    if small is not None:
+        own = cal["families"].get(entry_key(params, "k1s"))
+        ring_pts = dict((_entry(params, "fused_otf") or {}).get("points",
+                                                                 ()))
+        if own is not None and rows in ring_pts and rows in dict(
+                own["points"]):
+            wins = dict(own["points"])[rows] < ring_pts[rows]
+        else:
+            sms, table = cal["sms"], cal["resident"]
+            resident = _resident(table, sms, "fused_otf", n_limbs, params)
+            ring = k1_ring_plan(rows, params, sms, n_limbs,
+                                resident=resident)
+            ring_us = _kernel_term(params, ring,
+                                   _waves(rows, ring, resident),
+                                   _cost(params, "fused_otf", n_limbs),
+                                   _kernel_fit(params, "fused_otf"))
+            wins = small < ring_us
+    _ROUTES[key] = (cal, wins)
+    return wins
+
+
+def small_tile_pick(params: TFHEParams, rows: int) -> tuple[int, int] | None:
+    """(tile, cluster) of the small-tile plan the calibration timed fastest
+    at the shape of ``params`` (:func:`shape_key`, at 4 limbs) and the
+    least of its launch sizes at or above ``rows`` (its largest past them),
+    or None where it timed no family of that shape."""
+    picks = calibration().get("k1s_plans", {}).get(shape_key(params))
+    if not picks:
+        return None
+    r, cb, cluster = next((p for p in picks if p[0] >= rows), picks[-1])
+    return cb, cluster
+
+
+def _waves(rows: int, plan, resident) -> int:
+    tiles = -(-max(rows, 1) // plan.cb)
+    return -(-tiles // max(1, resident(plan)))
+
+
+def small_tile_plan(params: TFHEParams, rows: int,
+                    n_limbs: int = 4) -> tuple[K1SmallPlan, int]:
+    """K1's small-tile plan at N ≥ 256 for a launch of ``rows`` and its
+    waves on the calibrated card, whether or not the route takes it."""
+    cal = calibration()
+    resident = _resident(cal["resident"], cal["sms"], "fused_otf", n_limbs,
+                         params)
+    plan = k1_wide_plan(rows, params, cal["sms"], n_limbs, resident=resident)
+    return plan, _waves(rows, plan, resident)
+
+
 def launch_plan(params: TFHEParams, rows: int, orientation: str,
-                bsk_limbs: int = 4
+                bsk_limbs: int = 4, route: str | None = None
                 ) -> tuple[K1Plan | K1SmallPlan | K2Plan, int]:
     """The plan and the waves of one launch of ``rows`` ciphertexts through
-    ``orientation`` on the calibrated card."""
+    ``orientation`` on the calibrated card; K1's at N ≥ 256 on ``route``
+    (default :func:`..ops.fused_blind_rotate.k1_route`'s)."""
     cal = calibration()
-    key = (id(cal), params.glwe_dim, params.poly_size, params.bsk_level,
-           rows, orientation, bsk_limbs)
+    if orientation == "fused_otf" and route is None:
+        route = k1_route(params, rows, bsk_limbs)
+    key = (id(cal), family_key(params), rows, orientation, bsk_limbs,
+           route if orientation == "fused_otf" else None)
     hit = _PLANS.get(key)
     if hit is not None and hit[0] is cal:
         return hit[1]
     sms, table = cal["sms"], cal["resident"]
-
-    def resident(plan):
-        return table.get(resident_key(orientation, bsk_limbs, plan, params),
-                         sms // plan.cluster)
-
-    fn = k1_plan if orientation == "fused_otf" else k2_plan
-    plan = fn(rows, params, sms, bsk_limbs, resident=resident)
-    tiles = -(-max(rows, 1) // plan.cb)
-    out = plan, -(-tiles // max(1, resident(plan)))
+    resident = _resident(table, sms, orientation, bsk_limbs, params)
+    if orientation == "fused_otf":
+        plan = k1_plan(rows, params, sms, bsk_limbs, resident=resident,
+                       route=route)
+    else:
+        plan = k2_plan(rows, params, sms, bsk_limbs, resident=resident)
+    out = plan, _waves(rows, plan, resident)
     _PLANS[key] = (cal, out)
     return out
 
@@ -136,7 +295,9 @@ def _kernel_fit(params: TFHEParams, orientation: str) -> tuple[float, float]:
     """(fixed µs, scale of the per-boot cost) of a call through
     ``orientation`` at ``params``: the family's own calibration entry, else
     the fit across the kernel's families; below N=K1_SLICE K1 runs its
-    small-N kernel, whose fit is ``k1s`` (where the calibration has one)."""
+    small-N kernel, whose fit is ``k1s`` (where the calibration has one).
+    K1's small-tile plan at N ≥ K1_SLICE is priced apart
+    (:func:`small_tile_us`)."""
     entry = _entry(params, orientation)
     if entry:
         return entry["fixed_us"], entry["scale"]
@@ -166,14 +327,19 @@ def launch_us(params: TFHEParams, rows: int, orientation: str | None = None,
     term and waves, and the level's work around it.  ``cost_us``: the
     per-boot roofline cost (default the kernel's at ``bsk_limbs``)."""
     orient = _orientation(params, orientation, bsk_limbs, staged)
-    cal = calibration()
-    fixed, scale = _kernel_fit(params, orient)
     if cost_us is None:
         cost_us = _cost(params, orient, bsk_limbs)
     plan, waves = launch_plan(params, rows, orient, bsk_limbs)
-    wave = plan.cb * cal["sms"] / plan.cluster * cost_us * scale
+    if isinstance(plan, K1SmallPlan) and params.poly_size >= K1_SLICE:
+        kernel = small_tile_us(params, rows, bsk_limbs, cost_us)
+        if kernel is None:
+            raise ValueError(f"{family_key(params)}: no calibrated points "
+                             f"of K1's small-tile plan")
+    else:
+        kernel = _kernel_term(params, plan, waves, cost_us,
+                              _kernel_fit(params, orient))
     a, b = _around(params, orient)
-    return fixed + waves * wave + a + b * rows * (params.big_dim + 1)
+    return kernel + a + b * rows * (params.big_dim + 1)
 
 
 def kernel_us(params: TFHEParams, orientation: str, bsk_limbs: int = 4,

@@ -64,13 +64,15 @@ def _sync(mesh: Mesh) -> None:
 
 
 def _counted(mesh: Mesh, fn):
-    """``fn()``, the fused-kernel launches it made and its wall seconds."""
+    """``fn()``, the fused-kernel launches it made, K1's of them by kernel
+    (``fbr.K1_KERNELS``) and its wall seconds."""
     _sync(mesh)
-    before = dict(fbr.LAUNCHES)
+    before, kernels = dict(fbr.LAUNCHES), dict(fbr.K1_KERNELS)
     t0 = time.time()
     out = fn()
     _sync(mesh)
     return out, {k: fbr.LAUNCHES[k] - before[k] for k in before}, \
+        {k: fbr.K1_KERNELS[k] - kernels[k] for k in kernels}, \
         time.time() - t0
 
 
@@ -106,10 +108,11 @@ def sharded_fbs(mesh: Mesh, params, orientation: str, batch: int,
     want = functional_bootstrap_fast(fast, cts, tvs, posts)
     fn = sharded_bootstrap(mesh, fast)
     shards = [shard_batch(mesh, x) for x in (cts, tvs, posts)]
-    got, launches, _ = _counted(mesh, lambda: fn(*shards))
+    got, launches, kernels, _ = _counted(mesh, lambda: fn(*shards))
     got = torch.cat([g.to(dev) for g in mesh.leaders(got)])
     return {"part": "fbs" if orientation != "matmul" else "matmul/tp",
             "mesh": mesh.shape, "batch": batch, "launches": launches,
+            "k1_kernels": kernels,
             "bit_exact": bool(torch.equal(got, want)) and np.array_equal(
                 decrypt_values(keys, got), values)}
 
@@ -128,7 +131,7 @@ def entry_fbs(device, params=DRYRUN_PARAMS, batch: int = 8,
     keys, values, cts, tvs, posts = _identity_batch(params, batch, seed, dev)
     mm = prepare_fast_keys(keys, orientation="matmul")
     mesh = make_mesh([dev])
-    got, launches, _ = _counted(
+    got, launches, _, _ = _counted(
         mesh, lambda: functional_bootstrap_fast(mm, cts, tvs, posts))
     want = functional_bootstrap_fast(
         prepare_fast_keys(keys, orientation="fused_otf"), cts, tvs, posts)
@@ -163,11 +166,11 @@ def mesh_against_one_device(mesh: Mesh, prog, keys, fast, values,
     one = CircuitExecutor(prog, keys, fast_keys=fast)
     buf1 = one.encrypt_inputs(values, np.random.default_rng(seed))
     one.capture(buf1)
-    want, _, one_s = _counted(mesh, lambda: one.run(buf1))
+    want, _, _, one_s = _counted(mesh, lambda: one.run(buf1))
     ex = CircuitExecutor(prog, keys, fast_keys=fast, mesh=mesh)
     buf0 = ex.encrypt_inputs(values, np.random.default_rng(seed))
     ex.capture(buf0)
-    shards, launches, run_s = _counted(mesh, lambda: ex.run(buf0))
+    shards, launches, kernels, run_s = _counted(mesh, lambda: ex.run(buf0))
     got = torch.cat([s.to(want.device) for s in shards], dim=1)
     outs = ex.decrypt_outputs(shards)
 
@@ -179,7 +182,7 @@ def mesh_against_one_device(mesh: Mesh, prog, keys, fast, values,
                  for lv in ex.levels) if ex.staged else len(ex.levels))
     return {"mesh": mesh.shape,
             "batch": len(next(iter(values.values()))), "launches": launches,
-            "levels": len(ex.levels), "calls": calls,
+            "k1_kernels": kernels, "levels": len(ex.levels), "calls": calls,
             "bootstraps": ex.num_bootstraps, "run_s": run_s, "one_s": one_s,
             "bit_exact": bool(torch.equal(got, want))
             and all(same(oracle[k], outs[k]) for k in oracle)}

@@ -24,18 +24,23 @@ the preset's full n steps, at the plan ``k1_plan`` picks and at the
 
 ``--kernel k1s`` bisects K1's small-N kernel,
 ``ops/csrc/fused_blind_rotate_k1_small.cu``, at the five full-length
-launches of :func:`small_n_launches`.  The variants:
+launches of :func:`small_n_launches` and, on its small-tile plan at N =
+512, at the AES-128 family's launches of 16 and 128 ciphertexts on each
+tile and cluster it is built for (:func:`wide_launches`).  The variants:
 
 * ``base``: the source as it is;
-* ``no_products``: no ``mma.sync`` (and so none of its operand loads);
+* ``no_products``: no ``mma.sync`` (and so none of its operand loads:
+  the B windows and the A fragments);
 * ``no_key_copy``: the step's key rows are not brought into shared memory
   (nor waited for);
-* ``no_digits``: the digit pass stores no digit (and so computes none);
+* ``no_digits``: the digit pass stores no digit (and so computes none; at
+  N = 512 reads no span of the ACC from another CTA either);
 * ``mma_only``: the products' ``mma.sync`` on operands from registers;
 * ``loads_only``: the products' shared loads, no ``mma.sync``;
-* ``no_exchange``: a CTA stores its span of ACC into its own copy only;
-* ``local_only``: that, and a CTA barrier in place of the step's cluster
-  barrier.
+* ``no_exchange``: a CTA stores its span of ACC (at N = 512 its digits)
+  into its own copy only;
+* ``local_only``: that, and CTA barriers in place of the step's cluster
+  barriers (at N = 512 also its ACC words read from itself).
 
 Only ``base`` computes the blind rotation; the others are timed only (their
 outputs are compared with ``base`` and reported, not required).  Needs a
@@ -61,31 +66,58 @@ DIGITS = ("    digit_pass<CB, true>(acc, dig, amt[i & 1], g0, q_lo, span, "
           "batch, n, l, b,\n                         K);\n")
 
 # The small-N kernel's phases: the edits of each variant, every one of
-# which must apply to exactly one statement.  mma_only and loads_only split
+# which must apply to exactly one statement (or to one in each place the
+# count names: a B window's load is in k1s_kernel's product loop and in
+# products()' per-tile one, the A fragment's ldmatrix in both of
+# products()' loops, the key copy in both kernels).  mma_only and
+# loads_only split
 # the products into their mma.sync (operands from registers) and their
 # shared loads (kept alive by an xor); no_exchange and local_only take out
 # the exchange of ACC over the cluster.
 K1S_PHASES = {
-    "no_products": [(r"mma_s8\(d\[lb\]\[nt\],[^;]*\);", "(void)0;")],
-    "no_key_copy": [(r"mbar_expect_tx\([^;]*\);", "(void)0;"),
-                    (r"bulk_load\([^;]*\);", "(void)0;"),
-                    (r"mbar_wait\([^;]*\);", "(void)0;")],
-    "no_digits": [(r"dp\[lev \* \(n / 4\)\] = packed;", "(void)0;")],
-    "mma_only": [(r"window\(er, bo\[nt\] \+ ko \+ 16\)",
-                  "static_cast<uint32_t>(bo[nt] + ko + 16)"),
+    "no_products": [(r"mma_s8\(d\[rt\]\[lb\]\[nt\], a\[rt\],[^;]*\);",
+                     "(void)0;", 2),
+                    (r"mma_s8\(d\[lb\]\[nt\],[^;]*\);", "(void)0;")],
+    "no_key_copy": [(r"mbar_expect_tx\([^;]*\);", "(void)0;", 2),
+                    (r"bulk_load\([^;]*\);", "(void)0;", 2),
+                    (r"mbar_wait\([^;]*\);", "(void)0;", 2)],
+    "no_digits": [(r"dp\[lev \* \(n / 4\)\] = packed;", "(void)0;"),
+                  (r"store_to\(at, peer, p0, p1\);", "(void)0;")],
+    "mma_only": [(r"window\(stage \+ lb \* lstride,\s*bo\[0\] \+ ko "
+                  r"\+ 8 \* m\)", "static_cast<uint32_t>(ko + m)", 2),
+                 (r"window\(er, bo\[nt\] \+ ko \+ 16\)",
+                  "static_cast<uint32_t>(bo[nt] + ko + 16)", 2),
                  (r"window\(er, bo\[nt\] \+ ko\)",
-                  "static_cast<uint32_t>(bo[nt] + ko)"),
+                  "static_cast<uint32_t>(bo[nt] + ko)", 2),
                  (r"ldmatrix_x4\(a, a_lane \+ 32 \* kc\);",
-                  "a[0] = kc; a[1] = kc + 1; a[2] = kc + 2; a[3] = kc + 3;")],
-    "loads_only": [(r"mma_s8\(d\[lb\]\[nt\],[^;]*\);",
+                  "a[0] = kc; a[1] = kc + 1; a[2] = kc + 2; a[3] = kc + 3;"),
+                 (r"ldmatrix_x4\(a\[rt\], a_lane \+ rt \* a_rt \+ 32 \* kc\);",
+                  "{ a[rt][0] = kc; a[rt][1] = a[rt][2] = a[rt][3] = rt; }",
+                  2)],
+    "loads_only": [(r"mma_s8\(d\[rt\]\[lb\]\[nt\], a\[rt\], bw\[lb\]\[nt\], "
+                    r"bw\[lb\]\[nt \+ 2\]\);",
+                    "d[rt][lb][nt][0] ^= a[rt][0] ^ a[rt][1] ^ a[rt][2] ^ "
+                    "a[rt][3] ^ bw[lb][nt] ^ bw[lb][nt + 2];"),
+                   (r"mma_s8\(d\[rt\]\[lb\]\[nt\], a\[rt\], "
+                    r"bw\[nt\]\[lb\]\[0\], bw\[nt\]\[lb\]\[1\]\);",
+                    "d[rt][lb][nt][0] ^= a[rt][0] ^ a[rt][1] ^ a[rt][2] ^ "
+                    "a[rt][3] ^ bw[nt][lb][0] ^ bw[nt][lb][1];"),
+                   (r"mma_s8\(d\[lb\]\[nt\], a, bw\[nt\]\[lb\]\[0\], "
+                    r"bw\[nt\]\[lb\]\[1\]\);",
                     "d[lb][nt][0] ^= a[0] ^ a[1] ^ a[2] ^ a[3] ^ "
                     "bw[nt][lb][0] ^ bw[nt][lb][1];")],
     "no_exchange": [(r"for \(int j = 0; j < cluster; \+\+j\) \{",
-                     "for (int j = 0; j < 1; ++j) {")],
+                     "for (int j = 0; j < 1; ++j) {", 2)],
     "local_only": [(r"for \(int j = 0; j < cluster; \+\+j\) \{",
-                    "for (int j = 0; j < 1; ++j) {"),
+                    "for (int j = 0; j < 1; ++j) {", 2),
                    (r"(= next_amt;\s*)cluster_barrier\(\);",
-                    r"\1__syncthreads();")],
+                    r"\1__syncthreads();"),
+                   (r"(every read of a span done\s*)cluster_barrier\(\);",
+                    r"\1__syncthreads();"),
+                   (r"(every CTA done with its digits\s*)cluster_barrier\(\);",
+                    r"\1__syncthreads();"),
+                   (r"src - owner \* span\), owner\)",
+                    "src - owner * span), rank)")],
 }
 K1S_SOURCE = "fused_blind_rotate_k1_small.cu"
 
@@ -120,8 +152,8 @@ def k1s_variants(src: str) -> dict[str, str]:
     out = {"base": src}
     for name, edits in K1S_PHASES.items():
         text = src
-        for pat, repl in edits:
-            if len(re.findall(pat, src)) != 1:
+        for pat, repl, *count in edits:
+            if len(re.findall(pat, src)) != (count or [1])[0]:
                 raise ValueError(f"small-N source: {name} finds no unique "
                                  f"{pat!r}")
             text = re.sub(pat, repl, text)
@@ -177,13 +209,14 @@ def graph_ms(call, reps: int, replays: int = 3) -> float:
 
 
 def bisect(params, batch: int, reps: int, seed: int = 9) -> dict:
-    """ms per K1 launch of every variant at two plans."""
+    """ms per launch of K1's ring kernel of every variant at two plans."""
     from ..ops import _build
     from ..ops import fused_blind_rotate as fbr
 
     b_init, a_t, tvs, keys = operands(params, batch, seed)
-    default = fbr.k1_plan(batch, params, torch.cuda.get_device_properties(
-        0).multi_processor_count)
+    default = fbr.k1_ring_plan(batch, params,
+                               torch.cuda.get_device_properties(
+                                   0).multi_processor_count)
     plans = {f"{default.cb}x{default.cluster}/{default.nw}":
              default._asdict(),
              "128x8/32": dict(cb=128, cluster=8, nw=32)}
@@ -226,6 +259,17 @@ def small_n_launches() -> list[tuple]:
              bench_multichip.QUICK_PARAMS, 48)]
 
 
+def wide_launches() -> list[tuple]:
+    """K1's small-tile launches at N = 512, (label, params, ciphertexts):
+    the AES-128 family at one evaluation's level sizes 16 and 128 (the
+    ``aes128_p4.b1`` cell's launches are 4 to 256 ciphertexts, 193 of
+    them of 128)."""
+    from ..tfhe.params import PRESETS
+
+    aes = PRESETS["aes128_p4"][0]
+    return [(f"aes128_p4 B={b}", aes, b) for b in (16, 128)]
+
+
 def operands(params, batch: int, seed: int):
     """Random operands of a full-length K1 launch (n steps, 4 limbs), drawn
     on the card."""
@@ -248,32 +292,52 @@ def operands(params, batch: int, seed: int):
 
 def bisect_small(reps: int, seed: int = 9) -> dict:
     """ms per launch of every variant of the small-N kernel at each launch
-    of :func:`small_n_launches`, eagerly and as a graph's replay."""
+    of :func:`small_n_launches` and :func:`wide_launches` (the latter on
+    the small-tile plan at every tile and cluster it is built for), eagerly
+    and as a graph's replay."""
     from ..ops import _build
     from ..ops import fused_blind_rotate as fbr
 
     src = (_build.CSRC / K1S_SOURCE).read_text()
     libs = _build_all(k1s_variants(src), K1S_SOURCE, ("k1s",))
-    out = []
-    for label, params, batch in small_n_launches():
-        args = operands(params, batch, seed)
-        plan = fbr.k1_plan(batch, params, 132, fbr.N_LIMBS)
-        row = {"launch": label, "k": params.glwe_dim, "N": params.poly_size,
-               "l": params.bsk_level, "b": params.bsk_base_log,
-               "n": params.lwe_dim, "ciphertexts": batch,
-               "plan": plan._asdict(), "variants": {}}
-        base = None
-        for name, lib in libs.items():
-            def call(lib=lib):
-                return fbr._launch_k1(*args, params, None, None, None, lib)
-            got = call()
-            torch.cuda.synchronize()
-            base = got if base is None else base
-            row["variants"][name] = {
-                "ms": timed_ms(call, reps), "graph_ms": graph_ms(call, reps),
-                "equal_to_base": bool(torch.equal(got, base))}
-        out.append(row)
+    out = [_bisect_launch(libs, label, params, batch, reps, seed)
+           for label, params, batch in small_n_launches()]
+    for label, params, batch in wide_launches():
+        for t in fbr.K1S_WIDE_TILES:
+            for c in fbr.k1s_clusters(params, fbr.N_LIMBS, t):
+                out.append(_bisect_launch(
+                    libs, f"{label} tile {t} cluster {c}", params, batch,
+                    reps, seed, c, t))
     return {"kernel": "k1s", "reps": reps, "launches": out}
+
+
+def _bisect_launch(libs: dict, label: str, params, batch: int, reps: int,
+                   seed: int, cluster: int | None = None,
+                   tile: int | None = None) -> dict:
+    """One launch's row of :func:`bisect_small`: its plan on the card (on
+    tiles of ``tile`` and ``cluster`` CTAs where given) and every variant's
+    ms."""
+    from ..ops import fused_blind_rotate as fbr
+
+    args = operands(params, batch, seed)
+    plan = fbr.k1_device_plan(batch, params, torch.device("cuda"),
+                              fbr.N_LIMBS, cb=tile, cluster=cluster,
+                              lib=libs["base"])
+    row = {"launch": label, "k": params.glwe_dim, "N": params.poly_size,
+           "l": params.bsk_level, "b": params.bsk_base_log,
+           "n": params.lwe_dim, "ciphertexts": batch,
+           "plan": plan._asdict(), "variants": {}}
+    base = None
+    for name, lib in libs.items():
+        def call(lib=lib):
+            return fbr._launch_k1(*args, params, tile, cluster, None, lib)
+        got = call()
+        torch.cuda.synchronize()
+        base = got if base is None else base
+        row["variants"][name] = {
+            "ms": timed_ms(call, reps), "graph_ms": graph_ms(call, reps),
+            "equal_to_base": bool(torch.equal(got, base))}
+    return row
 
 
 def card() -> str:

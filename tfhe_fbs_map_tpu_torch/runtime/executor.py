@@ -145,6 +145,14 @@ def _u32(x) -> np.int32:
     return np.int64(x).astype(np.uint32).astype(np.int32)
 
 
+def _limbs(fast, params: TFHEParams) -> int:
+    """The BSK limbs of a family's fast keys (4 where it has none)."""
+    kern = getattr(fast, "bsk_kernels", None)
+    if kern is None or getattr(fast, "orientation", None) != "fused_otf":
+        return fbr.N_LIMBS
+    return kern.shape[1] // (params.glwe_dim + 1)
+
+
 def _bucket(nb: int) -> int:
     b = 1
     while b < nb:
@@ -600,6 +608,7 @@ class _Graph(NamedTuple):
     graph: torch.cuda.CUDAGraph
     launches: tuple          # its family calls' entries, made at capture
     counts: dict             # its kernel launches under LAUNCHES' keys
+    kernels: dict            # and its K1 launches under K1_KERNELS' keys
     span: str                # the host span of its replay
 
 
@@ -627,6 +636,8 @@ class _Graphs:
                 profiling.record(g.launches, batch)
             for k, n in g.counts.items():
                 fbr.LAUNCHES[k] += n
+            for k, n in g.kernels.items():
+                fbr.K1_KERNELS[k] += n
 
 
 def _take_back(entries) -> dict[str, int]:
@@ -637,6 +648,16 @@ def _take_back(entries) -> dict[str, int]:
     for k, n in counts.items():
         fbr.LAUNCHES[k] -= n
     return counts
+
+
+def _kernels_since(before: dict) -> dict[str, int]:
+    """K1's launches by kernel since ``before`` (a copy of
+    ``fbr.K1_KERNELS``), taken back out of it as :func:`_take_back` takes
+    its launches; returns them."""
+    got = {k: fbr.K1_KERNELS[k] - n for k, n in before.items()}
+    for k, n in got.items():
+        fbr.K1_KERNELS[k] -= n
+    return got
 
 
 class CircuitExecutor:
@@ -781,7 +802,9 @@ class CircuitExecutor:
         v, dev = buf.shape[1], str(buf.device)
         return [profiling.Launch(
                     None, lv, fam, dev,
-                    fbr.kernel_path(getattr(f, "orientation", None), p),
+                    fbr.kernel_path(getattr(f, "orientation", None), p,
+                                    nb * v, _limbs(f, p),
+                                    getattr(f, "route", None)),
                     nb * v, real * v)
                 for (fam, nb, real), f, p in zip(calls, fasts or (None,) * 2,
                                                  params)]
@@ -901,6 +924,7 @@ class CircuitExecutor:
         graph's.  A capture that meets a host sync raises."""
         devices = list(dict.fromkeys(s.device for s in shards))
         pools = {}
+        before = dict(fbr.K1_KERNELS)
         with profiling.collect() as warm:
             try:
                 for dev in devices:
@@ -918,11 +942,13 @@ class CircuitExecutor:
                     pools[dev] = torch.cuda.graph_pool_handle()
             finally:
                 _take_back(warm.entries)
+                _kernels_since(before)
         graphs = _Graphs([torch.empty_like(s) for s in shards])
         for i, group in enumerate(self.groups):
             for static in graphs.statics:
                 dev = static.device
                 graph = torch.cuda.CUDAGraph()
+                before = dict(fbr.K1_KERNELS)
                 with profiling.collect() as got:
                     try:
                         with torch.cuda.device(dev), torch.cuda.graph(
@@ -932,8 +958,9 @@ class CircuitExecutor:
                                 self.step(static, lv)
                     finally:
                         counts = _take_back(got.entries)
+                        kernels = _kernels_since(before)
                 graphs.graphs.append(_Graph(
-                    graph, tuple(got.entries), counts,
+                    graph, tuple(got.entries), counts, kernels,
                     f"tfhe.replay g{i} levels {group.start}-"
                     f"{group.stop - 1} {dev}"))
         return graphs

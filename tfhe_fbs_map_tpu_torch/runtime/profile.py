@@ -199,8 +199,8 @@ def trace_levels(ex: CircuitExecutor, buf: torch.Tensor, levels: int,
 def tile_sweep(fast, batch: int, reps: int = 2) -> dict:
     """The kernel of the fast keys ``fast`` at ``batch`` ciphertexts over
     its launch knobs: every K1 (tile, cluster, warpgroup width) or K2 (tile,
-    cluster) plan; below N=256 every cluster K1's small-N kernel is built
-    for.  ms per launch (CUDA events, after a warm-up launch); every
+    cluster) plan; below N=256, and where K1 takes its small-tile plan at
+    N = 512, every cluster that kernel is built for at the plan's tile.  ms per launch (CUDA events, after a warm-up launch); every
     setting's output must equal the first one's."""
     from ..ops import fused_blind_rotate as fbr
 
@@ -219,9 +219,9 @@ def tile_sweep(fast, batch: int, reps: int = 2) -> dict:
         limbs = kern.shape[1] // (params.glwe_dim + 1)
         plan = fbr.k1_device_plan(batch, params, dev, limbs)
         if isinstance(plan, fbr.K1SmallPlan):
-            # the small-N kernel's knob is its cluster (tiles of 16, no nw)
+            # the small-N kernel's knob: its clusters at the plan's tile
             knobs = {f"{plan.cb}x{c}": dict(batch_tile=plan.cb, cluster=c)
-                     for c in fbr.k1s_clusters(params, limbs)}
+                     for c in fbr.k1s_clusters(params, limbs, plan.cb)}
             default = f"{plan.cb}x{plan.cluster}"
         else:
             knobs = {f"{cb}x{c}/{w}": dict(batch_tile=cb, cluster=c, nw=w)
