@@ -695,16 +695,20 @@ OPTIMIZER_RUNS = (("aes128 optimizer", AES_LBF, 8),
 P_ERROR = 1e-7
 
 
-def check_pick(fbr, pick, sizes: list[list[int]], worst: dict) -> list[str]:
+def check_pick(fbr, pick, reals: list[list[int]], v: int,
+               worst: dict) -> list[str]:
     """Phase 7, before a run: the kernel the cost model prices for each
     picked family must be ``pick_orientations``' on the card, and its plan
     and waves ``k1_device_plan`` / ``device_plan``'s at every launch size
-    of the run; and each picked family's kernel is held against its plain
-    version at n=8 at those sizes (phase 3 checks fixed shapes; the
-    optimizer may pick others).  Returns the orientations."""
+    of the run (each family call's ``reals`` bootstraps × ``v``,
+    packed: ``runtime_model.launch_rows``); and each picked family's kernel
+    is held against its plain version at n=8 at those sizes (phase 3
+    checks fixed shapes; the optimizer may pick others).  Returns the
+    orientations."""
     import torch
     from tfhe_fbs_map_tpu_torch.optimizer.optimizer import h100_profile
-    from tfhe_fbs_map_tpu_torch.optimizer.runtime_model import launch_plan
+    from tfhe_fbs_map_tpu_torch.optimizer.runtime_model import (launch_plan,
+                                                                launch_rows)
     from tfhe_fbs_map_tpu_torch.runtime.cli import pick_orientations
 
     dev = torch.device("cuda")
@@ -718,7 +722,9 @@ def check_pick(fbr, pick, sizes: list[list[int]], worst: dict) -> list[str]:
         raise SystemExit(f"the cost model prices {model}, the card's "
                          f"--orientation auto runs {card}")
     limbs = pick.bsk_limbs
-    for params, orient, rows_list in zip(pick.families, model, sizes):
+    for params, orient, real_list in zip(pick.families, model, reals):
+        rows_list = [launch_rows(params, n, v, orient, limbs)
+                     for n in real_list]
         kern = KERNEL[orient]
         otf = kern == "k1"
         waves = set()
@@ -770,8 +776,6 @@ def run_optimizer(label: str, lbf: str, batch: int, fbr, worst: dict,
     from tfhe_fbs_map_tpu_torch.runtime.executor import (compile_staged,
                                                          native_level_boots,
                                                          staged_level_routes)
-    from tfhe_fbs_map_tpu_torch.optimizer.runtime_model import bucket
-
     with open(ROOT / lbf) as f:
         prog = parse_lbf(f.read())
     p = max(prog.fbs_size or 0, prog.min_fbs_size())
@@ -780,20 +784,19 @@ def run_optimizer(label: str, lbf: str, batch: int, fbr, worst: dict,
         routes = staged_level_routes(prog, p)
         fam_calls = ([(ns, f1) for ns, f1, _ in routes],
                      [(ns, f2) for ns, _, f2 in routes])
-        sizes = [[bucket(ns + nf) * batch for ns, nf in fc if ns + nf]
-                 for fc in fam_calls]
+        reals = [[ns + nf for ns, nf in fc if ns + nf] for fc in fam_calls]
         plan = compile_staged(prog, p, *pick.families)
         calls = sum(bool(lv.wire_idx1.shape[0])
                     + bool(lv.wire_idx2.shape[0]) for lv in plan.levels)
     else:
-        sizes = [[bucket(nb) * batch for nb in native_level_boots(prog)]]
-        calls = len(sizes[0])
+        reals = [native_level_boots(prog)]
+        calls = len(reals[0])
     route = "staged" if pick.staged else "native"
     log(f"  {label}: route {route} (runtime model per evaluation: "
         f"native {pick.native_us} us, staged {pick.staged_us} us), "
         f"bsk_limbs {pick.bsk_limbs}, p_error {pick.p_error}, "
         f"families {[family_json(f) for f in pick.families]}")
-    orients = check_pick(fbr, pick, sizes, worst)
+    orients = check_pick(fbr, pick, reals, batch, worst)
     kern = KERNEL[orients[0]]
     res = run_cli([lbf, "--batch", str(batch), "--p-error", str(P_ERROR),
                    "--staged", staged], kern, fbr.LAUNCHES)
@@ -1261,12 +1264,14 @@ def run_graphs(smi: str, launches: dict) -> list[dict]:
         exact = all(np.array_equal(np.asarray(v), dec[k])
                     for k, v in oracle.items())
         want = want_launches(kern, calls)
+        groups = len(ex.launch_groups(
+            (buf[0] if isinstance(buf, list) else buf).shape[1]))
         idle_txt = (f"under the profiler, device idle eager "
                     f"{share(idle['eager'])}, graph {share(idle['graph'])}"
                     if profiled else "not profiled")
         log(f"  {label}, batch {batch}: eager run_s {secs['eager']:.3f}, "
             f"graph {secs['graph']:.3f} ({idle_txt}); capture "
-            f"{capture_s:.3f} s ({graphs} graphs, {len(ex.groups)} "
+            f"{capture_s:.3f} s ({graphs} graphs, {groups} "
             f"groups); buffers {'bitwise equal' if same else 'DIFFER'}, "
             f"bit_exact {exact}; launches {counts} on {smi}")
         if not same or not exact or any(c != want for c in counts):
@@ -1276,7 +1281,7 @@ def run_graphs(smi: str, launches: dict) -> list[dict]:
                      "k1_kernels": kernels, "eager_run_s": secs["eager"],
                      "graph_run_s": secs["graph"], "profiled": profiled,
                      "capture_s": capture_s, "graphs": graphs,
-                     "groups": len(ex.groups), "idle_share": idle})
+                     "groups": groups, "idle_share": idle})
         del ex, buf, got, outs, runs
     torch.cuda.empty_cache()
     return rows

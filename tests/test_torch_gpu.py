@@ -465,7 +465,7 @@ def test_graph_replay_equals_the_eager_loop(cuda, path):
         want = ex.step(want, lv)
     torch.cuda.synchronize()
     before = dict(fbr.LAUNCHES)
-    assert ex.capture(buf) == len(ex.groups)
+    assert ex.capture(buf) == len(ex.launch_groups(buf.shape[1]))
     torch.cuda.synchronize()
     assert fbr.LAUNCHES == before
     assert ex.capture(buf) == 0
@@ -500,7 +500,7 @@ def test_graph_replay_counts_k1_by_kernel(cuda):
     eager = {k: fbr.K1_KERNELS[k] - n for k, n in before.items()}
     assert eager["k1s_kernel_wide"] == len(ex.levels)
     before = dict(fbr.K1_KERNELS)
-    assert ex.capture(buf) == len(ex.groups)
+    assert ex.capture(buf) == len(ex.launch_groups(buf.shape[1]))
     torch.cuda.synchronize()
     assert fbr.K1_KERNELS == before
     got = ex.run(buf)
@@ -521,7 +521,8 @@ def test_graphs_of_two_shards_on_one_card(cuda):
     two = CircuitExecutor(ex.prog, ex.keys, fast_keys=ex.fast_keys,
                           mesh=mesh)
     shards = shard_batch(mesh, buf, axis=1)
-    assert two.capture(shards) == 2 * len(two.groups)
+    assert two.capture(shards) == 2 * len(
+        two.launch_groups(shards[0].shape[1]))
     before = fbr.LAUNCHES["k1"]
     got = two.run(shards)
     torch.cuda.synchronize()
@@ -781,6 +782,41 @@ def test_small_tile_k1_equals_plain(cuda, name):
                         for k, n in kernels.items()} == {
                     k: int(k == ran) for k in kernels}
                 assert torch.equal(got, plain), (batch, limbs, t, c)
+
+
+@pytest.mark.parametrize("name,v,real,plans", [
+    ("aes128_p4", 1, 112, ((16, 16), (16, 8))),
+    ("kreyvium_p10_staged.fam1", 8, 369, (None, None))])
+def test_packed_launch_equals_the_bucketed_one(cuda, name, v, real, plans):
+    """A level's launch of its real rows packed to whole tiles
+    (``runtime_model.launch_rows``) gives each of them, bitwise, what the
+    launch of the plan's power-of-two bucket gives it, each launch on the
+    plan its own count takes: AES-128's family at 112 rows of one
+    evaluation (tiles of 16 on 16 CTAs, one wave, against 128 on clusters
+    of 8) and Kreyvium's fam1 at 2,952 rows of eight (the ring kernel,
+    3,008 launched against 4,096)."""
+    import dataclasses
+    from tfhe_fbs_map_tpu_torch.optimizer import calibrate
+    from tfhe_fbs_map_tpu_torch.optimizer.runtime_model import (bucket,
+                                                                launch_rows)
+    full = calibrate.families()[name][0]
+    params = dataclasses.replace(full, lwe_dim=5)
+    whole = v * bucket(real)
+    packed = launch_rows(full, real, v, "fused_otf")
+    assert v * real <= packed < whole
+    dev = [x.to(cuda) for x in operands(params, whole, True, seed=real)]
+    got = {}
+    for rows, plan in zip((packed, whole), plans):
+        # the full family's route (its calibrated entries) on the short
+        # one's steps
+        route = fbr.k1_route(full, rows)
+        small = fbr.k1_device_plan(rows, params, cuda, route=route)
+        assert plan is None or (small.cb, small.cluster) == plan
+        got[rows] = fbr.blind_rotate_k1(
+            dev[0][:rows].contiguous(), dev[1][:, :rows].contiguous(),
+            dev[2][:rows].contiguous(), dev[3], params, route=route)
+    torch.cuda.synchronize()
+    assert torch.equal(got[packed], got[whole][:, :packed])
 
 
 def test_small_tile_layout_on_the_card(cuda):

@@ -763,6 +763,16 @@ def test_calibration_has_the_small_kernels_point():
         assert entry["points"] == [
             [r, min(pt["kernel_ms"] * 1e3 for pt in pts if pt["rows"] == r)]
             for r in runtime_model.SMALL_ROWS]
+        # each tile and cluster by waves: its fullest launch of each count
+        assert [p[:2] for p in entry["plans"]] == sorted(
+            [list(t) for t in {tuple(pt["plan"][:2]) for pt in pts}])
+        for t, c, resident, by_waves in entry["plans"]:
+            mine = [pt for pt in pts if pt["plan"][:2] == [t, c]]
+            assert {pt["resident"] for pt in mine} == {resident}
+            assert by_waves == [
+                [w, max((pt for pt in mine if pt["waves"] == w),
+                        key=lambda pt: pt["rows"])["kernel_ms"] * 1e3]
+                for w in sorted({pt["waves"] for pt in mine})]
         for r in runtime_model.SMALL_ROWS:
             same = [pt for pt in wide if pt["rows"] == r
                     and runtime_model.shape_key(calibration_shell(pt["key"]))
@@ -780,7 +790,7 @@ def test_calibration_has_the_small_kernels_point():
     for key, entry in ring["families"].items():
         for field, value in entry.items():
             got = cal["families"][key][field]
-            if isinstance(value, str) or field == "points":
+            if isinstance(value, str) or field in ("points", "plans"):
                 assert got == value
             else:
                 assert math.isclose(got, value, rel_tol=1e-9)
@@ -983,22 +993,55 @@ def test_calibrated_family_is_set_point_against_point(monkeypatch):
 
 def test_small_tile_plan_is_the_one_timed_fastest(monkeypatch):
     """Without a tile or cluster given, the small-tile plan at a shape the
-    calibration timed is the one it timed fastest at the least launch size
-    at or above the launch (its largest past them), where that plan serves
-    the limbs; elsewhere the fewest waves, then the smaller tile, then the
-    most CTAs a tile."""
+    calibration timed is the one it prices lowest by waves at the launch,
+    summed over the shape's families (each plan's time at the launch's
+    waves where timed, linear in the waves between two timed, in
+    proportion past the most), where that plan serves the limbs: at
+    AES-128's shape 16 on 16 CTAs up to 7 tiles of 16 (one wave), 16 on 8
+    for 8 to 15; elsewhere the fewest waves, then the smaller tile, then
+    the most CTAs a tile."""
     import copy
     cal = copy.deepcopy(calibration())
     monkeypatch.setattr(runtime_model, "calibration", lambda: cal)
     aes = PRESETS["aes128_p4"][0]
-    picks = cal["k1s_plans"][runtime_model.shape_key(aes)]
-    for rows in (1, 4, 21, 64, 100, 128, 256, 512, 4096):
-        r, cb, c = next((p for p in picks if p[0] >= rows), picks[-1])
-        assert runtime_model.small_tile_pick(aes, rows) == (cb, c)
+    shape = runtime_model.shape_key(aes)
+    fams = [e["plans"] for key, e in cal["families"].items()
+            if e["kernel"] == "k1s" and runtime_model.shape_key(
+                calibration_shell(key.split("/")[0])) == shape]
+    assert len(fams) == 3
+
+    def price(plans, tile, cluster, rows):
+        (resident, by), = [(r, dict(w)) for t, c, r, w in plans
+                           if (t, c) == (tile, cluster)]
+        waves = -(-(-(-rows // tile)) // resident)
+        timed = sorted(by)
+        if waves in by:
+            return by[waves]
+        if waves > timed[-1]:
+            return by[timed[-1]] * waves / timed[-1]
+        lo = max(w for w in timed if w < waves)
+        hi = min(w for w in timed if w > waves)
+        return by[lo] + (by[hi] - by[lo]) * (waves - lo) / (hi - lo)
+
+    tiles = {(t, c) for t, c, *_ in fams[0]}
+    for rows in (1, 4, 21, 64, 100, 112, 113, 128, 200, 240, 241, 256, 384,
+                 448, 512, 3000, 4096):
+        want = min(tiles, key=lambda tc: (sum(
+            price(p, *tc, rows) for p in fams), tc[0], -tc[1]))
+        assert runtime_model.small_tile_pick(aes, rows) == want, rows
         plan = fbr.k1_wide_plan(rows, aes, 132)
-        assert (plan.cb, plan.cluster) == (cb, c)
+        assert (plan.cb, plan.cluster) == want
+    assert {runtime_model.small_tile_pick(aes, r)
+            for r in range(1, 113)} == {(16, 16)}
+    assert {runtime_model.small_tile_pick(aes, r)
+            for r in range(113, 241)} == {(16, 8)}
     # a pick the limbs do not serve, and a shape not timed: the rule
-    cal["k1s_plans"][runtime_model.shape_key(aes)] = [[4096, 32, 5]]
+    for e in cal["families"].values():
+        if e.get("plans") in fams:
+            e["plans"] = [[32, 5, 1, [[1, 1.0]]]]
+    runtime_model._WAVES.clear()
+    runtime_model._PICKS.clear()
+    assert runtime_model.small_tile_pick(aes, 64) == (32, 5)
 
     def rule(rows, params, resident):
         best = None

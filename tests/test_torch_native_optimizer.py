@@ -292,6 +292,46 @@ def test_native_prices_every_calibrated_family():
     assert seen >= 11
 
 
+# the runtime model's packed launches: one evaluation's 1 to 256, eight's,
+# and Kreyvium's fam1 calls of 2,280 to 3,200 ciphertexts
+PACKED_ROWS = (1, 7, 16, 97, 112, 113, 128, 200, 240, 241, 256, 320, 384,
+               448, 449, 512, 576, 1000, 1088, 2304, 2952, 3008, 3200, 5000)
+
+
+@pytest.mark.parametrize("name", ["aes128_p4", "anchor",
+                                  "kreyvium_p10_staged.fam1",
+                                  "kreyvium_p10_staged.fam2", "p8",
+                                  "k=2 N=512 l=3"])
+def test_native_prices_and_routes_packed_launches(name):
+    """At launch sizes that are no power of two, the native core's launch
+    price (``nv_launch_us``), K1's route (``nv_small_tile_wins``) and the
+    packed count of a level (``nv_launch_rows``) are the runtime model's,
+    to the bit, through both kernels at 3 and 4 limbs."""
+    from tfhe_fbs_map_tpu_torch.optimizer import calibrate
+    params = {**calibrate.families(), **calibrate.fit_families()}[name][0]
+    fns = NAT.native_model_fns()
+    prof = ctypes.byref(NAT.profile_struct(TO.h100_profile()))
+    fam = (params.lwe_dim, params.glwe_dim, params.poly_size,
+           params.bsk_level, params.ksk_level)
+    routes = set()
+    for limbs in (4, 3):
+        for code, orient in ((0, "fused"), (1, "fused_otf")):
+            for rows in PACKED_ROWS:
+                assert fns["nv_launch_us"](*fam, limbs, code, rows, prof) \
+                    == RM.launch_us(params, rows, orient, limbs)
+                if code:
+                    wins = RM.small_tile_wins(params, rows, limbs)
+                    assert bool(fns["nv_small_tile_wins"](
+                        *fam, limbs, rows, prof)) == wins
+                    routes.add(wins)
+            for real in (1, 3, 14, 57, 100, 129, 285, 369, 399):
+                for v in (1, 3, 8, 32):
+                    assert fns["nv_launch_rows"](*fam, limbs, code, real, v,
+                                                 prof) \
+                        == RM.launch_rows(params, real, v, orient, limbs)
+    assert routes == ({False} if params.poly_size > 512 else {True, False})
+
+
 @pytest.mark.parametrize("scale", [700.0, 1e3, 1.3e3])
 def test_native_prices_the_small_tile_route(monkeypatch, scale):
     """Where a family has calibrated points of K1's small-tile plan (a

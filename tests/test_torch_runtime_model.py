@@ -282,7 +282,8 @@ def test_staged_routes_price_the_kreyvium_plan():
     routes = staged_level_routes(prog, 10)
     ssol = StagedSolution(preset.fam1, preset.fam2, 0.0, 0.0)
     us = rm.predict_staged_us(ssol, routes, 16)
-    parts = sum(rm.launch_us(params, rm.bucket(nbs) * 16, "fused_otf")
+    parts = sum(rm.launch_us(params, rm.launch_rows(
+                    params, nbs, 16, "fused_otf"), "fused_otf")
                 for ns, f1, f2 in routes
                 for nbs, params in ((ns + f1, preset.fam1),
                                     (ns + f2, preset.fam2)) if nbs) / 16

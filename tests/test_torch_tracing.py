@@ -34,7 +34,8 @@ from tfhe_fbs_map_tpu_torch.frontend.circuits import build_bench
 from tfhe_fbs_map_tpu_torch.frontend.mapping.heuristic import HeuristicMapper
 from tfhe_fbs_map_tpu_torch.ops import fused_blind_rotate as fbr
 from tfhe_fbs_map_tpu_torch.ops.blind_rotate import prepare_fast_keys
-from tfhe_fbs_map_tpu_torch.optimizer.runtime_model import launch_us
+from tfhe_fbs_map_tpu_torch.optimizer.runtime_model import (launch_rows,
+                                                             launch_us)
 from tfhe_fbs_map_tpu_torch.parallel.mesh import make_mesh
 from tfhe_fbs_map_tpu_torch.runtime.executor import CircuitExecutor
 from tfhe_fbs_map_tpu_torch.tfhe import TEST_PARAMS, generate_keys
@@ -121,9 +122,10 @@ def test_untraced_runs_leave_no_record(programs, orientation):
     ("staged", "fused_otf", 1), ("staged", None, 2)])
 def test_traced_runs_record_the_plan(programs, kind, orientation, dp):
     """Under a profiler each run is a batch of the record: one entry a
-    family call and position, in level order, whose ciphertexts launched
-    and real bootstraps add up to the plan's (``plan_calls``, the
-    harness's count) times the batch, level by level."""
+    family call and position, in level order, whose real bootstraps add up
+    to the plan's (``plan_calls``, the harness's count) times the batch,
+    level by level, and whose ciphertexts launched to the executor's launch
+    layout (``family_calls``), no more than the plan's slots."""
     ex, buf = executor(programs, kind, orientation=orientation, dp=dp)
     traced(lambda: [ex.run(buf) for _ in range(2)])
     got = profiling.batches(2)
@@ -142,7 +144,9 @@ def test_traced_runs_record_the_plan(programs, kind, orientation, dp):
             mine = [e for e in batch if e.level == lv]
             want = calls[lv * per_level:(lv + 1) * per_level]
             assert len(mine) == dp * sum(1 for *_, s in want if s)
-            assert sum(e.launched for e in mine) == 4 * sum(
+            assert sum(e.launched for e in mine) == dp * sum(
+                n for _, n, _ in ex.family_calls(lv, 4 // dp))
+            assert sum(e.launched for e in mine) <= 4 * sum(
                 s for *_, s in want)
             assert sum(e.real for e in mine) == 4 * sum(
                 r for _, r, _ in want)
@@ -189,12 +193,33 @@ def test_collect_stamps_each_call_and_counts_kernels(programs):
 
 # ------------------------------------------ the spans and the readers
 
+def packed_pad_share(run) -> float:
+    """The padding share of the window's launches, each entry's launch
+    held to the packed count of its real bootstraps
+    (``runtime_model.launch_rows``; off the card no kernel has tiles)."""
+    cfg = run.cell.config
+    fams = [TFHEParams(**f) for f in cfg["families"]]
+    params = {"native": fams[0], "fam1": fams[0], "fam2": fams[-1]}
+    orients = {"k1": "fused_otf", "k1s": "fused_otf", "k2": "fused"}
+    v = run.batch // run.dp
+    launched = real = 0
+    for batch in profiling.batches(len(run.times)):
+        for e in batch:
+            orient = orients.get(e.path) if e.device != "cpu" else None
+            assert e.launched == launch_rows(
+                params[e.family], e.real // v, v, orient,
+                int(cfg["bsk_limbs"]))
+            launched += e.launched
+            real += e.real
+    return 100.0 * (launched - real) / launched
+
 @pytest.mark.parametrize("kind", ["native", "staged"])
 def test_small_cells_spans_and_readers(programs, kind):
     """A traced small cell on the CPU: one ``tfhe.run`` in each batch's
     window and the levels' ``tfhe.level`` inside it, in order;
-    ``launch_pad_share`` equals ``pad_share``; the readers of the device
-    trace find nothing to read without a card."""
+    ``launch_pad_share`` is the padding of the launch layout's counts, no
+    more than ``pad_share``, the plan's; the readers of the device trace
+    find nothing to read without a card."""
     run = run_cell(tiny_cell(programs, kind), 2 ** 31 + 7, 0.0, True,
                    ["cpu"], batches=2)
     host = run.trace.host
@@ -209,7 +234,9 @@ def test_small_cells_spans_and_readers(programs, kind):
             range(len(levels)))
         assert levels
     assert metric_reader("launch_pad_share")(run) == pytest.approx(
-        metric_reader("pad_share")(run), abs=1e-9)
+        packed_pad_share(run), abs=1e-9)
+    assert metric_reader("launch_pad_share")(run) <= \
+        metric_reader("pad_share")(run) + 1e-9
     assert metric_reader("issue_idle_share")(run) is None
     assert metric_reader("model_error")(run) is None
 
@@ -334,7 +361,9 @@ def test_traced_small_cells_on_the_card(programs, kind):
     assert values["launch_pad_share"] <= 100, values
     assert values["issue_idle_share"] <= values["idle_share"] <= 100, values
     assert values["launch_pad_share"] == pytest.approx(
-        metric_reader("pad_share")(run))
+        packed_pad_share(run))
+    assert values["launch_pad_share"] <= metric_reader("pad_share")(run) \
+        + 1e-9
 
 
 @pytest.mark.gpu
@@ -346,7 +375,7 @@ def test_graphs_keep_their_entries_and_launches(programs):
         pytest.skip("needs a CUDA device")
     ex, buf = executor(programs, "native", "cuda", "fused_otf")
     before = dict(fbr.LAUNCHES)
-    assert ex.capture(buf) == len(ex.groups)
+    assert ex.capture(buf) == len(ex.launch_groups(buf.shape[1]))
     torch.cuda.synchronize()
     assert fbr.LAUNCHES == before
     graphs = next(iter(ex._graphs.values())).graphs

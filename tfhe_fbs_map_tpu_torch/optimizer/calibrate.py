@@ -46,9 +46,9 @@ and the launch sizes ``runtime_model.SMALL_ROWS``, on every tile and
 cluster it is built for (:func:`time_wide`: the kernel alone, full length,
 ``raw["k1s_wide_plans"]``), and the clusters of each in the resident
 table.  From those come each family's ``.../k1s`` entry (``points``: its
-fastest plan's µs at each launch size, which price the plan), the plan
-timed fastest at each shape and launch size (``k1s_plans``, which
-``k1_wide_plan`` takes) and their fit across families (``kernels
+fastest plan's µs at each launch size; ``plans``: each tile and cluster's
+µs by waves, which pick the plan and price it,
+``runtime_model.small_tile_pick``) and their fit across families (``kernels
 ["k1s_wide"]``: at each launch size a fixed µs a step and a scale of the
 per-boot cost, which prices the families without points).  The ring
 kernel's points are timed with its route given (``FastKeys.route``), so
@@ -518,8 +518,7 @@ def fit(raw: dict) -> dict:
                 >= fbr.K1_SLICE:
             entries[key]["points"] = sorted(
                 [pt["rows"], pt["kernel_ms"] * 1e3] for pt in pts)
-    wide, plans, fit_wide = _fit_wide(raw.get("k1s_wide_plans", []),
-                                      profile)
+    wide, fit_wide = _fit_wide(raw.get("k1s_wide_plans", []), profile)
     entries.update(wide)
     if fit_wide:
         kernels["k1s_wide"] = fit_wide
@@ -540,43 +539,45 @@ def fit(raw: dict) -> dict:
     return {"card": raw["card"], "device": raw["device"], "sms": sms,
             "profile": profile_d, "kernels": kernels,
             "around": {"around_a_us": a, "around_b_us": b},
-            "families": entries, "k1s_plans": plans,
+            "families": entries,
             "resident": raw["resident"], "raw": raw}
 
 
 def _fit_wide(points: list[dict], profile: DeviceProfile
-              ) -> tuple[dict, dict, dict]:
+              ) -> tuple[dict, dict]:
     """K1's small-tile plan from its points at every tile and cluster
     (:func:`time_wide`): each family's ``.../k1s`` entry (``points``: at
-    each launch size the µs of its fastest plan), the plan of the least
-    summed µs over the families of each shape at each launch size
-    (``[rows, tile, cluster]``, keyed ``(k+1)xNxl``), and the fit across
-    families at each launch size of the fastest µs a step: at each shape
-    timed the median over its families (``shapes``; a step's time depends
-    on the shape alone), and across shapes step_us + scale·cost / n (cost:
-    the per-boot cost at 4 limbs), by least squares with step_us ≥ 0
-    (:func:`_through`), which holds at the (k, N) timed (``rings``)."""
+    each launch size the µs of its fastest plan; ``plans``: each tile and
+    cluster as ``[tile, cluster, resident, [[waves, µs], ...]]``, the µs of
+    each wave count its fullest launch timed in that many waves, which
+    price and pick the plan by waves), and the fit across families at each
+    launch size of the fastest µs a step: at each shape timed the median
+    over its families (``shapes``; a step's time depends on the shape
+    alone), and across shapes step_us + scale·cost / n (cost: the per-boot
+    cost at 4 limbs), by least squares with step_us ≥ 0 (:func:`_through`),
+    which holds at the (k, N) timed (``rings``)."""
     best: dict[str, dict[int, float]] = {}
-    sums: dict[str, dict[int, dict]] = {}
+    waves: dict[str, dict[tuple, tuple]] = {}
     names = {}
     for pt in points:
         key = f"{pt['key']}/k1s"
-        _, k, N, l, _ = (int(x) for x in pt["key"].split(","))
         us = pt["kernel_ms"] * 1e3
         fam = best.setdefault(key, {})
         fam[pt["rows"]] = min(us, fam.get(pt["rows"], us))
         names[key] = pt["family"]
-        plan = (pt["plan"][0], pt["plan"][1])
-        at = sums.setdefault(f"{k + 1}x{N}x{l}", {}).setdefault(
-            pt["rows"], {})
-        at[plan] = at.get(plan, 0.0) + us
+        _, by_waves = waves.setdefault(key, {}).setdefault(
+            tuple(pt["plan"][:2]), (pt["resident"], {}))
+        if pt["rows"] > by_waves.get(pt["waves"], (0, 0.0))[0]:
+            by_waves[pt["waves"]] = (pt["rows"], us)
     entries = {key: {"name": names[key], "kernel": "k1s",
-                     "points": sorted([r, us] for r, us in fam.items())}
+                     "points": sorted([r, us] for r, us in fam.items()),
+                     "plans": [[*plan, resident, sorted(
+                         [w, us] for w, (_, us) in by_waves.items())]
+                         for plan, (resident, by_waves)
+                         in sorted(waves[key].items())]}
                for key, fam in best.items()}
-    plans = {shape: [[r, *min(at, key=at.get)] for r, at in sorted(
-        by_rows.items())] for shape, by_rows in sums.items()}
     if len(entries) < 2:
-        return entries, plans, {}
+        return entries, {}
     rows = sorted(set.intersection(*(set(f) for f in best.values())))
     steps, costs = [], []
     for key in best:
@@ -599,7 +600,7 @@ def _fit_wide(points: list[dict], profile: DeviceProfile
               for shape, fams in by_shape.items()}
     rings = sorted({tuple(int(x) for x in key.split(",")[1:3])
                     for key in best})
-    return entries, plans, {"rows": rows, "step_us": step, "scale": scale,
+    return entries, {"rows": rows, "step_us": step, "scale": scale,
                             "shapes": shapes, "rings": [list(r) for r in
                                                         rings],
                             "families": sorted(names.values())}

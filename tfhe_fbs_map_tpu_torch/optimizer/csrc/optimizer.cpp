@@ -27,38 +27,51 @@ extern "C" {
 // generic path's cost by generic_slowdown), the serving limits of the
 // CUDA kernels (ops/fused_blind_rotate.py K1_SLICE, K1_MAX_N, K1S_MAX_KN,
 // K2_KC, K2_CHUNK; ops/blind_rotate.py KSK_MAX_BASE_LOG), and what
-// runtime_model.kernel_us reads of the calibration: the launch sizes it
-// sums over, each shape's plans at them (waves and cb·sms/cluster, from
-// runtime_model.launch_plan; the shapes are every (k, N) the searches
-// walk, at N >= k1_slice, whose plans do not depend on l), the kernels'
-// fits across families and the families' own entries, and K1's small-tile
-// plan at N >= k1_slice: where a family has its calibrated points, each
-// (family, limbs)'s kernel µs at the launch sizes where the route takes it
-// (runtime_model.small_tile_us and small_tile_wins; NaN where it does
-// not), else the fit across families at its own launch sizes
-// (runtime_model.small_points: n times a step's µs at a shape timed, else
-// n·step_us + scale·cost at 4 limbs) and the shapes it serves at 3 and 4
-// limbs.  Kernel index 0 is K2 ("fused"), 1 K1
-// ("fused_otf").  Filled by optimizer/native.py.
+// runtime_model prices a launch by on the calibrated card: the launch
+// sizes kernel_us sums over; the plans each kernel may launch at the
+// shapes the searches walk (N >= k1_slice), with the clusters of each the
+// card runs at once, from which a launch of any size takes its plan and
+// waves as fused_blind_rotate's k1_ring_plan, k2_plan and k1_wide_plan
+// take them; the kernels' fits across families and the families' own
+// entries; and K1's small-tile plan: the families with its calibrated
+// entry (their points, the ring's points beside them, and where timed on
+// every tile and cluster each plan's µs by waves), else its fit across
+// families at its own launch sizes (runtime_model.small_points: n times a
+// step's µs at a shape timed, else n·step_us + scale·cost at 4 limbs) and
+// the shapes it serves at 3 and 4 limbs.  Kernel index 0 is K2 ("fused"),
+// 1 K1 ("fused_otf").  Filled by optimizer/native.py.
 struct Profile {
   double int8_ops, mem_bytes, eff_fused, eff_otf;
   double k2_memory, k2_headroom;
   int32_t cuda_kernels;
   int32_t k1_slice, k1_max_n, k1s_max_kn, k2_kc, k2_chunk, ksk_max_base_log;
+  int32_t sms;
   int32_t n_rows;
   const int32_t* rows;         // [n_rows]
-  int32_t n_shapes;
-  const int32_t* shapes;       // [n_shapes][3]: k, N, bsk limbs
-  const int32_t* waves;        // [n_shapes][2][n_rows]
-  const double* units;         // [n_shapes][2][n_rows]: cb·sms/cluster
+  int32_t n_ring;
+  const int32_t* ring;         // [n_ring][7]: k, N, bsk limbs, cb, cluster,
+                               // nw, resident (K1's ring kernel)
+  int32_t n_k2;
+  const int32_t* k2;           // [n_k2][7]: k, N, bsk limbs, cb, cluster,
+                               // resident, rows a ring stage
+  int32_t n_tiles;
+  const int32_t* tiles;        // [n_tiles][7]: k, N, l, bsk limbs, cb,
+                               // cluster, resident (K1's small-tile plan)
   double fixed_us[2], scale[2];
   double around_a_us, around_b_us;
   int32_t n_entries;
   const int32_t* entry_keys;   // [n_entries][6]: n, k, N, l, ks_l, kernel
   const double* entry_fits;    // [n_entries][4]: fixed, scale, a, b
   int32_t n_small;
-  const int32_t* small_keys;   // [n_small][6]: n, k, N, l, ks_l, bsk limbs
-  const double* small_us;      // [n_small][n_rows]: its kernel's µs
+  const int32_t* small_keys;   // [n_small][5]: n, k, N, l, ks_l (an entry)
+  int32_t n_points;
+  const int32_t* point_keys;   // [n_points][3]: family, rows, ring (0/1)
+  const double* point_us;      // [n_points]: its kernel µs there
+  int32_t n_plans;
+  const int32_t* plans;        // [n_plans][6]: family, cb, cluster,
+                               // resident, first, count (of plan_waves)
+  const int32_t* plan_waves;   // the wave counts timed, ascending
+  const double* plan_us;       // µs of the plan's fullest launch of each
   int32_t n_fit;
   const int32_t* fit_rows;     // [n_fit]: the fit's launch sizes
   const double* fit_step_us;   // [n_fit]
@@ -180,6 +193,203 @@ double bootstrap_cost_us(const Profile& pr, int n, int k, int N, int br_l,
   return std::max(compute_s, mem_s) * 1e6;
 }
 
+// ------------------------------------------- a launch on the calibrated card
+
+struct Plan {
+  int cb = 0, cluster = 0, waves = 0;
+};
+
+// runtime_model._waves(): the waves of ``rows`` on tiles of ``cb`` with
+// ``resident`` clusters at once.
+int waves_of(int rows, int cb, int resident) {
+  const int tiles = (std::max(rows, 1) + cb - 1) / cb;
+  const int at_once = std::max(1, resident);
+  return (tiles + at_once - 1) / at_once;
+}
+
+// fused_blind_rotate.k1_ring_plan(): the least waves × span × cb × (64 +
+// nw) / nw, then the fewest CTAs, the larger tile, the wider nw.
+bool ring_plan(const Profile& pr, int k, int N, int limbs, int rows,
+               Plan* out) {
+  const int64_t kn = int64_t(k + 1) * N;
+  bool found = false;
+  double best0 = 0.0;
+  int64_t best1 = 0;
+  int best2 = 0, best3 = 0;
+  for (int i = 0; i < pr.n_ring; ++i) {
+    const int32_t* c = pr.ring + 7 * i;
+    if (c[0] != k || c[1] != N || c[2] != limbs) continue;
+    const int cb = c[3], cl = c[4], nw = c[5];
+    const int tiles = (std::max(rows, 1) + cb - 1) / cb;
+    const int w = waves_of(rows, cb, c[6]);
+    const double k0 = double(int64_t(w) * (kn / cl) * cb * (64 + nw)) / nw;
+    const int64_t k1 = int64_t(tiles) * cl;
+    if (!found || k0 < best0 ||
+        (k0 == best0 && (k1 < best1 || (k1 == best1 &&
+                                        (-cb < best2 || (-cb == best2 &&
+                                                         -nw < best3)))))) {
+      found = true;
+      best0 = k0, best1 = k1, best2 = -cb, best3 = -nw;
+      *out = {cb, cl, w};
+    }
+  }
+  return found;
+}
+
+// fused_blind_rotate.k2_plan(): the least waves × stage rows / cluster,
+// then the fewest CTAs, the larger tile.
+bool k2_plan(const Profile& pr, int k, int N, int limbs, int rows,
+             Plan* out) {
+  bool found = false;
+  double best0 = 0.0;
+  int64_t best1 = 0;
+  int best2 = 0;
+  for (int i = 0; i < pr.n_k2; ++i) {
+    const int32_t* c = pr.k2 + 7 * i;
+    if (c[0] != k || c[1] != N || c[2] != limbs) continue;
+    const int cb = c[3], cl = c[4];
+    const int tiles = (std::max(rows, 1) + cb - 1) / cb;
+    const int w = waves_of(rows, cb, c[5]);
+    const double k0 = double(int64_t(w) * c[6]) / cl;
+    const int64_t k1 = int64_t(tiles) * cl;
+    if (!found || k0 < best0 ||
+        (k0 == best0 && (k1 < best1 || (k1 == best1 && -cb < best2)))) {
+      found = true;
+      best0 = k0, best1 = k1, best2 = -cb;
+      *out = {cb, cl, w};
+    }
+  }
+  return found;
+}
+
+// The resident clusters of K1's small-tile plan (cb, cluster) at (k, N,
+// l) and limbs, or -1 where it is not built for them.
+int tile_resident(const Profile& pr, int k, int N, int l, int limbs, int cb,
+                  int cluster) {
+  for (int i = 0; i < pr.n_tiles; ++i) {
+    const int32_t* c = pr.tiles + 7 * i;
+    if (c[0] == k && c[1] == N && c[2] == l && c[3] == limbs &&
+        c[4] == cb && (cluster < 0 || c[5] == cluster))
+      return c[6];
+  }
+  return -1;
+}
+
+int small_family(const Profile& pr, int n, int k, int N, int l, int ks_l) {
+  for (int f = 0; f < pr.n_small; ++f) {
+    const int32_t* key = pr.small_keys + 5 * f;
+    if (key[0] == n && key[1] == k && key[2] == N && key[3] == l &&
+        key[4] == ks_l)
+      return f;
+  }
+  return -1;
+}
+
+// runtime_model._plan_us(): a timed plan's µs at the waves of ``rows``.
+double plan_us(const Profile& pr, int plan, int rows) {
+  const int32_t* p = pr.plans + 6 * plan;
+  const int w = waves_of(rows, p[1], p[3]);
+  const int32_t* ws = pr.plan_waves + p[4];
+  const double* us = pr.plan_us + p[4];
+  const int count = p[5];
+  for (int i = 0; i < count; ++i)
+    if (ws[i] == w) return us[i];
+  if (w < ws[0]) return us[0];
+  if (w > ws[count - 1])
+    return us[count - 1] * double(w) / double(ws[count - 1]);
+  int hi = 0;
+  while (ws[hi] < w) ++hi;
+  const int lo = hi - 1;
+  return us[lo] + (us[hi] - us[lo]) * double(w - ws[lo]) /
+                      double(ws[hi] - ws[lo]);
+}
+
+// The timed plan (cb, cluster) of family f, or -1.
+int family_plan(const Profile& pr, int f, int cb, int cluster) {
+  for (int i = 0; i < pr.n_plans; ++i) {
+    const int32_t* p = pr.plans + 6 * i;
+    if (p[0] == f && p[1] == cb && p[2] == cluster) return i;
+  }
+  return -1;
+}
+
+// Whether family f of the small-tile plan's entries was timed on every
+// tile and cluster.
+bool timed(const Profile& pr, int f) {
+  for (int i = 0; i < pr.n_plans; ++i)
+    if (pr.plans[6 * i] == f) return true;
+  return false;
+}
+
+bool of_shape(const Profile& pr, int f, int k, int N, int l) {
+  const int32_t* key = pr.small_keys + 5 * f;
+  return key[1] == k && key[2] == N && key[3] == l;
+}
+
+// runtime_model.small_tile_pick(): the plan of the least µs by waves at
+// ``rows``, summed over the timed families of the shape (k, N, l) in the
+// calibration's order; ties to the smaller tile, the larger cluster.
+// False where no family of the shape was timed.
+bool small_pick(const Profile& pr, int k, int N, int l, int rows, int* cb,
+                int* cluster) {
+  int first = 0;
+  while (first < pr.n_small &&
+         !(of_shape(pr, first, k, N, l) && timed(pr, first)))
+    ++first;
+  if (first == pr.n_small) return false;
+  bool found = false;
+  double best = 0.0;
+  for (int i = 0; i < pr.n_plans; ++i) {
+    const int32_t* p = pr.plans + 6 * i;
+    if (p[0] != first) continue;
+    double sum = 0.0;
+    bool common = true;
+    for (int f = first; f < pr.n_small && common; ++f) {
+      if (!of_shape(pr, f, k, N, l) || !timed(pr, f)) continue;
+      const int q = family_plan(pr, f, p[1], p[2]);
+      if (q < 0)
+        common = false;
+      else
+        sum += plan_us(pr, q, rows);
+    }
+    if (!common) continue;
+    if (!found || sum < best ||
+        (sum == best && (p[1] < *cb || (p[1] == *cb && p[2] > *cluster)))) {
+      found = true;
+      best = sum, *cb = p[1], *cluster = p[2];
+    }
+  }
+  return found;
+}
+
+// fused_blind_rotate.k1_wide_plan() without a tile or cluster given: the
+// pick where it serves the limbs, else the fewest waves, the smaller tile,
+// the larger cluster.
+bool wide_plan(const Profile& pr, int k, int N, int l, int limbs, int rows,
+               Plan* out) {
+  int cb = 0, cluster = 0;
+  if (small_pick(pr, k, N, l, rows, &cb, &cluster)) {
+    const int res = tile_resident(pr, k, N, l, limbs, cb, cluster);
+    if (res >= 0) {
+      *out = {cb, cluster, waves_of(rows, cb, res)};
+      return true;
+    }
+  }
+  bool found = false;
+  for (int i = 0; i < pr.n_tiles; ++i) {
+    const int32_t* c = pr.tiles + 7 * i;
+    if (c[0] != k || c[1] != N || c[2] != l || c[3] != limbs) continue;
+    const int w = waves_of(rows, c[4], c[6]);
+    if (!found || w < out->waves ||
+        (w == out->waves && (c[4] < out->cb ||
+                             (c[4] == out->cb && c[5] > out->cluster)))) {
+      found = true;
+      *out = {c[4], c[5], w};
+    }
+  }
+  return found;
+}
+
 // runtime_model.small_tile_us() of a family without points at a launch
 // size, from the fit's points at 4 limbs (pts), scaled by cost / cost4.
 double fit_tile_us(const Profile& pr, const std::vector<double>& pts,
@@ -200,83 +410,188 @@ double fit_tile_us(const Profile& pr, const std::vector<double>& pts,
   return us * (cost / cost4);
 }
 
-// runtime_model.kernel_us(): launch_us of one call of each launch size
-// through K1 (otf) or K2, at the profile's per-boot cost, summed in order;
-// NaN for a shape outside the profile's plans.  K1's kernel term at a size
-// is its small-tile plan's where the route takes it
-// (runtime_model.small_tile_wins: the family's own price where it has
-// points, else the fit's where it prices lower), else the ring kernel's.
-double kernel_us(const Profile& pr, int n, int k, int N, int l, int ks_l,
-                 int bsk_limbs, bool otf) {
-  int s = 0;
-  while (s < pr.n_shapes &&
-         !(pr.shapes[3 * s] == k && pr.shapes[3 * s + 1] == N &&
-           pr.shapes[3 * s + 2] == bsk_limbs))
-    ++s;
-  if (s == pr.n_shapes) return NAN;
-  const int kern = otf ? 1 : 0;
-  // the family's own entry of this kernel, else the kernel's fit
-  double fixed = pr.fixed_us[kern], scale = pr.scale[kern];
-  double a = pr.around_a_us, b = pr.around_b_us;
+// A family's point of K1's small-tile plan (ring 0) or of the ring kernel
+// (ring 1) at ``rows``; false where it has none.
+bool point_at(const Profile& pr, int f, int rows, int ring, double* us) {
+  for (int i = 0; i < pr.n_points; ++i) {
+    const int32_t* p = pr.point_keys + 3 * i;
+    if (p[0] == f && p[1] == rows && p[2] == ring) {
+      *us = pr.point_us[i];
+      return true;
+    }
+  }
+  return false;
+}
+
+// runtime_model.small_tile_us(): K1's small-tile kernel µs at ``rows``, at
+// the per-boot cost ``cost`` (over the cost at 4 limbs); NaN without a
+// price.  The family's timed plans by waves where the pick is one of them,
+// else its own points, else the fit across families where it serves the
+// shape at 3 and 4 limbs.
+double small_tile_us(const Profile& pr, int n, int k, int N, int l, int ks_l,
+                     int rows, double cost) {
+  const double cost4 = bootstrap_cost_us(pr, n, k, N, l, ks_l, 4, 1);
+  const int f = small_family(pr, n, k, N, l, ks_l);
+  if (f >= 0) {
+    int cb = 0, cluster = 0;
+    if (small_pick(pr, k, N, l, rows, &cb, &cluster)) {
+      const int q = family_plan(pr, f, cb, cluster);
+      if (q >= 0) return plan_us(pr, q, rows) * (cost / cost4);
+    }
+    std::vector<double> pts;
+    std::vector<int> at;
+    for (int i = 0; i < pr.n_points; ++i) {
+      const int32_t* p = pr.point_keys + 3 * i;
+      if (p[0] == f && p[2] == 0) {
+        at.push_back(p[1]);
+        pts.push_back(pr.point_us[i]);
+      }
+    }
+    const int last = int(pts.size()) - 1;
+    double us;
+    if (rows <= at[0]) {
+      us = pts[0];
+    } else if (rows >= at[last]) {
+      us = pts[last] * double(rows) / double(at[last]);
+    } else {
+      int i = 1;
+      while (rows > at[i]) ++i;
+      us = pts[i - 1] + (pts[i] - pts[i - 1]) * double(rows - at[i - 1]) /
+                            double(at[i] - at[i - 1]);
+    }
+    return us * (cost / cost4);
+  }
+  if (pr.n_fit == 0 || N < pr.k1_slice) return NAN;
+  int e = 0;
+  while (e < pr.n_served &&
+         !(pr.served[3 * e] == k && pr.served[3 * e + 1] == N &&
+           pr.served[3 * e + 2] == l))
+    ++e;
+  if (e == pr.n_served) return NAN;
+  int sh = 0;
+  while (sh < pr.n_shape_fit &&
+         !(pr.shape_fit_keys[3 * sh] == k &&
+           pr.shape_fit_keys[3 * sh + 1] == N &&
+           pr.shape_fit_keys[3 * sh + 2] == l))
+    ++sh;
+  std::vector<double> pts;
+  for (int j = 0; j < pr.n_fit; ++j)
+    pts.push_back(sh < pr.n_shape_fit
+                      ? double(n) * pr.shape_fit_step[sh * pr.n_fit + j]
+                      : double(n) * pr.fit_step_us[j] +
+                            pr.fit_scale[j] * cost4);
+  return fit_tile_us(pr, pts, rows, cost, cost4);
+}
+
+// The family's own entry of a kernel (fixed, scale, a, b), else the
+// kernel's fit and the around fit across families.
+void kernel_fit(const Profile& pr, int n, int k, int N, int l, int ks_l,
+                int kern, double fit[4]) {
+  fit[0] = pr.fixed_us[kern], fit[1] = pr.scale[kern];
+  fit[2] = pr.around_a_us, fit[3] = pr.around_b_us;
   for (int e = 0; e < pr.n_entries; ++e) {
     const int32_t* key = pr.entry_keys + 6 * e;
     if (key[0] == n && key[1] == k && key[2] == N && key[3] == l &&
         key[4] == ks_l && key[5] == kern) {
-      const double* fit = pr.entry_fits + 4 * e;
-      fixed = fit[0], scale = fit[1], a = fit[2], b = fit[3];
-      break;
+      for (int i = 0; i < 4; ++i) fit[i] = pr.entry_fits[4 * e + i];
+      return;
     }
   }
-  int small = -1;
-  for (int e = 0; otf && e < pr.n_small; ++e) {
-    const int32_t* key = pr.small_keys + 6 * e;
-    if (key[0] == n && key[1] == k && key[2] == N && key[3] == l &&
-        key[4] == ks_l && key[5] == bsk_limbs) {
-      small = e;
-      break;
-    }
+}
+
+// runtime_model.small_tile_wins(): whether a K1 launch of ``rows`` takes
+// the small-tile plan: it serves the family's shape at the limbs (tiles of
+// 16), and its price is below the ring's, point against point where the
+// family has both points at ``rows``, else against the ring's model.
+bool small_tile_wins(const Profile& pr, int n, int k, int N, int l, int ks_l,
+                     int limbs, int rows) {
+  if (N < pr.k1_slice || tile_resident(pr, k, N, l, limbs, 16, -1) < 0)
+    return false;
+  const double cost = bootstrap_cost_us(pr, n, k, N, l, ks_l, limbs, 1);
+  const double small = small_tile_us(pr, n, k, N, l, ks_l, rows, cost);
+  if (std::isnan(small)) return false;
+  const int f = small_family(pr, n, k, N, l, ks_l);
+  double own = 0.0, ring = 0.0;
+  if (f >= 0 && point_at(pr, f, rows, 1, &ring) &&
+      point_at(pr, f, rows, 0, &own))
+    return own < ring;
+  Plan plan;
+  if (!ring_plan(pr, k, N, limbs, rows, &plan)) return false;
+  double fit[4];
+  kernel_fit(pr, n, k, N, l, ks_l, 1, fit);
+  const double wave = double(plan.cb) * pr.sms / plan.cluster * cost * fit[1];
+  return small < fit[0] + double(plan.waves) * wave;
+}
+
+// K1's or K2's plan of a launch of ``rows`` (runtime_model.launch_plan),
+// and whether it is K1's small-tile plan (*small).
+bool launch_plan(const Profile& pr, int n, int k, int N, int l, int ks_l,
+                 int limbs, bool otf, int rows, Plan* plan, bool* small) {
+  *small = otf && small_tile_wins(pr, n, k, N, l, ks_l, limbs, rows);
+  if (*small) return wide_plan(pr, k, N, l, limbs, rows, plan);
+  return otf ? ring_plan(pr, k, N, limbs, rows, plan)
+             : k2_plan(pr, k, N, limbs, rows, plan);
+}
+
+// runtime_model.launch_us(): µs of a launch of ``rows`` at the per-boot
+// cost ``cost``: its kernel and the work around it; NaN for a shape
+// outside the profile's plans.
+double launch_us(const Profile& pr, int n, int k, int N, int l, int ks_l,
+                 int limbs, bool otf, int rows, double cost) {
+  Plan plan;
+  bool small = false;
+  if (N < pr.k1_slice ||
+      !launch_plan(pr, n, k, N, l, ks_l, limbs, otf, rows, &plan, &small))
+    return NAN;
+  double fit[4];
+  kernel_fit(pr, n, k, N, l, ks_l, otf ? 1 : 0, fit);
+  double kernel;
+  if (small) {
+    kernel = small_tile_us(pr, n, k, N, l, ks_l, rows, cost);
+  } else {
+    const double wave = double(plan.cb) * pr.sms / plan.cluster * cost *
+                        fit[1];
+    kernel = fit[0] + double(plan.waves) * wave;
   }
-  bool fit = otf && small < 0 && pr.n_fit > 0 && N >= pr.k1_slice &&
-             (bsk_limbs == 3 || bsk_limbs == 4);
-  if (fit) {
-    int e = 0;
-    while (e < pr.n_served &&
-           !(pr.served[3 * e] == k && pr.served[3 * e + 1] == N &&
-             pr.served[3 * e + 2] == l))
-      ++e;
-    fit = e < pr.n_served;
+  return kernel + fit[2] + fit[3] * double(rows) * double(k * N + 1);
+}
+
+// runtime_model.launch_rows(): the ciphertexts a level's launch of
+// ``real`` bootstraps an evaluation runs at ``v`` evaluations: v·r, r the
+// least count at or above ``real`` whose v·r fills whole tiles of the plan
+// that serves v·real, at most the level's power-of-two bucket; -1 for a
+// shape outside the profile's plans.
+int launch_rows(const Profile& pr, int n, int k, int N, int l, int ks_l,
+                int limbs, bool otf, int real, int v) {
+  if (real <= 0) return 0;
+  Plan plan;
+  bool small = false;
+  int tile = 16;   // K1's small-N kernel
+  if (!(otf && N < pr.k1_slice)) {
+    if (!launch_plan(pr, n, k, N, l, ks_l, limbs, otf, v * real, &plan,
+                     &small))
+      return -1;
+    tile = plan.cb;
   }
-  const double cost = bootstrap_cost_us(pr, n, k, N, l, ks_l, bsk_limbs, kern);
-  double cost4 = 0.0;
-  std::vector<double> pts;
-  if (fit) {
-    cost4 = bootstrap_cost_us(pr, n, k, N, l, ks_l, 4, 1);
-    int sh = 0;
-    while (sh < pr.n_shape_fit &&
-           !(pr.shape_fit_keys[3 * sh] == k &&
-             pr.shape_fit_keys[3 * sh + 1] == N &&
-             pr.shape_fit_keys[3 * sh + 2] == l))
-      ++sh;
-    for (int j = 0; j < pr.n_fit; ++j)
-      pts.push_back(sh < pr.n_shape_fit
-                        ? double(n) * pr.shape_fit_step[sh * pr.n_fit + j]
-                        : double(n) * pr.fit_step_us[j] +
-                              pr.fit_scale[j] * cost4);
-  }
+  int a = tile, b = v;
+  while (b) a %= b, std::swap(a, b);
+  const int step = tile / a;
+  int bucket = 1;
+  while (bucket < real) bucket *= 2;
+  return v * std::min(bucket, (real + step - 1) / step * step);
+}
+
+// runtime_model.kernel_us(): launch_us of one call of each launch size
+// through K1 (otf) or K2, at the profile's per-boot cost, summed in order;
+// NaN for a shape outside the profile's plans.
+double kernel_us(const Profile& pr, int n, int k, int N, int l, int ks_l,
+                 int bsk_limbs, bool otf) {
+  const double cost =
+      bootstrap_cost_us(pr, n, k, N, l, ks_l, bsk_limbs, otf ? 1 : 0);
   double total = 0.0;
-  for (int r = 0; r < pr.n_rows; ++r) {
-    const int i = (2 * s + kern) * pr.n_rows + r;
-    const double wave = pr.units[i] * cost * scale;
-    double term = fixed + double(pr.waves[i]) * wave;
-    if (small >= 0) {
-      const double tile = pr.small_us[small * pr.n_rows + r];
-      if (!std::isnan(tile)) term = tile;
-    } else if (fit) {
-      const double tile = fit_tile_us(pr, pts, pr.rows[r], cost, cost4);
-      if (tile < term) term = tile;
-    }
-    total += term + a + b * double(pr.rows[r]) * double(k * N + 1);
-  }
+  for (int r = 0; r < pr.n_rows; ++r)
+    total += launch_us(pr, n, k, N, l, ks_l, bsk_limbs, otf, pr.rows[r],
+                       cost);
   return total;
 }
 
@@ -524,6 +839,23 @@ int32_t nv_prices_otf(int32_t n, int32_t k, int32_t N, int32_t l,
                       int32_t ks_l, int32_t bsk_limbs, int32_t staged,
                       const Profile* prof) {
   return prices_otf(*prof, n, k, N, l, ks_l, bsk_limbs, staged != 0);
+}
+double nv_launch_us(int32_t n, int32_t k, int32_t N, int32_t l, int32_t ks_l,
+                    int32_t bsk_limbs, int32_t otf, int32_t rows,
+                    const Profile* prof) {
+  const double cost =
+      bootstrap_cost_us(*prof, n, k, N, l, ks_l, bsk_limbs, otf ? 1 : 0);
+  return launch_us(*prof, n, k, N, l, ks_l, bsk_limbs, otf != 0, rows, cost);
+}
+int32_t nv_launch_rows(int32_t n, int32_t k, int32_t N, int32_t l,
+                       int32_t ks_l, int32_t bsk_limbs, int32_t otf,
+                       int32_t real, int32_t v, const Profile* prof) {
+  return launch_rows(*prof, n, k, N, l, ks_l, bsk_limbs, otf != 0, real, v);
+}
+int32_t nv_small_tile_wins(int32_t n, int32_t k, int32_t N, int32_t l,
+                           int32_t ks_l, int32_t bsk_limbs, int32_t rows,
+                           const Profile* prof) {
+  return small_tile_wins(*prof, n, k, N, l, ks_l, bsk_limbs, rows);
 }
 
 }  // extern "C"

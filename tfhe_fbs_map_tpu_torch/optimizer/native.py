@@ -4,12 +4,14 @@
 :mod:`.optimizer`, as ``native/optimizer.cpp`` is the JAX package's: the
 same grids, order and pruning, and the serving rules of the CUDA kernels.
 It takes the :class:`DeviceProfile` as an argument, with what
-:func:`.runtime_model.kernel_us` reads of the calibration (the plans at its
-launch sizes of every shape of :data:`PRICED_SHAPES`, the kernels' fits
-and the families' entries, and K1's small-tile plan: its price where a
-family has its calibrated points and the route takes it, and its fit
-across families with the shapes it serves), so one build prices any
-card.  It is built
+:mod:`.runtime_model` prices a launch by (every plan each kernel may
+launch at the shapes of :data:`PRICED_SHAPES` with the clusters of it the
+calibrated card runs at once, the kernels' fits and the families'
+entries, and K1's small-tile plan: the families' points and plans by
+waves, and its fit across families with the shapes it serves), so one
+build prices any card, and a launch of any size: :func:`.runtime_model.
+kernel_us`, ``launch_us``, ``launch_rows`` and ``small_tile_wins``.  It is
+built
 with ``g++`` at first use into the git-ignored
 ``build/tfhe_fbs_map_tpu_torch/`` beside the package (the library's name
 carries a hash of the source and flags) and is host code: no device runs it.
@@ -23,12 +25,12 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
-import math
 import os
 import subprocess
 from pathlib import Path
 
 from ..ops.blind_rotate import KSK_MAX_BASE_LOG
+from ..ops import fused_blind_rotate as fbr
 from ..ops.fused_blind_rotate import (K1_MAX_N, K1_SLICE, K1S_MAX_KN,
                                       K2_CHUNK, K2_KC, k1s_clusters)
 from ..tfhe.params import TFHEParams
@@ -69,13 +71,15 @@ class _CProfile(ctypes.Structure):
         ("eff_otf", f64), ("k2_memory", f64), ("k2_headroom", f64),
         ("cuda_kernels", i32), ("k1_slice", i32), ("k1_max_n", i32),
         ("k1s_max_kn", i32), ("k2_kc", i32), ("k2_chunk", i32),
-        ("ksk_max_base_log", i32),
-        ("n_rows", i32), ("rows", I32P), ("n_shapes", i32),
-        ("shapes", I32P), ("waves", I32P), ("units", F64P),
+        ("ksk_max_base_log", i32), ("sms", i32),
+        ("n_rows", i32), ("rows", I32P), ("n_ring", i32), ("ring", I32P),
+        ("n_k2", i32), ("k2", I32P), ("n_tiles", i32), ("tiles", I32P),
         ("fixed_us", f64 * 2), ("scale", f64 * 2), ("around_a_us", f64),
         ("around_b_us", f64), ("n_entries", i32), ("entry_keys", I32P),
         ("entry_fits", F64P), ("n_small", i32), ("small_keys", I32P),
-        ("small_us", F64P), ("n_fit", i32), ("fit_rows", I32P),
+        ("n_points", i32), ("point_keys", I32P), ("point_us", F64P),
+        ("n_plans", i32), ("plans", I32P), ("plan_waves", I32P),
+        ("plan_us", F64P), ("n_fit", i32), ("fit_rows", I32P),
         ("fit_step_us", F64P), ("fit_scale", F64P), ("n_shape_fit", i32),
         ("shape_fit_keys", I32P), ("shape_fit_step", F64P),
         ("n_served", i32), ("served", I32P),
@@ -118,9 +122,14 @@ _MODEL_FNS = {
     "nv_serves": [i32, i32, i32, i32, i32, i32, i32, i32, i32, _PROFILE],
     "nv_kernel_us": [i32, i32, i32, i32, i32, i32, i32, _PROFILE],
     "nv_prices_otf": [i32, i32, i32, i32, i32, i32, i32, _PROFILE],
+    "nv_launch_us": [i32, i32, i32, i32, i32, i32, i32, i32, _PROFILE],
+    "nv_launch_rows": [i32, i32, i32, i32, i32, i32, i32, i32, i32,
+                       _PROFILE],
+    "nv_small_tile_wins": [i32, i32, i32, i32, i32, i32, i32, _PROFILE],
 }
 # the model functions that return an int
-_INT_FNS = ("nv_serves", "nv_prices_otf")
+_INT_FNS = ("nv_serves", "nv_prices_otf", "nv_launch_rows",
+            "nv_small_tile_wins")
 
 
 def library_path() -> Path:
@@ -177,27 +186,50 @@ def _array(ctype, values):
     return (ctype * len(values))(*values)
 
 
+def _shell(k: int, N: int, l: int = 1, n: int = 1,
+           ks_l: int = 1) -> TFHEParams:
+    return TFHEParams(p=2, lwe_dim=n, glwe_dim=k, poly_size=N, bsk_level=l,
+                      bsk_base_log=1, ksk_level=ks_l, ksk_base_log=1,
+                      lwe_noise_std=0.0, glwe_noise_std=0.0)
+
+
 def profile_struct(profile: DeviceProfile) -> _CProfile:
     """``profile``, the CUDA kernels' serving limits and the calibration's
     prices as the C struct (it holds its arrays)."""
     cal = runtime_model.calibration()
+    sms, table = cal["sms"], cal["resident"]
     rows = runtime_model.ROWS
-    shapes, waves, units = [], [], []
+
+    def resident(orientation, limbs, plan, params=None):
+        return table.get(runtime_model.resident_key(orientation, limbs, plan,
+                                                    params),
+                         sms // plan.cluster)
+
+    # every plan each kernel may launch at the shapes priced, with the
+    # clusters of it the card runs at once
+    ring, k2, tiles = [], [], []
     for k, N in PRICED_SHAPES:
-        shell = TFHEParams(p=2, lwe_dim=1, glwe_dim=k, poly_size=N,
-                           bsk_level=1, bsk_base_log=1, ksk_level=1,
-                           ksk_base_log=1, lwe_noise_std=0.0,
-                           glwe_noise_std=0.0)
+        shell = _shell(k, N)
         for limbs in (3, 4):
-            shapes += [k, N, limbs]
-            for orient in KERNELS:
-                for r in rows:
-                    # K1's ring plan (its small-tile plan is priced apart)
-                    plan, w = runtime_model.launch_plan(
-                        shell, r, orient, limbs,
-                        "k1" if orient == "fused_otf" else None)
-                    waves.append(w)
-                    units.append(plan.cb * cal["sms"] / plan.cluster)
+            for t in fbr.K1_TILES:
+                for w in fbr.K1_WIDTHS:
+                    if fbr.k1_fits(t, w, limbs):
+                        for c in fbr.k1_clusters(shell, w):
+                            ring += [k, N, limbs, t, c, w, resident(
+                                "fused_otf", limbs, fbr.K1Plan(t, c, w))]
+            for t in fbr.K2_TILES:
+                for c in fbr.k2_clusters(shell):
+                    k2 += [k, N, limbs, t, c,
+                           resident("fused", limbs,
+                                    fbr.K2Plan(t, c, 0, 0, 0)),
+                           max(t, fbr.K2_ROWS) + limbs * K2_CHUNK]
+            for l in range(1, SERVED_LEVELS + 1):
+                shell_l = _shell(k, N, l)
+                for t in fbr.K1S_WIDE_TILES:
+                    for c in fbr.k1s_clusters(shell_l, limbs, t):
+                        plan = fbr._k1s_plan(shell_l, limbs, c, t)
+                        tiles += [k, N, l, limbs, t, c, resident(
+                            "fused_otf", limbs, plan, shell_l)]
     keys, fits = [], []
     for key, e in cal["families"].items():
         if e["kernel"] in KERNELS:
@@ -205,25 +237,26 @@ def profile_struct(profile: DeviceProfile) -> _CProfile:
             keys.append(KERNELS.index(e["kernel"]))
             fits += [e["fixed_us"], e["scale"], e["around_a_us"],
                      e["around_b_us"]]
-    # K1's small-tile plan: the families with its calibrated points, at the
-    # limbs it serves, its kernel µs at the launch sizes where the route
-    # takes it (NaN where it does not)
-    skeys, sus = [], []
+    # K1's small-tile plan: the families with its entry, in the
+    # calibration's order, their points and the ring's beside them, and
+    # their plans by waves where timed
+    skeys, pkeys, pus, plans, pwaves, plan_us = [], [], [], [], [], []
     for key, e in cal["families"].items():
         if e["kernel"] != "k1s":
             continue
-        n, k, N, l, ks_l = (int(x) for x in key.split("/")[0].split(","))
-        shell = TFHEParams(p=2, lwe_dim=n, glwe_dim=k, poly_size=N,
-                           bsk_level=l, bsk_base_log=1, ksk_level=ks_l,
-                           ksk_base_log=1, lwe_noise_std=0.0,
-                           glwe_noise_std=0.0)
-        for limbs in (3, 4):
-            if not k1s_clusters(shell, limbs):
-                continue
-            skeys += [n, k, N, l, ks_l, limbs]
-            sus += [runtime_model.small_tile_us(shell, r, limbs)
-                    if runtime_model.small_tile_wins(shell, r, limbs)
-                    else math.nan for r in rows]
+        f = len(skeys) // 5
+        fam = key.split("/")[0]
+        skeys += [int(x) for x in fam.split(",")]
+        ring_pts = cal["families"].get(f"{fam}/fused_otf", {}).get(
+            "points", [])
+        for kind, pts in ((0, e["points"]), (1, ring_pts)):
+            for r, us in pts:
+                pkeys += [f, r, kind]
+                pus.append(us)
+        for t, c, res, by_waves in e.get("plans", ()):
+            plans += [f, t, c, res, len(pwaves), len(by_waves)]
+            pwaves += [w for w, _ in by_waves]
+            plan_us += [us for _, us in by_waves]
     # its fit across families (and at each shape timed), and the (k, N, l)
     # it serves at 3 and 4 limbs of the (k, N) timed
     wide = cal["kernels"].get("k1s_wide", {"rows": [], "step_us": [],
@@ -237,25 +270,25 @@ def profile_struct(profile: DeviceProfile) -> _CProfile:
     served = []
     for k, N in PRICED_SHAPES:
         for l in range(1, SERVED_LEVELS + 1):
-            shell = TFHEParams(p=2, lwe_dim=1, glwe_dim=k, poly_size=N,
-                               bsk_level=l, bsk_base_log=1, ksk_level=1,
-                               ksk_base_log=1, lwe_noise_std=0.0,
-                               glwe_noise_std=0.0)
             if [k, N] in wide["rings"] and all(
-                    k1s_clusters(shell, limbs) for limbs in (3, 4)):
+                    k1s_clusters(_shell(k, N, l), limbs)
+                    for limbs in (3, 4)):
                 served += [k, N, l]
     fit = [cal["kernels"][o] for o in KERNELS]
     return _CProfile(
         profile.int8_ops, profile.mem_bytes, profile.eff_fused,
         profile.eff_otf, profile.k2_memory, profile.k2_headroom,
         int(profile.cuda_kernels), K1_SLICE, K1_MAX_N, K1S_MAX_KN, K2_KC,
-        K2_CHUNK, KSK_MAX_BASE_LOG, len(rows), _array(i32, rows),
-        len(PRICED_SHAPES) * 2, _array(i32, shapes), _array(i32, waves),
-        _array(f64, units), (f64 * 2)(*(f["fixed_us"] for f in fit)),
+        K2_CHUNK, KSK_MAX_BASE_LOG, sms, len(rows), _array(i32, rows),
+        len(ring) // 7, _array(i32, ring), len(k2) // 7, _array(i32, k2),
+        len(tiles) // 7, _array(i32, tiles),
+        (f64 * 2)(*(f["fixed_us"] for f in fit)),
         (f64 * 2)(*(f.get("scale", 1.0) for f in fit)),
         cal["around"]["around_a_us"], cal["around"]["around_b_us"],
         len(keys) // 6, _array(i32, keys), _array(f64, fits),
-        len(skeys) // 6, _array(i32, skeys), _array(f64, sus),
+        len(skeys) // 5, _array(i32, skeys), len(pus), _array(i32, pkeys),
+        _array(f64, pus), len(plans) // 6, _array(i32, plans),
+        _array(i32, pwaves), _array(f64, plan_us),
         len(wide["rows"]), _array(i32, wide["rows"]),
         _array(f64, wide["step_us"]), _array(f64, wide["scale"]),
         len(shape_keys) // 3, _array(i32, shape_keys),

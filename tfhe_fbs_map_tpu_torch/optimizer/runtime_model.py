@@ -3,8 +3,9 @@
 The port of ``tfhe_fbs_map_tpu.optimizer.runtime_model``, with the same
 functions.  The per-boot roofline (:func:`.optimizer.bootstrap_cost_us`)
 holds at a full batch; a program pays per level call as well, and pads each
-level to a power of two (:func:`bucket`), and the staged pipeline makes two
-calls a level.  :func:`predict_native_us` / :func:`predict_staged_us` price a
+level's launch to whole tiles (:func:`launch_rows`; JAX's pads it to a
+power of two, :func:`bucket`), and the staged pipeline makes two calls a
+level.  :func:`predict_native_us` / :func:`predict_staged_us` price a
 whole program at an evaluation batch; the runtime CLI routes staged against
 native on them.
 
@@ -35,8 +36,15 @@ points, the family's ``.../k1s`` entry, and where a family has none from
 their fit across families, ``k1s_wide`` (:func:`small_tile_us`); it is
 taken where that price is below the ring kernel's: the ring's own point at
 the launch size where the calibration has both, else its model
-(:func:`small_tile_wins`).  Its tile and cluster are the ones the
-calibration timed fastest at the family's shape (:func:`small_tile_pick`).
+(:func:`small_tile_wins`).  Its tile and cluster, and where the family was
+timed its price, come by waves from the calibration's timings of every
+tile and cluster (the entry's ``plans``): a launch costs what the plan's
+fullest timed launch of as many waves cost (:func:`small_tile_pick`).
+
+A launch runs its level's real bootstraps packed across the V evaluations,
+padded to whole tiles of the plan that serves them and no further than
+the level's bucket (:func:`launch_rows`, which the executor lays its
+launches out by); the per-program prices price those counts.
 
 :func:`kernel_us` is the price ``--orientation auto`` compares K1 and K2
 by (:func:`..ops.blind_rotate.pick_kernel`): a call of each of the
@@ -44,6 +52,8 @@ calibration's launch sizes :data:`ROWS`, summed.
 """
 
 from __future__ import annotations
+
+import math
 
 from ..ops.fused_blind_rotate import (K1_SLICE, K1Plan, K1SmallPlan, K2Plan,
                                       k1_plan, k1_ring_plan, k1_route,
@@ -56,7 +66,8 @@ __all__ = ["predict_native_us", "predict_staged_us", "call_fixed_us",
            "slope_us", "launch_us", "kernel_us", "launch_plan", "bucket",
            "family_key", "entry_key", "resident_key", "shape_key",
            "small_tile_wins", "small_tile_us", "small_tile_plan",
-           "small_tile_pick", "small_points", "ROWS", "SMALL_ROWS"]
+           "small_tile_pick", "small_points", "launch_tile", "launch_rows",
+           "ROWS", "SMALL_ROWS"]
 
 # Ciphertexts a call the calibration times (8 evaluations × 8 … 1024
 # bootstraps), and the launch sizes ``kernel_us`` sums over.
@@ -109,6 +120,33 @@ def bucket(nb: int) -> int:
     return b
 
 
+def launch_tile(params: TFHEParams, rows: int, orientation: str | None,
+                bsk_limbs: int = 4, route: str | None = None) -> int:
+    """Ciphertexts a tile of the plan that serves a launch of ``rows``
+    through ``orientation`` on the calibrated card (K1's on ``route``,
+    default :func:`..ops.fused_blind_rotate.k1_route`'s; K2's); 1 for a
+    path with no tile (None: the generic bootstrap, ``matmul``, the conv
+    orientations)."""
+    if orientation not in ("fused", "fused_otf"):
+        return 1
+    return launch_plan(params, rows, orientation, bsk_limbs, route)[0].cb
+
+
+def launch_rows(params: TFHEParams, real: int, v: int,
+                orientation: str | None, bsk_limbs: int = 4,
+                route: str | None = None) -> int:
+    """Ciphertexts a level's launch of ``real`` bootstraps an evaluation
+    runs at ``v`` evaluations: ``v · r``, ``r`` the least count at or above
+    ``real`` for which ``v · r`` fills whole tiles of the plan that serves
+    ``v · real`` (:func:`launch_tile`), and at most the level's bucket.  The
+    executor launches this many; the program prices price them."""
+    if real <= 0:
+        return 0
+    tile = launch_tile(params, v * real, orientation, bsk_limbs, route)
+    step = tile // math.gcd(tile, v)
+    return v * min(bucket(real), -(-real // step) * step)
+
+
 def _orientation(params: TFHEParams, orientation: str | None,
                  bsk_limbs: int, staged: bool = False) -> str:
     if orientation is not None:
@@ -123,6 +161,8 @@ def _orientation(params: TFHEParams, orientation: str | None,
 _PLANS: dict = {}
 _ROUTES: dict = {}
 _PRICES: dict = {}
+_WAVES: dict = {}
+_PICKS: dict = {}
 
 
 def _resident(table: dict, sms: int, orientation: str, n_limbs: int,
@@ -169,25 +209,70 @@ def small_points(params: TFHEParams) -> list | None:
             for r, a, b in zip(fit["rows"], fit["step_us"], fit["scale"])]
 
 
+def _wave_times() -> dict:
+    """K1's small-tile plan at N ≥ 256 by waves, as the calibration timed
+    it on every tile and cluster (the ``plans`` of each family's
+    ``.../k1s`` entry, 4 limbs): ``{family key: {(tile, cluster):
+    (resident, {waves: µs})}}``.  Cached per calibration."""
+    cal = calibration()
+    hit = _WAVES.get(id(cal))
+    if hit is not None and hit[0] is cal:
+        return hit[1]
+    table = {key.split("/")[0]: {(t, c): (resident, dict(by_waves))
+                                 for t, c, resident, by_waves in e["plans"]}
+             for key, e in cal["families"].items()
+             if e["kernel"] == "k1s" and "plans" in e}
+    _WAVES[id(cal)] = (cal, table)
+    return table
+
+
+def _plan_us(timed: tuple[int, dict], cb: int, rows: int) -> float:
+    """µs of a launch of ``rows`` on a small-tile plan of tile ``cb``
+    timed as ``timed`` (resident clusters, {waves: µs}): the time of its
+    waves where timed, linear in the waves between two wave counts timed,
+    the fewest's below them, in proportion to the waves past the most."""
+    resident, by_waves = timed
+    tiles = -(-max(rows, 1) // cb)
+    waves = -(-tiles // max(1, resident))
+    if waves in by_waves:
+        return by_waves[waves]
+    counts = sorted(by_waves)
+    if waves < counts[0]:
+        return by_waves[counts[0]]
+    if waves > counts[-1]:
+        return by_waves[counts[-1]] * waves / counts[-1]
+    hi = next(w for w in counts if w > waves)
+    lo = max(w for w in counts if w < waves)
+    return by_waves[lo] + (by_waves[hi] - by_waves[lo]) * (waves - lo) \
+        / (hi - lo)
+
+
 def small_tile_us(params: TFHEParams, rows: int, n_limbs: int = 4,
                   cost_us: float | None = None) -> float | None:
     """µs of the kernel of a K1 launch of ``rows`` ciphertexts on the
-    small-tile plan at N ≥ 256, from :func:`small_points` (kernel µs at the
-    launch sizes :data:`SMALL_ROWS`, at 4 limbs): linear between the two
+    small-tile plan at N ≥ 256, at 4 limbs scaled by the per-boot cost at
+    ``n_limbs`` (or ``cost_us``) over that at 4 limbs.  Where the
+    calibration timed the family on every tile and cluster, the price of
+    :func:`small_tile_pick`'s plan by waves (flat within a wave, rising
+    with them); else from :func:`small_points`: linear between the two
     points around ``rows``, the first below the first, in proportion to
-    ``rows`` past the last; scaled by the per-boot cost at ``n_limbs`` (or
-    ``cost_us``) over that at 4 limbs.  None where it has no points."""
-    pts = small_points(params)
-    if pts is None:
-        return None
-    if rows <= pts[0][0]:
-        us = pts[0][1]
-    elif rows >= pts[-1][0]:
-        us = pts[-1][1] * rows / pts[-1][0]
+    ``rows`` past the last.  None where it has neither."""
+    own = _wave_times().get(family_key(params))
+    pick = small_tile_pick(params, rows) if own else None
+    if pick in (own or {}):
+        us = _plan_us(own[pick], pick[0], rows)
     else:
-        i = next(i for i in range(1, len(pts)) if rows <= pts[i][0])
-        (r0, u0), (r1, u1) = pts[i - 1], pts[i]
-        us = u0 + (u1 - u0) * (rows - r0) / (r1 - r0)
+        pts = small_points(params)
+        if pts is None:
+            return None
+        if rows <= pts[0][0]:
+            us = pts[0][1]
+        elif rows >= pts[-1][0]:
+            us = pts[-1][1] * rows / pts[-1][0]
+        else:
+            i = next(i for i in range(1, len(pts)) if rows <= pts[i][0])
+            (r0, u0), (r1, u1) = pts[i - 1], pts[i]
+            us = u0 + (u1 - u0) * (rows - r0) / (r1 - r0)
     if cost_us is None:
         cost_us = _cost(params, "fused_otf", n_limbs)
     return us * (cost_us / _cost(params, "fused_otf", 4))
@@ -234,15 +319,34 @@ def small_tile_wins(params: TFHEParams, rows: int,
 
 
 def small_tile_pick(params: TFHEParams, rows: int) -> tuple[int, int] | None:
-    """(tile, cluster) of the small-tile plan the calibration timed fastest
-    at the shape of ``params`` (:func:`shape_key`, at 4 limbs) and the
-    least of its launch sizes at or above ``rows`` (its largest past them),
-    or None where it timed no family of that shape."""
-    picks = calibration().get("k1s_plans", {}).get(shape_key(params))
-    if not picks:
-        return None
-    r, cb, cluster = next((p for p in picks if p[0] >= rows), picks[-1])
-    return cb, cluster
+    """(tile, cluster) of the small-tile plan the calibration prices
+    lowest for a launch of ``rows`` at the shape of ``params``
+    (:func:`shape_key`, at 4 limbs): each plan timed at every family of
+    the shape priced by its waves at ``rows`` (:func:`_plan_us`), summed
+    over those families; ties to the smaller tile, then the larger
+    cluster.  None where it timed no family of that shape.  Cached per
+    calibration: every launch asks for it."""
+    cal, shape = calibration(), shape_key(params)
+    key = (id(cal), shape, rows)
+    hit = _PICKS.get(key)
+    if hit is not None and hit[0] is cal:
+        return hit[1]
+    fams = [plans for fam, plans in _wave_times().items()
+            if _key_shape(fam) == shape]
+    pick = None
+    if fams:
+        common = set.intersection(*(set(plans) for plans in fams))
+        pick = min(common, key=lambda t: (
+            sum(_plan_us(plans[t], t[0], rows) for plans in fams),
+            t[0], -t[1]))
+    _PICKS[key] = (cal, pick)
+    return pick
+
+
+def _key_shape(key: str) -> str:
+    """The shape ``(k+1)xNxl`` of a calibration key ``n,k,N,l,ks_l``."""
+    _, k, N, l, _ = (int(x) for x in key.split(","))
+    return f"{k + 1}x{N}x{l}"
 
 
 def _waves(rows: int, plan, resident) -> int:
@@ -394,14 +498,17 @@ def call_fixed_us(params: TFHEParams, rows: int,
 def predict_native_us(sol: Solution, level_nbs: list[int], batch: int,
                       orientation: str | None = None) -> float:
     """Per-evaluation runtime (µs) of the native single-family plan: one
-    call of ``bucket(nb) · batch`` ciphertexts a level, through
-    ``orientation``; by default the kernel the model prices for ``sol``, at
-    ``sol.cost`` a bootstrap, as the JAX model takes it."""
+    call a level of its ``nb`` bootstraps × ``batch`` packed
+    (:func:`launch_rows`), through ``orientation``; by default the kernel
+    the model prices for ``sol``, at ``sol.cost`` a bootstrap, as the JAX
+    model takes it."""
     cost = sol.cost if orientation is None else None
+    orient = _orientation(sol.params, orientation, sol.bsk_limbs)
     total = 0.0
     for nb in level_nbs:
-        total += launch_us(sol.params, bucket(nb) * batch, orientation,
-                           sol.bsk_limbs, cost_us=cost) / batch
+        rows = launch_rows(sol.params, nb, batch, orient, sol.bsk_limbs)
+        total += launch_us(sol.params, rows, orientation, sol.bsk_limbs,
+                           cost_us=cost) / batch
     return total
 
 
@@ -412,13 +519,15 @@ def predict_staged_us(ssol: StagedSolution,
 
     ``level_routes``: per-level (n_split, n_f1, n_f2) from
     :func:`..runtime.executor.staged_level_routes`: each level runs one fam1
-    call of ``bucket(ns + nf1)`` bootstraps and one fam2 call of
-    ``bucket(ns + nf2)``, each times ``batch``, through ``orientation``
-    (default K1, which runs both staged families)."""
+    call of ``ns + nf1`` bootstraps and one fam2 call of ``ns + nf2``, each
+    times ``batch`` and packed (:func:`launch_rows`), through
+    ``orientation`` (default K1, which runs both staged families)."""
     total = 0.0
     for ns, nf1, nf2 in level_routes:
         for nbs, params in ((ns + nf1, ssol.params1), (ns + nf2, ssol.params2)):
             if nbs:
-                total += launch_us(params, bucket(nbs) * batch, orientation,
+                rows = launch_rows(params, nbs, batch, _orientation(
+                    params, orientation, 4, True))
+                total += launch_us(params, rows, orientation,
                                    staged=True) / batch
     return total

@@ -262,8 +262,8 @@ def small_n_launches() -> list[tuple]:
 def wide_launches() -> list[tuple]:
     """K1's small-tile launches at N = 512, (label, params, ciphertexts):
     the AES-128 family at one evaluation's level sizes 16 and 128 (the
-    ``aes128_p4.b1`` cell's launches are 4 to 256 ciphertexts, 193 of
-    them of 128)."""
+    ``aes128_p4.b1`` cell's launches, packed, are 4 to 176 ciphertexts,
+    192 of them of at most 112, one wave of tiles of 16)."""
     from ..tfhe.params import PRESETS
 
     aes = PRESETS["aes128_p4"][0]

@@ -251,6 +251,7 @@ def predicted_run_s(ex, orients: list[str], bsk_limbs: int,
     from ..optimizer.optimizer import Solution, StagedSolution
     from ..optimizer.runtime_model import (predict_native_us,
                                            predict_staged_us)
+    from .executor import native_level_boots
 
     if any(o not in ("fused", "fused_otf") for o in orients):
         return None
@@ -260,8 +261,8 @@ def predicted_run_s(ex, orients: list[str], bsk_limbs: int,
         us = predict_staged_us(ssol, ex.plan.level_routes, batch, orients[0])
     else:
         sol = Solution(ex.params, 0.0, 0.0, bsk_limbs)
-        us = predict_native_us(sol, [lv.wire_idx.shape[0]
-                                     for lv in ex.levels], batch, orients[0])
+        us = predict_native_us(sol, native_level_boots(ex.prog), batch,
+                               orients[0])
     return us * batch / 1e6
 
 
@@ -612,8 +613,9 @@ def _run(argv=None) -> int:
         t0 = time.time()
         if ex.capture(buf0):
             positions = f" x {len(mesh.devices)} positions" if mesh else ""
-            print(f"# graphs: {len(ex.groups)} groups{positions} captured "
-                  f"in {time.time() - t0:.1f}s", file=sys.stderr)
+            v = (buf0[0] if mesh else buf0).shape[1]
+            print(f"# graphs: {len(ex.launch_groups(v))} groups{positions} "
+                  f"captured in {time.time() - t0:.1f}s", file=sys.stderr)
         else:
             print("# graphs: none (tp > 1 runs its levels eagerly)",
                   file=sys.stderr)

@@ -3,7 +3,11 @@
 The counterpart of ``tfhe_fbs_map_tpu.runtime.executor``.  A
 :class:`LutProgram` is compiled into per-level plans (bootstraps grouped by
 depth, each level padded to a power-of-two bootstrap count, padding results
-sent to one dummy wire row).  Two pipelines:
+sent to one dummy wire row), equal to JAX's.  A level launches fewer: its
+real bootstraps of the V evaluations together, padded only to whole tiles
+of the kernel that serves the launch
+(:func:`..optimizer.runtime_model.launch_rows`,
+:meth:`CircuitExecutor.launch_tensors`).  Two pipelines:
 
 * native, one parameter family (:func:`compile_program`,
   :func:`_level_step`): each level is one gather + integer lincomb and one
@@ -16,7 +20,8 @@ sent to one dummy wire row).  Two pipelines:
 
 :meth:`CircuitExecutor.run` walks the level groups (:func:`level_groups`:
 runs of consecutive levels whose plan tensors have the same shapes, which
-the JAX executor runs as one ``lax.scan`` each).  On a CUDA device each
+the JAX executor runs as one ``lax.scan`` each, and, on the card, whose
+launches are of the same sizes).  On a CUDA device each
 group is one CUDA graph, captured once a wire-buffer layout
 (:meth:`CircuitExecutor.capture`) and replayed; on the CPU the group's
 levels run one :meth:`CircuitExecutor.step` after another.  With a
@@ -53,6 +58,7 @@ import torch
 from ..frontend.lut_program import (LutProgram, N_BOOT, N_CONST, N_INPUT,
                                     N_LIN)
 from ..ops import fused_blind_rotate as fbr
+from ..optimizer.runtime_model import bucket, launch_rows
 from ..parallel.mesh import (Mesh, check_tp, group_bootstrap,
                              position_keys, shard_batch)
 from ..tfhe.encrypt import decode, encode, lwe_encrypt, lwe_phase
@@ -153,13 +159,6 @@ def _limbs(fast, params: TFHEParams) -> int:
     return kern.shape[1] // (params.glwe_dim + 1)
 
 
-def _bucket(nb: int) -> int:
-    b = 1
-    while b < nb:
-        b *= 2
-    return b
-
-
 def _boot_nodes(prog: LutProgram, wire_row: dict, input_rows: dict):
     """Walk ``prog`` in topological order, giving wire rows to inputs and
     bootstraps; yields every bootstrap as (node, rows, coefs, const, wire
@@ -225,7 +224,7 @@ def compile_program(prog: LutProgram, params) -> Plan:
     plans = []
     for lv in sorted(levels):
         entries = levels[lv]
-        nb = _bucket(len(entries))
+        nb = bucket(len(entries))
         wire_idx = np.zeros((nb, t_global), dtype=np.int32)
         coefs = np.zeros((nb, t_global), dtype=np.int32)
         consts = np.zeros(nb, dtype=np.int32)
@@ -371,8 +370,8 @@ def compile_staged(prog: LutProgram, p: int, params1: TFHEParams,
         f1s = [e for e in lvl if e["kind"] == "f1"]
         f2s = [e for e in lvl if e["kind"] == "f2"]
         ns = len(splits)
-        nb1 = _bucket(ns + len(f1s)) if (ns or f1s) else 0
-        nb2 = _bucket(ns + len(f2s)) if (ns or f2s) else 0
+        nb1 = bucket(ns + len(f1s)) if (ns or f1s) else 0
+        nb2 = bucket(ns + len(f2s)) if (ns or f2s) else 0
         wi1 = np.zeros((nb1, t_global), np.int32)
         cf1 = np.zeros((nb1, t_global), np.int32)
         cs1 = np.zeros(nb1, np.int32)
@@ -447,8 +446,8 @@ def staged_probe(prog: LutProgram, p: int
 def staged_level_routes(prog: LutProgram, p: int
                         ) -> list[tuple[int, int, int]]:
     """Per-level (n_split, n_f1, n_f2) of the staged plan at ``p``: each
-    level issues one fam1 call of ``bucket(ns + nf1)`` bootstraps and one
-    fam2 call of ``bucket(ns + nf2)``."""
+    level issues one fam1 call of ``ns + nf1`` real bootstraps (the plan
+    pads it to ``bucket(ns + nf1)``) and one fam2 call of ``ns + nf2``."""
     return _probe_plan(prog, p).level_routes
 
 
@@ -541,14 +540,16 @@ def _tp_level_step(keys: list, bufs: list, plans: list,
 def _staged_level_step(keys1: TFHEKeys, keys2: TFHEKeys, fast1, fast2,
                        n_splits: int, buf, wi1, cf1, cs1, tvs1, ps1,
                        out_rows1, wi2, cf2, cs2, tvs2, ps2,
-                       out_rows, launches: tuple = (None, None)
-                       ) -> torch.Tensor:
+                       out_rows, launches: tuple = (None, None),
+                       cleared: tuple = (None, None)) -> torch.Tensor:
     """One staged level, in place on ``buf``: the fam1 call (stage 1 of the
     ``n_splits`` split nodes, then the fam1 singles) and its scatter, then
     the fam2 call, whose first ``n_splits`` rows add the stage-1 outputs G,
     and its scatter.  Split and padding rows of the fam1 call land on the
     dummy row.  ``launches``: the two calls' entries of the launch
-    record."""
+    record.  ``cleared``: for each call, the dummy row where its plan pads
+    and its launch does not, zeroed after its scatter, as the plan's
+    padding rows (each the zero ciphertext) would leave it; else None."""
     _, v, d = buf.shape
     nb1, nb2 = wi1.shape[0], wi2.shape[0]
     g = None
@@ -557,6 +558,8 @@ def _staged_level_step(keys1: TFHEKeys, keys2: TFHEKeys, fast1, fast2,
                         tvs1, ps1, v, launches[0]).reshape(v, nb1, d)
         g = out1[:, :n_splits]                            # [V, ns, d]
         buf[out_rows1.to(I64)] = out1.transpose(0, 1)
+        if cleared[0] is not None:
+            buf[cleared[0]] = 0
     if nb2:
         flat2 = _lincomb_flat(buf, wi2, cf2, cs2)
         if n_splits:
@@ -564,20 +567,26 @@ def _staged_level_step(keys1: TFHEKeys, keys2: TFHEKeys, fast1, fast2,
             lead.copy_(wrap32(lead.to(I64) + g.to(I64)))
         out2 = _run_fbs(keys2, fast2, flat2, tvs2, ps2, v, launches[1])
         buf[out_rows.to(I64)] = out2.reshape(v, nb2, d).transpose(0, 1)
+        if cleared[1] is not None:
+            buf[cleared[1]] = 0
     return buf
 
 
-def level_groups(levels: list, staged: bool) -> list[range]:
+def level_groups(levels: list, staged: bool,
+                 launched: list | None = None) -> list[range]:
     """The runs of consecutive levels whose plan tensors have the same
     shapes (and, staged, the same ``n_splits``), in order: the groups the
     JAX executor's ``_scan_groups_from(0)`` stacks into one ``lax.scan``
-    each."""
+    each.  ``launched``: where given, each level's launch layout
+    (:meth:`CircuitExecutor.launch_layout`), which must be equal too."""
     groups: list[range] = []
     last = None
     for lv, plan in enumerate(levels):
         key = tuple(x.shape for x in plan.arrays())
         if staged:
             key = (plan.n_splits,) + key
+        if launched is not None:
+            key += (launched[lv],)
         if groups and key == last:
             groups[-1] = range(groups[-1].start, lv + 1)
         else:
@@ -732,17 +741,27 @@ class CircuitExecutor:
     @levels.setter
     def levels(self, levels: list) -> None:
         """New levels drop what was built from the old ones: the plan
-        tensors on the devices, the captured graphs and the family calls'
-        counts."""
+        tensors on the devices, the captured graphs, the family calls'
+        counts and the launch layouts."""
         self._levels = levels
         self._plan_device = None
         self._graphs: dict[tuple, _Graphs] = {}
-        self._family_calls: dict[int, list] = {}
+        self._plan_calls: dict[int, list] = {}
+        self._layouts: dict[tuple, list] = {}
+        self._launch_device: dict[tuple, list] = {}
 
     @property
     def groups(self) -> list[range]:
-        """The level groups :meth:`run` walks (:func:`level_groups`)."""
+        """The plan's level groups (:func:`level_groups`), JAX's scan
+        groups."""
         return level_groups(self.levels, self.staged)
+
+    def launch_groups(self, v: int, card: bool = True) -> list[range]:
+        """The level groups :meth:`run` walks at ``v`` evaluations a
+        position, one CUDA graph each on the card: the plan's groups split
+        where the launch layout changes (:meth:`launch_layout`)."""
+        return level_groups(self.levels, self.staged,
+                            self.launch_layout(v, card))
 
     def _replica(self, device: torch.device):
         """(keys, fast keys) on ``device``: the executor's own on their
@@ -769,13 +788,13 @@ class CircuitExecutor:
                 for p in self.levels]
         return self._plan_device[device]
 
-    def family_calls(self, lv: int) -> list[tuple[str, int, int]]:
-        """(family, bootstraps launched, real bootstraps) of each family
+    def _calls(self, lv: int) -> list[tuple[str, int, int]]:
+        """(family, bootstraps in the plan, real bootstraps) of each family
         call of level ``lv`` for one evaluation: ``native``, or ``fam1``
-        and ``fam2`` (a call of none launched is not made).  Real are the
-        out-rows that are not the dummy row, and a staged fam1 call's
-        ``n_splits`` split rows."""
-        if lv not in self._family_calls:
+        and ``fam2``.  Real are the out-rows that are not the dummy row,
+        and a staged fam1 call's ``n_splits`` split rows; they come first
+        in the plan's arrays."""
+        if lv not in self._plan_calls:
             plan, dummy = self.levels[lv], self.dummy_row
             if self.staged:
                 calls = [("fam1", plan.wire_idx1.shape[0],
@@ -786,44 +805,111 @@ class CircuitExecutor:
             else:
                 calls = [("native", plan.wire_idx.shape[0],
                           int(np.sum(plan.out_rows != dummy)))]
-            self._family_calls[lv] = calls
-        return self._family_calls[lv]
+            self._plan_calls[lv] = calls
+        return self._plan_calls[lv]
+
+    def _families(self) -> list[tuple]:
+        """(fast keys or None, parameters) of each family."""
+        fasts = (self.fast_keys or (None, None)) if self.staged \
+            else (self.fast_keys,)
+        params = ((self.keys.keys1.params, self.keys.keys2.params)
+                  if self.staged else (self.keys.params,))
+        return list(zip(fasts, params))
+
+    def launch_layout(self, v: int, card: bool = True
+                      ) -> list[tuple[int, ...]]:
+        """The bootstraps an evaluation each family call of every level
+        launches at ``v`` evaluations a position: the plan's real ones
+        first, then its padding up to
+        :func:`..optimizer.runtime_model.launch_rows` of the kernel that
+        serves the launch on the card (``card``; off it no kernel has
+        tiles, so none), the level's bucket at tp > 1.  Cached."""
+        key = (v, card)
+        if key not in self._layouts:
+            fams = self._families()
+            layout = []
+            for lv in range(len(self.levels)):
+                rows = []
+                for (_, nb, real), (f, p) in zip(self._calls(lv), fams):
+                    if self.tp > 1 or not nb:
+                        rows.append(nb)
+                        continue
+                    orient = getattr(f, "orientation", None) if card \
+                        else None
+                    rows.append(launch_rows(
+                        p, real, v, orient, _limbs(f, p),
+                        getattr(f, "route", None)) // v)
+                layout.append(tuple(rows))
+            self._layouts[key] = layout
+        return self._layouts[key]
+
+    def launch_tensors(self, device: torch.device, v: int
+                       ) -> list[tuple[torch.Tensor, ...]]:
+        """Per-level plan tensors on ``device`` cut to the launch layout at
+        ``v`` evaluations (:meth:`launch_layout`): views of the first rows
+        of :meth:`plan_tensors`.  Cached."""
+        key = (device, v)
+        if key not in self._launch_device:
+            layout = self.launch_layout(v, device.type == "cuda")
+            got = []
+            for plan, rows in zip(self.plan_tensors(device), layout):
+                per = len(plan) // len(rows)
+                got.append(tuple(x[:rows[i // per]]
+                                 for i, x in enumerate(plan)))
+            self._launch_device[key] = got
+        return self._launch_device[key]
+
+    def family_calls(self, lv: int, v: int = 1, card: bool | None = None
+                     ) -> list[tuple[str, int, int]]:
+        """(family, bootstraps launched, real bootstraps) of each family
+        call of level ``lv`` at ``v`` evaluations a position: ``native``,
+        or ``fam1`` and ``fam2`` (a call of none launched is not made);
+        launched by :meth:`launch_layout` (``card``: default whether the
+        executor's device is a card).  Real are the out-rows that are not
+        the dummy row, and a staged fam1 call's ``n_splits`` split rows."""
+        if card is None:
+            card = self.device.type == "cuda"
+        rows = self.launch_layout(v, card)[lv]
+        return [(fam, v * r, v * real)
+                for (fam, _, real), r in zip(self._calls(lv), rows)]
 
     def _launches(self, buf: torch.Tensor, lv: int) -> list:
         """The launch record's entries of level ``lv``'s family calls on
         ``buf``'s position, one a family (None for each where no
         :func:`..utils.profiling.collect` block is open)."""
-        calls = self.family_calls(lv)
+        v, dev = buf.shape[1], buf.device
+        calls = self.family_calls(lv, v, dev.type == "cuda")
         if not profiling.collecting():
             return [None] * len(calls)
-        fasts = self.fast_keys if self.staged else (self.fast_keys,)
-        params = ((self.keys.keys1.params, self.keys.keys2.params)
-                  if self.staged else (self.keys.params,))
-        v, dev = buf.shape[1], str(buf.device)
         return [profiling.Launch(
-                    None, lv, fam, dev,
+                    None, lv, fam, str(dev),
                     fbr.kernel_path(getattr(f, "orientation", None), p,
-                                    nb * v, _limbs(f, p),
+                                    launched, _limbs(f, p),
                                     getattr(f, "route", None)),
-                    nb * v, real * v)
-                for (fam, nb, real), f, p in zip(calls, fasts or (None,) * 2,
-                                                 params)]
+                    launched, real)
+                for (fam, launched, real), (f, p) in zip(calls,
+                                                         self._families())]
 
     def step(self, buf: torch.Tensor, lv: int) -> torch.Tensor:
         """Run level ``lv`` in place on ``buf`` (one device's buffer or
-        shard, with that device's keys); returns it.  At tp > 1 a level
-        is a tp group's, not one shard's: ValueError."""
+        shard, with that device's keys) at its launch layout; returns it.
+        At tp > 1 a level is a tp group's, not one shard's: ValueError."""
         if self.tp > 1:
             raise ValueError("at tp > 1 a level runs on a tp group's "
                              "shards together (run)")
         keys, fast = self._replica(buf.device)
-        plan = self.plan_tensors(buf.device)[lv]
+        v, card = buf.shape[1], buf.device.type == "cuda"
+        plan = self.launch_tensors(buf.device, v)[lv]
         launches = self._launches(buf, lv)
         if self.staged:
             fast1, fast2 = fast or (None, None)
+            cleared = tuple(
+                self.dummy_row if r == real < nb else None
+                for (_, nb, real), r in zip(self._calls(lv),
+                                            self.launch_layout(v, card)[lv]))
             return _staged_level_step(keys.keys1, keys.keys2, fast1, fast2,
                                       self.levels[lv].n_splits, buf, *plan,
-                                      launches=launches)
+                                      launches=launches, cleared=cleared)
         return _level_step(keys, fast, buf, *plan, launch=launches[0])
 
     def _step_all(self, shards: list[torch.Tensor], lv: int
@@ -914,8 +1000,9 @@ class CircuitExecutor:
         graphs of a device in one memory pool, each reading and writing its
         position's static buffer.
 
-        First each device runs the first level of every group once, on a
-        scratch copy, on the capture stream: that builds and loads the
+        First each device runs the first level of each launch layout once
+        (:meth:`launch_layout`: each launch size, and so each kernel plan),
+        on a scratch copy, on the capture stream: that builds and loads the
         kernels and fills their plan caches and cuBLAS's workspace, so that
         nothing in a capture waits for the card.  Each graph keeps the
         launch record's entries of the family calls it captured; the
@@ -923,6 +1010,10 @@ class CircuitExecutor:
         of ``fbr.LAUNCHES`` (:func:`_take_back`), and each replay adds its
         graph's.  A capture that meets a host sync raises."""
         devices = list(dict.fromkeys(s.device for s in shards))
+        firsts: dict[tuple, int] = {}
+        for lv, rows in enumerate(self.launch_layout(shards[0].shape[1])):
+            firsts.setdefault(rows, lv)
+        groups = self.launch_groups(shards[0].shape[1])
         pools = {}
         before = dict(fbr.K1_KERNELS)
         with profiling.collect() as warm:
@@ -935,8 +1026,8 @@ class CircuitExecutor:
                     with torch.cuda.device(dev), torch.cuda.stream(stream):
                         scratch = next(s for s in shards
                                        if s.device == dev).clone()
-                        for group in self.groups:
-                            self.step(scratch, group.start)
+                        for lv in firsts.values():
+                            self.step(scratch, lv)
                         del scratch
                     torch.cuda.current_stream(dev).wait_stream(stream)
                     pools[dev] = torch.cuda.graph_pool_handle()
@@ -944,7 +1035,7 @@ class CircuitExecutor:
                 _take_back(warm.entries)
                 _kernels_since(before)
         graphs = _Graphs([torch.empty_like(s) for s in shards])
-        for i, group in enumerate(self.groups):
+        for i, group in enumerate(groups):
             for static in graphs.statics:
                 dev = static.device
                 graph = torch.cuda.CUDAGraph()
