@@ -297,6 +297,17 @@ def kernel_inputs(params, steps: int, batch: int, n_limbs: int, otf: bool,
     return b_init, a_t, tvs, keys
 
 
+def chosen(params, batch: int, orientation: str = "fused_otf",
+           limbs: int = 4, route: str | None = None):
+    """The launch of ``batch`` ciphertexts at ``params`` as the cost model
+    chooses it (``runtime_model.launch_choice``): its ``route`` and
+    ``tile`` (K1's small-tile (tile, cluster) or None) are what the
+    executor hands down to the kernel."""
+    from tfhe_fbs_map_tpu_torch.optimizer.runtime_model import launch_choice
+
+    return launch_choice(params, batch, 1, orientation, limbs, route)
+
+
 def shape_params(k, N, l, b):
     from tfhe_fbs_map_tpu_torch.tfhe.params import TFHEParams
     return TFHEParams(p=4, lwe_dim=8, glwe_dim=k, poly_size=N, bsk_level=l,
@@ -476,8 +487,9 @@ def check_bootstrap(presets, worst: dict) -> dict:
     for orient, kern in (("fused", "k2"), ("fused_otf", "k1")):
         with timed(f"prepare_fast_keys {orient}"):
             fast = prepare_fast_keys(keys, orientation=orient)
+        c = chosen(params, 64, orient)
         with timed(f"FBS through {kern}, batch 64"):
-            got = functional_bootstrap_fast(fast, cts, tvs, posts)
+            got = functional_bootstrap_fast(fast, cts, tvs, posts, None, c)
         if not torch.equal(got, want):
             raise SystemExit(f"FBS through {kern} != generic FBS")
         log(f"  FBS through {kern} ({orient}) bitwise equal to the generic "
@@ -527,12 +539,17 @@ def check_staged_launches(fbr, worst: dict) -> list[dict]:
     for label, (k, N, l, b), steps, batch in STAGED_LAUNCHES:
         params = shape_params(k, N, l, b)
         dev = kernel_inputs(params, steps, batch, 4, True, seed=10)
-        k_ms, k_out = cuda_ms(lambda: fbr.blind_rotate_k1(*dev, params), 1)
+        c = chosen(params, batch)
+        cb, cluster = c.tile or (None, None)
+        k_ms, k_out = cuda_ms(lambda: fbr.blind_rotate_k1(
+            *dev, params, cb, cluster, route=c.route), 1)
         p_ms, p_out = once_ms(lambda: fbr.blind_rotate_k1_plain(*dev, params))
         b_ms, b_by = bound_ms(params, steps, batch, dev[3])
         err = int((k_out.long() - p_out.long()).abs().max())
+        plan = fbr.k1_device_plan(batch, params, dev[0].device, 4, cb,
+                                  cluster, route=c.route)
         report("k1", f"{label} n={steps} k={k} N={N} l={l} b={b} B={batch} "
-               f"({fbr.k1_device_plan(batch, params, dev[0].device)}): "
+               f"({plan}): "
                f"kernel {k_ms:.3f} ms, plain version {p_ms:.3f} ms, bound "
                f"{b_ms:.3f} ms ({b_by})", err, worst)
         rows.append({"launch": label, "n": steps, "ciphertexts": batch,
@@ -707,8 +724,8 @@ def check_pick(fbr, pick, reals: list[list[int]], v: int,
     orientations."""
     import torch
     from tfhe_fbs_map_tpu_torch.optimizer.optimizer import h100_profile
-    from tfhe_fbs_map_tpu_torch.optimizer.runtime_model import (launch_plan,
-                                                                launch_rows)
+    from tfhe_fbs_map_tpu_torch.optimizer.runtime_model import (
+        launch_choice, launch_plan)
     from tfhe_fbs_map_tpu_torch.runtime.cli import pick_orientations
 
     dev = torch.device("cuda")
@@ -723,15 +740,20 @@ def check_pick(fbr, pick, reals: list[list[int]], v: int,
                          f"--orientation auto runs {card}")
     limbs = pick.bsk_limbs
     for params, orient, real_list in zip(pick.families, model, reals):
-        rows_list = [launch_rows(params, n, v, orient, limbs)
-                     for n in real_list]
+        # each launch size of the run, as the executor chooses its launch
+        choices = {}
+        for n in real_list:
+            c = launch_choice(params, n, v, orient, limbs)
+            choices.setdefault(c.launched, c)
         kern = KERNEL[orient]
         otf = kern == "k1"
         waves = set()
-        for rows in sorted(set(rows_list)):
+        for rows, c in sorted(choices.items()):
             plan, w = launch_plan(params, rows, orient, limbs)
-            got = (fbr.k1_device_plan if otf else fbr.device_plan)(
-                rows, params, dev, limbs)
+            cb, cluster = c.tile or (None, None)
+            got = (fbr.k1_device_plan(rows, params, dev, limbs, cb, cluster,
+                                      route=c.route) if otf
+                   else fbr.device_plan(rows, params, dev, limbs))
             fit = (fbr.k1_resident(got, params, limbs) if otf
                    else fbr.k2_max_clusters(got, limbs))
             tiles = -(-rows // got.cb)
@@ -748,12 +770,14 @@ def check_pick(fbr, pick, reals: list[list[int]], v: int,
             f"{sorted(waves)}")
         shell = shape_params(params.glwe_dim, params.poly_size,
                              params.bsk_level, params.bsk_base_log)
-        for batch in sorted(set(rows_list)):
+        for batch, c in sorted(choices.items()):
             dev_args = kernel_inputs(shell, 8, batch, limbs, otf, seed=11)
             plain = (fbr.blind_rotate_k1_plain if otf
                      else fbr.blind_rotate_k2_plain)(*dev_args, shell)
-            got = (fbr.blind_rotate_k1 if otf
-                   else fbr.blind_rotate_k2)(*dev_args, shell)
+            cb, cluster = c.tile or (None, None)
+            got = (fbr.blind_rotate_k1(*dev_args, shell, cb, cluster,
+                                       route=c.route) if otf
+                   else fbr.blind_rotate_k2(*dev_args, shell))
             torch.cuda.synchronize()
             report(kern, f"picked family k={shell.glwe_dim} "
                    f"N={shell.poly_size} l={shell.bsk_level} "
@@ -1541,9 +1565,10 @@ def check_k1_wide(fbr, worst: dict) -> dict:
     """Phase 12 (d): K1 at N = 512 bitwise against its plain version on the
     card at every family of ``calibrate.wide_families`` and
     ``calibrate.fit_families``, every launch size
-    of WIDE_BATCHES and 4 and 3 limbs, on the plan ``k1_plan`` picks for
-    the family (its route from the calibration; the small-tile plan's
-    tile, cluster, n8 tiles a warp and passes logged), and at 128
+    of WIDE_BATCHES and 4 and 3 limbs, on the launch the cost model
+    chooses for the family (:func:`chosen`: its route, and on the
+    small-tile plan its tile and cluster; the plan's n8 tiles a warp and
+    passes logged), and at 128
     ciphertexts on the small-tile plan of every tile and cluster it is
     built for, whose shared memory as the kernel counts it must be the
     host's; then the full-length launch of WIDE_FULL on each route, ms."""
@@ -1560,8 +1585,8 @@ def check_k1_wide(fbr, worst: dict) -> dict:
                 inputs = kernel_inputs(params, SMALL_N_STEPS, batch, limbs,
                                        True, seed=18)
                 plain = fbr.blind_rotate_k1_plain(*inputs, params)
-                route = fbr.k1_route(full, batch, limbs)
-                runs = [(route, None, None)] + [
+                c = chosen(full, batch, limbs=limbs)
+                runs = [(c.route, *(c.tile or (None, None)))] + [
                     ("k1s", t, c) for t in fbr.K1S_WIDE_TILES
                     for c in fbr.k1s_clusters(params, limbs, t)
                     if batch == 128]
@@ -1603,7 +1628,7 @@ def check_k1_wide(fbr, worst: dict) -> dict:
                f"B={batch} route {r} {tuple(plan)}: {ms:.3f} ms (plain "
                f"version {p_ms:.3f} ms, bound {b_ms:.5f} ms, {b_by})",
                int((got.long() - plain.long()).abs().max()), worst)
-    out["route"] = fbr.k1_route(params, batch)
+    out["route"] = chosen(params, batch).route
     return out
 
 
@@ -1994,7 +2019,9 @@ def check_conv(fbr, smi: str) -> list[dict]:
             kernels["k2"] = prepare_fast_keys(keys, "fused")
         wants, times = {}, {}
         for kern, fast in kernels.items():
-            fn = lambda: functional_bootstrap_fast(fast, *args)  # noqa
+            c = chosen(params, batch, fast.orientation)
+            fn = lambda: functional_bootstrap_fast(  # noqa
+                fast, *args, None, c)
             times[f"{kern}_ms"], wants[kern] = cuda_ms(fn, REPS)
             times[f"{kern}_graph_ms"] = graph_ms(fn, 1, 2)
         if "k2" in wants and not torch.equal(wants["k1"], wants["k2"]):

@@ -1,5 +1,5 @@
 """``--orientation auto``'s one rule, K1 against K2 by the calibrated price
-(``ops/blind_rotate.pick_kernel``), and the calibration it reads.
+(``optimizer/runtime_model.pick_kernel``), and the calibration it reads.
 
 A native family that both kernels serve, and whose K2 matrices fit, takes
 the kernel of the lower ``runtime_model.kernel_us`` (``launch_us`` summed
@@ -21,11 +21,11 @@ import torch
 
 from tfhe_fbs_map_tpu_torch import bench
 from tfhe_fbs_map_tpu_torch.ops.blind_rotate import (FUSED_HEADROOM,
-                                                     fused_key_bytes,
-                                                     pick_kernel)
+                                                     fused_key_bytes)
 from tfhe_fbs_map_tpu_torch.ops.fused_blind_rotate import unsupported
 from tfhe_fbs_map_tpu_torch.optimizer import calibrate
 from tfhe_fbs_map_tpu_torch.optimizer import runtime_model as rm
+from tfhe_fbs_map_tpu_torch.optimizer.runtime_model import pick_kernel
 from tfhe_fbs_map_tpu_torch.optimizer.optimizer import (calibration,
                                                         h100_profile)
 from tfhe_fbs_map_tpu_torch.runtime.cli import (kernel_prices,

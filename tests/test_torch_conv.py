@@ -23,8 +23,8 @@ import tfhe_fbs_map_tpu_torch.tfhe as T
 from tfhe_fbs_map_tpu_torch import bench, ops
 from tfhe_fbs_map_tpu_torch.ops.blind_rotate import (
     CONV_ORIENTATIONS, ORIENTATIONS, conv_step_matrix, conv_unsupported,
-    external_product_conv, functional_bootstrap_fast, pick_kernel,
-    prepare_fast_keys)
+    external_product_conv, functional_bootstrap_fast, prepare_fast_keys)
+from tfhe_fbs_map_tpu_torch.optimizer.runtime_model import pick_kernel
 from tfhe_fbs_map_tpu_torch.runtime.cli import main as cli_main
 from tfhe_fbs_map_tpu_torch.runtime.cli import pick_orientations
 from tfhe_fbs_map_tpu_torch.tfhe.keys import keys_from_numpy, save_keys
@@ -76,6 +76,7 @@ def test_keys_equal_jax(fast, orientation, dtype, width):
     jf, tf = fast[orientation]
     k1, N = PARAMS.glwe_dim + 1, PARAMS.poly_size
     assert tf.orientation == orientation and tf.bsk_kernels.dtype == dtype
+    assert tf.limbs == 4
     assert tuple(tf.bsk_kernels.shape) == (
         PARAMS.lwe_dim, 4 * k1, k1 * PARAMS.bsk_level, width * N)
     assert np.array_equal(as_numpy(tf.bsk_kernels), as_numpy(jf.bsk_kernels))

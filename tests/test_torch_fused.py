@@ -86,6 +86,7 @@ def kernel_args(params, batch, seed):
 def test_fast_key_layouts_equal_jax(shape, orientation, limbs):
     want, got = fast_for(shape, orientation, limbs)
     assert got.bsk_kernels.dtype == torch.int8
+    assert got.limbs == limbs
     kern = got.bsk_kernels
     if orientation == "fused":
         # K-major: each step's matrix is the JAX one transposed

@@ -325,10 +325,12 @@ def test_level_step_issues_without_a_host_sync(cuda):
 @pytest.mark.parametrize("orientation", ["fused", "fused_otf"])
 def test_model_waves_equal_the_device_plan(cuda, orientation):
     """The runtime model plans every launch as the card does: the same
-    plan and waves as ``device_plan`` / ``k1_device_plan`` with the
-    card's resident clusters, from the calibration's table alone."""
+    plan and waves as ``device_plan`` / ``k1_device_plan`` (on the route,
+    tile and cluster the cost model chooses) with the card's resident
+    clusters, from the calibration's table alone."""
     from tfhe_fbs_map_tpu_torch.optimizer.optimizer import calibration
-    from tfhe_fbs_map_tpu_torch.optimizer.runtime_model import launch_plan
+    from tfhe_fbs_map_tpu_torch.optimizer.runtime_model import (
+        launch_choice, launch_plan)
     from tfhe_fbs_map_tpu_torch.tfhe.params import PRESETS, STAGED_PRESETS
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     if sms != calibration()["sms"]:
@@ -340,8 +342,11 @@ def test_model_waves_equal_the_device_plan(cuda, orientation):
         for limbs in (3, 4):
             for rows in (8, 64, 512, 1024, 2048, 4096, 8192, 20000):
                 plan, waves = launch_plan(params, rows, orientation, limbs)
-                got = (fbr.k1_device_plan if otf else fbr.device_plan)(
-                    rows, params, cuda, limbs)
+                c = launch_choice(params, rows, 1, orientation, limbs)
+                got = (fbr.k1_device_plan(rows, params, cuda, limbs,
+                                          *(c.tile or (None, None)),
+                                          route=c.route) if otf
+                       else fbr.device_plan(rows, params, cuda, limbs))
                 fit = (fbr.k1_resident(got, params, limbs) if otf
                        else fbr.k2_max_clusters(got, limbs))
                 tiles = -(-rows // got.cb)
@@ -746,12 +751,13 @@ def wide_families():
                                   "p32_staged.fam2", "k=2 N=512 l=1",
                                   "k=2 N=512 l=3"])
 def test_small_tile_k1_equals_plain(cuda, name):
-    """K1 at N = 512 on the plan ``k1_plan`` picks (the small-tile plan
-    where the calibration prices it lower, else the ring's) and on the
+    """K1 at N = 512 on the launch the cost model chooses (the small-tile
+    plan where the calibration prices it lower, else the ring's) and on the
     small-tile plan of every tile and cluster it is built for, bitwise
     against the plain version at 4 and 3 limbs; one launch counted as K1's
     each, and under ``K1_KERNELS`` as the kernel's that ran it."""
     import dataclasses
+    from tfhe_fbs_map_tpu_torch.optimizer.runtime_model import launch_choice
     full = wide_families()[name]
     params = dataclasses.replace(full, lwe_dim=5)
     for limbs in (4, 3):
@@ -762,17 +768,16 @@ def test_small_tile_k1_equals_plain(cuda, name):
                 .contiguous()
             dev = [x.to(cuda) for x in (b_init, a_t, tvs, keys)]
             plain = fbr.blind_rotate_k1_plain(*dev, params)
-            routes = [(None, None)] + [
-                (t, c) for t in fbr.K1S_WIDE_TILES
+            # the full family's launch (its calibrated entries) on the
+            # short one's steps
+            chosen = launch_choice(full, batch, 1, "fused_otf", limbs)
+            routes = [(chosen.route, *(chosen.tile or (None, None)))] + [
+                ("k1s", t, c) for t in fbr.K1S_WIDE_TILES
                 for c in fbr.k1s_clusters(params, limbs, t)
                 if batch in (21, 128)]
-            for t, c in routes:
+            for route, t, c in routes:
                 before = fbr.LAUNCHES["k1"]
                 kernels = dict(fbr.K1_KERNELS)
-                # the full family's route (its calibrated entries) on the
-                # short one's steps
-                route = fbr.k1_route(full, batch, limbs) if c is None \
-                    else "k1s"
                 got = fbr.blind_rotate_k1(*dev, params, batch_tile=t,
                                           cluster=c, route=route)
                 torch.cuda.synchronize()
@@ -797,8 +802,8 @@ def test_packed_launch_equals_the_bucketed_one(cuda, name, v, real, plans):
     3,008 launched against 4,096)."""
     import dataclasses
     from tfhe_fbs_map_tpu_torch.optimizer import calibrate
-    from tfhe_fbs_map_tpu_torch.optimizer.runtime_model import (bucket,
-                                                                launch_rows)
+    from tfhe_fbs_map_tpu_torch.optimizer.runtime_model import (
+        bucket, launch_choice, launch_rows)
     full = calibrate.families()[name][0]
     params = dataclasses.replace(full, lwe_dim=5)
     whole = v * bucket(real)
@@ -807,14 +812,17 @@ def test_packed_launch_equals_the_bucketed_one(cuda, name, v, real, plans):
     dev = [x.to(cuda) for x in operands(params, whole, True, seed=real)]
     got = {}
     for rows, plan in zip((packed, whole), plans):
-        # the full family's route (its calibrated entries) on the short
+        # the full family's launch (its calibrated entries) on the short
         # one's steps
-        route = fbr.k1_route(full, rows)
-        small = fbr.k1_device_plan(rows, params, cuda, route=route)
+        c = launch_choice(full, rows, 1, "fused_otf")
+        cb, cluster = c.tile or (None, None)
+        small = fbr.k1_device_plan(rows, params, cuda, 4, cb, cluster,
+                                   route=c.route)
         assert plan is None or (small.cb, small.cluster) == plan
         got[rows] = fbr.blind_rotate_k1(
             dev[0][:rows].contiguous(), dev[1][:, :rows].contiguous(),
-            dev[2][:rows].contiguous(), dev[3], params, route=route)
+            dev[2][:rows].contiguous(), dev[3], params, cb, cluster,
+            route=c.route)
     torch.cuda.synchronize()
     assert torch.equal(got[packed], got[whole][:, :packed])
 
@@ -840,9 +848,13 @@ def test_small_tile_layout_on_the_card(cuda):
                                                      plan, params)
                     assert clusters == table[key], key
             for batch in WIDE_BATCHES:
+                c = runtime_model.launch_choice(params, batch, 1,
+                                                "fused_otf", limbs)
                 assert runtime_model.launch_plan(
                     params, batch, "fused_otf", limbs)[0] \
-                    == fbr.k1_device_plan(batch, params, cuda, limbs)
+                    == fbr.k1_device_plan(batch, params, cuda, limbs,
+                                          *(c.tile or (None, None)),
+                                          route=c.route)
 
 
 @pytest.mark.parametrize("argv,launches", [

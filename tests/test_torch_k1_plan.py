@@ -20,6 +20,7 @@ import torch
 import tfhe_fbs_map_tpu.tfhe as J
 from tfhe_fbs_map_tpu.ops import fused_blind_rotate as jfbr
 from tfhe_fbs_map_tpu_torch.ops import fused_blind_rotate as fbr
+from tfhe_fbs_map_tpu_torch.optimizer import runtime_model as RM
 from tfhe_fbs_map_tpu_torch.tfhe.params import PRESETS, TFHEParams
 
 # many test workers share the cores: one torch thread each
@@ -50,15 +51,17 @@ def test_plan_fits_the_card(name, batch):
     assert fbr.unsupported(params, otf=True) is None
     kn = (params.glwe_dim + 1) * params.poly_size
     for limbs in (4, 3, 1):
-        plan = fbr.k1_plan(batch, params, SMS, limbs)
+        # on the route the cost model prices (tests/test_torch_k1_small_n.py)
+        route = RM.k1_route(params, batch, limbs)
+        plan = fbr.k1_plan(batch, params, SMS, limbs, route=route)
         if isinstance(plan, fbr.K1SmallPlan):
-            # the small-tile plan, where the calibration prices it lower
-            # (tests/test_torch_k1_small_n.py); one wave of clusters a tile
-            assert fbr.k1_route(params, batch, limbs) == "k1s"
+            # the small-tile plan, where the calibration prices it lower;
+            # one wave of clusters a tile
+            assert route == "k1s"
             assert plan.cluster in fbr.k1s_clusters(params, limbs, plan.cb)
             assert plan.cb in fbr.K1S_WIDE_TILES and plan.passes == 1
             continue
-        assert fbr.k1_route(params, batch, limbs) == "k1"
+        assert route == "k1"
         assert plan.cb in fbr.K1_TILES and plan.nw in fbr.K1_WIDTHS
         assert fbr.k1_fits(plan.cb, plan.nw, limbs)
         assert 1 <= plan.cluster <= fbr.K1_MAX_CLUSTER

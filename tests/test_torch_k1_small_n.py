@@ -115,17 +115,23 @@ def test_plain_equals_jax_interpret(N, k, l, limbs):
 def test_presets_stay_on_the_n256_kernel(name, batch):
     """Every preset has N ≥ 256: K1 serves it with its ring kernel, or
     where the calibration's own points of it price it lower its small-tile
-    plan (never its small-N plan); the ring kernel's plan is unchanged."""
+    plan (never its small-N plan), on the route, tile and cluster the cost
+    model chooses; the ring kernel's plan is unchanged."""
     params = PRESETS[name][0]
     assert params.poly_size >= fbr.K1_SLICE
     assert fbr.unsupported(params, otf=True) is None
-    plan = fbr.k1_plan(batch, params, 132)
+    c = runtime_model.launch_choice(params, batch, 1, "fused_otf")
+    cb, cluster = c.tile or (None, None)
+    plan = fbr.k1_plan(batch, params, 132, 4, cb, cluster, route=c.route)
     ring = fbr.k1_ring_plan(batch, params, 132)
     assert ring.cb in fbr.K1_TILES and ring.nw in fbr.K1_WIDTHS
     if runtime_model.small_tile_wins(params, batch):
-        assert plan == fbr.k1_wide_plan(batch, params, 132)
+        assert c.route == c.path == "k1s"
+        assert plan == fbr.k1_wide_plan(batch, params, 132, 4, cluster,
+                                        cb=cb)
         assert plan.cb in fbr.K1S_WIDE_TILES and plan.passes == 1
     else:
+        assert (c.route, c.tile) == ("k1", None)
         assert plan == ring
 
 
@@ -832,12 +838,13 @@ def test_emulated_wide_schedule_equals_plain(name, batch, limbs):
 
 
 def test_route_takes_the_small_tile_plan_by_price(monkeypatch):
-    """At N ≥ 256 ``k1_plan`` takes the small-tile plan exactly where the
-    family's own calibrated points (its ``.../k1s`` entry) price its kernel
-    below the ring kernel's plan at that launch size, and the runtime model
-    then prices the launch from those points alone; the launch record names
-    it ``k1s``; without such points or their fit across families the ring
-    serves."""
+    """At N ≥ 256 the cost model sends a launch to the small-tile plan
+    exactly where the family's own calibrated points (its ``.../k1s``
+    entry) price its kernel below the ring kernel's plan at that launch
+    size, and the runtime model then prices the launch from those points
+    alone; the launch record names it ``k1s``; without such points or
+    their fit across families the ring serves.  ``k1_plan`` runs the route
+    it is handed, and without one the ring."""
     import copy
     cal = copy.deepcopy(calibration())
     aes = PRESETS["aes128_p4"][0]
@@ -845,9 +852,15 @@ def test_route_takes_the_small_tile_plan_by_price(monkeypatch):
         del cal["families"][key]
     del cal["kernels"]["k1s_wide"]
     monkeypatch.setattr(runtime_model, "calibration", lambda: cal)
+
+    def chosen(rows):
+        c = runtime_model.launch_choice(aes, rows, 1, "fused_otf")
+        return c, fbr.k1_plan(rows, aes, 132, 4, *(c.tile or (None, None)),
+                              route=c.route)
+
     for rows in (4, 64, 1024):
         assert not runtime_model.small_tile_wins(aes, rows)
-        assert isinstance(fbr.k1_plan(rows, aes, 132), fbr.K1Plan)
+        assert isinstance(chosen(rows)[1], fbr.K1Plan)
     # points at half the ring's kernel up to 64, twice it from 512: the
     # small tiles win where their points are the lower
     ring = {r: runtime_model.launch_us(aes, r, "fused_otf")
@@ -862,15 +875,15 @@ def test_route_takes_the_small_tile_plan_by_price(monkeypatch):
                    for r, us in ring.items()]}
     for rows, small in ((4, True), (64, True), (1024, False)):
         assert runtime_model.small_tile_wins(aes, rows) is small
-        plan = fbr.k1_plan(rows, aes, 132)
+        c, plan = chosen(rows)
         assert isinstance(plan, fbr.K1SmallPlan) is small
-        assert fbr.kernel_path("fused_otf", aes, rows) == (
-            "k1s" if small else "k1")
+        assert c.path == c.route == ("k1s" if small else "k1")
         got, waves = runtime_model.launch_plan(aes, rows, "fused_otf")
         assert got == fbr.k1_plan(
-            rows, aes, cal["sms"], resident=lambda p: cal["resident"].get(
+            rows, aes, cal["sms"], 4, *(c.tile or (None, None)),
+            resident=lambda p: cal["resident"].get(
                 runtime_model.resident_key("fused_otf", 4, p, aes),
-                cal["sms"] // p.cluster))
+                cal["sms"] // p.cluster), route=c.route)
         if small:
             a, b = runtime_model._around(aes, "fused_otf")
             want = ring[rows] / 2 + a + b * rows * (aes.big_dim + 1)
@@ -892,12 +905,14 @@ def test_route_takes_the_small_tile_plan_by_price(monkeypatch):
     assert not runtime_model.small_tile_wins(anchor, 4)
     assert isinstance(fbr.k1_plan(1024, aes, 132, route="k1s"),
                       fbr.K1SmallPlan)
-    assert fbr.kernel_path("fused_otf", anchor, 4, route="k1s") == "k1s"
+    assert runtime_model.launch_choice(anchor, 4, 1, "fused_otf",
+                                       route="k1s").path == "k1s"
     assert isinstance(fbr.k1_plan(4, aes, 132, route="k1"), fbr.K1Plan)
+    assert isinstance(fbr.k1_plan(4, aes, 132), fbr.K1Plan)
     with pytest.raises(ValueError):
         fbr.k1_plan(4, aes, 132, route="k2")
     # without its limbs (2) or past its widths the ring serves alone
-    assert fbr.k1_route(aes, 4, 2) == "k1"
+    assert runtime_model.k1_route(aes, 4, 2) == "k1"
     assert fbr.k1s_clusters(shape(1, 2048, 2, 8)) == []
 
 
@@ -939,7 +954,7 @@ def test_family_without_points_takes_the_fit(n, l):
                 runtime_model._kernel_fit(params, "fused_otf"))
             wins = runtime_model.small_tile_wins(params, rows, limbs)
             assert wins == (small < ring_us)
-            assert fbr.k1_route(params, rows, limbs) == (
+            assert runtime_model.k1_route(params, rows, limbs) == (
                 "k1s" if wins else "k1")
             taken.add(wins)
             if wins:
@@ -992,14 +1007,15 @@ def test_calibrated_family_is_set_point_against_point(monkeypatch):
 
 
 def test_small_tile_plan_is_the_one_timed_fastest(monkeypatch):
-    """Without a tile or cluster given, the small-tile plan at a shape the
-    calibration timed is the one it prices lowest by waves at the launch,
-    summed over the shape's families (each plan's time at the launch's
-    waves where timed, linear in the waves between two timed, in
-    proportion past the most), where that plan serves the limbs: at
-    AES-128's shape 16 on 16 CTAs up to 7 tiles of 16 (one wave), 16 on 8
-    for 8 to 15; elsewhere the fewest waves, then the smaller tile, then
-    the most CTAs a tile."""
+    """The cost model's small-tile plan at a shape the calibration timed is
+    the one it prices lowest by waves at the launch, summed over the
+    shape's families (each plan's time at the launch's waves where timed,
+    linear in the waves between two timed, in proportion past the most),
+    where that plan serves the limbs: at AES-128's shape 16 on 16 CTAs up
+    to 7 tiles of 16 (one wave), 16 on 8 for 8 to 15; the launch choice
+    hands that tile and cluster to the kernel.  Elsewhere, and in the
+    kernel given none, the fewest waves, then the smaller tile, then the
+    most CTAs a tile."""
     import copy
     cal = copy.deepcopy(calibration())
     monkeypatch.setattr(runtime_model, "calibration", lambda: cal)
@@ -1029,8 +1045,10 @@ def test_small_tile_plan_is_the_one_timed_fastest(monkeypatch):
         want = min(tiles, key=lambda tc: (sum(
             price(p, *tc, rows) for p in fams), tc[0], -tc[1]))
         assert runtime_model.small_tile_pick(aes, rows) == want, rows
-        plan = fbr.k1_wide_plan(rows, aes, 132)
+        plan, _ = runtime_model.small_tile_plan(aes, rows)
         assert (plan.cb, plan.cluster) == want
+        assert runtime_model.launch_choice(aes, rows, 1, "fused_otf",
+                                           route="k1s").tile == want
     assert {runtime_model.small_tile_pick(aes, r)
             for r in range(1, 113)} == {(16, 16)}
     assert {runtime_model.small_tile_pick(aes, r)
@@ -1042,6 +1060,8 @@ def test_small_tile_plan_is_the_one_timed_fastest(monkeypatch):
     runtime_model._WAVES.clear()
     runtime_model._PICKS.clear()
     assert runtime_model.small_tile_pick(aes, 64) == (32, 5)
+    assert runtime_model.launch_choice(aes, 64, 1, "fused_otf",
+                                       route="k1s").tile is None
 
     def rule(rows, params, resident):
         best = None

@@ -76,6 +76,7 @@ def test_keys_equal_jax_up_to_the_transpose(keys, jax_fast, limbs):
     fast = prepare_fast_keys(keys[1], "matmul", limbs)
     jf = jax_fast[limbs]
     assert fast.orientation == "matmul" and fast.shard == (0, 1)
+    assert fast.limbs == limbs
     assert np.array_equal(fast.bsk_kernels.numpy(),
                           np.asarray(jf.bsk_kernels).transpose(0, 2, 1))
     assert np.array_equal(fast.ksk_limbs.numpy(), np.asarray(jf.ksk_limbs))
@@ -178,6 +179,7 @@ def test_contraction_slices_add_up_to_the_whole(keys, inputs, tp):
     ksk = torch.cat([s.ksk_matrix for s in shards])
     assert torch.equal(ksk[:rows], fast.ksk_matrix) and not ksk[rows:].any()
     assert [s.shard for s in shards] == [(j, tp) for j in range(tp)]
+    assert {s.limbs for s in shards} == {fast.limbs} == {4}
     args = inputs[2]
     want = functional_bootstrap_fast(fast, *args)
     outs = bootstrap_matmul(shards, *([x] * tp for x in args))

@@ -23,7 +23,7 @@ import tfhe_fbs_map_tpu.optimizer.optimizer as JO
 import tfhe_fbs_map_tpu_torch.optimizer as TPKG
 import tfhe_fbs_map_tpu_torch.optimizer.noise as TN
 import tfhe_fbs_map_tpu_torch.optimizer.optimizer as TO
-from tfhe_fbs_map_tpu_torch.ops.blind_rotate import pick_kernel
+from tfhe_fbs_map_tpu_torch.optimizer.runtime_model import pick_kernel
 from tfhe_fbs_map_tpu_torch.tfhe.params import PRESETS, STAGED_PRESETS
 
 ROOT = Path(__file__).resolve().parents[1]

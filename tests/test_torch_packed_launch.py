@@ -59,7 +59,7 @@ def tiles(monkeypatch, tile):
     def rows(params, real, v, orientation, bsk_limbs=4, route=None):
         step = tile // math.gcd(tile, v)
         return v * min(RM.bucket(real), -(-real // step) * step)
-    monkeypatch.setattr(texec, "launch_rows", rows)
+    monkeypatch.setattr(RM, "launch_rows", rows)
 
 
 def carried(jk):
@@ -242,12 +242,28 @@ def shell_executor(prog, families, staged_p=None):
     def shell(params):
         return T.TFHEKeys(params, None, None, torch.empty(0), None)
 
-    fast = SimpleNamespace(orientation="fused_otf", route=None)
+    fast = SimpleNamespace(orientation="fused_otf", route=None, limbs=4)
     if staged_p is None:
         return texec.CircuitExecutor(prog, shell(families[0]),
                                      fast_keys=fast)
     keys = StagedKeys(staged_p, *map(shell, families))
     return texec.CircuitExecutor(prog, keys, fast_keys=(fast, fast))
+
+
+def program_executor(name):
+    """The shell executor of a benchmark configuration's program, its
+    families and each level's real bootstraps a family call."""
+    if name == "aes128_p4":
+        families = [PRESETS[name][0]]
+        ex = shell_executor(parse_lbf(AES_LBF.read_text()), families)
+        return ex, families, [[nb] for nb in texec.native_level_boots(
+            ex.prog)]
+    preset = STAGED_PRESETS[name]
+    families = [preset.fam1, preset.fam2]
+    ex = shell_executor(parse_lbf(KREYVIUM_LBF.read_text()), families,
+                        preset.p)
+    return ex, families, [[ns + f1, ns + f2]
+                          for ns, f1, f2 in ex.plan.level_routes]
 
 
 @pytest.mark.parametrize("name,v", [("aes128_p4", 8), ("aes128_p4", 1),
@@ -259,16 +275,7 @@ def test_programs_launch_the_packed_counts(name, v):
     entries carry those counts and the route that count takes, which is
     the route of the real rows; the graph groups split the plan's where
     the layout changes."""
-    if name == "aes128_p4":
-        families = [PRESETS[name][0]]
-        ex = shell_executor(parse_lbf(AES_LBF.read_text()), families)
-        reals = [[nb] for nb in texec.native_level_boots(ex.prog)]
-    else:
-        preset = STAGED_PRESETS[name]
-        families = [preset.fam1, preset.fam2]
-        ex = shell_executor(parse_lbf(KREYVIUM_LBF.read_text()), families,
-                            preset.p)
-        reals = [[ns + f1, ns + f2] for ns, f1, f2 in ex.plan.level_routes]
+    ex, families, reals = program_executor(name)
     buf = SimpleNamespace(shape=(ex.num_wires, v, 1),
                           device=torch.device("cuda"))
     launched = padded = 0
@@ -287,7 +294,7 @@ def test_programs_launch_the_packed_counts(name, v):
                 assert v * w <= n <= v * nb
                 tile = RM.launch_tile(p, v * w, "fused_otf")
                 assert n % tile == 0 or n == v * nb
-                assert e.path == fbr.k1_route(p, n) == fbr.k1_route(
+                assert e.path == RM.k1_route(p, n) == RM.k1_route(
                     p, v * w)
                 launched += n
                 padded += n - v * w
@@ -298,6 +305,47 @@ def test_programs_launch_the_packed_counts(name, v):
     assert [g.start for g in groups] == [0] + [g.stop for g in groups[:-1]]
     assert all(len({layout[lv] for lv in g}) == 1 for g in groups)
     assert {g.start for g in ex.groups} <= {g.start for g in groups}
+
+
+@pytest.mark.parametrize("name,v,want", [
+    ("aes128_p4", 8, {("k1", None): 209, ("k1s", (32, 6)): 17,
+                      ("k1s", (16, 16)): 3, ("k1s", (16, 8)): 1}),
+    ("aes128_p4", 1, {("k1s", (16, 16)): 192, ("k1s", (16, 8)): 38}),
+    ("kreyvium_p10_staged", 8, {("k1", None): 27, ("k1s", (16, 12)): 1})])
+def test_programs_launch_the_chosen_kernels(name, v, want):
+    """The benchmark's cells, from the committed calibration: the cost
+    model chooses each family call's launch once
+    (``CircuitExecutor.launch_choices``), and the kernel runs its route and
+    small-tile (tile, cluster), which is the plan the model prices at the
+    count launched (``launch_plan``): AES-128 at V=8 209 ring launches
+    and 21 small-tile ones, at V=1 all 230 on the small-tile plan, and
+    Kreyvium at V=8 27 ring launches and one on tiles of 16."""
+    ex, families, _ = program_executor(name)
+    cal = calibration()
+    got = {}
+    for lv, calls in enumerate(ex.launch_choices(v)):
+        for c, p in zip(calls, families):
+            if not c.launched:
+                continue
+            got[c.route, c.tile] = got.get((c.route, c.tile), 0) + 1
+            assert c.path == c.route
+            plan = fbr.k1_plan(
+                c.launched, p, cal["sms"], 4, *(c.tile or (None, None)),
+                resident=lambda q: cal["resident"].get(
+                    RM.resident_key("fused_otf", 4, q, p),
+                    cal["sms"] // q.cluster), route=c.route)
+            assert plan == RM.launch_plan(p, c.launched, "fused_otf")[0], lv
+    assert got == want
+
+
+def test_layout_reads_the_keys_limbs():
+    """Each family call's launch is chosen at the limbs the fast keys hold
+    (``FastKeys.limbs``), here K2's at 3 limbs, and with their route."""
+    ex, families, reals = program_executor("aes128_p4")
+    ex.fast_keys = SimpleNamespace(orientation="fused", route=None, limbs=3)
+    for calls, (real,) in zip(ex.launch_choices(8), reals):
+        assert calls == (RM.launch_choice(AES, real, 8, "fused", 3),)
+        assert calls[0].path == "k2" and calls[0].route is None
 
 
 # -------------------------------- the small-tile plan at the packed counts
@@ -315,7 +363,7 @@ def test_aes_small_tile_plan_by_waves():
     plan, waves = RM.launch_plan(AES, 128, "fused_otf")
     assert (plan.cb, plan.cluster, waves) == (16, 8, 1)
     for rows in range(320, 449, 64):
-        assert fbr.k1_route(AES, rows) == "k1"
+        assert RM.k1_route(AES, rows) == "k1"
         plan, waves = RM.launch_plan(AES, rows, "fused_otf")
         assert isinstance(plan, fbr.K1Plan) and waves == 1
 
@@ -337,8 +385,7 @@ def test_small_tile_price_is_flat_within_a_wave():
 def test_auto_still_takes_k1_at_aes128():
     """The price ``auto`` compares the kernels by is summed over powers of
     two, and AES-128 keeps K1."""
-    from tfhe_fbs_map_tpu_torch.ops.blind_rotate import pick_kernel
     assert RM.ROWS == (64, 128, 256, 512, 1024, 2048, 4096, 8192)
     assert RM.kernel_us(AES, "fused_otf") < RM.kernel_us(AES, "fused")
-    assert pick_kernel(AES, 80e9) == "fused_otf"
+    assert RM.pick_kernel(AES, 80e9) == "fused_otf"
     assert calibration()["families"][RM.entry_key(AES, "k1s")]["plans"]

@@ -160,9 +160,15 @@ def test_model_plan_is_the_planners_under_the_table(kernel, key, limbs):
         key = rm.resident_key(kernel, limbs, plan, params)
         assert key in table
         return table[key]
-    fn = fbr.k1_plan if kernel == "fused_otf" else fbr.k2_plan
     for rows in (8, 64, 1024, 2048, 4096, 8192, 20000):
-        want = fn(rows, params, sms, limbs, resident=resident)
+        if kernel == "fused_otf":
+            # K1 on the route, tile and cluster the cost model chooses
+            c = rm.launch_choice(params, rows, 1, kernel, limbs)
+            want = fbr.k1_plan(rows, params, sms, limbs,
+                               *(c.tile or (None, None)),
+                               resident=resident, route=c.route)
+        else:
+            want = fbr.k2_plan(rows, params, sms, limbs, resident=resident)
         tiles = -(-rows // want.cb)
         assert rm.launch_plan(params, rows, kernel, limbs) == (
             want, -(-tiles // max(1, resident(want))))

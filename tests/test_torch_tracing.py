@@ -34,9 +34,11 @@ from tfhe_fbs_map_tpu_torch.frontend.circuits import build_bench
 from tfhe_fbs_map_tpu_torch.frontend.mapping.heuristic import HeuristicMapper
 from tfhe_fbs_map_tpu_torch.ops import fused_blind_rotate as fbr
 from tfhe_fbs_map_tpu_torch.ops.blind_rotate import prepare_fast_keys
-from tfhe_fbs_map_tpu_torch.optimizer.runtime_model import (launch_rows,
+from tfhe_fbs_map_tpu_torch.optimizer.runtime_model import (launch_choice,
+                                                             launch_rows,
                                                              launch_us)
 from tfhe_fbs_map_tpu_torch.parallel.mesh import make_mesh
+from tfhe_fbs_map_tpu_torch.runtime import executor as executor_module
 from tfhe_fbs_map_tpu_torch.runtime.executor import CircuitExecutor
 from tfhe_fbs_map_tpu_torch.tfhe import TEST_PARAMS, generate_keys
 from tfhe_fbs_map_tpu_torch.tfhe.params import TFHEParams
@@ -183,12 +185,46 @@ def test_collect_stamps_each_call_and_counts_kernels(programs):
     assert [s[0] for s in got.spans] == got.entries
     assert profiling.launch_counts(got.entries) == {
         "k1": len(got.entries), "k2": 0}
-    assert fbr.kernel_path("fused_otf", TEST_PARAMS) == "k1"
-    assert fbr.kernel_path("fused_otf", dataclasses.replace(
+
+    def path(orientation, params=TEST_PARAMS):
+        return launch_choice(params, 16, 4, orientation, card=False).path
+
+    assert path("fused_otf") == "k1"
+    assert path("fused_otf", dataclasses.replace(
         TEST_PARAMS, poly_size=128)) == "k1s"
-    assert fbr.kernel_path("fused", TEST_PARAMS) == "k2"
-    assert fbr.kernel_path("matmul", TEST_PARAMS) == "matmul"
-    assert fbr.kernel_path(None, TEST_PARAMS) == "generic"
+    assert path("fused") == "k2"
+    assert path("matmul") == "matmul"
+    assert path(None) == "generic"
+
+
+def test_capture_takes_counts_back_from_the_record(monkeypatch):
+    """A capture's kernel launches come back out of ``LAUNCHES`` and
+    ``K1_KERNELS`` from its entries of the launch record, by the kernel
+    each path runs at its family's N (``k1``: the ring kernel; ``k1s``:
+    the small-N kernel below N=256, the small-tile plan at or above it),
+    and each replay of the graph adds them again."""
+    def entry(family, path):
+        return profiling.Launch(None, 0, family, "cuda:0", path, 16, 16)
+
+    entries = [entry("fam1", "k1"), entry("fam1", "k1s"),
+               entry("fam2", "k1s"), entry("fam2", "k1s"),
+               entry("fam2", "k2"), entry("fam1", "generic"),
+               entry("fam2", "matmul")]
+    monkeypatch.setattr(fbr, "LAUNCHES", dict.fromkeys(fbr.LAUNCHES, 10))
+    monkeypatch.setattr(fbr, "K1_KERNELS",
+                        dict.fromkeys(fbr.K1_KERNELS, 10))
+    counts = executor_module._take_back(entries, {"fam1": 512, "fam2": 128})
+    assert fbr.LAUNCHES == {"k1": 6, "k2": 9}
+    assert fbr.K1_KERNELS == {"k1_kernel": 9, "k1s_kernel": 8,
+                              "k1s_kernel_wide": 9}
+    graphs = executor_module._Graphs([])
+    graphs.graphs.append(executor_module._Graph(
+        SimpleNamespace(replay=lambda: None), tuple(entries), counts, "g"))
+    graphs.replay()
+    graphs.replay()
+    assert fbr.LAUNCHES == {"k1": 14, "k2": 11}
+    assert fbr.K1_KERNELS == {"k1_kernel": 11, "k1s_kernel": 12,
+                              "k1s_kernel_wide": 11}
 
 
 # ------------------------------------------ the spans and the readers

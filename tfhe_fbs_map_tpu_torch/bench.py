@@ -186,10 +186,15 @@ class XorChain:
     :data:`TABLE`, fed back into the next."""
 
     def __init__(self, keys, fast, batch: int):
+        from .optimizer.runtime_model import launch_choice
         from .tfhe.encrypt import encrypt_values
         from .tfhe.pbs import build_test_vector
 
         self.keys, self.fast = keys, fast
+        # the route and plan the cost model chooses for the chain's launch
+        self.choice = launch_choice(keys.params, batch, 1, fast.orientation,
+                                    fast.limbs, fast.route,
+                                    keys.device.type == "cuda")
         rng = np.random.default_rng(2)
         self.values = rng.integers(0, 3, batch)
         self.cts = encrypt_values(keys, self.values, rng)
@@ -201,7 +206,7 @@ class XorChain:
         from .ops.blind_rotate import functional_bootstrap_fast
 
         self.cts = functional_bootstrap_fast(self.fast, self.cts, self.tvs,
-                                             self.posts)
+                                             self.posts, None, self.choice)
 
     def wrong(self, steps: int) -> int:
         """Wrong decryptions after ``steps`` ≥ 1 steps: table[values] after

@@ -36,12 +36,11 @@ from ..tfhe.numeric import I32, I64, gadget_decompose, int8_matmul, \
 from ..tfhe.params import Q_BITS, TFHEParams
 from ..tfhe.pbs import add_body, sample_extract
 from ..utils import profiling
-from .fused_blind_rotate import (N_LIMBS, blind_rotate_fused,
-                                 decompose_digits, unsupported)
+from .fused_blind_rotate import N_LIMBS, blind_rotate_fused, decompose_digits
 from .polymul import monomial_rotate, negacyclic_matrix
 
 __all__ = ["FastKeys", "prepare_fast_keys", "keyswitch_fast",
-           "functional_bootstrap_fast", "fused_key_bytes", "pick_kernel",
+           "functional_bootstrap_fast", "fused_key_bytes",
            "shard_contraction", "bootstrap_matmul", "cmux_partial",
            "rotate", "step_digits", "key_product", "external_product_conv",
            "conv_unsupported", "conv_step_matrix", "conv_product",
@@ -85,8 +84,9 @@ class FastKeys:
     ``shard`` (index, tp): the slice of the key contraction this copy holds
     (:func:`shard_contraction`); (0, 1) is the whole of it.  ``route``:
     the route of every ``"fused_otf"`` launch at N ≥ 256 through these
-    keys (``fused_blind_rotate.K1_ROUTES``; None: the one
-    ``fused_blind_rotate.k1_route`` prices lower at each launch).
+    keys (``fused_blind_rotate.K1_ROUTES``; None: the one the cost model
+    prices lower at each launch); the cost model's launch choice reads it
+    (``optimizer.runtime_model.launch_choice``).
     """
 
     def __init__(self, params: TFHEParams, bsk_kernels: torch.Tensor,
@@ -108,6 +108,15 @@ class FastKeys:
     def device(self) -> torch.device:
         return self.bsk_kernels.device
 
+    @property
+    def limbs(self) -> int:
+        """The bootstrapping key's limbs: ``bsk_limbs`` of the fused and
+        matmul layouts, 4 in the conv ones."""
+        k1 = self.params.glwe_dim + 1
+        if self.orientation in ("fused", "matmul"):
+            k1 *= self.params.poly_size
+        return self.bsk_kernels.shape[1] // k1
+
     def to(self, device) -> "FastKeys":
         """The same key layouts on ``device`` (a copy; ``self`` where they
         already lie there)."""
@@ -123,31 +132,6 @@ def fused_key_bytes(params: TFHEParams, bsk_limbs: int = N_LIMBS) -> int:
     ``"matmul"``."""
     k1, N = params.glwe_dim + 1, params.poly_size
     return params.lwe_dim * (k1 * params.bsk_level * N) * bsk_limbs * k1 * N
-
-
-def pick_kernel(params: TFHEParams, memory: float, bsk_limbs: int = N_LIMBS,
-                headroom: float = FUSED_HEADROOM, served: bool = True,
-                profile=None) -> str:
-    """The kernel one native family takes, ``"fused"`` (K2) or
-    ``"fused_otf"`` (K1).  K1 where K2 does not serve ``params`` or its key
-    matrices plus ``headroom`` do not fit ``memory`` bytes; K2 where K1
-    does not serve them; else the one of the lower calibrated price
-    (:func:`..optimizer.runtime_model.kernel_us`: a call of each launch
-    size the calibration timed, summed, at ``profile``'s per-boot costs),
-    K1 on a tie.  Without ``served`` (the JAX module's model) no kernel's
-    rules apply and the matrices' fit alone decides.  The runtime CLI's
-    ``--orientation auto`` passes the card's free memory, the cost model
-    its device profile's, so the model prices the kernel that runs."""
-    if served and unsupported(params, otf=False) is not None:
-        return "fused_otf"
-    if fused_key_bytes(params, bsk_limbs) + headroom > memory:
-        return "fused_otf"
-    if not served or unsupported(params, otf=True) is not None:
-        return "fused"
-    from ..optimizer.runtime_model import kernel_us
-    k2 = kernel_us(params, "fused", bsk_limbs, profile)
-    return "fused" if k2 < kernel_us(params, "fused_otf", bsk_limbs,
-                                     profile) else "fused_otf"
 
 
 def _ksk_matrix(keys: TFHEKeys) -> torch.Tensor:
@@ -581,15 +565,18 @@ def bootstrap_matmul(shards: list[FastKeys], big_cts: list[torch.Tensor],
 def functional_bootstrap_fast(fast: FastKeys, big_cts: torch.Tensor,
                               test_polys: torch.Tensor,
                               posts: torch.Tensor,
-                              launch: profiling.Launch | None = None
-                              ) -> torch.Tensor:
+                              launch: profiling.Launch | None = None,
+                              choice=None) -> torch.Tensor:
     """Batched FBS through ``fast.orientation``: one launch of its fused
     kernel, or the ``"matmul"`` or conv scan (:func:`bootstrap_matmul` on
     one position); semantics identical to
     :func:`..tfhe.pbs.functional_bootstrap`.  ``launch``: the call's entry
     of the launch record, made at the fused kernel's launch
     (:func:`.fused_blind_rotate.blind_rotate_fused`) or around a library
-    orientation's whole scan."""
+    orientation's whole scan.  ``choice``: the launch as the cost model
+    chose it (``optimizer.runtime_model.launch_choice``), whose ``route``
+    and ``tile`` (K1's route and small-tile (tile, cluster)) the kernel
+    runs; without one K1 runs its ring kernel at N ≥ 256."""
     if fast.orientation not in ("fused", "fused_otf"):
         with profiling.launch(launch):
             return bootstrap_matmul([fast], [big_cts], [test_polys],
@@ -601,7 +588,9 @@ def functional_bootstrap_fast(fast: FastKeys, big_cts: torch.Tensor,
     b_t = _modswitch(small[:, n], params)
     b_init = ((2 * N - b_t) % (2 * N))[:, None].contiguous()
     a_steps = a_t.t()[:, :, None].contiguous()
+    route, tile = (choice.route, choice.tile) if choice else (None, None)
+    cb, cluster = tile or (None, None)
     acc = blind_rotate_fused(b_init, a_steps, test_polys.contiguous(),
-                             fast.bsk_kernels, params, launch=launch,
-                             route=fast.route)
+                             fast.bsk_kernels, params, cb, launch, route,
+                             cluster)
     return add_body(sample_extract(acc.permute(1, 0, 2), params), posts)

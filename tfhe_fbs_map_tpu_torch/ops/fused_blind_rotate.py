@@ -60,10 +60,12 @@ Hopper counterparts of the two Pallas kernel bodies in
   of up to 16 CTAs; a CTA keeps only its span of the ACC, computes its
   span's digits (the rotated source words read from their owners over
   distributed shared memory) and stores them into every CTA, two cluster
-  barriers a step (:func:`k1_wide_plan`).  :func:`k1_route` takes it
-  where the calibration prices its kernel below the ring kernel's at the
-  launch size (``runtime_model.small_tile_wins``), and the launch record
-  then names it ``k1s``.
+  barriers a step (:func:`k1_wide_plan`).  The cost model takes it where
+  the calibration prices its kernel below the ring kernel's at the launch
+  size (``optimizer.runtime_model.launch_choice``) and hands the route, the
+  tile and the cluster down to :func:`blind_rotate_k1`; the launch record
+  then names it ``k1s``.  The kernel layer prices nothing: without a route
+  a launch at N ≥ 256 runs the ring kernel.
 
 The monomial rotation X^a·x, which the TPU does with a barrel shifter
 because Mosaic has no lane rotate, is an index read in both.
@@ -88,12 +90,11 @@ from ..utils import profiling
 
 __all__ = ["blind_rotate_fused", "blind_rotate_k1", "blind_rotate_k2",
            "blind_rotate_k1_plain", "blind_rotate_k2_plain", "k1_plan",
-           "k1_ring_plan", "k1_wide_plan", "k1_route", "K1_ROUTES",
+           "k1_ring_plan", "k1_wide_plan", "K1_ROUTES",
            "k2_plan", "k1_small_plan", "k1_device_plan", "device_plan",
            "k1_layout", "k1_small_layout", "k1_small_smem", "k1s_clusters",
            "k1_resident",
-           "K1Plan", "K1SmallPlan", "K2Plan", "LAUNCHES", "K1_KERNELS",
-           "kernel_path"]
+           "K1Plan", "K1SmallPlan", "K2Plan", "LAUNCHES", "K1_KERNELS"]
 
 N_LIMBS = 4
 LAUNCHES = {"k1": 0, "k2": 0}
@@ -139,8 +140,8 @@ K1S_MAX_SPAN = 128
 K1S_MAX_KN = 512
 K1S_ACC_PAD, K1S_DIG_PAD, K1S_E_PAD, K1S_RED_PAD = 8, 16, 16, 8
 # Its small-tile plan at N ≥ K1_SLICE, for launches of few tiles
-# (``k1s_kernel_wide``, :func:`k1_wide_plan`; :func:`k1_route` sends a
-# launch to it where the calibration prices it below the ring kernel): N up
+# (``k1s_kernel_wide``, :func:`k1_wide_plan`; the cost model sends a launch
+# to it where the calibration prices it below the ring kernel): N up
 # to K1S_WIDE_MAX_N at (k+1)·N up to K1S_WIDE_MAX_KN, tiles of
 # K1S_WIDE_TILES ciphertexts (32: two row tiles of mma.sync share each key
 # window), clusters up to K1S_WIDE_MAX_CLUSTER (non-portable above 8),
@@ -337,19 +338,15 @@ def k1_plan(batch: int, params: TFHEParams, sms: int,
     """K1's launch plan for ``batch`` ciphertexts on ``sms`` SMs.
 
     Below N=K1_SLICE the small-N kernel's one plan (:func:`k1_small_plan`).
-    Above, the plan of ``route`` (one of K1_ROUTES): the small-tile plan
-    (``"k1s"``, :func:`k1_wide_plan`) or the ring kernel's (``"k1"``,
-    :func:`k1_ring_plan`).  Without one, a ``cb`` of K1S_WIDE_TILES names
-    the small-tile plan, another ``cb`` or an ``nw`` the ring's, and
-    otherwise :func:`k1_route` picks by price at ``batch``.  ``cluster`` is
-    taken by the plan of the route.  ``resident(plan)``: the clusters of a
-    plan the card runs at once (default ``sms // cluster``)."""
+    Above, the plan of ``route`` (one of K1_ROUTES, as the cost model
+    chose it): the small-tile plan (``"k1s"``, :func:`k1_wide_plan`) or the
+    ring kernel's (``"k1"``, and without a route, :func:`k1_ring_plan`).
+    ``cb``, ``cluster`` and ``nw`` are taken by the plan of the route.
+    ``resident(plan)``: the clusters of a plan the card runs at once
+    (default ``sms // cluster``)."""
     if params.poly_size < K1_SLICE:
         return k1_small_plan(params, n_limbs, cb, cluster, nw)
-    if route is None:
-        route = ("k1s" if cb in K1S_WIDE_TILES
-                 else "k1" if cb is not None or nw is not None
-                 else k1_route(params, batch, n_limbs))
+    route = route or "k1"
     if route not in K1_ROUTES:
         raise ValueError(f"route {route!r} not in {K1_ROUTES}")
     if route == "k1s":
@@ -403,22 +400,6 @@ def k1_ring_plan(batch: int, params: TFHEParams, sms: int,
                          f"nw={nw} at {n_limbs} limbs: a cluster must split "
                          f"the (k+1)·N coefficients into whole chunks")
     return best[1]
-
-
-def k1_route(params: TFHEParams, rows: int,
-             n_limbs: int = N_LIMBS) -> str:
-    """Which kernel a K1 launch of ``rows`` ciphertexts runs, as the launch
-    record names it: ``"k1s"`` below N=K1_SLICE; above, ``"k1s"`` where the
-    small-tile plan serves the family at ``n_limbs`` and the calibration
-    prices it below the ring kernel's plan at ``rows``
-    (:func:`..optimizer.runtime_model.small_tile_wins`), else ``"k1"``."""
-    if params.poly_size < K1_SLICE:
-        return "k1s"
-    if not k1s_clusters(params, n_limbs):
-        return "k1"
-    from ..optimizer import runtime_model
-    return "k1s" if runtime_model.small_tile_wins(params, rows, n_limbs) \
-        else "k1"
 
 
 def _wide(params: TFHEParams) -> bool:
@@ -551,14 +532,12 @@ def k1_wide_plan(batch: int, params: TFHEParams, sms: int,
                  resident: Callable[[K1SmallPlan], int] | None = None,
                  cb: int | None = None) -> K1SmallPlan:
     """The small-tile plan of K1 at N ≥ K1_SLICE for ``batch``
-    ciphertexts, on tiles of ``cb`` and clusters of ``cluster`` where given.
-    Where neither is, the tile and cluster the calibration timed fastest at
-    the family's shape and the launch size
-    (``runtime_model.small_tile_pick``), if it timed that shape and they
-    serve ``n_limbs``.  Otherwise, among the tiles of K1S_WIDE_TILES and the
-    clusters each is built at (:func:`k1s_clusters`), the one of the fewest
-    waves, then the smaller tile, then the most CTAs a tile: a wave is as
-    many clusters as ``resident(plan)`` says the card runs at once (default
+    ciphertexts, on tiles of ``cb`` and clusters of ``cluster`` where given
+    (the cost model's, ``optimizer.runtime_model.launch_choice``).  Among
+    the tiles of K1S_WIDE_TILES and the clusters each is built at
+    (:func:`k1s_clusters`) that those leave, the one of the fewest waves,
+    then the smaller tile, then the most CTAs a tile: a wave is as many
+    clusters as ``resident(plan)`` says the card runs at once (default
     ``sms // cluster``)."""
     kn = (params.glwe_dim + 1) * params.poly_size
     tiles_ = [cb] if cb is not None else K1S_WIDE_TILES
@@ -573,11 +552,6 @@ def k1_wide_plan(batch: int, params: TFHEParams, sms: int,
                                        for cs in served.values()):
         raise ValueError(f"cluster {cluster}: the small-tile K1 is built for "
                          f"clusters {served} at (k+1)·N = {kn}")
-    if cb is None and cluster is None:
-        from ..optimizer import runtime_model
-        pick = runtime_model.small_tile_pick(params, batch)
-        if pick is not None and pick[1] in served.get(pick[0], ()):
-            return _k1s_plan(params, n_limbs, pick[1], pick[0])
     if resident is None:
         def resident(p):
             return sms // p.cluster
@@ -768,7 +742,7 @@ def _launch_k1(b_init, a_t, test_polys, kernels, params: TFHEParams,
     """K1 on the card, through ``lib`` (default the built library), at the
     plan :func:`k1_device_plan` gives: the ring kernel's, or the small-N
     kernel's (below N=K1_SLICE, and above it on the small-tile plan, where
-    ``route`` or :func:`k1_route` takes it); counted under ``LAUNCHES`` and
+    ``route`` is ``"k1s"``); counted under ``LAUNCHES`` and
     ``K1_KERNELS``."""
     from . import _build
 
@@ -943,8 +917,7 @@ def blind_rotate_k1(b_init, a_t, test_polys, kernels, params: TFHEParams,
     ``K1_WIDTHS``.  All default to :func:`k1_plan`'s choice, which at N <
     K1_SLICE is the small-N kernel's (:func:`k1_small_plan`: tiles of
     K1S_TILE, a cluster of :func:`k1s_clusters`, no ``nw``) and above it
-    the plan of ``route`` (K1_ROUTES), by default the one :func:`k1_route`
-    gives."""
+    the plan of ``route`` (K1_ROUTES), by default the ring kernel's."""
     if test_polys.device.type != "cpu":
         return _launch_k1(b_init, a_t, test_polys, kernels, params,
                           batch_tile, cluster, nw, route=route)
@@ -952,33 +925,11 @@ def blind_rotate_k1(b_init, a_t, test_polys, kernels, params: TFHEParams,
                          batch_tile)
 
 
-def kernel_path(orientation: str | None, params: TFHEParams,
-                rows: int | None = None, n_limbs: int = N_LIMBS,
-                route: str | None = None) -> str:
-    """What runs a blind rotation of ``params`` through ``orientation``, as
-    the launch record names it: ``"k2"`` for ``"fused"``, ``"k1"`` for
-    ``"fused_otf"`` (``"k1s"`` for its small-N kernel: below N=K1_SLICE,
-    and above it where ``route``, or for a launch of ``rows`` ciphertexts
-    at ``n_limbs`` :func:`k1_route`, takes the small-tile plan), the
-    orientation's name for a library one, ``"generic"`` for None (no fast
-    keys)."""
-    if orientation == "fused":
-        return "k2"
-    if orientation == "fused_otf":
-        if params.poly_size < K1_SLICE:
-            return "k1s"
-        if route is not None:
-            return route
-        if rows is None:
-            return "k1"
-        return k1_route(params, rows, n_limbs)
-    return orientation or "generic"
-
-
 def blind_rotate_fused(b_init, a_t, test_polys, kernels, params: TFHEParams,
                        batch_tile: int | None = None,
                        launch: profiling.Launch | None = None,
-                       route: str | None = None) -> torch.Tensor:
+                       route: str | None = None,
+                       cluster: int | None = None) -> torch.Tensor:
     """All-steps-fused blind rotation -> accumulator [k+1, B, N] int32.
 
     ``b_init``: [B, 1] int32 initial amounts ((2N − b~) mod 2N); ``a_t``:
@@ -989,10 +940,10 @@ def blind_rotate_fused(b_init, a_t, test_polys, kernels, params: TFHEParams,
     or :func:`k2_plan`); the last tile may be ragged.  ``launch``: the
     family call's entry of the launch record, made at the launch
     (:func:`..utils.profiling.launch`).  ``route``: K1's at N ≥ K1_SLICE
-    (:func:`blind_rotate_k1`)."""
+    (:func:`blind_rotate_k1`); ``cluster``: CTAs a tile on the card."""
     with profiling.launch(launch):
         if kernels.ndim == 4:
             return blind_rotate_k1(b_init, a_t, test_polys, kernels, params,
-                                   batch_tile, None, None, route)
+                                   batch_tile, cluster, None, route)
         return blind_rotate_k2(b_init, a_t, test_polys, kernels, params,
-                               batch_tile)
+                               batch_tile, cluster)

@@ -370,11 +370,11 @@ def time_wide(name: str, params: TFHEParams, device: torch.device,
             for c in fbr.k1s_clusters(params, fbr.N_LIMBS, cb):
                 def call(cb=cb, c=c):
                     return fbr.blind_rotate_k1(*args, params, batch_tile=cb,
-                                               cluster=c)
+                                               cluster=c, route="k1s")
                 call()
                 ms = timed_ms(call, reps)
                 plan = fbr.k1_device_plan(r, params, device, cb=cb,
-                                          cluster=c)
+                                          cluster=c, route="k1s")
                 fit = fbr.k1_small_layout(plan, params)[1]
                 out.append({"family": name, "key": family_key(params),
                             "kernel": "k1s", "limbs": 4, "rows": r,

@@ -23,7 +23,7 @@ import json
 from dataclasses import dataclass
 from pathlib import Path
 
-from ..ops.blind_rotate import KSK_MAX_BASE_LOG, pick_kernel
+from ..ops.blind_rotate import KSK_MAX_BASE_LOG
 from ..ops.fused_blind_rotate import unsupported
 from ..tfhe.params import Q, TFHEParams, min_noise_std_rel
 from ..tfhe.staged import SELECT_P
@@ -67,12 +67,14 @@ class DeviceProfile:
     def kernel(self, n: int, k: int, N: int, br_l: int, ks_l: int,
                bsk_limbs: int = 4, staged: bool = False) -> str:
         """The kernel the model prices for a family of these sizes: K1 for
-        a staged family, else :func:`..ops.blind_rotate.pick_kernel` at
+        a staged family, else :func:`.runtime_model.pick_kernel` at
         ``k2_memory``, priced at this profile's efficiencies: K1 where K2
         does not serve the family or its matrices do not fit, else the one
         of the lower calibrated price (``ks_l`` names the family's
         calibration entries; the gadget base enters neither kernel's size
         rules)."""
+        from .runtime_model import pick_kernel    # it imports this module
+
         if staged and self.cuda_kernels:
             return "fused_otf"
         shell = TFHEParams(p=2, lwe_dim=n, glwe_dim=k, poly_size=N,

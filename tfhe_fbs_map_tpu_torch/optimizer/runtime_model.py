@@ -15,9 +15,10 @@ ciphertexts costs
 
 * the kernel: a fixed term plus ``waves × wave``.  The plan and its waves
   are :func:`..ops.fused_blind_rotate.k1_plan` / ``k2_plan``'s (below
-  N=256 K1's small-N plan, a cluster a tile of 16; above, where
-  :func:`small_tile_wins`, the same kernel's small-tile plan, priced from
-  its own points, :func:`small_tile_us`), given the calibrated
+  N=256 K1's small-N plan, a cluster a tile of 16; above, on the route
+  :func:`k1_route` prices, where :func:`small_tile_wins` the same kernel's
+  small-tile plan, priced from its own points, :func:`small_tile_us`),
+  given the calibrated
   card's SM count and the clusters it runs at once (the ``resident`` table;
   a plan it lacks runs one cluster an SM), so a prediction needs no card.
   A wave of a plan (tile ``cb``, ``cluster`` CTAs) carries ``cb · sms /
@@ -43,21 +44,30 @@ fullest timed launch of as many waves cost (:func:`small_tile_pick`).
 
 A launch runs its level's real bootstraps packed across the V evaluations,
 padded to whole tiles of the plan that serves them and no further than
-the level's bucket (:func:`launch_rows`, which the executor lays its
-launches out by); the per-program prices price those counts.
+the level's bucket (:func:`launch_rows`); the per-program prices price
+those counts.
 
-:func:`kernel_us` is the price ``--orientation auto`` compares K1 and K2
-by (:func:`..ops.blind_rotate.pick_kernel`): a call of each of the
-calibration's launch sizes :data:`ROWS`, summed.
+This module owns every kernel choice; the kernel layer runs what it is
+handed and prices nothing.  :func:`pick_kernel` chooses a native family's
+kernel, K1 or K2, by :func:`kernel_us`, the price of a call of each of the
+calibration's launch sizes :data:`ROWS`, summed (``--orientation auto``).
+:func:`launch_choice` chooses each family call's launch once: the count
+launched, the path the launch record names, K1's route and its small-tile
+plan's tile and cluster.  The executor lays its launches out by it and
+hands it down to the kernel.
 """
 
 from __future__ import annotations
 
 import math
 
-from ..ops.fused_blind_rotate import (K1_SLICE, K1Plan, K1SmallPlan, K2Plan,
-                                      k1_plan, k1_ring_plan, k1_route,
-                                      k1_wide_plan, k1s_clusters, k2_plan)
+from typing import NamedTuple
+
+from ..ops.blind_rotate import FUSED_HEADROOM, fused_key_bytes
+from ..ops.fused_blind_rotate import (K1_SLICE, N_LIMBS, K1Plan, K1SmallPlan,
+                                      K2Plan, k1_plan, k1_ring_plan,
+                                      k1_wide_plan, k1s_clusters, k2_plan,
+                                      unsupported)
 from ..tfhe.params import TFHEParams
 from .optimizer import (Solution, StagedSolution, bootstrap_cost_us,
                         calibration, h100_profile)
@@ -67,6 +77,7 @@ __all__ = ["predict_native_us", "predict_staged_us", "call_fixed_us",
            "family_key", "entry_key", "resident_key", "shape_key",
            "small_tile_wins", "small_tile_us", "small_tile_plan",
            "small_tile_pick", "small_points", "launch_tile", "launch_rows",
+           "k1_route", "pick_kernel", "launch_choice", "LaunchChoice",
            "ROWS", "SMALL_ROWS"]
 
 # Ciphertexts a call the calibration times (8 evaluations × 8 … 1024
@@ -124,7 +135,7 @@ def launch_tile(params: TFHEParams, rows: int, orientation: str | None,
                 bsk_limbs: int = 4, route: str | None = None) -> int:
     """Ciphertexts a tile of the plan that serves a launch of ``rows``
     through ``orientation`` on the calibrated card (K1's on ``route``,
-    default :func:`..ops.fused_blind_rotate.k1_route`'s; K2's); 1 for a
+    default :func:`k1_route`'s; K2's); 1 for a
     path with no tile (None: the generic bootstrap, ``matmul``, the conv
     orientations)."""
     if orientation not in ("fused", "fused_otf"):
@@ -139,12 +150,108 @@ def launch_rows(params: TFHEParams, real: int, v: int,
     runs at ``v`` evaluations: ``v · r``, ``r`` the least count at or above
     ``real`` for which ``v · r`` fills whole tiles of the plan that serves
     ``v · real`` (:func:`launch_tile`), and at most the level's bucket.  The
-    executor launches this many; the program prices price them."""
+    executor launches this many (:func:`launch_choice`); the program prices
+    price them."""
     if real <= 0:
         return 0
     tile = launch_tile(params, v * real, orientation, bsk_limbs, route)
     step = tile // math.gcd(tile, v)
     return v * min(bucket(real), -(-real // step) * step)
+
+
+def k1_route(params: TFHEParams, rows: int, n_limbs: int = N_LIMBS) -> str:
+    """Which kernel a K1 launch of ``rows`` ciphertexts runs, as the launch
+    record names it: ``"k1s"`` below N=K1_SLICE; above, ``"k1s"`` where the
+    small-tile plan serves the family at ``n_limbs`` and the calibration
+    prices it below the ring kernel's plan at ``rows``
+    (:func:`small_tile_wins`), else ``"k1"``."""
+    if params.poly_size < K1_SLICE:
+        return "k1s"
+    if not k1s_clusters(params, n_limbs):
+        return "k1"
+    return "k1s" if small_tile_wins(params, rows, n_limbs) else "k1"
+
+
+def _small_tile(params: TFHEParams, rows: int, n_limbs: int,
+                route: str | None = "k1s") -> tuple[int, int] | None:
+    """(tile, cluster) of K1's small-tile plan for a launch of ``rows`` on
+    ``route``: :func:`small_tile_pick`'s, where the route takes that plan
+    (``"k1s"`` at N ≥ K1_SLICE) and the pick serves ``n_limbs``; else None
+    (the kernel then takes the fewest waves on the card,
+    :func:`..ops.fused_blind_rotate.k1_wide_plan`)."""
+    if route != "k1s" or params.poly_size < K1_SLICE:
+        return None
+    pick = small_tile_pick(params, rows)
+    if pick is not None and pick[1] in k1s_clusters(params, n_limbs,
+                                                     pick[0]):
+        return pick
+    return None
+
+
+class LaunchChoice(NamedTuple):
+    """One family call's launch, as :func:`launch_choice` chooses it."""
+
+    launched: int        # ciphertexts launched
+    path: str            # as the launch record names it
+    route: str | None    # K1's (fused_blind_rotate.K1_ROUTES); None off K1
+    tile: tuple[int, int] | None   # K1's small-tile (tile, cluster), N ≥ 256
+
+
+def launch_choice(params: TFHEParams, real: int, v: int,
+                  orientation: str | None, bsk_limbs: int = N_LIMBS,
+                  route: str | None = None,
+                  card: bool = True) -> LaunchChoice:
+    """The launch of a family call of ``real`` bootstraps an evaluation at
+    ``v`` evaluations through ``orientation`` (None: the generic bootstrap)
+    at ``bsk_limbs``, decided once for the executor's layout, its launch
+    record and the kernel:
+
+    * ``launched``: :func:`launch_rows` on the card; off it (``card``
+      False) no kernel has tiles, so the real rows, ``v · real``;
+    * ``path``: ``"k2"`` for ``"fused"``, K1's route for ``"fused_otf"``,
+      the orientation's name for a library one, ``"generic"`` for None;
+    * ``route``: K1's, :func:`k1_route`'s at ``v · real`` unless ``route``
+      (``FastKeys.route``) names one at N ≥ K1_SLICE; None for another
+      orientation;
+    * ``tile``: on the card, where K1 takes its small-tile plan, that
+      plan's (tile, cluster) (:func:`_small_tile`), else None."""
+    rows, tile = v * real, None
+    if orientation == "fused_otf":
+        if route is None or params.poly_size < K1_SLICE:
+            route = k1_route(params, rows, bsk_limbs)
+        path = route
+        if card:
+            tile = _small_tile(params, rows, bsk_limbs, route)
+    else:
+        route = None
+        path = "k2" if orientation == "fused" else orientation or "generic"
+    launched = launch_rows(params, real, v, orientation if card else None,
+                           bsk_limbs, route)
+    return LaunchChoice(launched, path, route, tile)
+
+
+def pick_kernel(params: TFHEParams, memory: float, bsk_limbs: int = N_LIMBS,
+                headroom: float = FUSED_HEADROOM, served: bool = True,
+                profile=None) -> str:
+    """The kernel one native family takes, ``"fused"`` (K2) or
+    ``"fused_otf"`` (K1).  K1 where K2 does not serve ``params`` or its key
+    matrices plus ``headroom`` do not fit ``memory`` bytes; K2 where K1
+    does not serve them; else the one of the lower calibrated price
+    (:func:`kernel_us`: a call of each launch size the calibration timed,
+    summed, at ``profile``'s per-boot costs), K1 on a tie.  Without
+    ``served`` (the JAX module's model) no kernel's rules apply and the
+    matrices' fit alone decides.  The runtime CLI's ``--orientation auto``
+    passes the card's free memory, the cost model its device profile's, so
+    the model prices the kernel that runs."""
+    if served and unsupported(params, otf=False) is not None:
+        return "fused_otf"
+    if fused_key_bytes(params, bsk_limbs) + headroom > memory:
+        return "fused_otf"
+    if not served or unsupported(params, otf=True) is not None:
+        return "fused"
+    k2 = kernel_us(params, "fused", bsk_limbs, profile)
+    return "fused" if k2 < kernel_us(params, "fused_otf", bsk_limbs,
+                                     profile) else "fused_otf"
 
 
 def _orientation(params: TFHEParams, orientation: str | None,
@@ -286,9 +393,8 @@ def small_tile_wins(params: TFHEParams, rows: int,
     the family has calibrated points of both at ``rows`` (the ring's in its
     ``.../fused_otf`` entry), point against point; else against the ring's
     model (its fixed term and waves on the calibrated card, at the
-    calibrated per-boot cost at ``n_limbs``).  The rule
-    :func:`..ops.fused_blind_rotate.k1_route` applies, and the native
-    optimizer's."""
+    calibrated per-boot cost at ``n_limbs``).  The rule :func:`k1_route`
+    applies, and the native optimizer's."""
     cal = calibration()
     key = (id(cal), family_key(params), rows, n_limbs)
     hit = _ROUTES.get(key)
@@ -361,7 +467,9 @@ def small_tile_plan(params: TFHEParams, rows: int,
     cal = calibration()
     resident = _resident(cal["resident"], cal["sms"], "fused_otf", n_limbs,
                          params)
-    plan = k1_wide_plan(rows, params, cal["sms"], n_limbs, resident=resident)
+    cb, cluster = _small_tile(params, rows, n_limbs) or (None, None)
+    plan = k1_wide_plan(rows, params, cal["sms"], n_limbs, cluster,
+                        resident, cb)
     return plan, _waves(rows, plan, resident)
 
 
@@ -370,7 +478,8 @@ def launch_plan(params: TFHEParams, rows: int, orientation: str,
                 ) -> tuple[K1Plan | K1SmallPlan | K2Plan, int]:
     """The plan and the waves of one launch of ``rows`` ciphertexts through
     ``orientation`` on the calibrated card; K1's at N ≥ 256 on ``route``
-    (default :func:`..ops.fused_blind_rotate.k1_route`'s)."""
+    (default :func:`k1_route`'s), its small-tile plan on
+    :func:`_small_tile`'s tile and cluster."""
     cal = calibration()
     if orientation == "fused_otf" and route is None:
         route = k1_route(params, rows, bsk_limbs)
@@ -382,8 +491,10 @@ def launch_plan(params: TFHEParams, rows: int, orientation: str,
     sms, table = cal["sms"], cal["resident"]
     resident = _resident(table, sms, orientation, bsk_limbs, params)
     if orientation == "fused_otf":
-        plan = k1_plan(rows, params, sms, bsk_limbs, resident=resident,
-                       route=route)
+        cb, cluster = _small_tile(params, rows, bsk_limbs, route) \
+            or (None, None)
+        plan = k1_plan(rows, params, sms, bsk_limbs, cb, cluster,
+                       resident=resident, route=route)
     else:
         plan = k2_plan(rows, params, sms, bsk_limbs, resident=resident)
     out = plan, _waves(rows, plan, resident)

@@ -32,6 +32,7 @@ import torch
 from ..ops.blind_rotate import (FastKeys, bootstrap_matmul,
                                 functional_bootstrap_fast,
                                 shard_contraction)
+from ..optimizer.runtime_model import launch_choice
 
 __all__ = ["Mesh", "make_mesh", "shard_batch", "replicate",
            "shard_fast_keys", "sharded_bootstrap"]
@@ -192,11 +193,14 @@ def group_bootstrap(keys: list[FastKeys], big_cts, tvs, posts
                     ) -> list[torch.Tensor]:
     """One dp group's batched FBS, one output a position: its tp
     positions' partial products summed (``"matmul"``), or for one position
-    its fused kernel's launch."""
+    its fused kernel's launch, on the route and plan the cost model
+    chooses for it (:func:`..optimizer.runtime_model.launch_choice`)."""
     if keys[0].orientation == "matmul":
         return bootstrap_matmul(keys, list(big_cts), list(tvs), list(posts))
     (k,), (c,), (t,), (p,) = keys, big_cts, tvs, posts
-    return [functional_bootstrap_fast(k, c, t, p)]
+    choice = launch_choice(k.params, c.shape[0], 1, k.orientation, k.limbs,
+                           k.route, c.is_cuda)
+    return [functional_bootstrap_fast(k, c, t, p, None, choice)]
 
 
 def sharded_bootstrap(mesh: Mesh, fast: FastKeys):

@@ -315,14 +315,15 @@ def _bisect_launch(libs: dict, label: str, params, batch: int, reps: int,
                    seed: int, cluster: int | None = None,
                    tile: int | None = None) -> dict:
     """One launch's row of :func:`bisect_small`: its plan on the card (on
-    tiles of ``tile`` and ``cluster`` CTAs where given) and every variant's
-    ms."""
+    the small-tile plan's tiles of ``tile`` and ``cluster`` CTAs where
+    given) and every variant's ms."""
     from ..ops import fused_blind_rotate as fbr
 
     args = operands(params, batch, seed)
+    route = None if tile is None else "k1s"
     plan = fbr.k1_device_plan(batch, params, torch.device("cuda"),
                               fbr.N_LIMBS, cb=tile, cluster=cluster,
-                              lib=libs["base"])
+                              lib=libs["base"], route=route)
     row = {"launch": label, "k": params.glwe_dim, "N": params.poly_size,
            "l": params.bsk_level, "b": params.bsk_base_log,
            "n": params.lwe_dim, "ciphertexts": batch,
@@ -330,7 +331,8 @@ def _bisect_launch(libs: dict, label: str, params, batch: int, reps: int,
     base = None
     for name, lib in libs.items():
         def call(lib=lib):
-            return fbr._launch_k1(*args, params, tile, cluster, None, lib)
+            return fbr._launch_k1(*args, params, tile, cluster, None, lib,
+                                  route)
         got = call()
         torch.cuda.synchronize()
         base = got if base is None else base

@@ -55,7 +55,7 @@ import numpy as np
 import torch
 
 from ..ops.blind_rotate import (CONV_ORIENTATIONS, FUSED_HEADROOM, N_LIMBS,
-                                conv_unsupported, pick_kernel)
+                                conv_unsupported)
 from ..ops.fused_blind_rotate import unsupported
 from ..utils.profiling import torch_trace
 
@@ -77,8 +77,8 @@ def pick_orientations(families, device: torch.device,
                       bsk_limbs: int = N_LIMBS) -> list[str]:
     """``--orientation auto`` for the parameter families of one run: generic
     on the CPU.  On CUDA one native family takes
-    :func:`..ops.blind_rotate.pick_kernel` at the card's free memory (K1,
-    "fused_otf", where K2, "fused", does not serve it or its ``bsk_limbs``
+    :func:`..optimizer.runtime_model.pick_kernel` at the card's free memory
+    (K1, "fused_otf", where K2, "fused", does not serve it or its ``bsk_limbs``
     key matrices do not fit with ``FUSED_HEADROOM`` to spare; else the one
     of the lower calibrated price): the rule the cost model prices.  The
     two staged families both go to K1, the JAX reference's choice at every
@@ -86,6 +86,8 @@ def pick_orientations(families, device: torch.device,
     preset K1 ran the whole path faster even before K2's matrices are
     built (PERF.md); ``--orientation fused`` still asks for K2.  On CUDA it raises ValueError when the kernel picked cannot
     serve a family: the plain bootstrap runs there only when asked for."""
+    from ..optimizer.runtime_model import pick_kernel
+
     if device.type != "cuda":
         return ["generic"] * len(families)
     orients = ["fused_otf"] * len(families)

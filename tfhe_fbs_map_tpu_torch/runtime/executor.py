@@ -5,9 +5,10 @@ The counterpart of ``tfhe_fbs_map_tpu.runtime.executor``.  A
 depth, each level padded to a power-of-two bootstrap count, padding results
 sent to one dummy wire row), equal to JAX's.  A level launches fewer: its
 real bootstraps of the V evaluations together, padded only to whole tiles
-of the kernel that serves the launch
-(:func:`..optimizer.runtime_model.launch_rows`,
-:meth:`CircuitExecutor.launch_tensors`).  Two pipelines:
+of the kernel that serves the launch, as the cost model chooses each
+launch once (:func:`..optimizer.runtime_model.launch_choice`,
+:meth:`CircuitExecutor.launch_choices`); the choice carries K1's route and
+plan down to the kernel (:meth:`CircuitExecutor.step`).  Two pipelines:
 
 * native, one parameter family (:func:`compile_program`,
   :func:`_level_step`): each level is one gather + integer lincomb and one
@@ -58,7 +59,7 @@ import torch
 from ..frontend.lut_program import (LutProgram, N_BOOT, N_CONST, N_INPUT,
                                     N_LIN)
 from ..ops import fused_blind_rotate as fbr
-from ..optimizer.runtime_model import bucket, launch_rows
+from ..optimizer.runtime_model import bucket, launch_choice
 from ..parallel.mesh import (Mesh, check_tp, group_bootstrap,
                              position_keys, shard_batch)
 from ..tfhe.encrypt import decode, encode, lwe_encrypt, lwe_phase
@@ -149,14 +150,6 @@ class StagedPlan(Plan):
 
 def _u32(x) -> np.int32:
     return np.int64(x).astype(np.uint32).astype(np.int32)
-
-
-def _limbs(fast, params: TFHEParams) -> int:
-    """The BSK limbs of a family's fast keys (4 where it has none)."""
-    kern = getattr(fast, "bsk_kernels", None)
-    if kern is None or getattr(fast, "orientation", None) != "fused_otf":
-        return fbr.N_LIMBS
-    return kern.shape[1] // (params.glwe_dim + 1)
 
 
 def _boot_nodes(prog: LutProgram, wire_row: dict, input_rows: dict):
@@ -483,16 +476,19 @@ def _lincomb_flat(buf, wire_idx, coefs, consts) -> torch.Tensor:
 
 
 def _run_fbs(keys: TFHEKeys, fast_keys, flat, tvs, posts, v: int,
-             launch: profiling.Launch | None = None):
+             launch: profiling.Launch | None = None, choice=None):
     """One batched FBS of the V-major flat batch, the per-bootstrap test
     polynomials and offsets repeated for each of the V evaluations.
-    ``launch``: the call's entry of the launch record."""
+    ``launch``: the call's entry of the launch record; ``choice``: its
+    launch as the cost model chose it
+    (:class:`..optimizer.runtime_model.LaunchChoice`), whose K1 route and
+    plan the kernel runs."""
     tvs_flat = tvs.repeat(v, 1)
     posts_flat = posts.repeat(v)
     if fast_keys is not None:
         from ..ops.blind_rotate import functional_bootstrap_fast
         return functional_bootstrap_fast(fast_keys, flat, tvs_flat,
-                                         posts_flat, launch)
+                                         posts_flat, launch, choice)
     with profiling.launch(launch):
         return functional_bootstrap(keys, flat, tvs_flat, posts_flat)
 
@@ -509,14 +505,15 @@ def _scatter(buf, fresh, out_rows) -> torch.Tensor:
 
 
 def _level_step(keys: TFHEKeys, fast_keys, buf, wire_idx, coefs, consts,
-                tvs, posts, out_rows, launch: profiling.Launch | None = None
-                ) -> torch.Tensor:
+                tvs, posts, out_rows, launch: profiling.Launch | None = None,
+                choice=None) -> torch.Tensor:
     """One native level, in place on ``buf`` [W, V, d]: lincombs of gathered
     wires, one batched FBS, results scattered to ``out_rows``.
-    ``launch``: the FBS call's entry of the launch record."""
+    ``launch``: the FBS call's entry of the launch record; ``choice``: its
+    launch choice (:func:`_run_fbs`)."""
     fresh = _run_fbs(keys, fast_keys, _lincomb_flat(buf, wire_idx, coefs,
                                                     consts), tvs, posts,
-                     buf.shape[1], launch)
+                     buf.shape[1], launch, choice)
     return _scatter(buf, fresh, out_rows)
 
 
@@ -541,7 +538,8 @@ def _staged_level_step(keys1: TFHEKeys, keys2: TFHEKeys, fast1, fast2,
                        n_splits: int, buf, wi1, cf1, cs1, tvs1, ps1,
                        out_rows1, wi2, cf2, cs2, tvs2, ps2,
                        out_rows, launches: tuple = (None, None),
-                       cleared: tuple = (None, None)) -> torch.Tensor:
+                       cleared: tuple = (None, None),
+                       choices: tuple = (None, None)) -> torch.Tensor:
     """One staged level, in place on ``buf``: the fam1 call (stage 1 of the
     ``n_splits`` split nodes, then the fam1 singles) and its scatter, then
     the fam2 call, whose first ``n_splits`` rows add the stage-1 outputs G,
@@ -549,13 +547,15 @@ def _staged_level_step(keys1: TFHEKeys, keys2: TFHEKeys, fast1, fast2,
     dummy row.  ``launches``: the two calls' entries of the launch
     record.  ``cleared``: for each call, the dummy row where its plan pads
     and its launch does not, zeroed after its scatter, as the plan's
-    padding rows (each the zero ciphertext) would leave it; else None."""
+    padding rows (each the zero ciphertext) would leave it; else None.
+    ``choices``: the two calls' launch choices (:func:`_run_fbs`)."""
     _, v, d = buf.shape
     nb1, nb2 = wi1.shape[0], wi2.shape[0]
     g = None
     if nb1:
         out1 = _run_fbs(keys1, fast1, _lincomb_flat(buf, wi1, cf1, cs1),
-                        tvs1, ps1, v, launches[0]).reshape(v, nb1, d)
+                        tvs1, ps1, v, launches[0],
+                        choices[0]).reshape(v, nb1, d)
         g = out1[:, :n_splits]                            # [V, ns, d]
         buf[out_rows1.to(I64)] = out1.transpose(0, 1)
         if cleared[0] is not None:
@@ -565,7 +565,8 @@ def _staged_level_step(keys1: TFHEKeys, keys2: TFHEKeys, fast1, fast2,
         if n_splits:
             lead = flat2.view(v, nb2, d)[:, :n_splits]
             lead.copy_(wrap32(lead.to(I64) + g.to(I64)))
-        out2 = _run_fbs(keys2, fast2, flat2, tvs2, ps2, v, launches[1])
+        out2 = _run_fbs(keys2, fast2, flat2, tvs2, ps2, v, launches[1],
+                        choices[1])
         buf[out_rows.to(I64)] = out2.reshape(v, nb2, d).transpose(0, 1)
         if cleared[1] is not None:
             buf[cleared[1]] = 0
@@ -616,8 +617,7 @@ def _layout(shards: list[torch.Tensor]) -> tuple:
 class _Graph(NamedTuple):
     graph: torch.cuda.CUDAGraph
     launches: tuple          # its family calls' entries, made at capture
-    counts: dict             # its kernel launches under LAUNCHES' keys
-    kernels: dict            # and its K1 launches under K1_KERNELS' keys
+    counts: tuple            # its kernel launches, (counter, key, count)
     span: str                # the host span of its replay
 
 
@@ -633,7 +633,8 @@ class _Graphs:
 
     def replay(self, batch: int | None = None) -> None:
         """Every group on every position, in place on the static buffers;
-        each replay adds its kernel launches to ``fbr.LAUNCHES``.  In traced
+        each replay adds its kernel launches to ``fbr.LAUNCHES`` and
+        ``fbr.K1_KERNELS``.  In traced
         run ``batch`` each replay is a host span and appends its entries to
         the launch record."""
         for g in self.graphs:
@@ -643,30 +644,36 @@ class _Graphs:
                 with profiling.span(g.span, True):
                     g.graph.replay()
                 profiling.record(g.launches, batch)
-            for k, n in g.counts.items():
-                fbr.LAUNCHES[k] += n
-            for k, n in g.kernels.items():
-                fbr.K1_KERNELS[k] += n
+            for table, k, n in g.counts:
+                table[k] += n
 
 
-def _take_back(entries) -> dict[str, int]:
-    """Take the fused-kernel launches of ``entries`` back out of
-    ``fbr.LAUNCHES`` (a capture's, which launched nothing, or a warm-up's);
-    returns them."""
-    counts = profiling.launch_counts(entries)
-    for k, n in counts.items():
-        fbr.LAUNCHES[k] -= n
-    return counts
+def _k1_kernel(path: str, poly_size: int) -> str | None:
+    """The kernel a launch of the record's ``path`` runs at N =
+    ``poly_size``, as ``fbr.K1_KERNELS`` names it (None: not K1's)."""
+    if path == "k1s":
+        return "k1s_kernel" if poly_size < fbr.K1_SLICE \
+            else "k1s_kernel_wide"
+    return "k1_kernel" if path == "k1" else None
 
 
-def _kernels_since(before: dict) -> dict[str, int]:
-    """K1's launches by kernel since ``before`` (a copy of
-    ``fbr.K1_KERNELS``), taken back out of it as :func:`_take_back` takes
-    its launches; returns them."""
-    got = {k: fbr.K1_KERNELS[k] - n for k, n in before.items()}
-    for k, n in got.items():
-        fbr.K1_KERNELS[k] -= n
-    return got
+def _take_back(entries, sizes: dict[str, int]) -> tuple:
+    """Take the fused-kernel launches of ``entries`` (a capture's, which
+    launched nothing, or a warm-up's) back out of ``fbr.LAUNCHES``, and
+    K1's out of ``fbr.K1_KERNELS`` by the kernel each entry's path runs at
+    its family's N (``sizes``, by family); returns them as (counter, key,
+    count) triples."""
+    kernels: dict[str, int] = {}
+    for e in entries:
+        k = _k1_kernel(e.path, sizes[e.family])
+        if k is not None:
+            kernels[k] = kernels.get(k, 0) + 1
+    counts = [(fbr.LAUNCHES, k, n)
+              for k, n in profiling.launch_counts(entries).items()]
+    counts += [(fbr.K1_KERNELS, k, n) for k, n in kernels.items()]
+    for table, k, n in counts:
+        table[k] -= n
+    return tuple(counts)
 
 
 class CircuitExecutor:
@@ -747,6 +754,7 @@ class CircuitExecutor:
         self._plan_device = None
         self._graphs: dict[tuple, _Graphs] = {}
         self._plan_calls: dict[int, list] = {}
+        self._choices: dict[tuple, list] = {}
         self._layouts: dict[tuple, list] = {}
         self._launch_device: dict[tuple, list] = {}
 
@@ -816,31 +824,38 @@ class CircuitExecutor:
                   if self.staged else (self.keys.params,))
         return list(zip(fasts, params))
 
+    def launch_choices(self, v: int, card: bool = True) -> list[tuple]:
+        """Each family call's launch at every level at ``v`` evaluations a
+        position, as the cost model chooses it once
+        (:func:`..optimizer.runtime_model.launch_choice`): its real
+        bootstraps packed over the V evaluations, on the card (``card``)
+        padded to whole tiles of the kernel that serves them; at tp > 1 the
+        level's bucket.  The launch record names its path, and :meth:`step`
+        hands its K1 route and plan down to the kernel.  Cached."""
+        key = (v, card)
+        if key not in self._choices:
+            whole = self.tp > 1
+            fams = [(p, (f.orientation, f.limbs, f.route) if f is not None
+                     else (None, fbr.N_LIMBS, None))
+                    for f, p in self._families()]
+            self._choices[key] = [
+                tuple(launch_choice(p, nb if whole else real, v, *how,
+                                    card and not whole)
+                      for (_, nb, real), (p, how) in zip(self._calls(lv),
+                                                         fams))
+                for lv in range(len(self.levels))]
+        return self._choices[key]
+
     def launch_layout(self, v: int, card: bool = True
                       ) -> list[tuple[int, ...]]:
         """The bootstraps an evaluation each family call of every level
         launches at ``v`` evaluations a position: the plan's real ones
-        first, then its padding up to
-        :func:`..optimizer.runtime_model.launch_rows` of the kernel that
-        serves the launch on the card (``card``; off it no kernel has
-        tiles, so none), the level's bucket at tp > 1.  Cached."""
+        first, then its padding up to the count
+        :meth:`launch_choices` launches.  Cached."""
         key = (v, card)
         if key not in self._layouts:
-            fams = self._families()
-            layout = []
-            for lv in range(len(self.levels)):
-                rows = []
-                for (_, nb, real), (f, p) in zip(self._calls(lv), fams):
-                    if self.tp > 1 or not nb:
-                        rows.append(nb)
-                        continue
-                    orient = getattr(f, "orientation", None) if card \
-                        else None
-                    rows.append(launch_rows(
-                        p, real, v, orient, _limbs(f, p),
-                        getattr(f, "route", None)) // v)
-                layout.append(tuple(rows))
-            self._layouts[key] = layout
+            self._layouts[key] = [tuple(c.launched // v for c in calls)
+                                  for calls in self.launch_choices(v, card)]
         return self._layouts[key]
 
     def launch_tensors(self, device: torch.device, v: int
@@ -878,17 +893,12 @@ class CircuitExecutor:
         ``buf``'s position, one a family (None for each where no
         :func:`..utils.profiling.collect` block is open)."""
         v, dev = buf.shape[1], buf.device
-        calls = self.family_calls(lv, v, dev.type == "cuda")
+        choices = self.launch_choices(v, dev.type == "cuda")[lv]
         if not profiling.collecting():
-            return [None] * len(calls)
-        return [profiling.Launch(
-                    None, lv, fam, str(dev),
-                    fbr.kernel_path(getattr(f, "orientation", None), p,
-                                    launched, _limbs(f, p),
-                                    getattr(f, "route", None)),
-                    launched, real)
-                for (fam, launched, real), (f, p) in zip(calls,
-                                                         self._families())]
+            return [None] * len(choices)
+        return [profiling.Launch(None, lv, fam, str(dev), c.path, c.launched,
+                                 v * real)
+                for (fam, _, real), c in zip(self._calls(lv), choices)]
 
     def step(self, buf: torch.Tensor, lv: int) -> torch.Tensor:
         """Run level ``lv`` in place on ``buf`` (one device's buffer or
@@ -900,6 +910,7 @@ class CircuitExecutor:
         keys, fast = self._replica(buf.device)
         v, card = buf.shape[1], buf.device.type == "cuda"
         plan = self.launch_tensors(buf.device, v)[lv]
+        choices = self.launch_choices(v, card)[lv]
         launches = self._launches(buf, lv)
         if self.staged:
             fast1, fast2 = fast or (None, None)
@@ -909,8 +920,10 @@ class CircuitExecutor:
                                             self.launch_layout(v, card)[lv]))
             return _staged_level_step(keys.keys1, keys.keys2, fast1, fast2,
                                       self.levels[lv].n_splits, buf, *plan,
-                                      launches=launches, cleared=cleared)
-        return _level_step(keys, fast, buf, *plan, launch=launches[0])
+                                      launches=launches, cleared=cleared,
+                                      choices=choices)
+        return _level_step(keys, fast, buf, *plan, launch=launches[0],
+                           choice=choices[0])
 
     def _step_all(self, shards: list[torch.Tensor], lv: int
                   ) -> list[torch.Tensor]:
@@ -1007,15 +1020,17 @@ class CircuitExecutor:
         nothing in a capture waits for the card.  Each graph keeps the
         launch record's entries of the family calls it captured; the
         kernel launches of those and of the warm-up's are taken back out
-        of ``fbr.LAUNCHES`` (:func:`_take_back`), and each replay adds its
-        graph's.  A capture that meets a host sync raises."""
+        of ``fbr.LAUNCHES`` and ``fbr.K1_KERNELS`` (:func:`_take_back`), and
+        each replay adds its graph's.  A capture that meets a host sync
+        raises."""
         devices = list(dict.fromkeys(s.device for s in shards))
+        sizes = dict(zip(("fam1", "fam2") if self.staged else ("native",),
+                         (p.poly_size for _, p in self._families())))
         firsts: dict[tuple, int] = {}
         for lv, rows in enumerate(self.launch_layout(shards[0].shape[1])):
             firsts.setdefault(rows, lv)
         groups = self.launch_groups(shards[0].shape[1])
         pools = {}
-        before = dict(fbr.K1_KERNELS)
         with profiling.collect() as warm:
             try:
                 for dev in devices:
@@ -1032,14 +1047,12 @@ class CircuitExecutor:
                     torch.cuda.current_stream(dev).wait_stream(stream)
                     pools[dev] = torch.cuda.graph_pool_handle()
             finally:
-                _take_back(warm.entries)
-                _kernels_since(before)
+                _take_back(warm.entries, sizes)
         graphs = _Graphs([torch.empty_like(s) for s in shards])
         for i, group in enumerate(groups):
             for static in graphs.statics:
                 dev = static.device
                 graph = torch.cuda.CUDAGraph()
-                before = dict(fbr.K1_KERNELS)
                 with profiling.collect() as got:
                     try:
                         with torch.cuda.device(dev), torch.cuda.graph(
@@ -1048,10 +1061,9 @@ class CircuitExecutor:
                             for lv in group:
                                 self.step(static, lv)
                     finally:
-                        counts = _take_back(got.entries)
-                        kernels = _kernels_since(before)
+                        counts = _take_back(got.entries, sizes)
                 graphs.graphs.append(_Graph(
-                    graph, tuple(got.entries), counts, kernels,
+                    graph, tuple(got.entries), counts,
                     f"tfhe.replay g{i} levels {group.start}-"
                     f"{group.stop - 1} {dev}"))
         return graphs

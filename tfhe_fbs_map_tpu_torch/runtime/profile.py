@@ -199,10 +199,13 @@ def trace_levels(ex: CircuitExecutor, buf: torch.Tensor, levels: int,
 def tile_sweep(fast, batch: int, reps: int = 2) -> dict:
     """The kernel of the fast keys ``fast`` at ``batch`` ciphertexts over
     its launch knobs: every K1 (tile, cluster, warpgroup width) or K2 (tile,
-    cluster) plan; below N=256, and where K1 takes its small-tile plan at
-    N = 512, every cluster that kernel is built for at the plan's tile.  ms per launch (CUDA events, after a warm-up launch); every
-    setting's output must equal the first one's."""
+    cluster) plan; below N=256, and where the cost model sends K1 to its
+    small-tile plan at N = 512 (``runtime_model.launch_choice``), every
+    cluster that kernel is built for at the plan's tile.  ms per launch
+    (CUDA events, after a warm-up launch); every setting's output must
+    equal the first one's."""
     from ..ops import fused_blind_rotate as fbr
+    from ..optimizer.runtime_model import launch_choice
 
     params, kern = fast.params, fast.bsk_kernels
     dev = kern.device
@@ -216,11 +219,16 @@ def tile_sweep(fast, batch: int, reps: int = 2) -> dict:
     tvs = torch.randint(-2 ** 31, 2 ** 31, (batch, N), generator=g,
                         device=dev, dtype=torch.int32)
     if otf:
-        limbs = kern.shape[1] // (params.glwe_dim + 1)
-        plan = fbr.k1_device_plan(batch, params, dev, limbs)
+        limbs = fast.limbs
+        choice = launch_choice(params, batch, 1, "fused_otf", limbs,
+                               fast.route)
+        plan = fbr.k1_device_plan(batch, params, dev, limbs,
+                                  *(choice.tile or (None, None)),
+                                  route=choice.route)
         if isinstance(plan, fbr.K1SmallPlan):
             # the small-N kernel's knob: its clusters at the plan's tile
-            knobs = {f"{plan.cb}x{c}": dict(batch_tile=plan.cb, cluster=c)
+            knobs = {f"{plan.cb}x{c}": dict(batch_tile=plan.cb, cluster=c,
+                                            route=choice.route)
                      for c in fbr.k1s_clusters(params, limbs, plan.cb)}
             default = f"{plan.cb}x{plan.cluster}"
         else:
