@@ -255,6 +255,20 @@ def cuda_ms(fn, reps: int):
     return start.elapsed_time(end) / reps, first
 
 
+def kept_table(fbr, keys):
+    """A function that gives the ring kernel's table of ``keys``, built at
+    its first call and kept, as ``FastKeys.hankel`` does: a timed ring
+    launch then leaves the table's build out, and a launch on the small
+    tiles builds none."""
+    kept = []
+
+    def hankel():
+        if not kept:
+            kept.append(fbr.hankel_table(keys))
+        return kept[0]
+    return hankel
+
+
 def once_ms(fn):
     """Milliseconds of one run of ``fn``, CUDA events, and its result (the
     plain versions at full length are too slow to run twice)."""
@@ -504,8 +518,10 @@ def check_bootstrap(presets, worst: dict) -> dict:
         kfn = fbr.blind_rotate_k1 if kern == "k1" else fbr.blind_rotate_k2
         pfn = (fbr.blind_rotate_k1_plain if kern == "k1"
                else fbr.blind_rotate_k2_plain)
+        table = {"hankel": fast.hankel} if kern == "k1" else {}
         k_ms, k_out = cuda_ms(lambda: kfn(b_init, a_t, tv_l,
-                                          fast.bsk_kernels, params), REPS)
+                                          fast.bsk_kernels, params, **table),
+                              REPS)
         p_ms, p_out = cuda_ms(lambda: pfn(b_init, a_t, tv_l,
                                           fast.bsk_kernels, params), 1)
         b_ms, b_by = bound_ms(params, params.lwe_dim, LEVEL_BATCH,
@@ -541,8 +557,9 @@ def check_staged_launches(fbr, worst: dict) -> list[dict]:
         dev = kernel_inputs(params, steps, batch, 4, True, seed=10)
         c = chosen(params, batch)
         cb, cluster = c.tile or (None, None)
+        hankel = kept_table(fbr, dev[3])
         k_ms, k_out = cuda_ms(lambda: fbr.blind_rotate_k1(
-            *dev, params, cb, cluster, route=c.route), 1)
+            *dev, params, cb, cluster, route=c.route, hankel=hankel), 1)
         p_ms, p_out = once_ms(lambda: fbr.blind_rotate_k1_plain(*dev, params))
         b_ms, b_by = bound_ms(params, steps, batch, dev[3])
         err = int((k_out.long() - p_out.long()).abs().max())
@@ -592,7 +609,9 @@ def check_k1_4096(fbr, worst: dict) -> list[dict]:
             del dev, plain, got
     steps, batch = N4096_FULL
     dev = kernel_inputs(params, steps, batch, 4, True, seed=14)
-    k_ms, k_out = cuda_ms(lambda: fbr.blind_rotate_k1(*dev, params), 1)
+    hankel = kept_table(fbr, dev[3])
+    k_ms, k_out = cuda_ms(lambda: fbr.blind_rotate_k1(*dev, params,
+                                                      hankel=hankel), 1)
     p_ms, p_out = once_ms(lambda: fbr.blind_rotate_k1_plain(*dev, params))
     b_ms, b_by = bound_ms(params, steps, batch, dev[3])
     err = int((k_out.long() - p_out.long()).abs().max())
@@ -894,7 +913,8 @@ def check_bench_launches(fbr, presets, worst: dict) -> dict:
         dev = kernel_inputs(params, steps, BENCH_BATCH, 4, otf, seed=12)
         kfn = fbr.blind_rotate_k1 if otf else fbr.blind_rotate_k2
         pfn = fbr.blind_rotate_k1_plain if otf else fbr.blind_rotate_k2_plain
-        k_ms, k_out = cuda_ms(lambda: kfn(*dev, params), REPS)
+        table = {"hankel": kept_table(fbr, dev[3])} if otf else {}
+        k_ms, k_out = cuda_ms(lambda: kfn(*dev, params, **table), REPS)
         p_ms, p_out = once_ms(lambda: pfn(*dev, params))
         b_ms, b_by = bound_ms(params, steps, BENCH_BATCH, dev[3])
         err = int((k_out.long() - p_out.long()).abs().max())
@@ -1619,9 +1639,10 @@ def check_k1_wide(fbr, worst: dict) -> dict:
     out = {"launch": f"{name} full length", "n": params.lwe_dim,
            "ciphertexts": batch, "plain_ms": p_ms, "bound_ms": b_ms,
            "bound_by": b_by}
+    hankel = kept_table(fbr, inputs[3])
     for r in fbr.K1_ROUTES:
-        ms, got = cuda_ms(lambda: fbr.blind_rotate_k1(*inputs, params,
-                                                      route=r), REPS)
+        ms, got = cuda_ms(lambda: fbr.blind_rotate_k1(
+            *inputs, params, route=r, hankel=hankel), REPS)
         plan = fbr.k1_device_plan(batch, params, dev, route=r)
         out[r] = {"plan": list(plan), "ms": ms}
         report(WIDE_ROW[r], f"{name} full length n={params.lwe_dim} "
@@ -2375,7 +2396,8 @@ def main(argv=None) -> int:
          "plain_ms": timing[kern][1], "bound_ms": timing[kern][2],
          "bound_by": timing[kern][3], "library_ms": None,
          **({"staged_launches": staged_k1, "n4096_launches": n4096,
-             "conv_orientations": conv} if kern == "k1" else {}),
+             "conv_orientations": conv, "hankel": dict(fbr.HANKEL)}
+            if kern == "k1" else {}),
          **({"matmul_orientation": matmul} if kern == "k2" else {}),
          **({"graph_ms": small_k[-1]["graph_ms"],
              "small_n_launches": small_k} if kern == "k1_small" else {}),

@@ -827,6 +827,65 @@ def test_packed_launch_equals_the_bucketed_one(cuda, name, v, real, plans):
     assert torch.equal(got[packed], got[whole][:, :packed])
 
 
+# K1's ring kernel at the cells' launches, full length: AES-128's family at
+# 1,024 and 520 rows, Kreyvium's fam1 at 3,200 and at 2,280 (its smallest
+# packed launch, a ragged last tile of 40)
+RING_LAUNCHES = [("aes128_p4", 1024), ("aes128_p4", 520),
+                 ("kreyvium_p10_staged.fam1", 3200),
+                 ("kreyvium_p10_staged.fam1", 2280)]
+
+
+@pytest.mark.parametrize("name,batch", RING_LAUNCHES)
+def test_ring_kernel_reads_the_table_bitwise(cuda, name, batch):
+    """K1's ring kernel, its H blocks copied from the keys' table, bitwise
+    against the plain version at full length (operands drawn on the card),
+    twice on one table: the keys' table is built once."""
+    from tfhe_fbs_map_tpu_torch.runtime.bisect import operands, shapes
+    params = shapes()[name]
+    dev = operands(params, batch, seed=batch)
+    assert isinstance(fbr.k1_device_plan(batch, params, cuda, route="k1"),
+                      fbr.K1Plan)
+    before, kept = dict(fbr.HANKEL), []
+
+    def hankel():
+        if not kept:
+            kept.append(fbr.hankel_table(dev[3]))
+        return kept[0]
+    got = [fbr.blind_rotate_k1(*dev, params, route="k1", hankel=hankel)
+           for _ in range(2)]
+    plain = fbr.blind_rotate_k1_plain(*dev, params)
+    assert fbr.HANKEL["tables"] == before["tables"] + 1
+    assert torch.equal(got[0], plain) and torch.equal(got[1], plain)
+
+
+def test_a_key_off_the_ring_builds_no_table(cuda):
+    """A key whose launches all take the small-tile plan builds no table
+    (``HANKEL`` unchanged, none kept by its ``FastKeys``); its first ring
+    launch builds one, which its later ring launches read."""
+    import dataclasses
+    from tfhe_fbs_map_tpu_torch.ops.blind_rotate import FastKeys
+    from tfhe_fbs_map_tpu_torch.runtime.bisect import operands, shapes
+    params = dataclasses.replace(shapes()["aes128_p4"], lwe_dim=5)
+    dev = operands(params, 64, seed=3)
+    fast = FastKeys(params, dev[3], torch.zeros(8, 8, dtype=torch.int8,
+                                                device=cuda), "fused_otf")
+    plain = fbr.blind_rotate_k1_plain(*dev, params)
+    cluster = fbr.k1s_clusters(params, 4, 16)[0]
+    before = dict(fbr.HANKEL)
+    for _ in range(2):
+        got = fbr.blind_rotate_fused(*dev, params, 16, None, "k1s", cluster,
+                                     fast.hankel)
+        assert torch.equal(got, plain)
+    assert fbr.HANKEL == before and fast._hankel is None
+    for _ in range(2):
+        got = fbr.blind_rotate_fused(*dev, params, None, None, "k1", None,
+                                     fast.hankel)
+        assert torch.equal(got, plain)
+    assert fbr.HANKEL == {"tables": before["tables"] + 1,
+                          "bytes": before["bytes"] + 16 * dev[3].numel()}
+    assert fast._hankel is not None
+
+
 def test_small_tile_layout_on_the_card(cuda):
     """The small-tile plan's shared memory, as the kernel sizes it, is the
     host's copy of its layout (``k1_small_smem``) at every family, tile and

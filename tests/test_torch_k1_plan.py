@@ -1,16 +1,17 @@
 """K1's launch plan, the reversed-digit Hankel layout of its key operand, and
-a plain emulation of its CUDA schedule.
+a plain emulation of its CUDA schedule; the table of H blocks it copies.
 
 ``k1_plan`` is checked at every preset, at the staged families' shapes and
 at native p32, for the main path's batch sizes.  The emulation runs the
 kernel's schedule in plain torch: clusters of CTAs that each own a slice of
 the (k+1)·N output coefficients and write the digits of their coefficients
 reversed within each row into a shared scratch; per chunk and K1_SLICE-byte
-contraction slice, the H blocks built from the compact extensions and the
-key tile read out of them the way the no-swizzle ``wgmma`` descriptors
-address them; int32 partial sums; the limb combine.  It is held bitwise
-against ``blind_rotate_k1_plain`` and the JAX ``_kernel_otf`` in interpret
-mode, including limb drop and a ragged last tile."""
+contraction slice, the H blocks copied from the keys' table (a run of
+blocks from (t_c + j0')/8) and the key tile read out of them the way the
+no-swizzle ``wgmma`` descriptors address them; int32 partial sums; the limb
+combine.  It is held bitwise against ``blind_rotate_k1_plain`` and the JAX
+``_kernel_otf`` in interpret mode, including limb drop and a ragged last
+tile."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -154,15 +155,110 @@ def test_reversed_digits_make_a_hankel_matrix_of_h_blocks():
 
 
 def test_h_block_builder_reads_only_the_extension():
-    """The kernel builds row ii of block w from the 4-byte words around
-    8w+ii+1 of one extension; for every chunk and slice the last byte it
-    needs is inside the extension (no read past 2N)."""
+    """The kernel copies a stage's blocks of one limb as the table's run
+    from o0/8 (o0 = t_c + j0'); for every chunk and slice the run ends
+    inside its (step, limb, comp, row)'s 2N/8 blocks, and the last byte of
+    E it holds is inside the extension (no run reaches the table's zeros
+    past 2N)."""
     for name, params in SHAPES.items():
         N = params.poly_size
         for nw in fbr.K1_WIDTHS:
             cw = 2 * nw
-            last = (N - cw) + (N - fbr.K1_SLICE) + 8 * h_blocks(nw) + 15
+            o0 = (N - cw) + (N - fbr.K1_SLICE)     # the largest offset
+            assert o0 % 16 == 0
+            assert o0 // 8 + h_blocks(nw) <= 2 * N // 8, name
+            last = o0 + 8 * h_blocks(nw) + 15
             assert last == 2 * N - 1, name
+
+
+def old_producer_run(e, o0, hb):
+    """The H blocks the ring kernel's producer built before the table, as
+    its CUDA source cut them: the extension bytes E[o0 .. o0+8·hb+16)
+    (read past 2N as the next row's slack; zeros here), and row ii of block
+    w funnel-shifted out of the 4-byte words around 8w+ii+1."""
+    buf = np.zeros(8 * hb + 24, dtype=np.uint8)
+    got = e[o0:o0 + 8 * hb + 16].view(np.uint8)
+    buf[:len(got)] = got
+    words = buf[:len(buf) // 4 * 4].view("<u4").astype(np.uint64)
+    out = np.zeros((hb, 8, 16), dtype=np.uint8)
+    for ii in range(8):
+        for w in range(hb):
+            off = 8 * w + ii + 1
+            src, sh = off // 4, 8 * (off % 4)
+            for c in range(4):
+                v = ((words[src + c] | (words[src + c + 1] << 32)) >> sh) \
+                    & 0xFFFFFFFF
+                out[w, ii, 4 * c:4 * c + 4] = np.array(
+                    [v], dtype="<u4").view(np.uint8)
+    return out.view(np.int8)
+
+
+@pytest.mark.parametrize("limbs", [4, 3])
+def test_hankel_table_is_the_old_producers_blocks(limbs):
+    """The ring kernel's table holds, block for block, the rows its
+    producer used to cut at every stage: row i of block w of the run at o0
+    is E[o0+8w+i+1 ..+16), at every (limb, comp, row) and at the offsets
+    of both edges (the first chunk's first slice, the last chunk's last)
+    and between; every block also matches E[8w+i+1 ..+16) with zeros past
+    2N, and the table is 16x the keys' bytes."""
+    params = PRESETS["test"][0]
+    N, k1 = params.poly_size, params.glwe_dim + 1
+    rows = k1 * params.bsk_level
+    rng = np.random.default_rng(limbs)
+    keys = rng.integers(-128, 128, (2, limbs * k1, rows, 2 * N),
+                        dtype=np.int8)
+    before = dict(fbr.HANKEL)
+    table = fbr.hankel_table(torch.from_numpy(keys)).numpy()
+    assert table.shape == (2, limbs * k1, rows, 2 * N // 8, 128)
+    assert fbr.HANKEL == {"tables": before["tables"] + 1,
+                          "bytes": before["bytes"] + 16 * keys.size}
+    pad = np.concatenate([keys, np.zeros(keys.shape[:-1] + (16,),
+                                         dtype=np.int8)], axis=-1)
+    idx = (np.arange(2 * N // 8)[:, None, None] * 8
+           + np.arange(8)[None, :, None] + 1 + np.arange(16))
+    assert np.array_equal(table, pad[..., idx].reshape(table.shape))
+    for nw in fbr.K1_WIDTHS:
+        hb = h_blocks(nw)
+        edge = (N - 2 * nw) + (N - fbr.K1_SLICE)
+        for o0 in sorted({0, 16, edge // 2 // 16 * 16, edge}):
+            for lc in range(limbs * k1):
+                for r in range(rows):
+                    run = table[1, lc, r, o0 // 8:o0 // 8 + hb]
+                    assert np.array_equal(
+                        run.reshape(hb, 8, 16),
+                        old_producer_run(keys[1, lc, r], o0, hb)), \
+                        (nw, o0, lc, r)
+
+
+def test_only_a_ring_launch_builds_the_table():
+    """A K1 launch reads the compact keys on the small-N kernel's plans and
+    the keys' table on the ring's: a key whose launches never take the
+    ring builds none (``HANKEL`` unchanged), and one whose launches do
+    builds one, once, kept by its ``FastKeys``."""
+    from tfhe_fbs_map_tpu_torch.ops.blind_rotate import FastKeys
+    params = AES
+    k1, N = params.glwe_dim + 1, params.poly_size
+    keys = torch.randint(-128, 128, (2, 4 * k1, k1 * params.bsk_level,
+                                     2 * N), dtype=torch.int8)
+    fast = FastKeys(params, keys, torch.zeros(8, 8, dtype=torch.int8),
+                    "fused_otf")
+    before = dict(fbr.HANKEL)
+    small = fbr.k1_plan(16, params, SMS, route="k1s")
+    assert isinstance(small, fbr.K1SmallPlan)
+    for _ in range(3):
+        assert fbr.k1_operand(small, keys, fast.hankel) is keys
+    assert fbr.HANKEL == before and fast._hankel is None
+    ring = fbr.k1_plan(1024, params, SMS, route="k1")
+    assert isinstance(ring, fbr.K1Plan)
+    table = fbr.k1_operand(ring, keys, fast.hankel)
+    assert table.shape == (*keys.shape[:-1], 2 * N // 8, 128)
+    assert fbr.k1_operand(ring, keys, fast.hankel) is table
+    assert fast.hankel() is table
+    assert fbr.HANKEL == {"tables": before["tables"] + 1,
+                          "bytes": before["bytes"] + table.numel()}
+    # a table of other keys is refused
+    with pytest.raises(ValueError):
+        fbr.k1_operand(ring, keys[:1], fast.hankel)
 
 
 # ------------------------------------------------ emulation of the kernel
@@ -204,7 +300,7 @@ def emulate_k1(b_init, a_t, tvs, keys, params, plan):
                           b_init[:, 0].long())
 
     bl, half = b * l, 1 << (b - 1)
-    ext = keys.long()
+    table = fbr.hankel_table(keys).long()
     for i in range(a_t.shape[0]):
         amt = a_t[i, :, 0].long()
         dig = torch.zeros((tiles * cb, K), dtype=torch.int64)
@@ -230,12 +326,11 @@ def emulate_k1(b_init, a_t, tvs, keys, params, plan):
                         row, j0 = x // N, x % N
                         a = dig[tile * cb:(tile + 1) * cb, x:x + kc].double()
                         for lb in range(L):
-                            e = ext[i, lb * k1 + comp, row]
-                            # the stage's H blocks: E[tc+j0+8w+ii+1+col]
-                            off = (tc + j0 + 8 * torch.arange(hb)[:, None]
-                                   + torch.arange(8)[None, :] + 1)
-                            h = e[off[:, :, None]
-                                  + torch.arange(16)].reshape(-1)
+                            # the stage's H blocks: the table's run of hb
+                            # blocks from (tc + j0) / 8, one bulk copy
+                            w0 = (tc + j0) // 8
+                            h = table[i, lb * k1 + comp, row,
+                                      w0:w0 + hb].reshape(-1)
                             part[lb] += a @ h[h_index].double().t()
                     # int32 sums: exact and in range
                     assert part.abs().max() < 2 ** 31
@@ -304,6 +399,9 @@ def test_bisect_variants_remove_one_phase_each():
     assert var["base"] == src
     assert src.count("wgmma_s8<R>(") == 1
     assert "wgmma_s8<R>(" not in var["no_products"]
-    assert "if (lb < 0)" in var["no_build"]
+    assert "bulk_load(" not in var["no_h_copy"].split("copy_h = ")[1] \
+        .split("};")[0]
+    assert "hfull + 8 * s, (G / kS)" not in var["no_h_copy"]
+    assert "wgmma_s8<R>(" not in var["no_products_no_h_copy"]
     assert "digit_pass<" not in var["no_digits"]
     assert len({text for text in var.values()}) == len(var)

@@ -36,7 +36,8 @@ from ..tfhe.numeric import I32, I64, gadget_decompose, int8_matmul, \
 from ..tfhe.params import Q_BITS, TFHEParams
 from ..tfhe.pbs import add_body, sample_extract
 from ..utils import profiling
-from .fused_blind_rotate import N_LIMBS, blind_rotate_fused, decompose_digits
+from .fused_blind_rotate import N_LIMBS, blind_rotate_fused, \
+    decompose_digits, hankel_table
 from .polymul import monomial_rotate, negacyclic_matrix
 
 __all__ = ["FastKeys", "prepare_fast_keys", "keyswitch_fast",
@@ -86,7 +87,9 @@ class FastKeys:
     the route of every ``"fused_otf"`` launch at N ≥ 256 through these
     keys (``fused_blind_rotate.K1_ROUTES``; None: the one the cost model
     prices lower at each launch); the cost model's launch choice reads it
-    (``optimizer.runtime_model.launch_choice``).
+    (``optimizer.runtime_model.launch_choice``).  :meth:`hankel`: the ring
+    kernel's table of ``"fused_otf"``'s keys, built at its first ring
+    launch and kept.
     """
 
     def __init__(self, params: TFHEParams, bsk_kernels: torch.Tensor,
@@ -98,6 +101,16 @@ class FastKeys:
         self.orientation = orientation
         self.shard = shard
         self.route = route
+        self._hankel = None
+
+    def hankel(self) -> torch.Tensor:
+        """The table of H blocks K1's ring kernel reads
+        (:func:`.fused_blind_rotate.hankel_table`), built at the first call
+        and kept: a key's launches never rebuild it, and a key none of
+        whose launches takes the ring never builds it."""
+        if self._hankel is None:
+            self._hankel = hankel_table(self.bsk_kernels)
+        return self._hankel
 
     @property
     def ksk_limbs(self) -> torch.Tensor:
@@ -592,5 +605,5 @@ def functional_bootstrap_fast(fast: FastKeys, big_cts: torch.Tensor,
     cb, cluster = tile or (None, None)
     acc = blind_rotate_fused(b_init, a_steps, test_polys.contiguous(),
                              fast.bsk_kernels, params, cb, launch, route,
-                             cluster)
+                             cluster, fast.hankel)
     return add_body(sample_extract(acc.permute(1, 0, 2), params), posts)

@@ -1,6 +1,6 @@
 // K1, the "fused_otf" blind rotation, for Hopper (sm_90a): all n CMux steps
 // of a tile of ciphertexts in one launch, the contraction on int8 tensor
-// cores with the key operand built on chip from the compact keys.  K2
+// cores with the key operand copied from a table built once a key.  K2
 // ("fused") is in fused_blind_rotate_k2.cu; the helpers both use are in
 // fused_blind_rotate.cuh.
 //
@@ -11,8 +11,8 @@
 //   ACC[comp] += sum_limb (digits @ M_{limb,comp}) << 8*(limb + drop).
 //
 // A step's key is only L*(k+1)*rows*2N bytes (73.7 KB at the aes128_p4
-// preset, 42.6 MB a launch), so unlike K2 no key matrix is streamed: each
-// CTA builds the tiles of M it needs in shared memory.  The design:
+// preset, 42.6 MB a launch), so unlike K2 no key matrix is streamed.  The
+// design:
 //
 // * Digits reversed within each row's N block (j' = N-1-j, written so by
 //   the digit pass) turn M into a Hankel matrix, B'[t][j'] = E[t + j' + 1]:
@@ -22,8 +22,16 @@
 //   wgmma descriptor with core matrices 256 bytes apart along K and 128
 //   bytes apart along N reads any B tile straight out of consecutive H
 //   blocks (they overlap, which reads allow): a ring stage holds, per limb,
-//   the CW/8 + 14 blocks that one 128-byte K slice of a chunk of CW
+//   the CW/8 + 30 blocks that one 256-byte K slice of a chunk of CW
 //   coefficients touches, 16x the E bytes they come from.
+// * H depends on the key alone, so the launch side builds it once a key
+//   (hankel_table in ops/fused_blind_rotate.py): for each (step, limb,
+//   comp, row) the 2N/8 blocks at every 8-byte offset o of E, block o/8
+//   row i = E[o + i + 1 ..+16), zeros past 2N (16x the key, 682 MB at
+//   aes128_p4).  A stage's blocks of one limb are a contiguous run of it,
+//   from o0 / 8 with o0 = t_c + j0' (the chunk's first coefficient and the
+//   slice's first column), and every tile of a launch reads the same runs,
+//   so L2 serves all but the first read.
 // * A tile of CB (64 or 128) ciphertexts runs on a thread-block cluster of
 //   C CTAs, as in K2: CTA r owns coefficients [r*span, (r+1)*span) of the
 //   flattened (comp, t) axis, span = (k+1)*N / C, with all L limbs, so the
@@ -32,27 +40,25 @@
 //   step order them.
 // * Per chunk of CW = 2*NW coefficients, the CTA walks K in 256-byte
 //   slices through a ring of 4-6 stages (as many as shared memory holds),
-//   each the slice's digit rows and H blocks.  Three warpgroups: a
-//   producer (56 registers after setmaxnreg) claims a stage once the
-//   consumers release it, loads its digit rows with TMA (128B swizzle) and
-//   builds its H blocks from E bytes that its first thread bulk-copied into
-//   a ring of 8 shared-memory buffers six builds before (a step's keys come
-//   from device memory the first time); a lane walks a run of blocks for
-//   one (limb, row ii), two new words a row.  The H blocks do not depend on
-//   the digits, so the producer builds the next step's first stages during
-//   the digit pass.  Two consumers (224 registers) each own NW of the
-//   chunk's coefficients and run, per limb and 64-row block, m64n(NW)k32
-//   wgmma s8*s8->s32 with A (digits) and B (H) from shared memory, one
-//   wgmma group in flight; they compute the digit pass and the ACC
-//   epilogue.  Stages pass between them by three mbarriers each (digits
-//   landed, H built, stage consumed), E buffers by one each.
-// * What bounds it on the H100: the ring's hand-offs.  A cycle trace of
-//   one CTA at n=578, B=1024 (plan 64 x 6, nw 64, 128-byte stages) gave
-//   the consumers ~950 cycles of issue an iteration (the tensor cores at
-//   about their peak) and ~830 of waiting for H, and the producer ~505 of
-//   building against ~1,500 of fixed cost (claim, TMA, E fetch and wait);
-//   256-byte stages halve those per product.  The digit pass and the two
-//   cluster barriers are serial around the ring (~20% of a step).
+//   each the slice's digit rows and H blocks.  Three warpgroups: the
+//   producer's first thread (the warpgroup at 56 registers after
+//   setmaxnreg) claims a stage once the consumers release it and issues
+//   its copies: the digit rows by TMA (128B swizzle), the H blocks by one
+//   bulk copy a limb from the table.  The H blocks do not depend on the
+//   digits, so it issues the next step's first stages during the digit
+//   pass.  Two consumers (224 registers) each own NW of the chunk's
+//   coefficients and run, per limb and 64-row block, m64n(NW)k32 wgmma
+//   s8*s8->s32 with A (digits) and B (H) from shared memory, one wgmma
+//   group in flight; they compute the digit pass and the ACC epilogue.
+//   Stages pass between them by three mbarriers each (digits landed, H
+//   landed, stage consumed).
+// * What bounds it on the H100: the serial work around the products.  The
+//   phase bisect (runtime/bisect.py) at n=578, B=1024 (plan 64 x 6, nw 64)
+//   gives 25.8 ms a launch against a least time of 11.29; leaving out the
+//   products saves 10.2 ms, the H copies 1.0 and the digit pass 5.3 (at
+//   Kreyvium's fam1, B=3200: 248.1 ms; 111.5, 8.1 and 25.9).  The digit
+//   pass and the two cluster barriers a step stall the ring; only a second
+//   independent tile a CTA could hide them.
 // * Exactness: |digit| <= 2^(b-1) <= 128, |key| <= 128 and K*2^(b+6) <
 //   2^31 (unsupported() in ops/fused_blind_rotate.py), so each int32 sum
 //   is exact.  The limb shifts and the ACC adds are uint32_t (mod 2^32).
@@ -69,12 +75,10 @@ namespace k1 {
 
 constexpr int kSlice = 2 * kKc;  // contraction bytes a ring stage
 constexpr int kMaxStages = 6;    // ring stages, as many as fit up to this
-// dynamic shared memory beside the ring (1024-byte alignment, mbarriers, E
-// buffers) and the static amt[2][CB]
-constexpr int kSmemBeside = 14336;
+// dynamic shared memory beside the ring (1024-byte alignment, mbarriers)
+// and the static amt[2][CB]
+constexpr int kSmemBeside = 2048;
 constexpr int kSmemStatic = 1024;
-constexpr int kEBufs = 8;   // E buffers
-constexpr int kAhead = 6;   // builds between an E fetch and its build
 constexpr int kProducer = 128;  // the producer warpgroup's threads
 constexpr int kK1Threads = kThreads + kProducer;
 // registers a thread after setmaxnreg: 256 * 224 + 128 * 56 = 384 * 168
@@ -98,11 +102,9 @@ struct Stage {
   static constexpr int kStages = kFit < kMaxStages ? kFit : kMaxStages;
   static constexpr int kSmem = kStages * kBytes + kSmemBeside;
   static_assert(kStages >= 4, "a ring of fewer than 4 stages");
-  // alignment, 3 mbarriers a stage and 1 an E buffer in 256 bytes, the E
-  // buffers (kEB bytes a limb, see the producer)
-  static_assert(8 * (3 * kMaxStages + kEBufs) <= 256 &&
-                    1023 + 256 + kEBufs * L * (8 * kHB + 16) <= kSmemBeside,
-                "mbarriers and E buffers overflow the bytes beside the ring");
+  // alignment and 3 mbarriers a stage
+  static_assert(1023 + 8 * 3 * kMaxStages <= kSmemBeside,
+                "mbarriers overflow the bytes beside the ring");
 };
 
 template <int L, int CB, int NW>
@@ -110,7 +112,7 @@ __global__ void __launch_bounds__(kK1Threads, 1)
 k1_kernel(const __grid_constant__ CUtensorMap dig_map,
           const int32_t* __restrict__ b_init,
           const int32_t* __restrict__ a_t, const int32_t* __restrict__ tv,
-          const int8_t* __restrict__ keys, int32_t* out, int8_t* dig,
+          const int8_t* __restrict__ hankel, int32_t* out, int8_t* dig,
           int steps, int batch, int n, int k1, int l, int b, int cluster) {
   constexpr int MT = CB / kM;  // 64-row blocks of the tile
   constexpr int CW = 2 * NW;   // coefficients a chunk (two warpgroups)
@@ -132,13 +134,11 @@ k1_kernel(const __grid_constant__ CUtensorMap dig_map,
   const int nk = K / kSlice;
   const int chunks = span / CW;
   const int total = chunks * nk;  // ring iterations a step
-  const int last = steps * total;
   const int pre = total < kS ? total : kS;
   const int log_n = __ffs(n) - 1;
   uint32_t* acc = reinterpret_cast<uint32_t*>(out);  // [k1][batch][n]
   const uint32_t smem0 = (smem_u32(smem_raw) + 1023) & ~1023u;
-  unsigned char* smem_gen = smem_raw + (smem0 - smem_u32(smem_raw));
-  // per stage: digits landed (TMA), H built (producer), stage consumed
+  // per stage: digits landed (TMA), H landed (bulk copies), stage consumed
   // (one arrival per consumer warp)
   const uint32_t afull = smem0 + kS * St::kBytes;
   const uint32_t hfull = afull + 8 * kS, empty = hfull + 8 * kS;
@@ -150,8 +150,6 @@ k1_kernel(const __grid_constant__ CUtensorMap dig_map,
       mbar_init(hfull + 8 * s, 1);
       mbar_init(empty + 8 * s, kThreads / 32);
     }
-    for (int b = 0; b < kEBufs; ++b)  // E buffers' barriers
-      mbar_init(afull + 24 * kS + 8 * b, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -159,51 +157,13 @@ k1_kernel(const __grid_constant__ CUtensorMap dig_map,
   // Ring iteration G counts over all steps: step G / total, column chunk
   // (G % total) / nk, K slice G % nk.
   if (tid >= kThreads) {
-    // ---- producer warpgroup: E fetches, H builds, digit tiles (TMA)
+    // ---- producer warpgroup: its first thread issues every copy (the H
+    // blocks of a stage from the table, its digit tiles by TMA)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
-    const int pt = tid - kThreads;
-    const size_t limb_stride = static_cast<size_t>(k1) * rows * 2 * n;
-    // a ring of kEBufs E buffers of L * kEB bytes after the barriers (16
-    // bytes of slack: the last row's look-ahead words may read 8 bytes
-    // past the last limb); iteration G's bytes are fetched kAhead builds
-    // ahead
-    constexpr int kEB = 8 * St::kHB + 16;
-    // E buffer b's bytes landed (one bulk-copy transaction count a fill)
-    const uint32_t efull = empty + 8 * kS;
-    const uint32_t ebuf = afull + 256;  // 16-aligned, past the barriers
-    const unsigned char* ebuf_gen = smem_gen + (ebuf - smem0);
-    // the next fetch: iteration, step, chunk, slice (counters, no division)
-    int fg = 0, fi = 0, fch = 0, fsl = 0;
-    // the extension bytes of iteration fg, E[t_c + j0' + (0 .. kEB)) of
-    // (step, limb, comp c, row r), t_c the chunk's first coefficient and j0'
-    // the slice's first column (both 16-aligned): one bulk copy a limb by
-    // the producer's first thread, completing on E buffer fg % kEBufs's
-    // barrier
-    auto fetch = [&]() {
-      if (fg < last) {
-        if (pt == 0) {
-          const int q0 = q_lo + fch * CW, x = fsl * kSlice;
-          const int c = q0 >> log_n, r = x >> log_n;
-          const int8_t* e0 =
-              keys +
-              ((static_cast<size_t>(fi) * L * k1 + c) * rows + r) * 2 * n +
-              (q0 & (n - 1)) + (x & (n - 1));
-          const int b = fg % kEBufs;
-          mbar_expect_tx(efull + 8 * b, L * kEB);
-          for (int lb = 0; lb < L; ++lb)
-            bulk_load(ebuf + (b * L + lb) * kEB, e0 + lb * limb_stride, kEB,
-                      efull + 8 * b);
-        }
-        ++fg;
-        if (++fsl == nk) {
-          fsl = 0;
-          if (++fch == chunks) {
-            fch = 0;
-            ++fi;
-          }
-        }
-      }
-    };
+    const bool issuer = tid == kThreads;
+    // the table's blocks of one (step, limb, comp, row): 2N/8 of 128 bytes
+    const size_t row_bytes = static_cast<size_t>(32) * n;
+    const size_t limb_stride = static_cast<size_t>(k1) * rows * row_bytes;
     // wait until the consumers are done with the previous iteration of
     // G's stage
     auto claim = [&](int G) {
@@ -211,72 +171,44 @@ k1_kernel(const __grid_constant__ CUtensorMap dig_map,
         mbar_wait_or_give_up(empty + 8 * (G % kS),
                              ((G / kS) + 1) & 1, stuck);
     };
-    // the H blocks of iteration G into its (claimed) stage: row ii of block
-    // w is E[8w + ii + 1 ..+16), cut from the 4-byte words around it
-    auto produce_h = [&](int G) {
+    // the H blocks of iteration G (step i, its f-th): for limb lb the kHB
+    // blocks from o0 / 8 of (step, limb, comp c, row r), o0 = t_c + j0'
+    // (the chunk's first coefficient and the slice's first column, both
+    // 16-aligned), one bulk copy each, completing on the stage's H barrier
+    auto copy_h = [&](int G, int i, int f) {
       const int s = G % kS;
-      // E of G + kAhead, into the buffer of G - 2, whose build ended at
-      // the barrier closing iteration G - 2
-      fetch();
-      mbar_wait_or_give_up(efull + 8 * (G % kEBufs), (G / kEBufs) & 1,
-                           stuck);  // E of G landed
-      // lane (limb lb, row ii, run r) writes row ii of blocks r*kRun ..,
-      // each 16 bytes 8 further into E than the last: two new words a row;
-      // the 8 lanes of one (lb, r) write whole 128-byte blocks
-      uint4* h = reinterpret_cast<uint4*>(smem_gen + s * St::kBytes + St::kA);
-      const unsigned char* es = ebuf_gen + (G % kEBufs) * L * kEB;
-      constexpr int kRuns = kProducer / 8 / L;           // runs a (lb, ii)
-      constexpr int kRun = (St::kHB + kRuns - 1) / kRuns;  // blocks a run
-      const int ii = pt & 7, q = pt >> 3, lb = q / kRuns, r = q % kRuns;
-      if (lb < L) {
-        const int w0 = r * kRun, off = 8 * w0 + ii + 1;
-        const uint32_t* src = reinterpret_cast<const uint32_t*>(
-            es + lb * kEB + (off & ~3));
-        const uint32_t sh = 8u * static_cast<uint32_t>(off & 3);
-        uint32_t u0 = src[0], u1 = src[1], u2 = src[2], u3 = src[3];
-        uint4* dst = h + (lb * St::kHB + w0) * 8 + ii;
-#pragma unroll
-        for (int j = 0; j < kRun; ++j) {
-          if (w0 + j >= St::kHB) break;
-          const uint32_t u4 = src[4], u5 = src[5];
-          *dst = make_uint4(__funnelshift_r(u0, u1, sh),
-                            __funnelshift_r(u1, u2, sh),
-                            __funnelshift_r(u2, u3, sh),
-                            __funnelshift_r(u3, u4, sh));
-          u0 = u2;
-          u1 = u3;
-          u2 = u4;
-          u3 = u5;
-          src += 2;
-          dst += 8;
-        }
-      }
-      fence_async_shared();
-      named_sync(1, kProducer);  // every thread's H rows are written
-      if (pt == 0) mbar_arrive(hfull + 8 * s);
+      const int q0 = q_lo + (f / nk) * CW, x = (f % nk) * kSlice;
+      const int c = q0 >> log_n, r = x >> log_n;
+      const int8_t* h0 =
+          hankel + ((static_cast<size_t>(i) * L * k1 + c) * rows + r) *
+                       row_bytes +
+          static_cast<size_t>((q0 & (n - 1)) + (x & (n - 1))) * 16;
+      mbar_expect_tx(hfull + 8 * s, St::kH);
+      for (int lb = 0; lb < L; ++lb)
+        bulk_load(smem0 + s * St::kBytes + St::kA + lb * St::kHB * 128,
+                  h0 + lb * limb_stride, St::kHB * 128, hfull + 8 * s);
     };
-    for (int G = 0; G < kAhead; ++G) fetch();
     int it = 0;
     for (int i = 0; i < steps; ++i) {
-      // H of the step's first stages: they do not depend on the digits
-      for (int f = 0; f < pre; ++f) {
-        claim(it + f);
-        produce_h(it + f);
-      }
+      // H of the step's first stages: it does not depend on the digits
+      if (issuer)
+        for (int f = 0; f < pre; ++f) {
+          claim(it + f);
+          copy_h(it + f, i, f);
+        }
       cluster_sync();  // the consumers' ACC of the last step is complete
       cluster_sync();  // the tile's digits of step i are complete
-      for (int f = 0, sl = 0; f < total; ++f) {
-        const int G = it + f, s = G % kS;
-        if (f >= pre) claim(G);
-        if (pt == 0) {  // the digit rows of G, loading while H is built
-          mbar_expect_tx(afull + 8 * s, St::kA);
+      if (issuer)
+        for (int f = 0, sl = 0; f < total; ++f) {
+          const int G = it + f, s = G % kS;
+          if (f >= pre) claim(G);
+          mbar_expect_tx(afull + 8 * s, St::kA);  // the digit rows of G
           for (int h = 0; h < 2; ++h)
             tma_load(smem0 + s * St::kBytes + h * (St::kA / 2), &dig_map,
                      sl * kSlice + h * kKc, g0, afull + 8 * s);
+          if (f >= pre) copy_h(G, i, f);
+          if (++sl == nk) sl = 0;
         }
-        if (f >= pre) produce_h(G);
-        if (++sl == nk) sl = 0;
-      }
       it += total;
     }
     if (stuck) __trap();
@@ -388,7 +320,7 @@ k1_kernel(const __grid_constant__ CUtensorMap dig_map,
 
 template <int L, int CB, int NW>
 cudaError_t launch(const void* b_init, const void* a_t, const void* tv,
-                   const void* keys, void* out, void* dig, int steps,
+                   const void* hankel, void* out, void* dig, int steps,
                    int batch, int n, int k1, int l, int b, int cluster,
                    cudaStream_t stream) {
   const int smem = Stage<L, CB / kM, NW>::kSmem;
@@ -407,7 +339,7 @@ cudaError_t launch(const void* b_init, const void* a_t, const void* tv,
                            static_cast<const int32_t*>(b_init),
                            static_cast<const int32_t*>(a_t),
                            static_cast<const int32_t*>(tv),
-                           static_cast<const int8_t*>(keys),
+                           static_cast<const int8_t*>(hankel),
                            static_cast<int32_t*>(out),
                            static_cast<int8_t*>(dig), steps, batch, n, k1, l,
                            b, cluster);
@@ -428,9 +360,11 @@ cudaError_t launch(const void* b_init, const void* a_t, const void* tv,
 // C entry: returns the launch's cudaError_t (0 on success).  `cb` is the
 // number of ciphertexts per cluster tile (64 or 128), `nw` the coefficients
 // per warpgroup (32 or 64), `cluster` the CTAs per tile, `dig` a
-// [ceil(batch/cb)*cb, K] int8 scratch.
+// [ceil(batch/cb)*cb, K] int8 scratch, `hankel` the keys' table of H
+// blocks [n][L*(k+1)][rows][2N/8][128] (16-aligned; ops/fused_blind_rotate.py
+// hankel_table).
 extern "C" int fbr_k1_blind_rotate(const void* b_init, const void* a_t,
-                                   const void* tv, const void* keys,
+                                   const void* tv, const void* hankel,
                                    void* out, void* dig, int steps,
                                    int batch, int n, int k1, int l, int b,
                                    int n_limbs, int cb, int nw, int cluster,
@@ -439,8 +373,8 @@ extern "C" int fbr_k1_blind_rotate(const void* b_init, const void* a_t,
 #define FBR_K1_LAUNCH(L, CB, NW)                                             \
   if (n_limbs == L && cb == CB && nw == NW)                                  \
     return static_cast<int>(fbr::k1::launch<L, CB, NW>(                      \
-        b_init, a_t, tv, keys, out, dig, steps, batch, n, k1, l, b, cluster, \
-        st));
+        b_init, a_t, tv, hankel, out, dig, steps, batch, n, k1, l, b,       \
+        cluster, st));
   FBR_K1_CASES(FBR_K1_LAUNCH)
 #undef FBR_K1_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);

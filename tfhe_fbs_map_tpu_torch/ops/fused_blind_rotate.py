@@ -30,12 +30,14 @@ Hopper counterparts of the two Pallas kernel bodies in
   digit pass writes each row's digits reversed (j' = N−1−j), which makes
   the key operand a Hankel matrix ``B'[t, j'] = E[t+j'+1]``, and every
   8×16-byte core matrix of it is a 128-byte block ``H[w][i][c] =
-  E[8w+i+1+c]``.  A producer warpgroup builds each ring stage's H blocks
-  in shared memory from E while two consumer warpgroups point no-swizzle
-  ``wgmma`` descriptors into them.  :func:`k1_plan` picks the tile, the
-  cluster and the coefficients a warpgroup (``nw``, the ``wgmma`` width)
-  by the shared-memory operand bytes a CTA reads; the kernel sizes its
-  ring itself (:func:`k1_layout`).
+  E[8w+i+1+c]``.  H depends on the key alone: :func:`hankel_table` builds
+  its blocks at every 8-byte offset once a key (16× the key's bytes;
+  ``FastKeys.hankel`` keeps it), and a producer thread bulk-copies each
+  ring stage's run of blocks from it into shared memory while two
+  consumer warpgroups point no-swizzle ``wgmma`` descriptors into them.
+  :func:`k1_plan` picks the tile, the cluster and the coefficients a
+  warpgroup (``nw``, the ``wgmma`` width) by the shared-memory operand
+  bytes a CTA reads; the kernel sizes its ring itself (:func:`k1_layout`).
 * **K1 below N=256** (``csrc/fused_blind_rotate_k1_small.cu``) replaces
   ``_kernel_otf`` at N ∈ {32, 64, 128}, whose rows K1's 256-byte
   contraction slices do not divide (the Pallas kernel takes any N, its
@@ -72,8 +74,9 @@ because Mosaic has no lane rotate, is an index read in both.
 
 Beside each kernel is its plain PyTorch version.  The wrappers take the
 plain version only for tensors on the CPU; for CUDA tensors they launch the
-kernel or raise.  ``LAUNCHES`` counts kernel launches per wrapper, and
-``K1_KERNELS`` K1's by the kernel that ran them.
+kernel or raise.  ``LAUNCHES`` counts kernel launches per wrapper,
+``K1_KERNELS`` K1's by the kernel that ran them, and ``HANKEL`` the ring
+kernel's tables built and their bytes.
 """
 
 from __future__ import annotations
@@ -93,8 +96,9 @@ __all__ = ["blind_rotate_fused", "blind_rotate_k1", "blind_rotate_k2",
            "k1_ring_plan", "k1_wide_plan", "K1_ROUTES",
            "k2_plan", "k1_small_plan", "k1_device_plan", "device_plan",
            "k1_layout", "k1_small_layout", "k1_small_smem", "k1s_clusters",
-           "k1_resident",
-           "K1Plan", "K1SmallPlan", "K2Plan", "LAUNCHES", "K1_KERNELS"]
+           "k1_resident", "hankel_table", "k1_operand",
+           "K1Plan", "K1SmallPlan", "K2Plan", "LAUNCHES", "K1_KERNELS",
+           "HANKEL"]
 
 N_LIMBS = 4
 LAUNCHES = {"k1": 0, "k2": 0}
@@ -102,6 +106,9 @@ LAUNCHES = {"k1": 0, "k2": 0}
 # them, as the device trace names it: the ring kernel, the small-N kernel
 # below N=K1_SLICE, its small-tile plan at N >= K1_SLICE
 K1_KERNELS = {"k1_kernel": 0, "k1s_kernel": 0, "k1s_kernel_wide": 0}
+# the ring kernel's tables of H blocks built (:func:`hankel_table`, once a
+# key whose launches take the ring) and the bytes they hold
+HANKEL = {"tables": 0, "bytes": 0}
 
 # Shared memory a block may opt into on sm_90 (227 KB).
 SMEM_MAX = 232448
@@ -276,6 +283,27 @@ def blind_rotate_k1_plain(b_init, a_t, test_polys, kernels,
         mat = otf_matrix(kernels[i], n)
         acc = _accumulate(acc, int8_matmul(dig, mat), n_limbs)
     return acc
+
+
+def hankel_table(kernels: torch.Tensor) -> torch.Tensor:
+    """K1's compact keys [n, L·(k+1), rows, 2N] int8 -> the ring kernel's
+    table of H blocks [n, L·(k+1), rows, 2N/8, 128] int8, on their device.
+
+    Block w of a (step, limb, component, row) holds at row i the 16 bytes
+    E[8w+i+1 .. 8w+i+17) of its extension E, zeros past 2N: the 8×16-byte
+    core matrix at offset 8w of the Hankel key operand ``B'[t, j'] =
+    E[t+j'+1]`` (the module's docstring).  A ring stage's blocks of one limb
+    are the run from w = (t_c + j0')/8 (its chunk's first coefficient and
+    its slice's first column), which the kernel copies whole; no run
+    reaches the zeros.  One gather, 16× the key's bytes; counted under
+    ``HANKEL``."""
+    width = kernels.shape[-1]
+    ext = torch.nn.functional.pad(kernels, (0, 16))
+    table = ext.unfold(-1, 16, 1)[..., 1:width + 1, :] \
+        .reshape(*kernels.shape[:-1], width // 8, 128)
+    HANKEL["tables"] += 1
+    HANKEL["bytes"] += table.numel()
+    return table
 
 
 # ------------------------------------------------------------- kernels
@@ -735,15 +763,39 @@ def _raise_on(err: int, lib: ctypes.CDLL | None = None) -> None:
                            f"{ctypes.string_at(msg).decode()} ({err})")
 
 
+def k1_operand(plan: K1Plan | K1SmallPlan, kernels: torch.Tensor,
+               hankel: Callable[[], torch.Tensor] | None = None
+               ) -> torch.Tensor:
+    """The key operand a K1 launch of ``plan`` reads: the compact keys for
+    the small-N kernel's plans, the table of H blocks for the ring kernel's
+    (``hankel()``, the keys' own, :meth:`..blind_rotate.FastKeys.hankel`;
+    without it one built for this launch, :func:`hankel_table`).  A key
+    whose launches never take the ring so never builds a table."""
+    if isinstance(plan, K1SmallPlan):
+        return kernels
+    table = hankel() if hankel is not None else hankel_table(kernels)
+    want = (*kernels.shape[:-1], kernels.shape[-1] // 8, 128)
+    if (tuple(table.shape) != want or table.dtype != torch.int8
+            or table.device != kernels.device or not table.is_contiguous()
+            or table.data_ptr() % 16):
+        raise ValueError(f"the ring kernel's table: want a contiguous, "
+                         f"16-byte aligned int8 {want} on {kernels.device}, "
+                         f"got {table.dtype} {tuple(table.shape)} on "
+                         f"{table.device}")
+    return table
+
+
 def _launch_k1(b_init, a_t, test_polys, kernels, params: TFHEParams,
                cb: int | None, cluster: int | None, nw: int | None,
                lib: ctypes.CDLL | None = None,
-               route: str | None = None) -> torch.Tensor:
+               route: str | None = None,
+               hankel: Callable[[], torch.Tensor] | None = None
+               ) -> torch.Tensor:
     """K1 on the card, through ``lib`` (default the built library), at the
-    plan :func:`k1_device_plan` gives: the ring kernel's, or the small-N
-    kernel's (below N=K1_SLICE, and above it on the small-tile plan, where
-    ``route`` is ``"k1s"``); counted under ``LAUNCHES`` and
-    ``K1_KERNELS``."""
+    plan :func:`k1_device_plan` gives: the ring kernel's, reading the
+    keys' table (:func:`k1_operand`), or the small-N kernel's (below
+    N=K1_SLICE, and above it on the small-tile plan, where ``route`` is
+    ``"k1s"``); counted under ``LAUNCHES`` and ``K1_KERNELS``."""
     from . import _build
 
     n_limbs = _check(True, b_init, a_t, test_polys, kernels, params)
@@ -755,13 +807,14 @@ def _launch_k1(b_init, a_t, test_polys, kernels, params: TFHEParams,
                           lib, route)
     if batch == 0 or steps == 0:
         return _init_acc(b_init, test_polys, params)
+    keys = k1_operand(plan, kernels, hankel)
     out = torch.empty((k1, batch, n), dtype=I32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if isinstance(plan, K1SmallPlan):
             err = lib.fbr_k1s_blind_rotate(
                 b_init.data_ptr(), a_t.data_ptr(), test_polys.data_ptr(),
-                kernels.data_ptr(), out.data_ptr(), steps, batch, n, k1,
+                keys.data_ptr(), out.data_ptr(), steps, batch, n, k1,
                 params.bsk_level, params.bsk_base_log, n_limbs, plan.cb,
                 plan.cluster, plan.nt, plan.passes, stream)
         else:
@@ -770,7 +823,7 @@ def _launch_k1(b_init, a_t, test_polys, kernels, params: TFHEParams,
                               dtype=torch.int8, device=dev)
             err = lib.fbr_k1_blind_rotate(
                 b_init.data_ptr(), a_t.data_ptr(), test_polys.data_ptr(),
-                kernels.data_ptr(), out.data_ptr(), dig.data_ptr(), steps,
+                keys.data_ptr(), out.data_ptr(), dig.data_ptr(), steps,
                 batch, n, k1, params.bsk_level, params.bsk_base_log, n_limbs,
                 plan.cb, plan.nw, plan.cluster, stream)
     _raise_on(err, lib)
@@ -908,7 +961,9 @@ def blind_rotate_k1(b_init, a_t, test_polys, kernels, params: TFHEParams,
                     batch_tile: int | None = None,
                     cluster: int | None = None,
                     nw: int | None = None,
-                    route: str | None = None) -> torch.Tensor:
+                    route: str | None = None,
+                    hankel: Callable[[], torch.Tensor] | None = None
+                    ) -> torch.Tensor:
     """K1 ("fused_otf"): keys [n, L·(k+1), rows, 2N] int8 -> ACC.
 
     ``batch_tile``: ciphertexts per tile (CPU: per plain slice; CUDA: per
@@ -917,10 +972,13 @@ def blind_rotate_k1(b_init, a_t, test_polys, kernels, params: TFHEParams,
     ``K1_WIDTHS``.  All default to :func:`k1_plan`'s choice, which at N <
     K1_SLICE is the small-N kernel's (:func:`k1_small_plan`: tiles of
     K1S_TILE, a cluster of :func:`k1s_clusters`, no ``nw``) and above it
-    the plan of ``route`` (K1_ROUTES), by default the ring kernel's."""
+    the plan of ``route`` (K1_ROUTES), by default the ring kernel's.
+    ``hankel``: gives the keys' table, which a ring launch reads
+    (:func:`k1_operand`; without it the launch builds one)."""
     if test_polys.device.type != "cpu":
         return _launch_k1(b_init, a_t, test_polys, kernels, params,
-                          batch_tile, cluster, nw, route=route)
+                          batch_tile, cluster, nw, route=route,
+                          hankel=hankel)
     return _plain_slices(True, b_init, a_t, test_polys, kernels, params,
                          batch_tile)
 
@@ -929,7 +987,9 @@ def blind_rotate_fused(b_init, a_t, test_polys, kernels, params: TFHEParams,
                        batch_tile: int | None = None,
                        launch: profiling.Launch | None = None,
                        route: str | None = None,
-                       cluster: int | None = None) -> torch.Tensor:
+                       cluster: int | None = None,
+                       hankel: Callable[[], torch.Tensor] | None = None
+                       ) -> torch.Tensor:
     """All-steps-fused blind rotation -> accumulator [k+1, B, N] int32.
 
     ``b_init``: [B, 1] int32 initial amounts ((2N − b~) mod 2N); ``a_t``:
@@ -940,10 +1000,11 @@ def blind_rotate_fused(b_init, a_t, test_polys, kernels, params: TFHEParams,
     or :func:`k2_plan`); the last tile may be ragged.  ``launch``: the
     family call's entry of the launch record, made at the launch
     (:func:`..utils.profiling.launch`).  ``route``: K1's at N ≥ K1_SLICE
-    (:func:`blind_rotate_k1`); ``cluster``: CTAs a tile on the card."""
+    and ``hankel``, what gives its keys' table (:func:`blind_rotate_k1`);
+    ``cluster``: CTAs a tile on the card."""
     with profiling.launch(launch):
         if kernels.ndim == 4:
             return blind_rotate_k1(b_init, a_t, test_polys, kernels, params,
-                                   batch_tile, cluster, None, route)
+                                   batch_tile, cluster, None, route, hankel)
         return blind_rotate_k2(b_init, a_t, test_polys, kernels, params,
                                batch_tile, cluster)

@@ -3,6 +3,8 @@ timed.
 
     python -m tfhe_fbs_map_tpu_torch.runtime.bisect \\
         [--params aes128_p4] [--batch 1024] [--reps 2] [--out bisect.json]
+    python -m tfhe_fbs_map_tpu_torch.runtime.bisect \\
+        --params kreyvium_p10_staged.fam1 --batch 3200
     python -m tfhe_fbs_map_tpu_torch.runtime.bisect --kernel k1s \\
         [--reps 20] [--out bisect.json]
 
@@ -13,13 +15,15 @@ as the replay of a CUDA graph of the launches, ``graph_ms``: its sub-ms
 launches can outrun the host's launch path).
 
 ``--kernel k1`` (the default) bisects ``ops/csrc/fused_blind_rotate.cu`` at
-the preset's full n steps, at the plan ``k1_plan`` picks and at the
-128-ciphertext plan ``128x8/32``.  The variants:
+the full n steps of a preset or of a staged preset's family
+(``<staged preset>.fam1`` or ``.fam2``, :func:`shapes`), at the plan
+``k1_plan`` picks and at the 128-ciphertext plan ``128x8/32``.  The variants:
 
 * ``base``: the source as it is;
 * ``no_products``: the consumers issue no ``wgmma``;
-* ``no_build``: the producer writes no H block;
-* ``no_products_no_build``: both;
+* ``no_h_copy``: the producer issues no copy of H blocks from the keys'
+  table, and the consumers wait for none;
+* ``no_products_no_h_copy``: both;
 * ``no_digits``: no digit pass.
 
 ``--kernel k1s`` bisects K1's small-N kernel,
@@ -61,7 +65,14 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 PRODUCTS = "sl != 0 || k != 0);"
-BUILD = "      if (lb < L) {\n        const int w0"
+H_COPY = ("      mbar_expect_tx(hfull + 8 * s, St::kH);\n"
+          "      for (int lb = 0; lb < L; ++lb)\n"
+          "        bulk_load(smem0 + s * St::kBytes + St::kA + lb * St::kHB "
+          "* 128,\n"
+          "                  h0 + lb * limb_stride, St::kHB * 128, "
+          "hfull + 8 * s);\n")
+H_WAIT = ("        mbar_wait_or_give_up(hfull + 8 * s, (G / kS) & 1, "
+          "stuck);\n")
 DIGITS = ("    digit_pass<CB, true>(acc, dig, amt[i & 1], g0, q_lo, span, "
           "batch, n, l, b,\n                         K);\n")
 
@@ -132,16 +143,15 @@ def variants(src: str) -> dict[str, str]:
     """The K1 source with each phase left out; raises if the source no
     longer has the statements the variants remove."""
     mma = _products(src)
-    no_build = BUILD.replace("lb < L", "lb < 0")
-    for anchor in (BUILD, DIGITS):
+    for anchor in (H_COPY, H_WAIT, DIGITS):
         if src.count(anchor) != 1:
             raise ValueError(f"K1 source has no unique {anchor[:40]!r}")
+    no_h_copy = src.replace(H_COPY, "").replace(H_WAIT, "")
     return {
         "base": src,
         "no_products": src.replace(mma, "(void)0;"),
-        "no_build": src.replace(BUILD, no_build),
-        "no_products_no_build":
-            src.replace(mma, "(void)0;").replace(BUILD, no_build),
+        "no_h_copy": no_h_copy,
+        "no_products_no_h_copy": no_h_copy.replace(mma, "(void)0;"),
         "no_digits": src.replace(DIGITS, ""),
     }
 
@@ -214,6 +224,7 @@ def bisect(params, batch: int, reps: int, seed: int = 9) -> dict:
     from ..ops import fused_blind_rotate as fbr
 
     b_init, a_t, tvs, keys = operands(params, batch, seed)
+    table = fbr.hankel_table(keys)  # the keys' own, built once
     default = fbr.k1_ring_plan(batch, params,
                                torch.cuda.get_device_properties(
                                    0).multi_processor_count)
@@ -227,7 +238,8 @@ def bisect(params, batch: int, reps: int, seed: int = 9) -> dict:
         for label, kw in plans.items():
             def call():
                 return fbr._launch_k1(b_init, a_t, tvs, keys, params,
-                                      kw["cb"], kw["cluster"], kw["nw"], lib)
+                                      kw["cb"], kw["cluster"], kw["nw"], lib,
+                                      hankel=lambda: table)
             out = call()
             torch.cuda.synchronize()
             ref.setdefault(label, out)
@@ -350,12 +362,22 @@ def card() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def main(argv=None) -> int:
-    from ..tfhe.params import PRESETS
+def shapes() -> dict:
+    """The parameter sets ``--params`` names: every preset, and each
+    family of every staged preset as ``<name>.fam1`` and ``<name>.fam2``."""
+    from ..tfhe.params import PRESETS, STAGED_PRESETS
 
+    out = {name: p for name, (p, _) in PRESETS.items()}
+    for name, st in STAGED_PRESETS.items():
+        out.update({f"{name}.fam1": st.fam1, f"{name}.fam2": st.fam2})
+    return out
+
+
+def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", choices=("k1", "k1s"), default="k1")
-    ap.add_argument("--params", choices=sorted(PRESETS), default="aes128_p4",
+    ap.add_argument("--params", choices=sorted(shapes()),
+                    default="aes128_p4",
                     help="k1: the preset whose shape is timed")
     ap.add_argument("--batch", type=int, default=1024,
                     help="k1: ciphertexts a launch")
@@ -371,7 +393,8 @@ def main(argv=None) -> int:
     if args.kernel == "k1s":
         res = bisect_small(args.reps or 20)
     else:
-        res = bisect(PRESETS[args.params][0], args.batch, args.reps or 2)
+        res = bisect(shapes()[args.params], args.batch, args.reps or 2)
+        res["params"] = args.params
     res["device"] = torch.cuda.get_device_name(0)
     res["card"] = smi
     if args.out:
