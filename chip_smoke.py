@@ -340,7 +340,7 @@ def report(kern: str, label: str, err: int, worst: dict) -> None:
 def check_k1(fbr, presets, worst: dict) -> None:
     """Phase 3, K1: bitwise against its plain version on the card, at the
     plans of its ring kernel k1_plan picks and at every plan of one
-    1024-ciphertext level."""
+    1024-ciphertext level, one tile a cluster and two."""
     import torch
 
     aes = presets["aes128_p4"][0]
@@ -348,10 +348,11 @@ def check_k1(fbr, presets, worst: dict) -> None:
     batches = (21, 64, 512, 1024, 2048)
     # a staged level's fam1 call carries up to 512 bootstraps x batch 16
     staged = batches + (4096, 8192)
-    every = [(cb, c, w) for cb in fbr.K1_TILES for w in fbr.K1_WIDTHS
-             if fbr.k1_fits(cb, w, 4) for c in fbr.k1_clusters(aes, w)]
-    # (label, params, steps, limbs, batches, forced (cb, cluster, nw) at
-    # batch)
+    every = [(cb, c, w, pr) for cb in fbr.K1_TILES for w in fbr.K1_WIDTHS
+             if fbr.k1_fits(cb, w, 4) for c in fbr.k1_clusters(aes, w)
+             for pr in fbr.K1_PAIRS]
+    # (label, params, steps, limbs, batches, forced (cb, cluster, nw, pair)
+    # at batch)
     cases = [
         ("test", test, test.lwe_dim, 4, batches, {}),
         ("aes128_p4 n=8", aes, 8, 4, batches, {1024: every}),
@@ -373,21 +374,22 @@ def check_k1(fbr, presets, worst: dict) -> None:
         for batch in sizes:
             dev = kernel_inputs(params, steps, batch, limbs, True, seed=5)
             plain = fbr.blind_rotate_k1_plain(*dev, params)
-            plans = [(None, None, None)] + forced.get(batch, [])
-            for cb, cluster, nw in plans:
+            plans = [(None, None, None, None)] + forced.get(batch, [])
+            for cb, cluster, nw, pair in plans:
                 # the ring kernel's plans (its small-tile plan: phase 12 (d))
                 plan = fbr.k1_device_plan(batch, params, dev[0].device,
                                           limbs, cb, cluster, nw,
-                                          route="k1")
+                                          route="k1", pair=pair)
                 fit = fbr.k1_max_clusters(plan, limbs)
                 stages, smem = fbr.k1_layout(plan, limbs)
                 got = fbr.blind_rotate_k1(*dev, params, batch_tile=cb,
-                                          cluster=cluster, nw=nw, route="k1")
+                                          cluster=cluster, nw=nw, route="k1",
+                                          pair=pair)
                 torch.cuda.synchronize()
                 err = int((got.long() - plain.long()).abs().max())
                 report("k1", f"{label} B={batch} plan cb={plan.cb} "
                        f"cluster={plan.cluster} nw={plan.nw} "
-                       f"stages={stages} smem={smem} "
+                       f"pair={plan.pair} stages={stages} smem={smem} "
                        f"({'default' if cb is None else 'forced'}; "
                        f"{fit} clusters fit at once)", err, worst)
             del dev, plain
@@ -548,7 +550,9 @@ def check_bootstrap(presets, worst: dict) -> dict:
 def check_staged_launches(fbr, worst: dict) -> list[dict]:
     """Phase 4, K1 at each staged main path's family launch at full length
     (its own n, k, N, l and ciphertexts) against its plain version on the
-    same inputs, bitwise, with both times and the bound."""
+    same inputs, bitwise, with both times and the bound; where that launch
+    takes the ring, its plan with the other tiles a cluster too (one tile
+    or two in turns), bitwise."""
     import torch
 
     rows = []
@@ -569,6 +573,14 @@ def check_staged_launches(fbr, worst: dict) -> list[dict]:
                f"({plan}): "
                f"kernel {k_ms:.3f} ms, plain version {p_ms:.3f} ms, bound "
                f"{b_ms:.3f} ms ({b_by})", err, worst)
+        if isinstance(plan, fbr.K1Plan):
+            other = fbr.k1_device_plan(batch, params, dev[0].device, 4,
+                                       route="k1", pair=3 - plan.pair)
+            got = fbr.blind_rotate_k1(*dev, params, route="k1",
+                                      hankel=hankel, pair=other.pair)
+            report("k1", f"{label} n={steps} B={batch} ({other})",
+                   int((got.long() - p_out.long()).abs().max()), worst)
+            del got
         rows.append({"launch": label, "n": steps, "ciphertexts": batch,
                      "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                      "bound_ms": b_ms, "bound_by": b_by})
@@ -588,8 +600,9 @@ N4096_FULL = (700, 512)
 
 def check_k1_4096(fbr, worst: dict) -> list[dict]:
     """Phase 11 (a): K1 at N=4096 bitwise against its plain version on the
-    card, at the plan k1_plan picks for each batch at 4 and 3 limbs, then at
-    full length (n=700, 512 ciphertexts) with both times and the bound."""
+    card, at the plans k1_plan picks for each batch at 4 and 3 limbs with
+    one tile a cluster and with two, then at full length (n=700, 512
+    ciphertexts) with both times and the bound."""
     import torch
 
     params = shape_params(*N4096)
@@ -598,14 +611,17 @@ def check_k1_4096(fbr, worst: dict) -> list[dict]:
             dev = kernel_inputs(params, N4096_STEPS, batch, limbs, True,
                                 seed=13)
             plain = fbr.blind_rotate_k1_plain(*dev, params)
-            got = fbr.blind_rotate_k1(*dev, params)
-            torch.cuda.synchronize()
-            plan = fbr.k1_device_plan(batch, params, dev[0].device, limbs)
-            stages, smem = fbr.k1_layout(plan, limbs)
-            report("k1", f"k=1 N=4096 l=2 b=8 n={N4096_STEPS} limbs={limbs} "
-                   f"B={batch} plan cb={plan.cb} cluster={plan.cluster} "
-                   f"nw={plan.nw} stages={stages} smem={smem}",
-                   int((got.long() - plain.long()).abs().max()), worst)
+            for pair in fbr.K1_PAIRS:
+                got = fbr.blind_rotate_k1(*dev, params, pair=pair)
+                torch.cuda.synchronize()
+                plan = fbr.k1_device_plan(batch, params, dev[0].device, limbs,
+                                          pair=pair)
+                stages, smem = fbr.k1_layout(plan, limbs)
+                report("k1", f"k=1 N=4096 l=2 b=8 n={N4096_STEPS} "
+                       f"limbs={limbs} B={batch} plan cb={plan.cb} "
+                       f"cluster={plan.cluster} nw={plan.nw} "
+                       f"pair={plan.pair} stages={stages} smem={smem}",
+                       int((got.long() - plain.long()).abs().max()), worst)
             del dev, plain, got
     steps, batch = N4096_FULL
     dev = kernel_inputs(params, steps, batch, 4, True, seed=14)
@@ -775,8 +791,9 @@ def check_pick(fbr, pick, reals: list[list[int]], v: int,
                    else fbr.device_plan(rows, params, dev, limbs))
             fit = (fbr.k1_resident(got, params, limbs) if otf
                    else fbr.k2_max_clusters(got, limbs))
-            tiles = -(-rows // got.cb)
-            got_w = -(-tiles // max(1, fit))
+            # clusters of one tile, or of two on the ring's paired plans
+            clusters = -(-(-(-rows // got.cb)) // getattr(got, "pair", 1))
+            got_w = -(-clusters // max(1, fit))
             if (plan, w) != (got, got_w):
                 raise SystemExit(f"{kern} at {rows} ciphertexts: the model "
                                  f"plans {plan} in {w} waves, the card "

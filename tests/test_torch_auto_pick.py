@@ -66,9 +66,9 @@ def k1_fixed(ms: float):
 
 @pytest.fixture()
 def k2_cheaper(monkeypatch):
-    """A calibration in which K1 pays 30 ms a launch: K2 is priced lower
+    """A calibration in which K1 pays 200 ms a launch: K2 is priced lower
     at every calibrated native family."""
-    cal = k1_fixed(30.0)
+    cal = k1_fixed(200.0)
     monkeypatch.setattr(rm, "calibration", lambda: cal)
     return cal
 
@@ -100,13 +100,13 @@ def test_the_price_is_launch_us_summed_over_the_calibrations_sizes():
 
 def test_k2_taken_where_its_price_is_lower(monkeypatch):
     """Synthetic anchor entries, K2's with no fixed term and K1's a copy of
-    it with 10 ms a launch, price K2 under K1 there: the anchor takes K2,
+    it with 25 ms a launch, price K2 under K1 there: the anchor takes K2,
     AES-128 still K1."""
     cal = copy.deepcopy(calibration())
     k2 = cal["families"][rm.entry_key(ANCHOR, "fused")]
     k2["fixed_us"] = 0.0
     cal["families"][rm.entry_key(ANCHOR, "fused_otf")] = dict(
-        k2, kernel="fused_otf", fixed_us=10e3)
+        k2, kernel="fused_otf", fixed_us=25e3)
     # and no small-tile points of K1 nor their fit across families, which
     # would undercut K2 at a few tiles
     del cal["families"][rm.entry_key(ANCHOR, "k1s")]
@@ -183,7 +183,7 @@ def test_every_caller_takes_the_one_rule(name, calibrated, monkeypatch):
     model's picks, and the runtime model's default orientation, are
     ``pick_kernel``'s, at the card's memory and at the profile's."""
     if calibrated == "k2_cheaper":
-        cal = k1_fixed(30.0)
+        cal = k1_fixed(200.0)
         monkeypatch.setattr(rm, "calibration", lambda: cal)
     params = native_families()[name]
     for memory in (CARD, h100_profile().k2_memory):

@@ -349,8 +349,9 @@ def test_model_waves_equal_the_device_plan(cuda, orientation):
                        else fbr.device_plan(rows, params, cuda, limbs))
                 fit = (fbr.k1_resident(got, params, limbs) if otf
                        else fbr.k2_max_clusters(got, limbs))
-                tiles = -(-rows // got.cb)
-                assert (plan, waves) == (got, -(-tiles // max(1, fit)))
+                clusters = -(-(-(-rows // got.cb))
+                             // getattr(got, "pair", 1))
+                assert (plan, waves) == (got, -(-clusters // max(1, fit)))
 
 
 @pytest.mark.parametrize("limbs", [4, 3, 2, 1])
@@ -363,7 +364,9 @@ def test_k1_layout_fits_the_card(cuda, limbs):
                 continue
             stages, smem = fbr.k1_layout(fbr.K1Plan(cb, 1, nw), limbs)
             assert 4 <= stages <= 6 and 0 < smem <= fbr.SMEM_MAX
-            assert fbr.k1_max_clusters(fbr.K1Plan(cb, 2, nw), limbs) >= 1
+            for pair in fbr.K1_PAIRS:  # one tile a cluster, or two
+                assert fbr.k1_max_clusters(fbr.K1Plan(cb, 2, nw, pair),
+                                           limbs) >= 1
 
 
 GIVE_UP = """
@@ -790,16 +793,17 @@ def test_small_tile_k1_equals_plain(cuda, name):
 
 
 @pytest.mark.parametrize("name,v,real,plans", [
-    ("aes128_p4", 1, 112, ((16, 16), (16, 8))),
+    ("aes128_p4", 1, 112, ((16, 16), (64, 12))),
     ("kreyvium_p10_staged.fam1", 8, 369, (None, None))])
 def test_packed_launch_equals_the_bucketed_one(cuda, name, v, real, plans):
     """A level's launch of its real rows packed to whole tiles
     (``runtime_model.launch_rows``) gives each of them, bitwise, what the
     launch of the plan's power-of-two bucket gives it, each launch on the
     plan its own count takes: AES-128's family at 112 rows of one
-    evaluation (tiles of 16 on 16 CTAs, one wave, against 128 on clusters
-    of 8) and Kreyvium's fam1 at 2,952 rows of eight (the ring kernel,
-    3,008 launched against 4,096)."""
+    evaluation (tiles of 16 on 16 CTAs, one wave, against 128 on the
+    ring's tiles of 64 on clusters of 12, which its calibrated price
+    takes for one launch of 128) and Kreyvium's fam1 at 2,952 rows of
+    eight (the ring kernel, 3,008 launched against 4,096)."""
     import dataclasses
     from tfhe_fbs_map_tpu_torch.optimizer import calibrate
     from tfhe_fbs_map_tpu_torch.optimizer.runtime_model import (
@@ -856,6 +860,72 @@ def test_ring_kernel_reads_the_table_bitwise(cuda, name, batch):
     plain = fbr.blind_rotate_k1_plain(*dev, params)
     assert fbr.HANKEL["tables"] == before["tables"] + 1
     assert torch.equal(got[0], plain) and torch.equal(got[1], plain)
+
+
+def _short(name_or_shape, steps):
+    """A ring family cut to ``steps`` CMux steps: a preset or staged
+    family by name (``runtime.bisect.shapes``), or (k, N, l, b)."""
+    import dataclasses
+
+    from tfhe_fbs_map_tpu_torch.runtime.bisect import shapes
+    from tfhe_fbs_map_tpu_torch.tfhe.params import TFHEParams
+    if isinstance(name_or_shape, str):
+        return dataclasses.replace(shapes()[name_or_shape], lwe_dim=steps)
+    k, N, l, b = name_or_shape
+    return TFHEParams(p=4, lwe_dim=steps, glwe_dim=k, poly_size=N,
+                      bsk_level=l, bsk_base_log=b, ksk_level=1,
+                      ksk_base_log=2, lwe_noise_std=0.0, glwe_noise_std=0.0)
+
+
+# The paired ring kernel (two tiles a cluster in turns) at short n: the
+# cells' launches (AES-128 at 1,024 and 520, fam1 at 3,200), odd tile counts
+# (a lone last tile), and N = 2048 and 4096 at 4 and 3 limbs, which no cell
+# runs (K1_MAX_N)
+PAIR_LAUNCHES = [("aes128_p4", 16, 1024, 4), ("aes128_p4", 16, 520, 4),
+                 ("aes128_p4", 16, 150, 4), ("aes128_p4", 16, 65, 3),
+                 ("kreyvium_p10_staged.fam1", 8, 3200, 4),
+                 ((1, 2048, 3, 7), 6, 700, 4), ((1, 2048, 3, 7), 6, 300, 3),
+                 ((1, 4096, 2, 8), 4, 520, 4), ((1, 4096, 2, 8), 4, 130, 3)]
+
+
+@pytest.mark.parametrize("shape,steps,batch,limbs", PAIR_LAUNCHES)
+def test_paired_kernel_equals_plain_every_plan(cuda, shape, steps, batch,
+                                               limbs):
+    """Every plan of the paired ring kernel (every tile, width and cluster
+    it is built for, two tiles a cluster, the last alone where their
+    count is odd) bitwise against K1's plain version."""
+    from tfhe_fbs_map_tpu_torch.runtime.bisect import operands
+    params = _short(shape, steps)
+    b_init, a_t, tvs, keys = operands(params, batch, seed=batch + steps)
+    keys = keys[:, :limbs * (params.glwe_dim + 1)].contiguous()
+    table = fbr.hankel_table(keys)
+    plain = fbr.blind_rotate_k1_plain(b_init, a_t, tvs, keys, params)
+    for cb in fbr.K1_TILES:
+        for nw in fbr.K1_WIDTHS:
+            if not fbr.k1_fits(cb, nw, limbs):
+                continue
+            for c in fbr.k1_clusters(params, nw):
+                got = fbr.blind_rotate_k1(b_init, a_t, tvs, keys, params,
+                                          cb, c, nw, "k1", lambda: table,
+                                          pair=2)
+                assert torch.equal(got, plain), (cb, c, nw)
+
+
+@pytest.mark.parametrize("shape", [(1, 256, 3, 6), (2, 512, 2, 8),
+                                   (1, 1024, 4, 5), (1, 2048, 3, 7),
+                                   (1, 4096, 2, 8)])
+def test_ring_plan_picked_equals_plain(cuda, shape):
+    """The ring plan the card picks (one tile a cluster or two) at each
+    launch size from one tile to past a wave of pairs, bitwise against
+    K1's plain version at short n."""
+    from tfhe_fbs_map_tpu_torch.runtime.bisect import operands
+    params = _short(shape, 4)
+    for batch in (64, 520, 1024, 2048, 3200):
+        dev = operands(params, batch, seed=batch)
+        plan = fbr.k1_device_plan(batch, params, cuda, route="k1")
+        got = fbr.blind_rotate_k1(*dev, params, route="k1")
+        assert torch.equal(got, fbr.blind_rotate_k1_plain(*dev, params)), \
+            (batch, plan)
 
 
 def test_a_key_off_the_ring_builds_no_table(cuda):

@@ -22,7 +22,8 @@ import tfhe_fbs_map_tpu.tfhe as J
 from tfhe_fbs_map_tpu.ops import fused_blind_rotate as jfbr
 from tfhe_fbs_map_tpu_torch.ops import fused_blind_rotate as fbr
 from tfhe_fbs_map_tpu_torch.optimizer import runtime_model as RM
-from tfhe_fbs_map_tpu_torch.tfhe.params import PRESETS, TFHEParams
+from tfhe_fbs_map_tpu_torch.tfhe.params import (PRESETS, STAGED_PRESETS,
+                                                TFHEParams)
 
 # many test workers share the cores: one torch thread each
 torch.set_num_threads(1)
@@ -71,31 +72,118 @@ def test_plan_fits_the_card(name, batch):
         assert params.poly_size % (2 * plan.nw) == 0
         tiles = -(-batch // plan.cb)
         assert 0 < batch - (tiles - 1) * plan.cb <= plan.cb
-        # one wave of CTAs, one an SM
-        assert tiles * plan.cluster <= SMS
+        # one wave of CTAs, one an SM, each cluster one tile or two
+        assert plan.pair in fbr.K1_PAIRS
+        assert -(-tiles // plan.pair) * plan.cluster <= SMS
+
+
+# Clusters the H100 runs at once with one CTA an SM, by cluster size
+# (cudaOccupancyMaxActiveClusters for K1 on an H100 80GB HBM3, either
+# schedule)
+H100 = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 8: 15, 10: 7, 12: 7,
+        16: 7}
 
 
 def test_plan_keeps_one_wave_of_resident_clusters():
-    """Clusters the H100 runs at once with one CTA an SM, by cluster size
-    (cudaOccupancyMaxActiveClusters for K2 on an H100 80GB HBM3): the main
-    path's 1024-ciphertext level takes 16 tiles of 64 on clusters of 6."""
-    h100 = {1: 132, 2: 66, 3: 39, 4: 30, 6: 17, 8: 15, 12: 7, 16: 7}
+    """A 1024-ciphertext level takes 16 tiles of 64 on clusters of 6, one
+    tile a cluster: no pair plan runs its 8 clusters in one wave but on
+    clusters of 6, which leave half the card idle."""
     params = PRESETS["aes128_p4"][0]
     plan = fbr.k1_ring_plan(1024, params, SMS,
-                            resident=lambda p: h100[p.cluster])
-    assert (plan.cb, plan.cluster, plan.nw) == (64, 6, 64)
+                            resident=lambda p: H100[p.cluster])
+    assert plan == (64, 6, 64, 1)
     for batch in BATCHES:
         for plan in (fbr.k1_ring_plan(batch, params, SMS,
-                                      resident=lambda p: h100[p.cluster]),
+                                      resident=lambda p: H100[p.cluster]),
                      fbr.k1_plan(batch, params, SMS,
-                                 resident=lambda p: h100[p.cluster])):
-            assert -(-batch // plan.cb) <= h100[plan.cluster]
+                                 resident=lambda p: H100[p.cluster])):
+            clusters = -(-(-(-batch // plan.cb)) // plan.pair)
+            assert clusters <= H100[plan.cluster]
+
+
+@pytest.mark.parametrize("family, batch, want", [
+    # AES-128: 5-7 tiles fill the card's 7 clusters of 12 alone, one tile
+    # each
+    ("aes", 320, (64, 12, 64, 1)), ("aes", 448, (64, 12, 64, 1)),
+    # 8-14 tiles: pairs on 4-7 clusters of 12 (an odd count runs its last
+    # tile alone), where one tile a cluster takes clusters of 6, twice the
+    # span
+    ("aes", 512, (64, 12, 64, 2)), ("aes", 576, (64, 12, 64, 2)),
+    ("aes", 896, (64, 12, 64, 2)),
+    # 15-16 tiles: 8 clusters of 12 would take two waves
+    ("aes", 960, (64, 6, 64, 1)), ("aes", 1024, (64, 6, 64, 1)),
+    # 32 tiles: one wave of 16 pairs on clusters of 6 against two of one
+    ("aes", 2048, (64, 6, 64, 2)),
+    # Kreyvium's fam1: 36 tiles, 3 waves of pairs on clusters of 16 against
+    # 6 of one tile; 48 tiles fill 7 waves of one tile, where pairs take 4
+    # (or one on clusters of 4, four times the span)
+    ("fam1", 2304, (64, 16, 64, 2)), ("fam1", 3072, (64, 16, 64, 1)),
+    ("fam1", 3200, (64, 4, 64, 2))])
+def test_pairs_take_the_launches_they_fit_in_fewer_waves(family, batch,
+                                                         want):
+    params = {"aes": PRESETS["aes128_p4"][0],
+              "fam1": STAGED_PRESETS["kreyvium_p10_staged"].fam1}[family]
+    plan = fbr.k1_ring_plan(batch, params, SMS,
+                            resident=lambda p: H100[p.cluster])
+    assert plan == want
+    tiles = -(-batch // plan.cb)
+    clusters = -(-tiles // plan.pair)
+    # an odd tile count: the last cluster carries one tile
+    if plan.pair == 2:
+        assert tiles - 2 * (clusters - 1) in (1, 2)
+        assert (tiles % 2 == 1) == (tiles - 2 * (clusters - 1) == 1)
+    # the cost the plan takes it by: waves × span × cb × (64 + nw) / nw,
+    # times K1_PAIR_COST for pairs; the other schedule costs no less
+    kn = (params.glwe_dim + 1) * params.poly_size
+    other = fbr.k1_ring_plan(batch, params, SMS, pair=3 - plan.pair,
+                             resident=lambda p: H100[p.cluster])
+
+    def cost(p):
+        waves = -(-(-(-tiles // p.pair)) // H100[p.cluster])
+        c = waves * (kn // p.cluster) * p.cb * (64 + p.nw) / p.nw
+        return c * fbr.K1_PAIR_COST if p.pair == 2 else c
+    assert cost(plan) <= cost(other)
+
+
+def stage_smem(limbs, cb, nw):
+    """Shared memory a CTA of the ring kernel takes at (limbs, cb, nw), as
+    its source lays it out (``Stage`` in csrc/fused_blind_rotate.cu): ring
+    stages of two 128-byte columns of cb digit rows and L limbs of H
+    blocks, each rounded up to 1 KB, as many as fit beside 2 KB (alignment,
+    mbarriers) and 1 KB of static arrays, at most 6; and the stages."""
+    kA = 2 * cb * 128
+    kH = limbs * h_blocks(nw) * 128
+    stage = -(-(kA + kH) // 1024) * 1024
+    stages = min(6, (fbr.SMEM_MAX - 2048 - 1024) // stage)
+    return stages * stage + 2048, stages
+
+
+@pytest.mark.parametrize("limbs, cb, nw", [
+    (limbs, cb, nw) for limbs in (1, 2, 3, 4) for cb in fbr.K1_TILES
+    for nw in fbr.K1_WIDTHS if fbr.k1_fits(cb, nw, limbs)])
+def test_pair_plans_fit_shared_memory(limbs, cb, nw):
+    """A cluster carrying two tiles keeps one ring: the pair plan of every
+    (limbs, cb, nw) the kernel is built for takes the single-tile plan's
+    shared memory, at least four stages, and the 4 mbarriers of its two
+    tiles' cluster barriers fit the bytes beside the ring."""
+    smem, stages = stage_smem(limbs, cb, nw)
+    assert 4 <= stages and smem + 1024 <= fbr.SMEM_MAX
+    assert 1023 + 8 * (3 * 6 + 4) <= 2048
+    params = PRESETS["aes128_p4"][0]
+    for pair in fbr.K1_PAIRS:
+        plan = fbr.k1_ring_plan(1024, params, SMS, limbs, cb=cb, nw=nw,
+                                pair=pair)
+        assert plan.pair == pair
 
 
 def test_plan_overrides_and_refusals():
     params = PRESETS["aes128_p4"][0]
     plan = fbr.k1_plan(1024, params, SMS, cb=128, cluster=3, nw=32)
     assert (plan.cb, plan.cluster, plan.nw) == (128, 3, 32)
+    assert fbr.k1_plan(1024, params, SMS, cluster=12, pair=2) \
+        == (64, 12, 64, 2)
+    with pytest.raises(ValueError):
+        fbr.k1_ring_plan(1024, params, SMS, pair=3)
     assert fbr.k1_clusters(params, 32) == [12, 8, 6, 4, 3, 2, 1]
     assert fbr.k1_clusters(params, 64) == [12, 6, 4, 3, 2, 1]
     # 128 ciphertexts × 4 limbs × 64 coefficients would take 256 registers

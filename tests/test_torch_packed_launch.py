@@ -278,24 +278,28 @@ def test_programs_launch_the_packed_counts(name, v):
     ex, families, reals = program_executor(name)
     buf = SimpleNamespace(shape=(ex.num_wires, v, 1),
                           device=torch.device("cuda"))
+    # each family's route where it keeps off the ring (every launch held
+    # in one wave of the small tiles), else each launch's own
+    routes = [None if RM.takes_ring(p, [v * w[i] for w in reals])
+              else "k1s" for i, p in enumerate(families)]
     launched = padded = 0
     with profiling.collect():
         for lv, want in enumerate(reals):
             calls = ex.family_calls(lv, v, card=True)
             entries = ex._launches(buf, lv)
             buckets = [a.shape[0] for a in ex.levels[lv].arrays()[::6]]
-            for (fam, n, real), w, p, e, nb in zip(calls, want, families,
-                                                   entries, buckets):
+            for (fam, n, real), w, p, e, nb, route in zip(
+                    calls, want, families, entries, buckets, routes):
                 assert real == v * w
-                assert n == RM.launch_rows(p, w, v, "fused_otf")
+                assert n == RM.launch_rows(p, w, v, "fused_otf", 4, route)
                 assert (e.launched, e.real) == (n, real)
                 if not w:
                     continue
                 assert v * w <= n <= v * nb
-                tile = RM.launch_tile(p, v * w, "fused_otf")
+                tile = RM.launch_tile(p, v * w, "fused_otf", 4, route)
                 assert n % tile == 0 or n == v * nb
-                assert e.path == RM.k1_route(p, n) == RM.k1_route(
-                    p, v * w)
+                assert e.path == (route or RM.k1_route(p, n)) == (
+                    route or RM.k1_route(p, v * w))
                 launched += n
                 padded += n - v * w
     # the layout pads a few percent where the buckets pad 28-29%
@@ -308,8 +312,7 @@ def test_programs_launch_the_packed_counts(name, v):
 
 
 @pytest.mark.parametrize("name,v,want", [
-    ("aes128_p4", 8, {("k1", None): 209, ("k1s", (32, 6)): 17,
-                      ("k1s", (16, 16)): 3, ("k1s", (16, 8)): 1}),
+    ("aes128_p4", 8, {("k1", None): 227, ("k1s", (16, 16)): 3}),
     ("aes128_p4", 1, {("k1s", (16, 16)): 192, ("k1s", (16, 8)): 38}),
     ("kreyvium_p10_staged", 8, {("k1", None): 27, ("k1s", (16, 12)): 1})])
 def test_programs_launch_the_chosen_kernels(name, v, want):
@@ -317,9 +320,10 @@ def test_programs_launch_the_chosen_kernels(name, v, want):
     model chooses each family call's launch once
     (``CircuitExecutor.launch_choices``), and the kernel runs its route and
     small-tile (tile, cluster), which is the plan the model prices at the
-    count launched (``launch_plan``): AES-128 at V=8 209 ring launches
-    and 21 small-tile ones, at V=1 all 230 on the small-tile plan, and
-    Kreyvium at V=8 27 ring launches and one on tiles of 16."""
+    count launched (``launch_plan``): AES-128 at V=8 227 ring launches
+    and 3 small-tile ones, at V=1 all 230 on the small-tile plan (each
+    held in one wave of its tiles: ``takes_ring``), and Kreyvium at V=8
+    27 ring launches and one on tiles of 16."""
     ex, families, _ = program_executor(name)
     cal = calibration()
     got = {}
@@ -334,7 +338,8 @@ def test_programs_launch_the_chosen_kernels(name, v, want):
                 resident=lambda q: cal["resident"].get(
                     RM.resident_key("fused_otf", 4, q, p),
                     cal["sms"] // q.cluster), route=c.route)
-            assert plan == RM.launch_plan(p, c.launched, "fused_otf")[0], lv
+            assert plan == RM.launch_plan(p, c.launched, "fused_otf", 4,
+                                          c.route)[0], lv
     assert got == want
 
 
@@ -355,13 +360,19 @@ AES = PRESETS["aes128_p4"][0]
 
 def test_aes_small_tile_plan_by_waves():
     """At AES-128's family: up to 7 tiles of 16 (112 rows) 16 on 16 CTAs,
-    one wave; 128 rows 16 on 8; the launches of eight evaluations of 40 to
-    56 bootstraps (320 to 448 rows) the ring kernel's one wave."""
+    one wave; 128 rows the ring's one wave of 64 on 12, priced below the
+    small tiles' 16 on 8 (which a family whose launches all fit one wave of
+    small tiles keeps: ``takes_ring``); the launches of eight evaluations
+    of 40 to 56 bootstraps (320 to 448 rows) the ring kernel's one wave."""
     for rows in (1, 16, 97, 112):
         plan, waves = RM.launch_plan(AES, rows, "fused_otf")
         assert (plan.cb, plan.cluster, waves) == (16, 16, 1)
     plan, waves = RM.launch_plan(AES, 128, "fused_otf")
+    assert (plan.cb, plan.cluster, plan.pair, waves) == (64, 12, 1, 1)
+    plan, waves = RM.launch_plan(AES, 128, "fused_otf", route="k1s")
     assert (plan.cb, plan.cluster, waves) == (16, 8, 1)
+    assert not RM.takes_ring(AES, (16, 112, 128, 176))
+    assert RM.takes_ring(AES, (16, 128, 1024))
     for rows in range(320, 449, 64):
         assert RM.k1_route(AES, rows) == "k1"
         plan, waves = RM.launch_plan(AES, rows, "fused_otf")

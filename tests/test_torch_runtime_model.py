@@ -169,9 +169,11 @@ def test_model_plan_is_the_planners_under_the_table(kernel, key, limbs):
                                resident=resident, route=c.route)
         else:
             want = fbr.k2_plan(rows, params, sms, limbs, resident=resident)
-        tiles = -(-rows // want.cb)
+        # a wave: as many clusters as the card holds, each one tile or,
+        # on the ring's paired plans, two
+        clusters = -(-(-(-rows // want.cb)) // getattr(want, "pair", 1))
         assert rm.launch_plan(params, rows, kernel, limbs) == (
-            want, -(-tiles // max(1, resident(want))))
+            want, -(-clusters // max(1, resident(want))))
 
 
 # ------------------------------------------------- the H100 cost model

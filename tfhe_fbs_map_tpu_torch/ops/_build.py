@@ -92,8 +92,8 @@ def bind(path: Path, parts: tuple[str, ...] = ("k1", "k2", "k1s")
     entries = {}
     if "k1" in parts:  # K1's source also holds fbr_error_string
         entries.update({"fbr_error_string": [i],
-                        "fbr_k1_blind_rotate": [p] * 6 + [i] * 10 + [p],
-                        "fbr_k1_max_clusters": [i] * 4 + [ip],
+                        "fbr_k1_blind_rotate": [p] * 6 + [i] * 11 + [p],
+                        "fbr_k1_max_clusters": [i] * 5 + [ip],
                         "fbr_k1_layout": [i] * 3 + [ip, ip]})
     if "k2" in parts:
         entries.update({"fbr_k2_blind_rotate": [p] * 6 + [i] * 11 + [p],

@@ -52,13 +52,27 @@
 //   group in flight; they compute the digit pass and the ACC epilogue.
 //   Stages pass between them by three mbarriers each (digits landed, H
 //   landed, stage consumed).
-// * What bounds it on the H100: the serial work around the products.  The
-//   phase bisect (runtime/bisect.py) at n=578, B=1024 (plan 64 x 6, nw 64)
-//   gives 25.8 ms a launch against a least time of 11.29; leaving out the
-//   products saves 10.2 ms, the H copies 1.0 and the digit pass 5.3 (at
-//   Kreyvium's fam1, B=3200: 248.1 ms; 111.5, 8.1 and 25.9).  The digit
-//   pass and the two cluster barriers a step stall the ring; only a second
-//   independent tile a CTA could hide them.
+// * A cluster carries one tile (k1_kernel) or two in turns
+//   (k1_kernel_pair): the ring's blocks of iterations alternate between the
+//   two tiles' steps, and seven digit warps of their own write one tile's
+//   digits while the product warpgroups multiply the other's, each tile
+//   with its own two cluster barriers (mbarriers every CTA arrives on).
+//   The launch side's plan (k1_ring_plan) takes a pair where its waves,
+//   at K1_PAIR_COST times a one-tile cluster's time, cost less.
+// * What bounds it on the H100: the products' shared-memory operands and
+//   the serial work around them.  The phase bisect (runtime/bisect.py, ms
+//   a launch) at n=578, B=1024, one tile on clusters of 6 (64 x 6, nw 64):
+//   25.89 against a least time of 11.29; without the products 15.33,
+//   without the H copies 24.82, without the digit pass 20.67.  At B=520
+//   the plan takes pairs on clusters of 12: 21.78 (one tile on 6: 25.55);
+//   11.02 of it goes with the products, 0.40 with the H copies, 1.65 with
+//   the digit pass.  At Kreyvium's fam1, B=3200, pairs on clusters of 4:
+//   233.80 (one tile on 2: 244.61); 126.28, 12.72 and 10.18.  A pair
+//   hides most of its digit pass but not the product warpgroups' ACC
+//   epilogue and its fence, and two tiles' products still read both
+//   operands from shared memory; AES-128's 15 and 16 tiles find no pair
+//   plan that fills the card (7 clusters of 12 at once), so they stay one
+//   tile a cluster.
 // * Exactness: |digit| <= 2^(b-1) <= 128, |key| <= 128 and K*2^(b+6) <
 //   2^31 (unsupported() in ops/fused_blind_rotate.py), so each int32 sum
 //   is exact.  The limb shifts and the ACC adds are uint32_t (mod 2^32).
@@ -84,6 +98,17 @@ constexpr int kK1Threads = kThreads + kProducer;
 // registers a thread after setmaxnreg: 256 * 224 + 128 * 56 = 384 * 168
 constexpr int kConsumerRegs = 224;
 constexpr int kProducerRegs = 56;
+// The paired schedule (k1_kernel_pair): two product warpgroups, a digit
+// warpgroup and the producer's, whose first warp issues the copies and
+// whose other three write digits too: 512 threads of 128 registers at
+// launch, 2 * 200 + 56 + 56 = 4 * 128 after setmaxnreg.
+constexpr int kPairThreads = kThreads + 128 + kProducer;
+constexpr int kDigitThreads = 128 + 96;  // seven digit warps
+constexpr int kPairConsumerRegs = 200;
+constexpr int kPairDigitRegs = 56;
+constexpr int kDigitUnroll = 2;  // digit groups in flight a thread
+static_assert(2 * kPairConsumerRegs + 2 * kPairDigitRegs <= 65536 / 128,
+              "the paired schedule's registers exceed the SM's");
 
 // One ring stage: the slice's two 128-byte columns of MT blocks of 64
 // digit rows (TMA, 128B swizzle, so 1024-aligned), then L limbs of kHB H
@@ -102,10 +127,200 @@ struct Stage {
   static constexpr int kStages = kFit < kMaxStages ? kFit : kMaxStages;
   static constexpr int kSmem = kStages * kBytes + kSmemBeside;
   static_assert(kStages >= 4, "a ring of fewer than 4 stages");
-  // alignment and 3 mbarriers a stage
-  static_assert(1023 + 8 * 3 * kMaxStages <= kSmemBeside,
+  // alignment, 3 mbarriers a stage and the paired schedule's 4
+  static_assert(1023 + 8 * (3 * kMaxStages + 4) <= kSmemBeside,
                 "mbarriers overflow the bytes beside the ring");
 };
+
+// A CTA's ring: stage s at smem0 + s * kBytes; per stage the mbarriers
+// afull (digits landed, TMA), hfull (H landed, bulk copies) and empty
+// (consumed: one arrival per product warp), 8 bytes apart.
+struct Ring {
+  uint32_t smem0, afull, hfull, empty;
+};
+
+// The copies of one block of `total` ring iterations from G0: step i of the
+// tile whose first ciphertext is g0, its f-th iteration column chunk f / nk
+// and K slice f % nk.  First the H blocks of the block's first stages (they
+// do not depend on the digits), then, once ready() returns (the tile's
+// digits of step i are complete in the cluster), each stage's digit rows
+// by TMA and the other stages' H blocks.  Every producer thread calls it
+// (ready() may be a cluster barrier); `issuer` alone copies.
+template <int L, int CB, int NW, typename Ready>
+__device__ __forceinline__ void produce(const Ring& rg,
+                                        const CUtensorMap* dig_map,
+                                        const int8_t* hankel, int G0, int i,
+                                        int g0, int q_lo, int nk, int total,
+                                        int n, int k1, int rows, bool issuer,
+                                        bool& stuck, Ready ready) {
+  using St = Stage<L, CB / kM, NW>;
+  constexpr int kS = St::kStages;
+  constexpr int CW = 2 * NW;
+  const int pre = total < kS ? total : kS;
+  const int log_n = __ffs(n) - 1;
+  // the table's blocks of one (step, limb, comp, row): 2N/8 of 128 bytes
+  const size_t row_bytes = static_cast<size_t>(32) * n;
+  const size_t limb_stride = static_cast<size_t>(k1) * rows * row_bytes;
+  // wait until the consumers are done with the previous iteration of G's
+  // stage
+  auto claim = [&](int G) {
+    if (G >= kS)
+      mbar_wait_or_give_up(rg.empty + 8 * (G % kS), ((G / kS) + 1) & 1,
+                           stuck);
+  };
+  // the H blocks of iteration G (the block's f-th): for limb lb the kHB
+  // blocks from o0 / 8 of (step, limb, comp c, row r), o0 = t_c + j0' (the
+  // chunk's first coefficient and the slice's first column, both
+  // 16-aligned), one bulk copy each, completing on the stage's H barrier
+  auto copy_h = [&](int G, int f) {
+    const int s = G % kS;
+    const int q0 = q_lo + (f / nk) * CW, x = (f % nk) * kSlice;
+    const int c = q0 >> log_n, r = x >> log_n;
+    const int8_t* h0 =
+        hankel + ((static_cast<size_t>(i) * L * k1 + c) * rows + r) *
+                     row_bytes +
+        static_cast<size_t>((q0 & (n - 1)) + (x & (n - 1))) * 16;
+    mbar_expect_tx(rg.hfull + 8 * s, St::kH);
+    for (int lb = 0; lb < L; ++lb)
+      bulk_load(rg.smem0 + s * St::kBytes + St::kA + lb * St::kHB * 128,
+                h0 + lb * limb_stride, St::kHB * 128, rg.hfull + 8 * s);
+  };
+  if (issuer)
+    for (int f = 0; f < pre; ++f) {
+      claim(G0 + f);
+      copy_h(G0 + f, f);
+    }
+  ready();
+  if (issuer)
+    for (int f = 0, sl = 0; f < total; ++f) {
+      const int G = G0 + f, s = G % kS;
+      if (f >= pre) claim(G);
+      mbar_expect_tx(rg.afull + 8 * s, St::kA);  // the digit rows of G
+      for (int h = 0; h < 2; ++h)
+        tma_load(rg.smem0 + s * St::kBytes + h * (St::kA / 2), dig_map,
+                 sl * kSlice + h * kKc, g0, rg.afull + 8 * s);
+      if (f >= pre) copy_h(G, f);
+      if (++sl == nk) sl = 0;
+    }
+}
+
+// One column chunk of a tile, run by the two product warpgroups (wg 0, 1,
+// each NW of its 2*NW columns from q0; the tile's first ciphertext g0):
+// the products of its nk K slices, ring iterations G0 .. G0 + nk - 1,
+// pipelined with one wgmma group in flight, then ACC[comp] += sum_limb P
+// << 8*(limb + drop) on its columns (accumulators untouched inside), its
+// loads in PARTS rounds (fewer registers held).
+template <int L, int CB, int NW, int PARTS = 1>
+__device__ __forceinline__ void chunk(int (&d)[CB / kM][L][16 * (NW / 32)],
+                                      const Ring& rg, uint32_t* acc, int G0,
+                                      int nk, int g0, int q0, int batch,
+                                      int n, int wg, int lane, int wrow,
+                                      bool& stuck) {
+  constexpr int MT = CB / kM;  // 64-row blocks of the tile
+  constexpr int R = NW / 32;   // wgmma_s8<R> is m64n(NW)k32
+  using St = Stage<L, MT, NW>;
+  constexpr int kS = St::kStages;
+  const int drop = 4 - L;
+  const int log_n = __ffs(n) - 1;
+  for (int sl = 0; sl < nk; ++sl) {
+    const int G = G0 + sl, s = G % kS;
+    const uint32_t st = rg.smem0 + s * St::kBytes;
+    mbar_wait_or_give_up(rg.hfull + 8 * s, (G / kS) & 1, stuck);
+    mbar_wait_or_give_up(rg.afull + 8 * s, (G / kS) & 1, stuck);
+    const uint64_t da = sw128_desc(st);
+    // B of warpgroup wg, limb lb, k step k: H blocks from
+    // lb*kHB + wg*NW/8 + 4k, core matrices 256 B apart along K, 128 B
+    // along N
+    const uint32_t hb = st + St::kA + wg * (NW / 8) * 128;
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int k = 0; k < kSlice / 32; ++k)
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int lb = 0; lb < L; ++lb)
+          wgmma_s8<R>(d[m][lb],
+                      da + (k / 4) * (St::kA / 2 >> 4) +
+                          m * (kM * kKc >> 4) + 2 * (k % 4),
+                      plain_desc(hb + (lb * St::kHB + 4 * k) * 128, 256,
+                                 128),
+                      sl != 0 || k != 0);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    // the products of iteration G may still run; those of G - 1 are done,
+    // and its stage goes back to the producer
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    if (sl > 0 && lane == 0) mbar_arrive(rg.empty + 8 * ((G - 1) % kS));
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  if (lane == 0) mbar_arrive(rg.empty + 8 * ((G0 + nk - 1) % kS));
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int lb = 0; lb < L; ++lb) fence_regs(d[m][lb]);
+  // a 64-row block and a part of the columns at a time: its loads first,
+  // then adds and stores
+  constexpr int JC = NW / 8 / PARTS;
+  const int q_base = q0 + wg * NW + (lane & 3) * 2;
+#pragma unroll
+  for (int mp = 0; mp < MT * PARTS; ++mp) {
+    const int m = mp / PARTS, j0 = mp % PARTS * JC;
+    uint2 old[JC][2];
+#pragma unroll
+    for (int jj = 0; jj < JC; ++jj)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int jc = j0 + jj;
+        const int g = g0 + m * kM + wrow + (lane >> 2) + h * 8;
+        const int q = q_base + jc * 8, c = q >> log_n, t = q & (n - 1);
+        old[jj][h] =
+            g < batch ? __ldcg(reinterpret_cast<const uint2*>(
+                            acc + (static_cast<size_t>(c) * batch + g) * n +
+                            t))
+                      : make_uint2(0, 0);
+      }
+#pragma unroll
+    for (int jj = 0; jj < JC; ++jj)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int jc = j0 + jj;
+        const int g = g0 + m * kM + wrow + (lane >> 2) + h * 8;
+        if (g >= batch) continue;
+        const int q = q_base + jc * 8, c = q >> log_n, t = q & (n - 1);
+        uint2 v = old[jj][h];
+#pragma unroll
+        for (int lb = 0; lb < L; ++lb) {  // n8 block jc of limb lb
+          const int e = jc * 4 + 2 * h;
+          const uint32_t sh = 8u * static_cast<uint32_t>(lb + drop);
+          v.x += static_cast<uint32_t>(d[m][lb][e]) << sh;
+          v.y += static_cast<uint32_t>(d[m][lb][e + 1]) << sh;
+        }
+        __stcg(reinterpret_cast<uint2*>(
+                   acc + (static_cast<size_t>(c) * batch + g) * n + t),
+               v);
+      }
+  }
+}
+
+// A CTA's ring in its dynamic shared memory, its mbarriers after the
+// stages (and, for the paired schedule, its four cluster mbarriers after
+// those, at afull + 24 * kS).
+template <int L, int CB, int NW>
+__device__ __forceinline__ Ring ring(const unsigned char* smem_raw) {
+  using St = Stage<L, CB / kM, NW>;
+  const uint32_t smem0 = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t afull = smem0 + St::kStages * St::kBytes;
+  return {smem0, afull, afull + 8 * St::kStages, afull + 16 * St::kStages};
+}
+
+// Initialise the ring's mbarriers (one thread).
+template <int L, int CB, int NW>
+__device__ __forceinline__ void init_ring(const Ring& rg) {
+  for (int s = 0; s < Stage<L, CB / kM, NW>::kStages; ++s) {
+    mbar_init(rg.afull + 8 * s, 1);
+    mbar_init(rg.hfull + 8 * s, 1);
+    mbar_init(rg.empty + 8 * s, kThreads / 32);
+  }
+}
 
 template <int L, int CB, int NW>
 __global__ void __launch_bounds__(kK1Threads, 1)
@@ -114,11 +329,8 @@ k1_kernel(const __grid_constant__ CUtensorMap dig_map,
           const int32_t* __restrict__ a_t, const int32_t* __restrict__ tv,
           const int8_t* __restrict__ hankel, int32_t* out, int8_t* dig,
           int steps, int batch, int n, int k1, int l, int b, int cluster) {
-  constexpr int MT = CB / kM;  // 64-row blocks of the tile
   constexpr int CW = 2 * NW;   // coefficients a chunk (two warpgroups)
-  constexpr int R = NW / 32;   // wgmma_s8<R> is m64n(NW)k32
-  using St = Stage<L, MT, NW>;
-  constexpr int kS = St::kStages;  // ring stages
+  constexpr int R = NW / 32;
   extern __shared__ unsigned char smem_raw[];
   __shared__ int amt[2][CB];  // the tile's rotation amounts, a step ahead
 
@@ -134,22 +346,12 @@ k1_kernel(const __grid_constant__ CUtensorMap dig_map,
   const int nk = K / kSlice;
   const int chunks = span / CW;
   const int total = chunks * nk;  // ring iterations a step
-  const int pre = total < kS ? total : kS;
-  const int log_n = __ffs(n) - 1;
   uint32_t* acc = reinterpret_cast<uint32_t*>(out);  // [k1][batch][n]
-  const uint32_t smem0 = (smem_u32(smem_raw) + 1023) & ~1023u;
-  // per stage: digits landed (TMA), H landed (bulk copies), stage consumed
-  // (one arrival per consumer warp)
-  const uint32_t afull = smem0 + kS * St::kBytes;
-  const uint32_t hfull = afull + 8 * kS, empty = hfull + 8 * kS;
+  const Ring rg = ring<L, CB, NW>(smem_raw);
   bool stuck = false;  // an mbarrier wait gave up: trap once the loops end
 
   if (tid == 0) {
-    for (int s = 0; s < kS; ++s) {
-      mbar_init(afull + 8 * s, 1);
-      mbar_init(hfull + 8 * s, 1);
-      mbar_init(empty + 8 * s, kThreads / 32);
-    }
+    init_ring<L, CB, NW>(rg);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -160,64 +362,18 @@ k1_kernel(const __grid_constant__ CUtensorMap dig_map,
     // ---- producer warpgroup: its first thread issues every copy (the H
     // blocks of a stage from the table, its digit tiles by TMA)
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
-    const bool issuer = tid == kThreads;
-    // the table's blocks of one (step, limb, comp, row): 2N/8 of 128 bytes
-    const size_t row_bytes = static_cast<size_t>(32) * n;
-    const size_t limb_stride = static_cast<size_t>(k1) * rows * row_bytes;
-    // wait until the consumers are done with the previous iteration of
-    // G's stage
-    auto claim = [&](int G) {
-      if (G >= kS)
-        mbar_wait_or_give_up(empty + 8 * (G % kS),
-                             ((G / kS) + 1) & 1, stuck);
-    };
-    // the H blocks of iteration G (step i, its f-th): for limb lb the kHB
-    // blocks from o0 / 8 of (step, limb, comp c, row r), o0 = t_c + j0'
-    // (the chunk's first coefficient and the slice's first column, both
-    // 16-aligned), one bulk copy each, completing on the stage's H barrier
-    auto copy_h = [&](int G, int i, int f) {
-      const int s = G % kS;
-      const int q0 = q_lo + (f / nk) * CW, x = (f % nk) * kSlice;
-      const int c = q0 >> log_n, r = x >> log_n;
-      const int8_t* h0 =
-          hankel + ((static_cast<size_t>(i) * L * k1 + c) * rows + r) *
-                       row_bytes +
-          static_cast<size_t>((q0 & (n - 1)) + (x & (n - 1))) * 16;
-      mbar_expect_tx(hfull + 8 * s, St::kH);
-      for (int lb = 0; lb < L; ++lb)
-        bulk_load(smem0 + s * St::kBytes + St::kA + lb * St::kHB * 128,
-                  h0 + lb * limb_stride, St::kHB * 128, hfull + 8 * s);
-    };
-    int it = 0;
-    for (int i = 0; i < steps; ++i) {
-      // H of the step's first stages: it does not depend on the digits
-      if (issuer)
-        for (int f = 0; f < pre; ++f) {
-          claim(it + f);
-          copy_h(it + f, i, f);
-        }
-      cluster_sync();  // the consumers' ACC of the last step is complete
-      cluster_sync();  // the tile's digits of step i are complete
-      if (issuer)
-        for (int f = 0, sl = 0; f < total; ++f) {
-          const int G = it + f, s = G % kS;
-          if (f >= pre) claim(G);
-          mbar_expect_tx(afull + 8 * s, St::kA);  // the digit rows of G
-          for (int h = 0; h < 2; ++h)
-            tma_load(smem0 + s * St::kBytes + h * (St::kA / 2), &dig_map,
-                     sl * kSlice + h * kKc, g0, afull + 8 * s);
-          if (f >= pre) copy_h(G, i, f);
-          if (++sl == nk) sl = 0;
-        }
-      it += total;
-    }
+    for (int i = 0, G = 0; i < steps; ++i, G += total)
+      produce<L, CB, NW>(rg, &dig_map, hankel, G, i, g0, q_lo, nk, total, n,
+                         k1, rows, tid == kThreads, stuck, [] {
+                           cluster_sync();  // ACC of the last step complete
+                           cluster_sync();  // the digits of step i complete
+                         });
     if (stuck) __trap();
     return;
   }
 
   // ---- consumer warpgroups: digits, products, ACC
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-  const int drop = 4 - L;
   init_acc(acc, b_init, tv, g0, CB, q_lo, span, batch, n, k1);
   auto load_amounts = [&](int i) {
     for (int r = tid; r < CB; r += kThreads)
@@ -226,95 +382,190 @@ k1_kernel(const __grid_constant__ CUtensorMap dig_map,
   };
   load_amounts(0);
 
-  int it = 0;  // ring iterations consumed so far, over all steps
-  for (int i = 0; i < steps; ++i) {
+  int d[CB / kM][L][16 * R];
+  for (int i = 0, G = 0; i < steps; ++i, G += total) {
     cluster_sync();  // ACC of the last step is complete; its digits consumed
     digit_pass<CB, true>(acc, dig, amt[i & 1], g0, q_lo, span, batch, n, l, b,
                          K);
     cluster_sync();  // the tile's digits of step i are complete
-
-    // column chunks of CW coefficients, each a pipelined loop over the nk
-    // K slices with the epilogue after it (accumulators untouched inside)
-    int d[MT][L][16 * R];
-    for (int ch = 0, f = 0; ch < chunks; ++ch) {
-      for (int sl = 0; sl < nk; ++sl, ++f) {
-        const int G = it + f, s = G % kS;
-        const uint32_t st = smem0 + s * St::kBytes;
-        mbar_wait_or_give_up(hfull + 8 * s, (G / kS) & 1, stuck);
-        mbar_wait_or_give_up(afull + 8 * s, (G / kS) & 1, stuck);
-        const uint64_t da = sw128_desc(st);
-        // B of warpgroup wg, limb lb, k step k: H blocks from
-        // lb*kHB + wg*NW/8 + 4k, core matrices 256 B apart along K, 128 B
-        // along N
-        const uint32_t hb = st + St::kA + wg * (NW / 8) * 128;
-        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-#pragma unroll
-        for (int k = 0; k < kSlice / 32; ++k)
-#pragma unroll
-          for (int m = 0; m < MT; ++m)
-#pragma unroll
-            for (int lb = 0; lb < L; ++lb)
-              wgmma_s8<R>(d[m][lb],
-                          da + (k / 4) * (St::kA / 2 >> 4) +
-                              m * (kM * kKc >> 4) + 2 * (k % 4),
-                          plain_desc(hb + (lb * St::kHB + 4 * k) * 128, 256,
-                                     128),
-                          sl != 0 || k != 0);
-        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-        // the products of iteration G may still run; those of G - 1 are
-        // done, and its stage goes back to the producer
-        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-        if (sl > 0 && lane == 0) mbar_arrive(empty + 8 * ((G - 1) % kS));
-      }
-      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-      if (lane == 0) mbar_arrive(empty + 8 * ((it + f - 1) % kS));
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int lb = 0; lb < L; ++lb) fence_regs(d[m][lb]);
-      // ACC[comp] += sum_limb P << 8*(limb + drop) on the chunk's columns,
-      // a 64-row block at a time: its loads first, then adds and stores
-      const int q_base = q_lo + ch * CW + wg * NW + (lane & 3) * 2;
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        uint2 old[NW / 8][2];
-#pragma unroll
-        for (int jc = 0; jc < NW / 8; ++jc)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int g = g0 + m * kM + wrow + (lane >> 2) + h * 8;
-            const int q = q_base + jc * 8, c = q >> log_n, t = q & (n - 1);
-            old[jc][h] =
-                g < batch ? __ldcg(reinterpret_cast<const uint2*>(
-                                acc + (static_cast<size_t>(c) * batch + g) *
-                                          n +
-                                t))
-                          : make_uint2(0, 0);
-          }
-#pragma unroll
-        for (int jc = 0; jc < NW / 8; ++jc)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int g = g0 + m * kM + wrow + (lane >> 2) + h * 8;
-            if (g >= batch) continue;
-            const int q = q_base + jc * 8, c = q >> log_n, t = q & (n - 1);
-            uint2 v = old[jc][h];
-#pragma unroll
-            for (int lb = 0; lb < L; ++lb) {  // n8 block jc of limb lb
-              const int e = jc * 4 + 2 * h;
-              const uint32_t sh = 8u * static_cast<uint32_t>(lb + drop);
-              v.x += static_cast<uint32_t>(d[m][lb][e]) << sh;
-              v.y += static_cast<uint32_t>(d[m][lb][e + 1]) << sh;
-            }
-            __stcg(reinterpret_cast<uint2*>(
-                       acc + (static_cast<size_t>(c) * batch + g) * n + t),
-                   v);
-          }
-      }
-    }
-    it += total;
+    for (int ch = 0; ch < chunks; ++ch)
+      chunk<L, CB, NW>(d, rg, acc, G + ch * nk, nk, g0, q_lo + ch * CW, batch,
+                       n, wg, lane, wrow, stuck);
     if (i + 1 < steps) load_amounts(i + 1);
   }
+  if (stuck) __trap();
+}
+
+// Arrive on mbarrier `bar` (an address of this CTA's shared memory) of CTA
+// `cta` of the cluster, releasing this thread's earlier writes to it.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
+                                                    uint32_t cta) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(bar), "r"(cta));
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          remote)
+      : "memory");
+}
+
+// A warp tells every CTA of the cluster that its global writes (ACC,
+// digits) are complete: each thread's writes visible to the cluster, TMA
+// reads included, then lane j arrives on CTA j's `bar`.
+__device__ __forceinline__ void signal_cluster(uint32_t bar, int cluster,
+                                               int lane) {
+  __threadfence();
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+  __syncwarp();
+  if (lane < cluster) mbar_arrive_cluster(bar, lane);
+}
+
+// Wait for the phase of parity `parity` of a barrier the cluster's CTAs
+// arrive on (signal_cluster): their writes are visible after it, TMA reads
+// included.  Gives up as mbar_wait_or_give_up.
+__device__ __forceinline__ void wait_cluster(uint32_t bar, uint32_t parity,
+                                             bool& stuck) {
+  for (int spin = 0; !stuck; ++spin) {
+    if (spin >= kSpin) {
+      stuck = true;
+      return;
+    }
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) break;
+  }
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// The paired schedule: each cluster carries two tiles, A (the pair's first)
+// and B, over the same span and the same n steps, in turns.  The ring's
+// blocks of iterations run A's step 0, B's step 0, A's step 1, ...; the
+// product warpgroups take them in that order, so while they multiply B's
+// step i, seven digit warps (the third warpgroup and the producer's last
+// three) wait for A's ACC of step i in the cluster and write A's digits of
+// step i + 1, and the producer's TMA of them waits for those digits in
+// the cluster: one tile's digit pass, cluster barriers and TMA latency
+// run under the other tile's products.
+// Each tile has its own two cluster barriers, mbarriers every CTA of the
+// cluster arrives on (signal_cluster): acc_done[t] (the product warps'
+// ACC of the last step, or the initial ACC) and dig_done[t] (the digit
+// warps' digits of the step).  A pair whose B lies past the batch (an odd
+// tile count) runs A alone.
+template <int L, int CB, int NW>
+__global__ void __launch_bounds__(kPairThreads, 1)
+k1_kernel_pair(const __grid_constant__ CUtensorMap dig_map,
+               const int32_t* __restrict__ b_init,
+               const int32_t* __restrict__ a_t,
+               const int32_t* __restrict__ tv,
+               const int8_t* __restrict__ hankel, int32_t* out, int8_t* dig,
+               int steps, int batch, int n, int k1, int l, int b,
+               int cluster) {
+  constexpr int CW = 2 * NW;
+  constexpr int R = NW / 32;
+  constexpr int kS = Stage<L, CB / kM, NW>::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ int amt[CB];  // the digit warps' amounts of their (step, tile)
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2, wrow = (warp & 3) * 16;
+  const int rank = static_cast<int>(cluster_rank());
+  const int g0 = (blockIdx.x / cluster) * 2 * CB;  // tile A's first; B's + CB
+  const int tiles = g0 + CB < batch ? 2 : 1;
+  const int kn = k1 * n;
+  const int span = kn / cluster;
+  const int q_lo = rank * span;
+  const int rows = k1 * l;
+  const int K = rows * n;
+  const int nk = K / kSlice;
+  const int chunks = span / CW;
+  const int total = chunks * nk;
+  uint32_t* acc = reinterpret_cast<uint32_t*>(out);
+  const Ring rg = ring<L, CB, NW>(smem_raw);
+  const uint32_t acc_done = rg.afull + 24 * kS;  // [2], then dig_done [2]
+  const uint32_t dig_done = acc_done + 16;
+  bool stuck = false;
+
+  if (tid == 0) {
+    init_ring<L, CB, NW>(rg);
+    for (int t = 0; t < 2; ++t) {
+      mbar_init(acc_done + 8 * t, cluster * kThreads / 32);
+      mbar_init(dig_done + 8 * t, cluster * kDigitThreads / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  cluster_sync();  // every CTA's mbarriers set before a peer arrives on them
+
+  // ---- digit warps (the digit warpgroup's four, the producer's last
+  // three): the digits of each (step, tile) in the ring's order, each once
+  // the tile's ACC of the last step is complete in the cluster
+  auto write_digits = [&](int dt) {
+    for (int i = 0; i < steps; ++i)
+      for (int t = 0; t < tiles; ++t) {
+        const int gt = g0 + t * CB;
+        for (int r = dt; r < CB; r += kDigitThreads)
+          amt[r] =
+              gt + r < batch ? a_t[static_cast<size_t>(i) * batch + gt + r]
+                             : 0;
+        asm volatile("bar.sync 1, %0;\n" ::"n"(kDigitThreads) : "memory");
+        wait_cluster(acc_done + 8 * t, i & 1, stuck);
+        digit_pass<CB, true, kDigitThreads, kDigitUnroll>(
+            acc, dig, amt, gt, q_lo, span, batch, n, l, b, K, dt);
+        signal_cluster(dig_done + 8 * t, cluster, lane);
+        // every read of the amounts done before the next block's
+        asm volatile("bar.sync 1, %0;\n" ::"n"(kDigitThreads) : "memory");
+      }
+  };
+  // Ring iteration G counts over the blocks (step i, tile t), i * tiles +
+  // t, total a block.
+  if (wg == 3) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kPairDigitRegs));
+    if (warp == 12) {
+      // ---- producer warp: its first thread issues every copy
+      const bool issuer = lane == 0;
+      for (int i = 0, G = 0; i < steps; ++i)
+        for (int t = 0; t < tiles; ++t, G += total)
+          produce<L, CB, NW>(rg, &dig_map, hankel, G, i, g0 + t * CB, q_lo,
+                             nk, total, n, k1, rows, issuer, stuck, [&] {
+                               if (issuer)  // tile t's digits of step i
+                                 wait_cluster(dig_done + 8 * t, i & 1,
+                                              stuck);
+                             });
+    } else {
+      write_digits(tid - kThreads - 32);  // 128 .. 223
+    }
+  } else if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        kPairDigitRegs));
+    write_digits(tid - kThreads);
+  } else {
+    // ---- product warpgroups: each (step, tile) block's chunks and ACC
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        kPairConsumerRegs));
+    for (int t = 0; t < tiles; ++t)
+      init_acc(acc, b_init, tv, g0 + t * CB, CB, q_lo, span, batch, n, k1);
+    for (int t = 0; t < tiles; ++t)
+      signal_cluster(acc_done + 8 * t, cluster, lane);
+    int d[CB / kM][L][16 * R];
+    for (int i = 0, G = 0; i < steps; ++i)
+      for (int t = 0; t < tiles; ++t, G += total) {
+        for (int ch = 0; ch < chunks; ++ch)
+          chunk<L, CB, NW, 2>(d, rg, acc, G + ch * nk, nk, g0 + t * CB,
+                              q_lo + ch * CW, batch, n, wg, lane, wrow,
+                              stuck);
+        if (i + 1 < steps) signal_cluster(acc_done + 8 * t, cluster, lane);
+      }
+  }
+  cluster_sync();  // no CTA leaves while a peer may still arrive on it
   if (stuck) __trap();
 }
 
@@ -322,9 +573,9 @@ template <int L, int CB, int NW>
 cudaError_t launch(const void* b_init, const void* a_t, const void* tv,
                    const void* hankel, void* out, void* dig, int steps,
                    int batch, int n, int k1, int l, int b, int cluster,
-                   cudaStream_t stream) {
+                   int pair, cudaStream_t stream) {
   const int smem = Stage<L, CB / kM, NW>::kSmem;
-  auto kern = k1_kernel<L, CB, NW>;
+  auto kern = pair == 2 ? k1_kernel_pair<L, CB, NW> : k1_kernel<L, CB, NW>;
   cudaError_t err = prepare_kernel(kern, cluster, smem);
   if (err != cudaSuccess) return err;
   const int tiles = (batch + CB - 1) / CB;
@@ -334,7 +585,8 @@ cudaError_t launch(const void* b_init, const void* a_t, const void* tv,
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = cluster_config(
-      tiles * cluster, cluster, smem, attr, stream, kK1Threads);
+      (tiles + pair - 1) / pair * cluster, cluster, smem, attr, stream,
+      pair == 2 ? kPairThreads : kK1Threads);
   err = cudaLaunchKernelEx(&cfg, kern, dig_map,
                            static_cast<const int32_t*>(b_init),
                            static_cast<const int32_t*>(a_t),
@@ -359,7 +611,8 @@ cudaError_t launch(const void* b_init, const void* a_t, const void* tv,
 
 // C entry: returns the launch's cudaError_t (0 on success).  `cb` is the
 // number of ciphertexts per cluster tile (64 or 128), `nw` the coefficients
-// per warpgroup (32 or 64), `cluster` the CTAs per tile, `dig` a
+// per warpgroup (32 or 64), `cluster` the CTAs per tile, `pair` the tiles a
+// cluster carries (1, or 2 in turns: k1_kernel_pair), `dig` a
 // [ceil(batch/cb)*cb, K] int8 scratch, `hankel` the keys' table of H
 // blocks [n][L*(k+1)][rows][2N/8][128] (16-aligned; ops/fused_blind_rotate.py
 // hankel_table).
@@ -368,35 +621,42 @@ extern "C" int fbr_k1_blind_rotate(const void* b_init, const void* a_t,
                                    void* out, void* dig, int steps,
                                    int batch, int n, int k1, int l, int b,
                                    int n_limbs, int cb, int nw, int cluster,
-                                   void* stream) {
+                                   int pair, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
+  if (pair != 1 && pair != 2)
+    return static_cast<int>(cudaErrorInvalidValue);
 #define FBR_K1_LAUNCH(L, CB, NW)                                             \
   if (n_limbs == L && cb == CB && nw == NW)                                  \
     return static_cast<int>(fbr::k1::launch<L, CB, NW>(                      \
         b_init, a_t, tv, hankel, out, dig, steps, batch, n, k1, l, b,       \
-        cluster, st));
+        cluster, pair, st));
   FBR_K1_CASES(FBR_K1_LAUNCH)
 #undef FBR_K1_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// How many clusters of `cluster` CTAs the card runs at once
-// (cudaOccupancyMaxActiveClusters), into *count.
+// How many clusters of `cluster` CTAs of the schedule carrying `pair` tiles
+// the card runs at once (cudaOccupancyMaxActiveClusters), into *count.
 extern "C" int fbr_k1_max_clusters(int n_limbs, int cb, int nw, int cluster,
-                                   int* count) {
+                                   int pair, int* count) {
 #define FBR_K1_OCC(L, CB, NW)                                               \
   if (n_limbs == L && cb == CB && nw == NW)                                 \
-    return static_cast<int>(fbr::max_active_clusters(                       \
-        fbr::k1::k1_kernel<L, CB, NW>, cluster,                            \
-        fbr::k1::Stage<L, CB / fbr::kM, NW>::kSmem, count,                 \
-        fbr::k1::kK1Threads));
+    return static_cast<int>(                                                \
+        pair == 2 ? fbr::max_active_clusters(                               \
+                        fbr::k1::k1_kernel_pair<L, CB, NW>, cluster,        \
+                        fbr::k1::Stage<L, CB / fbr::kM, NW>::kSmem, count,  \
+                        fbr::k1::kPairThreads)                              \
+                  : fbr::max_active_clusters(                               \
+                        fbr::k1::k1_kernel<L, CB, NW>, cluster,             \
+                        fbr::k1::Stage<L, CB / fbr::kM, NW>::kSmem, count,  \
+                        fbr::k1::kK1Threads));
   FBR_K1_CASES(FBR_K1_OCC)
 #undef FBR_K1_OCC
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The ring stages and the dynamic shared memory a CTA of (n_limbs, cb, nw)
-// launches with, into *stages and *smem.
+// launches with, into *stages and *smem (either schedule).
 extern "C" int fbr_k1_layout(int n_limbs, int cb, int nw, int* stages,
                              int* smem) {
 #define FBR_K1_LAYOUT(L, CB, NW)                                            \

@@ -295,29 +295,29 @@ __device__ __forceinline__ void init_acc(uint32_t* acc, const int32_t* b_init,
 // biased-added as the TPU kernel's _decompose_digits, into the int8 scratch
 // [tiles*CB][K] at row g and column (c*l + lev)*n + t, or at the reversed
 // column (c*l + lev)*n + n - 1 - t where REVERSE.  ACC is read through L2
-// (.cg): peer CTAs own the rotated source coefficients.  A thread takes
-// groups of 4 coefficients, kThreads groups a round, stepped without
-// divisions; rows past the batch get zero digits (a zero ciphertext stays
-// zero).
-template <int CB, bool REVERSE>
+// (.cg): peer CTAs own the rotated source coefficients.  THREADS threads
+// (this one the tid-th) take groups of 4 coefficients, THREADS groups a
+// round, UNROLL groups in flight, stepped without divisions; rows past the
+// batch get zero digits (a zero ciphertext stays zero).
+template <int CB, bool REVERSE, int THREADS = kThreads, int UNROLL = kUnroll>
 __device__ __forceinline__ void digit_pass(const uint32_t* acc, int8_t* dig,
                                            const int* amt, int g0, int q_lo,
                                            int span, int batch, int n, int l,
-                                           int b, int K) {
-  const int tid = threadIdx.x;
+                                           int b, int K,
+                                           int tid = threadIdx.x) {
   const int log_n = __ffs(n) - 1;
   const int span4 = span / 4;
-  const int row_step = kThreads / span4, grp_step = kThreads % span4;
+  const int row_step = THREADS / span4, grp_step = THREADS % span4;
   const int bl = b * l, half = 1 << (b - 1);
   const uint32_t mask = (1u << b) - 1, rnd = 1u << (31 - bl);
   uint32_t bias = 0;
   for (int j = 0; j < l; ++j) bias += static_cast<uint32_t>(half) << (b * j);
 
   for (int row = tid / span4, grp = tid % span4; row < CB;) {
-    uint32_t diff[kUnroll][4];
-    int rows[kUnroll], grps[kUnroll];
+    uint32_t diff[UNROLL][4];
+    int rows[UNROLL], grps[UNROLL];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
+    for (int u = 0; u < UNROLL; ++u) {
       rows[u] = row;
       grps[u] = grp;
       const int g = g0 + row;
@@ -345,7 +345,7 @@ __device__ __forceinline__ void digit_pass(const uint32_t* acc, int8_t* dig,
       }
     }
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
+    for (int u = 0; u < UNROLL; ++u) {
       if (rows[u] >= CB) break;
       const int g = g0 + rows[u];
       const int q = q_lo + 4 * grps[u], c = q >> log_n, t = q & (n - 1);

@@ -35,9 +35,13 @@ Hopper counterparts of the two Pallas kernel bodies in
   ``FastKeys.hankel`` keeps it), and a producer thread bulk-copies each
   ring stage's run of blocks from it into shared memory while two
   consumer warpgroups point no-swizzle ``wgmma`` descriptors into them.
-  :func:`k1_plan` picks the tile, the cluster and the coefficients a
-  warpgroup (``nw``, the ``wgmma`` width) by the shared-memory operand
-  bytes a CTA reads; the kernel sizes its ring itself (:func:`k1_layout`).
+  A cluster carries one tile, or two in turns (``k1_kernel_pair``): while
+  the consumers multiply one tile's step, digit warps of their own write
+  the other's next digits, so its digit pass and cluster barriers run under
+  the products.  :func:`k1_plan` picks the tile, the cluster, the
+  coefficients a warpgroup (``nw``, the ``wgmma`` width) and the tiles a
+  cluster by the shared-memory operand bytes a CTA reads; the kernel sizes
+  its ring itself (:func:`k1_layout`).
 * **K1 below N=256** (``csrc/fused_blind_rotate_k1_small.cu``) replaces
   ``_kernel_otf`` at N ∈ {32, 64, 128}, whose rows K1's 256-byte
   contraction slices do not divide (the Pallas kernel takes any N, its
@@ -103,8 +107,9 @@ __all__ = ["blind_rotate_fused", "blind_rotate_k1", "blind_rotate_k2",
 N_LIMBS = 4
 LAUNCHES = {"k1": 0, "k2": 0}
 # K1's launches (each also one of LAUNCHES["k1"]) by the kernel that ran
-# them, as the device trace names it: the ring kernel, the small-N kernel
-# below N=K1_SLICE, its small-tile plan at N >= K1_SLICE
+# them, as the device trace names it: the ring kernel (either schedule,
+# ``k1_kernel`` and ``k1_kernel_pair``), the small-N kernel below
+# N=K1_SLICE, its small-tile plan at N >= K1_SLICE
 K1_KERNELS = {"k1_kernel": 0, "k1s_kernel": 0, "k1s_kernel_wide": 0}
 # the ring kernel's tables of H blocks built (:func:`hankel_table`, once a
 # key whose launches take the ring) and the bytes they hold
@@ -121,6 +126,14 @@ SMEM_MAX = 232448
 # runs it at full length there (n=700, 512 ciphertexts).
 K1_TILES = (128, 64)
 K1_WIDTHS = (64, 32)
+# tiles a cluster of the ring kernel carries: one (``k1_kernel``), or two
+# in turns (``k1_kernel_pair``), whose cluster takes up to K1_PAIR_COST
+# times a single tile's time at the same tile, span and width (timed back
+# to back on an H100 80GB HBM3: 1.63-1.71 at AES-128's family, 1.86-1.87
+# at Kreyvium's fam1, whose deeper contraction leaves less to hide; the
+# higher, so that a pair is taken where it gains at both)
+K1_PAIRS = (1, 2)
+K1_PAIR_COST = 1.9
 K1_SLICE = 256
 K1_ACC_REGS = 128
 K1_MAX_CLUSTER = 16
@@ -312,11 +325,14 @@ class K1Plan(NamedTuple):
     """How K1 launches: ``cb`` ciphertexts per tile, ``cluster`` CTAs per
     tile (CTA r owns coefficients [r·span, (r+1)·span) of the (k+1)·N, span
     = (k+1)·N / cluster), ``nw`` coefficients per warpgroup (a column chunk
-    is 2·nw).  The kernel sizes its ring from (limbs, cb, nw):
-    :func:`k1_layout`."""
+    is 2·nw), ``pair`` tiles a cluster carries: 1, or 2 in turns
+    (``k1_kernel_pair``: one tile's digit pass and cluster barriers under
+    the other's products; an odd tile count runs its last tile alone).
+    The kernel sizes its ring from (limbs, cb, nw): :func:`k1_layout`."""
     cb: int
     cluster: int
     nw: int
+    pair: int = 1
 
 
 class K1SmallPlan(NamedTuple):
@@ -362,7 +378,8 @@ def k1_plan(batch: int, params: TFHEParams, sms: int,
             n_limbs: int = N_LIMBS, cb: int | None = None,
             cluster: int | None = None, nw: int | None = None,
             resident: Callable | None = None,
-            route: str | None = None) -> K1Plan | K1SmallPlan:
+            route: str | None = None,
+            pair: int | None = None) -> K1Plan | K1SmallPlan:
     """K1's launch plan for ``batch`` ciphertexts on ``sms`` SMs.
 
     Below N=K1_SLICE the small-N kernel's one plan (:func:`k1_small_plan`).
@@ -383,27 +400,34 @@ def k1_plan(batch: int, params: TFHEParams, sms: int,
         return k1_wide_plan(batch, params, sms, n_limbs, cluster, resident,
                             cb)
     return k1_ring_plan(batch, params, sms, n_limbs, cb, cluster, nw,
-                        resident)
+                        resident, pair)
 
 
 def k1_ring_plan(batch: int, params: TFHEParams, sms: int,
                  n_limbs: int = N_LIMBS, cb: int | None = None,
                  cluster: int | None = None, nw: int | None = None,
-                 resident: Callable[[K1Plan], int] | None = None) -> K1Plan:
+                 resident: Callable[[K1Plan], int] | None = None,
+                 pair: int | None = None) -> K1Plan:
     """The ring kernel's plan (N ≥ K1_SLICE).
 
-    Among the tiles ``cb``, widths ``nw`` and cluster sizes that K1 is
-    instantiated for (or the ones given), the cheapest by the shared-memory
-    bytes the ``wgmma`` operands take per CTA: a CTA multiplies cb digit
-    rows by span·L key columns a step, and each m64n(nw)k32 reads 2 KB of
-    digits and nw·32 bytes of H, so the cost is waves × span × cb × (64 +
-    nw) / nw.  A wave is as many clusters as ``resident(plan)`` says the
-    card runs at once (default ``sms // cluster``).  Ties go to fewer CTAs,
-    then larger tiles and widths."""
+    Among the tiles ``cb``, widths ``nw``, cluster sizes and tiles a
+    cluster (``pair``, K1_PAIRS) that K1 is instantiated for (or the ones
+    given), the cheapest by the shared-memory bytes the ``wgmma`` operands
+    take per CTA: a CTA multiplies cb digit rows by span·L key columns a
+    step, and each m64n(nw)k32 reads 2 KB of digits and nw·32 bytes of H,
+    so a cluster's cost is span × cb × (64 + nw) / nw, K1_PAIR_COST times
+    that where it carries two tiles in turns, and a launch's its waves
+    times that.  A wave is as many clusters as ``resident(plan)`` says the
+    card runs at once (default ``sms // cluster``); a launch of ``pair``
+    tiles a cluster takes ceil(tiles / pair) clusters, its last tile alone
+    where their count is odd.  Ties go to fewer CTAs, then larger tiles
+    and widths, then one tile a cluster."""
     if cb is not None and cb not in K1_TILES:
         raise ValueError(f"batch tile {cb} not in {K1_TILES}")
     if nw is not None and nw not in K1_WIDTHS:
         raise ValueError(f"width {nw} not in {K1_WIDTHS}")
+    if pair is not None and pair not in K1_PAIRS:
+        raise ValueError(f"tiles a cluster {pair} not in {K1_PAIRS}")
     if resident is None:
         def resident(p):
             return sms // p.cluster
@@ -416,16 +440,19 @@ def k1_ring_plan(batch: int, params: TFHEParams, sms: int,
             for c in k1_clusters(params, w):
                 if cluster is not None and c != cluster:
                     continue
-                plan = K1Plan(t, c, w)
-                tiles = -(-max(batch, 1) // t)
-                waves = -(-tiles // max(1, resident(plan)))
-                key = (waves * (kn // c) * t * (64 + w) / w, tiles * c,
-                       -t, -w)
-                if best is None or key < best[0]:
-                    best = (key, plan)
+                for pr in [pair] if pair is not None else K1_PAIRS:
+                    plan = K1Plan(t, c, w, pr)
+                    clusters = -(-(-(-max(batch, 1) // t)) // pr)
+                    waves = -(-clusters // max(1, resident(plan)))
+                    cost = waves * (kn // c) * t * (64 + w) / w
+                    key = (cost * K1_PAIR_COST if pr == 2 else cost,
+                           clusters * c, -t, -w, pr)
+                    if best is None or key < best[0]:
+                        best = (key, plan)
     if best is None:
         raise ValueError(f"K1 has no plan for cb={cb} cluster={cluster} "
-                         f"nw={nw} at {n_limbs} limbs: a cluster must split "
+                         f"nw={nw} pair={pair} at {n_limbs} limbs: a "
+                         f"cluster must split "
                          f"the (k+1)·N coefficients into whole chunks")
     return best[1]
 
@@ -669,12 +696,13 @@ def k1_device_plan(batch: int, params: TFHEParams, dev: torch.device,
                    n_limbs: int = N_LIMBS, cb: int | None = None,
                    cluster: int | None = None, nw: int | None = None,
                    lib: ctypes.CDLL | None = None,
-                   route: str | None = None) -> K1Plan | K1SmallPlan:
+                   route: str | None = None,
+                   pair: int | None = None) -> K1Plan | K1SmallPlan:
     """The plan K1 launches with on ``dev``: :func:`k1_plan` with the
     card's SM count and the clusters it runs at once (as ``lib``, default
     the built library, reports them)."""
     return _card_plan(dev, lambda sms, res: k1_plan(
-        batch, params, sms, n_limbs, cb, cluster, nw, res, route),
+        batch, params, sms, n_limbs, cb, cluster, nw, res, route, pair),
         lambda p: k1_resident(p, params, n_limbs, lib),
         ("k1", n_limbs, getattr(lib, "_name", None), params.glwe_dim,
          params.poly_size, params.bsk_level))
@@ -789,8 +817,8 @@ def _launch_k1(b_init, a_t, test_polys, kernels, params: TFHEParams,
                cb: int | None, cluster: int | None, nw: int | None,
                lib: ctypes.CDLL | None = None,
                route: str | None = None,
-               hankel: Callable[[], torch.Tensor] | None = None
-               ) -> torch.Tensor:
+               hankel: Callable[[], torch.Tensor] | None = None,
+               pair: int | None = None) -> torch.Tensor:
     """K1 on the card, through ``lib`` (default the built library), at the
     plan :func:`k1_device_plan` gives: the ring kernel's, reading the
     keys' table (:func:`k1_operand`), or the small-N kernel's (below
@@ -804,7 +832,7 @@ def _launch_k1(b_init, a_t, test_polys, kernels, params: TFHEParams,
     batch, steps = test_polys.shape[0], a_t.shape[0]
     lib = lib or _build.library()
     plan = k1_device_plan(batch, params, dev, n_limbs, cb, cluster, nw,
-                          lib, route)
+                          lib, route, pair)
     if batch == 0 or steps == 0:
         return _init_acc(b_init, test_polys, params)
     keys = k1_operand(plan, kernels, hankel)
@@ -825,7 +853,7 @@ def _launch_k1(b_init, a_t, test_polys, kernels, params: TFHEParams,
                 b_init.data_ptr(), a_t.data_ptr(), test_polys.data_ptr(),
                 keys.data_ptr(), out.data_ptr(), dig.data_ptr(), steps,
                 batch, n, k1, params.bsk_level, params.bsk_base_log, n_limbs,
-                plan.cb, plan.nw, plan.cluster, stream)
+                plan.cb, plan.nw, plan.cluster, plan.pair, stream)
     _raise_on(err, lib)
     LAUNCHES["k1"] += 1
     K1_KERNELS["k1_kernel" if isinstance(plan, K1Plan) else "k1s_kernel"
@@ -884,7 +912,8 @@ def k1_max_clusters(plan: K1Plan, n_limbs: int = N_LIMBS,
     lib = lib or _build.library()
     count = ctypes.c_int(0)
     _raise_on(lib.fbr_k1_max_clusters(n_limbs, plan.cb, plan.nw,
-                                      plan.cluster, ctypes.byref(count)), lib)
+                                      plan.cluster, plan.pair,
+                                      ctypes.byref(count)), lib)
     return count.value
 
 
@@ -962,8 +991,8 @@ def blind_rotate_k1(b_init, a_t, test_polys, kernels, params: TFHEParams,
                     cluster: int | None = None,
                     nw: int | None = None,
                     route: str | None = None,
-                    hankel: Callable[[], torch.Tensor] | None = None
-                    ) -> torch.Tensor:
+                    hankel: Callable[[], torch.Tensor] | None = None,
+                    pair: int | None = None) -> torch.Tensor:
     """K1 ("fused_otf"): keys [n, L·(k+1), rows, 2N] int8 -> ACC.
 
     ``batch_tile``: ciphertexts per tile (CPU: per plain slice; CUDA: per
@@ -974,11 +1003,12 @@ def blind_rotate_k1(b_init, a_t, test_polys, kernels, params: TFHEParams,
     K1S_TILE, a cluster of :func:`k1s_clusters`, no ``nw``) and above it
     the plan of ``route`` (K1_ROUTES), by default the ring kernel's.
     ``hankel``: gives the keys' table, which a ring launch reads
-    (:func:`k1_operand`; without it the launch builds one)."""
+    (:func:`k1_operand`; without it the launch builds one); ``pair``: the
+    ring's tiles a cluster (K1_PAIRS), by default :func:`k1_ring_plan`'s."""
     if test_polys.device.type != "cpu":
         return _launch_k1(b_init, a_t, test_polys, kernels, params,
                           batch_tile, cluster, nw, route=route,
-                          hankel=hankel)
+                          hankel=hankel, pair=pair)
     return _plain_slices(True, b_init, a_t, test_polys, kernels, params,
                          batch_tile)
 

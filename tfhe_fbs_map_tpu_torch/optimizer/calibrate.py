@@ -3,6 +3,7 @@
     python -m tfhe_fbs_map_tpu_torch.optimizer.calibrate
     python -m tfhe_fbs_map_tpu_torch.optimizer.calibrate --dry   # refit
     python -m tfhe_fbs_map_tpu_torch.optimizer.calibrate --only k1s
+    python -m tfhe_fbs_map_tpu_torch.optimizer.calibrate --only k1
 
 The port of ``experiments/calibrate_runtime.py``.  For each parameter family
 (the presets anchor, p8, p16 and aes128_p4, both families of each staged
@@ -56,7 +57,10 @@ neither reads the other, and each K1 entry at N ≥ 256 keeps its kernel µs
 at each launch size (``points``).  Every other entry is fitted from
 ``raw["points"]`` alone.  ``--only k1s`` times the small-N kernel alone
 (both plans) and adds its points to the existing file, whose other entries
-then stay as they were.
+then stay as they were; ``--only k1`` so re-times the ring kernel alone:
+every family's K1 points at N ≥ 256 and the clusters of every ring plan
+the card runs at once, one tile a cluster or two (:func:`ring_resident`).
+A ring plan's wave carries ``cb · pair · sms / cluster`` bootstraps.
 """
 
 from __future__ import annotations
@@ -350,8 +354,12 @@ def _device_plan(params: TFHEParams, rows: int, orientation: str,
         plan = fbr.device_plan(rows, params, device)
         fit = fbr.k2_max_clusters(plan)
     tiles = -(-rows // plan.cb)
-    return {"plan": list(plan), "resident": fit,
-            "waves": -(-tiles // max(1, fit))}
+    pair = plan.pair if isinstance(plan, fbr.K1Plan) else 1
+    out = {"plan": list(plan), "resident": fit,
+           "waves": -(-(-(-tiles // pair)) // max(1, fit))}
+    if isinstance(plan, fbr.K1Plan):
+        out["pair"] = pair
+    return out
 
 
 def time_wide(name: str, params: TFHEParams, device: torch.device,
@@ -387,24 +395,40 @@ def time_wide(name: str, params: TFHEParams, device: torch.device,
     return out
 
 
-def resident_table(sms: int) -> dict[str, int]:
-    """Clusters the card runs at once for every plan the model can choose:
-    each kernel's tiles (and K1's widths) at the limbs the optimizer picks,
-    and every cluster size that splits a GLWE shape the searches walk."""
+def _kns() -> set[int]:
+    """(k+1)·N of every GLWE shape the searches walk."""
     shapes = set(GLWE_SHAPES) | {(1, 1024), (2, 512)}
-    kns = {(k + 1) * N for k, N in shapes}
+    return {(k + 1) * N for k, N in shapes}
+
+
+def ring_resident() -> dict[str, int]:
+    """Clusters the card runs at once of every plan of K1's ring kernel:
+    its tiles, widths and tiles a cluster at the limbs the optimizer picks,
+    and every cluster size that splits a GLWE shape the searches walk."""
     table = {}
     for limbs in LIMBS:
         for cb in fbr.K1_TILES:
             for nw in fbr.K1_WIDTHS:
                 if not fbr.k1_fits(cb, nw, limbs):
                     continue
-                for c in sorted({c for kn in kns
+                for c in sorted({c for kn in _kns()
                                  for c in range(1, fbr.K1_MAX_CLUSTER + 1)
                                  if kn % (c * 2 * nw) == 0}):
-                    plan = fbr.K1Plan(cb, c, nw)
-                    table[resident_key("fused_otf", limbs, plan)] = \
-                        _resident(fbr.k1_max_clusters, plan, limbs)
+                    for pair in fbr.K1_PAIRS:
+                        plan = fbr.K1Plan(cb, c, nw, pair)
+                        table[resident_key("fused_otf", limbs, plan)] = \
+                            _resident(fbr.k1_max_clusters, plan, limbs)
+    return table
+
+
+def resident_table(sms: int) -> dict[str, int]:
+    """Clusters the card runs at once for every plan the model can choose:
+    each kernel's tiles (and K1's widths and tiles a cluster) at the limbs
+    the optimizer picks, and every cluster size that splits a GLWE shape
+    the searches walk."""
+    kns = _kns()
+    table = ring_resident()
+    for limbs in LIMBS:
         shell = TFHEParams(p=2, lwe_dim=1, glwe_dim=1, poly_size=1024,
                            bsk_level=1, bsk_base_log=1, ksk_level=1,
                            ksk_base_log=1, lwe_noise_std=0.0,
@@ -449,20 +473,51 @@ def _through(x, y) -> tuple[float, float]:
     return f, tau
 
 
+def _through_pairs(single, paired, y) -> tuple[float, float, float]:
+    """Least squares of the relative error, y = F + τ·single + π·paired
+    with F ≥ 0 (else through the origin): (F, τ, π / τ).  Relative, so
+    that the launches of a few waves, most of a program's, are priced as
+    closely as the largest."""
+    a = np.stack([np.asarray(single, float), np.asarray(paired, float)], 1)
+    y = np.asarray(y, float)
+    a, ones = a / y[:, None], 1.0 / y[:, None]
+    (f, tau, pi), *_ = np.linalg.lstsq(np.concatenate([ones, a], 1),
+                                       np.ones(len(y)), rcond=None)
+    if f < 0:
+        f = 0.0
+        (tau, pi), *_ = np.linalg.lstsq(a, np.ones(len(y)), rcond=None)
+    return float(f), float(tau), float(pi / tau)
+
+
 def _family_entry(pts: list[dict], sms: int) -> dict:
     """A family's kernel fit (fixed term, time a wave unit, efficiency) and
-    around fit from its points."""
+    around fit from its points.  Where the ring kernel's points take both
+    schedules, a wave of clusters carrying two tiles is fitted apart: its
+    time over a wave of one tile's (``pair_scale``), so that kernel = F +
+    τ · (units of one-tile waves + pair_scale · units of paired waves), a
+    unit ``cb · sms / cluster`` bootstraps of one tile a cluster."""
     n, k, N, l, ks_l = (int(x) for x in pts[0]["key"].split(","))
     units = [pt["waves"] * pt["plan"][0] * sms / pt["plan"][1]
              for pt in pts]
-    fixed, tau = _through(units, [pt["kernel_ms"] * 1e3 for pt in pts])
+    ms = [pt["kernel_ms"] * 1e3 for pt in pts]
+    paired = [pt.get("pair", 1) == 2 for pt in pts]
+    pair_scale = None
+    if any(paired) and not all(paired):
+        fixed, tau, pair_scale = _through_pairs(
+            [0.0 if p else u for u, p in zip(units, paired)],
+            [u if p else 0.0 for u, p in zip(units, paired)], ms)
+    else:
+        fixed, tau = _through(units, ms)
     ideal = 2.0 * (n * (k + 1) ** 2 * l * N * N * 4
                    + k * N * ks_l * (n + 1) * 4) / PEAK_INT8_OPS * 1e6
     around = _line([pt["rows"] * (k * N + 1) for pt in pts],
                    [pt["around_ms"] * 1e3 for pt in pts])
-    return {"name": pts[0]["family"], "kernel": pts[0]["kernel"],
-            "fixed_us": fixed, "tau_us": tau, "eff": ideal / tau,
-            "around_a_us": around[0], "around_b_us": around[1]}
+    out = {"name": pts[0]["family"], "kernel": pts[0]["kernel"],
+           "fixed_us": fixed, "tau_us": tau, "eff": ideal / tau,
+           "around_a_us": around[0], "around_b_us": around[1]}
+    if pair_scale is not None:
+        out["pair_scale"] = pair_scale
+    return out
 
 
 def _by_family(points: list[dict]) -> dict[str, list[dict]]:
@@ -488,6 +543,11 @@ def fit(raw: dict) -> dict:
                                                     for e in es),
                       "families": sorted(e["name"] for e in es)}
                for kern, es in per_kernel.items() if es}
+    # the ring's paired waves, for the families without their own entry
+    scales = [e["pair_scale"] for e in per_kernel["fused_otf"]
+              if "pair_scale" in e]
+    if scales:
+        kernels["fused_otf"]["pair_scale"] = statistics.median(scales)
     # a kernel no family was timed through takes the other's fit
     for kern, other in (("fused", "fused_otf"), ("fused_otf", "fused")):
         kernels.setdefault(kern, dict(kernels[other], families=[]))
@@ -637,6 +697,34 @@ def measure(device: torch.device) -> dict:
             "k1s_wide_plans": wide, "k1s_card": card()}
 
 
+def _ring_point(pt: dict) -> bool:
+    """Whether a raw point is of K1's ring kernel (K1 at N ≥ 256)."""
+    return (pt["kernel"] == "fused_otf"
+            and int(pt["key"].split(",")[2]) >= fbr.K1_SLICE)
+
+
+def measure_ring(device: torch.device, points: list[dict]) -> list[dict]:
+    """``points`` with every point of K1's ring kernel timed anew on the
+    card, each family's where its old ones were."""
+    from ..runtime.cli import free_memory
+
+    free = free_memory(device)
+    fresh = {}
+    for name, (params, staged) in families().items():
+        if (params.poly_size >= fbr.K1_SLICE
+                and "fused_otf" in kernels(params, staged, free)):
+            fresh[family_key(params)] = time_family(name, params, device,
+                                                    "fused_otf")
+    out, done = [], set()
+    for pt in points:
+        if not _ring_point(pt):
+            out.append(pt)
+        elif pt["key"] not in done:
+            done.add(pt["key"])
+            out += fresh.pop(pt["key"], [])
+    return out + [pt for pts in fresh.values() for pt in pts]
+
+
 def measure_small(device: torch.device
                   ) -> tuple[list[dict], list[dict], dict]:
     """Time K1's small-N kernel at every family of :func:`small_families`
@@ -680,9 +768,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dry", action="store_true",
                     help="refit from the raw points of the existing file")
-    ap.add_argument("--only", choices=("k1s",), default=None,
-                    help="time only K1's small-N kernel and add its points "
-                         "to the existing file")
+    ap.add_argument("--only", choices=("k1s", "k1"), default=None,
+                    help="time only K1's small-N kernel (k1s) or its ring "
+                         "kernel (k1) and put its points in the existing "
+                         "file")
     ap.add_argument("--out", default=str(CALIBRATION))
     args = ap.parse_args(argv)
 
@@ -703,6 +792,16 @@ def main(argv=None) -> int:
         raw["k1s_wide_plans"] = wide
         raw["k1s_card"] = card()
         raw["resident"] = {**raw["resident"], **resident}
+    elif args.only == "k1":
+        if not torch.cuda.is_available():
+            print("calibrate: no CUDA device; the calibration is measured "
+                  "on the card", file=sys.stderr)
+            return 2
+        with open(CALIBRATION) as f:
+            raw = json.load(f)["raw"]
+        raw["points"] = measure_ring(torch.device("cuda"), raw["points"])
+        raw["resident"] = {**raw["resident"], **ring_resident()}
+        raw["k1_card"] = card()
     else:
         if not torch.cuda.is_available():
             print("calibrate: no CUDA device; the calibration is measured "

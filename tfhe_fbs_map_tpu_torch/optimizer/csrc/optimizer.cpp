@@ -43,25 +43,29 @@ extern "C" {
 struct Profile {
   double int8_ops, mem_bytes, eff_fused, eff_otf;
   double k2_memory, k2_headroom;
+  double k1_pair_cost;  // fused_blind_rotate.K1_PAIR_COST
   int32_t cuda_kernels;
   int32_t k1_slice, k1_max_n, k1s_max_kn, k2_kc, k2_chunk, ksk_max_base_log;
   int32_t sms;
   int32_t n_rows;
   const int32_t* rows;         // [n_rows]
   int32_t n_ring;
-  const int32_t* ring;         // [n_ring][7]: k, N, bsk limbs, cb, cluster,
-                               // nw, resident (K1's ring kernel)
+  const int32_t* ring;         // [n_ring][8]: k, N, bsk limbs, cb, cluster,
+                               // nw, tiles a cluster, resident (K1's ring
+                               // kernel)
   int32_t n_k2;
   const int32_t* k2;           // [n_k2][7]: k, N, bsk limbs, cb, cluster,
                                // resident, rows a ring stage
   int32_t n_tiles;
   const int32_t* tiles;        // [n_tiles][7]: k, N, l, bsk limbs, cb,
                                // cluster, resident (K1's small-tile plan)
-  double fixed_us[2], scale[2];
+  double fixed_us[2], scale[2], pair_scale[2];
   double around_a_us, around_b_us;
   int32_t n_entries;
   const int32_t* entry_keys;   // [n_entries][6]: n, k, N, l, ks_l, kernel
-  const double* entry_fits;    // [n_entries][4]: fixed, scale, a, b
+  const double* entry_fits;    // [n_entries][5]: fixed, scale, a, b,
+                               // pair_scale (a paired wave's time over a
+                               // wave of one tile)
   int32_t n_small;
   const int32_t* small_keys;   // [n_small][5]: n, k, N, l, ks_l (an entry)
   int32_t n_points;
@@ -196,41 +200,48 @@ double bootstrap_cost_us(const Profile& pr, int n, int k, int N, int br_l,
 // ------------------------------------------- a launch on the calibrated card
 
 struct Plan {
-  int cb = 0, cluster = 0, waves = 0;
+  int cb = 0, cluster = 0, waves = 0, pair = 1;  // pair: tiles a cluster
 };
 
-// runtime_model._waves(): the waves of ``rows`` on tiles of ``cb`` with
-// ``resident`` clusters at once.
-int waves_of(int rows, int cb, int resident) {
+// runtime_model._waves(): the waves of ``rows`` on tiles of ``cb``, ``pair``
+// tiles a cluster, with ``resident`` clusters at once.
+int waves_of(int rows, int cb, int resident, int pair = 1) {
   const int tiles = (std::max(rows, 1) + cb - 1) / cb;
+  const int clusters = (tiles + pair - 1) / pair;
   const int at_once = std::max(1, resident);
-  return (tiles + at_once - 1) / at_once;
+  return (clusters + at_once - 1) / at_once;
 }
 
 // fused_blind_rotate.k1_ring_plan(): the least waves × span × cb × (64 +
-// nw) / nw, then the fewest CTAs, the larger tile, the wider nw.
+// nw) / nw (times k1_pair_cost where a cluster carries two tiles), then
+// the fewest CTAs, the larger tile, the wider nw, one tile a cluster.
 bool ring_plan(const Profile& pr, int k, int N, int limbs, int rows,
                Plan* out) {
   const int64_t kn = int64_t(k + 1) * N;
   bool found = false;
   double best0 = 0.0;
   int64_t best1 = 0;
-  int best2 = 0, best3 = 0;
+  int best2 = 0, best3 = 0, best4 = 0;
   for (int i = 0; i < pr.n_ring; ++i) {
-    const int32_t* c = pr.ring + 7 * i;
+    const int32_t* c = pr.ring + 8 * i;
     if (c[0] != k || c[1] != N || c[2] != limbs) continue;
-    const int cb = c[3], cl = c[4], nw = c[5];
+    const int cb = c[3], cl = c[4], nw = c[5], pair = c[6];
     const int tiles = (std::max(rows, 1) + cb - 1) / cb;
-    const int w = waves_of(rows, cb, c[6]);
-    const double k0 = double(int64_t(w) * (kn / cl) * cb * (64 + nw)) / nw;
-    const int64_t k1 = int64_t(tiles) * cl;
+    const int clusters = (tiles + pair - 1) / pair;
+    const int w = waves_of(rows, cb, c[7], pair);
+    const double cost = double(int64_t(w) * (kn / cl) * cb * (64 + nw)) / nw;
+    const double k0 = pair == 2 ? cost * pr.k1_pair_cost : cost;
+    const int64_t k1 = int64_t(clusters) * cl;
     if (!found || k0 < best0 ||
-        (k0 == best0 && (k1 < best1 || (k1 == best1 &&
-                                        (-cb < best2 || (-cb == best2 &&
-                                                         -nw < best3)))))) {
+        (k0 == best0 &&
+         (k1 < best1 ||
+          (k1 == best1 &&
+           (-cb < best2 ||
+            (-cb == best2 &&
+             (-nw < best3 || (-nw == best3 && pair < best4)))))))) {
       found = true;
-      best0 = k0, best1 = k1, best2 = -cb, best3 = -nw;
-      *out = {cb, cl, w};
+      best0 = k0, best1 = k1, best2 = -cb, best3 = -nw, best4 = pair;
+      *out = {cb, cl, w, pair};
     }
   }
   return found;
@@ -486,14 +497,15 @@ double small_tile_us(const Profile& pr, int n, int k, int N, int l, int ks_l,
 // The family's own entry of a kernel (fixed, scale, a, b), else the
 // kernel's fit and the around fit across families.
 void kernel_fit(const Profile& pr, int n, int k, int N, int l, int ks_l,
-                int kern, double fit[4]) {
+                int kern, double fit[5]) {
   fit[0] = pr.fixed_us[kern], fit[1] = pr.scale[kern];
   fit[2] = pr.around_a_us, fit[3] = pr.around_b_us;
+  fit[4] = pr.pair_scale[kern];
   for (int e = 0; e < pr.n_entries; ++e) {
     const int32_t* key = pr.entry_keys + 6 * e;
     if (key[0] == n && key[1] == k && key[2] == N && key[3] == l &&
         key[4] == ks_l && key[5] == kern) {
-      for (int i = 0; i < 4; ++i) fit[i] = pr.entry_fits[4 * e + i];
+      for (int i = 0; i < 5; ++i) fit[i] = pr.entry_fits[5 * e + i];
       return;
     }
   }
@@ -517,9 +529,10 @@ bool small_tile_wins(const Profile& pr, int n, int k, int N, int l, int ks_l,
     return own < ring;
   Plan plan;
   if (!ring_plan(pr, k, N, limbs, rows, &plan)) return false;
-  double fit[4];
+  double fit[5];
   kernel_fit(pr, n, k, N, l, ks_l, 1, fit);
-  const double wave = double(plan.cb) * pr.sms / plan.cluster * cost * fit[1];
+  const double wave = double(plan.cb) * pr.sms / plan.cluster * cost *
+                      fit[1] * (plan.pair == 2 ? fit[4] : 1.0);
   return small < fit[0] + double(plan.waves) * wave;
 }
 
@@ -543,14 +556,14 @@ double launch_us(const Profile& pr, int n, int k, int N, int l, int ks_l,
   if (N < pr.k1_slice ||
       !launch_plan(pr, n, k, N, l, ks_l, limbs, otf, rows, &plan, &small))
     return NAN;
-  double fit[4];
+  double fit[5];
   kernel_fit(pr, n, k, N, l, ks_l, otf ? 1 : 0, fit);
   double kernel;
   if (small) {
     kernel = small_tile_us(pr, n, k, N, l, ks_l, rows, cost);
   } else {
     const double wave = double(plan.cb) * pr.sms / plan.cluster * cost *
-                        fit[1];
+                        fit[1] * (plan.pair == 2 ? fit[4] : 1.0);
     kernel = fit[0] + double(plan.waves) * wave;
   }
   return kernel + fit[2] + fit[3] * double(rows) * double(k * N + 1);

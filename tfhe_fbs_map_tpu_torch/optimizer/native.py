@@ -69,12 +69,14 @@ class _CProfile(ctypes.Structure):
     _fields_ = [
         ("int8_ops", f64), ("mem_bytes", f64), ("eff_fused", f64),
         ("eff_otf", f64), ("k2_memory", f64), ("k2_headroom", f64),
+        ("k1_pair_cost", f64),
         ("cuda_kernels", i32), ("k1_slice", i32), ("k1_max_n", i32),
         ("k1s_max_kn", i32), ("k2_kc", i32), ("k2_chunk", i32),
         ("ksk_max_base_log", i32), ("sms", i32),
         ("n_rows", i32), ("rows", I32P), ("n_ring", i32), ("ring", I32P),
         ("n_k2", i32), ("k2", I32P), ("n_tiles", i32), ("tiles", I32P),
-        ("fixed_us", f64 * 2), ("scale", f64 * 2), ("around_a_us", f64),
+        ("fixed_us", f64 * 2), ("scale", f64 * 2), ("pair_scale", f64 * 2),
+        ("around_a_us", f64),
         ("around_b_us", f64), ("n_entries", i32), ("entry_keys", I32P),
         ("entry_fits", F64P), ("n_small", i32), ("small_keys", I32P),
         ("n_points", i32), ("point_keys", I32P), ("point_us", F64P),
@@ -215,8 +217,11 @@ def profile_struct(profile: DeviceProfile) -> _CProfile:
                 for w in fbr.K1_WIDTHS:
                     if fbr.k1_fits(t, w, limbs):
                         for c in fbr.k1_clusters(shell, w):
-                            ring += [k, N, limbs, t, c, w, resident(
-                                "fused_otf", limbs, fbr.K1Plan(t, c, w))]
+                            for pair in fbr.K1_PAIRS:
+                                ring += [k, N, limbs, t, c, w, pair,
+                                         resident("fused_otf", limbs,
+                                                  fbr.K1Plan(t, c, w,
+                                                             pair))]
             for t in fbr.K2_TILES:
                 for c in fbr.k2_clusters(shell):
                     k2 += [k, N, limbs, t, c,
@@ -236,7 +241,9 @@ def profile_struct(profile: DeviceProfile) -> _CProfile:
             keys += [int(x) for x in key.split("/")[0].split(",")]
             keys.append(KERNELS.index(e["kernel"]))
             fits += [e["fixed_us"], e["scale"], e["around_a_us"],
-                     e["around_b_us"]]
+                     e["around_b_us"],
+                     e.get("pair_scale", cal["kernels"][e["kernel"]].get(
+                         "pair_scale", 2.0))]
     # K1's small-tile plan: the families with its entry, in the
     # calibration's order, their points and the ring's beside them, and
     # their plans by waves where timed
@@ -278,12 +285,13 @@ def profile_struct(profile: DeviceProfile) -> _CProfile:
     return _CProfile(
         profile.int8_ops, profile.mem_bytes, profile.eff_fused,
         profile.eff_otf, profile.k2_memory, profile.k2_headroom,
-        int(profile.cuda_kernels), K1_SLICE, K1_MAX_N, K1S_MAX_KN, K2_KC,
+        fbr.K1_PAIR_COST, int(profile.cuda_kernels), K1_SLICE, K1_MAX_N, K1S_MAX_KN, K2_KC,
         K2_CHUNK, KSK_MAX_BASE_LOG, sms, len(rows), _array(i32, rows),
-        len(ring) // 7, _array(i32, ring), len(k2) // 7, _array(i32, k2),
+        len(ring) // 8, _array(i32, ring), len(k2) // 7, _array(i32, k2),
         len(tiles) // 7, _array(i32, tiles),
         (f64 * 2)(*(f["fixed_us"] for f in fit)),
         (f64 * 2)(*(f.get("scale", 1.0) for f in fit)),
+        (f64 * 2)(*(f.get("pair_scale", 2.0) for f in fit)),
         cal["around"]["around_a_us"], cal["around"]["around_b_us"],
         len(keys) // 6, _array(i32, keys), _array(f64, fits),
         len(skeys) // 5, _array(i32, skeys), len(pus), _array(i32, pkeys),

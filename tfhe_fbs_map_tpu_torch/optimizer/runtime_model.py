@@ -77,7 +77,8 @@ __all__ = ["predict_native_us", "predict_staged_us", "call_fixed_us",
            "family_key", "entry_key", "resident_key", "shape_key",
            "small_tile_wins", "small_tile_us", "small_tile_plan",
            "small_tile_pick", "small_points", "launch_tile", "launch_rows",
-           "k1_route", "pick_kernel", "launch_choice", "LaunchChoice",
+           "k1_route", "takes_ring", "pick_kernel", "launch_choice",
+           "LaunchChoice",
            "ROWS", "SMALL_ROWS"]
 
 # Ciphertexts a call the calibration times (8 evaluations × 8 … 1024
@@ -111,15 +112,17 @@ def resident_key(orientation: str, n_limbs: int,
                  plan: K1Plan | K1SmallPlan | K2Plan,
                  params: TFHEParams | None = None) -> str:
     """The resident table's key of a plan: kernel, limbs, tile, cluster
-    (and K1's width; the small-N K1's cluster, n8 tiles a warp, digit
-    passes a step and the shape (k+1)xNxl of ``params``, which sizes its
-    shared memory and so how many fit, and its tile where not 16)."""
+    (and K1's width and, where its clusters carry two tiles, ``p2``; the
+    small-N K1's cluster, n8 tiles a warp, digit passes a step and the
+    shape (k+1)xNxl of ``params``, which sizes its shared memory and so
+    how many fit, and its tile where not 16)."""
     if isinstance(plan, K1SmallPlan):
         tile = "" if plan.cb == 16 else f"t{plan.cb}/"
         return (f"k1s/{n_limbs}/{tile}{plan.cluster}/{plan.nt}/"
                 f"{plan.passes}/{shape_key(params)}")
     if orientation == "fused_otf":
-        return f"k1/{n_limbs}/{plan.cb}/{plan.cluster}/{plan.nw}"
+        pair = "/p2" if plan.pair == 2 else ""
+        return f"k1/{n_limbs}/{plan.cb}/{plan.cluster}/{plan.nw}{pair}"
     return f"k2/{n_limbs}/{plan.cb}/{plan.cluster}"
 
 
@@ -172,6 +175,23 @@ def k1_route(params: TFHEParams, rows: int, n_limbs: int = N_LIMBS) -> str:
     return "k1s" if small_tile_wins(params, rows, n_limbs) else "k1"
 
 
+def takes_ring(params: TFHEParams, counts, n_limbs: int = N_LIMBS) -> bool:
+    """Whether a K1 family whose launches are ``counts`` ciphertexts may
+    take the ring kernel, which reads a table of 16× its key
+    (``FastKeys.hankel``): unless K1's small-tile plan serves the family
+    and holds every one of those launches in one wave of its tiles.  There
+    the ring takes no fewer waves, saves little (2.5% of AES-128's kernel
+    time at one evaluation, by the calibration) and would build the
+    table, so every launch stays on the small tiles; elsewhere each launch
+    takes the route :func:`k1_route` prices (as where the calibration
+    has no price of the small tiles at the family)."""
+    if (params.poly_size < K1_SLICE or not k1s_clusters(params, n_limbs)
+            or small_tile_us(params, 1, n_limbs) is None):
+        return True
+    return any(small_tile_plan(params, r, n_limbs)[1] > 1
+               for r in counts if r > 0)
+
+
 def _small_tile(params: TFHEParams, rows: int, n_limbs: int,
                 route: str | None = "k1s") -> tuple[int, int] | None:
     """(tile, cluster) of K1's small-tile plan for a launch of ``rows`` on
@@ -200,7 +220,7 @@ class LaunchChoice(NamedTuple):
 def launch_choice(params: TFHEParams, real: int, v: int,
                   orientation: str | None, bsk_limbs: int = N_LIMBS,
                   route: str | None = None,
-                  card: bool = True) -> LaunchChoice:
+                  card: bool = True, ring: bool = True) -> LaunchChoice:
     """The launch of a family call of ``real`` bootstraps an evaluation at
     ``v`` evaluations through ``orientation`` (None: the generic bootstrap)
     at ``bsk_limbs``, decided once for the executor's layout, its launch
@@ -211,12 +231,15 @@ def launch_choice(params: TFHEParams, real: int, v: int,
     * ``path``: ``"k2"`` for ``"fused"``, K1's route for ``"fused_otf"``,
       the orientation's name for a library one, ``"generic"`` for None;
     * ``route``: K1's, :func:`k1_route`'s at ``v · real`` unless ``route``
-      (``FastKeys.route``) names one at N ≥ K1_SLICE; None for another
-      orientation;
+      (``FastKeys.route``) names one at N ≥ K1_SLICE, or ``ring`` is False
+      (the family's :func:`takes_ring`), which keeps it on the small-tile
+      plan; None for another orientation;
     * ``tile``: on the card, where K1 takes its small-tile plan, that
       plan's (tile, cluster) (:func:`_small_tile`), else None."""
     rows, tile = v * real, None
     if orientation == "fused_otf":
+        if route is None and not ring and params.poly_size >= K1_SLICE:
+            route = "k1s"
         if route is None or params.poly_size < K1_SLICE:
             route = k1_route(params, rows, bsk_limbs)
         path = route
@@ -280,12 +303,21 @@ def _resident(table: dict, sms: int, orientation: str, n_limbs: int,
     return resident
 
 
+def _tiles_a_cluster(plan) -> int:
+    """Tiles a cluster of ``plan`` carries: the ring kernel's ``pair``, one
+    on every other plan."""
+    return plan.pair if isinstance(plan, K1Plan) else 1
+
+
 def _kernel_term(params: TFHEParams, plan, waves: int, cost_us: float,
-                 fit: tuple[float, float]) -> float:
+                 fit: tuple[float, float, float]) -> float:
     """µs of a launch's kernel: the fit's fixed term and ``waves`` waves of
-    ``plan`` at ``cost_us`` a bootstrap."""
-    fixed, scale = fit
-    wave = plan.cb * calibration()["sms"] / plan.cluster * cost_us * scale
+    ``plan`` at ``cost_us`` a bootstrap (a wave: as many clusters of one
+    tile as the card holds, ``cb · sms / cluster`` bootstraps, or of two
+    tiles in turns, the fit's ``pair_scale`` times that)."""
+    fixed, scale, pair_scale = fit
+    wave = (plan.cb * calibration()["sms"] / plan.cluster * cost_us * scale
+            * (pair_scale if _tiles_a_cluster(plan) == 2 else 1.0))
     return fixed + waves * wave
 
 
@@ -456,8 +488,8 @@ def _key_shape(key: str) -> str:
 
 
 def _waves(rows: int, plan, resident) -> int:
-    tiles = -(-max(rows, 1) // plan.cb)
-    return -(-tiles // max(1, resident(plan)))
+    clusters = -(-(-(-max(rows, 1) // plan.cb)) // _tiles_a_cluster(plan))
+    return -(-clusters // max(1, resident(plan)))
 
 
 def small_tile_plan(params: TFHEParams, rows: int,
@@ -506,21 +538,26 @@ def _entry(params: TFHEParams, orientation: str) -> dict | None:
     return calibration()["families"].get(entry_key(params, orientation))
 
 
-def _kernel_fit(params: TFHEParams, orientation: str) -> tuple[float, float]:
-    """(fixed µs, scale of the per-boot cost) of a call through
-    ``orientation`` at ``params``: the family's own calibration entry, else
-    the fit across the kernel's families; below N=K1_SLICE K1 runs its
-    small-N kernel, whose fit is ``k1s`` (where the calibration has one).
-    K1's small-tile plan at N ≥ K1_SLICE is priced apart
-    (:func:`small_tile_us`)."""
+def _kernel_fit(params: TFHEParams, orientation: str
+                ) -> tuple[float, float, float]:
+    """(fixed µs, scale of the per-boot cost, a paired wave's time over a
+    wave of one tile) of a call through ``orientation`` at ``params``: the
+    family's own calibration entry, else the fit across the kernel's
+    families; below N=K1_SLICE K1 runs its small-N kernel, whose fit is
+    ``k1s`` (where the calibration has one).  K1's small-tile plan at N ≥
+    K1_SLICE is priced apart (:func:`small_tile_us`).  A paired wave
+    counts as its two tiles' bootstraps where the calibration has not
+    timed one."""
+    kernels = calibration()["kernels"]
+    pair_scale = kernels.get(orientation, {}).get("pair_scale", 2.0)
     entry = _entry(params, orientation)
     if entry:
-        return entry["fixed_us"], entry["scale"]
-    kernels = calibration()["kernels"]
+        return (entry["fixed_us"], entry["scale"],
+                entry.get("pair_scale", pair_scale))
     fit = kernels[orientation]
     if orientation == "fused_otf" and params.poly_size < K1_SLICE:
         fit = kernels.get("k1s", fit)
-    return fit["fixed_us"], fit.get("scale", 1.0)
+    return fit["fixed_us"], fit.get("scale", 1.0), pair_scale
 
 
 def _cost(params: TFHEParams, orientation: str, bsk_limbs: int) -> float:
@@ -537,14 +574,16 @@ def _around(params: TFHEParams, orientation: str) -> tuple[float, float]:
 
 def launch_us(params: TFHEParams, rows: int, orientation: str | None = None,
               bsk_limbs: int = 4, staged: bool = False,
-              cost_us: float | None = None) -> float:
+              cost_us: float | None = None,
+              route: str | None = None) -> float:
     """µs of one family call of ``rows`` ciphertexts: the kernel's fixed
     term and waves, and the level's work around it.  ``cost_us``: the
-    per-boot roofline cost (default the kernel's at ``bsk_limbs``)."""
+    per-boot roofline cost (default the kernel's at ``bsk_limbs``);
+    ``route``: K1's (default :func:`k1_route`'s)."""
     orient = _orientation(params, orientation, bsk_limbs, staged)
     if cost_us is None:
         cost_us = _cost(params, orient, bsk_limbs)
-    plan, waves = launch_plan(params, rows, orient, bsk_limbs)
+    plan, waves = launch_plan(params, rows, orient, bsk_limbs, route)
     if isinstance(plan, K1SmallPlan) and params.poly_size >= K1_SLICE:
         kernel = small_tile_us(params, rows, bsk_limbs, cost_us)
         if kernel is None:
@@ -587,13 +626,17 @@ def slope_us(params: TFHEParams, cost_us: float | None = None,
              orientation: str | None = None, bsk_limbs: int = 4) -> float:
     """Per-boot marginal cost (µs) at full waves: the roofline estimate
     (``cost_us``, default the kernel the model prices) scaled by the
-    family's calibration, and the per-row work around the kernel."""
+    family's calibration (at K1's ring the cheaper of its waves of one
+    tile a cluster and of two, whose two tiles take ``pair_scale`` times
+    as long), and the per-row work around the kernel."""
     orient = _orientation(params, orientation, bsk_limbs)
     if cost_us is None:
         cost_us = _cost(params, orient, bsk_limbs)
     _, b = _around(params, orient)
-    return cost_us * _kernel_fit(params, orient)[1] \
-        + b * (params.big_dim + 1)
+    _, scale, pair_scale = _kernel_fit(params, orient)
+    if orient == "fused_otf" and params.poly_size >= K1_SLICE:
+        scale *= min(1.0, pair_scale / 2)
+    return cost_us * scale + b * (params.big_dim + 1)
 
 
 def call_fixed_us(params: TFHEParams, rows: int,
@@ -615,12 +658,25 @@ def predict_native_us(sol: Solution, level_nbs: list[int], batch: int,
     model takes it."""
     cost = sol.cost if orientation is None else None
     orient = _orientation(sol.params, orientation, sol.bsk_limbs)
+    route = _family_route(sol.params, orient, [batch * nb for nb in level_nbs],
+                          sol.bsk_limbs)
     total = 0.0
     for nb in level_nbs:
-        rows = launch_rows(sol.params, nb, batch, orient, sol.bsk_limbs)
+        rows = launch_rows(sol.params, nb, batch, orient, sol.bsk_limbs,
+                           route)
         total += launch_us(sol.params, rows, orientation, sol.bsk_limbs,
-                           cost_us=cost) / batch
+                           cost_us=cost, route=route) / batch
     return total
+
+
+def _family_route(params: TFHEParams, orientation: str, counts,
+                  bsk_limbs: int = N_LIMBS) -> str | None:
+    """K1's route for every launch of a family whose launches are
+    ``counts`` where it may not take the ring (:func:`takes_ring`), the
+    small-tile plan's; else None (each launch's own)."""
+    if orientation != "fused_otf" or takes_ring(params, counts, bsk_limbs):
+        return None
+    return "k1s"
 
 
 def predict_staged_us(ssol: StagedSolution,
@@ -633,12 +689,17 @@ def predict_staged_us(ssol: StagedSolution,
     call of ``ns + nf1`` bootstraps and one fam2 call of ``ns + nf2``, each
     times ``batch`` and packed (:func:`launch_rows`), through
     ``orientation`` (default K1, which runs both staged families)."""
+    fams = ((0, ssol.params1), (1, ssol.params2))
+    orients = [_orientation(p, orientation, 4, True) for _, p in fams]
+    routes = [_family_route(p, o, [batch * (r[0] + r[1 + i])
+                                   for r in level_routes])
+              for (i, p), o in zip(fams, orients)]
     total = 0.0
     for ns, nf1, nf2 in level_routes:
-        for nbs, params in ((ns + nf1, ssol.params1), (ns + nf2, ssol.params2)):
+        for nbs, (_, params), orient, route in zip(
+                (ns + nf1, ns + nf2), fams, orients, routes):
             if nbs:
-                rows = launch_rows(params, nbs, batch, _orientation(
-                    params, orientation, 4, True))
-                total += launch_us(params, rows, orientation,
-                                   staged=True) / batch
+                rows = launch_rows(params, nbs, batch, orient, 4, route)
+                total += launch_us(params, rows, orientation, staged=True,
+                                   route=route) / batch
     return total

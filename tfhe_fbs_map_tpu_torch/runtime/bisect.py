@@ -16,15 +16,17 @@ launches can outrun the host's launch path).
 
 ``--kernel k1`` (the default) bisects ``ops/csrc/fused_blind_rotate.cu`` at
 the full n steps of a preset or of a staged preset's family
-(``<staged preset>.fam1`` or ``.fam2``, :func:`shapes`), at the plan
-``k1_plan`` picks and at the 128-ciphertext plan ``128x8/32``.  The variants:
+(``<staged preset>.fam1`` or ``.fam2``, :func:`shapes`), at the plans the
+card picks with one tile a cluster and with two in turns (``k1_kernel``,
+``k1_kernel_pair``; labels ``<cb>x<cluster>/<nw>`` and ``... pair``) and
+at the 128-ciphertext plan ``128x8/32``.  The variants:
 
 * ``base``: the source as it is;
-* ``no_products``: the consumers issue no ``wgmma``;
+* ``no_products``: the product warpgroups issue no ``wgmma``;
 * ``no_h_copy``: the producer issues no copy of H blocks from the keys'
   table, and the consumers wait for none;
 * ``no_products_no_h_copy``: both;
-* ``no_digits``: no digit pass.
+* ``no_digits``: no digit pass (neither schedule's).
 
 ``--kernel k1s`` bisects K1's small-N kernel,
 ``ops/csrc/fused_blind_rotate_k1_small.cu``, at the five full-length
@@ -65,16 +67,17 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 PRODUCTS = "sl != 0 || k != 0);"
-H_COPY = ("      mbar_expect_tx(hfull + 8 * s, St::kH);\n"
-          "      for (int lb = 0; lb < L; ++lb)\n"
-          "        bulk_load(smem0 + s * St::kBytes + St::kA + lb * St::kHB "
+H_COPY = ("    mbar_expect_tx(rg.hfull + 8 * s, St::kH);\n"
+          "    for (int lb = 0; lb < L; ++lb)\n"
+          "      bulk_load(rg.smem0 + s * St::kBytes + St::kA + lb * St::kHB "
           "* 128,\n"
-          "                  h0 + lb * limb_stride, St::kHB * 128, "
-          "hfull + 8 * s);\n")
-H_WAIT = ("        mbar_wait_or_give_up(hfull + 8 * s, (G / kS) & 1, "
+          "                h0 + lb * limb_stride, St::kHB * 128, "
+          "rg.hfull + 8 * s);\n")
+H_WAIT = ("    mbar_wait_or_give_up(rg.hfull + 8 * s, (G / kS) & 1, "
           "stuck);\n")
-DIGITS = ("    digit_pass<CB, true>(acc, dig, amt[i & 1], g0, q_lo, span, "
-          "batch, n, l, b,\n                         K);\n")
+# the digit pass of either schedule (the single-tile kernel's consumers',
+# the paired kernel's digit warpgroup's)
+DIGITS = r"digit_pass<CB, true[^;]*;"
 
 # The small-N kernel's phases: the edits of each variant, every one of
 # which must apply to exactly one statement (or to one in each place the
@@ -143,16 +146,18 @@ def variants(src: str) -> dict[str, str]:
     """The K1 source with each phase left out; raises if the source no
     longer has the statements the variants remove."""
     mma = _products(src)
-    for anchor in (H_COPY, H_WAIT, DIGITS):
+    for anchor in (H_COPY, H_WAIT):
         if src.count(anchor) != 1:
             raise ValueError(f"K1 source has no unique {anchor[:40]!r}")
+    if len(re.findall(DIGITS, src)) != 2:
+        raise ValueError("K1 source has not two digit passes")
     no_h_copy = src.replace(H_COPY, "").replace(H_WAIT, "")
     return {
         "base": src,
         "no_products": src.replace(mma, "(void)0;"),
         "no_h_copy": no_h_copy,
         "no_products_no_h_copy": no_h_copy.replace(mma, "(void)0;"),
-        "no_digits": src.replace(DIGITS, ""),
+        "no_digits": re.sub(DIGITS, "(void)0;", src),
     }
 
 
@@ -219,34 +224,39 @@ def graph_ms(call, reps: int, replays: int = 3) -> float:
 
 
 def bisect(params, batch: int, reps: int, seed: int = 9) -> dict:
-    """ms per launch of K1's ring kernel of every variant at two plans."""
+    """ms per launch of K1's ring kernel of every variant at the plans the
+    card picks with one tile a cluster and with two, and at 128x8/32."""
     from ..ops import _build
     from ..ops import fused_blind_rotate as fbr
 
     b_init, a_t, tvs, keys = operands(params, batch, seed)
     table = fbr.hankel_table(keys)  # the keys' own, built once
-    default = fbr.k1_ring_plan(batch, params,
-                               torch.cuda.get_device_properties(
-                                   0).multi_processor_count)
-    plans = {f"{default.cb}x{default.cluster}/{default.nw}":
-             default._asdict(),
-             "128x8/32": dict(cb=128, cluster=8, nw=32)}
     src = (_build.CSRC / "fused_blind_rotate.cu").read_text()
     libs = _build_all(variants(src), "fused_blind_rotate.cu", ("k1",))
+    picked = fbr.k1_device_plan(batch, params, torch.device("cuda"),
+                                route="k1", lib=libs["base"])
+    plans = {}
+    for pair in fbr.K1_PAIRS:
+        p = fbr.k1_device_plan(batch, params, torch.device("cuda"),
+                               route="k1", lib=libs["base"], pair=pair)
+        plans[f"{p.cb}x{p.cluster}/{p.nw}{' pair' * (pair == 2)}"] = \
+            p._asdict()
+    plans.setdefault("128x8/32", dict(cb=128, cluster=8, nw=32, pair=1))
     res, ref = {}, {}
     for name, lib in libs.items():
         for label, kw in plans.items():
             def call():
                 return fbr._launch_k1(b_init, a_t, tvs, keys, params,
                                       kw["cb"], kw["cluster"], kw["nw"], lib,
-                                      hankel=lambda: table)
+                                      hankel=lambda: table, pair=kw["pair"])
             out = call()
             torch.cuda.synchronize()
             ref.setdefault(label, out)
             res[f"{name} {label}"] = {
                 "ms": timed_ms(call, reps),
                 "equal_to_base": bool(torch.equal(out, ref[label]))}
-    return {"batch": batch, "steps": params.lwe_dim, "variants": res}
+    return {"batch": batch, "steps": params.lwe_dim,
+            "picked": picked._asdict(), "variants": res}
 
 
 def small_n_launches() -> list[tuple]:

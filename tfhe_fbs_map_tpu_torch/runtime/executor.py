@@ -59,7 +59,7 @@ import torch
 from ..frontend.lut_program import (LutProgram, N_BOOT, N_CONST, N_INPUT,
                                     N_LIN)
 from ..ops import fused_blind_rotate as fbr
-from ..optimizer.runtime_model import bucket, launch_choice
+from ..optimizer.runtime_model import bucket, launch_choice, takes_ring
 from ..parallel.mesh import (Mesh, check_tp, group_bootstrap,
                              position_keys, shard_batch)
 from ..tfhe.encrypt import decode, encode, lwe_encrypt, lwe_phase
@@ -831,19 +831,25 @@ class CircuitExecutor:
         bootstraps packed over the V evaluations, on the card (``card``)
         padded to whole tiles of the kernel that serves them; at tp > 1 the
         level's bucket.  The launch record names its path, and :meth:`step`
-        hands its K1 route and plan down to the kernel.  Cached."""
+        hands its K1 route and plan down to the kernel; a K1 family whose
+        every launch the small tiles hold in one wave keeps them all there
+        (:func:`..optimizer.runtime_model.takes_ring`).  Cached."""
         key = (v, card)
         if key not in self._choices:
             whole = self.tp > 1
             fams = [(p, (f.orientation, f.limbs, f.route) if f is not None
                      else (None, fbr.N_LIMBS, None))
                     for f, p in self._families()]
+            calls = [self._calls(lv) for lv in range(len(self.levels))]
+            rings = [how[0] != "fused_otf" or takes_ring(
+                p, [v * (c[i][1] if whole else c[i][2]) for c in calls],
+                how[1]) for i, (p, how) in enumerate(fams)]
             self._choices[key] = [
                 tuple(launch_choice(p, nb if whole else real, v, *how,
-                                    card and not whole)
-                      for (_, nb, real), (p, how) in zip(self._calls(lv),
-                                                         fams))
-                for lv in range(len(self.levels))]
+                                    card and not whole, ring)
+                      for (_, nb, real), (p, how), ring in zip(
+                          lv_calls, fams, rings))
+                for lv_calls in calls]
         return self._choices[key]
 
     def launch_layout(self, v: int, card: bool = True

@@ -18,8 +18,8 @@ time, its idle share between the first and the last kernel, and the
 kernels with the most device time.  ``--tile-sweep`` (CUDA only) times the
 kernel at the most common launch shape (fam1's for a staged preset) over
 its launch knobs: K1's (ciphertexts per tile, CTAs per cluster,
-coefficients per warpgroup) and K2's (ciphertexts per tile, CTAs per
-cluster) plans; every setting's output must be the same.  Prints one JSON
+coefficients per warpgroup, tiles a cluster) and K2's (ciphertexts per
+tile, CTAs per cluster) plans; every setting's output must be the same.  Prints one JSON
 object as its last line.
 
     python -m tfhe_fbs_map_tpu_torch.runtime.profile --step-variants \\
@@ -232,11 +232,14 @@ def tile_sweep(fast, batch: int, reps: int = 2) -> dict:
                      for c in fbr.k1s_clusters(params, limbs, plan.cb)}
             default = f"{plan.cb}x{plan.cluster}"
         else:
-            knobs = {f"{cb}x{c}/{w}": dict(batch_tile=cb, cluster=c, nw=w)
-                     for cb in fbr.K1_TILES for w in fbr.K1_WIDTHS
-                     if fbr.k1_fits(cb, w, limbs)
-                     for c in fbr.k1_clusters(params, w)}
-            default = f"{plan.cb}x{plan.cluster}/{plan.nw}"
+            # the ring's knobs, one tile a cluster or two (" pair")
+            knobs = {f"{cb}x{c}/{w}{' pair' * (pr == 2)}": dict(
+                batch_tile=cb, cluster=c, nw=w, pair=pr)
+                for cb in fbr.K1_TILES for w in fbr.K1_WIDTHS
+                if fbr.k1_fits(cb, w, limbs)
+                for c in fbr.k1_clusters(params, w) for pr in fbr.K1_PAIRS}
+            default = (f"{plan.cb}x{plan.cluster}/{plan.nw}"
+                       f"{' pair' * (plan.pair == 2)}")
     else:
         knobs = {f"{cb}x{c}": dict(batch_tile=cb, cluster=c)
                  for cb in fbr.K2_TILES for c in fbr.k2_clusters(params)}
@@ -260,7 +263,8 @@ def tile_sweep(fast, batch: int, reps: int = 2) -> dict:
         end = _stamp(dev)
         torch.cuda.synchronize(dev)
         tile = kw["batch_tile"]
-        ctas = -(-batch // tile) * kw.get("cluster", 1)
+        ctas = (-(-(-(-batch // tile)) // kw.get("pair", 1))
+                * kw.get("cluster", 1))
         res[name] = {"ctas": ctas, "ms": _ms(start, end) / reps}
     return {"ciphertexts": batch, "default": default, "by_knobs": res}
 
