@@ -2413,7 +2413,8 @@ def main(argv=None) -> int:
          "plain_ms": timing[kern][1], "bound_ms": timing[kern][2],
          "bound_by": timing[kern][3], "library_ms": None,
          **({"staged_launches": staged_k1, "n4096_launches": n4096,
-             "conv_orientations": conv, "hankel": dict(fbr.HANKEL)}
+             "conv_orientations": conv, "hankel": dict(fbr.HANKEL),
+             "epilogues": dict(fbr.K1_EPILOGUES)}
             if kern == "k1" else {}),
          **({"matmul_orientation": matmul} if kern == "k2" else {}),
          **({"graph_ms": small_k[-1]["graph_ms"],

@@ -226,7 +226,7 @@ def pick_orientation(params, device, free_bytes=None):
 def test_auto_orientation_by_free_memory(monkeypatch):
     """AES-128's K2 matrices (10.9 GB) fit a card with 79 GiB free, and K1
     is priced lower there (``runtime_model.kernel_us``): K1 whatever the
-    memory.  Where K2 is priced lower (K1 charged 30 ms a launch), K2 runs
+    memory.  Where K2 is priced lower (K1 charged 60 ms a launch), K2 runs
     when its matrices fit and K1 when they do not."""
     import copy
     from tfhe_fbs_map_tpu_torch.ops.blind_rotate import fused_key_bytes
@@ -239,8 +239,9 @@ def test_auto_orientation_by_free_memory(monkeypatch):
     assert pick_orientation(params, cuda, free_bytes=12 << 30) == "fused_otf"
     assert pick_orientation(params, torch.device("cpu")) == "generic"
     cal = copy.deepcopy(rm.calibration())
-    cal["families"][rm.entry_key(params, "fused_otf")]["fixed_us"] = 30e3
+    cal["families"][rm.entry_key(params, "fused_otf")]["fixed_us"] = 60e3
     monkeypatch.setattr(rm, "calibration", lambda: cal)
+    assert rm.kernel_us(params, "fused") < rm.kernel_us(params, "fused_otf")
     assert pick_orientation(params, cuda, free_bytes=79 << 30) == "fused"
     assert pick_orientation(params, cuda, free_bytes=12 << 30) == "fused_otf"
 

@@ -911,6 +911,42 @@ def test_paired_kernel_equals_plain_every_plan(cuda, shape, steps, batch,
                 assert torch.equal(got, plain), (cb, c, nw)
 
 
+# Both ring kernels' ACC epilogue, the reduce-add of staged boxes, at short
+# n: AES-128 at 65 (a pair's lone last tile, rows past the batch), 520 and
+# 1,024, fam1 at 3,200, tiles of 128 (two 64-row boxes a warpgroup, staged
+# in two parts; at 2 limbs also nw = 64) and N = 2,048 at 3 limbs
+EPILOGUE_LAUNCHES = [("aes128_p4", 16, 65, 4, None),
+                     ("aes128_p4", 16, 520, 4, None),
+                     ("aes128_p4", 16, 1024, 4, None),
+                     ("kreyvium_p10_staged.fam1", 8, 3200, 4, None),
+                     ("aes128_p4", 16, 520, 4, (128, 32)),
+                     ("aes128_p4", 8, 300, 2, (128, 64)),
+                     ((1, 2048, 3, 7), 6, 700, 3, None)]
+
+
+@pytest.mark.parametrize("shape,steps,batch,limbs,tile", EPILOGUE_LAUNCHES)
+def test_ring_kernels_reduce_add_their_epilogue(cuda, shape, steps, batch,
+                                                limbs, tile):
+    """One tile a cluster and two, each at the plan the card picks for it
+    (or at the tile and width given), bitwise against K1's plain version;
+    each launch counted once under ``K1_EPILOGUES["reduce"]``."""
+    from tfhe_fbs_map_tpu_torch.runtime.bisect import operands
+    params = _short(shape, steps)
+    b_init, a_t, tvs, keys = operands(params, batch, seed=batch + limbs)
+    keys = keys[:, :limbs * (params.glwe_dim + 1)].contiguous()
+    table = fbr.hankel_table(keys)
+    plain = fbr.blind_rotate_k1_plain(b_init, a_t, tvs, keys, params)
+    cb, nw = tile or (None, None)
+    for pair in fbr.K1_PAIRS:
+        before = dict(fbr.K1_EPILOGUES)
+        got = fbr.blind_rotate_k1(b_init, a_t, tvs, keys, params, cb, None,
+                                  nw, "k1", lambda: table, pair=pair)
+        torch.cuda.synchronize()
+        assert {k: fbr.K1_EPILOGUES[k] - n for k, n in before.items()} \
+            == {"reduce": 1, "load_store": 0}
+        assert torch.equal(got, plain), pair
+
+
 @pytest.mark.parametrize("shape", [(1, 256, 3, 6), (2, 512, 2, 8),
                                    (1, 1024, 4, 5), (1, 2048, 3, 7),
                                    (1, 4096, 2, 8)])

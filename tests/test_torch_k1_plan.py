@@ -13,6 +13,9 @@ combine.  It is held bitwise against ``blind_rotate_k1_plain`` and the JAX
 ``_kernel_otf`` in interpret mode, including limb drop and a ragged last
 tile."""
 
+import difflib
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -145,17 +148,29 @@ def test_pairs_take_the_launches_they_fit_in_fewer_waves(family, batch,
     assert cost(plan) <= cost(other)
 
 
+# the fewest ring stages the kernel leaves beside a whole column chunk's
+# staging buffer (``kWholeStages`` in csrc/fused_blind_rotate.cu)
+WHOLE_STAGES = 4
+
+
 def stage_smem(limbs, cb, nw):
     """Shared memory a CTA of the ring kernel takes at (limbs, cb, nw), as
     its source lays it out (``Stage`` in csrc/fused_blind_rotate.cu): ring
     stages of two 128-byte columns of cb digit rows and L limbs of H
-    blocks, each rounded up to 1 KB, as many as fit beside 2 KB (alignment,
-    mbarriers) and 1 KB of static arrays, at most 6; and the stages."""
+    blocks, each rounded up to 1 KB, and the staging buffer of a column
+    chunk's cb × 2·nw uint32 sums, whole where that leaves WHOLE_STAGES
+    stages, else half; as many stages as fit beside it, 2 KB (alignment,
+    mbarriers) and 1 KB of static arrays, at most 6.  Returns the bytes,
+    the stages and the staging buffer's parts."""
     kA = 2 * cb * 128
     kH = limbs * h_blocks(nw) * 128
     stage = -(-(kA + kH) // 1024) * 1024
-    stages = min(6, (fbr.SMEM_MAX - 2048 - 1024) // stage)
-    return stages * stage + 2048, stages
+    room = fbr.SMEM_MAX - 2048 - 1024
+    whole = cb * 2 * nw * 4
+    parts = 1 if (room - whole) // stage >= WHOLE_STAGES else 2
+    staging = whole // parts
+    stages = min(6, (room - staging) // stage)
+    return stages * stage + staging + 2048, stages, parts
 
 
 @pytest.mark.parametrize("limbs, cb, nw", [
@@ -164,11 +179,25 @@ def stage_smem(limbs, cb, nw):
 def test_pair_plans_fit_shared_memory(limbs, cb, nw):
     """A cluster carrying two tiles keeps one ring: the pair plan of every
     (limbs, cb, nw) the kernel is built for takes the single-tile plan's
-    shared memory, at least four stages, and the 4 mbarriers of its two
-    tiles' cluster barriers fit the bytes beside the ring."""
-    smem, stages = stage_smem(limbs, cb, nw)
+    shared memory, and the 4 mbarriers of its two tiles' cluster barriers
+    fit the bytes beside the ring with the staging buffer's 2.  The ring
+    keeps at least four stages beside the staging buffer, which holds a
+    column chunk's sums whole or in two parts of whole 8 KB boxes (64 rows
+    × 32 uint32 columns) of each warpgroup, 1 KB-aligned for TMA's 128B
+    swizzle; a tile of 64 at nw = 32 (16 KB) is staged whole."""
+    smem, stages, parts = stage_smem(limbs, cb, nw)
     assert 4 <= stages and smem + 1024 <= fbr.SMEM_MAX
-    assert 1023 + 8 * (3 * 6 + 4) <= 2048
+    assert 1023 + 8 * (3 * 6 + 2 + 4) <= 2048
+    boxes = cb // 64 * nw // 32  # a warpgroup's boxes a chunk
+    assert parts in (1, 2) and boxes % parts == 0
+    staging = 2 * boxes * 64 * 32 * 4 // parts
+    assert staging % 1024 == 0 and staging >= 16384
+    if (cb, nw) == (64, 32):
+        assert parts == 1
+    # the cells' plan stages a whole chunk beside four stages (five beside
+    # half of one)
+    if (limbs, cb, nw) == (4, 64, 64):
+        assert (stages, parts) == (4, 1)
     params = PRESETS["aes128_p4"][0]
     for pair in fbr.K1_PAIRS:
         plan = fbr.k1_ring_plan(1024, params, SMS, limbs, cb=cb, nw=nw,
@@ -403,7 +432,6 @@ def emulate_k1(b_init, a_t, tvs, keys, params, plan):
                 d = ((w >> (b * (l - 1 - lev))) & ((1 << b) - 1)) - half
                 dig[:batch, (c * l + lev) * N + N - 1 - tt] = d
         for tile in range(tiles):
-            g = torch.arange(tile * cb, min((tile + 1) * cb, batch))
             for r in range(C):
                 for ch in range(span // cw):
                     q0 = r * span + ch * cw
@@ -422,12 +450,23 @@ def emulate_k1(b_init, a_t, tvs, keys, params, plan):
                             part[lb] += a @ h[h_index].double().t()
                     # int32 sums: exact and in range
                     assert part.abs().max() < 2 ** 31
-                    p = part.long()[:, :len(g)] & MASK
+                    p = part.long() & MASK
                     add = sum((p[lb] << 8 * (lb + 4 - L)) & MASK
-                              for lb in range(L))
-                    cols = tc + torch.arange(cw)
-                    cur = acc[comp, g[:, None], cols[None, :]]
-                    acc[comp, g[:, None], cols[None, :]] = (cur + add) & MASK
+                              for lb in range(L))          # [cb, cw]
+                    # the reduce-add, box by box: 64 rows × 32 columns of
+                    # a warpgroup's, inside one component, added mod 2^32
+                    # with the rows past the batch left out
+                    for wg in range(2):
+                        for m in range(cb // 64):
+                            for j in range(nw // 32):
+                                rows = tile * cb + 64 * m + torch.arange(64)
+                                keep = rows < batch
+                                box = wg * nw + 32 * j + torch.arange(32)
+                                assert tc + int(box[-1]) < N
+                                at = (comp, rows[keep][:, None],
+                                      (tc + box)[None, :])
+                                got = add[64 * m:64 * (m + 1)][keep][:, box]
+                                acc[at] = (acc[at] + got) & MASK
     return ((acc + (1 << 31)) & MASK) - (1 << 31)
 
 
@@ -492,4 +531,59 @@ def test_bisect_variants_remove_one_phase_each():
     assert "hfull + 8 * s, (G / kS)" not in var["no_h_copy"]
     assert "wgmma_s8<R>(" not in var["no_products_no_h_copy"]
     assert "digit_pass<" not in var["no_digits"]
+    # no_epilogue: the staging stores (kept only under odds of 2^-32, so
+    # the sums and the products they read stay) and the reduce-add go;
+    # every other line, the handshakes, fences and signals among them,
+    # stays
+    no_ep = var["no_epilogue"]
+    assert src.count("tma_reduce_add(") == 1
+    assert "tma_reduce_add(" not in no_ep
+    assert "if (v0 == ~v1) st_shared_v2(" in no_ep
+    gone = [ln for ln in difflib.ndiff(src.splitlines(), no_ep.splitlines())
+            if ln.startswith("- ")]
+    assert len(gone) == 3, gone
+    assert "st_shared_v2(" in gone[0] and "tma_reduce_add(" in gone[1]
+    for keep in ("mbar_arrive(rg.staged)", "mbar_arrive(rg.freed)",
+                 "wait_group 0;", "signal_cluster(", "cluster_sync();",
+                 "wait_group.read"):
+        assert no_ep.count(keep) == src.count(keep) > 0, keep
     assert len({text for text in var.values()}) == len(var)
+
+
+def function(src, name):
+    """The body of the CUDA function ``name``, from its definition (``void
+    name(`` or, for a kernel, ``name(`` at the start of a line)."""
+    start = re.search(rf"(?:void |\n){name}\(", src).start()
+    depth, i = 0, src.index("{", start)
+    for j in range(i, len(src)):
+        depth += {"{": 1, "}": -1}.get(src[j], 0)
+        if depth == 0:
+            return src[i:j + 1]
+    raise ValueError(name)
+
+
+def test_product_warps_never_touch_acc():
+    """The ring kernels' product warpgroups hand a column chunk's sums to
+    the staging buffer: ``chunk`` and ``stage_chunk`` issue no global load
+    or store of ACC and no fence beyond the async proxy's, and the paired
+    schedule's product branch runs ``chunk`` alone; the reduce-add, its
+    drain and the cluster signals are another thread's."""
+    from tfhe_fbs_map_tpu_torch.ops import _build
+
+    src = (_build.CSRC / "fused_blind_rotate.cu").read_text()
+    for name in ("chunk", "stage_chunk"):
+        body = function(src, name)
+        for banned in ("__ldcg", "__stcg", "__threadfence", "acc[",
+                       "signal_cluster", "cluster_sync", "reduce_block",
+                       "tma_reduce_add", "fence.proxy.async.global"):
+            assert banned not in body, (name, banned)
+    assert "stage_chunk<L, CB, NW>(" in function(src, "chunk")
+    pair = function(src, "k1_kernel_pair")
+    products = pair[pair.index("---- product warpgroups"):]
+    products = products[:products.index("cluster_sync();  // no CTA leaves")]
+    assert "init_acc" not in products and "signal_cluster" not in products
+    assert "chunk<L, CB, NW>(" in products and "reduce_" not in products
+    # the reduce-adds complete, then both fences, before any signal
+    red = function(src, "reduce_block")
+    assert red.index("tma_reduce_add(") < red.index("wait_group 0") \
+        < red.index("fence.proxy.async.global") < red.index("__threadfence")

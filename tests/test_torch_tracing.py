@@ -227,6 +227,35 @@ def test_capture_takes_counts_back_from_the_record(monkeypatch):
                               "k1s_kernel_wide": 11}
 
 
+def test_capture_takes_ring_epilogues_back(monkeypatch):
+    """A capture's ring launches (path ``k1`` at N ≥ 256) come back out of
+    ``K1_EPILOGUES`` under ``reduce``, the ACC epilogue of both ring
+    schedules, and each replay adds them again; the small-N kernels, K2
+    and the library paths count none, and no launch counts under
+    ``load_store``."""
+    def entry(family, path):
+        return profiling.Launch(None, 0, family, "cuda:0", path, 16, 16)
+
+    entries = [entry("fam1", "k1"), entry("fam1", "k1"),
+               entry("fam2", "k1s"), entry("fam1", "k1s"),
+               entry("fam2", "k2"), entry("fam1", "generic")]
+    assert set(fbr.K1_EPILOGUES) == {"reduce", "load_store"}
+    monkeypatch.setattr(fbr, "K1_EPILOGUES",
+                        dict.fromkeys(fbr.K1_EPILOGUES, 10))
+    monkeypatch.setattr(fbr, "LAUNCHES", dict.fromkeys(fbr.LAUNCHES, 10))
+    monkeypatch.setattr(fbr, "K1_KERNELS",
+                        dict.fromkeys(fbr.K1_KERNELS, 10))
+    counts = executor_module._take_back(entries, {"fam1": 512, "fam2": 128})
+    assert fbr.K1_EPILOGUES == {"reduce": 8, "load_store": 10}
+    graphs = executor_module._Graphs([])
+    graphs.graphs.append(executor_module._Graph(
+        SimpleNamespace(replay=lambda: None), tuple(entries), counts, "g"))
+    for _ in range(3):
+        graphs.replay()
+    assert fbr.K1_EPILOGUES == {"reduce": 14, "load_store": 10}
+    assert fbr.K1_KERNELS["k1_kernel"] == fbr.K1_EPILOGUES["reduce"]
+
+
 # ------------------------------------------ the spans and the readers
 
 def packed_pad_share(run) -> float:

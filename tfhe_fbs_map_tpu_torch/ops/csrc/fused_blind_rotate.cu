@@ -39,40 +39,52 @@
 //   the digits in a [tiles*CB, K] int8 scratch; two cluster barriers a
 //   step order them.
 // * Per chunk of CW = 2*NW coefficients, the CTA walks K in 256-byte
-//   slices through a ring of 4-6 stages (as many as shared memory holds),
-//   each the slice's digit rows and H blocks.  Three warpgroups: the
-//   producer's first thread (the warpgroup at 56 registers after
-//   setmaxnreg) claims a stage once the consumers release it and issues
-//   its copies: the digit rows by TMA (128B swizzle), the H blocks by one
-//   bulk copy a limb from the table.  The H blocks do not depend on the
-//   digits, so it issues the next step's first stages during the digit
-//   pass.  Two consumers (224 registers) each own NW of the chunk's
-//   coefficients and run, per limb and 64-row block, m64n(NW)k32 wgmma
-//   s8*s8->s32 with A (digits) and B (H) from shared memory, one wgmma
-//   group in flight; they compute the digit pass and the ACC epilogue.
-//   Stages pass between them by three mbarriers each (digits landed, H
-//   landed, stage consumed).
+//   slices through a ring of 4-6 stages (as many as shared memory holds
+//   beside the staging buffer), each the slice's digit rows and H blocks.
+//   Three warpgroups: the producer's first thread (the warpgroup at 56
+//   registers after setmaxnreg) claims a stage once the consumers release
+//   it and issues its copies: the digit rows by TMA (128B swizzle), the H
+//   blocks by one bulk copy a limb from the table.  The H blocks do not
+//   depend on the digits, so it issues the next step's first stages during
+//   the digit pass.  Two consumers (224 registers) each own NW of the
+//   chunk's coefficients and run, per limb and 64-row block, m64n(NW)k32
+//   wgmma s8*s8->s32 with A (digits) and B (H) from shared memory, one
+//   wgmma group in flight; they compute the digit pass.  Stages pass
+//   between them by three mbarriers each (digits landed, H landed, stage
+//   consumed).
+// * The ACC epilogue: the product warpgroups never read ACC.  They add a
+//   chunk's L limbs' accumulators into one uint32 a coefficient, store
+//   them in boxes of 64 rows x 32 columns (128B swizzle) into a staging
+//   buffer beside the ring and go on to the next chunk's products; another
+//   thread adds the boxes into ACC by TMA (cp.reduce.async.bulk.tensor
+//   .add.u32 over ACC as [k+1][batch][N]: mod 2^32 as the adds were, rows
+//   past the batch left out), frees the buffer once TMA has read it and,
+//   after a block's last chunk, waits for the adds, fences and tells the
+//   cluster.  The buffer holds a whole chunk (32 KB at CB=64, NW=64,
+//   beside 4 stages), or half of one where that leaves fewer than 4.
+//   Staged and freed are two more mbarriers.
 // * A cluster carries one tile (k1_kernel) or two in turns
 //   (k1_kernel_pair): the ring's blocks of iterations alternate between the
-//   two tiles' steps, and seven digit warps of their own write one tile's
-//   digits while the product warpgroups multiply the other's, each tile
-//   with its own two cluster barriers (mbarriers every CTA arrives on).
-//   The launch side's plan (k1_ring_plan) takes a pair where its waves,
-//   at K1_PAIR_COST times a one-tile cluster's time, cost less.
+//   two tiles' steps, and while the product warpgroups multiply one tile's
+//   step, a warp of its own reduce-adds the other tile's last step and six
+//   digit warps write its next digits, each tile with its own two cluster
+//   barriers (mbarriers every CTA arrives on).  In k1_kernel the producer
+//   warpgroup's second warp reduce-adds before the cluster barrier that
+//   closes a step.  The launch side's plan (k1_ring_plan) takes a pair
+//   where its waves, at K1_PAIR_COST times a one-tile cluster's time, cost
+//   less.
 // * What bounds it on the H100: the products' shared-memory operands and
-//   the serial work around them.  The phase bisect (runtime/bisect.py, ms
-//   a launch) at n=578, B=1024, one tile on clusters of 6 (64 x 6, nw 64):
-//   25.89 against a least time of 11.29; without the products 15.33,
-//   without the H copies 24.82, without the digit pass 20.67.  At B=520
-//   the plan takes pairs on clusters of 12: 21.78 (one tile on 6: 25.55);
-//   11.02 of it goes with the products, 0.40 with the H copies, 1.65 with
-//   the digit pass.  At Kreyvium's fam1, B=3200, pairs on clusters of 4:
-//   233.80 (one tile on 2: 244.61); 126.28, 12.72 and 10.18.  A pair
-//   hides most of its digit pass but not the product warpgroups' ACC
-//   epilogue and its fence, and two tiles' products still read both
-//   operands from shared memory; AES-128's 15 and 16 tiles find no pair
-//   plan that fills the card (7 clusters of 12 at once), so they stay one
-//   tile a cluster.
+//   the serial work around them.  At n=578, B=1024, one tile on clusters
+//   of 6 (64 x 6, nw 64): 23.8 ms a launch against a least time of 11.29
+//   (25.3 with the product warps' own loads and stores of ACC beside 5
+//   stages; 24.7 beside 4); at B=520, pairs on clusters of 12: 20.9
+//   (21.7; 21.2).  The phase bisect (runtime/bisect.py) before the
+//   reduce-add: at B=1024 15.3 without the products, 24.8 without the H
+//   copies, 20.7 without the digit pass, 23.3 without the epilogue's
+//   loads, adds and stores; at B=520 10.8, 21.4, 20.1 and 20.1.  At
+//   Kreyvium's fam1, B=3200, pairs on clusters of 4: 223.8 (236.4).
+//   AES-128's 15 and 16 tiles find no pair plan that fills the card (7
+//   clusters of 12 at once), so they stay one tile a cluster.
 // * Exactness: |digit| <= 2^(b-1) <= 128, |key| <= 128 and K*2^(b+6) <
 //   2^31 (unsupported() in ops/fused_blind_rotate.py), so each int32 sum
 //   is exact.  The limb shifts and the ACC adds are uint32_t (mod 2^32).
@@ -89,21 +101,25 @@ namespace k1 {
 
 constexpr int kSlice = 2 * kKc;  // contraction bytes a ring stage
 constexpr int kMaxStages = 6;    // ring stages, as many as fit up to this
-// dynamic shared memory beside the ring (1024-byte alignment, mbarriers)
-// and the static amt[2][CB]
+// dynamic shared memory beside the ring and the staging buffer (1024-byte
+// alignment, mbarriers) and the static amt[2][CB]
 constexpr int kSmemBeside = 2048;
 constexpr int kSmemStatic = 1024;
+// the fewest ring stages left beside a whole column chunk's staging buffer;
+// with fewer the chunk is staged in two parts
+constexpr int kWholeStages = 4;
 constexpr int kProducer = 128;  // the producer warpgroup's threads
 constexpr int kK1Threads = kThreads + kProducer;
 // registers a thread after setmaxnreg: 256 * 224 + 128 * 56 = 384 * 168
 constexpr int kConsumerRegs = 224;
 constexpr int kProducerRegs = 56;
 // The paired schedule (k1_kernel_pair): two product warpgroups, a digit
-// warpgroup and the producer's, whose first warp issues the copies and
-// whose other three write digits too: 512 threads of 128 registers at
-// launch, 2 * 200 + 56 + 56 = 4 * 128 after setmaxnreg.
+// warpgroup and the producer's, whose first warp issues the copies, whose
+// next two write digits too and whose last reduce-adds the staged sums
+// into ACC: 512 threads of 128 registers at launch, 2 * 200 + 56 + 56 =
+// 4 * 128 after setmaxnreg.
 constexpr int kPairThreads = kThreads + 128 + kProducer;
-constexpr int kDigitThreads = 128 + 96;  // seven digit warps
+constexpr int kDigitThreads = 128 + 64;  // six digit warps
 constexpr int kPairConsumerRegs = 200;
 constexpr int kPairDigitRegs = 56;
 constexpr int kDigitUnroll = 2;  // digit groups in flight a thread
@@ -113,8 +129,12 @@ static_assert(2 * kPairConsumerRegs + 2 * kPairDigitRegs <= 65536 / 128,
 // One ring stage: the slice's two 128-byte columns of MT blocks of 64
 // digit rows (TMA, 128B swizzle, so 1024-aligned), then L limbs of kHB H
 // blocks of 128 bytes: those that a chunk of 2*NW coefficients and kSlice
-// contraction bytes touch, (2*NW - 8 + kSlice - 16) / 8 + 1.  The ring
-// takes as many stages as fit the 227 KB a CTA may have, at most
+// contraction bytes touch, (2*NW - 8 + kSlice - 16) / 8 + 1.  After the
+// stages, the staging buffer of a column chunk's limb-summed accumulators
+// on their way into ACC: boxes of 64 rows x 32 uint32 columns (128-byte
+// rows, 128B swizzle), kBoxes a warpgroup, in kParts parts where the whole
+// chunk would leave fewer than kWholeStages stages.  The ring takes as many
+// stages as fit the 227 KB a CTA may have beside the buffer, at most
 // kMaxStages; kSmem is the dynamic shared memory a CTA launches with.  The
 // launch side asks fbr_k1_layout for both.
 template <int L, int MT, int NW>
@@ -123,21 +143,77 @@ struct Stage {
   static constexpr int kA = 2 * MT * kM * kKc;
   static constexpr int kH = L * kHB * 128;
   static constexpr int kBytes = (kA + kH + 1023) / 1024 * 1024;
-  static constexpr int kFit = (232448 - kSmemBeside - kSmemStatic) / kBytes;
+  static constexpr int kBox = kM * 32 * 4;
+  static constexpr int kBoxes = MT * NW / 32;
+  static constexpr int kRoom = 232448 - kSmemBeside - kSmemStatic;
+  static constexpr int kParts =
+      (kRoom - 2 * kBoxes * kBox) / kBytes >= kWholeStages ? 1 : 2;
+  static constexpr int kStaging = 2 * kBoxes * kBox / kParts;
+  static constexpr int kFit = (kRoom - kStaging) / kBytes;
   static constexpr int kStages = kFit < kMaxStages ? kFit : kMaxStages;
-  static constexpr int kSmem = kStages * kBytes + kSmemBeside;
+  static constexpr int kSmem = kStages * kBytes + kStaging + kSmemBeside;
   static_assert(kStages >= 4, "a ring of fewer than 4 stages");
-  // alignment, 3 mbarriers a stage and the paired schedule's 4
-  static_assert(1023 + 8 * (3 * kMaxStages + 4) <= kSmemBeside,
+  static_assert(kBoxes % kParts == 0, "a part of no whole boxes");
+  // alignment, 3 mbarriers a stage, the staging buffer's 2 and the paired
+  // schedule's 4
+  static_assert(1023 + 8 * (3 * kMaxStages + 2 + 4) <= kSmemBeside,
                 "mbarriers overflow the bytes beside the ring");
 };
 
-// A CTA's ring: stage s at smem0 + s * kBytes; per stage the mbarriers
-// afull (digits landed, TMA), hfull (H landed, bulk copies) and empty
-// (consumed: one arrival per product warp), 8 bytes apart.
+// A CTA's ring: stage s at smem0 + s * kBytes, the staging buffer after the
+// stages; per stage the mbarriers afull (digits landed, TMA), hfull (H
+// landed, bulk copies) and empty (consumed: one arrival per product warp),
+// 8 bytes apart; then the staging buffer's staged (a part written: one
+// arrival per product warp) and freed (its reduce-add has read it).
 struct Ring {
-  uint32_t smem0, afull, hfull, empty;
+  uint32_t smem0, staging, afull, hfull, empty, staged, freed;
 };
+
+// The chunk's limb-summed accumulators, ACC's addends, into the staging
+// buffer (the product warpgroups): sum_limb d << 8*(limb + drop) mod 2^32,
+// box (m, j) of warpgroup wg its rows 64m .. 64m + 63 and columns 32j ..
+// 32j + 31 (the 16-byte units of a 128-byte row XOR-swizzled by the row,
+// as TMA reads them), part by part: each once the reduce-add has read the
+// buffer's last part out (freed), then announced (staged).  `use` counts
+// the buffer's parts before the chunk's first.
+template <int L, int CB, int NW>
+__device__ __forceinline__ void stage_chunk(
+    const int (&d)[CB / kM][L][16 * (NW / 32)], const Ring& rg, int use,
+    int wg, int lane, int wrow, bool& stuck) {
+  using St = Stage<L, CB / kM, NW>;
+  constexpr int BP = St::kBoxes / St::kParts;  // a warpgroup's boxes a part
+  const int drop = 4 - L;
+#pragma unroll
+  for (int p = 0; p < St::kParts; ++p) {
+    if (use + p > 0)
+      mbar_wait_or_give_up(rg.freed, (use + p - 1) & 1, stuck);
+#pragma unroll
+    for (int x = 0; x < BP; ++x) {
+      const int box = p * BP + x, m = box / (NW / 32), j = box % (NW / 32);
+      const uint32_t base = rg.staging + (wg * BP + x) * St::kBox;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int e = (4 * j + jj) * 4 + 2 * h;  // n8 block 4j + jj
+          uint32_t v0 = 0, v1 = 0;
+#pragma unroll
+          for (int lb = 0; lb < L; ++lb) {
+            const uint32_t sh = 8u * static_cast<uint32_t>(lb + drop);
+            v0 += static_cast<uint32_t>(d[m][lb][e]) << sh;
+            v1 += static_cast<uint32_t>(d[m][lb][e + 1]) << sh;
+          }
+          const int row = wrow + (lane >> 2) + 8 * h;
+          const int unit = (2 * jj + ((lane & 3) >> 1)) ^ (row & 7);
+          st_shared_v2(base + row * 128 + unit * 16 + (lane & 1) * 8, v0,
+                       v1);
+        }
+    }
+    fence_async_shared();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(rg.staged);
+  }
+}
 
 // The copies of one block of `total` ring iterations from G0: step i of the
 // tile whose first ciphertext is g0, its f-th iteration column chunk f / nk
@@ -205,23 +281,20 @@ __device__ __forceinline__ void produce(const Ring& rg,
 }
 
 // One column chunk of a tile, run by the two product warpgroups (wg 0, 1,
-// each NW of its 2*NW columns from q0; the tile's first ciphertext g0):
-// the products of its nk K slices, ring iterations G0 .. G0 + nk - 1,
-// pipelined with one wgmma group in flight, then ACC[comp] += sum_limb P
-// << 8*(limb + drop) on its columns (accumulators untouched inside), its
-// loads in PARTS rounds (fewer registers held).
-template <int L, int CB, int NW, int PARTS = 1>
+// each NW of its 2*NW columns): the products of its nk K slices, ring
+// iterations G0 .. G0 + nk - 1, pipelined with one wgmma group in flight
+// (accumulators untouched inside), then its ACC addends staged for the
+// reduce-add (stage_chunk); the product warps never read ACC.  The chunk
+// is the ring's (G0 / nk)-th, so its staging buffer's uses begin at
+// kParts * G0 / nk.
+template <int L, int CB, int NW>
 __device__ __forceinline__ void chunk(int (&d)[CB / kM][L][16 * (NW / 32)],
-                                      const Ring& rg, uint32_t* acc, int G0,
-                                      int nk, int g0, int q0, int batch,
-                                      int n, int wg, int lane, int wrow,
-                                      bool& stuck) {
+                                      const Ring& rg, int G0, int nk, int wg,
+                                      int lane, int wrow, bool& stuck) {
   constexpr int MT = CB / kM;  // 64-row blocks of the tile
   constexpr int R = NW / 32;   // wgmma_s8<R> is m64n(NW)k32
   using St = Stage<L, MT, NW>;
   constexpr int kS = St::kStages;
-  const int drop = 4 - L;
-  const int log_n = __ffs(n) - 1;
   for (int sl = 0; sl < nk; ++sl) {
     const int G = G0 + sl, s = G % kS;
     const uint32_t st = rg.smem0 + s * St::kBytes;
@@ -257,59 +330,59 @@ __device__ __forceinline__ void chunk(int (&d)[CB / kM][L][16 * (NW / 32)],
   for (int m = 0; m < MT; ++m)
 #pragma unroll
     for (int lb = 0; lb < L; ++lb) fence_regs(d[m][lb]);
-  // a 64-row block and a part of the columns at a time: its loads first,
-  // then adds and stores
-  constexpr int JC = NW / 8 / PARTS;
-  const int q_base = q0 + wg * NW + (lane & 3) * 2;
-#pragma unroll
-  for (int mp = 0; mp < MT * PARTS; ++mp) {
-    const int m = mp / PARTS, j0 = mp % PARTS * JC;
-    uint2 old[JC][2];
-#pragma unroll
-    for (int jj = 0; jj < JC; ++jj)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int jc = j0 + jj;
-        const int g = g0 + m * kM + wrow + (lane >> 2) + h * 8;
-        const int q = q_base + jc * 8, c = q >> log_n, t = q & (n - 1);
-        old[jj][h] =
-            g < batch ? __ldcg(reinterpret_cast<const uint2*>(
-                            acc + (static_cast<size_t>(c) * batch + g) * n +
-                            t))
-                      : make_uint2(0, 0);
-      }
-#pragma unroll
-    for (int jj = 0; jj < JC; ++jj)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int jc = j0 + jj;
-        const int g = g0 + m * kM + wrow + (lane >> 2) + h * 8;
-        if (g >= batch) continue;
-        const int q = q_base + jc * 8, c = q >> log_n, t = q & (n - 1);
-        uint2 v = old[jj][h];
-#pragma unroll
-        for (int lb = 0; lb < L; ++lb) {  // n8 block jc of limb lb
-          const int e = jc * 4 + 2 * h;
-          const uint32_t sh = 8u * static_cast<uint32_t>(lb + drop);
-          v.x += static_cast<uint32_t>(d[m][lb][e]) << sh;
-          v.y += static_cast<uint32_t>(d[m][lb][e + 1]) << sh;
-        }
-        __stcg(reinterpret_cast<uint2*>(
-                   acc + (static_cast<size_t>(c) * batch + g) * n + t),
-               v);
-      }
-  }
+  stage_chunk<L, CB, NW>(d, rg, St::kParts * (G0 / nk), wg, lane, wrow,
+                         stuck);
 }
 
-// A CTA's ring in its dynamic shared memory, its mbarriers after the
-// stages (and, for the paired schedule, its four cluster mbarriers after
-// those, at afull + 24 * kS).
+// The reduce-add into ACC of a tile's block of `chunks` column chunks, the
+// ring's chunks c0 .. c0 + chunks - 1 from column q_lo (one thread,
+// neither a product warp's nor the copies' issuer): each part of a chunk
+// once the product warps have staged it, one tensor reduce a box (TMA adds
+// its uint32 values into ACC, [k1][batch][n], mod 2^32, and leaves out the
+// rows past the batch), the buffer freed once TMA has read it; then the
+// adds completed and fenced, so the block's ACC is visible to the cluster
+// once the caller signals.
+template <int L, int CB, int NW>
+__device__ __forceinline__ void reduce_block(const Ring& rg,
+                                             const CUtensorMap* acc_map,
+                                             int c0, int chunks, int g0,
+                                             int q_lo, int n, bool& stuck) {
+  using St = Stage<L, CB / kM, NW>;
+  constexpr int BP = St::kBoxes / St::kParts;
+  const int log_n = __ffs(n) - 1;
+  for (int ch = 0; ch < chunks; ++ch)
+    for (int p = 0; p < St::kParts; ++p) {
+      mbar_wait_or_give_up(rg.staged, (St::kParts * (c0 + ch) + p) & 1,
+                           stuck);
+      for (int wg = 0; wg < 2; ++wg)
+        for (int x = 0; x < BP; ++x) {
+          const int box = p * BP + x, m = box / (NW / 32);
+          const int q = q_lo + ch * 2 * NW + wg * NW + 32 * (box % (NW / 32));
+          tma_reduce_add(acc_map, rg.staging + (wg * BP + x) * St::kBox,
+                         q & (n - 1), g0 + m * kM, q >> log_n);
+        }
+      asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+      mbar_arrive(rg.freed);
+    }
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+  __threadfence();
+}
+
+// A CTA's ring in its dynamic shared memory, the staging buffer after the
+// stages, its mbarriers after that (and, for the paired schedule, its four
+// cluster mbarriers after those, at freed + 8).
 template <int L, int CB, int NW>
 __device__ __forceinline__ Ring ring(const unsigned char* smem_raw) {
   using St = Stage<L, CB / kM, NW>;
+  constexpr int kS = St::kStages;
   const uint32_t smem0 = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t afull = smem0 + St::kStages * St::kBytes;
-  return {smem0, afull, afull + 8 * St::kStages, afull + 16 * St::kStages};
+  const uint32_t staging = smem0 + kS * St::kBytes;
+  const uint32_t afull = staging + St::kStaging;
+  return {smem0,           staging,         afull,
+          afull + 8 * kS,  afull + 16 * kS, afull + 24 * kS,
+          afull + 24 * kS + 8};
 }
 
 // Initialise the ring's mbarriers (one thread).
@@ -320,11 +393,14 @@ __device__ __forceinline__ void init_ring(const Ring& rg) {
     mbar_init(rg.hfull + 8 * s, 1);
     mbar_init(rg.empty + 8 * s, kThreads / 32);
   }
+  mbar_init(rg.staged, kThreads / 32);
+  mbar_init(rg.freed, 1);
 }
 
 template <int L, int CB, int NW>
 __global__ void __launch_bounds__(kK1Threads, 1)
 k1_kernel(const __grid_constant__ CUtensorMap dig_map,
+          const __grid_constant__ CUtensorMap acc_map,
           const int32_t* __restrict__ b_init,
           const int32_t* __restrict__ a_t, const int32_t* __restrict__ tv,
           const int8_t* __restrict__ hankel, int32_t* out, int8_t* dig,
@@ -360,19 +436,31 @@ k1_kernel(const __grid_constant__ CUtensorMap dig_map,
   // (G % total) / nk, K slice G % nk.
   if (tid >= kThreads) {
     // ---- producer warpgroup: its first thread issues every copy (the H
-    // blocks of a stage from the table, its digit tiles by TMA)
+    // blocks of a stage from the table, its digit tiles by TMA); the first
+    // thread of its second warp reduce-adds each step's staged chunks into
+    // ACC before the cluster barrier that closes the step
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    const bool reducer = tid == kThreads + 32;
     for (int i = 0, G = 0; i < steps; ++i, G += total)
       produce<L, CB, NW>(rg, &dig_map, hankel, G, i, g0, q_lo, nk, total, n,
-                         k1, rows, tid == kThreads, stuck, [] {
+                         k1, rows, tid == kThreads, stuck, [&] {
+                           if (reducer && i > 0)
+                             reduce_block<L, CB, NW>(rg, &acc_map,
+                                                     (i - 1) * chunks,
+                                                     chunks, g0, q_lo, n,
+                                                     stuck);
+                           __syncwarp();
                            cluster_sync();  // ACC of the last step complete
                            cluster_sync();  // the digits of step i complete
                          });
+    if (reducer)
+      reduce_block<L, CB, NW>(rg, &acc_map, (steps - 1) * chunks, chunks, g0,
+                              q_lo, n, stuck);
     if (stuck) __trap();
     return;
   }
 
-  // ---- consumer warpgroups: digits, products, ACC
+  // ---- consumer warpgroups: digits, products, the ACC addends
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
   init_acc(acc, b_init, tv, g0, CB, q_lo, span, batch, n, k1);
   auto load_amounts = [&](int i) {
@@ -389,8 +477,7 @@ k1_kernel(const __grid_constant__ CUtensorMap dig_map,
                          K);
     cluster_sync();  // the tile's digits of step i are complete
     for (int ch = 0; ch < chunks; ++ch)
-      chunk<L, CB, NW>(d, rg, acc, G + ch * nk, nk, g0, q_lo + ch * CW, batch,
-                       n, wg, lane, wrow, stuck);
+      chunk<L, CB, NW>(d, rg, G + ch * nk, nk, wg, lane, wrow, stuck);
     if (i + 1 < steps) load_amounts(i + 1);
   }
   if (stuck) __trap();
@@ -448,20 +535,22 @@ __device__ __forceinline__ void wait_cluster(uint32_t bar, uint32_t parity,
 // The paired schedule: each cluster carries two tiles, A (the pair's first)
 // and B, over the same span and the same n steps, in turns.  The ring's
 // blocks of iterations run A's step 0, B's step 0, A's step 1, ...; the
-// product warpgroups take them in that order, so while they multiply B's
-// step i, seven digit warps (the third warpgroup and the producer's last
-// three) wait for A's ACC of step i in the cluster and write A's digits of
-// step i + 1, and the producer's TMA of them waits for those digits in
-// the cluster: one tile's digit pass, cluster barriers and TMA latency
-// run under the other tile's products.
+// product warpgroups take them in that order and stage each chunk's ACC
+// addends, so while they multiply B's step i, a reducing warp adds A's
+// step i into ACC and tells the cluster, six digit warps (the third
+// warpgroup and two of the producer's) wait for A's ACC in the cluster and
+// write A's digits of step i + 1, and the producer's TMA of them waits for
+// those digits in the cluster: one tile's epilogue, digit pass, cluster
+// barriers and TMA latency run under the other tile's products.
 // Each tile has its own two cluster barriers, mbarriers every CTA of the
-// cluster arrives on (signal_cluster): acc_done[t] (the product warps'
+// cluster arrives on (signal_cluster): acc_done[t] (the reducing warp's
 // ACC of the last step, or the initial ACC) and dig_done[t] (the digit
 // warps' digits of the step).  A pair whose B lies past the batch (an odd
 // tile count) runs A alone.
 template <int L, int CB, int NW>
 __global__ void __launch_bounds__(kPairThreads, 1)
 k1_kernel_pair(const __grid_constant__ CUtensorMap dig_map,
+               const __grid_constant__ CUtensorMap acc_map,
                const int32_t* __restrict__ b_init,
                const int32_t* __restrict__ a_t,
                const int32_t* __restrict__ tv,
@@ -470,7 +559,7 @@ k1_kernel_pair(const __grid_constant__ CUtensorMap dig_map,
                int cluster) {
   constexpr int CW = 2 * NW;
   constexpr int R = NW / 32;
-  constexpr int kS = Stage<L, CB / kM, NW>::kStages;
+  constexpr int kInitThreads = kDigitThreads + 32;  // and the reducing warp
   extern __shared__ unsigned char smem_raw[];
   __shared__ int amt[CB];  // the digit warps' amounts of their (step, tile)
 
@@ -489,14 +578,14 @@ k1_kernel_pair(const __grid_constant__ CUtensorMap dig_map,
   const int total = chunks * nk;
   uint32_t* acc = reinterpret_cast<uint32_t*>(out);
   const Ring rg = ring<L, CB, NW>(smem_raw);
-  const uint32_t acc_done = rg.afull + 24 * kS;  // [2], then dig_done [2]
+  const uint32_t acc_done = rg.freed + 8;  // [2], then dig_done [2]
   const uint32_t dig_done = acc_done + 16;
   bool stuck = false;
 
   if (tid == 0) {
     init_ring<L, CB, NW>(rg);
     for (int t = 0; t < 2; ++t) {
-      mbar_init(acc_done + 8 * t, cluster * kThreads / 32);
+      mbar_init(acc_done + 8 * t, cluster);
       mbar_init(dig_done + 8 * t, cluster * kDigitThreads / 32);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -504,10 +593,22 @@ k1_kernel_pair(const __grid_constant__ CUtensorMap dig_map,
   __syncthreads();
   cluster_sync();  // every CTA's mbarriers set before a peer arrives on them
 
-  // ---- digit warps (the digit warpgroup's four, the producer's last
-  // three): the digits of each (step, tile) in the ring's order, each once
-  // the tile's ACC of the last step is complete in the cluster
+  // the initial ACC of both tiles, by the digit warps and the reducing
+  // warp (this thread the it-th of them), visible to the cluster's digit
+  // passes and to the reduce-adds
+  auto init = [&](int it) {
+    for (int t = 0; t < tiles; ++t)
+      init_acc(acc, b_init, tv, g0 + t * CB, CB, q_lo, span, batch, n, k1,
+               it, kInitThreads);
+    __threadfence();
+    asm volatile("fence.proxy.async.global;\n" ::: "memory");
+    asm volatile("bar.sync 2, %0;\n" ::"n"(kInitThreads) : "memory");
+  };
+  // ---- digit warps (the digit warpgroup's four, the producer's second
+  // and third): the digits of each (step, tile) in the ring's order, each
+  // once the tile's ACC of the last step is complete in the cluster
   auto write_digits = [&](int dt) {
+    init(dt);
     for (int i = 0; i < steps; ++i)
       for (int t = 0; t < tiles; ++t) {
         const int gt = g0 + t * CB;
@@ -540,30 +641,35 @@ k1_kernel_pair(const __grid_constant__ CUtensorMap dig_map,
                                  wait_cluster(dig_done + 8 * t, i & 1,
                                               stuck);
                              });
+    } else if (warp == 15) {
+      // ---- reducing warp: its first thread reduce-adds each (step,
+      // tile) block the product warps staged, in their order; the warp
+      // then tells the cluster that the tile's ACC is complete
+      init(kDigitThreads + lane);
+      for (int t = 0; t < tiles; ++t)
+        signal_cluster(acc_done + 8 * t, cluster, lane);
+      for (int i = 0; i < steps; ++i)
+        for (int t = 0; t < tiles; ++t) {
+          if (lane == 0)
+            reduce_block<L, CB, NW>(rg, &acc_map, (i * tiles + t) * chunks,
+                                    chunks, g0 + t * CB, q_lo, n, stuck);
+          __syncwarp();
+          if (i + 1 < steps) signal_cluster(acc_done + 8 * t, cluster, lane);
+        }
     } else {
-      write_digits(tid - kThreads - 32);  // 128 .. 223
+      write_digits(tid - kThreads - 32);  // 128 .. 191
     }
   } else if (wg == 2) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
         kPairDigitRegs));
     write_digits(tid - kThreads);
   } else {
-    // ---- product warpgroups: each (step, tile) block's chunks and ACC
+    // ---- product warpgroups: each (step, tile) block's chunks, staged
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
         kPairConsumerRegs));
-    for (int t = 0; t < tiles; ++t)
-      init_acc(acc, b_init, tv, g0 + t * CB, CB, q_lo, span, batch, n, k1);
-    for (int t = 0; t < tiles; ++t)
-      signal_cluster(acc_done + 8 * t, cluster, lane);
     int d[CB / kM][L][16 * R];
-    for (int i = 0, G = 0; i < steps; ++i)
-      for (int t = 0; t < tiles; ++t, G += total) {
-        for (int ch = 0; ch < chunks; ++ch)
-          chunk<L, CB, NW, 2>(d, rg, acc, G + ch * nk, nk, g0 + t * CB,
-                              q_lo + ch * CW, batch, n, wg, lane, wrow,
-                              stuck);
-        if (i + 1 < steps) signal_cluster(acc_done + 8 * t, cluster, lane);
-      }
+    for (int G = 0; G < steps * tiles * total; G += nk)
+      chunk<L, CB, NW>(d, rg, G, nk, wg, lane, wrow, stuck);
   }
   cluster_sync();  // no CTA leaves while a peer may still arrive on it
   if (stuck) __trap();
@@ -580,14 +686,25 @@ cudaError_t launch(const void* b_init, const void* a_t, const void* tv,
   if (err != cudaSuccess) return err;
   const int tiles = (batch + CB - 1) / CB;
   const uint64_t K = static_cast<uint64_t>(k1) * l * n;
-  CUtensorMap dig_map;
+  CUtensorMap dig_map, acc_map;
   err = encode(&dig_map, dig, K, static_cast<uint64_t>(tiles) * CB, CB);
+  if (err != cudaSuccess) return err;
+  // ACC, [k1][batch][n] uint32, in boxes of 64 rows x 32 columns: a box of
+  // a chunk stays inside one component (n is a multiple of 256), and rows
+  // past the batch lie outside the tensor
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(n),
+                              static_cast<cuuint64_t>(batch),
+                              static_cast<cuuint64_t>(k1)};
+  const cuuint64_t strides[2] = {4ull * n, 4ull * n * batch};
+  const cuuint32_t box[3] = {32, kM, 1};
+  err = encode_tiled(&acc_map, CU_TENSOR_MAP_DATA_TYPE_UINT32, 3, out, dims,
+                     strides, box);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = cluster_config(
       (tiles + pair - 1) / pair * cluster, cluster, smem, attr, stream,
       pair == 2 ? kPairThreads : kK1Threads);
-  err = cudaLaunchKernelEx(&cfg, kern, dig_map,
+  err = cudaLaunchKernelEx(&cfg, kern, dig_map, acc_map,
                            static_cast<const int32_t*>(b_init),
                            static_cast<const int32_t*>(a_t),
                            static_cast<const int32_t*>(tv),

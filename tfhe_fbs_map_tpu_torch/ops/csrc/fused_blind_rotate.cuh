@@ -151,6 +151,26 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
+// 3-D TMA reduce-add of one box from shared `src` into the tensor of `map`
+// at (x, y, z), in the current bulk group; elements outside the tensor are
+// left out.
+__device__ __forceinline__ void tma_reduce_add(const CUtensorMap* map,
+                                               uint32_t src, int x, int y,
+                                               int z) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.tile.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(x), "r"(y), "r"(z)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_shared_v2(uint32_t addr, uint32_t a,
+                                             uint32_t b) {
+  asm volatile("st.shared.v2.u32 [%0], {%1, %2};\n" ::"r"(addr), "r"(a),
+               "r"(b)
+               : "memory");
+}
+
 // wgmma descriptor of a K-major tile of 128-byte rows, 128B swizzle, 8-row
 // groups 1024 bytes apart; `addr` 1024-aligned plus a K offset.
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
@@ -272,12 +292,15 @@ __device__ __forceinline__ void fence_regs(int (&d)[R]) {
 
 // ACC = (0, ..., 0, X^{b_init} * tv) on coefficients [q_lo, q_lo + span)
 // of the tile's ciphertexts g0 .. g0 + cb - 1; ACC is [k1][batch][n].
+// `threads` threads, this one the tid-th.
 __device__ __forceinline__ void init_acc(uint32_t* acc, const int32_t* b_init,
                                          const int32_t* tv, int g0, int cb,
                                          int q_lo, int span, int batch,
-                                         int n, int k1) {
+                                         int n, int k1,
+                                         int tid = threadIdx.x,
+                                         int threads = kThreads) {
   const int log_n = __ffs(n) - 1;
-  for (int e = threadIdx.x; e < cb * span; e += kThreads) {
+  for (int e = tid; e < cb * span; e += threads) {
     const int g = g0 + e / span, q = q_lo + e % span;
     if (g >= batch) continue;
     const int c = q >> log_n, t = q & (n - 1);
@@ -376,10 +399,13 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
                                  CUtensorMapFloatOOBfill);
 
-// Tensor map of a row-major [rows][cols] int8 matrix, boxes of 128 bytes by
-// `box_rows`, 128B swizzle; rows past the end read as zeros.
-inline cudaError_t encode(CUtensorMap* map, const void* base, uint64_t cols,
-                          uint64_t rows, uint32_t box_rows) {
+// A tensor map of `rank` dimensions (innermost first), 128B swizzle: byte
+// strides of the outer ones, the box, elements of `type`.
+inline cudaError_t encode_tiled(CUtensorMap* map, CUtensorMapDataType type,
+                                int rank, const void* base,
+                                const cuuint64_t* dims,
+                                const cuuint64_t* strides,
+                                const cuuint32_t* box) {
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {
     void* p = nullptr;
@@ -391,17 +417,24 @@ inline cudaError_t encode(CUtensorMap* map, const void* base, uint64_t cols,
       return cudaErrorSymbolNotFound;
     fn = reinterpret_cast<EncodeTiled>(p);
   }
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kKc), box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
-                        const_cast<void*>(base), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(map, type, rank, const_cast<void*>(base), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Tensor map of a row-major [rows][cols] int8 matrix, boxes of 128 bytes by
+// `box_rows`, 128B swizzle; rows past the end read as zeros.
+inline cudaError_t encode(CUtensorMap* map, const void* base, uint64_t cols,
+                          uint64_t rows, uint32_t box_rows) {
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kKc), box_rows};
+  return encode_tiled(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, base, dims,
+                      strides, box);
 }
 
 // Launch configuration of `blocks` CTAs of `threads` in clusters of

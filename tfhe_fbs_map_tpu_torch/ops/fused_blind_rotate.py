@@ -35,10 +35,13 @@ Hopper counterparts of the two Pallas kernel bodies in
   ``FastKeys.hankel`` keeps it), and a producer thread bulk-copies each
   ring stage's run of blocks from it into shared memory while two
   consumer warpgroups point no-swizzle ``wgmma`` descriptors into them.
-  A cluster carries one tile, or two in turns (``k1_kernel_pair``): while
-  the consumers multiply one tile's step, digit warps of their own write
-  the other's next digits, so its digit pass and cluster barriers run under
-  the products.  :func:`k1_plan` picks the tile, the cluster, the
+  The consumers never read ACC: they stage each column chunk's limb-summed
+  sums in shared memory, and another thread adds them into ACC with a TMA
+  reduce-add (``K1_EPILOGUES``).  A cluster carries one tile, or two in
+  turns (``k1_kernel_pair``): while the consumers multiply one tile's step,
+  a warp of their own reduce-adds the other's last one and digit warps
+  write its next digits, so its epilogue, digit pass and cluster barriers
+  run under the products.  :func:`k1_plan` picks the tile, the cluster, the
   coefficients a warpgroup (``nw``, the ``wgmma`` width) and the tiles a
   cluster by the shared-memory operand bytes a CTA reads; the kernel sizes
   its ring itself (:func:`k1_layout`).
@@ -79,8 +82,9 @@ because Mosaic has no lane rotate, is an index read in both.
 Beside each kernel is its plain PyTorch version.  The wrappers take the
 plain version only for tensors on the CPU; for CUDA tensors they launch the
 kernel or raise.  ``LAUNCHES`` counts kernel launches per wrapper,
-``K1_KERNELS`` K1's by the kernel that ran them, and ``HANKEL`` the ring
-kernel's tables built and their bytes.
+``K1_KERNELS`` K1's by the kernel that ran them, ``K1_EPILOGUES`` the ring
+kernel's by their ACC epilogue, and ``HANKEL`` the ring kernel's tables
+built and their bytes.
 """
 
 from __future__ import annotations
@@ -102,7 +106,7 @@ __all__ = ["blind_rotate_fused", "blind_rotate_k1", "blind_rotate_k2",
            "k1_layout", "k1_small_layout", "k1_small_smem", "k1s_clusters",
            "k1_resident", "hankel_table", "k1_operand",
            "K1Plan", "K1SmallPlan", "K2Plan", "LAUNCHES", "K1_KERNELS",
-           "HANKEL"]
+           "K1_EPILOGUES", "HANKEL"]
 
 N_LIMBS = 4
 LAUNCHES = {"k1": 0, "k2": 0}
@@ -111,6 +115,12 @@ LAUNCHES = {"k1": 0, "k2": 0}
 # ``k1_kernel`` and ``k1_kernel_pair``), the small-N kernel below
 # N=K1_SLICE, its small-tile plan at N >= K1_SLICE
 K1_KERNELS = {"k1_kernel": 0, "k1s_kernel": 0, "k1s_kernel_wide": 0}
+# the ring kernel's launches (either schedule) by their ACC epilogue:
+# ``reduce``, the product warps stage each column chunk's limb-summed sums
+# in shared memory and a TMA reduce-add adds them into ACC; ``load_store``,
+# the product warps load, add and store ACC themselves (no ring kernel of
+# this source)
+K1_EPILOGUES = {"reduce": 0, "load_store": 0}
 # the ring kernel's tables of H blocks built (:func:`hankel_table`, once a
 # key whose launches take the ring) and the bytes they hold
 HANKEL = {"tables": 0, "bytes": 0}
@@ -129,9 +139,10 @@ K1_WIDTHS = (64, 32)
 # tiles a cluster of the ring kernel carries: one (``k1_kernel``), or two
 # in turns (``k1_kernel_pair``), whose cluster takes up to K1_PAIR_COST
 # times a single tile's time at the same tile, span and width (timed back
-# to back on an H100 80GB HBM3: 1.63-1.71 at AES-128's family, 1.86-1.87
-# at Kreyvium's fam1, whose deeper contraction leaves less to hide; the
-# higher, so that a pair is taken where it gains at both)
+# to back on an H100 80GB HBM3 with the reduce-add epilogue: 1.61-1.78 at
+# AES-128's family, 1.77-1.90 at Kreyvium's fam1, whose deeper contraction
+# leaves less to hide; the highest, so that a pair is taken where it gains
+# at both)
 K1_PAIRS = (1, 2)
 K1_PAIR_COST = 1.9
 K1_SLICE = 256
@@ -823,7 +834,8 @@ def _launch_k1(b_init, a_t, test_polys, kernels, params: TFHEParams,
     plan :func:`k1_device_plan` gives: the ring kernel's, reading the
     keys' table (:func:`k1_operand`), or the small-N kernel's (below
     N=K1_SLICE, and above it on the small-tile plan, where ``route`` is
-    ``"k1s"``); counted under ``LAUNCHES`` and ``K1_KERNELS``."""
+    ``"k1s"``); counted under ``LAUNCHES`` and ``K1_KERNELS``, a ring
+    launch also under ``K1_EPILOGUES``."""
     from . import _build
 
     n_limbs = _check(True, b_init, a_t, test_polys, kernels, params)
@@ -858,6 +870,8 @@ def _launch_k1(b_init, a_t, test_polys, kernels, params: TFHEParams,
     LAUNCHES["k1"] += 1
     K1_KERNELS["k1_kernel" if isinstance(plan, K1Plan) else "k1s_kernel"
                if n < K1_SLICE else "k1s_kernel_wide"] += 1
+    if isinstance(plan, K1Plan):
+        K1_EPILOGUES["reduce"] += 1
     return out
 
 

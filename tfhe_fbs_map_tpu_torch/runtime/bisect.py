@@ -26,7 +26,11 @@ at the 128-ciphertext plan ``128x8/32``.  The variants:
 * ``no_h_copy``: the producer issues no copy of H blocks from the keys'
   table, and the consumers wait for none;
 * ``no_products_no_h_copy``: both;
-* ``no_digits``: no digit pass (neither schedule's).
+* ``no_digits``: no digit pass (neither schedule's);
+* ``no_epilogue``: no ACC epilogue after a column chunk's products: the
+  product warps still sum the limbs (so the products stay) but store
+  nothing into the staging buffer, and no reduce-add adds it into ACC; the
+  handshakes between them, the fences and the cluster signals stay.
 
 ``--kernel k1s`` bisects K1's small-N kernel,
 ``ops/csrc/fused_blind_rotate_k1_small.cu``, at the five full-length
@@ -78,6 +82,13 @@ H_WAIT = ("    mbar_wait_or_give_up(rg.hfull + 8 * s, (G / kS) & 1, "
 # the digit pass of either schedule (the single-tile kernel's consumers',
 # the paired kernel's digit warpgroup's)
 DIGITS = r"digit_pass<CB, true[^;]*;"
+# the ACC epilogue of a column chunk, edit by edit: the product warps'
+# stores of its limb-summed accumulators into the staging buffer, kept
+# only under a condition that random sums meet with odds 2^-32 (ptxas
+# drops a wgmma whose sums nothing reads), and the reduce-add of the
+# buffer into ACC; the staged / freed handshakes stay
+EPILOGUE = ((r"(st_shared_v2\([^;]*\);)", r"if (v0 == ~v1) \1"),
+            (r"tma_reduce_add\([^;]*\);", "(void)0;"))
 
 # The small-N kernel's phases: the edits of each variant, every one of
 # which must apply to exactly one statement (or to one in each place the
@@ -151,6 +162,11 @@ def variants(src: str) -> dict[str, str]:
             raise ValueError(f"K1 source has no unique {anchor[:40]!r}")
     if len(re.findall(DIGITS, src)) != 2:
         raise ValueError("K1 source has not two digit passes")
+    if any(len(re.findall(pat, src)) != 1 for pat, _ in EPILOGUE):
+        raise ValueError("K1 source has no unique ACC epilogue")
+    no_epilogue = src
+    for pat, repl in EPILOGUE:
+        no_epilogue = re.sub(pat, repl, no_epilogue)
     no_h_copy = src.replace(H_COPY, "").replace(H_WAIT, "")
     return {
         "base": src,
@@ -158,6 +174,7 @@ def variants(src: str) -> dict[str, str]:
         "no_h_copy": no_h_copy,
         "no_products_no_h_copy": no_h_copy.replace(mma, "(void)0;"),
         "no_digits": re.sub(DIGITS, "(void)0;", src),
+        "no_epilogue": no_epilogue,
     }
 
 

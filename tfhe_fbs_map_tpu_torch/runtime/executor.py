@@ -633,8 +633,8 @@ class _Graphs:
 
     def replay(self, batch: int | None = None) -> None:
         """Every group on every position, in place on the static buffers;
-        each replay adds its kernel launches to ``fbr.LAUNCHES`` and
-        ``fbr.K1_KERNELS``.  In traced
+        each replay adds its kernel launches to ``fbr.LAUNCHES``,
+        ``fbr.K1_KERNELS`` and ``fbr.K1_EPILOGUES``.  In traced
         run ``batch`` each replay is a host span and appends its entries to
         the launch record."""
         for g in self.graphs:
@@ -661,8 +661,8 @@ def _take_back(entries, sizes: dict[str, int]) -> tuple:
     """Take the fused-kernel launches of ``entries`` (a capture's, which
     launched nothing, or a warm-up's) back out of ``fbr.LAUNCHES``, and
     K1's out of ``fbr.K1_KERNELS`` by the kernel each entry's path runs at
-    its family's N (``sizes``, by family); returns them as (counter, key,
-    count) triples."""
+    its family's N (``sizes``, by family) and the ring kernel's out of
+    ``fbr.K1_EPILOGUES``; returns them as (counter, key, count) triples."""
     kernels: dict[str, int] = {}
     for e in entries:
         k = _k1_kernel(e.path, sizes[e.family])
@@ -671,6 +671,8 @@ def _take_back(entries, sizes: dict[str, int]) -> tuple:
     counts = [(fbr.LAUNCHES, k, n)
               for k, n in profiling.launch_counts(entries).items()]
     counts += [(fbr.K1_KERNELS, k, n) for k, n in kernels.items()]
+    if kernels.get("k1_kernel"):  # a ring launch's epilogue
+        counts.append((fbr.K1_EPILOGUES, "reduce", kernels["k1_kernel"]))
     for table, k, n in counts:
         table[k] -= n
     return tuple(counts)
@@ -1026,7 +1028,8 @@ class CircuitExecutor:
         nothing in a capture waits for the card.  Each graph keeps the
         launch record's entries of the family calls it captured; the
         kernel launches of those and of the warm-up's are taken back out
-        of ``fbr.LAUNCHES`` and ``fbr.K1_KERNELS`` (:func:`_take_back`), and
+        of ``fbr.LAUNCHES``, ``fbr.K1_KERNELS`` and ``fbr.K1_EPILOGUES``
+        (:func:`_take_back`), and
         each replay adds its graph's.  A capture that meets a host sync
         raises."""
         devices = list(dict.fromkeys(s.device for s in shards))
